@@ -1,0 +1,140 @@
+"""Static and runtime configuration (PyTorch port of ``softbody_tpu.config``).
+
+Three tiers, as in the reference engine: :class:`StaticConfig` holds the
+compile-time world constants (bounds, particle radius, substeps),
+:class:`PhysicsConstants` the runtime-mutable physics constants and
+:class:`UserInput` the per-frame user input.
+
+Scalars are host floats holding float32 values: every value is rounded
+to float32 when it is set, and :func:`consts_vector` packs them into the
+float32 vector the fused substep kernel reads, so the plain torch
+versions and the CUDA kernels see the same float32 numbers.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import numpy as np
+import torch
+
+DEFAULT_BOUNDS_SIZE = 1000.0
+DEFAULT_PARTICLE_RADIUS = 10.0
+DEFAULT_SUBTICKS = 64
+# Fixed-point force-accumulation scale (compute.wgsl:70).
+PARTICLE_FORCE_SCALE = 65536.0
+# Stress visualization scale (compute.wgsl:71): stress = force_mag / 20.
+BEAM_STRESS_SCALE = 1.0 / 20.0
+
+# length of the consts vector (the order of ``consts_vector``)
+N_CONSTS = 20
+
+
+def f32(x) -> float:
+    """``x`` rounded to float32, as a host float."""
+    return float(np.float32(x))
+
+
+@dataclasses.dataclass(frozen=True)
+class StaticConfig:
+    """World constants fixed for the life of an engine.
+
+    ``subticks`` is forced even like the reference (engineWorker.ts:90).
+    ``collision_mode``: ``"none"`` disables collisions; the lattice path
+    treats every other mode the same (the stencil supplies the pairs).
+    ``force_mode``: ``"quantized"`` (int32 fixed point at scale 65536,
+    bit-matching the reference's atomic trick) or ``"segment"`` (f32).
+    """
+
+    bounds_size: float = DEFAULT_BOUNDS_SIZE
+    particle_radius: float = DEFAULT_PARTICLE_RADIUS
+    subticks: int = DEFAULT_SUBTICKS
+    collision_mode: str = "allpairs"
+    force_mode: str = "quantized"
+
+    def __post_init__(self) -> None:
+        object.__setattr__(self, "subticks", max(2, -(-self.subticks // 2) * 2))
+        if self.collision_mode not in ("none", "allpairs", "grid", "window"):
+            raise ValueError(f"unknown collision_mode {self.collision_mode!r}")
+        if self.force_mode not in ("segment", "quantized"):
+            raise ValueError(f"unknown force_mode {self.force_mode!r}")
+
+    @property
+    def dt(self) -> float:
+        """Substep timestep (override ``time_step = 1/subticks``)."""
+        return 1.0 / self.subticks
+
+
+@dataclasses.dataclass
+class PhysicsConstants:
+    """Runtime physics constants (metadata buffer fields 48..80,
+    engineMapping.ts:260); defaults match engineMapping.ts:264-272."""
+
+    gravity: Tuple[float, float] = (0.0, -0.5)
+    border_elasticity: float = 0.5
+    border_friction: float = 0.2
+    elasticity: float = 0.5
+    friction: float = 0.1
+    drag_coeff: float = 0.001
+    drag_exp: float = 2.0
+
+    def __post_init__(self) -> None:
+        self.gravity = (f32(self.gravity[0]), f32(self.gravity[1]))
+        for name in ("border_elasticity", "border_friction", "elasticity",
+                     "friction", "drag_coeff", "drag_exp"):
+            setattr(self, name, f32(getattr(self, name)))
+
+    @classmethod
+    def default(cls) -> "PhysicsConstants":
+        return cls()
+
+    @property
+    def ecoeff(self) -> float:
+        """Normal-impulse coefficient ``(elasticity + 1) / 2`` in float32."""
+        return float((np.float32(self.elasticity) + np.float32(1.0))
+                     * np.float32(0.5))
+
+
+@dataclasses.dataclass
+class UserInput:
+    """Per-frame user input (engineMapping.ts:317-325)."""
+
+    user_strength: float = 1.0
+    mouse_active: bool = False
+    mouse_pos: Tuple[float, float] = (0.0, 0.0)
+    mouse_vel: Tuple[float, float] = (0.0, 0.0)
+    applied_force: Tuple[float, float] = (0.0, 0.0)
+
+    def __post_init__(self) -> None:
+        self.user_strength = f32(self.user_strength)
+        self.mouse_active = bool(self.mouse_active)
+        for name in ("mouse_pos", "mouse_vel", "applied_force"):
+            v = getattr(self, name)
+            setattr(self, name, (f32(v[0]), f32(v[1])))
+
+    @classmethod
+    def none(cls) -> "UserInput":
+        return cls()
+
+
+def consts_vector(consts: PhysicsConstants, uin: UserInput,
+                  cfg: StaticConfig, world_h: int) -> torch.Tensor:
+    """The 20 float32 scalars of one substep, in the order of the JAX
+    package's ``ops/pallas/fused_substep.py::_consts_vector``: radius,
+    dt, bounds, gravity x/y, border elasticity/friction, ecoeff,
+    friction, drag coeff/exp, user strength, mouse active, mouse pos
+    x/y, mouse vel x/y, applied force x/y, world height.  A CPU tensor:
+    the kernels take it by value at launch."""
+    vals = [
+        cfg.particle_radius, cfg.dt, cfg.bounds_size,
+        consts.gravity[0], consts.gravity[1],
+        consts.border_elasticity, consts.border_friction,
+        consts.ecoeff, consts.friction, consts.drag_coeff, consts.drag_exp,
+        uin.user_strength, 1.0 if uin.mouse_active else 0.0,
+        uin.mouse_pos[0], uin.mouse_pos[1],
+        uin.mouse_vel[0], uin.mouse_vel[1],
+        uin.applied_force[0], uin.applied_force[1],
+        world_h,
+    ]
+    return torch.tensor(np.asarray(vals, np.float32))

@@ -1,0 +1,100 @@
+"""numpy ↔ torch conversion of the state, constants and user input.
+
+The "weights" of this system are its state: a world built or stepped by
+the JAX package, read out as numpy arrays, becomes the same world here
+(and back), so both packages can step it and be compared."""
+
+from __future__ import annotations
+
+from typing import Mapping, Sequence
+
+import numpy as np
+import torch
+
+from .config import PhysicsConstants, UserInput
+from .ops.stencil import EdgeClass, LatticeState
+
+EDGE_FIELDS = tuple(EdgeClass.__dataclass_fields__)
+
+
+def _f32(a, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, np.float32)).to(device)
+
+
+def _bool(a, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, bool)).to(device)
+
+
+def lattice_state_from_numpy(pos, vel, acc, alive, pinned,
+                             edges: Sequence[Mapping[str, np.ndarray]], *,
+                             device="cpu") -> LatticeState:
+    """A :class:`LatticeState` on ``device`` from the numpy fields of a
+    lattice state: ``pos``/``vel``/``acc`` ``[W, H, 2]``, ``alive`` and
+    ``pinned`` ``[W, H]`` bool, and per edge class a mapping of the
+    :class:`EdgeClass` field names to ``[W, H]`` arrays."""
+    out_edges = []
+    for e in edges:
+        missing = set(EDGE_FIELDS) - set(e)
+        if missing:
+            raise ValueError(f"edge class lacks fields {sorted(missing)}")
+        out_edges.append(EdgeClass(**{
+            k: (_bool if k == "alive" else _f32)(e[k], device)
+            for k in EDGE_FIELDS
+        }))
+    return LatticeState(
+        pos=_f32(pos, device), vel=_f32(vel, device), acc=_f32(acc, device),
+        alive=_bool(alive, device), pinned=_bool(pinned, device),
+        edges=tuple(out_edges),
+    )
+
+
+def lattice_state_to_numpy(state) -> dict:
+    """The inverse of :func:`lattice_state_from_numpy`: a dict of numpy
+    arrays that it accepts back (``**``).  Works on any object with the
+    ``LatticeState`` attributes, the JAX package's included."""
+    return dict(
+        pos=np.asarray(_host(state.pos), np.float32),
+        vel=np.asarray(_host(state.vel), np.float32),
+        acc=np.asarray(_host(state.acc), np.float32),
+        alive=np.asarray(_host(state.alive), bool),
+        pinned=np.asarray(_host(state.pinned), bool),
+        edges=[{k: np.asarray(_host(getattr(e, k)),
+                              bool if k == "alive" else np.float32)
+                for k in EDGE_FIELDS} for e in state.edges],
+    )
+
+
+def _host(x):
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else x
+
+
+def constants_from_numpy(gravity, border_elasticity, border_friction,
+                         elasticity, friction, drag_coeff,
+                         drag_exp) -> PhysicsConstants:
+    """:class:`PhysicsConstants` from numpy scalars (``gravity`` ``[2]``)."""
+    g = np.asarray(gravity, np.float32).reshape(2)
+    return PhysicsConstants(
+        gravity=(float(g[0]), float(g[1])),
+        border_elasticity=float(np.float32(border_elasticity)),
+        border_friction=float(np.float32(border_friction)),
+        elasticity=float(np.float32(elasticity)),
+        friction=float(np.float32(friction)),
+        drag_coeff=float(np.float32(drag_coeff)),
+        drag_exp=float(np.float32(drag_exp)),
+    )
+
+
+def user_input_from_numpy(user_strength, mouse_active, mouse_pos, mouse_vel,
+                          applied_force) -> UserInput:
+    """:class:`UserInput` from numpy scalars and ``[2]`` vectors."""
+    def vec(v):
+        a = np.asarray(v, np.float32).reshape(2)
+        return (float(a[0]), float(a[1]))
+
+    return UserInput(
+        user_strength=float(np.float32(user_strength)),
+        mouse_active=bool(np.asarray(mouse_active)),
+        mouse_pos=vec(mouse_pos),
+        mouse_vel=vec(mouse_vel),
+        applied_force=vec(applied_force),
+    )

@@ -1,0 +1,101 @@
+"""Build and bind the hand-written Hopper kernels (``csrc/*.cu``).
+
+At first use the sources are compiled by ``nvcc`` into one shared
+library with a plain C interface, under ``softbody_tpu_torch/_build/``
+(named by a hash of the sources and flags, so an edit rebuilds), and
+loaded with ``ctypes``.  Nothing is built or loaded at import time.
+
+Flags: ``sm_90a``; no ``--use_fast_math`` (it flushes denormals and
+approximates ``sqrtf`` and ``/``); ``-fmad=false`` so no multiply-add is
+contracted into an FMA — the kernels then round every float32 operation
+exactly as the plain torch versions do, which keeps the int32 spring
+sums and the band flags bit-identical to them."""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[2]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+SOURCES = ("fused_substep2.cu", "band_detect.cu")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA "
+                           "kernels are built on the machine with the card")
+    return found
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        h.update((CSRC / name).read_bytes())
+    return BUILD_DIR / f"libsoftbody_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> tuple:
+    """Compile the kernels if the library is missing.  Returns
+    ``(path, seconds spent building, ptxas report)`` — 0 s and an empty
+    report when the library was already there."""
+    out = library_path()
+    if out.exists():
+        return out, 0.0, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *(str(CSRC / n) for n in SOURCES)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, out)
+    return out, time.perf_counter() - t0, proc.stderr
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built first if needed)."""
+    path, _secs, _report = build()
+    lib = ctypes.CDLL(str(path))
+    # int sb_fused_substep2(hot, immut, far, obs_in, hot_out, obs_out,
+    #                       consts_host, w, h, stencil, quantized, stream)
+    lib.sb_fused_substep2.argtypes = [_P, _P, _P, _P, _P, _P, _P,
+                                      _I, _I, _I, _I, _P]
+    lib.sb_fused_substep2.restype = _I
+    # int sb_band_flags(px, py, dev, bdev, alive, out, offsets_host,
+    #                   n_offsets, w, h, stream)
+    lib.sb_band_flags.argtypes = [_P, _P, _P, _P, _P, _P, _P,
+                                  _I, _I, _I, _P]
+    lib.sb_band_flags.restype = _I
+    lib.sb_error_string.argtypes = [_I]
+    lib.sb_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry returned a non-zero ``cudaError_t``."""
+    if err != 0:
+        msg = library().sb_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")

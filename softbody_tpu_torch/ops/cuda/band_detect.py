@@ -1,0 +1,86 @@
+"""Far-field band detection (kernel K2): the port of
+``softbody_tpu/ops/pallas/band_detect.py``.
+
+``band_flag_call`` is the K2 wrapper: on CUDA tensors it launches the
+hand-written kernel (``csrc/band_detect.cu``), on CPU tensors it runs
+the plain version ``band_flags_plain`` — the shifted-compare loop of
+``softbody_tpu/ops/farfield.py:403-411``."""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..stencil import shifted
+from . import _lib
+
+MAX_OFFSETS = 256
+MAX_REACH = 127
+_BIG = 3.0e38
+
+# launches of the CUDA kernel (the plain version does not count)
+K2_LAUNCHES = 0
+
+
+def band_flags_plain(px, py, dev, bdev, alive,
+                     offsets: Sequence[Tuple[int, int]]) -> torch.Tensor:
+    """Bool ``[W, H]``: alive particles with an alive partner at some
+    offset within ``d² < (bdev_i + dev_j)²`` (``bdev = base + dev``)."""
+    flag = torch.zeros_like(alive)
+    for dx, dy in offsets:
+        ddx = shifted(px, dx, dy, _BIG) - px
+        ddy = shifted(py, dx, dy, _BIG) - py
+        d2 = ddx * ddx + ddy * ddy
+        reach = bdev + shifted(dev, dx, dy, 0.0)
+        flag = flag | (alive & shifted(alive, dx, dy, False)
+                       & (d2 < reach * reach))
+    return flag
+
+
+def band_flag_call(px, py, dev, bdev, alive, *,
+                   offsets: Sequence[Tuple[int, int]]) -> torch.Tensor:
+    """Band hit flags ``[W, H]`` (bool) for the half-plane ``offsets``.
+
+    ``px py dev bdev`` are float32 ``[W, H]``, ``alive`` bool, all
+    contiguous on one device; ``dev`` is each particle's deviation
+    allowance (zero where dead), ``bdev`` the precomputed
+    ``base_reach + dev`` (keeping the ``(base + dev_i) + dev_j``
+    association of the plain loop).  On CUDA tensors the kernel runs on
+    the current stream without synchronising."""
+    global K2_LAUNCHES
+    shape = tuple(px.shape)
+    if len(shape) != 2:
+        raise ValueError(f"planes must be [W, H], got {shape}")
+    for name, t in (("px", px), ("py", py), ("dev", dev), ("bdev", bdev)):
+        if t.dtype != torch.float32 or tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be float32 {shape}")
+    if alive.dtype != torch.bool or tuple(alive.shape) != shape:
+        raise ValueError(f"alive must be bool {shape}")
+    planes = (px, py, dev, bdev, alive)
+    devices = {t.device for t in planes}
+    if len(devices) != 1:
+        raise ValueError(f"planes on several devices: {devices}")
+    if not all(t.is_contiguous() for t in planes):
+        raise ValueError("planes must be contiguous")
+    offs = np.asarray(offsets, np.int32).reshape(-1, 2)
+    if len(offs) > MAX_OFFSETS or (np.abs(offs) > MAX_REACH).any():
+        raise ValueError(f"at most {MAX_OFFSETS} offsets within "
+                         f"±{MAX_REACH}")
+    device = px.device
+    if device.type == "cpu":
+        return band_flags_plain(px, py, dev, bdev, alive, offsets)
+    if device.type != "cuda":
+        raise ValueError(f"no K2 kernel for device {device}")
+    lib = _lib.library()
+    out = torch.empty(shape, dtype=torch.bool, device=device)
+    offs_c = np.ascontiguousarray(offs)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.sb_band_flags(
+            *(t.data_ptr() for t in planes), out.data_ptr(),
+            offs_c.ctypes.data, len(offs_c), shape[0], shape[1], stream)
+    _lib.check(err, "K2 band_flags")
+    K2_LAUNCHES += 1
+    return out

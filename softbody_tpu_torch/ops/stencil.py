@@ -1,0 +1,473 @@
+"""Dense lattice (stencil) physics as plain torch ops: the port of
+``softbody_tpu/ops/stencil.py``.
+
+A lattice world lives on ``[W, H]`` planes.  Its beams connect constant
+index offsets (four edge classes), so every physics term is a shifted
+stencil: springs evaluate each edge once at its lower endpoint and apply
+the reaction shifted to the partner; collisions evaluate each unordered
+index pair within Chebyshev radius ``s`` once (half offsets) and apply
+the exact negation to the partner (compute.wgsl:150-168 pair math).
+
+These functions are also the plain versions of the fused substep kernel
+(``ops/cuda/fused_substep2.py``): the kernel evaluates the same float32
+expressions in the same order, with no fused multiply-add, so its
+integer spring sums and edge planes match bit for bit.
+
+Out-of-range neighbours read as dead particles at the origin (the JAX
+package's zero pad).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, NamedTuple, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..config import (
+    BEAM_STRESS_SCALE,
+    PARTICLE_FORCE_SCALE,
+    PhysicsConstants,
+    StaticConfig,
+    UserInput,
+    consts_vector,
+)
+
+
+@dataclasses.dataclass
+class EdgeClass:
+    """Per-edge-class state ``[W, H]``, stored at the lower-index endpoint
+    (the edge at (x, y) connects to (x+dx, y+dy)).  Field meanings match
+    the 40-byte beam record (engineMapping.ts:151)."""
+
+    length: torch.Tensor
+    target_length: torch.Tensor
+    last_length: torch.Tensor
+    spring: torch.Tensor
+    damp: torch.Tensor
+    yield_strain: torch.Tensor
+    strain_limit: torch.Tensor
+    strain: torch.Tensor
+    stress: torch.Tensor
+    alive: torch.Tensor
+
+
+@dataclasses.dataclass
+class LatticeState:
+    """Dense lattice world: particle grids ``[W, H(, 2)]`` + edge classes."""
+
+    pos: torch.Tensor
+    vel: torch.Tensor
+    acc: torch.Tensor
+    alive: torch.Tensor
+    pinned: torch.Tensor
+    edges: Tuple[EdgeClass, ...]
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return self.pos.shape[0], self.pos.shape[1]
+
+    @property
+    def device(self) -> torch.device:
+        return self.pos.device
+
+
+# Edge-class offsets matching addRectangle (main.ts:208-211).
+EDGE_OFFSETS: Tuple[Tuple[int, int], ...] = ((0, 1), (1, 0), (1, 1), (1, -1))
+
+
+@dataclasses.dataclass(frozen=True)
+class LatticeSpec:
+    """Static lattice configuration."""
+
+    width: int
+    height: int
+    # index-space Chebyshev radius of the dense collision stencil
+    collision_stencil: int = 2
+    edge_offsets: Tuple[Tuple[int, int], ...] = EDGE_OFFSETS
+
+    @property
+    def collision_half_offsets(self) -> Tuple[Tuple[int, int], ...]:
+        """Half-plane offsets: each unordered pair once."""
+        return half_offsets(self.collision_stencil)
+
+
+def half_offsets(s: int) -> Tuple[Tuple[int, int], ...]:
+    """Collision half offsets of radius ``s``, in summation order."""
+    return tuple(
+        (dx, dy)
+        for dx in range(0, s + 1)
+        for dy in range(-s, s + 1)
+        if (dx, dy) != (0, 0) and (dx > 0 or dy > 0)
+    )
+
+
+class Scalars(NamedTuple):
+    """The consts vector (``config.consts_vector``) as host floats."""
+
+    radius: float
+    dt: float
+    bounds: float
+    gx: float
+    gy: float
+    border_elasticity: float
+    border_friction: float
+    ecoeff: float
+    friction: float
+    drag_coeff: float
+    drag_exp: float
+    user_strength: float
+    mouse_active: float
+    mouse_px: float
+    mouse_py: float
+    mouse_vx: float
+    mouse_vy: float
+    force_x: float
+    force_y: float
+    world_h: float
+
+    @classmethod
+    def of(cls, cvec: torch.Tensor) -> "Scalars":
+        return cls(*cvec[: len(cls._fields)].tolist())
+
+
+def _mul32(a: float, b: float) -> float:
+    """float32 product of two float32 host scalars."""
+    return float(np.float32(a) * np.float32(b))
+
+
+def _add32(a: float, b: float) -> float:
+    return float(np.float32(a) + np.float32(b))
+
+
+def _sub32(a: float, b: float) -> float:
+    return float(np.float32(a) - np.float32(b))
+
+
+def device_scalar(x: float, device) -> torch.Tensor:
+    """A 0-d float32 tensor on ``device``.  Divide by this, not by a host
+    scalar: on CUDA, torch turns ``t / host_scalar`` into a multiply by
+    the reciprocal, which is not the division the kernels evaluate."""
+    return torch.tensor(x, dtype=torch.float32, device=device)
+
+
+def sqrt32(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float32 square root (as XLA's and the kernels').
+    torch's CPU ``sqrt`` is not: it misses the IEEE result for a few
+    float32 inputs in a thousand.  Through float64 it is exact."""
+    return torch.sqrt(x.to(torch.float64)).to(torch.float32)
+
+
+def shifted(a: torch.Tensor, dx: int, dy: int, fill=0) -> torch.Tensor:
+    """``out[..., x, y] = a[..., x + dx, y + dy]``; ``fill`` outside."""
+    w, h = a.shape[-2], a.shape[-1]
+    out = torch.full_like(a, fill)
+    x0, x1 = max(0, -dx), min(w, w - dx)
+    y0, y1 = max(0, -dy), min(h, h - dy)
+    if x0 < x1 and y0 < y1:
+        out[..., x0:x1, y0:y1] = a[..., x0 + dx : x1 + dx, y0 + dy : y1 + dy]
+    return out
+
+
+def back(a: torch.Tensor, dx: int, dy: int) -> torch.Tensor:
+    """``out[x + dx, y + dy] = a[x, y]`` (zero fill): place an edge term
+    at the partner endpoint."""
+    return shifted(a, -dx, -dy, 0)
+
+
+def f32_to_i32(x: torch.Tensor) -> torch.Tensor:
+    """float32 → int32 the way XLA and CUDA's ``cvt.rzi.sat`` convert an
+    already-truncated value: saturating at the int32 range, NaN → 0
+    (a bare ``.to(torch.int32)`` is undefined out of range)."""
+    x = torch.nan_to_num(x, nan=0.0, posinf=3.0e9, neginf=-3.0e9)
+    top = x >= 2147483648.0
+    v = x.clamp(-2147483648.0, 2147483520.0).to(torch.int32)
+    return torch.where(top, torch.full_like(v, 2147483647), v)
+
+
+class SpringUpdate(NamedTuple):
+    target: torch.Tensor
+    last: torch.Tensor
+    alive: torch.Tensor      # bool
+    active: torch.Tensor     # bool: the edge took part in this substep
+    strain: torch.Tensor     # |strain| / yield (observability)
+    stress: torch.Tensor     # force_mag · BEAM_STRESS_SCALE (observability)
+
+
+def spring_pass(px, py, alive, edges: Sequence, quantized: bool):
+    """Spring forces of the four edge classes (``EDGE_OFFSETS``) and the
+    edge-state updates.
+
+    ``edges[c]`` has the :class:`EdgeClass` attributes ``length``,
+    ``target_length``, ``last_length``, ``spring``, ``damp``,
+    ``yield_strain``, ``strain_limit`` (planes or 0-d float32 tensors)
+    and ``alive`` (bool plane).  Returns ``(bfx, bfy, updates)``.
+    Quantized forces accumulate ``trunc(F·65536)`` in int32, so the sum
+    is exact whatever the order (compute.wgsl:127-130)."""
+    w, h = px.shape
+    acc_t = torch.int32 if quantized else torch.float32
+    fx = torch.zeros((w, h), dtype=acc_t, device=px.device)
+    fy = torch.zeros((w, h), dtype=acc_t, device=px.device)
+    updates: List[SpringUpdate] = []
+    for (dx, dy), e in zip(EDGE_OFFSETS, edges):
+        active = e.alive & alive & shifted(alive, dx, dy, False)
+        ddx = shifted(px, dx, dy) - px
+        ddy = shifted(py, dx, dy) - py
+        raw_len = sqrt32(ddx * ddx + ddy * ddy)
+        zero = raw_len == 0.0
+        # zero-length guard (compute.wgsl:104-107): diff → (0, -1e-10)
+        ddx = torch.where(zero, 0.0, ddx)
+        ddy = torch.where(zero, -1.0e-10, ddy)
+        ln = torch.where(zero, 1.0e-10, raw_len)
+
+        fmag = (e.target_length - ln) * e.spring + (e.last_length - ln) * e.damp
+        inv_len = torch.reciprocal(ln)
+        fvx = fmag * ddx * inv_len
+        fvy = fmag * ddy * inv_len
+        strain = (ln - e.target_length) / e.length
+        yielded = strain.abs() > e.yield_strain
+        new_target = torch.where(
+            yielded,
+            ln - e.yield_strain * e.length * torch.sign(strain),
+            e.target_length,
+        )
+        breaks = (ln - e.length).abs() > e.length * e.strain_limit
+        updates.append(SpringUpdate(
+            target=torch.where(active, new_target, e.target_length),
+            last=torch.where(active, ln, e.last_length),
+            alive=e.alive & ~(active & breaks),
+            active=active,
+            strain=strain.abs() / e.yield_strain,
+            stress=fmag * BEAM_STRESS_SCALE,
+        ))
+
+        fvx = torch.where(active, fvx, 0.0)
+        fvy = torch.where(active, fvy, 0.0)
+        if quantized:
+            qx = f32_to_i32(torch.trunc(fvx * PARTICLE_FORCE_SCALE))
+            qy = f32_to_i32(torch.trunc(fvy * PARTICLE_FORCE_SCALE))
+            fx = fx - qx + back(qx, dx, dy)
+            fy = fy - qy + back(qy, dx, dy)
+        else:
+            fx = fx - fvx + back(fvx, dx, dy)
+            fy = fy - fvy + back(fvy, dx, dy)
+
+    if quantized:
+        fx = fx.to(torch.float32) / PARTICLE_FORCE_SCALE
+        fy = fy.to(torch.float32) / PARTICLE_FORCE_SCALE
+    return fx, fy, updates
+
+
+def _stencil_collisions(px, py, vx, vy, alive, *, s: int, radius: float,
+                        dt: float, ecoeff: float, friction: float):
+    """Reference pair math over the half-offset stencil of radius ``s``.
+
+    Each unordered pair is evaluated once at its lower endpoint and its
+    exact negation applied to the partner, per offset in the order of
+    :func:`half_offsets`: ``acc = (acc + t) - back(t)``.  The coincident
+    nudge ``sign(lin_i − lin_j)`` is the per-offset constant
+    ``−sign(dx·H + dy)``.  Returns (dvx, dvy, dax, day, dyn)."""
+    w, h = px.shape
+    two_r = _mul32(2.0, radius)
+    dt2 = device_scalar(_mul32(dt, dt), px.device)
+    z = torch.zeros_like(px)
+    dvx, dvy, dax, day, dyn = z, z, z, z, z
+    for ox, oy in half_offsets(s):
+        valid = alive & shifted(alive, ox, oy, False)
+        ddx = shifted(px, ox, oy) - px
+        ddy = shifted(py, ox, oy) - py
+        dist = sqrt32(ddx * ddx + ddy * ddy)
+        coincident = valid & (dist == 0.0)
+        overlap = valid & (dist > 0.0) & (dist < two_r)
+
+        co = torch.where(coincident, -float(np.sign(ox * h + oy)), 0.0)
+        dyn = dyn + co - back(co, ox, oy)
+
+        inv = torch.where(
+            overlap, torch.reciprocal(torch.where(overlap, dist, 1.0)), 0.0
+        )
+        nx, ny = ddx * inv, ddy * inv
+        rvx = vx - shifted(vx, ox, oy)
+        rvy = vy - shifted(vy, ox, oy)
+        imp_n = ecoeff * (rvx * nx + rvy * ny)
+        max_fric = imp_n * friction
+        imp_t = torch.minimum(
+            torch.maximum(rvx * -ny + rvy * nx, -max_fric), max_fric
+        )
+        pdvx = -(imp_n * nx + imp_t * -ny)
+        pdvy = -(imp_n * ny + imp_t * nx)
+        clip = (two_r - dist) * 0.5 / dt2
+        gate = overlap.to(torch.float32)
+        pdax = -nx * clip * gate
+        pday = -ny * clip * gate
+        pdvx = torch.where(overlap, pdvx, 0.0)
+        pdvy = torch.where(overlap, pdvy, 0.0)
+
+        dvx = dvx + pdvx - back(pdvx, ox, oy)
+        dvy = dvy + pdvy - back(pdvy, ox, oy)
+        dax = dax + pdax - back(pdax, ox, oy)
+        day = day + pday - back(pday, ox, oy)
+    return dvx, dvy, dax, day, dyn
+
+
+def _integrate_components(px, py, vx, vy, ax, ay, alive, pinned,
+                          dvx, dvy, dax, day, dyn, bfx, bfy, sc: Scalars):
+    """Body forces, drag, user force, mouse grab, semi-implicit Euler and
+    the border (compute.wgsl:171-199), on component planes."""
+    r = sc.radius
+    p_x = px
+    p_y = py + torch.where(alive, dyn, 0.0)
+    v_x = vx + dvx
+    v_y = vy + dvy
+    a_x = ax + dax + sc.gx
+    a_y = ay + day + sc.gy
+
+    speed = sqrt32(v_x * v_x + v_y * v_y)
+    moving = speed > 0.0
+    inv_speed = torch.reciprocal(torch.where(moving, speed, 1.0))
+    a_x = a_x - torch.where(
+        moving,
+        sc.drag_coeff * torch.pow(v_x.abs(), sc.drag_exp) * v_x * inv_speed,
+        0.0,
+    )
+    a_y = a_y - torch.where(
+        moving,
+        sc.drag_coeff * torch.pow(v_y.abs(), sc.drag_exp) * v_y * inv_speed,
+        0.0,
+    )
+
+    a_x = a_x + _mul32(sc.force_x, sc.user_strength)
+    a_y = a_y + _mul32(sc.force_y, sc.user_strength)
+
+    mdx = sc.mouse_px - p_x
+    mdy = sc.mouse_py - p_y
+    grabbed = (sqrt32(mdx * mdx + mdy * mdy) < _mul32(r, 10.0)) & (
+        sc.mouse_active > 0.0)
+    a_x = a_x + torch.where(
+        grabbed, (sc.mouse_vx - v_x) * sc.user_strength - sc.gx, 0.0)
+    a_y = a_y + torch.where(
+        grabbed, (sc.mouse_vy - v_y) * sc.user_strength - sc.gy, 0.0)
+
+    a_x = a_x + bfx
+    a_y = a_y + bfy
+
+    v_x = v_x + a_x * sc.dt
+    v_y = v_y + a_y * sc.dt
+    p_x = p_x + v_x * sc.dt
+    p_y = p_y + v_y * sc.dt
+
+    lo, hi = r, _sub32(sc.bounds, r)
+    cx_ = torch.clamp(p_x, lo, hi)
+    cy_ = torch.clamp(p_y, lo, hi)
+    hit_x = p_x != cx_
+    hit_y = p_y != cy_
+    be = sc.border_elasticity
+    bf = sc.border_friction
+    one_be = _add32(1.0, be)
+
+    fric_y = torch.sign(v_y) * bf * v_x.abs() * one_be
+    na_y = torch.where(hit_x, 0.0 - torch.clamp(fric_y, max=0.0), 0.0)
+    nv_x = torch.where(hit_x, v_x * -be, v_x)
+    fric_x = torch.sign(nv_x) * bf * v_y.abs() * one_be
+    na_x = torch.where(hit_y, 0.0 - torch.clamp(fric_x, max=0.0), 0.0)
+    nv_y = torch.where(hit_y, v_y * -be, v_y)
+
+    keep = alive & ~pinned
+    return (
+        torch.where(keep, cx_, px),
+        torch.where(keep, cy_, py),
+        torch.where(keep, nv_x, vx),
+        torch.where(keep, nv_y, vy),
+        torch.where(keep, na_x, ax),
+        torch.where(keep, na_y, ay),
+    )
+
+
+def substep_planes(px, py, vx, vy, ax, ay, alive, pinned, edges, sc: Scalars,
+                   *, stencil: int, quantized: bool, far_delta=None):
+    """One substep on component planes: springs, collisions, the far
+    delta planes ``[5, W, H]`` (if given), integration.  Returns the six
+    new particle planes and the spring updates."""
+    bfx, bfy, ups = spring_pass(px, py, alive, edges, quantized)
+    if stencil == 0:
+        z = torch.zeros_like(px)
+        dvx = dvy = dax = day = dyn = z
+    else:
+        dvx, dvy, dax, day, dyn = _stencil_collisions(
+            px, py, vx, vy, alive, s=stencil, radius=sc.radius, dt=sc.dt,
+            ecoeff=sc.ecoeff, friction=sc.friction)
+    if far_delta is not None:
+        dvx = dvx + far_delta[0]
+        dvy = dvy + far_delta[1]
+        dax = dax + far_delta[2]
+        day = day + far_delta[3]
+        dyn = dyn + far_delta[4]
+    planes = _integrate_components(px, py, vx, vy, ax, ay, alive, pinned,
+                                   dvx, dvy, dax, day, dyn, bfx, bfy, sc)
+    return planes, ups
+
+
+def lattice_substep(
+    state: LatticeState,
+    consts: PhysicsConstants,
+    uin: UserInput,
+    spec: LatticeSpec,
+    cfg: StaticConfig,
+    update_observability: bool = True,
+    far_delta: Optional[torch.Tensor] = None,
+) -> LatticeState:
+    """One substep of the dense path (semantics of compute.wgsl:90-203).
+
+    ``update_observability``: write per-edge strain/stress (only the
+    frame's last substep needs them).  ``far_delta``: precomputed
+    ``[5, W, H]`` far-field delta planes (dvx dvy dax day dyn) from the
+    bucketed apply (``ops/farfield4.py``)."""
+    if tuple(spec.edge_offsets) != EDGE_OFFSETS:
+        raise ValueError("the torch lattice path supports the four "
+                         "reference edge classes only")
+    sc = Scalars.of(consts_vector(consts, uin, cfg, spec.height))
+    collide = cfg.collision_mode != "none"
+    (pxn, pyn, vxn, vyn, axn, ayn), ups = substep_planes(
+        state.pos[..., 0], state.pos[..., 1],
+        state.vel[..., 0], state.vel[..., 1],
+        state.acc[..., 0], state.acc[..., 1],
+        state.alive, state.pinned, state.edges, sc,
+        stencil=spec.collision_stencil if collide else 0,
+        quantized=cfg.force_mode == "quantized",
+        far_delta=far_delta if collide else None,
+    )
+    new_edges = []
+    for e, u in zip(state.edges, ups):
+        new_edges.append(dataclasses.replace(
+            e,
+            target_length=u.target,
+            last_length=u.last,
+            alive=u.alive,
+            strain=(torch.where(u.active, u.strain, e.strain)
+                    if update_observability else e.strain),
+            stress=(torch.where(u.active, u.stress, e.stress)
+                    if update_observability else e.stress),
+        ))
+    return dataclasses.replace(
+        state,
+        pos=torch.stack([pxn, pyn], dim=-1),
+        vel=torch.stack([vxn, vyn], dim=-1),
+        acc=torch.stack([axn, ayn], dim=-1),
+        edges=tuple(new_edges),
+    )
+
+
+def lattice_frame(
+    state: LatticeState,
+    consts: PhysicsConstants,
+    uin: UserInput,
+    spec: LatticeSpec,
+    cfg: StaticConfig,
+    n_sub: Optional[int] = None,
+) -> LatticeState:
+    """``n_sub`` (default ``cfg.subticks``) observing substeps."""
+    n = cfg.subticks if n_sub is None else n_sub
+    for _ in range(n):
+        state = lattice_substep(state, consts, uin, spec, cfg)
+    return state

@@ -1,0 +1,98 @@
+"""Far-field band detection: the K2 wrapper's plain version (CPU
+tensors) against the JAX package — the chunk planes of
+``raw_chunk_planes(band_impl="xla")`` and the particle flags of the
+Pallas band kernel in interpret mode.  Bit-exact: both sides evaluate
+``d2 = ddx·ddx + ddy·ddy < ((base + dev_i) + dev_j)²`` in float32."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from softbody_tpu.ops.farfield import FarFieldSpec as JFarFieldSpec
+from softbody_tpu.ops.farfield import raw_chunk_planes as j_raw
+from softbody_tpu.ops.pallas.band_detect import band_flag_call as j_band
+from softbody_tpu_torch.ops.cuda.band_detect import band_flag_call
+from softbody_tpu_torch.ops.farfield import FarFieldSpec, raw_chunk_planes
+
+from test_fused4 import _fold_planes
+
+FF_KW = dict(max_pairs=256, max_tile_pairs=64, skin=4.0, horizon=8)
+
+
+def _random_planes(w=32, h=48, seed=9):
+    """A crumpled world: particles a few units apart, so the band fires
+    densely; dead particles included."""
+    rng = np.random.default_rng(seed)
+    px = (rng.normal(0, 6.0, (w, h)) + np.arange(w)[:, None] * 0.5)
+    py = (rng.normal(0, 6.0, (w, h)) + np.arange(h)[None, :] * 0.5)
+    vx = rng.normal(0, 2.0, (w, h))
+    vy = rng.normal(0, 2.0, (w, h))
+    alive = rng.random((w, h)) > 0.15
+    return tuple(a.astype(np.float32) for a in (px, py, vx, vy)) + (alive,)
+
+
+SCENES = {
+    "fold_32x32": lambda: tuple(np.array(a) for a in _fold_planes()),
+    "random_32x48": _random_planes,
+}
+
+
+def _vbar(vx, vy, alive):
+    """The same float32 mean velocity for both packages."""
+    n = np.float32(max(alive.sum(), 1))
+    return (np.float32(vx[alive].astype(np.float64).sum() / n),
+            np.float32(vy[alive].astype(np.float64).sum() / n))
+
+
+@pytest.mark.parametrize("scene", sorted(SCENES))
+def test_raw_chunk_planes_match_jax(scene):
+    px, py, vx, vy, alive = SCENES[scene]()
+    vbx, vby = _vbar(vx, vy, alive)
+    kw = dict(s=2, radius=4.0, T_band=8 / 64)
+    jraw, jcany, jcom = j_raw(
+        *(jnp.asarray(a) for a in (px, py, alive)), ff=JFarFieldSpec(**FF_KW),
+        vxu=jnp.asarray(vx), vyu=jnp.asarray(vy),
+        vbar=(jnp.float32(vbx), jnp.float32(vby)), band_impl="xla", **kw)
+    t = [torch.from_numpy(a) for a in (px, py, vx, vy, alive)]
+    traw, tcany, tcom = raw_chunk_planes(
+        t[0], t[1], t[4], ff=FarFieldSpec(**FF_KW), vxu=t[2], vyu=t[3],
+        vbar=(torch.tensor(vbx), torch.tensor(vby)), **kw)
+    assert np.asarray(jraw.band).sum() > 0, "the scene must flag chunks"
+    for name, a, b in zip(jraw._fields, traw, jraw):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b),
+                                      err_msg=name)
+    np.testing.assert_array_equal(tcany.numpy(), np.asarray(jcany))
+    np.testing.assert_allclose(tcom.numpy(), np.asarray(jcom), rtol=1e-6)
+
+
+@pytest.mark.parametrize("scene", sorted(SCENES))
+def test_band_flags_match_jax_kernel(scene):
+    px, py, vx, vy, alive = SCENES[scene]()
+    rng = np.random.default_rng(1)
+    dev = np.where(alive, rng.random(px.shape), 0.0).astype(np.float32)
+    bdev = (np.float32(2.0 * 4.0 + 4.0) + dev).astype(np.float32)
+    offsets = FarFieldSpec(**FF_KW).band_half_offsets(2)
+    ref = np.asarray(j_band(*(jnp.asarray(a) for a in (px, py, dev, bdev,
+                                                        alive)),
+                            offsets=offsets, tw=16, interpret=True))
+    got = band_flag_call(*(torch.from_numpy(a) for a in (px, py, dev, bdev,
+                                                          alive)),
+                         offsets=offsets)
+    assert ref.sum() > 0
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
+def test_band_wrapper_validates_inputs():
+    px, py, vx, vy, alive = (torch.from_numpy(a) for a in _random_planes(
+        8, 8))
+    offs = FarFieldSpec().band_half_offsets(2)
+    with pytest.raises(ValueError):
+        band_flag_call(px, py, vx, vy, alive.float(), offsets=offs)
+    with pytest.raises(ValueError):
+        band_flag_call(px.double(), py, vx, vy, alive, offsets=offs)
+    with pytest.raises(ValueError):
+        band_flag_call(px.t(), py, vx, vy, alive, offsets=offs)
+    with pytest.raises(ValueError):
+        band_flag_call(px, py, vx, vy, alive, offsets=[(0, 200)])

@@ -1,0 +1,86 @@
+"""The hand-written CUDA kernels against their plain torch versions, on
+the card (marker ``cuda``; skipped where there is no CUDA device).  Run
+there with ``python -m pytest tests/test_torch_cuda.py -m cuda
+--noconftest`` (``conftest.py`` imports JAX, which that machine lacks);
+``chip_smoke.py`` makes the same checks at the main path's full size."""
+
+import dataclasses
+
+import pytest
+import torch
+
+import softbody_tpu_torch as tb
+from softbody_tpu_torch.models import tearing_cloth_lattice
+from softbody_tpu_torch.ops.cuda import band_detect, fused_substep2
+from softbody_tpu_torch.ops.farfield import FarFieldSpec
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _stirred_cloth(dev, seed=0, side=40):
+    state, spec, cfg, consts = tearing_cloth_lattice(
+        n_particles=side * side, fall_speed=2.5, slits=2, strain_limit=0.22,
+        yield_strain=0.18, device=dev)
+    spacing = 980.0 / (side - 1)
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def noise(scale):
+        return torch.randn(state.pos.shape, generator=g, device=dev) * scale
+
+    state = dataclasses.replace(state, pos=state.pos + noise(0.3 * spacing),
+                                vel=state.vel + noise(6.0 * spacing))
+    return state, spec, cfg, consts, spacing, g
+
+
+@pytest.mark.parametrize("observe", [False, True])
+def test_k1_matches_plain(dev, observe):
+    state, spec, cfg, consts, _sp, g = _stirred_cloth(dev)
+    hot, obs, immut, ec = fused_substep2.pack_lattice2(state)
+    cvec = torch.cat([tb.consts_vector(consts, tb.UserInput(), cfg,
+                                       spec.height), ec])
+    far = torch.randn((5,) + tuple(hot.shape[1:]), generator=g,
+                      device=dev) * 0.5
+    kw = dict(stencil=2, quantized=True, far=far,
+              obs_in=obs if observe else None)
+    before = fused_substep2.K1_LAUNCHES
+    got = fused_substep2.fused_substep2_call(hot, immut, cvec, **kw)
+    ref = fused_substep2.fused_substep2_plain(hot, immut, cvec, **kw)
+    torch.cuda.synchronize()
+    assert fused_substep2.K1_LAUNCHES == before + 1
+    got_hot, ref_hot = (got[0], ref[0]) if observe else (got, ref)
+    assert torch.equal(got_hot[6:], ref_hot[6:])
+    for planes, tol in ((slice(0, 2), 1e-4), (slice(2, 4), 1e-3),
+                        (slice(4, 6), 1e-2)):
+        torch.testing.assert_close(got_hot[planes], ref_hot[planes],
+                                   rtol=0, atol=tol)
+    if observe:
+        live = torch.repeat_interleave(ref_hot[8::3] > 0, 2, dim=0)
+        torch.testing.assert_close(got[1] * live, ref[1] * live, rtol=0,
+                                   atol=1e-5)
+
+
+def test_k2_matches_plain(dev):
+    state, spec, cfg, _c, spacing, g = _stirred_cloth(dev, seed=1)
+    ff = FarFieldSpec(skin=0.75 * spacing, horizon=8)
+    px = state.pos[..., 0].contiguous()
+    py = state.pos[..., 1].contiguous()
+    dev_ = torch.rand(px.shape, generator=g, device=dev) * spacing
+    dev_ = torch.where(state.alive, dev_, 0.0)
+    bdev = (2.0 * cfg.particle_radius + ff.skin) + dev_
+    offsets = ff.band_half_offsets(2)
+    before = band_detect.K2_LAUNCHES
+    got = band_detect.band_flag_call(px, py, dev_, bdev, state.alive,
+                                     offsets=offsets)
+    ref = band_detect.band_flags_plain(px, py, dev_, bdev, state.alive,
+                                       offsets)
+    torch.cuda.synchronize()
+    assert band_detect.K2_LAUNCHES == before + 1
+    assert int(ref.sum()) > 0
+    assert torch.equal(got, ref)

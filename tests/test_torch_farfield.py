@@ -1,0 +1,149 @@
+"""Far-field rebuild and apply: the port against the JAX package.
+
+Rebuild: the decoded candidate pair set (chunk coordinates), ``n_pairs``
+and ``overflow`` must be equal.  Apply: the five delta planes agree to
+atol 1e-5 (the f32 scatter-add order differs)."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from softbody_tpu.ops.farfield import FarFieldSpec as JFarFieldSpec
+from softbody_tpu.ops.farfield import _chunk_dims as j_chunk_dims
+from softbody_tpu.ops.farfield import far_collision_terms as j_terms
+from softbody_tpu.ops.farfield import rebuild_far_list_planes as j_rebuild
+from softbody_tpu_torch.ops.farfield import (
+    FarFieldSpec,
+    FarList,
+    _chunk_dims,
+    empty_far_list,
+    far_collision_terms,
+    rebuild_far_list_planes,
+)
+from softbody_tpu_torch.ops.farfield4 import bucketed_far_delta_planes
+
+from test_farfield import hairpin
+from test_fused4 import _fold_planes
+
+DT = 1 / 64
+
+
+def _fold():
+    return tuple(np.array(a) for a in _fold_planes())
+
+
+def _hairpin():
+    ls = hairpin()
+    pos, vel = np.array(ls.pos), np.array(ls.vel)
+    return (pos[..., 0], pos[..., 1], vel[..., 0], vel[..., 1],
+            np.array(ls.alive))
+
+
+# scene → (planes, far-field spec kwargs, radius)
+SCENES = {
+    "fold": (_fold, dict(max_pairs=128, max_tile_pairs=32, skin=2.0,
+                         horizon=8), 1.5),
+    "fold_overflow": (_fold, dict(max_pairs=12, max_tile_pairs=4, skin=2.0,
+                                  horizon=8), 1.5),
+    "hairpin": (_hairpin, dict(max_pairs=512, max_tile_pairs=64, skin=4.0,
+                               horizon=8), 4.0),
+}
+
+
+def _decoded(ca, cb, valid, cwy):
+    ca, cb, valid = (np.asarray(a) for a in (ca, cb, valid))
+    return sorted((int(a) // cwy, int(a) % cwy, int(b) // cwy, int(b) % cwy)
+                  for a, b in zip(ca[valid], cb[valid]))
+
+
+def _both(scene, velocity):
+    make, ffkw, radius = SCENES[scene]
+    px, py, vx, vy, alive = make()
+    vkw_j = dict(vx=jnp.asarray(vx), vy=jnp.asarray(vy), dt=DT) \
+        if velocity else {}
+    vkw_t = dict(vx=torch.from_numpy(vx), vy=torch.from_numpy(vy), dt=DT) \
+        if velocity else {}
+    jfl = j_rebuild(jnp.asarray(px), jnp.asarray(py), jnp.asarray(alive),
+                    s=2, ff=JFarFieldSpec(**ffkw), radius=radius,
+                    band_impl="xla", **vkw_j)
+    tfl = rebuild_far_list_planes(
+        torch.from_numpy(px), torch.from_numpy(py), torch.from_numpy(alive),
+        s=2, ff=FarFieldSpec(**ffkw), radius=radius, **vkw_t)
+    return (px, py, vx, vy, alive), ffkw, radius, jfl, tfl
+
+
+@pytest.mark.parametrize("scene,velocity", [
+    ("fold", True), ("fold_overflow", True), ("hairpin", False),
+    ("hairpin", True)])
+def test_rebuild_matches_jax(scene, velocity):
+    planes, ffkw, _r, jfl, tfl = _both(scene, velocity)
+    w, h = planes[0].shape
+    jcwy = j_chunk_dims(w, h, JFarFieldSpec(**ffkw))[1]
+    tcwy = _chunk_dims(w, h, FarFieldSpec(**ffkw))[1]
+    assert int(tfl.n_pairs) == int(jfl.n_pairs) > 0
+    assert int(tfl.overflow) == int(jfl.overflow)
+    if scene == "fold_overflow":
+        assert int(jfl.overflow) > 0, "the small capacity must overflow"
+    assert tfl.counts() == (int(jfl.n_pairs), int(jfl.overflow))
+    assert _decoded(tfl.ca, tfl.cb, tfl.valid, tcwy) == _decoded(
+        jfl.ca, jfl.cb, jfl.valid, jcwy)
+
+
+def _port_list(jfl, like: FarList) -> FarList:
+    """The JAX list's pairs in a port FarList (same chunk grid)."""
+    return FarList(
+        ca=torch.from_numpy(np.array(jfl.ca, np.int64)),
+        cb=torch.from_numpy(np.array(jfl.cb, np.int64)),
+        valid=torch.from_numpy(np.array(jfl.valid)),
+        n_pairs=torch.tensor(int(jfl.n_pairs), dtype=torch.int32),
+        overflow=torch.tensor(int(jfl.overflow), dtype=torch.int32),
+        px_ref=like.px_ref, py_ref=like.py_ref, com_ref=like.com_ref,
+        vx_ref=like.vx_ref, vy_ref=like.vy_ref)
+
+
+@pytest.mark.parametrize("scene", ["fold", "hairpin"])
+def test_far_collision_terms_match_jax(scene):
+    (px, py, vx, vy, alive), ffkw, radius, jfl, tfl = _both(scene, True)
+    w, h = px.shape
+    kw = dict(s=2, radius=radius, dt=DT, ecoeff=0.75, friction=0.1)
+    ref = j_terms(*(jnp.asarray(a) for a in (px, py, vx, vy, alive)), jfl,
+                  ff=JFarFieldSpec(**ffkw), world_h=h, **kw)
+    got = far_collision_terms(
+        *(torch.from_numpy(a) for a in (px, py, vx, vy, alive)),
+        _port_list(jfl, tfl), ff=FarFieldSpec(**ffkw), world_h=h, **kw)
+    assert float(np.abs(np.asarray(ref[1])).max()) > 0
+    for i in range(5):
+        np.testing.assert_allclose(got[i].numpy(), np.asarray(ref[i]),
+                                   rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("scene", ["fold", "hairpin"])
+def test_bucketed_apply_matches_jax(scene):
+    """The port's bucketed apply (crop to the smallest bucket ≥ n_pairs →
+    windowed gather → index_add_) on its own list against JAX
+    ``far_collision_terms`` on the JAX list."""
+    (px, py, vx, vy, alive), ffkw, radius, jfl, tfl = _both(scene, True)
+    w, h = px.shape
+    kw = dict(s=2, radius=radius, dt=DT, ecoeff=0.75, friction=0.1)
+    ref = j_terms(*(jnp.asarray(a) for a in (px, py, vx, vy, alive)), jfl,
+                  ff=JFarFieldSpec(**ffkw), world_h=h, **kw)
+    hot = torch.from_numpy(np.stack([px, py, vx, vy]))
+    got = bucketed_far_delta_planes(
+        hot, torch.from_numpy(alive.astype(np.float32)), tfl,
+        int(tfl.n_pairs), ff=FarFieldSpec(**ffkw), buckets=(16,), **kw)
+    np.testing.assert_allclose(got.numpy(), np.stack(ref), rtol=0,
+                               atol=1e-5)
+
+
+def test_bucketed_apply_empty_list():
+    px, py, vx, vy, alive = _fold()
+    w, h = px.shape
+    ff = FarFieldSpec(max_pairs=64, max_tile_pairs=32, skin=4.0, horizon=8)
+    fl = empty_far_list(w, h, ff)
+    hot = torch.from_numpy(np.stack([px, py, vx, vy]))
+    assert bucketed_far_delta_planes(
+        hot, torch.from_numpy(alive.astype(np.float32)), fl, 0, s=2, ff=ff,
+        radius=1.5, dt=DT, ecoeff=0.75, friction=0.1) is None
+    assert fl.counts() == (0, 0)
