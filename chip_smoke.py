@@ -2,11 +2,20 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (written for an H100).
 
 Builds the hand-written kernels from ``softbody_tpu_torch/csrc``, holds
-each against its plain torch version on the card, drives the main path
-(the 1M-particle tearing cloth with far-field self-collision, through
-``FusedLatticeBackend``) for a few frames, checks the result, and times
-the kernels against their plain versions.  Every phase raises on
-failure.
+each against its plain torch version on the card, drives the port's
+paths at full size, checks the results, and times the kernels against
+their plain versions.  The paths, each with the kernel launch counts set
+to 0 just before it and read just after:
+
+- the bench path: the 1M-particle tearing cloth with far-field
+  self-collision through ``FusedLatticeBackend`` (kernels K1, K2);
+- path A: the dense ``LatticeBackend`` with ``use_pallas`` on the 1M
+  tearing cloth with default arguments and far field armed with
+  ``FarFieldSpec()`` (``play --path lattice --farfield``; K3, K2);
+- path B: the per-edge fused frame ``fused_frame`` on the same scene,
+  bench.py's ``BENCH_PATH=fused_v1`` (K4).
+
+Every phase raises on failure.
 
     python3 chip_smoke.py
 
@@ -28,12 +37,30 @@ import numpy as np
 import torch
 
 import softbody_tpu_torch as tb
-from softbody_tpu_torch.engine import FusedLatticeBackend
+from softbody_tpu_torch.engine import FusedLatticeBackend, LatticeBackend
 from softbody_tpu_torch.models import make_lattice, tearing_cloth_lattice
-from softbody_tpu_torch.ops.cuda import _lib, band_detect, fused_substep2
+from softbody_tpu_torch.ops.cuda import (
+    _lib,
+    band_detect,
+    collide_stencil,
+    fused_substep,
+    fused_substep2,
+)
 from softbody_tpu_torch.ops.cuda.band_detect import (
     band_flag_call,
     band_flags_plain,
+)
+from softbody_tpu_torch.ops.cuda.collide_stencil import (
+    collide_stencil_call,
+    collide_stencil_plain,
+)
+from softbody_tpu_torch.ops.cuda.fused_substep import (
+    fused_frame,
+    fused_frame_far,
+    fused_substep_call,
+    fused_substep_plain,
+    pack_lattice,
+    rebuild_far_list_packed,
 )
 from softbody_tpu_torch.ops.cuda.fused_substep2 import (
     PX,
@@ -49,7 +76,12 @@ from softbody_tpu_torch.ops.farfield import (
     rebuild_far_list_planes,
 )
 from softbody_tpu_torch.ops.farfield4 import bucketed_far_delta_planes
-from softbody_tpu_torch.ops.stencil import LatticeSpec, sqrt32
+from softbody_tpu_torch.ops.stencil import (
+    LatticeSpec,
+    half_offsets,
+    shifted,
+    sqrt32,
+)
 
 # the bench scene of bench.py:79-107 (1000 x 1000 lattice, ~3.98M springs)
 N_PARTICLES = 1_000_000
@@ -61,9 +93,20 @@ WARM_FRAMES = 2
 TIMED_FRAMES = 8
 SEED = 0
 
-# K1 against its plain version: edge planes bit-exact, particle planes
-# within the port's parity tolerances (tests/test_torch_substep.py)
+# paths A and B: frames run (both start from the default scene, which
+# falls for ~5 frames before it reaches the floor)
+PATH_A_FRAMES = 3
+PATH_B_FRAMES = 8
+
+# K1 and K4 against their plain versions: edge planes bit-exact,
+# particle planes within the port's parity tolerances
+# (tests/test_torch_substep.py); K3's deltas bit-exact
 K1_ATOL = {"pos": 1e-4, "vel": 1e-3, "acc": 1e-2, "obs": 1e-5}
+
+# the card's peaks for the bound (NVIDIA's H100 SXM data sheet): device
+# memory rate, and float32 outside the tensor cores
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_PER_S = 67e12
 
 
 def log(msg: str) -> None:
@@ -201,6 +244,119 @@ def check_k2(label, state, spec, cfg, spacing) -> float:
     return float(n_bad)
 
 
+def check_k3(label, state, spec, cfg, consts, spacing) -> float:
+    """K3 against its plain version on the card: deltas bit-exact."""
+    st = _stirred(state, spacing, SEED + 2)
+    planes = (st.pos[..., 0], st.pos[..., 1], st.vel[..., 0],
+              st.vel[..., 1], st.alive)
+    kw = dict(radius=cfg.particle_radius, dt=cfg.dt, ecoeff=consts.ecoeff,
+              friction=consts.friction, stencil=spec.collision_stencil)
+    ref = collide_stencil_plain(*planes, **kw)
+    got = collide_stencil_call(*planes, **kw)
+    torch.cuda.synchronize()
+    err = max((g - r).abs().max().item() for g, r in zip(got, ref))
+    n_bad = sum(int((g != r).sum()) for g, r in zip(got, ref))
+    if n_bad:
+        raise AssertionError(f"K3 {label}: {n_bad} delta values differ from "
+                             f"the plain version (max |err| {err})")
+    overlap = int((ref[2] != 0).sum())
+    log(f"K3 {label}: deltas bit-exact ({overlap} particles with a "
+        f"penetration term)")
+    return err
+
+
+def _k4_inputs(state, spec, cfg, consts, spacing, seed):
+    """A stirred state's packed stacks with per-edge varied parameters
+    (each edge's spring, damp, yield, limit and length times a factor in
+    [0.5, 1.5)), its consts vector and a far delta stack."""
+    mut, immut = pack_lattice(_stirred(state, spacing, seed))
+    g = torch.Generator(device=mut.device).manual_seed(seed + 1)
+    immut[2:] *= 0.5 + torch.rand(immut[2:].shape, generator=g,
+                                  device=mut.device)
+    cvec = tb.consts_vector(consts, tb.UserInput(), cfg, spec.height)
+    far = torch.randn((5,) + tuple(mut.shape[1:]), generator=g,
+                      device=mut.device) * 0.5
+    return mut, immut, cvec, far
+
+
+def check_k4(label, state, spec, cfg, consts, spacing) -> float:
+    """K4 against its plain version on the card, with and without a far
+    stack: edge planes (target, last, strain, stress, alive) bit-exact,
+    particle planes within K1_ATOL."""
+    mut, immut, cvec, far = _k4_inputs(state, spec, cfg, consts, spacing,
+                                       SEED + 3)
+    worst = 0.0
+    for with_far in (False, True):
+        kw = dict(stencil=spec.collision_stencil, quantized=True,
+                  far=far if with_far else None)
+        ref = fused_substep_plain(mut, immut, cvec, **kw)
+        got = fused_substep_call(mut, immut, cvec, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(got[6:], ref[6:]):
+            n_bad = int((got[6:] != ref[6:]).sum())
+            raise AssertionError(f"K4 {label}: {n_bad} edge-plane values "
+                                 "differ from the plain version")
+        errs = {
+            "pos": (got[0:2] - ref[0:2]).abs().max().item(),
+            "vel": (got[2:4] - ref[2:4]).abs().max().item(),
+            "acc": (got[4:6] - ref[4:6]).abs().max().item(),
+        }
+        for k, e in errs.items():
+            if not e <= K1_ATOL[k]:
+                raise AssertionError(f"K4 {label} far={with_far}: {k} max "
+                                     f"|err| {e} > {K1_ATOL[k]}")
+        worst = max(worst, *errs.values())
+        eal = slice(10, 26, 5)
+        broke = int(((mut[eal] > 0) & (ref[eal] == 0)).sum())
+        log(f"K4 {label} far={with_far}: edge planes bit-exact, max |err| "
+            f"{errs} ({int((ref[eal] > 0).sum())} alive edges, {broke} "
+            "broke)")
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# bounds: the least time the card could take for a call's work, the larger
+# of its bytes over the memory rate and its float32 operations over the
+# float32 rate.  Bytes count each input read once and each output written
+# once; operations are counted per particle from the kernels' sources
+# (a square root or a division counts as one).
+
+
+def _bound(n_bytes: float, n_ops: float):
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = n_ops / PEAK_F32_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _substep_ops(n: int, s: int) -> float:
+    """K1/K4 per particle: 4 classes × (2 spring evaluations of 16 ops,
+    the int32 conversion 8, the edge update 11) + per half offset 2 pair
+    evaluations of 38 ops and 10 sums + the integration's ~60."""
+    return n * (4 * (2 * 16 + 8 + 11) + len(half_offsets(s)) * 86 + 60)
+
+
+def _k3_ops(n: int, s: int) -> float:
+    """K3 per particle: 42 ops for each of the (2s+1)²−1 offsets, dead
+    particles included (the kernel has no early exit)."""
+    return n * ((2 * s + 1) ** 2 - 1) * 42
+
+
+def _band_pairs_evaluated(px, py, dev, bdev, alive, offsets) -> int:
+    """The pairs K2 evaluates on these inputs: for each alive particle,
+    its in-range alive partners in offset order up to the first hit (the
+    kernel stops there)."""
+    done = ~alive
+    n = 0
+    for dx, dy in offsets:
+        ev = ~done & shifted(alive, dx, dy, False)
+        n += int(ev.sum())
+        ddx = shifted(px, dx, dy) - px
+        ddy = shifted(py, dx, dy) - py
+        reach = bdev + shifted(dev, dx, dy)
+        done = done | (ev & (ddx * ddx + ddy * ddy < reach * reach))
+    return n
+
+
 # ---------------------------------------------------------------------------
 # end to end
 
@@ -223,32 +379,184 @@ def _hairpin(dev):
                                vel=torch.from_numpy(vel).to(dev))
 
 
-def check_small_end_to_end() -> None:
-    """The backend on the card against the same backend on the CPU (the
-    plain versions) on a small fold: 2 frames, far stats equal, state
-    within the slice's parity tolerances (tests/test_torch_frame.py)."""
+def _small_fold(dev) -> dict:
+    """2 frames of the fold through ``FusedLatticeBackend`` and through
+    ``LatticeBackend`` with ``use_pallas``, and one ``fused_frame_far``
+    frame from a rebuilt list, on ``dev``: far stats and particle planes
+    [2, 2, 96, 4] (pos, vel) of each, on the host."""
+    consts, uin = tb.PhysicsConstants(), tb.UserInput()
+    spec = LatticeSpec(96, 4)
+    ff = FarFieldSpec(max_pairs=512, max_tile_pairs=64, skin=4.0, horizon=8)
     out = {}
-    for dev in ("cpu", "cuda"):
-        cfg = tb.StaticConfig(subticks=8, particle_radius=4.0)
-        be = FusedLatticeBackend(
-            LatticeSpec(96, 4), cfg, device=dev, far_buckets=(16,),
-            farfield=FarFieldSpec(max_pairs=64, max_tile_pairs=32, skin=4.0,
-                                  horizon=8))
-        state = be.pack_state(_hairpin(dev))
-        for _ in range(2):
-            state = be.step(state, tb.PhysicsConstants(), tb.UserInput())
-        out[dev] = (state[0].cpu(), be.far_stats())
-    (h_cpu, s_cpu), (h_gpu, s_gpu) = out["cpu"], out["cuda"]
-    if s_cpu != s_gpu or s_gpu["far_pairs"] == 0:
-        raise AssertionError(f"small fold: far stats cpu {s_cpu} vs "
-                             f"cuda {s_gpu}")
-    dpos = (h_gpu[0:2] - h_cpu[0:2]).abs().max().item()
-    dvel = (h_gpu[2:4] - h_cpu[2:4]).abs().max().item()
-    if not (dpos <= 5e-3 and dvel <= 5e-2):
-        raise AssertionError(f"small fold: cuda vs cpu |dpos| {dpos} "
-                             f"|dvel| {dvel}")
-    log(f"small fold 96x4, 2 frames: cuda == cpu plain (far stats "
-        f"{s_gpu}; max |dpos| {dpos:.3g}, |dvel| {dvel:.3g})")
+    cfg = tb.StaticConfig(subticks=8, particle_radius=4.0)
+    fused = FusedLatticeBackend(spec, cfg, device=dev, far_buckets=(16,),
+                                farfield=dataclasses.replace(
+                                    ff, max_pairs=64, max_tile_pairs=32))
+    hot = fused.pack_state(_hairpin(dev))
+    for _ in range(2):
+        hot = fused.step(hot, consts, uin)
+    out["fused backend"] = (fused.far_stats(), hot[0][0:4])
+    cfg = dataclasses.replace(cfg, use_pallas=True)
+    dense = LatticeBackend(spec, cfg, farfield=ff, device=dev)
+    st = _hairpin(dev)
+    for _ in range(2):
+        st = dense.step(st, consts, uin)
+    out["path A"] = (dense.far_stats(),
+                     torch.stack([st.pos, st.vel]).permute(0, 3, 1, 2))
+    mut, immut = pack_lattice(_hairpin(dev))
+    fl = rebuild_far_list_packed(mut, immut, s=2, ff=ff, radius=4.0)
+    mut = fused_frame_far(mut, immut, fl, consts, uin, spec, cfg, ff)
+    out["path B"] = ({"far_pairs": fl.counts()[0],
+                      "far_overflow": fl.counts()[1]}, mut[0:4])
+    return {k: (stats, planes.reshape(2, 2, 96, 4).cpu())
+            for k, (stats, planes) in out.items()}
+
+
+def check_small_fold() -> None:
+    """The small fold on the card against the CPU (the plain versions):
+    far stats equal and non-empty, positions and velocities within
+    tests/test_torch_frame.py's tolerances (the far apply's scatter
+    order differs on the card)."""
+    cpu, gpu = _small_fold("cpu"), _small_fold("cuda")
+    for k, (s_g, pv_g) in gpu.items():
+        s_c, pv_c = cpu[k]
+        if s_c != s_g or s_g["far_pairs"] == 0 or s_g["far_overflow"]:
+            raise AssertionError(f"small fold, {k}: far stats cpu {s_c} vs "
+                                 f"cuda {s_g}")
+        dpos = (pv_g[0] - pv_c[0]).abs().max().item()
+        dvel = (pv_g[1] - pv_c[1]).abs().max().item()
+        if not (dpos <= 5e-3 and dvel <= 5e-2):
+            raise AssertionError(f"small fold, {k}: cuda vs cpu |dpos| "
+                                 f"{dpos} |dvel| {dvel}")
+        log(f"small fold 96x4, {k}: cuda == cpu plain (far stats {s_g}; "
+            f"max |dpos| {dpos:.3g}, |dvel| {dvel:.3g})")
+
+
+def _frames(step, n_frames: int):
+    """Run ``step`` n_frames times; per-frame ms (CUDA events)."""
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(n_frames + 1)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    for i in range(n_frames):
+        step()
+        ev[i + 1].record()
+    torch.cuda.synchronize()
+    return [ev[i].elapsed_time(ev[i + 1]) for i in range(n_frames)]
+
+
+def profile_frame(label: str, step, frame_ms: float) -> None:
+    """One frame under ``torch.profiler``: device busy time (the sum of
+    the kernels' durations; one stream, so they do not overlap), the
+    device's idle share against ``frame_ms`` (the frame's time with the
+    profiler off: the profiler itself slows the host many times over),
+    the kernel launch count and the kernels that take most of the device
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + (
+            e.time_range.elapsed_us() / 1e3)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    log(f"{label} profile, one frame: device busy {busy_ms:.1f} ms of a "
+        f"{frame_ms:.1f} ms frame (idle share {1.0 - busy_ms / frame_ms:.2f}"
+        f"; host {wall_ms:.1f} ms with the profiler on), {len(kernels)} "
+        "kernel launches; top: "
+        + "; ".join(f"{name[:90]} {ms:.1f} ms" for name, ms in top))
+
+
+def run_path_a(dev) -> dict:
+    """Path A at full width: ``play --path lattice --farfield`` on the 1M
+    tearing cloth (default arguments, ``FarFieldSpec()``) with
+    ``use_pallas``, through ``LatticeBackend.step``; then one more frame
+    under the profiler."""
+    state, spec, cfg, consts = tearing_cloth_lattice(
+        n_particles=N_PARTICLES, device=dev)
+    cfg = dataclasses.replace(cfg, use_pallas=True)
+    be = LatticeBackend(spec, cfg, farfield=FarFieldSpec(), device=dev)
+    uin = tb.UserInput()
+    n0, m0 = be.counts(state)
+    box = [state]
+
+    def step():
+        box[0] = be.step(box[0], consts, uin)
+
+    collide_stencil.K3_LAUNCHES = 0
+    band_detect.K2_LAUNCHES = 0
+    ms = _frames(step, PATH_A_FRAMES)
+    k3, k2 = collide_stencil.K3_LAUNCHES, band_detect.K2_LAUNCHES
+    state, stats = box[0], be.far_stats()
+    substeps = PATH_A_FRAMES * cfg.subticks
+    if k3 != substeps:
+        raise AssertionError(f"path A: K3 launched {k3} times for "
+                             f"{substeps} substeps")
+    if stats["far_rebuilds"] < 1 or k2 != stats["far_rebuilds"]:
+        raise AssertionError(f"path A: far stats {stats}, K2 launched {k2} "
+                             "times")
+    if stats["far_overflow"] != 0:
+        raise AssertionError(f"path A: far_overflow {stats}")
+    if not bool(torch.isfinite(torch.stack([state.pos, state.vel])).all()):
+        raise AssertionError("path A: non-finite particle state")
+    n1, m1 = be.counts(state)
+    rate = substeps / (sum(ms) / 1000.0)
+    log(f"path A: {spec.width}x{spec.height} lattice, {n1} particles, "
+        f"alive beams {m0} -> {m1}; {PATH_A_FRAMES} frames = {substeps} "
+        f"substeps, frame ms {[round(t, 1) for t in ms]} = {rate:.1f} "
+        f"substeps/s; far stats {stats}, {be.far_chunks} chunks; K3 "
+        f"launches {k3}, K2 launches {k2}; pos y range "
+        f"[{state.pos[..., 1].min().item():.3f}, "
+        f"{state.pos[..., 1].max().item():.3f}]")
+    profile_frame("path A", step, sum(ms) / len(ms))
+    return dict(state=box[0], cfg=cfg, consts=consts, spec=spec, k3=k3,
+                rate=rate)
+
+
+def run_path_b(dev) -> dict:
+    """Path B at full width: bench.py's ``BENCH_PATH=fused_v1`` (the 1M
+    tearing cloth, default arguments, r = 2, 64 substeps, no far field)
+    through ``fused_frame``."""
+    state, spec, cfg, consts = tearing_cloth_lattice(
+        n_particles=N_PARTICLES, device=dev)
+    mut, immut = pack_lattice(state)
+    uin = tb.UserInput()
+    eal = slice(10, 26, 5)
+    m0 = int((mut[eal] > 0).sum())
+    box = [mut]
+
+    def step():
+        box[0] = fused_frame(box[0], immut, consts, uin, spec, cfg)
+
+    fused_substep.K4_LAUNCHES = 0
+    ms = _frames(step, PATH_B_FRAMES)
+    k4 = fused_substep.K4_LAUNCHES
+    mut = box[0]
+    substeps = PATH_B_FRAMES * cfg.subticks
+    if k4 != substeps:
+        raise AssertionError(f"path B: K4 launched {k4} times for "
+                             f"{substeps} substeps")
+    if not bool(torch.isfinite(mut).all()):
+        raise AssertionError("path B: non-finite state")
+    if tuple(mut.shape) != (26, spec.width, spec.height):
+        raise AssertionError(f"path B: mut shape {tuple(mut.shape)}")
+    m1 = int((mut[eal] > 0).sum())
+    rate = substeps / (sum(ms) / 1000.0)
+    log(f"path B: {spec.width}x{spec.height} lattice, alive beams {m0} -> "
+        f"{m1}; {PATH_B_FRAMES} frames = {substeps} substeps, frame ms "
+        f"{[round(t, 1) for t in ms]} = {rate:.1f} substeps/s; K4 launches "
+        f"{k4}; pos y range [{mut[1].min().item():.3f}, "
+        f"{mut[1].max().item():.3f}]")
+    return dict(mut=mut, immut=immut, cfg=cfg, consts=consts, spec=spec,
+                k4=k4, rate=rate)
 
 
 def run_main_path(state, spec, cfg, consts, spacing) -> dict:
@@ -349,9 +657,52 @@ def time_at_final_state(run, spec, cfg, consts) -> dict:
     t["K2"] = _timed_ms(lambda: band_flag_call(*planes, offsets=offsets),
                         50)
     t["K2 plain"] = _timed_ms(lambda: band_flags_plain(*planes, offsets), 5)
+    n = hot.shape[1] * hot.shape[2]
+    # K1: reads hot, immut and far, writes hot (the non-observing call)
+    bounds = {"K1": _bound((18 + 2 + 5 + 18) * 4 * n, _substep_ops(n, s)),
+              "K2": _bound(n * (4 * 4 + 1) + n,
+                           7 * _band_pairs_evaluated(*planes, offsets))}
     log(f"at the final state ({n_pairs} far pairs, {flagged} band-flagged "
-        f"particles): " + ", ".join(f"{k} {v:.4f} ms" for k, v in t.items()))
-    return t
+        f"particles): " + ", ".join(f"{k} {v:.4f} ms" for k, v in t.items())
+        + "; bounds " + ", ".join(f"{k} {v[0]:.4f} ms ({v[1]})"
+                                  for k, v in bounds.items()))
+    return t, bounds
+
+
+def time_paths_kernels(run_a, run_b) -> dict:
+    """K3 at path A's final state and K4 at path B's (CUDA events, ms per
+    call), each against its plain version, with its bound.  K3 is timed
+    on contiguous planes (on the path its wrapper first copies the
+    strided views of the state)."""
+    st, cfg, consts = run_a["state"], run_a["cfg"], run_a["consts"]
+    s = run_a["spec"].collision_stencil
+    planes = [t.contiguous() for t in (st.pos[..., 0], st.pos[..., 1],
+                                       st.vel[..., 0], st.vel[..., 1],
+                                       st.alive)]
+    kw = dict(radius=cfg.particle_radius, dt=cfg.dt, ecoeff=consts.ecoeff,
+              friction=consts.friction, stencil=s)
+    t = {"K3": _timed_ms(lambda: collide_stencil_call(*planes, **kw), 50),
+         "K3 plain": _timed_ms(lambda: collide_stencil_plain(*planes, **kw),
+                               3)}
+    n = planes[0].numel()
+    bounds = {"K3": _bound(n * (4 * 4 + 1) + 5 * 4 * n, _k3_ops(n, s))}
+
+    mut, immut, cfg_b = run_b["mut"], run_b["immut"], run_b["cfg"]
+    s_b = run_b["spec"].collision_stencil
+    cvec = tb.consts_vector(run_b["consts"], tb.UserInput(), cfg_b,
+                            run_b["spec"].height)
+    kw4 = dict(stencil=s_b, quantized=cfg_b.force_mode == "quantized")
+    t["K4"] = _timed_ms(lambda: fused_substep_call(mut, immut, cvec, **kw4),
+                        50)
+    t["K4 plain"] = _timed_ms(lambda: fused_substep_plain(mut, immut, cvec,
+                                                          **kw4), 3)
+    # K4: reads mut and immut, writes mut (path B has no far stack)
+    bounds["K4"] = _bound((26 + 22 + 26) * 4 * n, _substep_ops(n, s_b))
+    log("at paths A and B's final states: "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in t.items())
+        + "; bounds " + ", ".join(f"{k} {v[0]:.4f} ms ({v[1]})"
+                                  for k, v in bounds.items()))
+    return t, bounds
 
 
 def main() -> int:
@@ -375,42 +726,59 @@ def main() -> int:
             log(f"  ptxas: {line.strip()}")
 
     # phases 2-3: kernels against their plain versions, 64x64 and 1M
-    errs = {"K1": 0.0, "K2": 0.0}
+    errs = {"K1": 0.0, "K2": 0.0, "K3": 0.0, "K4": 0.0}
+    checks = {"K1": check_k1, "K2": check_k2, "K3": check_k3,
+              "K4": check_k4}
     scenes = {}
     for n in (64 * 64, N_PARTICLES):
         state, spec, cfg, consts, spacing = _scene(n, dev)
         scenes[n] = (state, spec, cfg, consts, spacing)
         label = f"{spec.width}x{spec.height}"
-        errs["K1"] = max(errs["K1"], check_k1(label, state, spec, cfg,
-                                              consts, spacing))
-        errs["K2"] = max(errs["K2"], check_k2(label, state, spec, cfg,
-                                              spacing))
+        for k, check in checks.items():
+            args = ((state, spec, cfg, spacing) if k == "K2"
+                    else (state, spec, cfg, consts, spacing))
+            errs[k] = max(errs[k], check(label, *args))
     log("phases 2-3 kernels vs plain: ok")
 
     # phase 4: small end-to-end against the plain versions on the CPU
-    check_small_end_to_end()
+    check_small_fold()
 
-    # phase 5: the main path at full size
+    # phase 5: the bench path at full size
     state, spec, cfg, consts, spacing = scenes[N_PARTICLES]
     run = run_main_path(state, spec, cfg, consts, spacing)
+    del scenes
 
-    # phase 6: times at the main path's final state, kernels against
+    # phase 6: times at the bench path's final state, kernels against
     # their plain versions
-    t = time_at_final_state(run, spec, cfg, consts)
+    t, bounds = time_at_final_state(run, spec, cfg, consts)
+    del run["be"], run["packed"]
 
+    # phases 7-8: paths A and B at full size, then K3 and K4 timed at
+    # their final states
+    run_a = run_path_a(dev)
+    run_b = run_path_b(dev)
+    t_ab, bounds_ab = time_paths_kernels(run_a, run_b)
+    t.update(t_ab)
+    bounds.update(bounds_ab)
+
+    rows = (
+        ("K1", "fused_substep2", "fused_substep2.py:195", run["k1"]),
+        ("K2", "band_detect", "band_detect.py:65", run["k2"]),
+        ("K3", "collide_stencil", "collide_stencil.py:41", run_a["k3"]),
+        ("K4", "fused_substep", "fused_substep.py:80", run_b["k4"]),
+    )
     kernels = [
-        {"name": "K1 fused_substep2", "route": "cuda",
-         "source": "softbody_tpu_torch/csrc/fused_substep2.cu",
-         "replaces": "softbody_tpu/ops/pallas/fused_substep2.py:195",
-         "launches": run["k1"], "max_abs_err": errs["K1"], "ms": t["K1"],
-         "plain_ms": t["K1 plain"]},
-        {"name": "K2 band_detect", "route": "cuda",
-         "source": "softbody_tpu_torch/csrc/band_detect.cu",
-         "replaces": "softbody_tpu/ops/pallas/band_detect.py:65",
-         "launches": run["k2"], "max_abs_err": errs["K2"], "ms": t["K2"],
-         "plain_ms": t["K2 plain"]},
+        {"name": f"{k} {name}", "route": "cuda",
+         "source": f"softbody_tpu_torch/csrc/{name}.cu",
+         "replaces": f"softbody_tpu/ops/pallas/{tpu}",
+         "launches": launches, "max_abs_err": errs[k], "ms": t[k],
+         "plain_ms": t[f"{k} plain"], "bound_ms": bounds[k][0],
+         "bound_by": bounds[k][1], "library_ms": None}
+        for k, name, tpu, launches in rows
     ]
-    log(f"main path rate: {run['rate']:.1f} substeps/s on {card}")
+    log(f"path A rate: {run_a['rate']:.1f} substeps/s, path B rate: "
+        f"{run_b['rate']:.1f} substeps/s on {card}")
+    log(f"bench path rate: {run['rate']:.1f} substeps/s on {card}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

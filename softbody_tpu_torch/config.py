@@ -31,6 +31,19 @@ BEAM_STRESS_SCALE = 1.0 / 20.0
 N_CONSTS = 20
 
 
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: CUDA unless the caller names
+    another.  Raises ``RuntimeError`` when CUDA is asked for (or left to
+    the default) and no CUDA device is present: the port never moves to
+    the CPU unless told to."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port runs on the card by default; pass "
+            "device='cpu' to run its plain torch versions on the CPU")
+    return dev
+
+
 def f32(x) -> float:
     """``x`` rounded to float32, as a host float."""
     return float(np.float32(x))
@@ -45,6 +58,10 @@ class StaticConfig:
     treats every other mode the same (the stencil supplies the pairs).
     ``force_mode``: ``"quantized"`` (int32 fixed point at scale 65536,
     bit-matching the reference's atomic trick) or ``"segment"`` (f32).
+    ``use_pallas``: the JAX package's name for its kernel routes, kept so
+    a reader finds the counterpart; here it sends the lattice substep's
+    collision stencil through the hand-written kernel K3
+    (``ops/cuda/collide_stencil.py``).
     """
 
     bounds_size: float = DEFAULT_BOUNDS_SIZE
@@ -52,6 +69,7 @@ class StaticConfig:
     subticks: int = DEFAULT_SUBTICKS
     collision_mode: str = "allpairs"
     force_mode: str = "quantized"
+    use_pallas: bool = False
 
     def __post_init__(self) -> None:
         object.__setattr__(self, "subticks", max(2, -(-self.subticks // 2) * 2))

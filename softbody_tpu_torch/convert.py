@@ -11,7 +11,7 @@ from typing import Mapping, Sequence
 import numpy as np
 import torch
 
-from .config import PhysicsConstants, UserInput
+from .config import PhysicsConstants, UserInput, resolve_device
 from .ops.stencil import EdgeClass, LatticeState
 
 EDGE_FIELDS = tuple(EdgeClass.__dataclass_fields__)
@@ -27,11 +27,13 @@ def _bool(a, device) -> torch.Tensor:
 
 def lattice_state_from_numpy(pos, vel, acc, alive, pinned,
                              edges: Sequence[Mapping[str, np.ndarray]], *,
-                             device="cpu") -> LatticeState:
-    """A :class:`LatticeState` on ``device`` from the numpy fields of a
-    lattice state: ``pos``/``vel``/``acc`` ``[W, H, 2]``, ``alive`` and
-    ``pinned`` ``[W, H]`` bool, and per edge class a mapping of the
+                             device=None) -> LatticeState:
+    """A :class:`LatticeState` on ``device`` (default: the CUDA device;
+    ``config.resolve_device``) from the numpy fields of a lattice state:
+    ``pos``/``vel``/``acc`` ``[W, H, 2]``, ``alive`` and ``pinned``
+    ``[W, H]`` bool, and per edge class a mapping of the
     :class:`EdgeClass` field names to ``[W, H]`` arrays."""
+    device = resolve_device(device)
     out_edges = []
     for e in edges:
         missing = set(EDGE_FIELDS) - set(e)

@@ -1,12 +1,19 @@
-"""Lattice engine backends (port of ``softbody_tpu/engine/backends.py``,
-the fused lattice backend and the base it uses).
+"""Lattice engine backends (port of ``softbody_tpu/engine/backends.py``:
+the dense stencil backend and the fused backend built on it).
 
-:class:`FusedLatticeBackend` steps persistent packed planes with the
-fused substep kernel (K1) and, when far field is armed, the fixed-cadence
-far-field frame (rebuilds with the band kernel K2).  Only the strict
-physics is ported: the backend raises on any kernel variant, far mode,
-detection mode or band implementation it does not run, instead of
-dropping it."""
+:class:`LatticeBackend` steps a :class:`LatticeState` with the stencil
+path (``ops/stencil.py``; its collisions through kernel K3 when
+``cfg.use_pallas``) and, when far field is armed, a Verlet-style
+candidate list that it rebuilds when the motion since the last rebuild
+could outrun the skin.  :class:`FusedLatticeBackend` steps persistent
+packed planes with the fused substep kernel (K1) and, when far field is
+armed, the fixed-cadence far-field frame (rebuilds with the band kernel
+K2).  Only the strict physics is ported: the fused backend raises on any
+kernel variant, far mode, detection mode or band implementation it does
+not run, instead of dropping it.
+
+Both run on the CUDA device unless the caller names another
+(``device="cpu"`` runs the plain torch versions)."""
 
 from __future__ import annotations
 
@@ -14,7 +21,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..config import PhysicsConstants, StaticConfig, UserInput
+from ..config import PhysicsConstants, StaticConfig, UserInput, resolve_device
 from ..ops.cuda.fused_substep2 import (
     ALIVE,
     EAL,
@@ -24,22 +31,127 @@ from ..ops.cuda.fused_substep2 import (
     pack_lattice2,
     unpack_lattice2,
 )
-from ..ops.stencil import LatticeState
+from ..ops.farfield import (
+    crop_far_list,
+    displacement_check,
+    empty_far_list_at,
+    far_candidate_count,
+    max_relative_speed,
+    rebuild_far_list,
+)
+from ..ops.stencil import LatticeState, lattice_frame, lattice_frame_far
 
 FAR_BANDS = {"cuda": "kernel", "cpu": "plain"}
 
 
 class LatticeBackend:
-    """Base of the lattice backends: static configuration, far-field
-    stats and alive counts."""
+    """Dense stencil engine backend on ``device`` (default: the CUDA
+    device).
 
-    def __init__(self, spec, cfg: StaticConfig, farfield=None) -> None:
+    ``farfield``: optional :class:`~..ops.farfield.FarFieldSpec` enabling
+    index-distant (fold/tear) self-collision.  Before each frame chunk the
+    backend projects the COM-relative displacement the chunk can add
+    (current displacement + 2 × max relative speed × chunk time) against
+    the skin/2 validity budget and rebuilds the list when it would run
+    out.  An empty list keeps the near-field-only frame; capacity buckets
+    (``_FAR_BUCKETS``) keep the per-substep gather small when few pairs
+    are active."""
+
+    _FAR_BUCKETS = (64, 256, 1024)
+    # below this validity horizon (in substeps) a rebuild is cheaper than
+    # dicing the frame further; chunks are powers of two
+    _MIN_CHUNK = 4
+
+    def __init__(self, spec, cfg: StaticConfig, farfield=None, *,
+                 device=None) -> None:
         self.spec = spec
         self.cfg = cfg
         self.ff = farfield
+        self.device = resolve_device(device)
+        if self.device.type not in FAR_BANDS:
+            raise ValueError(f"no kernels for device {self.device}")
+        self._far_list = None         # full-capacity list
+        self._far_active = None       # cropped list passed to the frame
         self.far_rebuilds = 0
         self.far_pairs = 0
         self.far_overflow = 0
+        self.far_chunks = 0           # frame chunks run (observability)
+
+    def _motion(self, state: LatticeState) -> Tuple[float, float]:
+        """(COM-relative displacement since the rebuild, max relative
+        speed), in one host read."""
+        vrel = max_relative_speed(state.vel, state.alive)
+        if self._far_list is None:
+            return float("inf"), float(vrel)
+        disp = displacement_check(state.pos, state.alive, self._far_list)
+        d, v = torch.stack([disp, vrel]).tolist()
+        return d, v
+
+    def _far_rebuild(self, pos, alive) -> None:
+        """A detection-only count first (a frame with no fold skips the
+        compaction), then the full list when candidates exist.  While the
+        previous list was non-empty (a persistent fold) the count is
+        skipped: it would run the same detection twice."""
+        kw = dict(s=self.spec.collision_stencil, ff=self.ff,
+                  radius=self.cfg.particle_radius)
+        self.far_rebuilds += 1
+        if self.far_pairs == 0:
+            total, com = far_candidate_count(pos, alive, **kw)
+            if int(total) == 0:
+                self._far_list = empty_far_list_at(pos, com, self.ff)
+                self._far_active = None
+                self.far_overflow = 0
+                return
+        self._far_list = rebuild_far_list(pos, alive, **kw)
+        self.far_pairs, self.far_overflow = self._far_list.counts()
+        if self.far_pairs == 0:
+            self._far_active = None
+        else:
+            k = next((b for b in self._FAR_BUCKETS if b >= self.far_pairs),
+                     self.ff.max_pairs)
+            self._far_active = crop_far_list(self._far_list,
+                                             min(k, self.ff.max_pairs))
+
+    def _frame_chunk(self, state, consts, uin, n_sub):
+        if self._far_active is not None:
+            return lattice_frame_far(state, self._far_active, consts, uin,
+                                     self.spec, self.cfg, self.ff,
+                                     n_sub=n_sub)
+        return lattice_frame(state, consts, uin, self.spec, self.cfg,
+                             n_sub=n_sub)
+
+    def step(self, state: LatticeState, consts: PhysicsConstants,
+             uin: UserInput) -> LatticeState:
+        """One frame.  With far field armed the frame runs as chunks no
+        longer than the list's validity horizon: the list built at the
+        reference positions covers every pair that can come into reach
+        while no particle's COM-relative displacement exceeds skin/2, so
+        with max relative speed v it holds for ⌊(skin/2 − disp)/(2·v·dt)⌋
+        more substeps (a safety factor 2 for speed growth within the
+        chunk).  A horizon shorter than ``_MIN_CHUNK`` rebuilds instead;
+        chunk lengths are powers of two."""
+        if state.device.type != self.device.type:
+            raise ValueError(f"state on {state.device}, backend on "
+                             f"{self.device}")
+        if self.ff is None or self.cfg.collision_mode == "none":
+            return lattice_frame(state, consts, uin, self.spec, self.cfg)
+        dt = self.cfg.dt
+        budget = self.ff.skin * 0.5
+        remaining = self.cfg.subticks
+        while remaining > 0:
+            disp, vrel = self._motion(state)
+            denom = max(2.0 * vrel * dt, 1e-12)
+            horizon = (budget - disp) / denom
+            if horizon < min(self._MIN_CHUNK, remaining):
+                self._far_rebuild(state.pos, state.alive)
+                horizon = max(budget / denom, 1.0)
+            j = 1
+            while 2 * j <= min(remaining, int(max(horizon, 1.0))):
+                j *= 2
+            state = self._frame_chunk(state, consts, uin, n_sub=j)
+            self.far_chunks += 1
+            remaining -= j
+        return state
 
     def far_stats(self) -> dict:
         return {"far_rebuilds": self.far_rebuilds,
@@ -64,6 +176,7 @@ class FusedLatticeBackend(LatticeBackend):
     on ``device``; the immutable planes and edge constants live on the
     backend (edge parameters must be uniform per class).
 
+    ``device``: as :class:`LatticeBackend` (default: the CUDA device).
     ``far_band``: ``"kernel"`` on CUDA, ``"plain"`` on the CPU (None
     picks it from ``device``); the band wrapper itself dispatches on the
     tensor's device, so any other value is an error.  ``far_mode`` must
@@ -71,15 +184,12 @@ class FusedLatticeBackend(LatticeBackend):
     ``kernel_variants`` empty: the strict path is the one ported."""
 
     def __init__(self, spec, cfg: StaticConfig, farfield=None, *,
-                 device="cpu", far_mode: str = "v4",
+                 device=None, far_mode: str = "v4",
                  far_buckets: Optional[Tuple[int, ...]] = None,
                  far_band: Optional[str] = None, far_detect: str = "xla",
                  far_activation: bool = False,
                  kernel_variants: Tuple[str, ...] = ()) -> None:
-        super().__init__(spec, cfg, farfield=farfield)
-        self.device = torch.device(device)
-        if self.device.type not in FAR_BANDS:
-            raise ValueError(f"no kernels for device {self.device}")
+        super().__init__(spec, cfg, farfield=farfield, device=device)
         if tuple(kernel_variants):
             raise ValueError(
                 f"kernel variants {tuple(kernel_variants)!r} are not ported: "

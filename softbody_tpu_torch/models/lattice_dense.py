@@ -1,6 +1,7 @@
 """Dense-lattice scene builders (port of
 ``softbody_tpu/models/lattice_dense.py``).  Each scene is built in numpy
-and moved to ``device`` once.
+and moved to ``device`` once: the CUDA device unless the caller names
+another (``config.resolve_device``; it raises without a card).
 
 The ``[W, H]`` layout flattens to linear index ``x*H + y``, the particle
 order of the reference's ``addRectangle`` (main.ts:203-213)."""
@@ -68,7 +69,7 @@ def make_lattice(
     strain_limit: float = 0.25,
     diagonals: bool = True,
     pinned_mask: Optional[np.ndarray] = None,
-    device="cpu",
+    device=None,
 ) -> LatticeState:
     """A ``w × h`` lattice at ``spacing`` with the four reference edge
     classes (border edges statically dead)."""
@@ -88,7 +89,7 @@ def tearing_cloth_lattice(
     pin_top: bool = False,
     fall_speed: float = 2.0,
     slits: int = 0,
-    device="cpu",
+    device=None,
 ) -> Tuple[LatticeState, LatticeSpec, StaticConfig, PhysicsConstants]:
     """BASELINE config 5 on the dense path: a near-square lattice spanning
     the world, falling and tearing where it crumples on impact.
@@ -134,7 +135,7 @@ def cloth_lattice(
     damp: float = 10.0,
     pin_top: bool = False,
     collision_stencil: int = 2,
-    device="cpu",
+    device=None,
 ) -> Tuple[LatticeState, LatticeSpec, StaticConfig]:
     """A cloth hanging near the top of the world."""
     ox = 500.0 - (w - 1) * spacing / 2

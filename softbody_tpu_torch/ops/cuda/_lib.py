@@ -1,9 +1,11 @@
 """Build and bind the hand-written Hopper kernels (``csrc/*.cu``).
 
-At first use the sources are compiled by ``nvcc`` into one shared
-library with a plain C interface, under ``softbody_tpu_torch/_build/``
-(named by a hash of the sources and flags, so an edit rebuilds), and
-loaded with ``ctypes``.  Nothing is built or loaded at import time.
+At first use each source is compiled by its own ``nvcc`` process (all
+started together), the objects are linked into one shared library with a
+plain C interface under ``softbody_tpu_torch/_build/`` (named by a hash
+of the sources, the shared header and the flags, so an edit rebuilds),
+and the library is loaded with ``ctypes``.  Nothing is built or loaded
+at import time.
 
 Flags: ``sm_90a``; no ``--use_fast_math`` (it flushes denormals and
 approximates ``sqrtf`` and ``/``); ``-fmad=false`` so no multiply-add is
@@ -25,14 +27,17 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("fused_substep2.cu", "band_detect.cu")
+SOURCES = ("fused_substep2.cu", "band_detect.cu", "collide_stencil.cu",
+           "fused_substep.cu")
+HEADERS = ("lattice_device.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 
 
 def _nvcc() -> str:
@@ -49,7 +54,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update((CSRC / name).read_bytes())
     return BUILD_DIR / f"libsoftbody_kernels_{h.hexdigest()[:16]}.so"
 
@@ -62,16 +67,34 @@ def build() -> tuple:
     if out.exists():
         return out, 0.0, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC / n) for n in SOURCES)]
+    nvcc = _nvcc()
+    tag = f"{out.stem}.{os.getpid()}"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
+    objs, procs = [], []
+    for name in SOURCES:
+        obj = BUILD_DIR / f"{tag}.{Path(name).stem}.o"
+        objs.append(obj)
+        procs.append(subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / name)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    outputs = [proc.communicate() for proc in procs]
+    for name, proc, (stdout, stderr) in zip(SOURCES, procs, outputs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {name} ({proc.returncode}):"
+                               f"\n{stdout}\n{stderr}")
+    report = [stderr for _stdout, stderr in outputs]
+    tmp = BUILD_DIR / f"{tag}.tmp"
+    link = subprocess.run(
+        [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+         "-o", str(tmp), *map(str, objs)],
+        capture_output=True, text=True)
+    for obj in objs:
+        obj.unlink()
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                           f"{link.stdout}\n{link.stderr}")
     os.replace(tmp, out)
-    return out, time.perf_counter() - t0, proc.stderr
+    return out, time.perf_counter() - t0, "".join(report)
 
 
 @functools.cache
@@ -89,6 +112,15 @@ def library() -> ctypes.CDLL:
     lib.sb_band_flags.argtypes = [_P, _P, _P, _P, _P, _P, _P,
                                   _I, _I, _I, _P]
     lib.sb_band_flags.restype = _I
+    # int sb_collide_stencil(px, py, vx, vy, alive, out, two_r, inv_dt2,
+    #                        ecoeff, friction, w, h, stencil, stream)
+    lib.sb_collide_stencil.argtypes = [_P, _P, _P, _P, _P, _P, _F, _F, _F,
+                                       _F, _I, _I, _I, _P]
+    lib.sb_collide_stencil.restype = _I
+    # int sb_fused_substep(mut, immut, far, mut_out, consts_host, w, h,
+    #                      stencil, quantized, stream)
+    lib.sb_fused_substep.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
+    lib.sb_fused_substep.restype = _I
     lib.sb_error_string.argtypes = [_I]
     lib.sb_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,0 +1,125 @@
+"""The dense collision stencil (kernel K3): the port of
+``softbody_tpu/ops/pallas/collide_stencil.py``.
+
+Every particle sums the reference pair math (compute.wgsl:150-168) over
+its **full** offset set ``(2s+1)² − 1`` in K3's order — dx-major from
+−s to s, then dy — with no reactions: each unordered pair is evaluated
+at both ends.  This is not the half-offset sum order of the XLA stencil
+(``ops/stencil.py::_stencil_collisions``), so the plain version here
+loops over K3's offsets itself.
+
+``collide_stencil_call`` is the K3 wrapper: on CUDA tensors it launches
+the hand-written kernel (``csrc/collide_stencil.cu``), on CPU tensors it
+runs the plain version ``collide_stencil_plain``.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from ..stencil import shifted, sqrt32
+from . import _lib
+
+MAX_STENCIL = 8
+
+# launches of the CUDA kernel (the plain version does not count)
+K3_LAUNCHES = 0
+
+
+def full_offsets(s: int) -> Tuple[Tuple[int, int], ...]:
+    """K3's offsets of radius ``s``, in summation order."""
+    return tuple((dx, dy) for dx in range(-s, s + 1)
+                 for dy in range(-s, s + 1) if (dx, dy) != (0, 0))
+
+
+def _scalars(radius: float, dt: float):
+    """``(2r, 1/dt²)`` in float32, as K3 forms them."""
+    r, t = np.float32(radius), np.float32(dt)
+    return float(np.float32(2.0) * r), float(np.float32(1.0) / (t * t))
+
+
+def collide_stencil_plain(px, py, vx, vy, alive, *, radius: float, dt: float,
+                          ecoeff: float, friction: float, stencil: int):
+    """Plain torch version of K3: ``(dvx, dvy, dax, day, dyn)`` ``[W, H]``.
+
+    Terms are masked by multiplying with ``ovf`` (1.0 / 0.0) as K3 does,
+    so a non-finite term gives NaN where a ``where`` would give 0.  The
+    coincident nudge ``sign(lin_i − lin_j)`` with ``lin = x·H + y`` is the
+    per-offset constant ``−sign(dx·H + dy)`` (exact in float32 below
+    2²⁴).  Out-of-range neighbours read as dead particles at the origin."""
+    h = px.shape[1]
+    two_r, inv_dt2 = _scalars(radius, dt)
+    z = torch.zeros_like(px)
+    dvx, dvy, dax, day, dyn = z, z, z, z, z
+    for dx, dy in full_offsets(stencil):
+        valid = alive & shifted(alive, dx, dy, False)
+        ddx = shifted(px, dx, dy) - px
+        ddy = shifted(py, dx, dy) - py
+        dist = sqrt32(ddx * ddx + ddy * ddy)
+        coincident = valid & (dist == 0.0)
+        overlap = valid & (dist > 0.0) & (dist < two_r)
+        dyn = dyn + torch.where(coincident, -float(np.sign(dx * h + dy)), 0.0)
+        inv = torch.where(
+            overlap, torch.reciprocal(torch.where(overlap, dist, 1.0)), 0.0)
+        nx, ny = ddx * inv, ddy * inv
+        rvx = vx - shifted(vx, dx, dy)
+        rvy = vy - shifted(vy, dx, dy)
+        imp_n = ecoeff * (rvx * nx + rvy * ny)
+        max_fric = imp_n * friction
+        imp_t = torch.minimum(torch.maximum(rvx * -ny + rvy * nx, -max_fric),
+                              max_fric)
+        ovf = overlap.to(torch.float32)
+        dvx = dvx - (imp_n * nx + imp_t * -ny) * ovf
+        dvy = dvy - (imp_n * ny + imp_t * nx) * ovf
+        clip = (two_r - dist) * 0.5 * inv_dt2
+        dax = dax - nx * clip * ovf
+        day = day - ny * clip * ovf
+    return dvx, dvy, dax, day, dyn
+
+
+def collide_stencil_call(px, py, vx, vy, alive, *, radius: float, dt: float,
+                         ecoeff: float, friction: float, stencil: int):
+    """Collision deltas ``(dvx, dvy, dax, day, dyn)`` of the full offset
+    set of radius ``stencil`` (kernel K3).
+
+    ``px py vx vy`` float32 ``[W, H]``, ``alive`` bool ``[W, H]``, on one
+    device (any strides: the wrapper makes them contiguous); the scalars
+    are float32 values.  On CUDA tensors the kernel runs on the current
+    stream without synchronising; on CPU tensors the plain version runs."""
+    global K3_LAUNCHES
+    shape = tuple(px.shape)
+    if len(shape) != 2:
+        raise ValueError(f"planes must be [W, H], got {shape}")
+    for name, t in (("px", px), ("py", py), ("vx", vx), ("vy", vy)):
+        if t.dtype != torch.float32 or tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be float32 {shape}")
+    if alive.dtype != torch.bool or tuple(alive.shape) != shape:
+        raise ValueError(f"alive must be bool {shape}")
+    devices = {t.device for t in (px, py, vx, vy, alive)}
+    if len(devices) != 1:
+        raise ValueError(f"planes on several devices: {devices}")
+    if not 1 <= stencil <= MAX_STENCIL:
+        raise ValueError(f"stencil {stencil} outside [1, {MAX_STENCIL}]")
+    kw = dict(radius=radius, dt=dt, ecoeff=ecoeff, friction=friction,
+              stencil=stencil)
+    device = px.device
+    if device.type == "cpu":
+        return collide_stencil_plain(px, py, vx, vy, alive, **kw)
+    if device.type != "cuda":
+        raise ValueError(f"no K3 kernel for device {device}")
+    lib = _lib.library()
+    planes = [t.contiguous() for t in (px, py, vx, vy, alive)]
+    out = torch.empty((5,) + shape, dtype=torch.float32, device=device)
+    two_r, inv_dt2 = _scalars(radius, dt)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.sb_collide_stencil(
+            *(t.data_ptr() for t in planes), out.data_ptr(), two_r, inv_dt2,
+            float(np.float32(ecoeff)), float(np.float32(friction)),
+            shape[0], shape[1], stencil, stream)
+    _lib.check(err, "K3 collide_stencil")
+    K3_LAUNCHES += 1
+    return tuple(out[i] for i in range(5))

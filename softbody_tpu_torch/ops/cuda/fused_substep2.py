@@ -123,7 +123,7 @@ def fused_substep2_plain(hot, immut, consts_vec, *, stencil: int,
     planes, ups = substep_planes(
         hot[PX], hot[PY], hot[VX], hot[VY], hot[AX], hot[AY],
         alive, immut[PINNED] > 0.0, edges, sc,
-        stencil=stencil, quantized=quantized, far_delta=far)
+        stencil=stencil, quantized=quantized, far_deltas=(far,))
     out = list(planes)
     for u in ups:
         out += [u.target, u.last, u.alive.to(torch.float32)]

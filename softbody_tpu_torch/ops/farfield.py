@@ -34,6 +34,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..config import resolve_device
 from .cuda.band_detect import band_flag_call
 from .stencil import _mul32, device_scalar, shifted, sqrt32
 
@@ -511,6 +512,69 @@ def rebuild_far_list_planes(px, py, alive, *, s: int, ff: FarFieldSpec,
         ff=ff)
 
 
+def rebuild_far_list(pos, alive, *, s: int, ff: FarFieldSpec,
+                     radius: float) -> FarList:
+    """:func:`rebuild_far_list_planes` on an interleaved ``[W, H, 2]``
+    position array, without velocities (as ``LatticeBackend`` calls
+    it)."""
+    return rebuild_far_list_planes(pos[..., 0], pos[..., 1], alive, s=s,
+                                   ff=ff, radius=radius)
+
+
+def far_candidate_count(pos, alive, *, s: int, ff: FarFieldSpec,
+                        radius: float):
+    """Detection only: ``(total candidate pairs, dropped tile pairs
+    included, as a 0-d int64 tensor; alive COM [2])``.  Lets the backend
+    skip the compaction on a frame with no fold."""
+    cp = _chunk_detection(pos[..., 0], pos[..., 1], alive, s=s, ff=ff,
+                          radius=radius)
+    (band_stack, _ann_any, ann_count, _ann_words, ref_ov, _ca, _cb,
+     tile_overflow, *_rest) = _candidates_from_chunks(cp, ff=ff)
+    total = (band_stack.sum() + ann_count.sum(dtype=torch.int64)
+             + ref_ov.sum() + tile_overflow)
+    return total, cp.com
+
+
+def _alive_mean(v, alive):
+    """Mean of ``v [W, H, 2]`` over alive particles (``[2]``)."""
+    n_alive = torch.clamp(alive.to(torch.float32).sum(), min=1.0)
+    return torch.where(alive[..., None], v, 0.0).sum(dim=(0, 1)) / n_alive
+
+
+def displacement_check(pos, alive, fl: FarList):
+    """Max COM-relative displacement since the rebuild (0-d tensor): the
+    backend's rebuild trigger (the list holds while it stays ≤ skin/2)."""
+    com = _alive_mean(pos, alive)
+    ddx = (pos[..., 0] - fl.px_ref) - (com[0] - fl.com_ref[0])
+    ddy = (pos[..., 1] - fl.py_ref) - (com[1] - fl.com_ref[1])
+    d2 = torch.where(alive, ddx * ddx + ddy * ddy, 0.0)
+    return sqrt32(d2.max())
+
+
+def max_relative_speed(vel, alive):
+    """Max speed relative to the alive mean velocity (0-d tensor)."""
+    dv = vel - _alive_mean(vel, alive)
+    v2 = torch.where(alive, dv[..., 0] * dv[..., 0] + dv[..., 1] * dv[..., 1],
+                     0.0)
+    return sqrt32(v2.max())
+
+
+def empty_far_list_at(pos, com, ff: FarFieldSpec) -> FarList:
+    """An all-invalid list anchored at ``pos [W, H, 2]`` and ``com``:
+    what a rebuild returns when detection found nothing."""
+    k = ff.max_pairs
+    z = torch.zeros(k, dtype=torch.int64, device=pos.device)
+    i0 = torch.zeros((), dtype=torch.int32, device=pos.device)
+    return FarList(
+        ca=z, cb=z.clone(),
+        valid=torch.zeros(k, dtype=torch.bool, device=pos.device),
+        n_pairs=i0, overflow=i0.clone(),
+        px_ref=pos[..., 0], py_ref=pos[..., 1], com_ref=com,
+        vx_ref=torch.zeros_like(pos[..., 0]),
+        vy_ref=torch.zeros_like(pos[..., 1]),
+    )
+
+
 def crop_far_list(fl: FarList, k: int) -> FarList:
     """The first ``k`` slots (valid entries are prefix-packed)."""
     return dataclasses.replace(fl, ca=fl.ca[:k], cb=fl.cb[:k],
@@ -518,8 +582,10 @@ def crop_far_list(fl: FarList, k: int) -> FarList:
 
 
 def empty_far_list(w: int, h: int, ff: FarFieldSpec,
-                   device="cpu") -> FarList:
-    """An all-invalid list anchored far outside the world."""
+                   device=None) -> FarList:
+    """An all-invalid list anchored far outside the world, on ``device``
+    (default: the CUDA device; ``config.resolve_device``)."""
+    device = resolve_device(device)
     k = ff.max_pairs
     z = torch.zeros(k, dtype=torch.int64, device=device)
     i0 = torch.zeros((), dtype=torch.int32, device=device)

@@ -385,24 +385,36 @@ def _integrate_components(px, py, vx, vy, ax, ay, alive, pinned,
 
 
 def substep_planes(px, py, vx, vy, ax, ay, alive, pinned, edges, sc: Scalars,
-                   *, stencil: int, quantized: bool, far_delta=None):
-    """One substep on component planes: springs, collisions, the far
-    delta planes ``[5, W, H]`` (if given), integration.  Returns the six
-    new particle planes and the spring updates."""
+                   *, stencil: int, quantized: bool, far_deltas=(),
+                   full_stencil: bool = False):
+    """One substep on component planes: springs, collisions, each of the
+    ``far_deltas`` (``[5, W, H]`` stacks of dvx dvy dax day dyn, or
+    None) in turn, integration.  ``full_stencil``: the collisions go
+    through the K3 wrapper (``ops/cuda/collide_stencil.py``, full offset
+    set) instead of the half-offset sum.  Returns the six new particle
+    planes and the spring updates."""
     bfx, bfy, ups = spring_pass(px, py, alive, edges, quantized)
+    kw = dict(radius=sc.radius, dt=sc.dt, ecoeff=sc.ecoeff,
+              friction=sc.friction)
     if stencil == 0:
         z = torch.zeros_like(px)
         dvx = dvy = dax = day = dyn = z
+    elif full_stencil:
+        from .cuda.collide_stencil import collide_stencil_call
+
+        dvx, dvy, dax, day, dyn = collide_stencil_call(
+            px, py, vx, vy, alive, stencil=stencil, **kw)
     else:
         dvx, dvy, dax, day, dyn = _stencil_collisions(
-            px, py, vx, vy, alive, s=stencil, radius=sc.radius, dt=sc.dt,
-            ecoeff=sc.ecoeff, friction=sc.friction)
-    if far_delta is not None:
-        dvx = dvx + far_delta[0]
-        dvy = dvy + far_delta[1]
-        dax = dax + far_delta[2]
-        day = day + far_delta[3]
-        dyn = dyn + far_delta[4]
+            px, py, vx, vy, alive, s=stencil, **kw)
+    for fd in far_deltas:
+        if fd is None:
+            continue
+        dvx = dvx + fd[0]
+        dvy = dvy + fd[1]
+        dax = dax + fd[2]
+        day = day + fd[3]
+        dyn = dyn + fd[4]
     planes = _integrate_components(px, py, vx, vy, ax, ay, alive, pinned,
                                    dvx, dvy, dax, day, dyn, bfx, bfy, sc)
     return planes, ups
@@ -416,26 +428,41 @@ def lattice_substep(
     cfg: StaticConfig,
     update_observability: bool = True,
     far_delta: Optional[torch.Tensor] = None,
+    far=None,
+    ffspec=None,
 ) -> LatticeState:
     """One substep of the dense path (semantics of compute.wgsl:90-203).
 
     ``update_observability``: write per-edge strain/stress (only the
     frame's last substep needs them).  ``far_delta``: precomputed
     ``[5, W, H]`` far-field delta planes (dvx dvy dax day dyn) from the
-    bucketed apply (``ops/farfield4.py``)."""
+    bucketed apply (``ops/farfield4.py``).  ``far``/``ffspec``: a
+    candidate :class:`~.farfield.FarList` and its spec, whose pair terms
+    (``farfield.far_collision_terms``) are added after ``far_delta``.
+    ``cfg.use_pallas``: collisions through kernel K3."""
     if tuple(spec.edge_offsets) != EDGE_OFFSETS:
         raise ValueError("the torch lattice path supports the four "
                          "reference edge classes only")
     sc = Scalars.of(consts_vector(consts, uin, cfg, spec.height))
     collide = cfg.collision_mode != "none"
+    px, py = state.pos[..., 0], state.pos[..., 1]
+    vx, vy = state.vel[..., 0], state.vel[..., 1]
+    far_terms = None
+    if far is not None and collide:
+        from .farfield import far_collision_terms
+
+        far_terms = far_collision_terms(
+            px, py, vx, vy, state.alive, far, s=spec.collision_stencil,
+            ff=ffspec, radius=cfg.particle_radius, dt=cfg.dt,
+            ecoeff=consts.ecoeff, friction=consts.friction,
+            world_h=spec.height)
     (pxn, pyn, vxn, vyn, axn, ayn), ups = substep_planes(
-        state.pos[..., 0], state.pos[..., 1],
-        state.vel[..., 0], state.vel[..., 1],
-        state.acc[..., 0], state.acc[..., 1],
+        px, py, vx, vy, state.acc[..., 0], state.acc[..., 1],
         state.alive, state.pinned, state.edges, sc,
         stencil=spec.collision_stencil if collide else 0,
         quantized=cfg.force_mode == "quantized",
-        far_delta=far_delta if collide else None,
+        far_deltas=(far_delta if collide else None, far_terms),
+        full_stencil=cfg.use_pallas,
     )
     new_edges = []
     for e, u in zip(state.edges, ups):
@@ -470,4 +497,25 @@ def lattice_frame(
     n = cfg.subticks if n_sub is None else n_sub
     for _ in range(n):
         state = lattice_substep(state, consts, uin, spec, cfg)
+    return state
+
+
+def lattice_frame_far(
+    state: LatticeState,
+    far,
+    consts: PhysicsConstants,
+    uin: UserInput,
+    spec: LatticeSpec,
+    cfg: StaticConfig,
+    ffspec,
+    n_sub: Optional[int] = None,
+) -> LatticeState:
+    """One frame with far-field contacts: the candidate list ``far`` is
+    fixed for the whole frame (its validity is the caller's contract —
+    ``LatticeBackend``'s rebuild trigger, which may run a frame as
+    several shorter chunks through ``n_sub``)."""
+    n = cfg.subticks if n_sub is None else n_sub
+    for _ in range(n):
+        state = lattice_substep(state, consts, uin, spec, cfg, far=far,
+                                ffspec=ffspec)
     return state

@@ -11,7 +11,12 @@ import torch
 
 import softbody_tpu_torch as tb
 from softbody_tpu_torch.models import tearing_cloth_lattice
-from softbody_tpu_torch.ops.cuda import band_detect, fused_substep2
+from softbody_tpu_torch.ops.cuda import (
+    band_detect,
+    collide_stencil,
+    fused_substep,
+    fused_substep2,
+)
 from softbody_tpu_torch.ops.farfield import FarFieldSpec
 
 pytestmark = pytest.mark.cuda
@@ -84,3 +89,45 @@ def test_k2_matches_plain(dev):
     assert band_detect.K2_LAUNCHES == before + 1
     assert int(ref.sum()) > 0
     assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("stencil", [1, 2])
+def test_k3_matches_plain(dev, stencil):
+    state, _spec, cfg, consts, _sp, _g = _stirred_cloth(dev, seed=2)
+    planes = (state.pos[..., 0], state.pos[..., 1], state.vel[..., 0],
+              state.vel[..., 1], state.alive)
+    kw = dict(radius=cfg.particle_radius, dt=cfg.dt, ecoeff=consts.ecoeff,
+              friction=consts.friction, stencil=stencil)
+    before = collide_stencil.K3_LAUNCHES
+    got = collide_stencil.collide_stencil_call(*planes, **kw)
+    ref = collide_stencil.collide_stencil_plain(*planes, **kw)
+    torch.cuda.synchronize()
+    assert collide_stencil.K3_LAUNCHES == before + 1
+    assert float(ref[1].abs().max()) > 0
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("stencil", [0, 2])
+def test_k4_matches_plain(dev, stencil):
+    """Per-edge varied edge parameters and a far delta stack."""
+    state, spec, cfg, consts, _sp, g = _stirred_cloth(dev, seed=3)
+    mut, immut = fused_substep.pack_lattice(state)
+    for c in range(4):
+        ib = 2 + 5 * c
+        immut[ib:ib + 5] *= 0.5 + torch.rand((5,) + tuple(mut.shape[1:]),
+                                             generator=g, device=dev)
+    cvec = tb.consts_vector(consts, tb.UserInput(), cfg, spec.height)
+    far = torch.randn((5,) + tuple(mut.shape[1:]), generator=g,
+                      device=dev) * 0.5
+    kw = dict(stencil=stencil, quantized=True, far=far)
+    before = fused_substep.K4_LAUNCHES
+    got = fused_substep.fused_substep_call(mut, immut, cvec, **kw)
+    ref = fused_substep.fused_substep_plain(mut, immut, cvec, **kw)
+    torch.cuda.synchronize()
+    assert fused_substep.K4_LAUNCHES == before + 1
+    assert torch.equal(got[6:], ref[6:])
+    for planes, tol in ((slice(0, 2), 1e-4), (slice(2, 4), 1e-3),
+                        (slice(4, 6), 1e-2)):
+        torch.testing.assert_close(got[planes], ref[planes], rtol=0,
+                                   atol=tol)

@@ -14,6 +14,8 @@ from softbody_tpu.ops.farfield import FarFieldSpec as JFarFieldSpec
 from softbody_tpu.ops.farfield import _chunk_dims as j_chunk_dims
 from softbody_tpu.ops.farfield import far_collision_terms as j_terms
 from softbody_tpu.ops.farfield import rebuild_far_list_planes as j_rebuild
+from softbody_tpu.ops import farfield as jff
+from softbody_tpu_torch.ops import farfield as tff
 from softbody_tpu_torch.ops.farfield import (
     FarFieldSpec,
     FarList,
@@ -141,9 +143,91 @@ def test_bucketed_apply_empty_list():
     px, py, vx, vy, alive = _fold()
     w, h = px.shape
     ff = FarFieldSpec(max_pairs=64, max_tile_pairs=32, skin=4.0, horizon=8)
-    fl = empty_far_list(w, h, ff)
+    fl = empty_far_list(w, h, ff, device="cpu")
     hot = torch.from_numpy(np.stack([px, py, vx, vy]))
     assert bucketed_far_delta_planes(
         hot, torch.from_numpy(alive.astype(np.float32)), fl, 0, s=2, ff=ff,
         radius=1.5, dt=DT, ecoeff=0.75, friction=0.1) is None
     assert fl.counts() == (0, 0)
+
+
+@pytest.mark.parametrize("scene", ["fold", "fold_overflow", "hairpin"])
+def test_backend_rebuild_functions_match_jax(scene):
+    """The dense backend's rebuild path: ``far_candidate_count`` (total
+    and COM), ``rebuild_far_list`` on ``[W, H, 2]`` positions (pair set
+    and counts) and ``empty_far_list_at``."""
+    make, ffkw, radius = SCENES[scene]
+    px, py, _vx, _vy, alive = make()
+    w, h = px.shape
+    pos = np.stack([px, py], -1)
+    kw = dict(s=2, radius=radius)
+    j_total, j_com = jff.far_candidate_count(
+        jnp.asarray(pos), jnp.asarray(alive), ff=JFarFieldSpec(**ffkw), **kw)
+    t_total, t_com = tff.far_candidate_count(
+        torch.from_numpy(pos), torch.from_numpy(alive),
+        ff=FarFieldSpec(**ffkw), **kw)
+    assert int(t_total) == int(j_total) > 0
+    np.testing.assert_allclose(t_com.numpy(), np.asarray(j_com), rtol=1e-6)
+
+    jfl = jff.rebuild_far_list(jnp.asarray(pos), jnp.asarray(alive),
+                               ff=JFarFieldSpec(**ffkw), **kw)
+    tfl = tff.rebuild_far_list(torch.from_numpy(pos),
+                               torch.from_numpy(alive),
+                               ff=FarFieldSpec(**ffkw), **kw)
+    assert tfl.counts() == (int(jfl.n_pairs), int(jfl.overflow))
+    cwy = _chunk_dims(w, h, FarFieldSpec(**ffkw))[1]
+    assert _decoded(tfl.ca, tfl.cb, tfl.valid, cwy) == _decoded(
+        jfl.ca, jfl.cb, jfl.valid, cwy)
+
+    jfe = jff.empty_far_list_at(jnp.asarray(pos), j_com,
+                                JFarFieldSpec(**ffkw))
+    tfe = tff.empty_far_list_at(torch.from_numpy(pos), t_com,
+                                FarFieldSpec(**ffkw))
+    assert tfe.counts() == (0, 0) and not bool(tfe.valid.any())
+    assert tfe.capacity == jfe.ca.shape[0]
+    np.testing.assert_array_equal(tfe.px_ref.numpy(), np.asarray(jfe.px_ref))
+    np.testing.assert_array_equal(tfe.vy_ref.numpy(), np.asarray(jfe.vy_ref))
+
+
+def test_flat_lattice_count_is_zero():
+    """An unfolded lattice has no candidates (the fast path's
+    invariant): the count is 0 in both packages."""
+    from softbody_tpu.models import make_lattice as j_make_lattice
+
+    ls = j_make_lattice(40, 40, 10.0)
+    ffkw = dict(max_pairs=512, max_tile_pairs=64, skin=4.0)
+    j_total, _ = jff.far_candidate_count(ls.pos, ls.alive, s=2, radius=4.0,
+                                         ff=JFarFieldSpec(**ffkw))
+    t_total, _ = tff.far_candidate_count(
+        torch.from_numpy(np.array(ls.pos)), torch.from_numpy(
+            np.array(ls.alive)), s=2, radius=4.0, ff=FarFieldSpec(**ffkw))
+    assert int(t_total) == int(j_total) == 0
+
+
+def test_motion_checks_match_jax():
+    """``displacement_check`` and ``max_relative_speed`` (the rebuild
+    trigger's inputs): equal to JAX's to float tolerance (sum order), a
+    rigid translation reads as no displacement."""
+    px, py, vx, vy, alive = _hairpin()
+    pos, vel = np.stack([px, py], -1), np.stack([vx, vy], -1)
+    ffkw = SCENES["hairpin"][1]
+    jfl = jff.rebuild_far_list(jnp.asarray(pos), jnp.asarray(alive), s=2,
+                               ff=JFarFieldSpec(**ffkw), radius=4.0)
+    tfl = tff.rebuild_far_list(torch.from_numpy(pos),
+                               torch.from_numpy(alive), s=2,
+                               ff=FarFieldSpec(**ffkw), radius=4.0)
+    rng = np.random.default_rng(3)
+    moved = (pos + rng.normal(0.0, 0.5, pos.shape)).astype(np.float32)
+    shifted_pos = (pos + np.float32([123.0, -77.0])).astype(np.float32)
+    for p in (moved, shifted_pos):
+        ref = float(jff.displacement_check(jnp.asarray(p),
+                                           jnp.asarray(alive), jfl))
+        got = float(tff.displacement_check(torch.from_numpy(p),
+                                           torch.from_numpy(alive), tfl))
+        np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-4)
+    assert got < 1e-3
+    ref = float(jff.max_relative_speed(jnp.asarray(vel), jnp.asarray(alive)))
+    got = float(tff.max_relative_speed(torch.from_numpy(vel),
+                                       torch.from_numpy(alive)))
+    np.testing.assert_allclose(got, ref, rtol=1e-6)
+    assert got > 1.0

@@ -77,7 +77,7 @@ def _port_backend(spec, cfg, ffkw, **kw):
                         subticks=cfg.subticks,
                         collision_mode=cfg.collision_mode,
                         force_mode=cfg.force_mode),
-        farfield=FarFieldSpec(**ffkw), **kw)
+        farfield=FarFieldSpec(**ffkw), device="cpu", **kw)
 
 
 def test_backend_matches_jax_fused_frame4():
@@ -157,9 +157,9 @@ def test_backend_without_far_field_matches_lattice_frame():
 
     state, spec, cfg, consts = tearing_cloth_lattice(
         n_particles=24 * 24, fall_speed=40.0, slits=2, strain_limit=0.22,
-        yield_strain=0.18)
+        yield_strain=0.18, device="cpu")
     cfg = tb.StaticConfig(subticks=8, particle_radius=cfg.particle_radius)
-    be = FusedLatticeBackend(spec, cfg)
+    be = FusedLatticeBackend(spec, cfg, device="cpu")
     packed = be.step(be.pack_state(state), consts, tb.UserInput())
     got = lattice_state_to_numpy(be.unpack_state(packed))
     ref = lattice_state_to_numpy(lattice_frame(state, consts, tb.UserInput(),

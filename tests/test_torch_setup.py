@@ -36,6 +36,8 @@ PORT_MODULES = (
     "softbody_tpu_torch.ops.farfield4",
     "softbody_tpu_torch.ops.cuda.fused_substep2",
     "softbody_tpu_torch.ops.cuda.band_detect",
+    "softbody_tpu_torch.ops.cuda.collide_stencil",
+    "softbody_tpu_torch.ops.cuda.fused_substep",
     "softbody_tpu_torch.engine",
 )
 
@@ -66,7 +68,7 @@ def test_tearing_cloth_lattice_matches():
     kw = dict(n_particles=32 * 32, fall_speed=2.5, slits=2,
               strain_limit=0.22, yield_strain=0.18)
     js, jspec, jcfg, jconsts = j_tearing(**kw)
-    ts, tspec, tcfg, tconsts = tearing_cloth_lattice(**kw)
+    ts, tspec, tcfg, tconsts = tearing_cloth_lattice(**kw, device="cpu")
     _assert_arrays_equal(lattice_state_to_numpy(ts),
                          lattice_state_to_numpy(js))
     assert (tspec.width, tspec.height, tspec.collision_stencil) == (
@@ -83,9 +85,10 @@ def test_make_and_cloth_lattice_match():
     kw = dict(spacing=7.5, spring=80.0, damp=3.0, diagonals=False,
               pinned_mask=pinned)
     _assert_arrays_equal(
-        lattice_state_to_numpy(make_lattice(12, 9, **kw)),
+        lattice_state_to_numpy(make_lattice(12, 9, **kw, device="cpu")),
         lattice_state_to_numpy(j_make_lattice(12, 9, **kw)))
-    ts, tspec, tcfg = cloth_lattice(w=16, h=12, spacing=15.0, pin_top=True)
+    ts, tspec, tcfg = cloth_lattice(w=16, h=12, spacing=15.0, pin_top=True,
+                                  device="cpu")
     js, jspec, jcfg = j_cloth_lattice(w=16, h=12, spacing=15.0, pin_top=True)
     _assert_arrays_equal(lattice_state_to_numpy(ts),
                          lattice_state_to_numpy(js))
@@ -94,7 +97,7 @@ def test_make_and_cloth_lattice_match():
 
 def test_convert_round_trip():
     arrays = random_state(9, 7, seed=3)
-    st = lattice_state_from_numpy(**arrays)
+    st = lattice_state_from_numpy(**arrays, device="cpu")
     _assert_arrays_equal(lattice_state_to_numpy(st), arrays)
 
 

@@ -48,10 +48,29 @@ def uin_to_port(u):
         np.asarray(u.applied_force))
 
 
-def random_state(w, h, seed, spacing=10.0, jitter=3.0):
-    """numpy fields of a jittered, partly dead, partly yielded lattice
-    with uniform per-class edge parameters: particles overlap (radius
-    4 at spacing 10), some edges yield and some break in one substep."""
+def vary_edge_params(arrays: dict, rng) -> dict:
+    """Per-edge varied spring, damp, yield, limit and length (target and
+    last lengths scale with the length), in place on numpy fields."""
+    for e in arrays["edges"]:
+        n = e["length"].shape
+        scale = rng.uniform(0.9, 1.1, n).astype(np.float32)
+        for k in ("length", "target_length", "last_length"):
+            e[k] = (e[k] * scale).astype(np.float32)
+        e["spring"] = (e["spring"] * rng.uniform(0.5, 1.5, n)
+                       ).astype(np.float32)
+        e["damp"] = (e["damp"] * rng.uniform(0.5, 1.5, n)).astype(np.float32)
+        e["yield_strain"] = (e["yield_strain"] * rng.uniform(0.5, 1.5, n)
+                             ).astype(np.float32)
+        e["strain_limit"] = (e["strain_limit"] * rng.uniform(0.5, 1.5, n)
+                             ).astype(np.float32)
+    return arrays
+
+
+def random_state(w, h, seed, spacing=10.0, jitter=3.0, varied=False):
+    """numpy fields of a jittered, partly dead, partly yielded lattice:
+    particles overlap (radius 4 at spacing 10), some edges yield and some
+    break in one substep.  Edge parameters are uniform per class, or
+    with ``varied`` per-edge (:func:`vary_edge_params`)."""
     from softbody_tpu.models import make_lattice
 
     rng = np.random.default_rng(seed)
@@ -75,7 +94,7 @@ def random_state(w, h, seed, spacing=10.0, jitter=3.0):
         e["alive"] = e["alive"] & (rng.random(n) > 0.1)
         e["strain"] = rng.random(n).astype(np.float32)
         e["stress"] = rng.random(n).astype(np.float32)
-    return base
+    return vary_edge_params(base, rng) if varied else base
 
 
 def far_delta(w, h, seed):
