@@ -13,7 +13,13 @@ to 0 just before it and read just after:
   tearing cloth with default arguments and far field armed with
   ``FarFieldSpec()`` (``play --path lattice --farfield``; K3, K2);
 - path B: the per-edge fused frame ``fused_frame`` on the same scene,
-  bench.py's ``BENCH_PATH=fused_v1`` (K4).
+  bench.py's ``BENCH_PATH=fused_v1`` (K4);
+- the probe of ``scripts/probe_recmirror.py``: the record casts (K5, K6)
+  and the mirror table (K7) at the probe's and the bench path's sizes
+  (K7 also runs on the bench path, in each far apply with pairs);
+- the general gather engine (``ops/step.frame``, no kernel of its own) at
+  BASELINE configs 1, 4 and 3: the 32×32 cloth, 64 blobs and the 100k
+  self-colliding cloth.
 
 Every phase raises on failure.
 
@@ -39,12 +45,18 @@ import torch
 import softbody_tpu_torch as tb
 from softbody_tpu_torch.engine import FusedLatticeBackend, LatticeBackend
 from softbody_tpu_torch.models import make_lattice, tearing_cloth_lattice
+from softbody_tpu_torch.convert import sim_state_to_numpy
+from softbody_tpu_torch.models import scenes
+from softbody_tpu_torch.ops import farfield4
+from softbody_tpu_torch.ops import step as gstep
+from softbody_tpu_torch.ops.collisions import broad_phase_overflow
 from softbody_tpu_torch.ops.cuda import (
     _lib,
     band_detect,
     collide_stencil,
     fused_substep,
     fused_substep2,
+    recmirror,
 )
 from softbody_tpu_torch.ops.cuda.band_detect import (
     band_flag_call,
@@ -73,9 +85,18 @@ from softbody_tpu_torch.ops.cuda.fused_substep2 import (
 )
 from softbody_tpu_torch.ops.farfield import (
     FarFieldSpec,
+    _chunk_dims,
+    crop_far_list,
+    far_collision_terms,
     rebuild_far_list_planes,
 )
-from softbody_tpu_torch.ops.farfield4 import bucketed_far_delta_planes
+from softbody_tpu_torch.ops.farfield4 import (
+    bucket_capacity,
+    bucketed_far_delta_planes,
+    far_terms_from_mirror,
+    mirror_table,
+    unmirror_table,
+)
 from softbody_tpu_torch.ops.stencil import (
     LatticeSpec,
     half_offsets,
@@ -97,6 +118,29 @@ SEED = 0
 # falls for ~5 frames before it reaches the floor)
 PATH_A_FRAMES = 3
 PATH_B_FRAMES = 8
+
+# the probe's sizes (scripts/probe_recmirror.py): the casts at 64 rows and
+# at the 1M bench table's (32 lane blocks x 252 record columns x 640
+# floats = 40320 rows of 128); the mirror at 256 x 256 and at the 1M
+# bench lattice on its apply grid (1000 x 1000 padded to 1008 x 1024)
+PROBE_CAST_ROWS = (64, 40320)
+PROBE_MIRRORS = ((256, 256, 256, 256), (1000, 1000, 1008, 1024))
+# the bench path's far buckets (fused_frame4's default ladder)
+FAR_BUCKETS = (1024, 2048, 4096)
+
+# the general engine's configurations (BASELINE.json configs 1, 4, 3):
+# (label, scene builder, frames timed, frames run before)
+GENERAL_CONFIGS = (
+    ("config 1 cloth(32, 32)", lambda dev: scenes.cloth(32, 32, device=dev),
+     1, 1),
+    ("config 4 multi_blob(64)", lambda dev: scenes.multi_blob(64, device=dev),
+     8, 1),
+    ("config 3 self_colliding_cloth(100000)",
+     lambda dev: scenes.self_colliding_cloth(100_000, device=dev), 2, 0),
+)
+# config 1 on the card against the CPU: tests/test_step_vs_oracle.py's
+# tolerances (the collision sums' order differs)
+GENERAL_ATOL = {"pos": 2e-3, "vel": 4e-3}
 
 # K1 and K4 against their plain versions: edge planes bit-exact,
 # particle planes within the port's parity tolerances
@@ -160,6 +204,36 @@ def _timed_ms(fn, iters: int, warm: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _device_ms(fn, iters: int, warm: int = 1) -> float:
+    """Device ms per call of ``fn`` (one kernel or one library call): the
+    calls are queued behind a ``torch.cuda._sleep`` long enough for the
+    host to enqueue them all, so the events between the first and the
+    last time the device alone and not the host's launch rate (a call's
+    host side, ~10-25 µs, is longer than a 12 µs copy).  Doubles the
+    sleep until it outlasts the enqueueing; ``iters`` times the launches
+    of one call must stay below the device's launch queue (~1000), where
+    the host would block."""
+    for _ in range(warm):
+        fn()
+    cycles = 20_000_000
+    for _ in range(6):
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        torch.cuda._sleep(cycles)
+        ev[1].record()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        ev[2].record()
+        torch.cuda.synchronize()
+        if ev[0].elapsed_time(ev[1]) > host_ms:
+            return ev[1].elapsed_time(ev[2]) / iters
+        cycles *= 2
+    raise AssertionError("the host did not get ahead of the device")
 
 
 # ---------------------------------------------------------------------------
@@ -314,6 +388,99 @@ def check_k4(label, state, spec, cfg, consts, spacing) -> float:
     return worst
 
 
+def _probe_planes(g, w, h, dev):
+    """Five random ``[w, h]`` planes (px py vx vy, alive as 0/1)."""
+    planes = [torch.randn((w, h), generator=g, device=dev) for _ in range(4)]
+    planes.append((torch.rand((w, h), generator=g, device=dev) > 0.1)
+                  .to(torch.float32))
+    return planes
+
+
+def _record_relayout(planes, w_out, h_out):
+    """The one PyTorch call that relays a padded ``[5, w_out, h_out]``
+    stack into the record table (K7's library yardstick): a permute
+    copy."""
+    padded = torch.zeros((5, w_out, h_out), device=planes[0].device)
+    padded[:, :planes[0].shape[0], :planes[0].shape[1]] = torch.stack(planes)
+    view = padded.reshape(5, w_out // 4, 4, h_out // 32, 32).permute(
+        3, 1, 0, 2, 4)
+    return lambda: view.contiguous()
+
+
+def run_probe(dev) -> dict:
+    """The probe of scripts/probe_recmirror.py through the port's kernels,
+    with the launch counts from 0: stage 1, the casts (K5) and their
+    inverse (K6) at each of PROBE_CAST_ROWS; stage 2, the mirror table
+    (K7) at each of PROBE_MIRRORS.  Then each result against its plain
+    version (bit-exact: the kernels only move data), and each kernel
+    timed at the 1M size beside its plain version and its library call
+    (``clone`` for the casts, the permute copy for the mirror)."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    recmirror.K5_LAUNCHES = recmirror.K6_LAUNCHES = 0
+    recmirror.K7_LAUNCHES = 0
+    casts = []
+    for rows in PROBE_CAST_ROWS:
+        x = torch.randn((rows, 128), generator=g, device=dev)
+        y = recmirror.cast_rows_call(x)
+        casts.append((x, y, recmirror.uncast_rows_call(y)))
+    mirrors = []
+    for w, h, w_out, h_out in PROBE_MIRRORS:
+        planes = _probe_planes(g, w, h, dev)
+        mirrors.append((planes, w_out, h_out, recmirror.mirror_records_call(
+            planes, w_out=w_out, h_out=h_out)))
+    torch.cuda.synchronize()
+    launches = {"K5": recmirror.K5_LAUNCHES, "K6": recmirror.K6_LAUNCHES,
+                "K7": recmirror.K7_LAUNCHES}
+    want = {"K5": len(PROBE_CAST_ROWS), "K6": len(PROBE_CAST_ROWS),
+            "K7": len(PROBE_MIRRORS)}
+    if launches != want:
+        raise AssertionError(f"probe: launches {launches}, want {want}")
+
+    errs = {"K5": 0.0, "K6": 0.0, "K7": 0.0}
+
+    def hold(k, label, got, ref):
+        n_bad = int((got != ref).sum())
+        if n_bad or got.shape != ref.shape:
+            raise AssertionError(f"{k} {label}: {n_bad} values differ from "
+                                 "the plain version")
+        errs[k] = max(errs[k], (got - ref).abs().max().item())
+
+    for x, y, back in casts:
+        hold("K5", f"rows {x.shape[0]}", y, recmirror.cast_rows_plain(x))
+        hold("K6", f"rows {x.shape[0]}", back, recmirror.uncast_rows_plain(y))
+        hold("K6", f"rows {x.shape[0]} round trip", back, x)
+    for planes, w_out, h_out, table in mirrors:
+        hold("K7", f"{tuple(planes[0].shape)} -> [{w_out}, {h_out}]", table,
+             recmirror.mirror_records_plain(planes, w_out=w_out,
+                                            h_out=h_out))
+    log(f"probe: K5, K6 bit-exact at rows {PROBE_CAST_ROWS}, K7 bit-exact "
+        f"at {[m[:2] for m in PROBE_MIRRORS]}; launches {launches}")
+
+    x, y, _ = casts[-1]
+    planes, w_out, h_out, table = mirrors[-1]
+    t = {
+        "K5": _device_ms(lambda: recmirror.cast_rows_call(x), 200),
+        "K5 plain": _timed_ms(lambda: recmirror.cast_rows_plain(x), 200),
+        "K5 library": _device_ms(x.clone, 200),
+        "K6": _device_ms(lambda: recmirror.uncast_rows_call(y), 200),
+        "K6 plain": _timed_ms(lambda: recmirror.uncast_rows_plain(y), 200),
+        "K6 library": _device_ms(y.clone, 200),
+        "K7 probe": _device_ms(lambda: recmirror.mirror_records_call(
+            planes, w_out=w_out, h_out=h_out), 200),
+        "K7 probe library": _device_ms(_record_relayout(planes, w_out,
+                                                         h_out), 200),
+    }
+    n_cast = x.numel() * 4
+    bounds = {"K5": _bound(2 * n_cast, 0), "K6": _bound(2 * n_cast, 0),
+              "K7 probe": _mirror_bound(planes, table)}
+    log(f"probe at 1M ({x.shape[0]} rows; planes {tuple(planes[0].shape)} -> "
+        f"table {tuple(table.shape)}): "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in t.items())
+        + "; bounds " + ", ".join(f"{k} {v[0]:.4f} ms ({v[1]})"
+                                  for k, v in bounds.items()))
+    return dict(launches=launches, errs=errs, t=t, bounds=bounds)
+
+
 # ---------------------------------------------------------------------------
 # bounds: the least time the card could take for a call's work, the larger
 # of its bytes over the memory rate and its float32 operations over the
@@ -326,6 +493,11 @@ def _bound(n_bytes: float, n_ops: float):
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     t_ops = n_ops / PEAK_F32_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _mirror_bound(planes, table):
+    """K7: reads five planes, writes the table; no arithmetic."""
+    return _bound(5 * planes[0].numel() * 4 + table.numel() * 4, 0)
 
 
 def _substep_ops(n: int, s: int) -> float:
@@ -380,7 +552,8 @@ def _hairpin(dev):
 
 
 def _small_fold(dev) -> dict:
-    """2 frames of the fold through ``FusedLatticeBackend`` and through
+    """2 frames of the fold through ``FusedLatticeBackend`` (once through
+    each far-apply route) and through
     ``LatticeBackend`` with ``use_pallas``, and one ``fused_frame_far``
     frame from a rebuilt list, on ``dev``: far stats and particle planes
     [2, 2, 96, 4] (pos, vel) of each, on the host."""
@@ -389,13 +562,24 @@ def _small_fold(dev) -> dict:
     ff = FarFieldSpec(max_pairs=512, max_tile_pairs=64, skin=4.0, horizon=8)
     out = {}
     cfg = tb.StaticConfig(subticks=8, particle_radius=4.0)
-    fused = FusedLatticeBackend(spec, cfg, device=dev, far_buckets=(16,),
-                                farfield=dataclasses.replace(
-                                    ff, max_pairs=64, max_tile_pairs=32))
-    hot = fused.pack_state(_hairpin(dev))
-    for _ in range(2):
-        hot = fused.step(hot, consts, uin)
-    out["fused backend"] = (fused.far_stats(), hot[0][0:4])
+    # the far apply's two routes: a ladder of buckets <= 256 (narrow) and
+    # the default ladder on a 512-pair list (the mirror table, K7)
+    for route, max_pairs, buckets in (("narrow", 64, (16,)),
+                                      ("mirror", 512, None)):
+        fused = FusedLatticeBackend(spec, cfg, device=dev,
+                                    far_buckets=buckets,
+                                    farfield=dataclasses.replace(
+                                        ff, max_pairs=max_pairs,
+                                        max_tile_pairs=32))
+        hot = fused.pack_state(_hairpin(dev))
+        before = dict(farfield4.APPLY_ROUTES)
+        for _ in range(2):
+            hot = fused.step(hot, consts, uin)
+        ran = {k: v - before[k] for k, v in farfield4.APPLY_ROUTES.items()}
+        if ran[route] != 2 * cfg.subticks or sum(ran.values()) != ran[route]:
+            raise AssertionError(f"small fold, fused backend: far applies "
+                                 f"by route {ran}, want all {route}")
+        out[f"fused backend, {route} route"] = (fused.far_stats(), hot[0][0:4])
     cfg = dataclasses.replace(cfg, use_pallas=True)
     dense = LatticeBackend(spec, cfg, farfield=ff, device=dev)
     st = _hairpin(dev)
@@ -568,16 +752,23 @@ def run_main_path(state, spec, cfg, consts, spacing) -> dict:
     uin = tb.UserInput()
     n0, m0 = be.counts(packed)
     t0 = time.perf_counter()
+    recmirror.K7_LAUNCHES = 0
     packed = be.step(packed, consts, uin)
     torch.cuda.synchronize()
+    first = be.far_stats()
     log(f"main path: first frame {time.perf_counter() - t0:.2f} s, "
-        f"far stats {be.far_stats()}")
+        f"far stats {first}, K7 launches {recmirror.K7_LAUNCHES}")
+    if first["far_pairs"] == 0 and recmirror.K7_LAUNCHES:
+        raise AssertionError("main path: K7 launched before far pairs "
+                             "exist")
     for _ in range(WARM_FRAMES - 1):
         packed = be.step(packed, consts, uin)
     be.far_stats()  # reset the window
 
     fused_substep2.K1_LAUNCHES = 0
     band_detect.K2_LAUNCHES = 0
+    recmirror.K7_LAUNCHES = 0
+    routes0 = dict(farfield4.APPLY_ROUTES)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -589,6 +780,8 @@ def run_main_path(state, spec, cfg, consts, spacing) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     k1, k2 = fused_substep2.K1_LAUNCHES, band_detect.K2_LAUNCHES
+    k7 = recmirror.K7_LAUNCHES
+    routes = {k: v - routes0[k] for k, v in farfield4.APPLY_ROUTES.items()}
     stats = be.far_stats()
 
     substeps = TIMED_FRAMES * cfg.subticks
@@ -605,6 +798,11 @@ def run_main_path(state, spec, cfg, consts, spacing) -> dict:
     if k2 != stats["far_rebuilds"] or k2 == 0:
         raise AssertionError(f"main path: K2 launched {k2} times for "
                              f"{stats['far_rebuilds']} rebuilds")
+    # the default ladder's smallest bucket is 1024 > 256: every substep
+    # with pairs applies them through the mirror table, one K7 launch
+    if k7 == 0 or k7 != routes["mirror"] or routes["narrow"]:
+        raise AssertionError(f"main path: K7 launched {k7} times; far "
+                             f"applies by route {routes}")
     n1, m1 = be.counts(packed)
     ms = start.elapsed_time(end)
     rate = substeps / (ms / 1000.0)
@@ -613,16 +811,19 @@ def run_main_path(state, spec, cfg, consts, spacing) -> dict:
         f"alive beams {m0} -> {m1}; {TIMED_FRAMES} frames = {substeps} "
         f"substeps in {ms:.1f} ms (CUDA events; host {wall:.3f} s) = "
         f"{rate:.1f} substeps/s; far stats {stats}; K1 launches {k1}, "
-        f"K2 launches {k2}; pos range [{pos.min().item():.2f}, "
+        f"K2 launches {k2}, K7 launches {k7} ({k7} of {substeps} substeps "
+        f"with far pairs); pos range [{pos.min().item():.2f}, "
         f"{pos.max().item():.2f}]")
-    return dict(be=be, packed=packed, k1=k1, k2=k2, rate=rate,
+    return dict(be=be, packed=packed, k1=k1, k2=k2, k7=k7, rate=rate,
                 frame_ms=ms / TIMED_FRAMES, stats=stats)
 
 
 def time_at_final_state(run, spec, cfg, consts) -> dict:
     """At the main path's final state (CUDA events, ms per call): one
-    rebuild, one far apply, and K1 and K2 against their plain versions on
-    the inputs the main path gives them."""
+    rebuild; one far apply through the mirror route, its parts, and the
+    windowed gather it replaced; and K1, K2 and K7 against their plain
+    versions (K7 also against its library call) on the inputs the main
+    path gives them."""
     be, (hot, _obs) = run["be"], run["packed"]
     ff, immut = be.ff, be._immut
     alive = immut[0] > 0
@@ -637,31 +838,69 @@ def time_at_final_state(run, spec, cfg, consts) -> dict:
     n_pairs, _ = fl.counts()
     t = {"rebuild": _timed_ms(lambda: rebuild().counts(), 5)}
 
+    pair_kw = dict(dt=cfg.dt, ecoeff=consts.ecoeff,
+                   friction=consts.friction, **kw)
+
     def apply():
-        return bucketed_far_delta_planes(
-            hot, immut[0], fl, n_pairs, dt=cfg.dt, ecoeff=consts.ecoeff,
-            friction=consts.friction, buckets=(1024, 2048, 4096), **kw)
+        return bucketed_far_delta_planes(hot, immut[0], fl, n_pairs,
+                                         buckets=FAR_BUCKETS, **pair_kw)
+
+    k = bucket_capacity(n_pairs, ff, FAR_BUCKETS)
+
+    def apply_windowed():
+        """The far apply before the mirror route: the windowed gather of
+        ``farfield.far_collision_terms`` on the cropped list."""
+        return torch.stack(far_collision_terms(
+            hot[PX], hot[PY], hot[VX], hot[VY], alive, crop_far_list(fl, k),
+            **pair_kw))
 
     far = apply()
-    t["apply"] = _timed_ms(apply, 10) if n_pairs else 0.0
+    planes = (hot[PX], hot[PY], hot[VX], hot[VY], immut[0])
+    _cwx, _cwy, wp, hp = _chunk_dims(*alive.shape, ff)
+    table = mirror_table(planes, w=wp, h=hp)
+    if n_pairs:
+        err = (far - apply_windowed()).abs().max().item()
+        t["apply"] = _timed_ms(apply, 20)
+        t["apply windowed"] = _timed_ms(apply_windowed, 20)
+        # the same with the host ahead: the device's own time per apply
+        # (3 applies, ~300 launches: the device's launch queue holds ~1000)
+        t["apply device"] = _device_ms(apply, 3)
+        t["apply windowed device"] = _device_ms(apply_windowed, 3)
+        dtab = far_terms_from_mirror(table, crop_far_list(fl, k), w=wp,
+                                     h=hp, **pair_kw)
+        t["apply: pairs"] = _timed_ms(lambda: far_terms_from_mirror(
+            table, crop_far_list(fl, k), w=wp, h=hp, **pair_kw), 20)
+        t["apply: unmirror"] = _timed_ms(lambda: unmirror_table(
+            dtab, w=wp, h=hp)[:, :alive.shape[0], :alive.shape[1]]
+            .contiguous(), 20)
+        log(f"far apply at the final state: bucket {k}, mirror route vs "
+            f"the windowed gather max |err| {err:.3g}")
+    t["K7"] = _device_ms(lambda: mirror_table(planes, w=wp, h=hp), 200)
+    hm = -(-hp // 32) * 32
+    t["K7 plain"] = _timed_ms(lambda: recmirror.mirror_records_plain(
+        planes, w_out=wp, h_out=hm), 50)
+    t["K7 library"] = _device_ms(_record_relayout(list(planes), wp, hm),
+                                 200)
     cvec = torch.cat([tb.consts_vector(consts, tb.UserInput(), cfg,
                                        spec.height), be._edge_consts])
     k1kw = dict(stencil=s, quantized=True, far=far)
-    t["K1"] = _timed_ms(lambda: fused_substep2_call(hot, immut, cvec,
-                                                    **k1kw), 50)
+    t["K1"] = _device_ms(lambda: fused_substep2_call(hot, immut, cvec,
+                                                     **k1kw), 50)
     t["K1 plain"] = _timed_ms(lambda: fused_substep2_plain(hot, immut, cvec,
                                                            **k1kw), 5)
+    planes5 = planes
     *planes, offsets = _band_inputs(hot[PX], hot[PY], hot[VX], hot[VY],
                                     alive, cfg, ff, s)
     flagged = int(band_flags_plain(*planes, offsets).sum())
-    t["K2"] = _timed_ms(lambda: band_flag_call(*planes, offsets=offsets),
-                        50)
+    t["K2"] = _device_ms(lambda: band_flag_call(*planes, offsets=offsets),
+                         50)
     t["K2 plain"] = _timed_ms(lambda: band_flags_plain(*planes, offsets), 5)
     n = hot.shape[1] * hot.shape[2]
     # K1: reads hot, immut and far, writes hot (the non-observing call)
     bounds = {"K1": _bound((18 + 2 + 5 + 18) * 4 * n, _substep_ops(n, s)),
               "K2": _bound(n * (4 * 4 + 1) + n,
-                           7 * _band_pairs_evaluated(*planes, offsets))}
+                           7 * _band_pairs_evaluated(*planes, offsets)),
+              "K7": _mirror_bound(planes5, table)}
     log(f"at the final state ({n_pairs} far pairs, {flagged} band-flagged "
         f"particles): " + ", ".join(f"{k} {v:.4f} ms" for k, v in t.items())
         + "; bounds " + ", ".join(f"{k} {v[0]:.4f} ms ({v[1]})"
@@ -681,7 +920,7 @@ def time_paths_kernels(run_a, run_b) -> dict:
                                        st.alive)]
     kw = dict(radius=cfg.particle_radius, dt=cfg.dt, ecoeff=consts.ecoeff,
               friction=consts.friction, stencil=s)
-    t = {"K3": _timed_ms(lambda: collide_stencil_call(*planes, **kw), 50),
+    t = {"K3": _device_ms(lambda: collide_stencil_call(*planes, **kw), 50),
          "K3 plain": _timed_ms(lambda: collide_stencil_plain(*planes, **kw),
                                3)}
     n = planes[0].numel()
@@ -692,8 +931,8 @@ def time_paths_kernels(run_a, run_b) -> dict:
     cvec = tb.consts_vector(run_b["consts"], tb.UserInput(), cfg_b,
                             run_b["spec"].height)
     kw4 = dict(stencil=s_b, quantized=cfg_b.force_mode == "quantized")
-    t["K4"] = _timed_ms(lambda: fused_substep_call(mut, immut, cvec, **kw4),
-                        50)
+    t["K4"] = _device_ms(lambda: fused_substep_call(mut, immut, cvec,
+                                                    **kw4), 50)
     t["K4 plain"] = _timed_ms(lambda: fused_substep_plain(mut, immut, cvec,
                                                           **kw4), 3)
     # K4: reads mut and immut, writes mut (path B has no far stack)
@@ -703,6 +942,70 @@ def time_paths_kernels(run_a, run_b) -> dict:
         + "; bounds " + ", ".join(f"{k} {v[0]:.4f} ms ({v[1]})"
                                   for k, v in bounds.items()))
     return t, bounds
+
+
+def _general_counts(st) -> tuple:
+    """(live particles, live beams, finite), in one host read."""
+    live = st.particle_alive
+    finite = torch.isfinite(torch.cat([st.pos[live], st.vel[live]])).all()
+    n, m, ok = torch.stack([st.particle_count, st.beam_count,
+                            finite.to(torch.int64)]).tolist()
+    return n, m, bool(ok)
+
+
+def check_general_config1_cpu(dev) -> None:
+    """BASELINE config 1 (the 32 x 32 cloth of ``__graft_entry__.entry``):
+    one frame of the general engine on the card against the CPU."""
+    consts, uin = tb.PhysicsConstants(), tb.UserInput()
+    out = {}
+    for d in ("cpu", dev):
+        st, cfg = scenes.cloth(32, 32, device=d)
+        out[str(d)] = sim_state_to_numpy(gstep.frame(st, consts, uin, cfg))
+    got, ref = out[str(dev)], out["cpu"]
+    errs = {k: float(np.abs(got[k] - ref[k]).max()) for k in GENERAL_ATOL}
+    if (any(not errs[k] <= GENERAL_ATOL[k] for k in errs)
+            or not np.array_equal(got["beam_alive"], ref["beam_alive"])):
+        raise AssertionError(f"general config 1: cuda vs cpu max |err| "
+                             f"{errs} (limits {GENERAL_ATOL}), beams alive "
+                             f"{int(got['beam_alive'].sum())} vs "
+                             f"{int(ref['beam_alive'].sum())}")
+    log(f"general config 1 cloth(32, 32): one frame on cuda == cpu (max "
+        f"|err| {errs}, beams alive equal)")
+
+
+def run_general(dev) -> list:
+    """The general gather engine at BASELINE configs 1, 4 and 3 through
+    ``ops/step.frame`` on the card: per configuration its substeps/s
+    (CUDA events over the timed frames), broad-phase overflow, live
+    particles and beams, and a finite state; one more frame of config 4
+    under the profiler."""
+    consts, uin = tb.PhysicsConstants(), tb.UserInput()
+    rates = []
+    for label, build, frames, warm in GENERAL_CONFIGS:
+        st, cfg = build(dev)
+        n0, m0, _ = _general_counts(st)
+        box = [st]
+
+        def step():
+            box[0] = gstep.frame(box[0], consts, uin, cfg)
+
+        for _ in range(warm):
+            step()
+        ms = _frames(step, frames)
+        st = box[0]
+        n1, m1, finite = _general_counts(st)
+        if not finite:
+            raise AssertionError(f"general {label}: non-finite state")
+        overflow = int(broad_phase_overflow(st.pos, st.particle_alive, cfg))
+        rate = frames * cfg.subticks / (sum(ms) / 1000.0)
+        rates.append((label, rate))
+        log(f"general {label}: {n1} of {st.max_particles} particles alive, "
+            f"beams {m0} -> {m1}, {cfg.collision_mode} broad phase "
+            f"(overflow {overflow}); {warm} + {frames} frames, timed frame "
+            f"ms {[round(t, 1) for t in ms]} = {rate:.1f} substeps/s")
+        if label.startswith("config 4"):
+            profile_frame(f"general {label}", step, sum(ms) / len(ms))
+    return rates
 
 
 def main() -> int:
@@ -729,10 +1032,10 @@ def main() -> int:
     errs = {"K1": 0.0, "K2": 0.0, "K3": 0.0, "K4": 0.0}
     checks = {"K1": check_k1, "K2": check_k2, "K3": check_k3,
               "K4": check_k4}
-    scenes = {}
+    scenes_1m = {}
     for n in (64 * 64, N_PARTICLES):
         state, spec, cfg, consts, spacing = _scene(n, dev)
-        scenes[n] = (state, spec, cfg, consts, spacing)
+        scenes_1m[n] = (state, spec, cfg, consts, spacing)
         label = f"{spec.width}x{spec.height}"
         for k, check in checks.items():
             args = ((state, spec, cfg, spacing) if k == "K2"
@@ -740,45 +1043,71 @@ def main() -> int:
             errs[k] = max(errs[k], check(label, *args))
     log("phases 2-3 kernels vs plain: ok")
 
-    # phase 4: small end-to-end against the plain versions on the CPU
+    # phase 4: the probe (K5-K7 at the probe's and the 1M sizes)
+    probe = run_probe(dev)
+    errs.update(probe["errs"])
+
+    # phase 5: small end-to-end against the plain versions on the CPU
     check_small_fold()
 
-    # phase 5: the bench path at full size
-    state, spec, cfg, consts, spacing = scenes[N_PARTICLES]
+    # phase 6: the bench path at full size
+    state, spec, cfg, consts, spacing = scenes_1m[N_PARTICLES]
     run = run_main_path(state, spec, cfg, consts, spacing)
-    del scenes
+    del scenes_1m
 
-    # phase 6: times at the bench path's final state, kernels against
+    # phase 7: times at the bench path's final state, kernels against
     # their plain versions
     t, bounds = time_at_final_state(run, spec, cfg, consts)
     del run["be"], run["packed"]
+    t.update(probe["t"])
+    bounds.update(probe["bounds"])
 
-    # phases 7-8: paths A and B at full size, then K3 and K4 timed at
+    # phases 8-9: paths A and B at full size, then K3 and K4 timed at
     # their final states
     run_a = run_path_a(dev)
     run_b = run_path_b(dev)
     t_ab, bounds_ab = time_paths_kernels(run_a, run_b)
     t.update(t_ab)
     bounds.update(bounds_ab)
+    run_a_k3, rate_a = run_a["k3"], run_a["rate"]
+    run_b_k4, rate_b = run_b["k4"], run_b["rate"]
+    del run_a, run_b
 
+    # phase 10: the general gather engine (configs 1, 4, 3)
+    check_general_config1_cpu(dev)
+    general = run_general(dev)
+
+    pallas = "softbody_tpu/ops/pallas/"
+    probe_src = "scripts/probe_recmirror.py"
     rows = (
-        ("K1", "fused_substep2", "fused_substep2.py:195", run["k1"]),
-        ("K2", "band_detect", "band_detect.py:65", run["k2"]),
-        ("K3", "collide_stencil", "collide_stencil.py:41", run_a["k3"]),
-        ("K4", "fused_substep", "fused_substep.py:80", run_b["k4"]),
+        ("K1", "fused_substep2", "fused_substep2", pallas +
+         "fused_substep2.py:195", run["k1"]),
+        ("K2", "band_detect", "band_detect", pallas + "band_detect.py:65",
+         run["k2"]),
+        ("K3", "collide_stencil", "collide_stencil", pallas +
+         "collide_stencil.py:41", run_a_k3),
+        ("K4", "fused_substep", "fused_substep", pallas +
+         "fused_substep.py:80", run_b_k4),
+        ("K5", "cast_rows", "recmirror", probe_src + ":48",
+         probe["launches"]["K5"]),
+        ("K6", "uncast_rows", "recmirror", probe_src + ":68",
+         probe["launches"]["K6"]),
+        ("K7", "mirror_records", "recmirror", probe_src + ":92", run["k7"]),
     )
     kernels = [
         {"name": f"{k} {name}", "route": "cuda",
-         "source": f"softbody_tpu_torch/csrc/{name}.cu",
-         "replaces": f"softbody_tpu/ops/pallas/{tpu}",
+         "source": f"softbody_tpu_torch/csrc/{src}.cu", "replaces": tpu,
          "launches": launches, "max_abs_err": errs[k], "ms": t[k],
          "plain_ms": t[f"{k} plain"], "bound_ms": bounds[k][0],
-         "bound_by": bounds[k][1], "library_ms": None}
-        for k, name, tpu, launches in rows
+         "bound_by": bounds[k][1], "library_ms": t.get(f"{k} library")}
+        for k, name, src, tpu, launches in rows
     ]
-    log(f"path A rate: {run_a['rate']:.1f} substeps/s, path B rate: "
-        f"{run_b['rate']:.1f} substeps/s on {card}")
+    log(f"path A rate: {rate_a:.1f} substeps/s, path B rate: "
+        f"{rate_b:.1f} substeps/s on {card}")
     log(f"bench path rate: {run['rate']:.1f} substeps/s on {card}")
+    log("general path rates: " + ", ".join(f"{k} {v:.1f} substeps/s"
+                                           for k, v in general)
+        + f" on {card}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

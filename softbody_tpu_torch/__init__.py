@@ -1,11 +1,12 @@
 """softbody_tpu_torch — the PyTorch + CUDA port of ``softbody_tpu``.
 
-The dense-lattice tearing-cloth path with far-field self-collision, for
-one NVIDIA H100: plain torch ops around two hand-written Hopper kernels
-(``csrc/``), the fused lattice substep (K1) and the far-field band
-detection (K2).  Every module mirrors the JAX package's module of the
-same name; the JAX package is the reference the port is tested against.
-This package never imports JAX.
+For one NVIDIA H100: the dense-lattice paths (the fused tearing-cloth
+frame with far-field self-collision, the stencil backend, the per-edge
+fused frame) and the general gather engine (``state``, ``ops/step``),
+as plain torch ops around hand-written Hopper kernels (``csrc/``, K1–K7).
+Every module mirrors the JAX package's module of the same name; the JAX
+package is the reference the port is tested against.  This package never
+imports JAX.
 """
 
 from .config import (  # noqa: F401
@@ -18,7 +19,10 @@ from .convert import (  # noqa: F401
     constants_from_numpy,
     lattice_state_from_numpy,
     lattice_state_to_numpy,
+    sim_state_from_numpy,
+    sim_state_to_numpy,
     user_input_from_numpy,
 )
+from .state import SimState, empty_state, state_from_numpy  # noqa: F401
 
 __version__ = "0.1.0"

@@ -54,8 +54,13 @@ class StaticConfig:
     """World constants fixed for the life of an engine.
 
     ``subticks`` is forced even like the reference (engineWorker.ts:90).
-    ``collision_mode``: ``"none"`` disables collisions; the lattice path
-    treats every other mode the same (the stencil supplies the pairs).
+    ``collision_mode``: ``"none"`` disables collisions; the general
+    engine (``ops/collisions.py``) runs ``"allpairs"`` (the reference's
+    O(N²) loop, tiled by ``collision_tile`` partners), ``"grid"`` (a
+    spatial hash of cells of ``grid_cell_capacity`` particles) or
+    ``"window"`` (sorted-row windows of ``window_rows`` rows); the
+    lattice path treats every mode but ``"none"`` the same (the stencil
+    supplies the pairs).
     ``force_mode``: ``"quantized"`` (int32 fixed point at scale 65536,
     bit-matching the reference's atomic trick) or ``"segment"`` (f32).
     ``use_pallas``: the JAX package's name for its kernel routes, kept so
@@ -69,6 +74,9 @@ class StaticConfig:
     subticks: int = DEFAULT_SUBTICKS
     collision_mode: str = "allpairs"
     force_mode: str = "quantized"
+    collision_tile: int = 512
+    grid_cell_capacity: int = 8
+    window_rows: int = 2048
     use_pallas: bool = False
 
     def __post_init__(self) -> None:

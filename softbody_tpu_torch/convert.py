@@ -1,4 +1,5 @@
-"""numpy ↔ torch conversion of the state, constants and user input.
+"""numpy ↔ torch conversion of the states (lattice and general),
+constants and user input.
 
 The "weights" of this system are its state: a world built or stepped by
 the JAX package, read out as numpy arrays, becomes the same world here
@@ -13,6 +14,7 @@ import torch
 
 from .config import PhysicsConstants, UserInput, resolve_device
 from .ops.stencil import EdgeClass, LatticeState
+from .state import BEAM_FIELDS, PARTICLE_FIELDS, SimState
 
 EDGE_FIELDS = tuple(EdgeClass.__dataclass_fields__)
 
@@ -64,6 +66,56 @@ def lattice_state_to_numpy(state) -> dict:
                               bool if k == "alive" else np.float32)
                 for k in EDGE_FIELDS} for e in state.edges],
     )
+
+
+def sim_state_from_numpy(*, device=None, inc_beam=None, inc_sign=None,
+                         **fields) -> SimState:
+    """A :class:`~.state.SimState` on ``device`` (default: the CUDA
+    device) from the numpy fields of a general state, as
+    :func:`sim_state_to_numpy` returns them (a JAX ``SimState`` read out
+    included): ``pos``/``vel``/``acc`` ``[N, 2]``, the particle and beam
+    masks, the beam endpoint indices and parameters ``[M]``, and the
+    optional incidence ``inc_beam``/``inc_sign`` ``[N, D]``."""
+    device = resolve_device(device)
+    missing = set(PARTICLE_FIELDS + BEAM_FIELDS) - set(fields)
+    if missing:
+        raise ValueError(f"state lacks fields {sorted(missing)}")
+
+    def tensor(k, a):
+        if k in ("beam_a", "beam_b", "inc_beam"):
+            return torch.from_numpy(np.array(a, np.int64)).to(device)
+        if k == "inc_sign":
+            return torch.from_numpy(np.array(a, np.int8)).to(device)
+        if k in ("particle_alive", "particle_pinned", "beam_alive"):
+            return _bool(a, device)
+        return _f32(a, device)
+
+    out = {k: tensor(k, fields[k]) for k in PARTICLE_FIELDS + BEAM_FIELDS}
+    if inc_beam is not None:
+        out["inc_beam"] = tensor("inc_beam", inc_beam)
+        out["inc_sign"] = tensor("inc_sign", inc_sign)
+    return SimState(**out)
+
+
+def sim_state_to_numpy(state) -> dict:
+    """The inverse of :func:`sim_state_from_numpy`: numpy fields (endpoint
+    and incidence indices int32, as the JAX package keeps them).  Works on
+    any object with the ``SimState`` attributes, the JAX package's
+    included; ``inc_beam``/``inc_sign`` are None without an incidence."""
+    out = {}
+    for k in PARTICLE_FIELDS + BEAM_FIELDS:
+        a = np.asarray(_host(getattr(state, k)))
+        if k in ("beam_a", "beam_b"):
+            a = a.astype(np.int32)
+        elif a.dtype != bool:
+            a = a.astype(np.float32)
+        out[k] = a
+    inc = getattr(state, "inc_beam", None)
+    out["inc_beam"] = (None if inc is None
+                       else np.asarray(_host(inc)).astype(np.int32))
+    out["inc_sign"] = (None if inc is None
+                       else np.asarray(_host(state.inc_sign)).astype(np.int8))
+    return out
 
 
 def _host(x):

@@ -8,7 +8,7 @@ candidate list that it rebuilds when the motion since the last rebuild
 could outrun the skin.  :class:`FusedLatticeBackend` steps persistent
 packed planes with the fused substep kernel (K1) and, when far field is
 armed, the fixed-cadence far-field frame (rebuilds with the band kernel
-K2).  Only the strict physics is ported: the fused backend raises on any
+K2, the far apply through the record table of kernel K7).  Only the strict physics is ported: the fused backend raises on any
 kernel variant, far mode, detection mode or band implementation it does
 not run, instead of dropping it.
 
@@ -236,8 +236,10 @@ class FusedLatticeBackend(LatticeBackend):
         return unpack_lattice2(hot, obs, self._template)
 
     def step(self, state, consts: PhysicsConstants, uin: UserInput):
-        """One frame.  Far-field armed: the fixed-cadence frame, stats
-        accumulated on the host (``far_stats``)."""
+        """One frame.  Far-field armed: the fixed-cadence frame
+        (``fused_frame4``: rebuilds with K2, the far apply's mirror route
+        with K7 or its narrow route per bucket, K1), stats accumulated on
+        the host (``far_stats``)."""
         hot, obs = state
         if self.ff is None or self.cfg.collision_mode == "none":
             return fused_frame2(hot, obs, self._immut, self._edge_consts,

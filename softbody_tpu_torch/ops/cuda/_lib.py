@@ -28,7 +28,7 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("fused_substep2.cu", "band_detect.cu", "collide_stencil.cu",
-           "fused_substep.cu")
+           "fused_substep.cu", "recmirror.cu")
 HEADERS = ("lattice_device.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -38,6 +38,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 
 
 def _nvcc() -> str:
@@ -121,6 +122,16 @@ def library() -> ctypes.CDLL:
     #                      stencil, quantized, stream)
     lib.sb_fused_substep.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
     lib.sb_fused_substep.restype = _I
+    # int sb_cast_rows(x, y, rows, stream) and sb_uncast_rows(y, x, rows,
+    #                                                       stream)
+    for fn in (lib.sb_cast_rows, lib.sb_uncast_rows):
+        fn.argtypes = [_P, _P, _L, _P]
+        fn.restype = _I
+    # int sb_mirror_records(px, py, vx, vy, alive, out, w, h, w_out, h_out,
+    #                       stream)
+    lib.sb_mirror_records.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                      _P]
+    lib.sb_mirror_records.restype = _I
     lib.sb_error_string.argtypes = [_I]
     lib.sb_error_string.restype = ctypes.c_char_p
     return lib

@@ -231,9 +231,10 @@ def fused_frame4(hot, obs, immut, edge_consts, consts: PhysicsConstants,
     """One far-armed frame, fixed cadence (the JAX ``fused_frame4``,
     strict branch): ``n // R`` blocks of [rebuild → R substeps] with
     ``R = min(ffspec.horizon, n)``, plus a remainder block that also
-    rebuilds.  Each substep applies the far pairs (bucketed,
-    ``ops/farfield4.py``) then runs K1; the frame's last substep is the
-    observing one.
+    rebuilds.  Each substep applies the far pairs through the JAX v4
+    route (``ops/farfield4.py::bucketed_far_delta_planes``: buckets ≤ 256
+    narrow, larger ones through the record table of kernel K7) then runs
+    K1; the frame's last substep is the observing one.
 
     Returns ``(hot', obs', stats)`` with ``stats`` a CPU int32 ``[4]``:
     rebuilds, max n_pairs, max overflow, max active pairs (= n_pairs:

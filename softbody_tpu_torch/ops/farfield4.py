@@ -1,22 +1,71 @@
-"""Bucketed far-pair apply: the semantics of
-``softbody_tpu/ops/farfield4.py::bucketed_far_delta_planes``.
+"""Far-field v4 pair apply: the port of ``softbody_tpu/ops/farfield4.py``
+(the mirror-record route, lane block ``mb = 32``).
 
 The candidate list is cropped to the smallest capacity bucket ≥
-``n_pairs`` (so a light frame does not pay for the full capacity) and
-applied through the windowed gather → pair math → ``index_add_``
-scatter of ``ops/farfield.py``.  The JAX package's (4, 32)-record mirror
-table exists only for the TPU's memory layout and is not ported.
+``n_pairs`` (a light frame does not pay for the full capacity), then,
+as in the JAX package, per bucket:
+
+- buckets ≤ 256 (:func:`far_delta_planes_narrow`): each pair side's
+  window is gathered as 20 narrow rows (5 fields × 4 plane rows × 32
+  lanes) of a ``[5·W·Hm/32, 32]`` view of the planes, and the deltas are
+  scatter-added back the same way;
+- larger buckets: the planes are relaid once into the (4, 32) record
+  table (:func:`mirror_table`, kernel K7 on the card), one record row is
+  gathered per pair side (:func:`far_terms_from_mirror`), the delta
+  records are scatter-added into a table of the same layout and laid
+  back into planes (:func:`unmirror_table`).
+
+Layout: record row ``b·(W/4) + cx`` holds plane rows ``4cx..4cx+3``,
+lanes ``[32b, 32b+32)``, as ``[5 fields × 4 rows × 32 lanes]`` = 640
+floats.  A 4 × 4 chunk's window always lies in one record (``4·cy mod
+32 ∈ {0, 4, …, 28}``); the offset is selected by a sum of eight masked
+slices started from +0.0, as in the JAX package, so a ``-0.0`` reads
+back as ``+0.0`` on both sides.
+
+The apply runs on the rebuild's tile-padded grid ``(wp, hp)``
+(``farfield._chunk_dims``; 1008 × 1008 at 1M), where the chunk id
+``cx·(hp/4) + cy`` decodes as the rebuild encoded it; the pad is alive 0
+and the deltas are cropped back to ``[W, H]``.  Linear indices (the
+coincident nudge's order) use ``world_h = Hm``, the padded height
+rounded up to 32, as the JAX package passes.
+
+The lane block ``mb``/``mb_out`` = 128 and the pre-built ``table=`` /
+``as_table=`` records (kernel variants kmirror/krec) are not ported: the
+functions raise on them.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 
-from .farfield import FarFieldSpec, FarList, crop_far_list, far_collision_terms
+from .cuda.recmirror import MB, NF, REC, RX, mirror_records_call
+from .farfield import (
+    FarFieldSpec,
+    FarList,
+    _chunk_dims,
+    crop_far_list,
+    far_pair_contributions,
+)
 
 PX, PY, VX, VY = range(4)
+# buckets at or below this take the narrow-row route
+NARROW_MAX = 256
+# bucketed applies run, by route (each mirror apply launches K7 once on
+# CUDA tensors)
+APPLY_ROUTES = {"narrow": 0, "mirror": 0}
+
+
+def _mh(h: int) -> int:
+    return -(-h // MB) * MB
+
+
+def _check_layout(mb: int, mb_out: Optional[int] = None) -> None:
+    if mb != MB or mb_out not in (None, MB):
+        raise ValueError(f"only the mb={MB} record layout is ported "
+                         f"(mb={mb}, mb_out={mb_out})")
 
 
 def bucket_capacity(n_pairs: int, ff: FarFieldSpec,
@@ -26,21 +75,218 @@ def bucket_capacity(n_pairs: int, ff: FarFieldSpec,
     return next(b for b in ladder if b >= min(n_pairs, ff.max_pairs))
 
 
+def _padded_stack(planes, w: int, h: int) -> torch.Tensor:
+    """``[5, w, h]``: the five planes zero-padded (no copy if they already
+    are a ``[5, w, h]`` tensor)."""
+    if isinstance(planes, torch.Tensor) and tuple(planes.shape) == (NF, w, h):
+        return planes
+    stack = torch.stack(tuple(planes))
+    out = stack.new_zeros((NF, w, h))
+    out[:, :stack.shape[1], :stack.shape[2]] = stack
+    return out
+
+
+def mirror_table(planes, *, mb: int = MB, w: Optional[int] = None,
+                 h: Optional[int] = None) -> torch.Tensor:
+    """``[5, W, H]`` (px, py, vx, vy, alive), or a sequence of five
+    ``[W, H]`` planes, → the ``[(Hm/32)·(w/4), 640]`` record table of the
+    planes zero-padded to ``[w, Hm]`` (``w``/``h`` default to ``W``/``H``;
+    ``Hm`` is ``h`` rounded up to 32).  Kernel K7 on CUDA tensors, its
+    plain version on CPU tensors."""
+    _check_layout(mb)
+    planes = tuple(planes)
+    w0, h0 = planes[0].shape
+    w = w0 if w is None else w
+    h = h0 if h is None else h
+    return mirror_records_call(planes, w_out=w, h_out=_mh(h))
+
+
+def unmirror_table(table: torch.Tensor, *, w: int, h: int,
+                   mb: int = MB) -> torch.Tensor:
+    """Inverse of :func:`mirror_table` (delta tables → delta planes
+    ``[5, w, h]``, a view)."""
+    _check_layout(mb)
+    hm = _mh(h)
+    t = table.reshape(hm // MB, w // RX, NF, RX, MB).permute(2, 1, 3, 0, 4)
+    return t.reshape(NF, w, hm)[:, :, :h]
+
+
+def _decode(fl: FarList, c: int, h: int):
+    """Both sides' chunk coordinates ``[2k]`` and their window's lane
+    block and offset in it."""
+    ids = torch.cat([fl.ca, fl.cb])
+    cwy = h // c
+    cx = ids // cwy
+    cy = ids % cwy
+    lane0 = cy * c
+    return cx, cy, lane0 // MB, lane0 % MB
+
+
+def _select_windows(seg: torch.Tensor, off: torch.Tensor,
+                    c: int) -> torch.Tensor:
+    """``seg [n, 5, c, 32]`` → window fields ``[n, 5·c²]``: the sum of the
+    eight masked ``c``-lane slices, started from +0.0."""
+    n = seg.shape[0]
+    win = seg.new_zeros((n, NF, c, c))
+    for o in range(0, MB, c):
+        hit = (off == o)[:, None, None, None]
+        win = win + torch.where(hit, seg[..., o:o + c], 0.0)
+    return win.reshape(n, NF * c * c)
+
+
+def _place_windows(contrib: torch.Tensor, off: torch.Tensor,
+                   c: int) -> torch.Tensor:
+    """``contrib [n, 5, c²]`` → ``[n, 5, c, 32]`` lane segments, each
+    window at its offset (the inverse of :func:`_select_windows`)."""
+    n = contrib.shape[0]
+    cb4 = contrib.reshape(n, NF, c, c)
+    seg = contrib.new_zeros((n, NF, c, MB))
+    for o in range(0, MB, c):
+        hit = (off == o)[:, None, None, None]
+        seg = seg + torch.where(hit, F.pad(cb4, (o, MB - c - o)), 0.0)
+    return seg
+
+
+def _check_chunk(ff: FarFieldSpec) -> int:
+    if ff.chunk != RX:
+        raise ValueError(f"the record layout assumes {RX}x{RX} chunks, got "
+                         f"chunk {ff.chunk}")
+    return ff.chunk
+
+
+def far_terms_from_mirror(table: torch.Tensor, fl: FarList, *, s: int,
+                          ff: FarFieldSpec, radius: float, dt: float,
+                          ecoeff: float, friction: float, w: int, h: int,
+                          mb: int = MB, mb_out: Optional[int] = None,
+                          ) -> torch.Tensor:
+    """Pair apply against a (4, 32)-record mirror: returns the
+    ``[(Hm/32)·(w/4), 640]`` delta table (dvx dvy dax day dyn in the
+    record layout).  One gathered row per pair side, the windows selected
+    per offset, the exact pair math (``farfield.far_pair_contributions``),
+    the inverse placement and one row scatter-add (``index_add_``: in
+    list order on the CPU, with atomics on CUDA)."""
+    _check_layout(mb, mb_out)
+    c = _check_chunk(ff)
+    hm = _mh(h)
+    cw = w // RX
+    cx, cy, blk, off = _decode(fl, c, h)
+    row_ids = blk * cw + cx
+    n2k = row_ids.shape[0]
+    g = _select_windows(table[row_ids].reshape(n2k, NF, RX, MB), off, c)
+    contrib = far_pair_contributions(
+        g, fl, cx, cy, s=s, ff=ff, radius=radius, dt=dt, ecoeff=ecoeff,
+        friction=friction, world_h=hm)
+    drows = _place_windows(contrib, off, c).reshape(n2k, REC)
+    dtab = table.new_zeros(((hm // MB) * cw, REC))
+    return dtab.index_add_(0, row_ids, drows)
+
+
+def far_delta_planes_narrow(planes5, fl: FarList, *, s: int,
+                            ff: FarFieldSpec, radius: float, dt: float,
+                            ecoeff: float, friction: float, w: int,
+                            h: int) -> torch.Tensor:
+    """Mirror-free apply for small buckets: each pair side's window is
+    gathered as 20 narrow rows (5 fields × 4 plane rows × 32 lanes) of a
+    reshaped plane view, and the deltas are scatter-added back the same
+    way.  ``planes5``: ``[5, w, h]``, or five planes that are zero-padded
+    to it.  Returns the delta planes ``[5, w, h]`` (a view)."""
+    c = _check_chunk(ff)
+    hm = _mh(h)
+    nb = hm // MB
+    view = _padded_stack(planes5, w, hm).reshape(NF * w * nb, MB)
+    cx, cy, blk, off = _decode(fl, c, h)
+    n2k = cx.shape[0]
+    fidx = torch.arange(NF, device=cx.device)[None, :, None]
+    ridx = cx[:, None, None] * c + torch.arange(c, device=cx.device)[None,
+                                                                       None]
+    rows = ((fidx * w + ridx) * nb + blk[:, None, None]).reshape(-1)
+    seg = view[rows].reshape(n2k, NF, c, MB)
+    contrib = far_pair_contributions(
+        _select_windows(seg, off, c), fl, cx, cy, s=s, ff=ff, radius=radius,
+        dt=dt, ecoeff=ecoeff, friction=friction, world_h=hm)
+    out = view.new_zeros((NF * w * nb, MB))
+    out.index_add_(0, rows, _place_windows(contrib, off, c).reshape(-1, MB))
+    return out.reshape(NF, w, hm)[:, :, :h]
+
+
+def bucketed_far_delta_from_fn(
+    planes5_fn: Callable[[], Sequence[torch.Tensor]],
+    fl: FarList,
+    n_pairs: int,
+    *,
+    s: int,
+    ff: FarFieldSpec,
+    radius: float,
+    dt: float,
+    ecoeff: float,
+    friction: float,
+    w: int,
+    h: int,
+    buckets: Tuple[int, ...] = (1024, 4096),
+    mb: int = MB,
+    mb_out: Optional[int] = None,
+    table: Optional[torch.Tensor] = None,
+    as_table: bool = False,
+) -> Optional[torch.Tensor]:
+    """Core bucketed apply over a deferred plane source: crop the list to
+    the smallest capacity bucket ≥ ``n_pairs`` and apply it narrow (≤ 256)
+    or through the mirror table.  ``planes5_fn()`` returns the five
+    planes (px, py, vx, vy, alive), of ``[w, h]`` or smaller (zero-padded
+    to it); it is called only when there are pairs.  ``n_pairs`` is
+    ``fl.n_pairs`` read on the host: eager torch picks the bucket there,
+    as ``lax.switch`` did on the device.  Returns the delta planes
+    ``[5, w, h]`` (a view), or None when the list is empty."""
+    _check_layout(mb, mb_out)
+    if table is not None or as_table:
+        raise ValueError("pre-built mirror tables (table=, as_table=; "
+                         "kernel variants kmirror/krec) are not ported")
+    # the chunk-id decode (cx = id // (h / chunk)) matches the rebuild's
+    # tile-padded chunk grid only under these alignments
+    if h % (ff.chunk * ff.tile_chunks) != 0:
+        raise ValueError(f"far apply needs h ({h}) % chunk*tile_chunks "
+                         f"({ff.chunk * ff.tile_chunks}) == 0")
+    if w % ff.chunk != 0:
+        raise ValueError(f"far apply needs w ({w}) % chunk == 0")
+    if n_pairs == 0:
+        return None
+    k = bucket_capacity(n_pairs, ff, buckets)
+    flk = crop_far_list(fl, k)
+    kw = dict(s=s, ff=ff, radius=radius, dt=dt, ecoeff=ecoeff,
+              friction=friction, w=w, h=h)
+    if k <= NARROW_MAX:
+        APPLY_ROUTES["narrow"] += 1
+        return far_delta_planes_narrow(planes5_fn(), flk, **kw)
+    APPLY_ROUTES["mirror"] += 1
+    dtab = far_terms_from_mirror(mirror_table(planes5_fn(), w=w, h=h), flk,
+                                 **kw)
+    return unmirror_table(dtab, w=w, h=h)
+
+
 def bucketed_far_delta_planes(hot: torch.Tensor, alive_f: torch.Tensor,
                               fl: FarList, n_pairs: int, *, s: int,
                               ff: FarFieldSpec, radius: float, dt: float,
                               ecoeff: float, friction: float,
                               buckets: Tuple[int, ...] = (1024, 4096),
+                              plane_idx: Tuple[int, int, int, int] = (
+                                  PX, PY, VX, VY),
+                              mb: int = MB, mb_out: Optional[int] = None,
+                              table: Optional[torch.Tensor] = None,
+                              as_table: bool = False,
                               ) -> Optional[torch.Tensor]:
-    """Far delta planes ``[5, W, H]`` (dvx dvy dax day dyn) for the packed
-    state ``hot`` (px py vx vy at planes 0-3) and the float alive plane,
-    or None when the list is empty.  ``n_pairs`` is ``fl.n_pairs`` read
-    on the host once per rebuild: eager torch picks the bucket there, as
-    ``lax.switch`` did on the device."""
-    if n_pairs == 0:
-        return None
-    flk = crop_far_list(fl, bucket_capacity(n_pairs, ff, buckets))
-    terms = far_collision_terms(
-        hot[PX], hot[PY], hot[VX], hot[VY], alive_f > 0.0, flk, s=s, ff=ff,
-        radius=radius, dt=dt, ecoeff=ecoeff, friction=friction)
-    return torch.stack(terms)
+    """Far delta planes ``[5, W, H]`` (dvx dvy dax day dyn, contiguous)
+    for the packed state ``hot`` (px py vx vy at ``plane_idx``) and the
+    float alive plane, or None when the list is empty.  The apply runs on
+    the rebuild's tile-padded grid (:func:`bucketed_far_delta_from_fn`
+    with ``w, h = wp, hp``) and is cropped back to ``[W, H]``."""
+    w, h = alive_f.shape
+    _cwx, _cwy, wp, hp = _chunk_dims(w, h, ff)
+    ipx, ipy, ivx, ivy = plane_idx
+
+    def planes5_fn():
+        return (hot[ipx], hot[ipy], hot[ivx], hot[ivy], alive_f)
+
+    d = bucketed_far_delta_from_fn(
+        planes5_fn, fl, n_pairs, s=s, ff=ff, radius=radius, dt=dt,
+        ecoeff=ecoeff, friction=friction, w=wp, h=hp, buckets=buckets,
+        mb=mb, mb_out=mb_out, table=table, as_table=as_table)
+    return None if d is None else d[:, :w, :h].contiguous()

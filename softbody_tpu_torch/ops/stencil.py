@@ -148,8 +148,10 @@ def _sub32(a: float, b: float) -> float:
 def device_scalar(x: float, device) -> torch.Tensor:
     """A 0-d float32 tensor on ``device``.  Divide by this, not by a host
     scalar: on CUDA, torch turns ``t / host_scalar`` into a multiply by
-    the reciprocal, which is not the division the kernels evaluate."""
-    return torch.tensor(x, dtype=torch.float32, device=device)
+    the reciprocal, which is not the division the kernels evaluate.
+    Filled on the device (``torch.full``), not copied from the host: a
+    blocking host-to-device copy would wait for the stream to drain."""
+    return torch.full((), x, dtype=torch.float32, device=device)
 
 
 def sqrt32(x: torch.Tensor) -> torch.Tensor:

@@ -16,6 +16,7 @@ from softbody_tpu_torch.ops.cuda import (
     collide_stencil,
     fused_substep,
     fused_substep2,
+    recmirror,
 )
 from softbody_tpu_torch.ops.farfield import FarFieldSpec
 
@@ -131,3 +132,33 @@ def test_k4_matches_plain(dev, stencil):
                         (slice(4, 6), 1e-2)):
         torch.testing.assert_close(got[planes], ref[planes], rtol=0,
                                    atol=tol)
+
+
+@pytest.mark.parametrize("rows", [64, 40320])
+def test_k5_k6_match_plain(dev, rows):
+    """The casts are copies: bit-exact, new tensors."""
+    g = torch.Generator(device=dev).manual_seed(rows)
+    x = torch.randn((rows, 128), generator=g, device=dev)
+    before = (recmirror.K5_LAUNCHES, recmirror.K6_LAUNCHES)
+    y = recmirror.cast_rows_call(x)
+    back = recmirror.uncast_rows_call(y)
+    torch.cuda.synchronize()
+    assert (recmirror.K5_LAUNCHES, recmirror.K6_LAUNCHES) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.equal(y, recmirror.cast_rows_plain(x))
+    assert torch.equal(back, recmirror.uncast_rows_plain(y))
+    assert torch.equal(back, x) and back.data_ptr() != x.data_ptr()
+
+
+@pytest.mark.parametrize("w,h,w_out,h_out", [
+    (256, 256, 256, 256), (96, 40, 96, 64), (1000, 1000, 1008, 1024)])
+def test_k7_matches_plain(dev, w, h, w_out, h_out):
+    """The record table bit-exact, the zero pad included."""
+    g = torch.Generator(device=dev).manual_seed(w + h)
+    planes = [torch.randn((w, h), generator=g, device=dev) for _ in range(5)]
+    before = recmirror.K7_LAUNCHES
+    got = recmirror.mirror_records_call(planes, w_out=w_out, h_out=h_out)
+    torch.cuda.synchronize()
+    assert recmirror.K7_LAUNCHES == before + 1
+    ref = recmirror.mirror_records_plain(planes, w_out=w_out, h_out=h_out)
+    assert torch.equal(got, ref)

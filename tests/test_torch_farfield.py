@@ -124,8 +124,9 @@ def test_far_collision_terms_match_jax(scene):
 @pytest.mark.parametrize("scene", ["fold", "hairpin"])
 def test_bucketed_apply_matches_jax(scene):
     """The port's bucketed apply (crop to the smallest bucket ≥ n_pairs →
-    windowed gather → index_add_) on its own list against JAX
-    ``far_collision_terms`` on the JAX list."""
+    narrow rows for the fold's bucket 128, the mirror table for the
+    hairpin's 512) on its own list against JAX ``far_collision_terms`` on
+    the JAX list."""
     (px, py, vx, vy, alive), ffkw, radius, jfl, tfl = _both(scene, True)
     w, h = px.shape
     kw = dict(s=2, radius=radius, dt=DT, ecoeff=0.75, friction=0.1)

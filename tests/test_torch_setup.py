@@ -8,6 +8,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 import jax.numpy as jnp
 
@@ -22,7 +23,7 @@ from softbody_tpu_torch.convert import (
     lattice_state_to_numpy,
 )
 from softbody_tpu_torch.models import cloth_lattice, make_lattice
-from softbody_tpu_torch.models import tearing_cloth_lattice
+from softbody_tpu_torch.models import scenes, tearing_cloth_lattice
 
 from torch_parity import consts_to_port, random_state, uin_to_port
 
@@ -38,7 +39,17 @@ PORT_MODULES = (
     "softbody_tpu_torch.ops.cuda.band_detect",
     "softbody_tpu_torch.ops.cuda.collide_stencil",
     "softbody_tpu_torch.ops.cuda.fused_substep",
+    "softbody_tpu_torch.ops.cuda.recmirror",
     "softbody_tpu_torch.engine",
+    "softbody_tpu_torch.state",
+    "softbody_tpu_torch.models.lattice",
+    "softbody_tpu_torch.models.scenes",
+    "softbody_tpu_torch.ops.incidence",
+    "softbody_tpu_torch.ops.forces",
+    "softbody_tpu_torch.ops.integrate",
+    "softbody_tpu_torch.ops.collisions",
+    "softbody_tpu_torch.ops.step",
+    "chip_smoke",
 )
 
 
@@ -119,3 +130,26 @@ def test_consts_vector_matches(mouse):
                            77).numpy()
     assert got.dtype == ref.dtype == np.float32
     np.testing.assert_array_equal(got, ref)
+
+
+GENERAL_ENTRY_POINTS = {
+    "state_from_numpy": lambda: tb.state_from_numpy(np.zeros((3, 2))),
+    "empty_state": lambda: tb.empty_state(3, 2),
+    "sim_state_from_numpy": lambda: tb.sim_state_from_numpy(
+        **tb.sim_state_to_numpy(tb.empty_state(3, 2, device="cpu"))),
+    "default_scene": lambda: scenes.default_scene(),
+    "cloth": lambda: scenes.cloth(4, 4),
+    "blob": lambda: scenes.blob(radius=60.0),
+    "self_colliding_cloth": lambda: scenes.self_colliding_cloth(64),
+    "multi_blob": lambda: scenes.multi_blob(n_blobs=1),
+    "tearing_cloth": lambda: scenes.tearing_cloth(64),
+}
+
+
+@pytest.mark.parametrize("name", sorted(GENERAL_ENTRY_POINTS))
+def test_general_entry_points_default_to_cuda(name, monkeypatch):
+    """The general engine's state builders and scenes run on the card
+    unless told otherwise, and raise without one."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        GENERAL_ENTRY_POINTS[name]()

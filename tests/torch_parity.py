@@ -120,3 +120,30 @@ def assert_states_match(got, ref, *, pos=1e-4, vel=1e-3, acc=1e-2,
                 np.testing.assert_allclose(eg[k][live], er[k][live],
                                            rtol=1e-5, atol=1e-5,
                                            err_msg=f"class {c} {k}")
+
+
+def sim_to_jax(fields: dict):
+    """numpy fields (``sim_state_to_numpy`` layout) → JAX ``SimState``."""
+    from softbody_tpu.state import SimState as JSimState
+
+    return JSimState(**{k: None if v is None else jnp.asarray(v)
+                        for k, v in fields.items()})
+
+
+def sim_to_port(fields: dict, device="cpu"):
+    """numpy fields → port ``SimState`` on ``device``."""
+    from softbody_tpu_torch.convert import sim_state_from_numpy
+
+    return sim_state_from_numpy(**fields, device=device)
+
+
+def jittered(fields: dict, seed: int, pos_jitter: float, vel_scale: float):
+    """A copy of numpy state fields with uniform position jitter and
+    normal velocities, both from ``seed``."""
+    rng = np.random.default_rng(seed)
+    out = dict(fields)
+    shape = fields["pos"].shape
+    out["pos"] = (fields["pos"] + rng.uniform(-pos_jitter, pos_jitter, shape)
+                  ).astype(np.float32)
+    out["vel"] = rng.normal(0.0, vel_scale, shape).astype(np.float32)
+    return out
