@@ -23,7 +23,11 @@ to 0 just before it and read just after:
 
 Every phase raises on failure.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
+
+``--parent DIR``: also build the kernels of the checkout at DIR (another
+commit of this repo) and time its K1, K3 and K4 beside this tree's, in
+turns, on the same inputs.
 
 Needs one CUDA device and ``nvcc`` (``CUDA_HOME``, default
 ``/usr/local/cuda``); refuses to run without a device.  The last line
@@ -33,11 +37,14 @@ before it lists each kernel's launches, error and times.
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
+import itertools
 import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -146,6 +153,11 @@ GENERAL_ATOL = {"pos": 2e-3, "vel": 4e-3}
 # particle planes within the port's parity tolerances
 # (tests/test_torch_substep.py); K3's deltas bit-exact
 K1_ATOL = {"pos": 1e-4, "vel": 1e-3, "acc": 1e-2, "obs": 1e-5}
+# the shapes K1 and K4 are held at: the bench lattice, and shapes whose
+# sides are multiples of neither tile side (16 rows x 32 lanes), one a
+# single lane wide; and the stencil radii
+K14_SHAPES = ((1000, 1000), (97, 61), (33, 1000), (64, 1))
+K14_STENCILS = (0, 1, 2, 3)
 
 # the card's peaks for the bound (NVIDIA's H100 SXM data sheet): device
 # memory rate, and float32 outside the tensor cores
@@ -240,51 +252,83 @@ def _device_ms(fn, iters: int, warm: int = 1) -> float:
 # kernel checks
 
 
-def _k1_inputs(state, spec, cfg, consts, spacing, seed):
-    hot, obs, immut, ec = pack_lattice2(_stirred(state, spacing, seed))
-    cvec = torch.cat([tb.consts_vector(consts, tb.UserInput(), cfg,
-                                       spec.height), ec])
-    g = torch.Generator(device=hot.device).manual_seed(seed + 1)
-    far = torch.randn((5,) + tuple(hot.shape[1:]), generator=g,
-                      device=hot.device) * 0.5
-    return hot, obs, immut, cvec, far
+def _k14_state(w: int, h: int, dev, seed: int):
+    """A stirred ``w × h`` lattice for holding K1 and K4 against their
+    plain versions: the tearing cloth's parameters at the spacing that
+    spans the world, positions and velocities noisy enough that springs
+    yield and break and particles collide, 5% of the particles and 10% of
+    the edges dead.  Returns ``(state, cfg, consts, generator)``."""
+    spacing = 980.0 / max(max(w, h) - 1, 1)
+    state = make_lattice(w, h, spacing, spring=200.0, damp=10.0,
+                         yield_strain=0.18, strain_limit=0.22, device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    edges = tuple(dataclasses.replace(
+        e, alive=e.alive & (torch.rand((w, h), generator=g, device=dev)
+                            > 0.1)) for e in state.edges)
+    state = dataclasses.replace(
+        _stirred(state, spacing, seed), edges=edges,
+        alive=torch.rand((w, h), generator=g, device=dev) > 0.05)
+    cfg = tb.StaticConfig(subticks=64, collision_mode="allpairs",
+                          particle_radius=spacing * 0.35)
+    consts = tb.PhysicsConstants(gravity=(0.0, -0.05 * spacing))
+    return state, cfg, consts, g
 
 
-def check_k1(label, state, spec, cfg, consts, spacing) -> float:
-    """K1 against its plain version on the card, hot and observing."""
-    hot, obs, immut, cvec, far = _k1_inputs(state, spec, cfg, consts,
-                                            spacing, SEED)
-    kw = dict(stencil=spec.collision_stencil, quantized=True, far=far)
-    worst = 0.0
-    for observe in (False, True):
-        okw = dict(kw, obs_in=obs if observe else None)
-        ref = fused_substep2_plain(hot, immut, cvec, **okw)
-        got = fused_substep2_call(hot, immut, cvec, **okw)
+def _hold(label, got, ref, planes):
+    """``got`` against ``ref`` on the particle planes (pos, vel, acc) and
+    the named extra planes: the max |err| of each, raising above
+    K1_ATOL."""
+    errs = {
+        "pos": (got[0:2] - ref[0:2]).abs().max().item(),
+        "vel": (got[2:4] - ref[2:4]).abs().max().item(),
+        "acc": (got[4:6] - ref[4:6]).abs().max().item(),
+        **planes,
+    }
+    for k, e in errs.items():
+        if not e <= K1_ATOL[k]:
+            raise AssertionError(f"{label}: {k} max |err| {e} > "
+                                 f"{K1_ATOL[k]}")
+    return errs
+
+
+def check_k1(w: int, h: int, dev) -> float:
+    """K1 against its plain version on the card at ``w × h``, at stencils
+    K14_STENCILS, quantized and float forces, with and without a far
+    stack, hot and observing: edge planes bit-exact, particle planes
+    (and obs on alive edges) within K1_ATOL."""
+    state, cfg, consts, g = _k14_state(w, h, dev, SEED + w + h)
+    hot, obs, immut, ec = pack_lattice2(state)
+    cvec = torch.cat([tb.consts_vector(consts, tb.UserInput(), cfg, h), ec])
+    far = torch.randn((5, w, h), generator=g, device=dev) * 0.5
+    worst = {}
+    for s, quantized, with_far, observe in itertools.product(
+            K14_STENCILS, (True, False), (False, True), (False, True)):
+        kw = dict(stencil=s, quantized=quantized,
+                  far=far if with_far else None,
+                  obs_in=obs if observe else None)
+        label = (f"K1 {w}x{h} s={s} quantized={quantized} far={with_far} "
+                 f"observe={observe}")
+        ref = fused_substep2_plain(hot, immut, cvec, **kw)
+        got = fused_substep2_call(hot, immut, cvec, **kw)
         torch.cuda.synchronize()
         ref_hot, ref_obs = ref if observe else (ref, None)
         got_hot, got_obs = got if observe else (got, None)
         if not torch.equal(got_hot[6:], ref_hot[6:]):
             n_bad = int((got_hot[6:] != ref_hot[6:]).sum())
-            raise AssertionError(f"K1 {label}: {n_bad} edge-plane values "
+            raise AssertionError(f"{label}: {n_bad} edge-plane values "
                                  "differ from the plain version")
-        errs = {
-            "pos": (got_hot[0:2] - ref_hot[0:2]).abs().max().item(),
-            "vel": (got_hot[2:4] - ref_hot[2:4]).abs().max().item(),
-            "acc": (got_hot[4:6] - ref_hot[4:6]).abs().max().item(),
-        }
+        extra = {}
         if observe:
             live = torch.repeat_interleave(ref_hot[8::3] > 0, 2, dim=0)
-            errs["obs"] = ((got_obs - ref_obs).abs() * live).max().item()
-        for k, e in errs.items():
-            if not e <= K1_ATOL[k]:
-                raise AssertionError(f"K1 {label} observe={observe}: {k} "
-                                     f"max |err| {e} > {K1_ATOL[k]}")
-        worst = max(worst, *errs.values())
-        active = int((ref_hot[8::3] > 0).sum())
-        broke = int(((hot[8::3] > 0) & (ref_hot[8::3] == 0)).sum())
-        log(f"K1 {label} observe={observe}: edge planes bit-exact, "
-            f"max |err| {errs} ({active} alive edges, {broke} broke)")
-    return worst
+            extra["obs"] = ((got_obs - ref_obs).abs() * live).max().item()
+        for k, e in _hold(label, got_hot, ref_hot, extra).items():
+            worst[k] = max(worst.get(k, 0.0), e)
+    broke = int(((hot[8::3] > 0) & (ref_hot[8::3] == 0)).sum())
+    log(f"K1 {w}x{h}: {len(K14_STENCILS) * 8} cases (stencils "
+        f"{K14_STENCILS}, quantized/float, far on/off, observing on/off), "
+        f"edge planes bit-exact, max |err| {worst} ({broke} edges broke in "
+        "the last case)")
+    return max(worst.values())
 
 
 def _band_inputs(px, py, vx, vy, alive, cfg, ff, stencil):
@@ -339,53 +383,40 @@ def check_k3(label, state, spec, cfg, consts, spacing) -> float:
     return err
 
 
-def _k4_inputs(state, spec, cfg, consts, spacing, seed):
-    """A stirred state's packed stacks with per-edge varied parameters
-    (each edge's spring, damp, yield, limit and length times a factor in
-    [0.5, 1.5)), its consts vector and a far delta stack."""
-    mut, immut = pack_lattice(_stirred(state, spacing, seed))
-    g = torch.Generator(device=mut.device).manual_seed(seed + 1)
-    immut[2:] *= 0.5 + torch.rand(immut[2:].shape, generator=g,
-                                  device=mut.device)
-    cvec = tb.consts_vector(consts, tb.UserInput(), cfg, spec.height)
-    far = torch.randn((5,) + tuple(mut.shape[1:]), generator=g,
-                      device=mut.device) * 0.5
-    return mut, immut, cvec, far
-
-
-def check_k4(label, state, spec, cfg, consts, spacing) -> float:
-    """K4 against its plain version on the card, with and without a far
-    stack: edge planes (target, last, strain, stress, alive) bit-exact,
-    particle planes within K1_ATOL."""
-    mut, immut, cvec, far = _k4_inputs(state, spec, cfg, consts, spacing,
-                                       SEED + 3)
-    worst = 0.0
-    for with_far in (False, True):
-        kw = dict(stencil=spec.collision_stencil, quantized=True,
+def check_k4(w: int, h: int, dev) -> float:
+    """K4 against its plain version on the card at ``w × h`` with
+    per-edge varied parameters (each edge's spring, damp, yield, limit
+    and length times a factor in [0.5, 1.5)), at stencils K14_STENCILS,
+    quantized and float forces, with and without a far stack: edge planes
+    (target, last, strain, stress, alive) bit-exact, particle planes
+    within K1_ATOL."""
+    state, cfg, consts, g = _k14_state(w, h, dev, SEED + 3 + w + h)
+    mut, immut = pack_lattice(state)
+    immut[2:] *= 0.5 + torch.rand(immut[2:].shape, generator=g, device=dev)
+    cvec = tb.consts_vector(consts, tb.UserInput(), cfg, h)
+    far = torch.randn((5, w, h), generator=g, device=dev) * 0.5
+    worst = {}
+    for s, quantized, with_far in itertools.product(
+            K14_STENCILS, (True, False), (False, True)):
+        kw = dict(stencil=s, quantized=quantized,
                   far=far if with_far else None)
+        label = f"K4 {w}x{h} s={s} quantized={quantized} far={with_far}"
         ref = fused_substep_plain(mut, immut, cvec, **kw)
         got = fused_substep_call(mut, immut, cvec, **kw)
         torch.cuda.synchronize()
         if not torch.equal(got[6:], ref[6:]):
             n_bad = int((got[6:] != ref[6:]).sum())
-            raise AssertionError(f"K4 {label}: {n_bad} edge-plane values "
+            raise AssertionError(f"{label}: {n_bad} edge-plane values "
                                  "differ from the plain version")
-        errs = {
-            "pos": (got[0:2] - ref[0:2]).abs().max().item(),
-            "vel": (got[2:4] - ref[2:4]).abs().max().item(),
-            "acc": (got[4:6] - ref[4:6]).abs().max().item(),
-        }
-        for k, e in errs.items():
-            if not e <= K1_ATOL[k]:
-                raise AssertionError(f"K4 {label} far={with_far}: {k} max "
-                                     f"|err| {e} > {K1_ATOL[k]}")
-        worst = max(worst, *errs.values())
-        eal = slice(10, 26, 5)
-        broke = int(((mut[eal] > 0) & (ref[eal] == 0)).sum())
-        log(f"K4 {label} far={with_far}: edge planes bit-exact, max |err| "
-            f"{errs} ({int((ref[eal] > 0).sum())} alive edges, {broke} "
-            "broke)")
-    return worst
+        for k, e in _hold(label, got, ref, {}).items():
+            worst[k] = max(worst.get(k, 0.0), e)
+    eal = slice(10, 26, 5)
+    broke = int(((mut[eal] > 0) & (ref[eal] == 0)).sum())
+    log(f"K4 {w}x{h}: {len(K14_STENCILS) * 4} cases (stencils "
+        f"{K14_STENCILS}, quantized/float, far on/off), edge planes "
+        f"bit-exact, max |err| {worst} ({broke} edges broke in the last "
+        "case)")
+    return max(worst.values())
 
 
 def _probe_planes(g, w, h, dev):
@@ -501,10 +532,73 @@ def _mirror_bound(planes, table):
 
 
 def _substep_ops(n: int, s: int) -> float:
-    """K1/K4 per particle: 4 classes × (2 spring evaluations of 16 ops,
-    the int32 conversion 8, the edge update 11) + per half offset 2 pair
-    evaluations of 38 ops and 10 sums + the integration's ~60."""
-    return n * (4 * (2 * 16 + 8 + 11) + len(half_offsets(s)) * 86 + 60)
+    """K1/K4: the work the inputs need, each spring and each unordered
+    pair once.  Per particle: 4 classes × (one spring evaluation of 16
+    ops, the int32 conversions and the -own + reaction sums 8, the edge
+    update 11) + per half offset one pair evaluation of 38 ops and the 10
+    sums that apply it at both ends + the integration's ~60."""
+    return n * (4 * (16 + 8 + 11) + len(half_offsets(s)) * 48 + 60)
+
+
+def _log_bound(k: str, n_bytes: float, n_ops: float) -> None:
+    """Both sides of a bound: bytes over the memory rate and operations
+    over the float32 rate."""
+    t, by = _bound(n_bytes, n_ops)
+    log(f"{k} bound: {n_bytes / 1e6:.1f} MB -> "
+        f"{n_bytes / PEAK_BYTES_PER_S * 1e3:.4f} ms, {n_ops / 1e9:.3f} "
+        f"Gop -> {n_ops / PEAK_F32_PER_S * 1e3:.4f} ms: {by}-bound, "
+        f"{t:.4f} ms")
+
+
+# ---------------------------------------------------------------------------
+# the kernels of another checkout (``--parent``), launched through their C
+# entries with the same arguments as this tree's wrappers, and timed in
+# turns with this tree's on the same inputs
+
+
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def _raw_k1(lib, hot, immut, cvec, stencil, quantized, far):
+    out = torch.empty_like(hot)
+    _lib.check(lib.sb_fused_substep2(
+        hot.data_ptr(), immut.data_ptr(),
+        None if far is None else far.data_ptr(), None, out.data_ptr(), None,
+        cvec.data_ptr(), hot.shape[1], hot.shape[2], stencil,
+        int(quantized), _stream()), "K1")
+    return out
+
+
+def _raw_k3(lib, planes, radius, dt, ecoeff, friction, stencil):
+    px, py, vx, vy, alive = planes
+    out = torch.empty((5,) + tuple(px.shape), device=px.device)
+    two_r, inv_dt2 = collide_stencil._scalars(radius, dt)
+    _lib.check(lib.sb_collide_stencil(
+        px.data_ptr(), py.data_ptr(), vx.data_ptr(), vy.data_ptr(),
+        alive.data_ptr(), out.data_ptr(), two_r, inv_dt2,
+        float(np.float32(ecoeff)), float(np.float32(friction)),
+        px.shape[0], px.shape[1], stencil, _stream()), "K3")
+    return out
+
+
+def _raw_k4(lib, mut, immut, cvec, stencil, quantized):
+    out = torch.empty_like(mut)
+    _lib.check(lib.sb_fused_substep(
+        mut.data_ptr(), immut.data_ptr(), None, out.data_ptr(),
+        cvec.data_ptr(), mut.shape[1], mut.shape[2], stencil,
+        int(quantized), _stream()), "K4")
+    return out
+
+
+def _turns(parent, this, iters: int) -> dict:
+    """Device ms per call of the parent's and this tree's kernel on the
+    same inputs, in turns: parent, this, this, parent."""
+    ms = {"parent": [], "this": []}
+    for side, fn in (("parent", parent), ("this", this), ("this", this),
+                     ("parent", parent)):
+        ms[side].append(_device_ms(fn, iters))
+    return ms
 
 
 def _k3_ops(n: int, s: int) -> float:
@@ -818,12 +912,15 @@ def run_main_path(state, spec, cfg, consts, spacing) -> dict:
                 frame_ms=ms / TIMED_FRAMES, stats=stats)
 
 
-def time_at_final_state(run, spec, cfg, consts) -> dict:
+def time_at_final_state(run, spec, cfg, consts, parent=None) -> dict:
     """At the main path's final state (CUDA events, ms per call): one
     rebuild; one far apply through the mirror route, its parts, and the
     windowed gather it replaced; and K1, K2 and K7 against their plain
     versions (K7 also against its library call) on the inputs the main
-    path gives them."""
+    path gives them.  K1 also at stencil 0 (streaming and springs without
+    the collision arithmetic), and with ``parent`` (another checkout's
+    kernel library) beside the parent's K1 in turns at stencils 2 and 0,
+    into ``t["compare"]``."""
     be, (hot, _obs) = run["be"], run["packed"]
     ff, immut = be.ff, be._immut
     alive = immut[0] > 0
@@ -886,6 +983,14 @@ def time_at_final_state(run, spec, cfg, consts) -> dict:
     k1kw = dict(stencil=s, quantized=True, far=far)
     t["K1"] = _device_ms(lambda: fused_substep2_call(hot, immut, cvec,
                                                      **k1kw), 50)
+    t["K1 s0"] = _device_ms(lambda: fused_substep2_call(
+        hot, immut, cvec, **dict(k1kw, stencil=0)), 50)
+    t["compare"] = {}
+    for st in (s, 0) if parent is not None else ():
+        t["compare"][f"K1 s{st}"] = _turns(
+            lambda: _raw_k1(parent, hot, immut, cvec, st, True, far),
+            lambda: _raw_k1(_lib.library(), hot, immut, cvec, st, True, far),
+            50)
     t["K1 plain"] = _timed_ms(lambda: fused_substep2_plain(hot, immut, cvec,
                                                            **k1kw), 5)
     planes5 = planes
@@ -897,22 +1002,26 @@ def time_at_final_state(run, spec, cfg, consts) -> dict:
     t["K2 plain"] = _timed_ms(lambda: band_flags_plain(*planes, offsets), 5)
     n = hot.shape[1] * hot.shape[2]
     # K1: reads hot, immut and far, writes hot (the non-observing call)
+    _log_bound("K1", (18 + 2 + 5 + 18) * 4 * n, _substep_ops(n, s))
     bounds = {"K1": _bound((18 + 2 + 5 + 18) * 4 * n, _substep_ops(n, s)),
               "K2": _bound(n * (4 * 4 + 1) + n,
                            7 * _band_pairs_evaluated(*planes, offsets)),
               "K7": _mirror_bound(planes5, table)}
     log(f"at the final state ({n_pairs} far pairs, {flagged} band-flagged "
-        f"particles): " + ", ".join(f"{k} {v:.4f} ms" for k, v in t.items())
+        f"particles): " + ", ".join(f"{k} {v:.4f} ms" for k, v in t.items()
+                                    if k != "compare")
         + "; bounds " + ", ".join(f"{k} {v[0]:.4f} ms ({v[1]})"
                                   for k, v in bounds.items()))
     return t, bounds
 
 
-def time_paths_kernels(run_a, run_b) -> dict:
+def time_paths_kernels(run_a, run_b, parent=None) -> dict:
     """K3 at path A's final state and K4 at path B's (CUDA events, ms per
-    call), each against its plain version, with its bound.  K3 is timed
-    on contiguous planes (on the path its wrapper first copies the
-    strided views of the state)."""
+    call), each against its plain version, with its bound; K4 also at
+    stencil 0.  K3 is timed on contiguous planes (on the path its wrapper
+    first copies the strided views of the state).  With ``parent``, the
+    parent's K3 and K4 (stencils 2 and 0) beside this tree's in turns,
+    into ``t["compare"]``."""
     st, cfg, consts = run_a["state"], run_a["cfg"], run_a["consts"]
     s = run_a["spec"].collision_stencil
     planes = [t.contiguous() for t in (st.pos[..., 0], st.pos[..., 1],
@@ -922,7 +1031,11 @@ def time_paths_kernels(run_a, run_b) -> dict:
               friction=consts.friction, stencil=s)
     t = {"K3": _device_ms(lambda: collide_stencil_call(*planes, **kw), 50),
          "K3 plain": _timed_ms(lambda: collide_stencil_plain(*planes, **kw),
-                               3)}
+                               3), "compare": {}}
+    if parent is not None:
+        t["compare"]["K3"] = _turns(
+            lambda: _raw_k3(parent, planes, **kw),
+            lambda: _raw_k3(_lib.library(), planes, **kw), 50)
     n = planes[0].numel()
     bounds = {"K3": _bound(n * (4 * 4 + 1) + 5 * 4 * n, _k3_ops(n, s))}
 
@@ -935,10 +1048,19 @@ def time_paths_kernels(run_a, run_b) -> dict:
                                                     **kw4), 50)
     t["K4 plain"] = _timed_ms(lambda: fused_substep_plain(mut, immut, cvec,
                                                           **kw4), 3)
+    t["K4 s0"] = _device_ms(lambda: fused_substep_call(
+        mut, immut, cvec, **dict(kw4, stencil=0)), 50)
+    for st in (s_b, 0) if parent is not None else ():
+        t["compare"][f"K4 s{st}"] = _turns(
+            lambda: _raw_k4(parent, mut, immut, cvec, st, kw4["quantized"]),
+            lambda: _raw_k4(_lib.library(), mut, immut, cvec, st,
+                            kw4["quantized"]), 50)
     # K4: reads mut and immut, writes mut (path B has no far stack)
+    _log_bound("K4", (26 + 22 + 26) * 4 * n, _substep_ops(n, s_b))
     bounds["K4"] = _bound((26 + 22 + 26) * 4 * n, _substep_ops(n, s_b))
     log("at paths A and B's final states: "
-        + ", ".join(f"{k} {v:.4f} ms" for k, v in t.items())
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in t.items()
+                    if k != "compare")
         + "; bounds " + ", ".join(f"{k} {v[0]:.4f} ms ({v[1]})"
                                   for k, v in bounds.items()))
     return t, bounds
@@ -1008,7 +1130,35 @@ def run_general(dev) -> list:
     return rates
 
 
+def _occupancy() -> None:
+    """K1's and K4's residency per SM at the stencil radii they are held
+    at (registers, spills and shared memory from the loaded kernels)."""
+    for k, kernel in (("K1", "fused_substep2"), ("K4", "fused_substep")):
+        occ = {s: _lib.occupancy(kernel, s) for s in K14_STENCILS}
+        log(f"  {k} residency by stencil: " + "; ".join(
+            f"s={s} {o['blocks_per_sm']} blocks/SM of "
+            f"{o['threads']} threads, {o['registers']} registers, "
+            f"{o['local_bytes']} B local, {o['smem_bytes']} B shared"
+            for s, o in occ.items()))
+
+
+def _log_compare(compare: dict, card: str) -> None:
+    """The parent's and this tree's kernel times from ``_turns``."""
+    for k, ms in compare.items():
+        p, c = ms["parent"], ms["this"]
+        log(f"parent vs this tree, {k}: device ms parent {p[0]:.4f}, this "
+            f"{c[0]:.4f}, this {c[1]:.4f}, parent {p[1]:.4f} (means "
+            f"{sum(p) / 2:.4f} / {sum(c) / 2:.4f}, ratio "
+            f"{sum(p) / sum(c):.3f}) on {card}")
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", type=Path, default=None,
+                    help="root of another checkout of this repo: its K1, "
+                    "K3 and K4 are built from its csrc/ and timed beside "
+                    "this tree's, in turns, on the same inputs")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "false); this script runs only on the card", file=sys.stderr)
@@ -1027,20 +1177,30 @@ def main() -> int:
     for line in report.splitlines():
         if "Used" in line or "spill" in line:
             log(f"  ptxas: {line.strip()}")
+    _occupancy()
+    parent = None
+    if args.parent is not None:
+        ppath, psecs, _ = _lib.build(args.parent / "softbody_tpu_torch" /
+                                     "csrc")
+        parent = _lib.bind(ppath)
+        log(f"parent kernels from {args.parent}: {ppath.name} in "
+            f"{psecs:.1f} s")
 
-    # phases 2-3: kernels against their plain versions, 64x64 and 1M
+    # phases 2-3: kernels against their plain versions: K2 and K3 at
+    # 64x64 and 1M, K1 and K4 at K14_SHAPES
     errs = {"K1": 0.0, "K2": 0.0, "K3": 0.0, "K4": 0.0}
-    checks = {"K1": check_k1, "K2": check_k2, "K3": check_k3,
-              "K4": check_k4}
     scenes_1m = {}
     for n in (64 * 64, N_PARTICLES):
         state, spec, cfg, consts, spacing = _scene(n, dev)
         scenes_1m[n] = (state, spec, cfg, consts, spacing)
         label = f"{spec.width}x{spec.height}"
-        for k, check in checks.items():
-            args = ((state, spec, cfg, spacing) if k == "K2"
-                    else (state, spec, cfg, consts, spacing))
-            errs[k] = max(errs[k], check(label, *args))
+        errs["K2"] = max(errs["K2"], check_k2(label, state, spec, cfg,
+                                              spacing))
+        errs["K3"] = max(errs["K3"], check_k3(label, state, spec, cfg,
+                                              consts, spacing))
+    for w, h in K14_SHAPES:
+        errs["K1"] = max(errs["K1"], check_k1(w, h, dev))
+        errs["K4"] = max(errs["K4"], check_k4(w, h, dev))
     log("phases 2-3 kernels vs plain: ok")
 
     # phase 4: the probe (K5-K7 at the probe's and the 1M sizes)
@@ -1057,7 +1217,7 @@ def main() -> int:
 
     # phase 7: times at the bench path's final state, kernels against
     # their plain versions
-    t, bounds = time_at_final_state(run, spec, cfg, consts)
+    t, bounds = time_at_final_state(run, spec, cfg, consts, parent)
     del run["be"], run["packed"]
     t.update(probe["t"])
     bounds.update(probe["bounds"])
@@ -1066,7 +1226,8 @@ def main() -> int:
     # their final states
     run_a = run_path_a(dev)
     run_b = run_path_b(dev)
-    t_ab, bounds_ab = time_paths_kernels(run_a, run_b)
+    t_ab, bounds_ab = time_paths_kernels(run_a, run_b, parent)
+    t_ab["compare"] = {**t["compare"], **t_ab["compare"]}
     t.update(t_ab)
     bounds.update(bounds_ab)
     run_a_k3, rate_a = run_a["k3"], run_a["rate"]
@@ -1105,6 +1266,10 @@ def main() -> int:
     log(f"path A rate: {rate_a:.1f} substeps/s, path B rate: "
         f"{rate_b:.1f} substeps/s on {card}")
     log(f"bench path rate: {run['rate']:.1f} substeps/s on {card}")
+    log(f"K1 at stencil 0 {t['K1 s0']:.4f} ms (stencil 2 {t['K1']:.4f}), "
+        f"K4 at stencil 0 {t['K4 s0']:.4f} ms (stencil 2 {t['K4']:.4f}) "
+        f"on {card}")
+    _log_compare(t["compare"], card)
     log("general path rates: " + ", ".join(f"{k} {v:.1f} substeps/s"
                                            for k, v in general)
         + f" on {card}")

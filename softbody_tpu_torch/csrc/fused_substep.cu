@@ -18,23 +18,33 @@
 //                     stencil's terms
 //
 // What bounds it on the card: device-memory bytes.  At 1M particles a
-// substep reads 26 + 22 (+5) planes and writes 26: ~300 MB, ~90 us at
-// 3.35 TB/s.
+// substep reads 26 + 22 (+5) planes and writes 26: 296 MB, 88 us at
+// 3.35 TB/s.  Evaluating every spring at both ends would read the
+// owners' target, last, alive, spring and damp planes again at shifted
+// addresses and take every spring's square root and divide twice.
 //
-// What the design does about it: the tile layout of K1 (one thread per
-// particle, 32 (H) x 8 (W), tile + halo of max(s, 1) of px py vx vy alive
-// in shared memory, coalesced rows).  Each particle evaluates its 4 own
-// edges and the 4 edges owned by (x-dx, y-dy); a reaction edge reads the
-// owner's target, last and spring/damp planes at the owner's cell, which
-// hit L1/L2.  The kernel reads `mut` and writes a separate `mut_out`.
+// What the design does about it: K1's block substep (lattice_device.cuh,
+// described in fused_substep2.cu): an 8 (W) x 32 (H) tile per block of
+// 256 threads (__launch_bounds__(256, 4): K4 needs 63 registers, and at
+// 5 blocks per SM it spilled 40 bytes and ran slower), the tile plus a
+// halo of max(s, 1) of px py vx vy alive staged with cp.async while each
+// thread loads its own target, last, alive, spring and damp planes; each
+// spring (the tile's and its halo owners') evaluated once into force
+// planes in shared memory, where each cell reads its reactions; a halo
+// owner reads its own five planes, one row above and one column each side
+// of the tile.  Collisions per thread at both ends from the staged tile,
+// with the square root and divide only for pairs that can touch.  The
+// kernel reads `mut` and writes a separate `mut_out`.
 //
 // Exactness: sums in the plain version's (XLA) order, springs per class
 // as -own + reaction, collisions per half offset as
-// (acc + t(i, i+o)) - t(i-o, i).  The coincident nudge is
-// -sign(ox*H + oy); the TPU kernel hard-codes -1 on half offsets, which
-// is the same value while H > s.  With -fmad=false and no fast math the
-// int32 spring sums and the edge planes equal the plain version's bit
-// for bit.
+// (acc + t(i, i+o)) - t(i-o, i).  A shared reaction is the value its
+// owner computed from the same operands, so it is bit-identical to
+// evaluating it again; outside the grid it is +0, the plain version's
+// back() fill.  The coincident nudge is -sign(ox*H + oy); the TPU kernel
+// hard-codes -1 on half offsets, which is the same value while H > s.
+// With -fmad=false and no fast math the int32 spring sums and the edge
+// planes equal the plain version's bit for bit.
 
 #include <string.h>
 
@@ -54,7 +64,7 @@ struct Consts {
   float v[N_CONSTS];
 };
 
-__global__ void __launch_bounds__(TX * TY)
+__global__ void __launch_bounds__(SUB_THREADS, 4)
 fused_substep_kernel(const float* __restrict__ mut,
                      const float* __restrict__ immut,
                      const float* __restrict__ far,
@@ -63,86 +73,111 @@ fused_substep_kernel(const float* __restrict__ mut,
   extern __shared__ float smem[];
   const int R = s > 1 ? s : 1;
   const size_t WH = (size_t)w * h;
-  const int x0 = blockIdx.y * TX;
-  const int y0 = blockIdx.x * TY;
-  const SmemTile t =
-      stage_tile(smem, mut + PX * WH, mut + PY * WH, mut + VX * WH,
-                 mut + VY * WH, immut + ALIVE * WH, x0, y0, R, w, h);
-
-  const int x = x0 + threadIdx.y;
-  const int y = y0 + threadIdx.x;
-  if (x >= w || y >= h) return;
-  const size_t g = (size_t)x * h + y;
-  const int lc = (threadIdx.y + R) * t.sy + threadIdx.x + R;
+  const int x0 = blockIdx.y * SUB_TX;
+  const int y0 = blockIdx.x * SUB_TY;
+  const SmemTile t = stage_tile_async(
+      smem, mut + PX * WH, mut + PY * WH, mut + VX * WH, mut + VY * WH,
+      immut + ALIVE * WH, x0, y0, R, w, h);
+  uint32_t* fp = (uint32_t*)(smem + sub_stage_floats(R));
   const float* v = cs.v;
+
+  const int r = threadIdx.y, l = threadIdx.x;
+  const int x = x0 + r, y = y0 + l;
+  const bool live = x < w && y < h;
+  const size_t g = live ? (size_t)x * h + y : 0;
+
+  // own target, last, alive, spring, damp, loaded while the tile is in
+  // flight
+  float tgt[4], lst[4], spr[4], dmp[4];
+  bool eal[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const size_t pm = (size_t)(MUT_EDGE0 + 5 * c) * WH;
+    const size_t pi = (size_t)(IMM_EDGE0 + 5 * c) * WH;
+    tgt[c] = live ? mut[pm + TGT * WH + g] : 0.0f;
+    lst[c] = live ? mut[pm + LST * WH + g] : 0.0f;
+    eal[c] = live && mut[pm + EAL * WH + g] > 0.0f;
+    spr[c] = live ? immut[pi + SPR * WH + g] : 0.0f;
+    dmp[c] = live ? immut[pi + DMP * WH + g] : 0.0f;
+  }
+  // this thread's halo owner (the last warps take them) and its planes
+  int hc = 0, hr = 0, hl = 0;
+  const bool halo =
+      halo_owner(SUB_THREADS - 1 - (r * SUB_TY + l), hc, hr, hl);
+  const bool halo_in = halo && x0 + hr >= 0 && x0 + hr < w &&
+                       y0 + hl >= 0 && y0 + hl < h;
+  float htgt = 0.0f, hlst = 0.0f, hspr = 0.0f, hdmp = 0.0f;
+  bool heal = false;
+  if (halo_in) {
+    const size_t go = (size_t)(x0 + hr) * h + y0 + hl;
+    const size_t pm = (size_t)(MUT_EDGE0 + 5 * hc) * WH;
+    const size_t pi = (size_t)(IMM_EDGE0 + 5 * hc) * WH;
+    htgt = mut[pm + TGT * WH + go];
+    hlst = mut[pm + LST * WH + go];
+    heal = mut[pm + EAL * WH + go] > 0.0f;
+    hspr = immut[pi + SPR * WH + go];
+    hdmp = immut[pi + DMP * WH + go];
+  }
+  stage_wait();
+
+  const int lc = (r + R) * t.sy + l + R;
   const bool al_c = t.al[lc] > 0.0f;
   const float px = t.px[lc], py = t.py[lc];
 
-  // ---- springs: own edges (-f, edge-state update) + reactions (+f) ----
-  uint32_t fxq = 0u, fyq = 0u;  // int32 sums, wrapping like XLA's
-  float fxf = 0.0f, fyf = 0.0f;
+  // ---- springs: own edges into the force planes, edge-state update ----
+#pragma unroll
   for (int c = 0; c < 4; ++c) {
     const int dx = EDX[c], dy = EDY[c];
-    const size_t pm = (size_t)(MUT_EDGE0 + 5 * c) * WH;
-    const size_t pi = (size_t)(IMM_EDGE0 + 5 * c) * WH;
-    const float tgt = mut[pm + TGT * WH + g];
-    const float lst = mut[pm + LST * WH + g];
-    const bool eal = mut[pm + EAL * WH + g] > 0.0f;
-    const float yld = immut[pi + YLD * WH + g];
-    const float lim = immut[pi + LIM * WH + g];
-    const float len = immut[pi + LEN * WH + g];
-
-    // own edge: self -> self + (dx, dy)
     const int lp = lc + dx * t.sy + dy;
-    const bool pal = t.al[lp] > 0.0f;
-    Spring own = spring_eval(px, py, t.px[lp], t.py[lp], eal && al_c && pal,
-                             tgt, lst, immut[pi + SPR * WH + g],
-                             immut[pi + DMP * WH + g]);
-    // reaction: owner self - (dx, dy) -> self, with the owner's planes
-    Spring rea;
-    rea.fvx = rea.fvy = 0.0f;
-    const int ox = x - dx, oy = y - dy;
-    if (ox >= 0 && ox < w && oy >= 0 && oy < h) {
-      const size_t go = (size_t)ox * h + oy;
-      const int lo = lc - dx * t.sy - dy;
-      const bool oal = t.al[lo] > 0.0f;
-      const bool oeal = mut[pm + EAL * WH + go] > 0.0f;
-      rea = spring_eval(t.px[lo], t.py[lo], px, py, oeal && oal && al_c,
-                        mut[pm + TGT * WH + go], mut[pm + LST * WH + go],
-                        immut[pi + SPR * WH + go], immut[pi + DMP * WH + go]);
+    const Spring own =
+        spring_eval(px, py, t.px[lp], t.py[lp],
+                    eal[c] && al_c && t.al[lp] > 0.0f, tgt[c], lst[c],
+                    spr[c], dmp[c]);
+    fp[2 * c * SUB_FN + force_index(r, l)] = force_bits(own.fvx, quantized);
+    fp[(2 * c + 1) * SUB_FN + force_index(r, l)] =
+        force_bits(own.fvy, quantized);
+    if (live) {
+      // edge-state update, strain and stress every substep
+      const size_t pm = (size_t)(MUT_EDGE0 + 5 * c) * WH;
+      const size_t pi = (size_t)(IMM_EDGE0 + 5 * c) * WH;
+      const float yld = immut[pi + YLD * WH + g];
+      const float lim = immut[pi + LIM * WH + g];
+      const float len = immut[pi + LEN * WH + g];
+      const float strain = (own.ln - tgt[c]) / len;
+      const bool yielded = fabsf(strain) > yld;
+      const float new_tgt =
+          yielded ? own.ln - yld * len * tsign(strain) : tgt[c];
+      const bool breaks = fabsf(own.ln - len) > len * lim;
+      mut_out[pm + TGT * WH + g] = own.active ? new_tgt : tgt[c];
+      mut_out[pm + LST * WH + g] = own.active ? own.ln : lst[c];
+      mut_out[pm + STR * WH + g] =
+          own.active ? fabsf(strain) / yld : mut[pm + STR * WH + g];
+      mut_out[pm + STS * WH + g] =
+          own.active ? own.fmag * STRESS_SCALE : mut[pm + STS * WH + g];
+      mut_out[pm + EAL * WH + g] =
+          (eal[c] && !(own.active && breaks)) ? 1.0f : 0.0f;
     }
-    if (quantized) {
-      fxq = fxq - (uint32_t)__float2int_rz(own.fvx * FORCE_SCALE)
-            + (uint32_t)__float2int_rz(rea.fvx * FORCE_SCALE);
-      fyq = fyq - (uint32_t)__float2int_rz(own.fvy * FORCE_SCALE)
-            + (uint32_t)__float2int_rz(rea.fvy * FORCE_SCALE);
-    } else {
-      fxf = fxf - own.fvx + rea.fvx;
-      fyf = fyf - own.fvy + rea.fvy;
-    }
-
-    // edge-state update of the own edge, strain and stress every substep
-    const float strain = (own.ln - tgt) / len;
-    const bool yielded = fabsf(strain) > yld;
-    const float new_tgt = yielded ? own.ln - yld * len * tsign(strain) : tgt;
-    const bool breaks = fabsf(own.ln - len) > len * lim;
-    mut_out[pm + TGT * WH + g] = own.active ? new_tgt : tgt;
-    mut_out[pm + LST * WH + g] = own.active ? own.ln : lst;
-    mut_out[pm + STR * WH + g] =
-        own.active ? fabsf(strain) / yld : mut[pm + STR * WH + g];
-    mut_out[pm + STS * WH + g] =
-        own.active ? own.fmag * STRESS_SCALE : mut[pm + STS * WH + g];
-    mut_out[pm + EAL * WH + g] =
-        (eal && !(own.active && breaks)) ? 1.0f : 0.0f;
   }
+  if (halo) {
+    float fvx = 0.0f, fvy = 0.0f;  // +0 outside the grid: back()'s fill
+    if (halo_in) {
+      const int lo = (hr + R) * t.sy + hl + R;
+      const int lp = lo + EDX[hc] * t.sy + EDY[hc];
+      const Spring sp = spring_eval(
+          t.px[lo], t.py[lo], t.px[lp], t.py[lp],
+          heal && t.al[lo] > 0.0f && t.al[lp] > 0.0f, htgt, hlst, hspr,
+          hdmp);
+      fvx = sp.fvx;
+      fvy = sp.fvy;
+    }
+    fp[2 * hc * SUB_FN + force_index(hr, hl)] = force_bits(fvx, quantized);
+    fp[(2 * hc + 1) * SUB_FN + force_index(hr, hl)] =
+        force_bits(fvy, quantized);
+  }
+  __syncthreads();
   float bfx, bfy;
-  if (quantized) {
-    bfx = (float)(int32_t)fxq / FORCE_SCALE;
-    bfy = (float)(int32_t)fyq / FORCE_SCALE;
-  } else {
-    bfx = fxf;
-    bfy = fyf;
-  }
+  spring_sums(fp, r, l, quantized, bfx, bfy);
+  if (!live) return;
 
   // ---- collisions: half offsets, (acc + t(i, i+o)) - t(i-o, i) --------
   Terms d = collide_half(t, lc, x, y, w, h, s, v[0], v[1], v[7], v[8]);
@@ -177,10 +212,26 @@ extern "C" int sb_fused_substep(const float* mut, const float* immut,
                                 int stencil, int quantized, void* stream) {
   Consts cs;
   memcpy(cs.v, consts_host, sizeof(cs.v));
-  dim3 block(TY, TX);
-  dim3 grid((h + TY - 1) / TY, (w + TX - 1) / TX);
-  fused_substep_kernel<<<grid, block, tile_smem_bytes(stencil > 1 ? stencil : 1),
-                         (cudaStream_t)stream>>>(mut, immut, far, mut_out, cs,
-                                                 w, h, stencil, quantized);
+  const size_t smem = substep_smem_bytes(stencil);
+  dim3 block(SUB_TY, SUB_TX);
+  dim3 grid((h + SUB_TY - 1) / SUB_TY, (w + SUB_TX - 1) / SUB_TX);
+  fused_substep_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
+      mut, immut, far, mut_out, cs, w, h, stencil, quantized);
   return (int)cudaGetLastError();
+}
+
+// The kernel's residency at stencil radius `stencil`, as
+// sb_fused_substep2_occupancy reports K1's.
+extern "C" int sb_fused_substep_occupancy(int stencil, int* out) {
+  const size_t smem = substep_smem_bytes(stencil);
+  cudaFuncAttributes a;
+  int err = (int)cudaFuncGetAttributes(&a, fused_substep_kernel);
+  if (err != 0) return err;
+  err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &out[0], fused_substep_kernel, SUB_THREADS, smem);
+  out[1] = a.numRegs;
+  out[2] = (int)a.localSizeBytes;
+  out[3] = (int)smem;
+  out[4] = SUB_THREADS;
+  return err;
 }

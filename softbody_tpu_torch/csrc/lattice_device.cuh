@@ -1,10 +1,33 @@
 // Device code shared by the lattice kernels K1 (fused_substep2.cu), K3
 // (collide_stencil.cu) and K4 (fused_substep.cu): torch-semantics float
-// helpers, the spring and pair math of compute.wgsl, the staged
-// shared-memory tile, the half-offset collision sum and the integration
-// step.  Every function evaluates the float32 operations of the plain
-// torch versions (softbody_tpu_torch/ops/stencil.py) in the same order;
-// with -fmad=false and no fast math each one rounds as there.
+// helpers, the spring and pair math of compute.wgsl, the integration
+// step, K3's staged tile (stage_tile), and the block substep of K1 and
+// K4 (the section "block substep" below).  Every function evaluates the
+// float32 operations of the plain torch versions
+// (softbody_tpu_torch/ops/stencil.py) in the same order; with
+// -fmad=false and no fast math each one rounds as there.
+//
+// The block substep.  K1 and K4 are bound by device-memory bytes once
+// their arithmetic is cut to what the inputs need.  Every spring and
+// every collision pair that can touch costs an IEEE square root and
+// divide, multi-instruction sequences under strict physics; taken at
+// both ends of every spring and pair they take longer to issue than the
+// bytes take to move.  The block substep:
+// - springs are evaluated once per block: every cell's own spring of
+//   class c, and those of the owners one row above and one column beside
+//   the tile (the halo owners), go into a force plane in shared memory; a
+//   cell takes its reaction there at owner = cell - d_c (+0 where the
+//   owner lies outside the grid: the plain version's back() fill).  The
+//   reaction is the value the owner computed from the same operands, so
+//   sharing it is bit-identical;
+// - a collision pair's square root and divide are taken only when the
+//   pair can touch (pair_terms); the terms of a pair well apart are
+//   zeros formed by a few products, cheap enough that each thread
+//   evaluates both ends of its pairs from the staged tile, which on the
+//   card costs less than passing them through shared memory;
+// - the tile plus halo of px py vx vy alive is staged with cp.async (zero
+//   fill outside the grid: the JAX zero pad) while the threads load their
+//   own edge planes.
 
 #pragma once
 
@@ -13,8 +36,8 @@
 
 namespace {
 
-constexpr int TX = 8;                    // W rows per block (threadIdx.y)
-constexpr int TY = 32;                   // H lanes per block (threadIdx.x)
+constexpr int TX = 8;                    // K3: W rows per block (threadIdx.y)
+constexpr int TY = 32;                   // K3: H lanes per block (threadIdx.x)
 constexpr float FORCE_SCALE = 65536.0f;
 constexpr float STRESS_SCALE = 0.05f;    // BEAM_STRESS_SCALE = 1/20
 
@@ -76,7 +99,7 @@ struct Terms {
   float dvx, dvy, dax, day, dyn;
 };
 
-// pair (base b, partner p = b + o): the term the base receives
+// pair (base b, partner p = b + o): the term the base receives (K1, K4)
 __device__ __forceinline__ Terms pair_terms(float bpx, float bpy, float bvx,
                                             float bvy, bool bal, float ppx,
                                             float ppy, float pvx, float pvy,
@@ -87,7 +110,22 @@ __device__ __forceinline__ Terms pair_terms(float bpx, float bpy, float bvx,
   bool valid = bal && pal;
   float ddx = ppx - bpx;
   float ddy = ppy - bpy;
-  float dist = sqrtf(ddx * ddx + ddy * ddy);
+  const float d2 = ddx * ddx + ddy * ddy;
+  // Most pairs lie well apart (d2 above (2r)^2 by far more than rounding:
+  // dist > two_r for sure, finite).  Then the terms below are 0 without
+  // the square root and the divide: dvx dvy dyn +0, and dax = ((-nx) *
+  // clip) * gate with nx = ddx * 0, clip < 0 and gate +0, a zero with
+  // ddx's sign (day likewise with ddy), formed here by the same products
+  // with clip = -1.
+  if (d2 > two_r * two_r * 1.00001f && d2 <= 3.402823466e38f) {
+    t.dyn = 0.0f;
+    t.dvx = 0.0f;
+    t.dvy = 0.0f;
+    t.dax = -(ddx * 0.0f) * -1.0f * 0.0f;
+    t.day = -(ddy * 0.0f) * -1.0f * 0.0f;
+    return t;
+  }
+  float dist = sqrtf(d2);
   bool coincident = valid && dist == 0.0f;
   bool overlap = valid && dist > 0.0f && dist < two_r;
   t.dyn = coincident ? co_sign : 0.0f;
@@ -110,7 +148,7 @@ __device__ __forceinline__ Terms pair_terms(float bpx, float bpy, float bvx,
   return t;
 }
 
-// A block's tile of TX x TY particles plus a halo of R cells, as five
+// K3: a block's tile of TX x TY particles plus a halo of R cells, as five
 // shared-memory planes px py vx vy alive (alive 1.0 / 0.0), row stride
 // sy = TY + 2R.  Out-of-range cells hold dead particles at the origin.
 struct SmemTile {
@@ -154,46 +192,6 @@ __device__ __forceinline__ SmemTile stage_tile(
   }
   __syncthreads();
   return t;
-}
-
-// Collisions of particle (x, y) at tile cell lc over the half offsets of
-// radius s, each applied as (acc + t(i, i+o)) - t(i-o, i): the order of
-// ops/stencil.py::_stencil_collisions.
-__device__ __forceinline__ Terms collide_half(const SmemTile& t, int lc,
-                                              int x, int y, int w, int h,
-                                              int s, float radius, float dt,
-                                              float ecoeff, float friction) {
-  Terms acc = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-  if (s <= 0) return acc;
-  const float px = t.px[lc], py = t.py[lc], vx = t.vx[lc], vy = t.vy[lc];
-  const bool al_c = t.al[lc] > 0.0f;
-  const float two_r = 2.0f * radius;
-  const float dt2 = dt * dt;
-  for (int ox = 0; ox <= s; ++ox) {
-    for (int oy = -s; oy <= s; ++oy) {
-      if (ox == 0 && oy <= 0) continue;
-      // coincident nudge sign(lin_i - lin_j) = -sign(ox*H + oy)
-      const float co_sign = -tsign((float)(ox * h + oy));
-      const int lp = lc + ox * t.sy + oy;
-      Terms a = pair_terms(px, py, vx, vy, al_c, t.px[lp], t.py[lp],
-                           t.vx[lp], t.vy[lp], t.al[lp] > 0.0f, co_sign,
-                           two_r, dt2, ecoeff, friction);
-      Terms r = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-      const int bx = x - ox, by = y - oy;
-      if (bx >= 0 && bx < w && by >= 0 && by < h) {
-        const int lb = lc - ox * t.sy - oy;
-        r = pair_terms(t.px[lb], t.py[lb], t.vx[lb], t.vy[lb],
-                       t.al[lb] > 0.0f, px, py, vx, vy, al_c, co_sign, two_r,
-                       dt2, ecoeff, friction);
-      }
-      acc.dvx = acc.dvx + a.dvx - r.dvx;
-      acc.dvy = acc.dvy + a.dvy - r.dvy;
-      acc.dax = acc.dax + a.dax - r.dax;
-      acc.day = acc.day + a.day - r.day;
-      acc.dyn = acc.dyn + a.dyn - r.dyn;
-    }
-  }
-  return acc;
 }
 
 struct Particle {
@@ -260,6 +258,190 @@ __device__ __forceinline__ Particle integrate(Particle in, bool al_c,
 
   const bool keep = al_c && !pinned;
   return keep ? Particle{cx_, cy_, nv_x, nv_y, na_x, na_y} : in;
+}
+
+// ---- block substep (K1, K4) ---------------------------------------------
+//
+// A block of SUB_TY x SUB_TX threads (one warp per tile row) owns a tile
+// of SUB_TX rows (W) x SUB_TY lanes (H), one cell per thread.  Shared
+// memory: the staged tile (sub_stage_floats(R)), then the four classes'
+// spring-force planes.
+
+constexpr int SUB_TX = 8;                    // W rows per block (threadIdx.y)
+constexpr int SUB_TY = 32;                   // H lanes per block (threadIdx.x)
+constexpr int SUB_THREADS = SUB_TX * SUB_TY;
+// force planes: owners at tile rows -1 .. SUB_TX-1, lanes -1 .. SUB_TY
+constexpr int SUB_FS = SUB_TY + 2;
+constexpr int SUB_FN = (SUB_TX + 1) * SUB_FS;
+
+__host__ __device__ __forceinline__ int sub_stage_floats(int R) {
+  return 5 * (SUB_TX + 2 * R) * (SUB_TY + 2 * R);
+}
+
+// Dynamic shared memory of K1 and K4 at stencil radius s: the staged
+// tile (halo R = max(s, 1): the springs need one cell) and the force
+// planes.
+__host__ __device__ __forceinline__ size_t substep_smem_bytes(int s) {
+  const int R = s > 1 ? s : 1;
+  return (size_t)(sub_stage_floats(R) + 8 * SUB_FN) * sizeof(float);
+}
+
+__device__ __forceinline__ void cp_async_f32(float* dst, const float* src,
+                                             bool in) {
+  // src-size 0 copies nothing and zero-fills the 4 bytes
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src), "r"(in ? 4 : 0)
+               : "memory");
+}
+
+// Issue the copies of the tile plus a halo of R cells of five planes
+// (px py vx vy alive, row stride SUB_TY + 2R) into shared memory: warp
+// y takes rows y, y + SUB_TX, ..., its lanes the columns; cells outside
+// the grid read zero, a dead particle at the origin.  Returns before the
+// copies land: stage_wait() first.
+__device__ __forceinline__ SmemTile stage_tile_async(
+    float* smem, const float* __restrict__ px, const float* __restrict__ py,
+    const float* __restrict__ vx, const float* __restrict__ vy,
+    const float* __restrict__ alive, int x0, int y0, int R, int w, int h) {
+  const int SX = SUB_TX + 2 * R;
+  const int SY = SUB_TY + 2 * R;
+  const int SN = SX * SY;
+  SmemTile t = {smem, smem + SN, smem + 2 * SN, smem + 3 * SN, smem + 4 * SN,
+                SY};
+  for (int row = threadIdx.y; row < SX; row += SUB_TX) {
+    const int gx = x0 - R + row;
+    const bool row_in = gx >= 0 && gx < w;
+    for (int col = threadIdx.x; col < SY; col += SUB_TY) {
+      const int gy = y0 - R + col;
+      const bool in = row_in && gy >= 0 && gy < h;
+      const size_t g = in ? (size_t)gx * h + gy : 0;
+      const int i = row * SY + col;
+      cp_async_f32(t.px + i, px + g, in);
+      cp_async_f32(t.py + i, py + g, in);
+      cp_async_f32(t.vx + i, vx + g, in);
+      cp_async_f32(t.vy + i, vy + g, in);
+      cp_async_f32(t.al + i, alive + g, in);
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  return t;
+}
+
+__device__ __forceinline__ void stage_wait() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();
+}
+
+// The spring owners outside the tile whose forces its cells take as
+// reactions (owner = cell - d_c), one per item: class 0 (0, 1) the column
+// left of the tile; class 1 (1, 0) the row above; class 2 (1, 1) the row
+// above shifted left and the column left; class 3 (1, -1) the row above
+// shifted right and the column right.  3 SUB_TX + 3 SUB_TY - 2 items.
+// Item k gives the class and the owner's tile coordinates (r, l), or
+// false past the last item.
+__device__ __forceinline__ bool halo_owner(int k, int& c, int& r, int& l) {
+  constexpr int EDGE = SUB_TY + SUB_TX - 1;  // classes 2 and 3
+  if (k < SUB_TX) {
+    c = 0; r = k; l = -1;
+  } else if ((k -= SUB_TX) < SUB_TY) {
+    c = 1; r = -1; l = k;
+  } else if ((k -= SUB_TY) < EDGE) {
+    c = 2; r = k < SUB_TY ? -1 : k - SUB_TY; l = k < SUB_TY ? k - 1 : -1;
+  } else if ((k -= EDGE) < EDGE) {
+    c = 3; r = k < SUB_TY ? -1 : k - SUB_TY; l = k < SUB_TY ? k + 1 : SUB_TY;
+  } else {
+    return false;
+  }
+  return true;
+}
+
+// A spring force as stored in a force plane: trunc(f * 2^16) as int32
+// when quantized (compute.wgsl:127-130), else the float's bits.
+__device__ __forceinline__ uint32_t force_bits(float f, int quantized) {
+  return quantized ? (uint32_t)__float2int_rz(f * FORCE_SCALE)
+                   : __float_as_uint(f);
+}
+
+// Index of owner (r, l) (tile coordinates) in a force plane.
+__device__ __forceinline__ int force_index(int r, int l) {
+  return (r + 1) * SUB_FS + l + 1;
+}
+
+// Spring forces of tile cell (r, l) from the force planes `fp` (class c:
+// x at fp + 2c SUB_FN, y after it): per class -own + reaction, the order
+// of ops/stencil.py::spring_pass (int32 sums wrap like XLA's).
+__device__ __forceinline__ void spring_sums(const uint32_t* fp, int r, int l,
+                                            int quantized, float& bfx,
+                                            float& bfy) {
+  uint32_t fxq = 0u, fyq = 0u;
+  float fxf = 0.0f, fyf = 0.0f;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const uint32_t* fx = fp + 2 * c * SUB_FN;
+    const uint32_t* fy = fx + SUB_FN;
+    const int io = force_index(r, l);
+    const int ir = force_index(r - EDX[c], l - EDY[c]);
+    if (quantized) {
+      fxq = fxq - fx[io] + fx[ir];
+      fyq = fyq - fy[io] + fy[ir];
+    } else {
+      fxf = fxf - __uint_as_float(fx[io]) + __uint_as_float(fx[ir]);
+      fyf = fyf - __uint_as_float(fy[io]) + __uint_as_float(fy[ir]);
+    }
+  }
+  if (quantized) {
+    bfx = (float)(int32_t)fxq / FORCE_SCALE;
+    bfy = (float)(int32_t)fyq / FORCE_SCALE;
+  } else {
+    bfx = fxf;
+    bfy = fyf;
+  }
+}
+
+// Collisions of the particle at staged cell lc, grid cell (x, y), over
+// the half offsets of radius s, each applied as
+// (acc + t(i, i+o)) - t(i-o, i): the order of
+// ops/stencil.py::_stencil_collisions.  The thread evaluates both terms
+// from the staged tile; pair_terms takes its square root and divide only
+// for pairs that can touch, so a pair well apart costs a few products at
+// each end, less than sharing it through shared memory would.
+__device__ __forceinline__ Terms collide_half(const SmemTile& t, int lc,
+                                              int x, int y, int w, int h,
+                                              int s, float radius, float dt,
+                                              float ecoeff, float friction) {
+  Terms acc = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  if (s <= 0) return acc;
+  const float px = t.px[lc], py = t.py[lc], vx = t.vx[lc], vy = t.vy[lc];
+  const bool al_c = t.al[lc] > 0.0f;
+  const float two_r = 2.0f * radius;
+  const float dt2 = dt * dt;
+  for (int ox = 0; ox <= s; ++ox) {
+    for (int oy = -s; oy <= s; ++oy) {
+      if (ox == 0 && oy <= 0) continue;
+      // coincident nudge sign(lin_i - lin_j) = -sign(ox*H + oy)
+      const float co_sign = -tsign((float)(ox * h + oy));
+      const int lp = lc + ox * t.sy + oy;
+      const Terms a = pair_terms(px, py, vx, vy, al_c, t.px[lp], t.py[lp],
+                                 t.vx[lp], t.vy[lp], t.al[lp] > 0.0f,
+                                 co_sign, two_r, dt2, ecoeff, friction);
+      // t(i-o, i), +0 where i-o lies outside the grid (back()'s fill)
+      Terms r = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+      const int bx = x - ox, by = y - oy;
+      if (bx >= 0 && bx < w && by >= 0 && by < h) {
+        const int lb = lc - ox * t.sy - oy;
+        r = pair_terms(t.px[lb], t.py[lb], t.vx[lb], t.vy[lb],
+                       t.al[lb] > 0.0f, px, py, vx, vy, al_c, co_sign, two_r,
+                       dt2, ecoeff, friction);
+      }
+      acc.dvx = acc.dvx + a.dvx - r.dvx;
+      acc.dvy = acc.dvy + a.dvy - r.dvy;
+      acc.dax = acc.dax + a.dax - r.dax;
+      acc.day = acc.day + a.day - r.day;
+      acc.dyn = acc.dyn + a.dyn - r.dyn;
+    }
+  }
+  return acc;
 }
 
 }  // namespace

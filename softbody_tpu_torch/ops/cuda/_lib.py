@@ -53,18 +53,20 @@ def _nvcc() -> str:
     return found
 
 
-def library_path() -> Path:
+def library_path(csrc: Path = CSRC) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for name in SOURCES + HEADERS:
-        h.update((CSRC / name).read_bytes())
+        h.update((csrc / name).read_bytes())
     return BUILD_DIR / f"libsoftbody_kernels_{h.hexdigest()[:16]}.so"
 
 
-def build() -> tuple:
-    """Compile the kernels if the library is missing.  Returns
-    ``(path, seconds spent building, ptxas report)`` — 0 s and an empty
-    report when the library was already there."""
-    out = library_path()
+def build(csrc: Path = CSRC) -> tuple:
+    """Compile the kernels of ``csrc`` (the package's own by default; the
+    same sources of another checkout, for comparing two versions in one
+    process) if the library is missing.  Returns ``(path, seconds spent
+    building, ptxas report)`` — 0 s and an empty report when the library
+    was already there."""
+    out = library_path(csrc)
     if out.exists():
         return out, 0.0, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -76,7 +78,7 @@ def build() -> tuple:
         obj = BUILD_DIR / f"{tag}.{Path(name).stem}.o"
         objs.append(obj)
         procs.append(subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / name)],
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(csrc / name)],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     outputs = [proc.communicate() for proc in procs]
     for name, proc, (stdout, stderr) in zip(SOURCES, procs, outputs):
@@ -101,7 +103,11 @@ def build() -> tuple:
 @functools.cache
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built first if needed)."""
-    path, _secs, _report = build()
+    return bind(build()[0])
+
+
+def bind(path: Path) -> ctypes.CDLL:
+    """Load a built kernel library and declare its C entries."""
     lib = ctypes.CDLL(str(path))
     # int sb_fused_substep2(hot, immut, far, obs_in, hot_out, obs_out,
     #                       consts_host, w, h, stencil, quantized, stream)
@@ -132,6 +138,13 @@ def library() -> ctypes.CDLL:
     lib.sb_mirror_records.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                       _P]
     lib.sb_mirror_records.restype = _I
+    # int sb_fused_substep2_occupancy(stencil, out[5]) and K4's
+    # sb_fused_substep_occupancy (libraries built before they existed
+    # lack them)
+    for name in ("sb_fused_substep2_occupancy", "sb_fused_substep_occupancy"):
+        if hasattr(lib, name):
+            getattr(lib, name).argtypes = [_I, ctypes.POINTER(_I)]
+            getattr(lib, name).restype = _I
     lib.sb_error_string.argtypes = [_I]
     lib.sb_error_string.restype = ctypes.c_char_p
     return lib
@@ -142,3 +155,16 @@ def check(err: int, what: str) -> None:
     if err != 0:
         msg = library().sb_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def occupancy(kernel: str, stencil: int) -> dict:
+    """Residency on the current device of K1 (``kernel="fused_substep2"``)
+    or K4 (``"fused_substep"``) at stencil radius ``stencil``: resident
+    blocks per SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``),
+    registers and local (spill) bytes per thread, dynamic shared bytes
+    and threads per block."""
+    out = (_I * 5)()
+    fn = getattr(library(), f"sb_{kernel}_occupancy")
+    check(fn(stencil, out), f"{kernel} occupancy")
+    return dict(blocks_per_sm=out[0], registers=out[1], local_bytes=out[2],
+                smem_bytes=out[3], threads=out[4])

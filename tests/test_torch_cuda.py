@@ -10,7 +10,7 @@ import pytest
 import torch
 
 import softbody_tpu_torch as tb
-from softbody_tpu_torch.models import tearing_cloth_lattice
+from softbody_tpu_torch.models import make_lattice, tearing_cloth_lattice
 from softbody_tpu_torch.ops.cuda import (
     band_detect,
     collide_stencil,
@@ -45,15 +45,59 @@ def _stirred_cloth(dev, seed=0, side=40):
     return state, spec, cfg, consts, spacing, g
 
 
+# K1 and K4 are held at the bench lattice and at shapes whose sides are
+# multiples of neither tile side (16 rows x 32 lanes), one a single lane
+# wide, at stencil radii 0-3, quantized and float forces
+K14_SHAPES = [(1000, 1000), (97, 61), (33, 1000), (64, 1)]
+K14_IDS = [f"{w}x{h}" for w, h in K14_SHAPES]
+
+
+def _stirred_lattice(dev, w, h, seed):
+    """A ``w × h`` lattice at the tearing cloth's parameters, stirred so
+    that springs yield and break and particles collide, 5% of the
+    particles and 10% of the edges dead."""
+    spacing = 980.0 / max(max(w, h) - 1, 1)
+    state = make_lattice(w, h, spacing, spring=200.0, damp=10.0,
+                         yield_strain=0.18, strain_limit=0.22, device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def noise(scale):
+        return torch.randn(state.pos.shape, generator=g, device=dev) * scale
+
+    edges = tuple(dataclasses.replace(
+        e, alive=e.alive & (torch.rand((w, h), generator=g, device=dev)
+                            > 0.1)) for e in state.edges)
+    state = dataclasses.replace(
+        state, pos=state.pos + noise(0.3 * spacing),
+        vel=state.vel + noise(6.0 * spacing), edges=edges,
+        alive=torch.rand((w, h), generator=g, device=dev) > 0.05)
+    cfg = tb.StaticConfig(subticks=64, collision_mode="allpairs",
+                          particle_radius=spacing * 0.35)
+    consts = tb.PhysicsConstants(gravity=(0.0, -0.05 * spacing))
+    return state, cfg, consts, g
+
+
+def _assert_particles_close(got, ref):
+    for planes, tol in ((slice(0, 2), 1e-4), (slice(2, 4), 1e-3),
+                        (slice(4, 6), 1e-2)):
+        torch.testing.assert_close(got[planes], ref[planes], rtol=0,
+                                   atol=tol)
+
+
+@pytest.mark.parametrize("shape", K14_SHAPES, ids=K14_IDS)
+@pytest.mark.parametrize("stencil", [0, 1, 2, 3])
+@pytest.mark.parametrize("quantized", [True, False])
+@pytest.mark.parametrize("with_far", [False, True])
 @pytest.mark.parametrize("observe", [False, True])
-def test_k1_matches_plain(dev, observe):
-    state, spec, cfg, consts, _sp, g = _stirred_cloth(dev)
+def test_k1_matches_plain(dev, observe, with_far, quantized, stencil,
+                          shape):
+    w, h = shape
+    state, cfg, consts, g = _stirred_lattice(dev, w, h, seed=w + h)
     hot, obs, immut, ec = fused_substep2.pack_lattice2(state)
-    cvec = torch.cat([tb.consts_vector(consts, tb.UserInput(), cfg,
-                                       spec.height), ec])
-    far = torch.randn((5,) + tuple(hot.shape[1:]), generator=g,
-                      device=dev) * 0.5
-    kw = dict(stencil=2, quantized=True, far=far,
+    cvec = torch.cat([tb.consts_vector(consts, tb.UserInput(), cfg, h), ec])
+    far = torch.randn((5, w, h), generator=g, device=dev) * 0.5
+    kw = dict(stencil=stencil, quantized=quantized,
+              far=far if with_far else None,
               obs_in=obs if observe else None)
     before = fused_substep2.K1_LAUNCHES
     got = fused_substep2.fused_substep2_call(hot, immut, cvec, **kw)
@@ -62,10 +106,7 @@ def test_k1_matches_plain(dev, observe):
     assert fused_substep2.K1_LAUNCHES == before + 1
     got_hot, ref_hot = (got[0], ref[0]) if observe else (got, ref)
     assert torch.equal(got_hot[6:], ref_hot[6:])
-    for planes, tol in ((slice(0, 2), 1e-4), (slice(2, 4), 1e-3),
-                        (slice(4, 6), 1e-2)):
-        torch.testing.assert_close(got_hot[planes], ref_hot[planes],
-                                   rtol=0, atol=tol)
+    _assert_particles_close(got_hot, ref_hot)
     if observe:
         live = torch.repeat_interleave(ref_hot[8::3] > 0, 2, dim=0)
         torch.testing.assert_close(got[1] * live, ref[1] * live, rtol=0,
@@ -109,29 +150,28 @@ def test_k3_matches_plain(dev, stencil):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("stencil", [0, 2])
-def test_k4_matches_plain(dev, stencil):
-    """Per-edge varied edge parameters and a far delta stack."""
-    state, spec, cfg, consts, _sp, g = _stirred_cloth(dev, seed=3)
+@pytest.mark.parametrize("shape", K14_SHAPES, ids=K14_IDS)
+@pytest.mark.parametrize("stencil", [0, 1, 2, 3])
+@pytest.mark.parametrize("quantized", [True, False])
+@pytest.mark.parametrize("with_far", [False, True])
+def test_k4_matches_plain(dev, with_far, quantized, stencil, shape):
+    """Per-edge varied edge parameters, with and without a far delta
+    stack."""
+    w, h = shape
+    state, cfg, consts, g = _stirred_lattice(dev, w, h, seed=3 + w + h)
     mut, immut = fused_substep.pack_lattice(state)
-    for c in range(4):
-        ib = 2 + 5 * c
-        immut[ib:ib + 5] *= 0.5 + torch.rand((5,) + tuple(mut.shape[1:]),
-                                             generator=g, device=dev)
-    cvec = tb.consts_vector(consts, tb.UserInput(), cfg, spec.height)
-    far = torch.randn((5,) + tuple(mut.shape[1:]), generator=g,
-                      device=dev) * 0.5
-    kw = dict(stencil=stencil, quantized=True, far=far)
+    immut[2:] *= 0.5 + torch.rand(immut[2:].shape, generator=g, device=dev)
+    cvec = tb.consts_vector(consts, tb.UserInput(), cfg, h)
+    far = torch.randn((5, w, h), generator=g, device=dev) * 0.5
+    kw = dict(stencil=stencil, quantized=quantized,
+              far=far if with_far else None)
     before = fused_substep.K4_LAUNCHES
     got = fused_substep.fused_substep_call(mut, immut, cvec, **kw)
     ref = fused_substep.fused_substep_plain(mut, immut, cvec, **kw)
     torch.cuda.synchronize()
     assert fused_substep.K4_LAUNCHES == before + 1
     assert torch.equal(got[6:], ref[6:])
-    for planes, tol in ((slice(0, 2), 1e-4), (slice(2, 4), 1e-3),
-                        (slice(4, 6), 1e-2)):
-        torch.testing.assert_close(got[planes], ref[planes], rtol=0,
-                                   atol=tol)
+    _assert_particles_close(got, ref)
 
 
 @pytest.mark.parametrize("rows", [64, 40320])

@@ -22,6 +22,7 @@ import jax.numpy as jnp
 from softbody_tpu import PhysicsConstants, StaticConfig, UserInput
 from softbody_tpu.ops.pallas import fused_substep as jfs
 from softbody_tpu.ops.stencil import LatticeSpec as JLatticeSpec
+from softbody_tpu.ops.stencil import lattice_substep as j_substep
 import softbody_tpu_torch as tb
 from softbody_tpu_torch.convert import lattice_state_to_numpy
 from softbody_tpu_torch.ops.cuda import fused_substep as tfs
@@ -31,6 +32,7 @@ from softbody_tpu_torch.ops.stencil import LatticeSpec
 from test_farfield import FF, RADIUS, hairpin
 from test_fused_substep import scene
 from torch_parity import (
+    assert_states_match,
     consts_to_port,
     random_state,
     to_jax,
@@ -109,19 +111,54 @@ def test_pack_round_trip_matches_jax():
             np.testing.assert_array_equal(eb[k], ea[k], err_msg=k)
 
 
-@pytest.mark.parametrize("stencil", [0, 2])
-def test_fused_frame_matches_jax(stencil):
+@pytest.mark.parametrize("stencil,force_mode", [
+    pytest.param(0, "quantized", id="0"),
+    pytest.param(2, "quantized", id="2"),
+    pytest.param(1, "quantized", id="1"),
+    pytest.param(3, "segment", id="3-float"),
+])
+def test_fused_frame_matches_jax(stencil, force_mode):
     w, h = 12, 10
     arrays = _varied(scene(w, h), seed=stencil)
     spec = JLatticeSpec(w, h, collision_stencil=stencil)
     cfg = StaticConfig(subticks=2, particle_radius=9.0,
-                       collision_mode="allpairs" if stencil else "none")
+                       collision_mode="allpairs" if stencil else "none",
+                       force_mode=force_mode)
     got, ref = _run_both(arrays, spec, cfg, PhysicsConstants.default(),
                          UserInput.none())
     np.testing.assert_allclose(got["pos"], ref["pos"], rtol=1e-5, atol=1e-3)
     np.testing.assert_allclose(got["vel"], ref["vel"], rtol=1e-5, atol=5e-3)
     np.testing.assert_allclose(got["acc"], ref["acc"], rtol=1e-4, atol=5e-2)
     _assert_edges(got, ref)
+
+
+@pytest.mark.parametrize("stencil,force_mode", [
+    (1, "quantized"), (3, "segment"), (2, "segment")])
+def test_k4_plain_matches_jax_substep(stencil, force_mode):
+    """K4's wrapper on CPU tensors (its plain version) on a 37 x 45
+    lattice, a multiple of no kernel tile, with per-edge varied
+    parameters, against the JAX package's op-by-op stencil substep: edge
+    target/last/alive bit-exact (both evaluate the same float32
+    expressions op by op; JAX's K4 in interpret mode differs from both by
+    a few ulps, whose maximum over this many edges passes the frame
+    test's tolerances), particle planes within
+    tests/test_torch_substep.py's."""
+    w, h = 37, 45
+    arrays = random_state(w, h, seed=20 + stencil, varied=True)
+    jspec = JLatticeSpec(w, h, collision_stencil=stencil)
+    jcfg = StaticConfig(subticks=64, collision_mode="allpairs",
+                        particle_radius=4.0, force_mode=force_mode)
+    consts, uin = PhysicsConstants.default(), UserInput.none()
+    ref = lattice_state_to_numpy(j_substep(
+        to_jax(arrays), consts, uin, jspec, jcfg, update_observability=True))
+    ts = to_port(to_jax(arrays))
+    mut, immut = tfs.pack_lattice(ts)
+    cvec = tb.consts_vector(consts_to_port(consts), uin_to_port(uin),
+                            _port_cfg(jcfg), h)
+    out = tfs.fused_substep_call(mut, immut, cvec, stencil=stencil,
+                                 quantized=force_mode == "quantized")
+    assert_states_match(
+        lattice_state_to_numpy(tfs.unpack_lattice(out, immut, ts)), ref)
 
 
 def test_fused_frame_breakage_and_user_input():

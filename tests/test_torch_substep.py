@@ -70,6 +70,26 @@ def _random_world():
 SCENES = {"slit_cloth_32x32": _slit_cloth, "random_24x40": _random_world}
 
 
+def _random_37x45(stencil, force_mode, seed):
+    """A shape that is a multiple of no kernel tile, at another stencil
+    radius and force mode."""
+    arrays = random_state(37, 45, seed=seed)
+    jspec = JLatticeSpec(37, 45, collision_stencil=stencil)
+    jcfg = JStaticConfig(subticks=64, collision_mode="allpairs",
+                         particle_radius=4.0, force_mode=force_mode)
+    return arrays, jspec, jcfg, PhysicsConstants.default()
+
+
+# the K1 wrapper's plain version also at stencils 1 and 3, on a ragged
+# shape, and with float force sums (force_mode "segment")
+K1_SCENES = dict(
+    SCENES,
+    random_37x45_s1=lambda: _random_37x45(1, "quantized", 13),
+    random_37x45_s3_float=lambda: _random_37x45(3, "segment", 17),
+    random_37x45_s2_float=lambda: _random_37x45(2, "segment", 19),
+)
+
+
 def _port_cfg(jcfg):
     return tb.StaticConfig(
         bounds_size=jcfg.bounds_size, particle_radius=jcfg.particle_radius,
@@ -101,13 +121,13 @@ def test_lattice_substep_matches_jax(scene, with_far, observe):
     assert_states_match(lattice_state_to_numpy(got), ref)
 
 
-@pytest.mark.parametrize("scene", sorted(SCENES))
+@pytest.mark.parametrize("scene", sorted(K1_SCENES))
 @pytest.mark.parametrize("observe", [False, True])
 def test_k1_plain_matches_jax(scene, observe):
     """The K1 wrapper on CPU tensors (its plain version) over the packed
     planes, with a far delta and mouse input, against the JAX stencil
     substep."""
-    arrays, jspec, jcfg, jconsts = SCENES[scene]()
+    arrays, jspec, jcfg, jconsts = K1_SCENES[scene]()
     uin = UserInput(
         user_strength=jnp.float32(1.5), mouse_active=jnp.asarray(True),
         mouse_pos=jnp.asarray(arrays["pos"][5, 7], jnp.float32),
@@ -124,7 +144,8 @@ def test_k1_plain_matches_jax(scene, observe):
                       ec])
     out = fused_substep2_call(hot, immut, cvec,
                               stencil=jspec.collision_stencil,
-                              quantized=True, far=torch.from_numpy(fd),
+                              quantized=jcfg.force_mode == "quantized",
+                              far=torch.from_numpy(fd),
                               obs_in=obs if observe else None)
     hot2, obs2 = out if observe else (out, obs)
     got = lattice_state_to_numpy(unpack_lattice2(hot2, obs2, state))
