@@ -26,8 +26,8 @@ Every phase raises on failure.
     python3 chip_smoke.py [--parent DIR]
 
 ``--parent DIR``: also build the kernels of the checkout at DIR (another
-commit of this repo) and time its K1, K3 and K4 beside this tree's, in
-turns, on the same inputs.
+commit of this repo) and time its K1, K2, K3 and K4 beside this tree's,
+in turns, on the same inputs.
 
 Needs one CUDA device and ``nvcc`` (``CUDA_HOME``, default
 ``/usr/local/cuda``); refuses to run without a device.  The last line
@@ -151,13 +151,17 @@ GENERAL_ATOL = {"pos": 2e-3, "vel": 4e-3}
 
 # K1 and K4 against their plain versions: edge planes bit-exact,
 # particle planes within the port's parity tolerances
-# (tests/test_torch_substep.py); K3's deltas bit-exact
+# (tests/test_torch_substep.py); K2's flags and K3's deltas bit-exact
+# (K3: NaN where the plain version has NaN)
 K1_ATOL = {"pos": 1e-4, "vel": 1e-3, "acc": 1e-2, "obs": 1e-5}
 # the shapes K1 and K4 are held at: the bench lattice, and shapes whose
 # sides are multiples of neither tile side (16 rows x 32 lanes), one a
 # single lane wide; and the stencil radii
 K14_SHAPES = ((1000, 1000), (97, 61), (33, 1000), (64, 1))
 K14_STENCILS = (0, 1, 2, 3)
+# K3 is held at stencils 1-3, at 64x64, 1M and this ragged shape
+K3_STENCILS = (1, 2, 3)
+K3_RAGGED = (97, 61)
 
 # the card's peaks for the bound (NVIDIA's H100 SXM data sheet): device
 # memory rate, and float32 outside the tensor cores
@@ -344,12 +348,26 @@ def _band_inputs(px, py, vx, vy, alive, cfg, ff, stencil):
             alive.contiguous(), ff.band_half_offsets(stencil))
 
 
+def _differs(got, ref):
+    """Where ``got`` differs from ``ref`` bit for bit, NaN against NaN
+    counted equal (the payloads aside)."""
+    both_nan = torch.isnan(got) & torch.isnan(ref)
+    return (got.view(torch.int32) != ref.view(torch.int32)) & ~both_nan
+
+
 def check_k2(label, state, spec, cfg, spacing) -> float:
     """K2 against its plain version on the card: flags bit-exact."""
     st = _stirred(state, spacing, SEED)
     *planes, offsets = _band_inputs(
         st.pos[..., 0], st.pos[..., 1], st.vel[..., 0], st.vel[..., 1],
         st.alive, cfg, _far_spec(spacing), spec.collision_stencil)
+    _hold_k2(label, planes, offsets)
+    return 0.0
+
+
+def _hold_k2(label, planes, offsets) -> int:
+    """K2 on ``planes`` against its plain version; raises unless the flags
+    are bit-exact.  Returns the particles flagged."""
     ref = band_flags_plain(*planes, offsets)
     got = band_flag_call(*planes, offsets=offsets)
     torch.cuda.synchronize()
@@ -359,28 +377,100 @@ def check_k2(label, state, spec, cfg, spacing) -> float:
                              "plain version")
     log(f"K2 {label}: flags bit-exact ({int(ref.sum())} of "
         f"{ref.numel()} particles flagged, {len(offsets)} offsets)")
-    return float(n_bad)
+    return int(ref.sum())
 
 
-def check_k3(label, state, spec, cfg, consts, spacing) -> float:
-    """K3 against its plain version on the card: deltas bit-exact."""
-    st = _stirred(state, spacing, SEED + 2)
-    planes = (st.pos[..., 0], st.pos[..., 1], st.vel[..., 0],
-              st.vel[..., 1], st.alive)
-    kw = dict(radius=cfg.particle_radius, dt=cfg.dt, ecoeff=consts.ecoeff,
-              friction=consts.friction, stencil=spec.collision_stencil)
-    ref = collide_stencil_plain(*planes, **kw)
-    got = collide_stencil_call(*planes, **kw)
-    torch.cuda.synchronize()
-    err = max((g - r).abs().max().item() for g, r in zip(got, ref))
-    n_bad = sum(int((g != r).sum()) for g, r in zip(got, ref))
-    if n_bad:
-        raise AssertionError(f"K3 {label}: {n_bad} delta values differ from "
-                             f"the plain version (max |err| {err})")
-    overlap = int((ref[2] != 0).sum())
-    log(f"K3 {label}: deltas bit-exact ({overlap} particles with a "
-        f"penetration term)")
+def _k3_hostile(state, g):
+    """``state`` with what K3's skip of pairs apart must not hide:
+    infinite and NaN velocities at three particles (their tiles take the
+    full path), 0.5% of the particles dead holding garbage positions
+    (NaN, ±inf, 1e30, −0.0 or a neighbour's position; NaN spreads from
+    them to the deltas of their stencil) and an alive particle far out,
+    whose squared distances overflow."""
+    w, h = state.alive.shape
+    dev = state.pos.device
+    pos, vel = state.pos.clone(), state.vel.clone()
+    vel[1, min(h - 1, 1), 0] = float("inf")
+    vel[w // 2, h // 2, 1] = float("nan")
+    vel[min(w - 1, w // 2 + 1), h // 2, 0] = float("-inf")
+    dead = torch.rand((w, h), generator=g, device=dev) < 0.005
+    garbage = torch.tensor([float("nan"), float("inf"), float("-inf"), 1e30,
+                            -0.0], device=dev)
+    pick = torch.randint(0, len(garbage) + 1, (w, h, 2), generator=g,
+                         device=dev)
+    junk = torch.where(pick < len(garbage),
+                       garbage[pick.clamp(max=len(garbage) - 1)],
+                       torch.roll(pos, 1, dims=1))
+    pos = torch.where(dead[..., None], junk, pos)
+    alive = state.alive & ~dead
+    far = (w // 2, min(h - 1, 3))
+    pos[far] = torch.tensor([1e20, -1e20], device=dev)
+    alive[far] = True
+    return dataclasses.replace(state, pos=pos, vel=vel, alive=alive)
+
+
+def check_k3(label, st, cfg, consts, g) -> float:
+    """K3 against its plain version on the card at stencils K3_STENCILS,
+    through its strided entry on the state's interleaved views (the
+    wrapper, as path A calls it) and through its contiguous entry, on the
+    stirred state ``st`` and on ``_k3_hostile(st)``: deltas bit-exact,
+    NaN where the plain version has NaN."""
+    err, n_nan, n_full = 0.0, 0, 0
+    for case, s_ in (("stirred", st), ("non-finite, garbage",
+                                       _k3_hostile(st, g))):
+        views = (s_.pos[..., 0], s_.pos[..., 1], s_.vel[..., 0],
+                 s_.vel[..., 1])
+        planes = [v.contiguous() for v in views] + [s_.alive]
+        for s in K3_STENCILS:
+            kw = dict(radius=cfg.particle_radius, dt=cfg.dt,
+                      ecoeff=consts.ecoeff, friction=consts.friction,
+                      stencil=s)
+            ref = torch.stack(collide_stencil_plain(*planes, **kw))
+            got = {"strided": torch.stack(collide_stencil_call(
+                       *views, s_.alive, **kw)),
+                   "contiguous": _raw_k3(_lib.library(), planes, **kw)}
+            torch.cuda.synchronize()
+            for entry, out in got.items():
+                bad = _differs(out, ref)
+                n_bad = int(bad.sum())
+                if n_bad:
+                    where = bad.nonzero()[:4].tolist()
+                    raise AssertionError(
+                        f"K3 {label} {case} s={s} {entry} entry: {n_bad} "
+                        "delta values differ from the plain version, e.g. "
+                        + "; ".join(f"plane {k} at ({x}, {y}): "
+                                    f"{out[k, x, y].item()!r} vs "
+                                    f"{ref[k, x, y].item()!r}"
+                                    for k, x, y in where))
+                fin = torch.isfinite(ref)
+                err = max(err, (out[fin] - ref[fin]).abs().max().item())
+            n_nan = max(n_nan, int(torch.isnan(ref).any(0).sum()))
+            if s == 2 and case == "stirred":
+                n_full = _k3_pairs_near(*planes[:2], s, cfg.particle_radius)
+    log(f"K3 {label}: deltas bit-exact at stencils {K3_STENCILS}, strided "
+        f"and contiguous entries, stirred and with non-finite velocities "
+        f"and garbage (up to {n_nan} particles with NaN deltas); s=2 "
+        f"stirred: {n_full} of "
+        f"{st.alive.numel() * len(collide_stencil.full_offsets(2))} pair "
+        "evaluations "
+        "within (2r)^2 * 1.00001")
     return err
+
+
+def _k3_pairs_near(px, py, s: int, radius: float) -> int:
+    """K3's pair evaluations (each particle, each of its full offsets) with
+    d2 at most (2r)^2 * 1.00001 or not finite: those that take the full
+    path when the block's velocities are finite."""
+    two_r, _ = collide_stencil._scalars(radius, 1.0)
+    thr = float(np.float32(two_r) * np.float32(two_r)
+                * np.float32(1.00001))
+    n = 0
+    for dx, dy in collide_stencil.full_offsets(s):
+        ddx = shifted(px, dx, dy) - px
+        ddy = shifted(py, dx, dy) - py
+        d2 = ddx * ddx + ddy * ddy
+        n += int((~((d2 > thr) & (d2 <= 3.4028234663852886e38))).sum())
+    return n
 
 
 def check_k4(w: int, h: int, dev) -> float:
@@ -570,6 +660,16 @@ def _raw_k1(lib, hot, immut, cvec, stencil, quantized, far):
     return out
 
 
+def _raw_k2(lib, planes, offsets):
+    px = planes[0]
+    out = torch.empty(tuple(px.shape), dtype=torch.bool, device=px.device)
+    offs = np.ascontiguousarray(offsets, np.int32)
+    _lib.check(lib.sb_band_flags(
+        *(t.data_ptr() for t in planes), out.data_ptr(), offs.ctypes.data,
+        len(offs), px.shape[0], px.shape[1], _stream()), "K2")
+    return out
+
+
 def _raw_k3(lib, planes, radius, dt, ecoeff, friction, stencil):
     px, py, vx, vy, alive = planes
     out = torch.empty((5,) + tuple(px.shape), device=px.device)
@@ -602,9 +702,10 @@ def _turns(parent, this, iters: int) -> dict:
 
 
 def _k3_ops(n: int, s: int) -> float:
-    """K3 per particle: 42 ops for each of the (2s+1)²−1 offsets, dead
-    particles included (the kernel has no early exit)."""
-    return n * ((2 * s + 1) ** 2 - 1) * 42
+    """K3: the work the inputs need, as ``_substep_ops`` counts K1's
+    collisions: each unordered pair once (per half offset a pair
+    evaluation of 38 ops and the 10 sums that apply it at both ends)."""
+    return n * len(half_offsets(s)) * 48
 
 
 def _band_pairs_evaluated(px, py, dev, bdev, alive, offsets) -> int:
@@ -722,7 +823,8 @@ def _frames(step, n_frames: int):
     return [ev[i].elapsed_time(ev[i + 1]) for i in range(n_frames)]
 
 
-def profile_frame(label: str, step, frame_ms: float) -> None:
+def profile_frame(label: str, step, frame_ms: float,
+                  substeps: int) -> None:
     """One frame under ``torch.profiler``: device busy time (the sum of
     the kernels' durations; one stream, so they do not overlap), the
     device's idle share against ``frame_ms`` (the frame's time with the
@@ -749,7 +851,7 @@ def profile_frame(label: str, step, frame_ms: float) -> None:
     log(f"{label} profile, one frame: device busy {busy_ms:.1f} ms of a "
         f"{frame_ms:.1f} ms frame (idle share {1.0 - busy_ms / frame_ms:.2f}"
         f"; host {wall_ms:.1f} ms with the profiler on), {len(kernels)} "
-        "kernel launches; top: "
+        f"kernel launches ({len(kernels) / substeps:.1f} per substep); top: "
         + "; ".join(f"{name[:90]} {ms:.1f} ms" for name, ms in top))
 
 
@@ -794,7 +896,7 @@ def run_path_a(dev) -> dict:
         f"launches {k3}, K2 launches {k2}; pos y range "
         f"[{state.pos[..., 1].min().item():.3f}, "
         f"{state.pos[..., 1].max().item():.3f}]")
-    profile_frame("path A", step, sum(ms) / len(ms))
+    profile_frame("path A", step, sum(ms) / len(ms), cfg.subticks)
     return dict(state=box[0], cfg=cfg, consts=consts, spec=spec, k3=k3,
                 rate=rate)
 
@@ -917,10 +1019,10 @@ def time_at_final_state(run, spec, cfg, consts, parent=None) -> dict:
     rebuild; one far apply through the mirror route, its parts, and the
     windowed gather it replaced; and K1, K2 and K7 against their plain
     versions (K7 also against its library call) on the inputs the main
-    path gives them.  K1 also at stencil 0 (streaming and springs without
-    the collision arithmetic), and with ``parent`` (another checkout's
-    kernel library) beside the parent's K1 in turns at stencils 2 and 0,
-    into ``t["compare"]``."""
+    path gives them, K2's flags held bit-exact there.  K1 also at stencil
+    0 (streaming and springs without the collision arithmetic), and with
+    ``parent`` (another checkout's kernel library) beside the parent's K1
+    (stencils 2 and 0) and K2 in turns, into ``t["compare"]``."""
     be, (hot, _obs) = run["be"], run["packed"]
     ff, immut = be.ff, be._immut
     alive = immut[0] > 0
@@ -996,9 +1098,13 @@ def time_at_final_state(run, spec, cfg, consts, parent=None) -> dict:
     planes5 = planes
     *planes, offsets = _band_inputs(hot[PX], hot[PY], hot[VX], hot[VY],
                                     alive, cfg, ff, s)
-    flagged = int(band_flags_plain(*planes, offsets).sum())
+    flagged = _hold_k2("bench final state", planes, offsets)
     t["K2"] = _device_ms(lambda: band_flag_call(*planes, offsets=offsets),
                          50)
+    if parent is not None:
+        t["compare"]["K2"] = _turns(
+            lambda: _raw_k2(parent, planes, offsets),
+            lambda: _raw_k2(_lib.library(), planes, offsets), 50)
     t["K2 plain"] = _timed_ms(lambda: band_flags_plain(*planes, offsets), 5)
     n = hot.shape[1] * hot.shape[2]
     # K1: reads hot, immut and far, writes hot (the non-observing call)
@@ -1018,25 +1124,38 @@ def time_at_final_state(run, spec, cfg, consts, parent=None) -> dict:
 def time_paths_kernels(run_a, run_b, parent=None) -> dict:
     """K3 at path A's final state and K4 at path B's (CUDA events, ms per
     call), each against its plain version, with its bound; K4 also at
-    stencil 0.  K3 is timed on contiguous planes (on the path its wrapper
-    first copies the strided views of the state).  With ``parent``, the
-    parent's K3 and K4 (stencils 2 and 0) beside this tree's in turns,
-    into ``t["compare"]``."""
+    stencil 0.  K3 is timed as path A calls it, on the state's interleaved
+    views, and through its contiguous entry on contiguous copies.  With
+    ``parent``, the parent's K3 and K4 (stencils 2 and 0) beside this
+    tree's in turns, into ``t["compare"]``: K3 on contiguous planes, and
+    on the views (the parent's wrapper copied them to contiguous planes
+    first: its figure is the four copies and its kernel)."""
     st, cfg, consts = run_a["state"], run_a["cfg"], run_a["consts"]
     s = run_a["spec"].collision_stencil
-    planes = [t.contiguous() for t in (st.pos[..., 0], st.pos[..., 1],
-                                       st.vel[..., 0], st.vel[..., 1],
-                                       st.alive)]
+    views = (st.pos[..., 0], st.pos[..., 1], st.vel[..., 0], st.vel[..., 1])
+    planes = [v.contiguous() for v in views] + [st.alive]
     kw = dict(radius=cfg.particle_radius, dt=cfg.dt, ecoeff=consts.ecoeff,
               friction=consts.friction, stencil=s)
-    t = {"K3": _device_ms(lambda: collide_stencil_call(*planes, **kw), 50),
-         "K3 plain": _timed_ms(lambda: collide_stencil_plain(*planes, **kw),
-                               3), "compare": {}}
+    t = {"K3": _device_ms(lambda: collide_stencil_call(*views, st.alive,
+                                                       **kw), 50),
+         "K3 contiguous": _device_ms(lambda: _raw_k3(_lib.library(), planes,
+                                                     **kw), 50),
+         "K3 plain": _timed_ms(lambda: collide_stencil_plain(
+             *views, st.alive, **kw), 3), "compare": {}}
     if parent is not None:
-        t["compare"]["K3"] = _turns(
+        t["compare"]["K3 contiguous"] = _turns(
             lambda: _raw_k3(parent, planes, **kw),
             lambda: _raw_k3(_lib.library(), planes, **kw), 50)
+        t["compare"]["K3 on the views"] = _turns(
+            lambda: _raw_k3(parent, [v.contiguous() for v in views]
+                            + [st.alive], **kw),
+            lambda: collide_stencil_call(*views, st.alive, **kw), 50)
     n = planes[0].numel()
+    near = _k3_pairs_near(views[0], views[1], s, cfg.particle_radius)
+    n_pairs = n * len(collide_stencil.full_offsets(s))
+    log(f"K3 at path A's final state: {near} of {n_pairs} pair evaluations "
+        "within (2r)^2 * 1.00001 (the rest skip the pair math)")
+    _log_bound("K3", n * (4 * 4 + 1) + 5 * 4 * n, _k3_ops(n, s))
     bounds = {"K3": _bound(n * (4 * 4 + 1) + 5 * 4 * n, _k3_ops(n, s))}
 
     mut, immut, cfg_b = run_b["mut"], run_b["immut"], run_b["cfg"]
@@ -1126,15 +1245,20 @@ def run_general(dev) -> list:
             f"(overflow {overflow}); {warm} + {frames} frames, timed frame "
             f"ms {[round(t, 1) for t in ms]} = {rate:.1f} substeps/s")
         if label.startswith("config 4"):
-            profile_frame(f"general {label}", step, sum(ms) / len(ms))
+            profile_frame(f"general {label}", step, sum(ms) / len(ms),
+                          cfg.subticks)
     return rates
 
 
 def _occupancy() -> None:
-    """K1's and K4's residency per SM at the stencil radii they are held
-    at (registers, spills and shared memory from the loaded kernels)."""
-    for k, kernel in (("K1", "fused_substep2"), ("K4", "fused_substep")):
-        occ = {s: _lib.occupancy(kernel, s) for s in K14_STENCILS}
+    """K1's, K4's and K3's residency per SM at the stencil radii they are
+    held at, and K2's (registers, spills and shared memory from the
+    loaded kernels)."""
+    for k, kernel, stencils in (("K1", "fused_substep2", K14_STENCILS),
+                                ("K4", "fused_substep", K14_STENCILS),
+                                ("K3", "collide_stencil", K3_STENCILS),
+                                ("K2", "band_flags", (2,))):
+        occ = {s: _lib.occupancy(kernel, s) for s in stencils}
         log(f"  {k} residency by stencil: " + "; ".join(
             f"s={s} {o['blocks_per_sm']} blocks/SM of "
             f"{o['threads']} threads, {o['registers']} registers, "
@@ -1156,8 +1280,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", type=Path, default=None,
                     help="root of another checkout of this repo: its K1, "
-                    "K3 and K4 are built from its csrc/ and timed beside "
-                    "this tree's, in turns, on the same inputs")
+                    "K2, K3 and K4 are built from its csrc/ and timed "
+                    "beside this tree's, in turns, on the same inputs")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1175,19 +1299,23 @@ def main() -> int:
     _lib.library()
     log(f"phase 1 build: {path.name} in {secs:.1f} s")
     for line in report.splitlines():
-        if "Used" in line or "spill" in line:
+        if "Used" in line or "spill" in line or "properties" in line:
             log(f"  ptxas: {line.strip()}")
     _occupancy()
     parent = None
     if args.parent is not None:
-        ppath, psecs, _ = _lib.build(args.parent / "softbody_tpu_torch" /
-                                     "csrc")
+        ppath, psecs, preport = _lib.build(args.parent /
+                                           "softbody_tpu_torch" / "csrc")
         parent = _lib.bind(ppath)
         log(f"parent kernels from {args.parent}: {ppath.name} in "
             f"{psecs:.1f} s")
+        for line in preport.splitlines():
+            if "Used" in line or "spill" in line or "properties" in line:
+                log(f"  parent ptxas: {line.strip()}")
 
-    # phases 2-3: kernels against their plain versions: K2 and K3 at
-    # 64x64 and 1M, K1 and K4 at K14_SHAPES
+    # phases 2-3: kernels against their plain versions: K2 at 64x64 and
+    # 1M (and at the bench final state, phase 7), K3 at 64x64, 1M and
+    # K3_RAGGED, K1 and K4 at K14_SHAPES
     errs = {"K1": 0.0, "K2": 0.0, "K3": 0.0, "K4": 0.0}
     scenes_1m = {}
     for n in (64 * 64, N_PARTICLES):
@@ -1196,8 +1324,12 @@ def main() -> int:
         label = f"{spec.width}x{spec.height}"
         errs["K2"] = max(errs["K2"], check_k2(label, state, spec, cfg,
                                               spacing))
-        errs["K3"] = max(errs["K3"], check_k3(label, state, spec, cfg,
-                                              consts, spacing))
+        g = torch.Generator(device=dev).manual_seed(SEED + 2)
+        errs["K3"] = max(errs["K3"], check_k3(
+            label, _stirred(state, spacing, SEED + 2), cfg, consts, g))
+    st, cfg_r, consts_r, g = _k14_state(*K3_RAGGED, dev, SEED + 4)
+    errs["K3"] = max(errs["K3"], check_k3(
+        "{}x{}".format(*K3_RAGGED), st, cfg_r, consts_r, g))
     for w, h in K14_SHAPES:
         errs["K1"] = max(errs["K1"], check_k1(w, h, dev))
         errs["K4"] = max(errs["K4"], check_k4(w, h, dev))

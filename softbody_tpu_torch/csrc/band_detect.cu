@@ -13,120 +13,275 @@
 // that of the plain version and the flags match it bit for bit (built
 // with -fmad=false, no fast math).
 //
-// What bounds it on the card: device-memory bytes — it reads 4 planes
-// and the alive mask once per rebuild (~17 MB at 1M) and writes one
-// byte per particle; the ~100 compares per particle come from shared
-// memory.  What the design does about it: one thread per particle on a
-// 32 (H, fastest index) x 8 (W) tile; the tile plus a halo derived from
-// the offsets (not a fixed +-8, so any chunk size works) is staged once
-// in shared memory; a thread stops at its first hit.
+// What bounds it on the card: float32 operations.  It reads 4 planes and
+// the alive mask once per rebuild (~17 MB at 1M, ~5 us) and writes one
+// byte per particle, but in the untorn sheet no offset hits (index
+// distances of 3 spacings and more, reach ~1.45 spacings), so every
+// alive particle compares against all ~100 partners: 7 operations each,
+// 0.7 Gop at 1M (~10 us at 67 TFLOP/s), and each compare needs three
+// staged values.
 //
-// Two changes from the TPU kernel: liveness is an explicit mask (the TPU
-// kernel encodes dead cells as px = 3e8 and so reads alive particles at
-// px >= 1e8 as dead), and the halo follows the offsets.
+// What the design does about it:
+// - an exact test on one axis first: a pair can hit only if |ddx| and
+//   |ddy| are both below rb = max(|max bdev_i + max dev_j|,
+//   |min bdev_i + min dev_j|), the thread's own cells' range against the
+//   dev range of its partner rows (each staged row's range is reduced
+//   once while staging).  Every step is monotone, so |ddx| >= rb gives
+//   d2 >= ddx^2 >= rb^2 >= reach^2 (no hit); NaN fails both tests.  Per
+//   dy the kernel tests the axis along which the partners lie apart (x
+//   where every dx of the dy is at least |dy|, else y): one shared load
+//   per partner row and two operations per compare, where the exact
+//   compare needs three loads and eight.  Only a dy on which some pair of
+//   the thread passes takes the exact compares; in the untorn sheet none
+//   does;
+// - each thread owns a column of CX = 4 cells along W; for each dy it
+//   loads the CX + 7 partner rows it needs once into registers and tests
+//   each against every own cell whose offset (dx = partner row - cell
+//   row) is in the band: 11 shared loads serve up to 32 compares (8 cells
+//   per thread measured slower: 91 registers, 20 warps per SM);
+// - the offsets are a per-dy bitmask of dx in [0, 8) (chunk <= 4, as the
+//   TPU kernel requires), passed as a __grid_constant__ parameter: the dy
+//   loop reads its mask from the parameter space, never a local copy,
+//   and the dx and cell loops are unrolled, so a partner's address and
+//   each compare's registers are fixed at compile time;
+// - dead and out-of-grid partners are staged at px = py = +inf: ddx and
+//   ddy are then +-inf or NaN, both tests fail, and d2 < reach^2 is false
+//   as the plain version's alive & shifted(alive) mask makes it, with no
+//   liveness load or bounds check in the inner loop (an alive partner at
+//   +inf compares false in both);
+// - the tile (16 W rows x 32 H lanes, 4 warps) plus its halo (7 rows
+//   after it, 7 lanes each side) is staged by coalesced row copies, a
+//   warp per row with its loads independent of each other, without an
+//   index division;
+// - a warp stops when each of its live cells has a hit (__all_sync per
+//   dy), the first hit ending the search as in the TPU kernel.
+//
+// One change from the TPU kernel: liveness of the particle itself is an
+// explicit mask (the TPU kernel encodes dead cells as px = 3e8 and so
+// reads alive particles at px >= 1e8 as dead).
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int TX = 8;    // W rows per block
-constexpr int TY = 32;   // H lanes per block (threadIdx.x)
-constexpr int MAX_OFFSETS = 256;
+constexpr int CX = 4;                    // W cells per thread
+constexpr int WARPS = 4;                 // per block, stacked along W
+constexpr int LANES = 32;                // H lanes per block (threadIdx.x)
+constexpr int BX = CX * WARPS;           // W rows per block
+constexpr int DXN = 8;                   // band dx in [0, DXN)
+constexpr int DYR = 7;                   // band dy in [-DYR, DYR]
+constexpr int NDY = 2 * DYR + 1;
+constexpr int PR = CX + DXN - 1;         // partner rows per thread and dy
+constexpr int SX = BX + DXN - 1;         // staged rows
+constexpr int SY = LANES + 2 * DYR;      // staged lanes
+constexpr int SN = SX * SY;
+// px py dev planes, then each staged row's dev max and min (order keys)
+constexpr size_t SMEM_BYTES = (3 * SN + 2 * SX) * sizeof(float);
 
-struct Offsets {
-  int n;
-  int xlo, xhi, ylo, yhi;  // halo: offsets span [-xlo, xhi] x [-ylo, yhi]
-  signed char dx[MAX_OFFSETS];
-  signed char dy[MAX_OFFSETS];
+// float -> unsigned key with the floats' order (NaN excluded by callers)
+__device__ __forceinline__ uint32_t order_key(float f) {
+  const uint32_t u = __float_as_uint(f);
+  return (u & 0x80000000u) ? ~u : u | 0x80000000u;
+}
+__device__ __forceinline__ float key_value(uint32_t k) {
+  return __uint_as_float((k & 0x80000000u) ? k & 0x7fffffffu : ~k);
+}
+
+// bit dx of m[dy + DYR]: the offset (dx, dy) is in the band
+struct BandMask {
+  uint32_t m[NDY];
 };
 
-__global__ void __launch_bounds__(TX * TY)
+__global__ void __launch_bounds__(LANES * WARPS)
 band_kernel(const float* __restrict__ px, const float* __restrict__ py,
             const float* __restrict__ dev, const float* __restrict__ bdev,
             const uint8_t* __restrict__ alive, uint8_t* __restrict__ out,
-            const Offsets offs, int w, int h) {
+            const __grid_constant__ BandMask mask, int w, int h) {
   extern __shared__ float smem[];
-  const int SX = TX + offs.xlo + offs.xhi;
-  const int SY = TY + offs.ylo + offs.yhi;
-  const int SN = SX * SY;
   float* s_px = smem;
   float* s_py = smem + SN;
   float* s_dev = smem + 2 * SN;
-  float* s_al = smem + 3 * SN;
-  const int x0 = blockIdx.y * TX;
-  const int y0 = blockIdx.x * TY;
+  uint32_t* s_key = reinterpret_cast<uint32_t*>(smem + 3 * SN);
+  const int lane = threadIdx.x, warp = threadIdx.y;
+  const int x0 = blockIdx.y * BX;
+  const int y0 = blockIdx.x * LANES;
 
-  for (int i = threadIdx.y * TY + threadIdx.x; i < SN; i += TX * TY) {
-    int gx = x0 - offs.xlo + i / SY;
-    int gy = y0 - offs.ylo + i % SY;
-    float a = 0.0f, p = 0.0f, q = 0.0f, d = 0.0f;
-    if (gx >= 0 && gx < w && gy >= 0 && gy < h) {
-      size_t g = (size_t)gx * h + gy;
-      a = alive[g] ? 1.0f : 0.0f;
-      p = px[g];
-      q = py[g];
-      d = dev[g];
+  // ---- stage rows x0 .. x0 + SX - 1, lanes y0 - DYR .. y0 + LANES + DYR
+  // (a warp per row, its loads independent of each other), and each
+  // row's range of dev (NaN left out: its compares fail)
+#pragma unroll
+  for (int i = 0; i < (SX + WARPS - 1) / WARPS; ++i) {
+    const int row = warp + i * WARPS;
+    if (row >= SX) break;
+    const int gx = x0 + row;
+    uint32_t kmax = 0u, kmin = 0xffffffffu;
+#pragma unroll
+    for (int c = 0; c < (SY + LANES - 1) / LANES; ++c) {
+      const int col = lane + c * LANES;
+      const int gy = y0 - DYR + col;
+      const bool in = col < SY && gx < w && gy >= 0 && gy < h;
+      const size_t g = in ? (size_t)gx * h + gy : 0;
+      const bool a = in && alive[g];
+      const float p = in ? px[g] : 0.0f;
+      const float q = in ? py[g] : 0.0f;
+      const float d = in ? dev[g] : 0.0f;
+      if (col < SY) {
+        s_px[row * SY + col] = a ? p : INFINITY;
+        s_py[row * SY + col] = a ? q : INFINITY;
+        s_dev[row * SY + col] = d;
+        if (d == d) {
+          kmax = max(kmax, order_key(d));
+          kmin = min(kmin, order_key(d));
+        }
+      }
     }
-    s_px[i] = p;
-    s_py[i] = q;
-    s_dev[i] = d;
-    s_al[i] = a;
+    kmax = __reduce_max_sync(0xffffffffu, kmax);
+    kmin = __reduce_min_sync(0xffffffffu, kmin);
+    if (lane == 0) {
+      s_key[2 * row] = kmax;
+      s_key[2 * row + 1] = kmin;
+    }
   }
   __syncthreads();
-
-  const int x = x0 + threadIdx.y;
-  const int y = y0 + threadIdx.x;
-  if (x >= w || y >= h) return;
-  const size_t g = (size_t)x * h + y;
-  const int lc = (threadIdx.y + offs.xlo) * SY + threadIdx.x + offs.ylo;
-  bool hit = false;
-  if (s_al[lc] > 0.0f) {
-    const float cpx = s_px[lc], cpy = s_py[lc], cb = bdev[g];
-    for (int k = 0; k < offs.n && !hit; ++k) {
-      const int dx = offs.dx[k], dy = offs.dy[k];
-      const int qx = x + dx, qy = y + dy;
-      if (qx < 0 || qx >= w || qy < 0 || qy >= h) continue;
-      const int lp = lc + dx * SY + dy;
-      if (!(s_al[lp] > 0.0f)) continue;
-      const float ddx = s_px[lp] - cpx;
-      const float ddy = s_py[lp] - cpy;
-      const float d2 = ddx * ddx + ddy * ddy;
-      const float reach = cb + s_dev[lp];
-      hit = d2 < reach * reach;
-    }
+  // the dev range of this thread's partner rows r0 .. r0 + PR - 1
+  const int r0 = warp * CX;
+  uint32_t kmax = 0u, kmin = 0xffffffffu;
+#pragma unroll
+  for (int q = 0; q < PR; ++q) {
+    kmax = max(kmax, s_key[2 * (r0 + q)]);
+    kmin = min(kmin, s_key[2 * (r0 + q) + 1]);
   }
-  out[g] = hit ? 1 : 0;
+
+  // ---- own cells: rows r0 .. r0 + CX - 1 of the tile, lane `lane` ----
+  const int y = y0 + lane;
+  float cpx[CX], cpy[CX], cb[CX];
+  bool live[CX], hit[CX];
+  bool done = true;
+  float cb_max = -INFINITY, cb_min = INFINITY;
+#pragma unroll
+  for (int j = 0; j < CX; ++j) {
+    const int x = x0 + r0 + j;
+    const size_t g = (size_t)x * h + y;
+    const bool in = x < w && y < h;
+    live[j] = in && alive[g];
+    cb[j] = live[j] ? bdev[g] : 0.0f;
+    cpx[j] = s_px[(r0 + j) * SY + lane + DYR];
+    cpy[j] = s_py[(r0 + j) * SY + lane + DYR];
+    hit[j] = false;
+    done = done && !live[j];
+    cb_max = fmaxf(cb_max, cb[j]);
+    cb_min = fminf(cb_min, cb[j]);
+  }
+  // every reach cb[j] + dev_q of this thread lies in [lo, hi]
+  // (kmin > kmax: its partner rows hold no dev but NaN; then no compare
+  // can hit)
+  const float hi = cb_max + key_value(kmax);
+  const float lo = cb_min + key_value(kmin);
+  const float rb = kmin <= kmax ? fmaxf(fabsf(hi), fabsf(lo)) : 0.0f;
+
+#pragma unroll 1
+  for (int k = 0; k < NDY; ++k) {
+    if (__all_sync(0xffffffffu, done)) break;
+    const uint32_t m = mask.m[k];
+    if (m == 0) continue;
+    // partner rows r0 + q, q = j + dx, at lane + dy (staged lane + k)
+    const int base = r0 * SY + lane + k;
+    // the box test on one axis: x where every dx of the dy is at least
+    // |dy| (the partners lie apart along W), else y
+    const bool by_x = __ffs(m) - 1 >= abs(k - DYR);
+    const float* s_axis = by_x ? s_px : s_py;
+    float qa[PR], ca[CX];
+#pragma unroll
+    for (int q = 0; q < PR; ++q) qa[q] = s_axis[base + q * SY];
+    // per cell, the least |partner - cell| on that axis (fminf drops NaN:
+    // the test may pass more often, never less)
+    float box[CX];
+#pragma unroll
+    for (int j = 0; j < CX; ++j) {
+      ca[j] = by_x ? cpx[j] : cpy[j];
+      box[j] = INFINITY;
+    }
+#pragma unroll
+    for (int dx = 0; dx < DXN; ++dx) {
+      if (!((m >> dx) & 1u)) continue;
+#pragma unroll
+      for (int j = 0; j < CX; ++j)
+        box[j] = fminf(box[j], fabsf(qa[j + dx] - ca[j]));
+    }
+    float nearest = box[0];
+#pragma unroll
+    for (int j = 1; j < CX; ++j) nearest = fminf(nearest, box[j]);
+    if (nearest < rb) {  // the exact compares of this dy
+      float qpx[PR], qpy[PR], qdv[PR];
+#pragma unroll
+      for (int q = 0; q < PR; ++q) {
+        qpx[q] = s_px[base + q * SY];
+        qpy[q] = s_py[base + q * SY];
+        qdv[q] = s_dev[base + q * SY];
+      }
+#pragma unroll
+      for (int dx = 0; dx < DXN; ++dx) {
+        if (!((m >> dx) & 1u)) continue;
+#pragma unroll
+        for (int j = 0; j < CX; ++j) {
+          const float ddx = qpx[j + dx] - cpx[j];
+          const float ddy = qpy[j + dx] - cpy[j];
+          const float d2 = ddx * ddx + ddy * ddy;
+          const float reach = cb[j] + qdv[j + dx];
+          hit[j] = hit[j] | (d2 < reach * reach);
+        }
+      }
+    }
+    done = true;
+#pragma unroll
+    for (int j = 0; j < CX; ++j) done = done && (hit[j] || !live[j]);
+  }
+
+#pragma unroll
+  for (int j = 0; j < CX; ++j) {
+    const int x = x0 + r0 + j;
+    if (x < w && y < h) out[(size_t)x * h + y] = (live[j] && hit[j]) ? 1 : 0;
+  }
 }
 
 }  // namespace
 
-// Device pointers except `offsets_host` ([n, 2] int32 host array).
+// Device pointers except `offsets_host` ([n, 2] int32 host array).  The
+// offsets must lie in dx [0, 8), dy [-7, 7] (chunk <= 4); repeats are
+// allowed and order does not matter (the flags are an OR).
 extern "C" int sb_band_flags(const float* px, const float* py,
                              const float* dev, const float* bdev,
                              const uint8_t* alive, uint8_t* out,
                              const int* offsets_host, int n, int w, int h,
                              void* stream) {
-  if (n < 0 || n > MAX_OFFSETS) return (int)cudaErrorInvalidValue;
-  Offsets offs;
-  offs.n = n;
-  offs.xlo = offs.xhi = offs.ylo = offs.yhi = 0;
+  if (n < 0) return (int)cudaErrorInvalidValue;
+  BandMask mask = {};
   for (int k = 0; k < n; ++k) {
     const int dx = offsets_host[2 * k], dy = offsets_host[2 * k + 1];
-    if (dx < -127 || dx > 127 || dy < -127 || dy > 127)
+    if (dx < 0 || dx >= DXN || dy < -DYR || dy > DYR)
       return (int)cudaErrorInvalidValue;
-    offs.dx[k] = (signed char)dx;
-    offs.dy[k] = (signed char)dy;
-    offs.xlo = dx < -offs.xlo ? -dx : offs.xlo;
-    offs.xhi = dx > offs.xhi ? dx : offs.xhi;
-    offs.ylo = dy < -offs.ylo ? -dy : offs.ylo;
-    offs.yhi = dy > offs.yhi ? dy : offs.yhi;
+    mask.m[dy + DYR] |= 1u << dx;
   }
-  const size_t smem = (size_t)4 * (TX + offs.xlo + offs.xhi) *
-                      (TY + offs.ylo + offs.yhi) * sizeof(float);
-  dim3 block(TY, TX);
-  dim3 grid((h + TY - 1) / TY, (w + TX - 1) / TX);
-  band_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
-      px, py, dev, bdev, alive, out, offs, w, h);
+  dim3 block(LANES, WARPS);
+  dim3 grid((h + LANES - 1) / LANES, (w + BX - 1) / BX);
+  band_kernel<<<grid, block, SMEM_BYTES, (cudaStream_t)stream>>>(
+      px, py, dev, bdev, alive, out, mask, w, h);
   return (int)cudaGetLastError();
+}
+
+// The kernel's residency (the argument is unused: K2 has one shape), as
+// sb_fused_substep2_occupancy reports K1's.
+extern "C" int sb_band_flags_occupancy(int, int* out) {
+  cudaFuncAttributes a;
+  int err = (int)cudaFuncGetAttributes(&a, band_kernel);
+  if (err != 0) return err;
+  err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &out[0], band_kernel, LANES * WARPS, SMEM_BYTES);
+  out[1] = a.numRegs;
+  out[2] = (int)a.localSizeBytes;
+  out[3] = (int)SMEM_BYTES;
+  out[4] = LANES * WARPS;
+  return err;
 }

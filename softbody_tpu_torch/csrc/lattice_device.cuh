@@ -1,8 +1,8 @@
 // Device code shared by the lattice kernels K1 (fused_substep2.cu), K3
 // (collide_stencil.cu) and K4 (fused_substep.cu): torch-semantics float
 // helpers, the spring and pair math of compute.wgsl, the integration
-// step, K3's staged tile (stage_tile), and the block substep of K1 and
-// K4 (the section "block substep" below).  Every function evaluates the
+// step, the cp.async staging helpers, and the block substep of K1 and K4
+// (the section "block substep" below).  Every function evaluates the
 // float32 operations of the plain torch versions
 // (softbody_tpu_torch/ops/stencil.py) in the same order; with
 // -fmad=false and no fast math each one rounds as there.
@@ -36,8 +36,6 @@
 
 namespace {
 
-constexpr int TX = 8;                    // K3: W rows per block (threadIdx.y)
-constexpr int TY = 32;                   // K3: H lanes per block (threadIdx.x)
 constexpr float FORCE_SCALE = 65536.0f;
 constexpr float STRESS_SCALE = 0.05f;    // BEAM_STRESS_SCALE = 1/20
 
@@ -148,51 +146,12 @@ __device__ __forceinline__ Terms pair_terms(float bpx, float bpy, float bvx,
   return t;
 }
 
-// K3: a block's tile of TX x TY particles plus a halo of R cells, as five
-// shared-memory planes px py vx vy alive (alive 1.0 / 0.0), row stride
-// sy = TY + 2R.  Out-of-range cells hold dead particles at the origin.
+// A block's staged tile plus halo as five shared-memory planes px py vx
+// vy alive (alive 1.0 / 0.0), row stride sy.
 struct SmemTile {
   float *px, *py, *vx, *vy, *al;
   int sy;
 };
-
-__host__ __device__ __forceinline__ size_t tile_smem_bytes(int R) {
-  return (size_t)5 * (TX + 2 * R) * (TY + 2 * R) * sizeof(float);
-}
-
-// Stage the block's tile; `alive` is any type whose value > 0 means
-// alive (bool planes, float 1.0 / 0.0 planes).  Ends with a barrier.
-template <typename A>
-__device__ __forceinline__ SmemTile stage_tile(
-    float* smem, const float* __restrict__ px, const float* __restrict__ py,
-    const float* __restrict__ vx, const float* __restrict__ vy,
-    const A* __restrict__ alive, int x0, int y0, int R, int w, int h) {
-  const int SX = TX + 2 * R;
-  const int SY = TY + 2 * R;
-  const int SN = SX * SY;
-  SmemTile t = {smem, smem + SN, smem + 2 * SN, smem + 3 * SN, smem + 4 * SN,
-                SY};
-  for (int i = threadIdx.y * TY + threadIdx.x; i < SN; i += TX * TY) {
-    int gx = x0 - R + i / SY;
-    int gy = y0 - R + i % SY;
-    float a = 0.0f, b = 0.0f, c = 0.0f, d = 0.0f, e = 0.0f;
-    if (gx >= 0 && gx < w && gy >= 0 && gy < h) {
-      size_t g = (size_t)gx * h + gy;
-      a = px[g];
-      b = py[g];
-      c = vx[g];
-      d = vy[g];
-      e = (float)alive[g] > 0.0f ? 1.0f : 0.0f;
-    }
-    t.px[i] = a;
-    t.py[i] = b;
-    t.vx[i] = c;
-    t.vy[i] = d;
-    t.al[i] = e;
-  }
-  __syncthreads();
-  return t;
-}
 
 struct Particle {
   float px, py, vx, vy, ax, ay;

@@ -124,6 +124,13 @@ def bind(path: Path) -> ctypes.CDLL:
     lib.sb_collide_stencil.argtypes = [_P, _P, _P, _P, _P, _P, _F, _F, _F,
                                        _F, _I, _I, _I, _P]
     lib.sb_collide_stencil.restype = _I
+    # int sb_collide_stencil_strided(px, py, vx, vy, strides_host, alive,
+    #                                out, two_r, inv_dt2, ecoeff, friction,
+    #                                w, h, stencil, stream)
+    if hasattr(lib, "sb_collide_stencil_strided"):
+        lib.sb_collide_stencil_strided.argtypes = [_P] * 7 + [_F] * 4 + [
+            _I, _I, _I, _P]
+        lib.sb_collide_stencil_strided.restype = _I
     # int sb_fused_substep(mut, immut, far, mut_out, consts_host, w, h,
     #                      stencil, quantized, stream)
     lib.sb_fused_substep.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
@@ -138,10 +145,10 @@ def bind(path: Path) -> ctypes.CDLL:
     lib.sb_mirror_records.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                       _P]
     lib.sb_mirror_records.restype = _I
-    # int sb_fused_substep2_occupancy(stencil, out[5]) and K4's
-    # sb_fused_substep_occupancy (libraries built before they existed
-    # lack them)
-    for name in ("sb_fused_substep2_occupancy", "sb_fused_substep_occupancy"):
+    # int sb_<kernel>_occupancy(stencil, out[5]) of K1, K4, K3 and K2
+    # (libraries built before they existed lack them)
+    for name in ("sb_fused_substep2_occupancy", "sb_fused_substep_occupancy",
+                 "sb_collide_stencil_occupancy", "sb_band_flags_occupancy"):
         if hasattr(lib, name):
             getattr(lib, name).argtypes = [_I, ctypes.POINTER(_I)]
             getattr(lib, name).restype = _I
@@ -158,11 +165,13 @@ def check(err: int, what: str) -> None:
 
 
 def occupancy(kernel: str, stencil: int) -> dict:
-    """Residency on the current device of K1 (``kernel="fused_substep2"``)
-    or K4 (``"fused_substep"``) at stencil radius ``stencil``: resident
-    blocks per SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``),
-    registers and local (spill) bytes per thread, dynamic shared bytes
-    and threads per block."""
+    """Residency on the current device of K1 (``kernel="fused_substep2"``),
+    K4 (``"fused_substep"``), K3 (``"collide_stencil"``, the interleaved
+    layout of path A) or K2 (``"band_flags"``; one shape for every
+    stencil) at stencil radius ``stencil``: resident blocks per SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), registers and
+    local (spill) bytes per thread, dynamic shared bytes and threads per
+    block."""
     out = (_I * 5)()
     fn = getattr(library(), f"sb_{kernel}_occupancy")
     check(fn(stencil, out), f"{kernel} occupancy")

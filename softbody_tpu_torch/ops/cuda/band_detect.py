@@ -16,8 +16,10 @@ import torch
 from ..stencil import shifted
 from . import _lib
 
-MAX_OFFSETS = 256
-MAX_REACH = 127
+# the band offsets K2 takes: dx in [0, BAND_DX), |dy| <= BAND_DY (the
+# half-plane band of chunk <= 4, as the TPU kernel requires)
+BAND_DX = 8
+BAND_DY = 7
 _BIG = 3.0e38
 
 # launches of the CUDA kernel (the plain version does not count)
@@ -47,8 +49,10 @@ def band_flag_call(px, py, dev, bdev, alive, *,
     contiguous on one device; ``dev`` is each particle's deviation
     allowance (zero where dead), ``bdev`` the precomputed
     ``base_reach + dev`` (keeping the ``(base + dev_i) + dev_j``
-    association of the plain loop).  On CUDA tensors the kernel runs on
-    the current stream without synchronising."""
+    association of the plain loop).  ``offsets`` lie in ``dx ∈ [0,
+    BAND_DX)``, ``|dy| ≤ BAND_DY`` (``FarFieldSpec.band_half_offsets`` at
+    chunk ≤ 4).  On CUDA tensors the kernel runs on the current stream
+    without synchronising."""
     global K2_LAUNCHES
     shape = tuple(px.shape)
     if len(shape) != 2:
@@ -65,9 +69,10 @@ def band_flag_call(px, py, dev, bdev, alive, *,
     if not all(t.is_contiguous() for t in planes):
         raise ValueError("planes must be contiguous")
     offs = np.asarray(offsets, np.int32).reshape(-1, 2)
-    if len(offs) > MAX_OFFSETS or (np.abs(offs) > MAX_REACH).any():
-        raise ValueError(f"at most {MAX_OFFSETS} offsets within "
-                         f"±{MAX_REACH}")
+    if ((offs[:, 0] < 0) | (offs[:, 0] >= BAND_DX)
+            | (np.abs(offs[:, 1]) > BAND_DY)).any():
+        raise ValueError(f"band offsets must lie in dx [0, {BAND_DX}), "
+                         f"|dy| <= {BAND_DY} (chunk <= 4)")
     device = px.device
     if device.type == "cpu":
         return band_flags_plain(px, py, dev, bdev, alive, offsets)

@@ -9,8 +9,10 @@ at both ends.  This is not the half-offset sum order of the XLA stencil
 loops over K3's offsets itself.
 
 ``collide_stencil_call`` is the K3 wrapper: on CUDA tensors it launches
-the hand-written kernel (``csrc/collide_stencil.cu``), on CPU tensors it
-runs the plain version ``collide_stencil_plain``.
+the hand-written kernel (``csrc/collide_stencil.cu``) on the planes where
+they lie (any strides; the interleaved views ``pos[..., 0]``,
+``pos[..., 1]`` of a ``[W, H, 2]`` state are read as pairs), on CPU
+tensors it runs the plain version ``collide_stencil_plain``.
 """
 
 from __future__ import annotations
@@ -41,9 +43,12 @@ def _scalars(radius: float, dt: float):
     return float(np.float32(2.0) * r), float(np.float32(1.0) / (t * t))
 
 
-def collide_stencil_plain(px, py, vx, vy, alive, *, radius: float, dt: float,
-                          ecoeff: float, friction: float, stencil: int):
-    """Plain torch version of K3: ``(dvx, dvy, dax, day, dyn)`` ``[W, H]``.
+def offset_terms(px, py, vx, vy, alive, dx: int, dy: int, *, radius: float,
+                 dt: float, ecoeff: float, friction: float):
+    """K3's terms of offset ``(dx, dy)``: ``(d2, (tvx, tvy, tax, tay,
+    tdyn))``, each ``[W, H]``, with ``d2 = ddx² + ddy²`` to the partner.
+    The plain version sums ``acc − t`` (dvx dvy dax day) and ``acc + t``
+    (dyn) over ``full_offsets``.
 
     Terms are masked by multiplying with ``ovf`` (1.0 / 0.0) as K3 does,
     so a non-finite term gives NaN where a ``where`` would give 0.  The
@@ -52,31 +57,43 @@ def collide_stencil_plain(px, py, vx, vy, alive, *, radius: float, dt: float,
     2²⁴).  Out-of-range neighbours read as dead particles at the origin."""
     h = px.shape[1]
     two_r, inv_dt2 = _scalars(radius, dt)
+    valid = alive & shifted(alive, dx, dy, False)
+    ddx = shifted(px, dx, dy) - px
+    ddy = shifted(py, dx, dy) - py
+    d2 = ddx * ddx + ddy * ddy
+    dist = sqrt32(d2)
+    coincident = valid & (dist == 0.0)
+    overlap = valid & (dist > 0.0) & (dist < two_r)
+    tdyn = torch.where(coincident, -float(np.sign(dx * h + dy)), 0.0)
+    inv = torch.where(
+        overlap, torch.reciprocal(torch.where(overlap, dist, 1.0)), 0.0)
+    nx, ny = ddx * inv, ddy * inv
+    rvx = vx - shifted(vx, dx, dy)
+    rvy = vy - shifted(vy, dx, dy)
+    imp_n = ecoeff * (rvx * nx + rvy * ny)
+    max_fric = imp_n * friction
+    imp_t = torch.minimum(torch.maximum(rvx * -ny + rvy * nx, -max_fric),
+                          max_fric)
+    ovf = overlap.to(torch.float32)
+    clip = (two_r - dist) * 0.5 * inv_dt2
+    return d2, ((imp_n * nx + imp_t * -ny) * ovf,
+                (imp_n * ny + imp_t * nx) * ovf,
+                nx * clip * ovf, ny * clip * ovf, tdyn)
+
+
+def collide_stencil_plain(px, py, vx, vy, alive, *, radius: float, dt: float,
+                          ecoeff: float, friction: float, stencil: int):
+    """Plain torch version of K3: ``(dvx, dvy, dax, day, dyn)`` ``[W, H]``,
+    the terms of ``offset_terms`` summed in K3's order."""
     z = torch.zeros_like(px)
     dvx, dvy, dax, day, dyn = z, z, z, z, z
     for dx, dy in full_offsets(stencil):
-        valid = alive & shifted(alive, dx, dy, False)
-        ddx = shifted(px, dx, dy) - px
-        ddy = shifted(py, dx, dy) - py
-        dist = sqrt32(ddx * ddx + ddy * ddy)
-        coincident = valid & (dist == 0.0)
-        overlap = valid & (dist > 0.0) & (dist < two_r)
-        dyn = dyn + torch.where(coincident, -float(np.sign(dx * h + dy)), 0.0)
-        inv = torch.where(
-            overlap, torch.reciprocal(torch.where(overlap, dist, 1.0)), 0.0)
-        nx, ny = ddx * inv, ddy * inv
-        rvx = vx - shifted(vx, dx, dy)
-        rvy = vy - shifted(vy, dx, dy)
-        imp_n = ecoeff * (rvx * nx + rvy * ny)
-        max_fric = imp_n * friction
-        imp_t = torch.minimum(torch.maximum(rvx * -ny + rvy * nx, -max_fric),
-                              max_fric)
-        ovf = overlap.to(torch.float32)
-        dvx = dvx - (imp_n * nx + imp_t * -ny) * ovf
-        dvy = dvy - (imp_n * ny + imp_t * nx) * ovf
-        clip = (two_r - dist) * 0.5 * inv_dt2
-        dax = dax - nx * clip * ovf
-        day = day - ny * clip * ovf
+        _d2, (tvx, tvy, tax, tay, tdyn) = offset_terms(
+            px, py, vx, vy, alive, dx, dy, radius=radius, dt=dt,
+            ecoeff=ecoeff, friction=friction)
+        dvx, dvy = dvx - tvx, dvy - tvy
+        dax, day = dax - tax, day - tay
+        dyn = dyn + tdyn
     return dvx, dvy, dax, day, dyn
 
 
@@ -85,8 +102,8 @@ def collide_stencil_call(px, py, vx, vy, alive, *, radius: float, dt: float,
     """Collision deltas ``(dvx, dvy, dax, day, dyn)`` of the full offset
     set of radius ``stencil`` (kernel K3).
 
-    ``px py vx vy`` float32 ``[W, H]``, ``alive`` bool ``[W, H]``, on one
-    device (any strides: the wrapper makes them contiguous); the scalars
+    ``px py vx vy`` float32 ``[W, H]`` at any strides (the kernel reads
+    them in place), ``alive`` bool ``[W, H]``, on one device; the scalars
     are float32 values.  On CUDA tensors the kernel runs on the current
     stream without synchronising; on CPU tensors the plain version runs."""
     global K3_LAUNCHES
@@ -111,13 +128,16 @@ def collide_stencil_call(px, py, vx, vy, alive, *, radius: float, dt: float,
     if device.type != "cuda":
         raise ValueError(f"no K3 kernel for device {device}")
     lib = _lib.library()
-    planes = [t.contiguous() for t in (px, py, vx, vy, alive)]
+    planes = (px, py, vx, vy)
+    strides = np.ascontiguousarray([t.stride() for t in planes], np.int64)
+    alive = alive.contiguous()  # a state's alive plane already is
     out = torch.empty((5,) + shape, dtype=torch.float32, device=device)
     two_r, inv_dt2 = _scalars(radius, dt)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.sb_collide_stencil(
-            *(t.data_ptr() for t in planes), out.data_ptr(), two_r, inv_dt2,
+        err = lib.sb_collide_stencil_strided(
+            *(t.data_ptr() for t in planes), strides.ctypes.data,
+            alive.data_ptr(), out.data_ptr(), two_r, inv_dt2,
             float(np.float32(ecoeff)), float(np.float32(friction)),
             shape[0], shape[1], stencil, stream)
     _lib.check(err, "K3 collide_stencil")

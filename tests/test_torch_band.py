@@ -96,3 +96,22 @@ def test_band_wrapper_validates_inputs():
         band_flag_call(px.t(), py, vx, vy, alive, offsets=offs)
     with pytest.raises(ValueError):
         band_flag_call(px, py, vx, vy, alive, offsets=[(0, 200)])
+
+
+def test_band_wrapper_takes_the_chunk4_band_box():
+    """K2 takes offsets with dx in [0, 8) and |dy| <= 7 (the half-plane
+    band of chunk <= 4, as the TPU kernel); others raise on either
+    device.  Inside the box any set goes: the bands of stencils 0-3, a
+    repeated offset, none."""
+    px, py, vx, vy, alive = (torch.from_numpy(a) for a in _random_planes(
+        16, 16))
+    dev = torch.where(alive, vx.abs(), 0.0)
+    planes = (px, py, dev, dev + 12.0, alive)
+    for bad in ([(-1, 0)], [(8, 0)], [(0, 8)], [(3, -8)]):
+        with pytest.raises(ValueError):
+            band_flag_call(*planes, offsets=bad)
+    for s in range(4):
+        offsets = FarFieldSpec().band_half_offsets(s)
+        assert band_flag_call(*planes, offsets=offsets + offsets[:3]).equal(
+            band_flag_call(*planes, offsets=offsets))
+    assert not bool(band_flag_call(*planes, offsets=[]).any())

@@ -30,10 +30,13 @@ import softbody_tpu_torch as tb
 from softbody_tpu_torch.convert import lattice_state_to_numpy
 from softbody_tpu_torch.ops.cuda import collide_stencil
 from softbody_tpu_torch.ops.cuda.collide_stencil import (
+    _scalars,
     collide_stencil_call,
     collide_stencil_plain,
     full_offsets,
+    offset_terms,
 )
+from softbody_tpu_torch.ops.stencil import shifted
 from softbody_tpu_torch.ops.stencil import LatticeSpec, lattice_substep
 
 from test_pallas import perturbed_lattice
@@ -107,6 +110,65 @@ def test_k3_plain_nonfinite_masks_like_k3():
     for name, g, r in zip(NAMES, got, ref):
         np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=1e-5,
                                    atol=1e-4, equal_nan=True, err_msg=name)
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("stencil", [1, 2])
+def test_k3_skip_of_pairs_apart_is_exact(stencil):
+    """The facts K3's skip rests on (``csrc/collide_stencil.cu``), on the
+    plain version's terms over hostile inputs (signed zeros, coincident
+    and touching pairs, infinite and NaN velocities, dead particles
+    holding garbage, a far-out alive particle): where a pair's d2 is
+    finite and above (2r)² · 1.00001 and both velocities are finite, all
+    five terms are ±0; the accumulators never hold −0; so summing with
+    those pairs skipped gives the plain sums bit for bit (NaN where
+    they are NaN)."""
+    ls = _planes(12, 9, seed=6 + stencil, dead_row=4)
+    p = to_port(ls)
+    rng = np.random.default_rng(stencil)
+    pos, vel = p.pos.clone(), p.vel.clone()
+    alive = p.alive.clone()
+    pos[2, 3] = pos[2, 4]                       # coincident
+    pos[7, 2] = pos[7, 3] + torch.tensor([3.0, -4.0])   # touching
+    vel[rng.random(vel.shape) < 0.1] = -0.0     # signed zeros
+    vel[9, 1, 0] = float("inf")
+    vel[1, 7, 1] = float("nan")
+    pos[4, :3] = torch.tensor([float("nan"), float("inf")])
+    pos[4, 3:6] = torch.tensor([1e30, -0.0])
+    pos[10, 8] = torch.tensor([1e20, 5.0])      # alive, d2 overflows
+    kw = dict(radius=CFG.particle_radius, dt=CFG.dt, ecoeff=0.6,
+              friction=0.3)
+    two_r, _ = _scalars(CFG.particle_radius, CFG.dt)
+    thr = np.float32(two_r) * np.float32(two_r) * np.float32(1.00001)
+    planes = (pos[..., 0], pos[..., 1], vel[..., 0], vel[..., 1], alive)
+    vfin = torch.isfinite(vel).all(-1)
+    z = torch.zeros_like(planes[0])
+    acc, skipped_acc = [z] * 5, [z] * 5
+    n_skip = 0
+    for dx, dy in full_offsets(stencil):
+        d2, terms = offset_terms(*planes, dx, dy, **kw)
+        skip = ((d2 > float(thr)) & (d2 <= 3.4028234663852886e38) & vfin
+                & shifted(vfin, dx, dy, True))
+        n_skip += int(skip.sum())
+        for t in terms:
+            assert bool((t[skip] == 0).all())
+        ops = (torch.sub,) * 4 + (torch.add,)
+        acc = [op(a, t) for op, a, t in zip(ops, acc, terms)]
+        skipped_acc = [torch.where(skip, a, op(a, t))
+                       for op, a, t in zip(ops, skipped_acc, terms)]
+        for a in acc:
+            assert not bool(((a == 0) & torch.signbit(a)).any())
+    assert n_skip > 0
+    ref = collide_stencil_plain(*planes, stencil=stencil, **kw)
+    assert any(bool(torch.isnan(r).any()) for r in ref)
+    for a, s, r in zip(acc, skipped_acc, ref):
+        assert torch.equal(torch.isnan(s), torch.isnan(r))
+        nan = torch.isnan(r)
+        assert torch.equal(_bits(s)[~nan], _bits(r)[~nan])
+        assert torch.equal(_bits(a)[~nan], _bits(r)[~nan])
 
 
 def test_k3_coincident_nudge():

@@ -150,6 +150,44 @@ def test_k3_matches_plain(dev, stencil):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("stencil", [1, 2, 3])
+def test_k3_reads_strided_planes(dev, stencil):
+    """The wrapper on the state's interleaved views (staged as pairs) and
+    on H-major planes, without copies, bit-exact."""
+    state, _spec, cfg, consts, _sp, _g = _stirred_cloth(dev, seed=3)
+    views = (state.pos[..., 0], state.pos[..., 1], state.vel[..., 0],
+             state.vel[..., 1])
+    kw = dict(radius=cfg.particle_radius, dt=cfg.dt, ecoeff=consts.ecoeff,
+              friction=consts.friction, stencil=stencil)
+    ref = collide_stencil.collide_stencil_plain(
+        *(v.contiguous() for v in views), state.alive, **kw)
+    h_major = [v.t().contiguous().t() for v in views]
+    for planes in (views, h_major):
+        got = collide_stencil.collide_stencil_call(*planes, state.alive, **kw)
+        torch.cuda.synchronize()
+        for a, b in zip(got, ref):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def test_k2_offset_sets(dev):
+    """The bands of stencils 0-3 and a scattered set, bit-exact."""
+    state, spec, cfg, _c, spacing, g = _stirred_cloth(dev, seed=4)
+    ff = FarFieldSpec(skin=0.75 * spacing, horizon=8)
+    px = state.pos[..., 0].contiguous()
+    py = state.pos[..., 1].contiguous()
+    dev_ = torch.where(state.alive, torch.rand(px.shape, generator=g,
+                                               device=dev) * spacing, 0.0)
+    bdev = (2.0 * cfg.particle_radius + ff.skin) + dev_
+    for offsets in [ff.band_half_offsets(s) for s in range(4)] + [
+            [(0, 0), (7, -7), (3, 5), (1, 0)]]:
+        got = band_detect.band_flag_call(px, py, dev_, bdev, state.alive,
+                                         offsets=offsets)
+        ref = band_detect.band_flags_plain(px, py, dev_, bdev, state.alive,
+                                           offsets)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref)
+
+
 @pytest.mark.parametrize("shape", K14_SHAPES, ids=K14_IDS)
 @pytest.mark.parametrize("stencil", [0, 1, 2, 3])
 @pytest.mark.parametrize("quantized", [True, False])

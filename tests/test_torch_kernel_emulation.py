@@ -1,23 +1,31 @@
-"""The CUDA sources of K1, K3 and K4 run on the CPU, in emulation, against
-their plain versions.
+"""The CUDA sources of K1, K2, K3 and K4 run on the CPU, in emulation,
+against their plain versions.
 
 The kernels themselves run only on the card (``tests/test_torch_cuda.py``,
 ``chip_smoke.py``).  Here their sources are compiled with the host C++
 compiler against a small emulation of the CUDA they use: one
-``std::thread`` per CUDA thread, ``std::barrier`` for ``__syncthreads``,
-the ``cp.async`` copies as plain copies (zero fill included), the launch
-as a loop over blocks.  Float arithmetic is IEEE single precision without
-contraction (``-ffp-contract=off``, as the kernels' ``-fmad=false``
-build) and x86's square root and divide are correctly rounded, so every
-output plane must equal the plain version bit for bit.  This holds the
-kernels' indexing — tiles, halos, ragged edges, the spring reactions
-shared through shared memory, every barrier reached by every thread — at
-shapes and stencils the CPU can afford.  Skipped where there is no
-``g++``."""
+``std::thread`` per CUDA thread of a block (reused from block to block);
+``std::barrier`` for ``__syncthreads`` and, with a shared flag, for
+``__syncthreads_and`` and, per warp of 32 threads, ``__all_sync`` and
+``__reduce_{max,min}_sync``; the 4- and 8-byte ``cp.async`` copies land
+only when ``cp.async.wait_group 0`` waits for the group
+``cp.async.commit_group`` closed (zero fill included; shared memory
+starts as NaN, so a copy read before it is committed and waited for
+shows); ``__grid_constant__`` is a by-value parameter; the launch is a
+loop over blocks.  Float arithmetic is IEEE
+single precision without contraction (``-ffp-contract=off``, as the
+kernels' ``-fmad=false`` build) and x86's square root and divide are
+correctly rounded, so every output plane must equal the plain version bit
+for bit (NaN where the plain version has NaN).  This holds the kernels'
+indexing — tiles, halos, ragged edges, strided and interleaved planes,
+the spring reactions shared through shared memory, every barrier reached
+by every thread — and K3's skip of pairs that cannot touch at shapes and
+stencils the CPU can afford.  Skipped where there is no ``g++``."""
 
 import ctypes
 import dataclasses
 import itertools
+import os
 import re
 import shutil
 import subprocess
@@ -25,20 +33,28 @@ import subprocess
 import pytest
 import torch
 
+import numpy as np
+
 import softbody_tpu_torch as tb
 from softbody_tpu_torch.models import make_lattice
-from softbody_tpu_torch.ops.cuda import collide_stencil, fused_substep
-from softbody_tpu_torch.ops.cuda import fused_substep2
+from softbody_tpu_torch.ops.cuda import band_detect, collide_stencil
+from softbody_tpu_torch.ops.cuda import fused_substep, fused_substep2
 from softbody_tpu_torch.ops.cuda._lib import CSRC
+from softbody_tpu_torch.ops.farfield import FarFieldSpec
 
-EMULATED = ("fused_substep2.cu", "fused_substep.cu", "collide_stencil.cu")
+EMULATED = ("fused_substep2.cu", "fused_substep.cu", "collide_stencil.cu",
+            "band_detect.cu")
 
 RUNTIME_H = r"""
 #pragma once
+#include <atomic>
 #include <barrier>
 #include <cmath>
 #include <cstdint>
+#include <cstdlib>
+#include <algorithm>
 #include <cstring>
+#include <memory>
 #include <thread>
 #include <vector>
 #define __global__
@@ -47,17 +63,117 @@ RUNTIME_H = r"""
 #define __forceinline__ inline
 #define __constant__
 #define __restrict__
+#define __grid_constant__
 #define __launch_bounds__(...)
 struct dim3 {
   unsigned x, y, z;
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
 };
+struct alignas(8) float2 {
+  float x, y;
+};
+// a block: its barrier, and per warp of 32 threads a barrier and a vote
+struct EmuBlock {
+  unsigned threads, dim_x;
+  std::barrier<> bar;
+  std::atomic<int> vote{1};
+  std::vector<std::unique_ptr<std::barrier<>>> warp_bar;
+  std::vector<std::atomic<int>> warp_vote;
+  std::vector<std::atomic<unsigned>> warp_acc;
+  EmuBlock(unsigned n, unsigned dx)
+      : threads(n), dim_x(dx), bar(n), warp_vote((n + 31) / 32),
+        warp_acc((n + 31) / 32) {
+    for (unsigned w = 0; w < (n + 31) / 32; ++w) {
+      const unsigned in_warp = n - 32 * w < 32 ? n - 32 * w : 32;
+      warp_bar.emplace_back(std::make_unique<std::barrier<>>(in_warp));
+      warp_vote[w].store(1);
+    }
+  }
+};
 inline thread_local dim3 threadIdx, blockIdx;
-inline thread_local std::barrier<>* emu_barrier;
+inline thread_local EmuBlock* emu_block;
 inline thread_local float* emu_shared;
-inline void __syncthreads() { emu_barrier->arrive_and_wait(); }
+inline void __syncthreads() { emu_block->bar.arrive_and_wait(); }
+// a vote: every thread clears the flag or not, reads it after a barrier,
+// and the flag is set again behind a second barrier before anyone votes
+// anew
+inline int emu_vote(std::barrier<>& bar, std::atomic<int>& vote, int pred,
+                    bool first) {
+  if (!pred) vote.store(0);
+  bar.arrive_and_wait();
+  const int all = vote.load();
+  bar.arrive_and_wait();
+  if (first) vote.store(1);
+  bar.arrive_and_wait();
+  return all;
+}
+inline int __syncthreads_and(int pred) {
+  EmuBlock& b = *emu_block;
+  return emu_vote(b.bar, b.vote, pred, threadIdx.x == 0 && threadIdx.y == 0);
+}
+inline bool __all_sync(unsigned, int pred) {
+  EmuBlock& b = *emu_block;
+  const unsigned lin = threadIdx.y * b.dim_x + threadIdx.x;
+  return emu_vote(*b.warp_bar[lin / 32], b.warp_vote[lin / 32], pred,
+                  lin % 32 == 0);
+}
+// __reduce_{max,min}_sync over a warp: the first lane seeds the
+// accumulator, every lane folds its value in, all read it back
+inline unsigned emu_warp_reduce(unsigned v, bool take_max) {
+  EmuBlock& b = *emu_block;
+  const unsigned lin = threadIdx.y * b.dim_x + threadIdx.x;
+  std::barrier<>& bar = *b.warp_bar[lin / 32];
+  std::atomic<unsigned>& acc = b.warp_acc[lin / 32];
+  if (lin % 32 == 0) acc.store(take_max ? 0u : ~0u);
+  bar.arrive_and_wait();
+  unsigned cur = acc.load();
+  while ((take_max ? v > cur : v < cur) &&
+         !acc.compare_exchange_weak(cur, v)) {
+  }
+  bar.arrive_and_wait();
+  const unsigned all = acc.load();
+  bar.arrive_and_wait();
+  return all;
+}
+inline unsigned __reduce_max_sync(unsigned, unsigned v) {
+  return emu_warp_reduce(v, true);
+}
+inline unsigned __reduce_min_sync(unsigned, unsigned v) {
+  return emu_warp_reduce(v, false);
+}
+using std::max;
+using std::min;
+inline int __ffs(int x) { return x ? __builtin_ctz((unsigned)x) + 1 : 0; }
+// cp.async: a copy is queued, a commit closes the queued copies into
+// groups, wait_group 0 lands every closed group (copies never committed
+// never land)
+struct EmuCopy {
+  void* dst;
+  const void* src;
+  int bytes;
+  bool in;
+};
+inline thread_local std::vector<EmuCopy> emu_queued, emu_committed;
+inline void emu_cp_async(void* dst, const void* src, int bytes, bool in) {
+  emu_queued.push_back({dst, src, bytes, in});
+}
+inline void emu_commit() {
+  emu_committed.insert(emu_committed.end(), emu_queued.begin(),
+                       emu_queued.end());
+  emu_queued.clear();
+}
+inline void emu_wait_all() {
+  for (const EmuCopy& c : emu_committed) {
+    if (c.in)
+      std::memcpy(c.dst, c.src, c.bytes);
+    else
+      std::memset(c.dst, 0, c.bytes);
+  }
+  emu_committed.clear();
+}
 typedef void* cudaStream_t;
 typedef int cudaError_t;
+constexpr cudaError_t cudaErrorInvalidValue = 1;
 struct cudaFuncAttributes { int numRegs; size_t localSizeBytes; };
 inline cudaError_t cudaGetLastError() { return 0; }
 inline const char* cudaGetErrorString(cudaError_t) { return "emulated"; }
@@ -90,41 +206,55 @@ inline float __uint_as_float(uint32_t u) {
   std::memcpy(&f, &u, 4);
   return f;
 }
-// blocks one after another; a block's threads run together, its shared
-// memory starts as NaN so that a read before any write shows
+// blocks one after another, run by one set of threads (a thread per CUDA
+// thread of a block, reused for every block); a block's shared memory
+// starts as NaN so that a read before any write shows.  `fence` (not the
+// block's barrier) separates the blocks: a thread that returns early
+// waits there.
 template <class F>
 void emu_launch(dim3 grid, dim3 block, size_t smem, cudaStream_t, F f) {
   const unsigned n = block.x * block.y;
-  for (unsigned by = 0; by < grid.y; ++by)
-    for (unsigned bx = 0; bx < grid.x; ++bx) {
-      std::vector<float> shared(smem / 4 + 1, std::nanf(""));
-      std::barrier<> bar(n);
-      std::vector<std::thread> threads;
-      for (unsigned i = 0; i < n; ++i)
-        threads.emplace_back([&, i] {
-          threadIdx = dim3(i % block.x, i / block.x);
+  std::vector<float> shared(smem / 4 + 1);
+  EmuBlock blk(n, block.x);
+  std::barrier<> fence(n);
+  std::vector<std::thread> threads;
+  for (unsigned i = 0; i < n; ++i)
+    threads.emplace_back([&, i] {
+      threadIdx = dim3(i % block.x, i / block.x);
+      emu_block = &blk;
+      emu_shared = shared.data();
+      for (unsigned by = 0; by < grid.y; ++by)
+        for (unsigned bx = 0; bx < grid.x; ++bx) {
+          if (i == 0) std::fill(shared.begin(), shared.end(), std::nanf(""));
+          fence.arrive_and_wait();
           blockIdx = dim3(bx, by);
-          emu_barrier = &bar;
-          emu_shared = shared.data();
+          emu_queued.clear();
+          emu_committed.clear();
           f();
-        });
-      for (auto& t : threads) t.join();
-    }
+          fence.arrive_and_wait();
+        }
+    });
+  for (auto& t : threads) t.join();
 }
 """
 
 
 def _emulated_source(text: str) -> str:
     """A kernel source rewritten for the emulation: dynamic shared memory,
-    the cp.async copies (plain copies, src-size 0 zero-fills) and the
-    launch syntax."""
+    the cp.async copies of 4 and 8 bytes (queued; src-size 0
+    zero-fills), their commit and wait, and the launch syntax."""
     text = text.replace("extern __shared__ float smem[];",
                         "float* smem = emu_shared;")
-    text = re.sub(r'asm volatile\("cp\.async\.ca\.shared\.global.*?'
-                  r': "memory"\);', "*dst = in ? *src : 0.0f;", text,
-                  flags=re.S)
-    text = re.sub(r'asm volatile\("cp\.async\.(commit|wait)_group[^;]*;'
-                  r'\\n" ::: "memory"\);', ";", text)
+    text = re.sub(r'asm volatile\("cp\.async\.ca\.shared\.global '
+                  r'\[%0\], \[%1\], (4|8), %2;.*?: "memory"\);',
+                  lambda m: f"emu_cp_async(dst, src, {m.group(1)}, in);",
+                  text, flags=re.S)
+    text = text.replace(
+        'asm volatile("cp.async.commit_group;\\n" ::: "memory");',
+        "emu_commit();")
+    text = text.replace(
+        'asm volatile("cp.async.wait_group 0;\\n" ::: "memory");',
+        "emu_wait_all();")
     text = re.sub(r"(\w+)<<<(.*?)>>>\((.*?)\);",
                   lambda m: (f"emu_launch({m.group(2)}, [&]() "
                              f"{{ {m.group(1)}({m.group(3)}); }});"),
@@ -132,6 +262,31 @@ def _emulated_source(text: str) -> str:
     if "asm" in text or "<<<" in text:
         raise AssertionError("a construct the emulation does not cover")
     return text
+
+
+class _TwoCores:
+    """The emulated library, each call run with the calling thread held to
+    two cores: the threads the emulation starts (one per CUDA thread)
+    inherit that, so tests running beside this file keep the other
+    cores.  The calling thread's cores are restored after each call."""
+
+    def __init__(self, lib):
+        self._lib = lib
+
+    def __getattr__(self, name):
+        fn = getattr(self._lib, name)
+        if not hasattr(os, "sched_setaffinity"):
+            return fn
+
+        def call(*args):
+            cpus = os.sched_getaffinity(0)
+            os.sched_setaffinity(0, sorted(cpus)[:2])
+            try:
+                return fn(*args)
+            finally:
+                os.sched_setaffinity(0, cpus)
+
+        return call
 
 
 @pytest.fixture(scope="module")
@@ -163,10 +318,14 @@ def lib(tmp_path_factory):
     lib.sb_fused_substep2.argtypes = [p] * 7 + [i] * 4 + [p]
     lib.sb_fused_substep.argtypes = [p] * 5 + [i] * 4 + [p]
     lib.sb_collide_stencil.argtypes = [p] * 6 + [f] * 4 + [i] * 3 + [p]
+    lib.sb_collide_stencil_strided.argtypes = ([p] * 7 + [f] * 4 + [i] * 3
+                                               + [p])
+    lib.sb_band_flags.argtypes = [p] * 7 + [i] * 3 + [p]
     for fn in (lib.sb_fused_substep2, lib.sb_fused_substep,
-               lib.sb_collide_stencil):
+               lib.sb_collide_stencil, lib.sb_collide_stencil_strided,
+               lib.sb_band_flags):
         fn.restype = i
-    return lib
+    return _TwoCores(lib)
 
 
 def _ptr(t):
@@ -252,21 +411,174 @@ def test_k4_source_matches_plain(lib, stencil, shape):
         assert torch.equal(got, ref), f"quantized={quantized} far={with_far}"
 
 
+def _same_bits(got, ref) -> bool:
+    """Bit for bit, NaN where ``ref`` has NaN (the payloads aside)."""
+    nan = torch.isnan(ref)
+    return (torch.equal(torch.isnan(got), nan)
+            and torch.equal(got[~nan].view(torch.int32),
+                            ref[~nan].view(torch.int32)))
+
+
+def _k3_both_entries(lib, state, stencil, radius, dt, ecoeff, friction):
+    """K3's plain version against the source through its contiguous entry
+    and through its strided entry on the state's interleaved views and on
+    H-major planes."""
+    w, h = state.alive.shape
+    views = (state.pos[..., 0], state.pos[..., 1], state.vel[..., 0],
+             state.vel[..., 1])
+    planes = [t.contiguous() for t in views] + [state.alive]
+    ref = torch.stack(collide_stencil.collide_stencil_plain(
+        *planes, radius=radius, dt=dt, ecoeff=ecoeff, friction=friction,
+        stencil=stencil))
+    two_r, inv_dt2 = collide_stencil._scalars(radius, dt)
+    scalars = (two_r, inv_dt2, float(np.float32(ecoeff)),
+               float(np.float32(friction)))
+    got = torch.empty_like(ref)
+    assert lib.sb_collide_stencil(*(_ptr(t) for t in planes), _ptr(got),
+                                  *scalars, w, h, stencil, None) == 0
+    assert _same_bits(got, ref), "contiguous entry"
+    # the interleaved views (staged as pairs), and planes laid out H-major
+    # (row stride 1, element stride W)
+    h_major = [t.t().contiguous().t() for t in planes[:4]]
+    for layout, vs in (("interleaved views", views), ("H-major", h_major)):
+        strides = np.ascontiguousarray([t.stride() for t in vs], np.int64)
+        got = torch.empty_like(ref)
+        assert lib.sb_collide_stencil_strided(
+            *(_ptr(t) for t in vs), strides.ctypes.data, _ptr(state.alive),
+            _ptr(got), *scalars, w, h, stencil, None) == 0
+        assert _same_bits(got, ref), f"strided entry, {layout}"
+    return ref
+
+
 @pytest.mark.parametrize("shape", SHAPES, ids=SHAPE_IDS)
 @pytest.mark.parametrize("stencil", [1, 2, 3])
 def test_k3_source_matches_plain(lib, stencil, shape):
     w, h = shape
     state, cfg, consts, _g = _state(w, h, seed=7 + w + h)
-    planes = [t.contiguous() for t in (state.pos[..., 0], state.pos[..., 1],
-                                       state.vel[..., 0], state.vel[..., 1],
-                                       state.alive)]
-    kw = dict(radius=cfg.particle_radius, dt=cfg.dt, ecoeff=consts.ecoeff,
-              friction=consts.friction, stencil=stencil)
-    ref = torch.stack(collide_stencil.collide_stencil_plain(*planes, **kw))
-    got = torch.empty_like(ref)
-    two_r, inv_dt2 = collide_stencil._scalars(cfg.particle_radius, cfg.dt)
-    assert lib.sb_collide_stencil(
-        *(_ptr(t) for t in planes), _ptr(got), two_r, inv_dt2,
-        float(consts.ecoeff), float(consts.friction), w, h, stencil,
-        None) == 0
-    assert torch.equal(got, ref)
+    _k3_both_entries(lib, state, stencil, cfg.particle_radius, cfg.dt,
+                     consts.ecoeff, consts.friction)
+
+
+def _hostile(state, g):
+    """The state with what K3's skip must not hide: infinite and NaN
+    velocities in two tiles (the rest stay finite, so both paths run),
+    a fifth of the dead particles holding garbage positions (NaN, ±inf,
+    1e30, −0.0, a live neighbour's position; NaN spreads from them to
+    the deltas of their stencil) and an alive particle far out, whose
+    squared distances overflow."""
+    w, h = state.alive.shape
+    pos, vel, alive = state.pos.clone(), state.vel.clone(), state.alive.clone()
+    vel[1, min(h - 1, 1), 0] = float("inf")
+    vel[min(w - 1, 20), h // 2, 1] = float("nan")
+    vel[min(w - 1, 21), h // 2, 0] = float("-inf")
+    dead = ~alive
+    dead[3, :] = True
+    garbage = torch.tensor([float("nan"), float("inf"), float("-inf"), 1e30,
+                            -0.0], dtype=torch.float32)
+    pick = torch.randint(0, len(garbage) + 1, (w, h, 2), generator=g)
+    junk = torch.where(pick < len(garbage),
+                       garbage[pick.clamp(max=len(garbage) - 1)],
+                       torch.roll(pos, 1, dims=1))
+    messy = dead & (torch.rand((w, h), generator=g) < 0.2)
+    pos = torch.where(messy[..., None], junk, pos)
+    far = (w // 2, min(h - 1, 3))
+    pos[far[0], far[1]] = torch.tensor([1e20, -1e20])
+    alive = torch.where(dead, False, alive)
+    alive[far] = True
+    return dataclasses.replace(state, pos=pos, vel=vel, alive=alive)
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=SHAPE_IDS)
+@pytest.mark.parametrize("stencil", [1, 2, 3])
+def test_k3_source_nonfinite_and_garbage(lib, stencil, shape):
+    """Both entries on a state with non-finite velocities in some tiles and
+    garbage in dead particles: NaN where the plain version has NaN."""
+    w, h = shape
+    state, cfg, consts, g = _state(w, h, seed=11 + w + h)
+    ref = _k3_both_entries(lib, _hostile(state, g), stencil,
+                           cfg.particle_radius, cfg.dt, consts.ecoeff,
+                           consts.friction)
+    nan = torch.isnan(ref).any(0)
+    assert 0 < int(nan.sum()) < nan.numel() // 2
+
+
+def test_k3_source_constants_that_overflow_clip(lib):
+    """With 1/dt² = 1e38, clip overflows for pairs a few units apart and
+    their terms are NaN: the host's check of the constants must keep
+    every pair on the full path."""
+    w, h = SHAPES[0]
+    state, cfg, consts, _g = _state(w, h, seed=5)
+    ref = _k3_both_entries(lib, state, 2, cfg.particle_radius, 1e-19,
+                           consts.ecoeff, consts.friction)
+    assert bool(torch.isnan(ref).any())
+
+
+def _band_state(w, h, seed, odd_dev=False):
+    """K2's five input planes on a stirred lattice (``_state``) with 6% of
+    the particles thrown up to eight spacings off their sites (along W
+    only where H is one lane), so that band partners at every dx come
+    within reach; dead particles in rows 8-15 only (the other warps are
+    all alive and stop early), half of them at the position of the
+    particle three rows before them (alive, they would hit), half at NaN
+    or +inf; two alive particles at +inf and NaN; where ``odd_dev``,
+    reaches that the box test must bound: deviations of +inf, NaN and
+    below −base in a few places."""
+    state, cfg, _consts, g = _state(w, h, seed)
+    spacing = 20.0
+    pos = state.pos.clone()
+    thrown = torch.rand((w, h), generator=g) < 0.06
+    reach = torch.tensor([16.0, 16.0 if h > 1 else 1.0]) * spacing
+    pos = pos + thrown[..., None] * (torch.rand(pos.shape, generator=g)
+                                     - 0.5) * reach
+    dead = torch.zeros((w, h), dtype=torch.bool)
+    dead[8:16] = torch.rand((min(w, 16) - 8, h), generator=g) < 0.3
+    garbage = torch.where(torch.rand((w, h, 1), generator=g) < 0.5,
+                          torch.roll(pos, 3, dims=0),
+                          torch.tensor([float("nan"), float("inf")]))
+    pos = torch.where(dead[..., None], garbage, pos)
+    pos[w // 2, h // 2, 0] = float("inf")
+    pos[w // 3, 0, 1] = float("nan")
+    alive = ~dead
+    dev = torch.where(alive, torch.rand((w, h), generator=g) * 0.25 * spacing,
+                      0.0)
+    base = float(np.float32(2.0 * cfg.particle_radius + 0.75 * spacing))
+    if odd_dev:
+        dev[w // 4, 0] = float("inf")
+        dev[w - 1, h - 1] = float("nan")
+        dev[2 * w // 3, h // 3] = -6.0 * spacing
+    return (pos[..., 0].contiguous(), pos[..., 1].contiguous(), dev,
+            base + dev, alive)
+
+
+def _k2_source(lib, planes, offsets):
+    w, h = planes[0].shape
+    offs = np.ascontiguousarray(offsets, np.int32).reshape(-1, 2)
+    got = torch.empty_like(planes[4])
+    assert lib.sb_band_flags(*(_ptr(t) for t in planes), _ptr(got),
+                             offs.ctypes.data, len(offs), w, h, None) == 0
+    return got
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=SHAPE_IDS)
+@pytest.mark.parametrize("stencil", [1, 2])
+def test_k2_source_matches_plain(lib, stencil, shape):
+    """The band of chunk 4 at stencils 1 and 2 (112 and 100 offsets)."""
+    w, h = shape
+    planes = _band_state(w, h, seed=13 + w + h + stencil)
+    offsets = FarFieldSpec().band_half_offsets(stencil)
+    ref = band_detect.band_flags_plain(*planes, offsets)
+    assert torch.equal(_k2_source(lib, planes, offsets), ref)
+    assert 0 < int(ref.sum()) < int(planes[4].sum())
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=SHAPE_IDS)
+def test_k2_source_odd_reaches_and_offsets(lib, shape):
+    """Infinite, NaN and negative deviations (the box test's bound), and
+    offset sets other than a band: the self offset (0, 0), a scattered
+    few, a repeated one, none."""
+    w, h = shape
+    planes = _band_state(w, h, seed=17 + w + h, odd_dev=True)
+    for offsets in (FarFieldSpec().band_half_offsets(2),
+                    [(0, 0), (7, -7), (3, 5), (3, 5), (1, 0)], []):
+        ref = band_detect.band_flags_plain(*planes, offsets)
+        assert torch.equal(_k2_source(lib, planes, offsets), ref), offsets

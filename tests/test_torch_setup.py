@@ -50,6 +50,7 @@ PORT_MODULES = (
     "softbody_tpu_torch.ops.collisions",
     "softbody_tpu_torch.ops.step",
     "chip_smoke",
+    "kernel_variants",
 )
 
 
