@@ -19,7 +19,12 @@ to 0 just before it and read just after:
   (K7 also runs on the bench path, in each far apply with pairs);
 - the general gather engine (``ops/step.frame``, no kernel of its own) at
   BASELINE configs 1, 4 and 3: the 32×32 cloth, 64 blobs and the 100k
-  self-colliding cloth.
+  self-colliding cloth;
+- the runtime, as a user drives it: ``LatticeEngine(fused=True)`` on the
+  bench scene stepping on its worker thread while this thread polls
+  render packets (K1, K2, K7), its L1 snapshot round trip, fault
+  injection and re-creation; ``LatticeEngine`` on path A (K3); ``Engine``
+  on the general path.
 
 Every phase raises on failure.
 
@@ -50,7 +55,14 @@ import numpy as np
 import torch
 
 import softbody_tpu_torch as tb
-from softbody_tpu_torch.engine import FusedLatticeBackend, LatticeBackend
+from softbody_tpu_torch.engine import (
+    Engine,
+    EngineOptions,
+    FusedLatticeBackend,
+    LatticeBackend,
+    LatticeEngine,
+    SimBackend,
+)
 from softbody_tpu_torch.models import make_lattice, tearing_cloth_lattice
 from softbody_tpu_torch.convert import sim_state_to_numpy
 from softbody_tpu_torch.models import scenes
@@ -110,6 +122,7 @@ from softbody_tpu_torch.ops.stencil import (
     shifted,
     sqrt32,
 )
+from softbody_tpu_torch.snapshot import save_snapshot
 
 # the bench scene of bench.py:79-107 (1000 x 1000 lattice, ~3.98M springs)
 N_PARTICLES = 1_000_000
@@ -148,6 +161,13 @@ GENERAL_CONFIGS = (
 # config 1 on the card against the CPU: tests/test_step_vs_oracle.py's
 # tolerances (the collision sums' order differs)
 GENERAL_ATOL = {"pos": 2e-3, "vel": 4e-3}
+
+# the runtime phase: frames of each of the fused engine's four windows,
+# after 2 warm frames: stepping alone, polled, polled, alone (frames 2-10;
+# the order cancels the frames' drift in cost, which grows as far pairs
+# appear); past frame ~12 the crumpling sheet's candidate pairs outgrow
+# the bench far field's 16384
+RUNTIME_FRAMES = 2
 
 # K1 and K4 against their plain versions: edge planes bit-exact,
 # particle planes within the port's parity tolerances
@@ -1101,18 +1121,36 @@ def time_at_final_state(run, spec, cfg, consts, parent=None) -> dict:
     flagged = _hold_k2("bench final state", planes, offsets)
     t["K2"] = _device_ms(lambda: band_flag_call(*planes, offsets=offsets),
                          50)
+    # chunks past the TPU kernel's box: the kernel whose box is set at
+    # launch, held bitwise at 8 and 16 and timed at 8 next to chunk 4
+    wide = {}
+    for chunk in (8, 16):
+        *planes_c, offsets_c = _band_inputs(
+            hot[PX], hot[PY], hot[VX], hot[VY], alive, cfg,
+            dataclasses.replace(ff, chunk=chunk), s)
+        _hold_k2(f"bench final state, chunk {chunk}", planes_c, offsets_c)
+        wide[chunk] = (planes_c, offsets_c)
+    planes8, offsets8 = wide[8]
+    t["K2 chunk 8"] = _device_ms(
+        lambda: band_flag_call(*planes8, offsets=offsets8), 50)
     if parent is not None:
         t["compare"]["K2"] = _turns(
             lambda: _raw_k2(parent, planes, offsets),
             lambda: _raw_k2(_lib.library(), planes, offsets), 50)
     t["K2 plain"] = _timed_ms(lambda: band_flags_plain(*planes, offsets), 5)
     n = hot.shape[1] * hot.shape[2]
+    pairs8 = _band_pairs_evaluated(*planes8, offsets8)
     # K1: reads hot, immut and far, writes hot (the non-observing call)
     _log_bound("K1", (18 + 2 + 5 + 18) * 4 * n, _substep_ops(n, s))
     bounds = {"K1": _bound((18 + 2 + 5 + 18) * 4 * n, _substep_ops(n, s)),
               "K2": _bound(n * (4 * 4 + 1) + n,
                            7 * _band_pairs_evaluated(*planes, offsets)),
-              "K7": _mirror_bound(planes5, table)}
+              "K7": _mirror_bound(planes5, table),
+              "K2 chunk 8": _bound(n * (4 * 4 + 1) + n, 7 * pairs8)}
+    _log_bound("K2 chunk 8", n * (4 * 4 + 1) + n, 7 * pairs8)
+    log(f"K2 at chunk 8 ({len(offsets8)} offsets, {pairs8} pairs "
+        f"evaluated): {t['K2 chunk 8']:.4f} ms; chunk 4 ({len(offsets)} "
+        f"offsets) {t['K2']:.4f} ms")
     log(f"at the final state ({n_pairs} far pairs, {flagged} band-flagged "
         f"particles): " + ", ".join(f"{k} {v:.4f} ms" for k, v in t.items()
                                     if k != "compare")
@@ -1250,6 +1288,282 @@ def run_general(dev) -> list:
     return rates
 
 
+# ---------------------------------------------------------------------------
+# the runtime: the engines a user drives, on the worker thread
+
+
+def _wait_frames(eng, n: int, far: dict, timeout: float = 120.0,
+                 every: float = 0.01):
+    """Poll ``eng.stats()`` every ``every`` s until frame ``n``; every
+    read's far stats are folded into ``far`` (the fused backend's window
+    resets on read): pairs and overflow as maxima.  Raises on a worker
+    error."""
+    t_end = time.monotonic() + timeout
+    while True:
+        st = eng.stats()
+        far["far_pairs"] = max(far.get("far_pairs", 0), st.far_pairs)
+        far["far_overflow"] = max(far.get("far_overflow", 0),
+                                  st.far_overflow)
+        far["far_active"] = max(far.get("far_active", 0), st.far_active)
+        if st.frame_index >= n:
+            return st
+        if eng.error is not None or time.monotonic() > t_end:
+            raise AssertionError(f"engine stopped at frame {st.frame_index}"
+                                 f" (error {eng.error!r})")
+        time.sleep(every)
+
+
+def _pause(eng, far: dict) -> int:
+    """Hide the engine (no frame steps after the acked read) and return
+    its frame index."""
+    eng.set_hidden(True)
+    return _wait_frames(eng, 0, far).frame_index
+
+
+def _witness(eng) -> dict:
+    """Wrap the engine's ``backend.extract`` so that each frame's extract
+    also keeps an independent clone of its positions (same stream, after
+    the extract), by frame index: what a packet of that frame must hold,
+    whatever the allocator did with the extracted copy since."""
+    worker = eng._worker
+    extract = worker.backend.extract
+    kept = {}
+
+    def wrapped(state):
+        ex = extract(state)
+        kept[worker._frame_index] = ex.tensors[0].clone()
+        for old in [k for k in kept if k < worker._frame_index - 64]:
+            del kept[old]
+        return ex
+
+    worker.backend.extract = wrapped
+    return kept
+
+
+def run_runtime_fused(dev, card: str) -> dict:
+    """The fused engine at 1M: ``LatticeEngine(fused=True)`` on the bench
+    scene with the bench far field, stepping flat-out on its worker
+    thread.  Frames/s without and with ``render_packet()`` polled
+    flat-out from this thread, in windows of RUNTIME_FRAMES frames
+    (alone, polled, polled, alone; frames 2-10), packet latency, packets
+    bitwise equal to
+    the frame they name (an independent clone kept at extract), K1 64 and
+    K2 8 launches per frame, K7 once far pairs exist, ``far_overflow`` 0
+    over every stats read.  Then, paused, the L1 snapshot round trip
+    (save → load → save byte-equal, timed), three ``corrupt_buffers``
+    with stepping going on, and ``recreate(subticks=32)``."""
+    state, spec, cfg, consts, spacing = _scene(N_PARTICLES, dev)
+    opts = EngineOptions(subticks=cfg.subticks,
+                         particle_radius=cfg.particle_radius,
+                         bounds_size=cfg.bounds_size,
+                         collision_mode=cfg.collision_mode,
+                         force_mode=cfg.force_mode, target_fps=None)
+    far = {}
+    fused_substep2.K1_LAUNCHES = 0
+    band_detect.K2_LAUNCHES = 0
+    recmirror.K7_LAUNCHES = 0
+    eng = LatticeEngine(state, spec, consts, opts, farfield=_far_spec(spacing),
+                        fused=True, device=dev)
+    del state
+    out = {}
+    try:
+        kept = _witness(eng)
+        f = _wait_frames(eng, 2, far).frame_index
+        packets, lat, seen = {}, [], [f]
+        spent = {"alone": [0, 0.0], "polled": [0, 0.0]}  # frames, seconds
+        for kind in ("alone", "polled", "polled", "alone"):
+            t0 = time.perf_counter()
+            if kind == "alone":  # this thread reads the stats every 50 ms
+                f1 = _wait_frames(eng, f + RUNTIME_FRAMES, far,
+                                  every=0.05).frame_index
+            else:                # this thread polls packets flat-out
+                while seen[-1] < f + RUNTIME_FRAMES:
+                    ta = time.perf_counter()
+                    pkt = eng.render_packet()
+                    lat.append((time.perf_counter() - ta) * 1e3)
+                    seen.append(pkt.frame_index)
+                    if pkt.frame_index not in packets and len(packets) < 8:
+                        packets[pkt.frame_index] = pkt.pos
+                    if ta > t0 + 120.0 or eng.error is not None:
+                        raise AssertionError(f"runtime: polled engine at "
+                                             f"frame {seen[-1]} "
+                                             f"({eng.error!r})")
+                f1 = seen[-1]
+            spent[kind][0] += f1 - f
+            spent[kind][1] += time.perf_counter() - t0
+            f = f1
+        fps_alone = spent["alone"][0] / spent["alone"][1]
+        fps_polled = spent["polled"][0] / spent["polled"][1]
+        frames = _pause(eng, far)
+        k1, k2 = fused_substep2.K1_LAUNCHES, band_detect.K2_LAUNCHES
+        k7 = recmirror.K7_LAUNCHES
+        if seen != sorted(seen):
+            raise AssertionError("runtime: packet frame indices not "
+                                 "monotonic")
+        torch.cuda.synchronize()
+        for idx, pos in packets.items():
+            ref = kept[idx].cpu().numpy()
+            if pos.tobytes() != ref.tobytes():
+                raise AssertionError(f"runtime: the packet of frame {idx} "
+                                     "differs from that frame's positions")
+        if k1 != cfg.subticks * frames or k2 != 8 * frames:
+            raise AssertionError(f"runtime: {frames} frames launched K1 {k1}"
+                                 f", K2 {k2} times")
+        if far["far_overflow"] or (far["far_pairs"] > 0) != (k7 > 0):
+            raise AssertionError(f"runtime: far stats {far}, K7 {k7}")
+        lat_ms = sorted(lat)
+        out.update(fps_alone=fps_alone, fps_polled=fps_polled,
+                   lat_median=lat_ms[len(lat_ms) // 2], lat_max=lat_ms[-1],
+                   frames=frames, k1=k1, k2=k2, k7=k7, far=dict(far))
+        log(f"runtime, fused engine 1M: {frames} frames on the worker "
+            f"thread, {fps_alone:.3f} frames/s alone ({spent['alone'][0]} "
+            f"frames), {fps_polled:.3f} frames/s with render_packet() "
+            f"polled flat-out ({spent['polled'][0]} frames, {len(lat)} "
+            f"packets, latency median {out['lat_median']:.1f} ms, max "
+            f"{out['lat_max']:.1f} ms; frame indices monotonic; "
+            f"{len(packets)} packets bitwise equal to their frame's "
+            f"positions); K1 {k1} = {cfg.subticks} x {frames}, K2 {k2} = 8 "
+            f"x {frames}, K7 {k7}; far stats over the reads {far} on {card}")
+
+        # the L1 round trip, paused
+        ta = time.perf_counter()
+        buf = eng.save_snapshot()
+        tb_ = time.perf_counter()
+        if not eng.load_snapshot(buf):
+            raise AssertionError("runtime: the engine refused its own L1 "
+                                 "snapshot")
+        tc = time.perf_counter()
+        if eng.save_snapshot() != buf:
+            raise AssertionError("runtime: L1 save -> load -> save differs")
+        out.update(save_ms=(tb_ - ta) * 1e3, load_ms=(tc - tb_) * 1e3,
+                   snapshot_mb=len(buf) / 1e6)
+        log(f"runtime, L1 snapshot 1M: {len(buf)} bytes, save "
+            f"{out['save_ms']:.1f} ms, load {out['load_ms']:.1f} ms, save -> "
+            f"load -> save byte-equal on {card}")
+        del buf
+        for _ in range(3):
+            eng.corrupt_buffers()
+        eng.set_hidden(False)
+        _wait_frames(eng, frames + 2, {})
+        if eng.error is not None:
+            raise AssertionError(f"runtime: corruption killed the engine: "
+                                 f"{eng.error!r}")
+        new = eng.recreate(subticks=32)
+    finally:
+        eng.destroy()
+    try:
+        st = _wait_frames(new, 1, {})
+        if new.error is not None or st.particle_count != N_PARTICLES:
+            raise AssertionError(f"runtime: recreated engine {st}, error "
+                                 f"{new.error!r}")
+        log(f"runtime: 3 corrupt_buffers, stepping went on; recreate("
+            f"subticks=32) stepped {st.frame_index} frame(s)")
+    finally:
+        new.destroy()
+    return out
+
+
+def run_runtime_dense(dev) -> int:
+    """Path A behind the engine: ``LatticeEngine(fused=False)`` with
+    ``use_pallas`` and ``FarFieldSpec()`` on the 1M tearing cloth, 2
+    frames; K3 launches 64 per frame.  Returns K3's launches."""
+    state, spec, cfg, consts = tearing_cloth_lattice(
+        n_particles=N_PARTICLES, device=dev)
+    opts = EngineOptions(subticks=cfg.subticks,
+                         particle_radius=cfg.particle_radius,
+                         use_pallas=True, target_fps=None)
+    collide_stencil.K3_LAUNCHES = 0
+    with LatticeEngine(state, spec, consts, opts, farfield=FarFieldSpec(),
+                       device=dev) as eng:
+        del state
+        far = {}
+        _wait_frames(eng, 2, far)
+        frames = _pause(eng, far)
+        k3 = collide_stencil.K3_LAUNCHES
+        if k3 != cfg.subticks * frames or far["far_overflow"]:
+            raise AssertionError(f"runtime, dense engine: {frames} frames, "
+                                 f"K3 {k3}, far {far}")
+        if eng.error is not None:
+            raise AssertionError(f"runtime, dense engine: {eng.error!r}")
+    log(f"runtime, dense engine 1M (use_pallas, FarFieldSpec()): {frames} "
+        f"frames, K3 {k3} = {cfg.subticks} x {frames}, far stats {far}")
+    return k3
+
+
+def run_runtime_general(dev) -> None:
+    """The general engine on the card: one ``SimBackend`` frame of config
+    1 (``cloth(32, 32)``) against the CPU's (phase 10's tolerances), then
+    ``Engine`` stepping it for 5 frames on the worker thread, and a v0
+    snapshot of ``cloth(16, 16)`` (within v0's 1638 beams) written from
+    the card byte-equal to the one written from the CPU."""
+    consts, uin = tb.PhysicsConstants(), tb.UserInput()
+    out = {}
+    for d in ("cpu", dev):
+        st, cfg = scenes.cloth(32, 32, device=d)
+        be = SimBackend(cfg, device=d)
+        out[str(d)] = sim_state_to_numpy(be.step(st, consts, uin))
+    errs = {k: float(np.abs(out[str(dev)][k] - out["cpu"][k]).max())
+            for k in GENERAL_ATOL}
+    if any(not errs[k] <= GENERAL_ATOL[k] for k in errs):
+        raise AssertionError(f"runtime, general backend: cuda vs cpu {errs}")
+    st, cfg = scenes.cloth(32, 32, device=dev)
+    opts = EngineOptions(subticks=cfg.subticks,
+                         particle_radius=cfg.particle_radius,
+                         collision_mode=cfg.collision_mode, target_fps=None)
+    with Engine(st, consts, opts, device=dev) as eng:
+        far = {}
+        _wait_frames(eng, 5, far)
+        frames = _pause(eng, far)
+        pkt = eng.render_packet()
+        if eng.error is not None or not np.isfinite(pkt.pos).all():
+            raise AssertionError(f"runtime, general engine: {eng.error!r}")
+    bufs = [save_snapshot(scenes.cloth(16, 16, device=d)[0], consts,
+                          format="v0") for d in ("cpu", dev)]
+    if bufs[0] != bufs[1]:
+        raise AssertionError("runtime: v0 snapshots from cuda and cpu "
+                             "differ")
+    log(f"runtime, general engine cloth(32, 32): one backend frame cuda == "
+        f"cpu (max |err| {errs}), {frames} engine frames; v0 snapshot of "
+        f"cloth(16, 16) from cuda == from cpu ({len(bufs[0])} bytes)")
+
+
+def check_wide_k2_and_skip_flag(dev) -> None:
+    """K2 on a stirred 97 × 61 lattice at chunks 1, 2, 8 and 16 (none, the
+    compile-time box, the box set at launch), bitwise; and K1/K4 with
+    dt = 1e-19, where clip overflows and the skip of pairs apart is off,
+    against their plain versions, NaN-aware and bitwise."""
+    st, cfg, consts, g = _k14_state(*K3_RAGGED, dev, SEED + 6)
+    for chunk in (1, 2, 8, 16):
+        ff = dataclasses.replace(_far_spec(980.0 / 96), chunk=chunk)
+        *planes, offsets = _band_inputs(
+            st.pos[..., 0], st.pos[..., 1], st.vel[..., 0], st.vel[..., 1],
+            st.alive, cfg, ff, 2)
+        _hold_k2(f"{K3_RAGGED[0]}x{K3_RAGGED[1]} chunk {chunk}", planes,
+                 offsets)
+    w, h = K3_RAGGED
+    hot, _obs, immut, ec = pack_lattice2(st)
+    cvec = torch.cat([tb.consts_vector(consts, tb.UserInput(), cfg, h), ec])
+    cvec[1] = 1e-19
+    mut, immut4 = pack_lattice(st)
+    for k, call, plain, args in (
+            ("K1", fused_substep2_call, fused_substep2_plain,
+             (hot, immut, cvec)),
+            ("K4", fused_substep_call, fused_substep_plain,
+             (mut, immut4, cvec[:20].clone()))):
+        for s in (1, 2):
+            kw = dict(stencil=s, quantized=True)
+            ref = plain(*args, **kw)
+            got = call(*args, **kw)
+            torch.cuda.synchronize()
+            n_bad = int(_differs(got, ref).sum())
+            n_nan = int(torch.isnan(ref).any(0).sum())
+            if n_bad or not n_nan:
+                raise AssertionError(f"{k} dt=1e-19 s={s}: {n_bad} values "
+                                     f"differ ({n_nan} NaN particles)")
+    log(f"K1/K4 at {w}x{h} with dt = 1e-19 (clip overflows, no skip): "
+        "bitwise equal to the plain versions, NaN included, stencils 1, 2")
+
+
 def _occupancy() -> None:
     """K1's, K4's and K3's residency per SM at the stencil radii they are
     held at, and K2's (registers, spills and shared memory from the
@@ -1370,6 +1684,16 @@ def main() -> int:
     check_general_config1_cpu(dev)
     general = run_general(dev)
 
+    # phase 11: the runtime, the engines a user drives, at full size
+    # (each with the launch counts of its kernels from 0), then K2 past
+    # chunk 4 and K1/K4 under constants that forbid their skip
+    t11 = time.perf_counter()
+    runtime = run_runtime_fused(dev, card)
+    run_runtime_dense(dev)
+    run_runtime_general(dev)
+    check_wide_k2_and_skip_flag(dev)
+    log(f"phase 11 runtime: {time.perf_counter() - t11:.1f} s")
+
     pallas = "softbody_tpu/ops/pallas/"
     probe_src = "scripts/probe_recmirror.py"
     rows = (
@@ -1402,6 +1726,12 @@ def main() -> int:
         f"K4 at stencil 0 {t['K4 s0']:.4f} ms (stencil 2 {t['K4']:.4f}) "
         f"on {card}")
     _log_compare(t["compare"], card)
+    log(f"runtime: fused engine 1M {runtime['fps_alone']:.3f} frames/s "
+        f"alone, {runtime['fps_polled']:.3f} polled; packet latency median "
+        f"{runtime['lat_median']:.1f} ms, max {runtime['lat_max']:.1f} ms; "
+        f"L1 snapshot {runtime['snapshot_mb']:.1f} MB save "
+        f"{runtime['save_ms']:.1f} ms, load {runtime['load_ms']:.1f} ms on "
+        f"{card}")
     log("general path rates: " + ", ".join(f"{k} {v:.1f} substeps/s"
                                            for k, v in general)
         + f" on {card}")

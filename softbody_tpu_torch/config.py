@@ -14,6 +14,7 @@ versions and the CUDA kernels see the same float32 numbers.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Tuple
 
 import numpy as np
@@ -115,11 +116,73 @@ class PhysicsConstants:
     def default(cls) -> "PhysicsConstants":
         return cls()
 
+    @classmethod
+    def from_array(cls, arr) -> "PhysicsConstants":
+        """From the 8-float32 layout of the metadata buffer
+        (engineMapping.ts:260): gravity x/y, border elasticity/friction,
+        elasticity, friction, drag coefficient/exponent."""
+        a = [float(x) for x in np.asarray(arr, np.float32).reshape(8)]
+        return cls(gravity=(a[0], a[1]), border_elasticity=a[2],
+                   border_friction=a[3], elasticity=a[4], friction=a[5],
+                   drag_coeff=a[6], drag_exp=a[7])
+
+    def to_array(self) -> np.ndarray:
+        """The inverse of :meth:`from_array`: float32 ``[8]``."""
+        return np.asarray([*self.gravity, self.border_elasticity,
+                           self.border_friction, self.elasticity,
+                           self.friction, self.drag_coeff, self.drag_exp],
+                          np.float32)
+
     @property
     def ecoeff(self) -> float:
         """Normal-impulse coefficient ``(elasticity + 1) / 2`` in float32."""
         return float((np.float32(self.elasticity) + np.float32(1.0))
                      * np.float32(0.5))
+
+
+# Input clamping ranges (low, high, step) from the reference's
+# clamped-input framework (main.ts:92-133; createClampedInput calls at
+# main.ts:120-132).
+CLAMP_RANGES = {
+    "particle_radius": (1.0, 500.0, 1.0),
+    "subticks": (2, 256, 2),
+    "keyboard_force": (0.1, 10.0, 0.1),
+    "gravity_x": (-10.0, 10.0, 0.02),
+    "gravity_y": (-10.0, 10.0, 0.02),
+    "border_elasticity": (0.0, 1.0, 0.01),
+    "border_friction": (0.0, 10.0, 0.01),
+    "elasticity": (0.0, 1.0, 0.01),
+    "friction": (0.0, 10.0, 0.01),
+    "drag_coeff": (0.0, 2.0**32, 0.001),
+    "drag_exp": (1.0, 4.0, 0.1),
+    # editor beam settings (main.ts:298-303)
+    "beam_spring": (0.0, 2000.0, 0.1),
+    "beam_damp": (0.0, 2000.0, 0.1),
+    "yield_strain": (0.0, 2000.0, 0.1),
+    "strain_limit": (0.0, 2000.0, 0.1),
+    "triangulation_distance": (0.0, 1000.0, 10.0),
+    "snap_grid_size": (0.0, 100.0, 10.0),
+}
+
+
+def clamp_value(name: str, value: float) -> float:
+    """Clamp and snap a configuration value to the reference UI's range
+    and step (``updateClamps``, main.ts:93-106: round to the step, then
+    clamp; NaN becomes 1, main.ts:101)."""
+    lo, hi, step = CLAMP_RANGES[name]
+    v = max(lo, min(hi, round(float(value) / step) * step))
+    return 1.0 if math.isnan(v) else v
+
+
+def clamp_constants(consts: PhysicsConstants) -> PhysicsConstants:
+    """A copy with every field clamped to the reference UI's ranges."""
+    return PhysicsConstants(
+        gravity=(clamp_value("gravity_x", consts.gravity[0]),
+                 clamp_value("gravity_y", consts.gravity[1])),
+        **{name: clamp_value(name, getattr(consts, name))
+           for name in ("border_elasticity", "border_friction",
+                        "elasticity", "friction", "drag_coeff",
+                        "drag_exp")})
 
 
 @dataclasses.dataclass

@@ -59,6 +59,16 @@
 // One change from the TPU kernel: liveness of the particle itself is an
 // explicit mask (the TPU kernel encodes dead cells as px = 3e8 and so
 // reads alive particles at px >= 1e8 as dead).
+//
+// Wider bands (chunk > 4, band radius r = 2 chunk - 1 > 7; the TPU kernel
+// takes none) go to a second kernel, band_kernel_wide, whose box is set at
+// launch: dx in [0, r + 1), |dy| <= r, the tile's halo staged in dynamic
+// shared memory sized from r (above 48 KB after cudaFuncSetAttribute; up
+// to chunk 32 within the H100's 227 KB per block), a per-dy mask of 64
+// bits.  It keeps the staging, the one-axis pre-test and the exact compare
+// of band_kernel, with the partner rows read from shared memory in the
+// dx loop (their count is no longer fixed at compile time); chunk <= 4
+// keeps band_kernel.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -246,28 +256,194 @@ band_kernel(const float* __restrict__ px, const float* __restrict__ py,
   }
 }
 
+// ---- the wide band (radius r > DYR, set at launch) ------------------------
+
+// dx < 64: one 64-bit mask per dy.  The staged tile then takes at most
+// wide_smem_bytes(63) = 150,416 bytes, within the 227 KB (232,448 bytes)
+// of shared memory a block can have on an H100.
+constexpr int WIDE_R_MAX = 63;
+
+// bit dx of m[dy + r]: the offset (dx, dy) is in the band
+struct WideMask {
+  uint64_t m[2 * WIDE_R_MAX + 1];
+};
+
+// dynamic shared memory of band_kernel_wide at radius r
+size_t wide_smem_bytes(int r) {
+  const size_t sx = BX + r, sy = LANES + 2 * r;
+  return (3 * sx * sy + 2 * sx) * sizeof(float);
+}
+
+__global__ void __launch_bounds__(LANES * WARPS)
+band_kernel_wide(const float* __restrict__ px, const float* __restrict__ py,
+                 const float* __restrict__ dev,
+                 const float* __restrict__ bdev,
+                 const uint8_t* __restrict__ alive, uint8_t* __restrict__ out,
+                 const __grid_constant__ WideMask mask, int r, int w, int h) {
+  extern __shared__ float smem[];
+  const int sx = BX + r;                 // staged rows (band dx < r + 1)
+  const int sy = LANES + 2 * r;          // staged lanes
+  const int sn = sx * sy;
+  const int pr = CX + r;                 // partner rows per thread and dy
+  float* s_px = smem;
+  float* s_py = smem + sn;
+  float* s_dev = smem + 2 * sn;
+  uint32_t* s_key = reinterpret_cast<uint32_t*>(smem + 3 * sn);
+  const int lane = threadIdx.x, warp = threadIdx.y;
+  const int x0 = blockIdx.y * BX;
+  const int y0 = blockIdx.x * LANES;
+
+  // ---- stage, as band_kernel (a warp per row) --------------------------
+  for (int row = warp; row < sx; row += WARPS) {
+    const int gx = x0 + row;
+    uint32_t kmax = 0u, kmin = 0xffffffffu;
+    for (int c = 0; c < (sy + LANES - 1) / LANES; ++c) {
+      const int col = lane + c * LANES;
+      const int gy = y0 - r + col;
+      const bool in = col < sy && gx < w && gy >= 0 && gy < h;
+      const size_t g = in ? (size_t)gx * h + gy : 0;
+      const bool a = in && alive[g];
+      const float p = in ? px[g] : 0.0f;
+      const float q = in ? py[g] : 0.0f;
+      const float d = in ? dev[g] : 0.0f;
+      if (col < sy) {
+        s_px[row * sy + col] = a ? p : INFINITY;
+        s_py[row * sy + col] = a ? q : INFINITY;
+        s_dev[row * sy + col] = d;
+        if (d == d) {
+          kmax = max(kmax, order_key(d));
+          kmin = min(kmin, order_key(d));
+        }
+      }
+    }
+    kmax = __reduce_max_sync(0xffffffffu, kmax);
+    kmin = __reduce_min_sync(0xffffffffu, kmin);
+    if (lane == 0) {
+      s_key[2 * row] = kmax;
+      s_key[2 * row + 1] = kmin;
+    }
+  }
+  __syncthreads();
+  const int r0 = warp * CX;
+  uint32_t kmax = 0u, kmin = 0xffffffffu;
+  for (int q = 0; q < pr; ++q) {
+    kmax = max(kmax, s_key[2 * (r0 + q)]);
+    kmin = min(kmin, s_key[2 * (r0 + q) + 1]);
+  }
+
+  const int y = y0 + lane;
+  float cpx[CX], cpy[CX], cb[CX];
+  bool live[CX], hit[CX];
+  bool done = true;
+  float cb_max = -INFINITY, cb_min = INFINITY;
+#pragma unroll
+  for (int j = 0; j < CX; ++j) {
+    const int x = x0 + r0 + j;
+    const size_t g = (size_t)x * h + y;
+    const bool in = x < w && y < h;
+    live[j] = in && alive[g];
+    cb[j] = live[j] ? bdev[g] : 0.0f;
+    cpx[j] = s_px[(r0 + j) * sy + lane + r];
+    cpy[j] = s_py[(r0 + j) * sy + lane + r];
+    hit[j] = false;
+    done = done && !live[j];
+    cb_max = fmaxf(cb_max, cb[j]);
+    cb_min = fminf(cb_min, cb[j]);
+  }
+  const float hi = cb_max + key_value(kmax);
+  const float lo = cb_min + key_value(kmin);
+  const float rb = kmin <= kmax ? fmaxf(fabsf(hi), fabsf(lo)) : 0.0f;
+
+#pragma unroll 1
+  for (int k = 0; k < 2 * r + 1; ++k) {
+    if (__all_sync(0xffffffffu, done)) break;
+    const uint64_t m = mask.m[k];
+    if (m == 0) continue;
+    const int base = r0 * sy + lane + k;
+    const bool by_x = __ffsll((long long)m) - 1 >= abs(k - r);
+    const float* s_axis = by_x ? s_px : s_py;
+    float box[CX], ca[CX];
+#pragma unroll
+    for (int j = 0; j < CX; ++j) {
+      ca[j] = by_x ? cpx[j] : cpy[j];
+      box[j] = INFINITY;
+    }
+    for (uint64_t b = m; b != 0; b &= b - 1) {
+      const int dx = __ffsll((long long)b) - 1;
+#pragma unroll
+      for (int j = 0; j < CX; ++j)
+        box[j] = fminf(box[j], fabsf(s_axis[base + (j + dx) * sy] - ca[j]));
+    }
+    float nearest = box[0];
+#pragma unroll
+    for (int j = 1; j < CX; ++j) nearest = fminf(nearest, box[j]);
+    if (nearest < rb) {  // the exact compares of this dy
+      for (uint64_t b = m; b != 0; b &= b - 1) {
+        const int dx = __ffsll((long long)b) - 1;
+#pragma unroll
+        for (int j = 0; j < CX; ++j) {
+          const int q = base + (j + dx) * sy;
+          const float ddx = s_px[q] - cpx[j];
+          const float ddy = s_py[q] - cpy[j];
+          const float d2 = ddx * ddx + ddy * ddy;
+          const float reach = cb[j] + s_dev[q];
+          hit[j] = hit[j] | (d2 < reach * reach);
+        }
+      }
+    }
+    done = true;
+#pragma unroll
+    for (int j = 0; j < CX; ++j) done = done && (hit[j] || !live[j]);
+  }
+
+#pragma unroll
+  for (int j = 0; j < CX; ++j) {
+    const int x = x0 + r0 + j;
+    if (x < w && y < h) out[(size_t)x * h + y] = (live[j] && hit[j]) ? 1 : 0;
+  }
+}
+
 }  // namespace
 
 // Device pointers except `offsets_host` ([n, 2] int32 host array).  The
-// offsets must lie in dx [0, 8), dy [-7, 7] (chunk <= 4); repeats are
-// allowed and order does not matter (the flags are an OR).
+// offsets lie in dx >= 0; repeats are allowed and order does not matter
+// (the flags are an OR).  Offsets in dx [0, 8), |dy| <= 7 (the band of
+// chunk <= 4) run band_kernel; a wider band of radius r = max(max dx,
+// max |dy|) <= 63 (chunk <= 32) runs band_kernel_wide.
 extern "C" int sb_band_flags(const float* px, const float* py,
                              const float* dev, const float* bdev,
                              const uint8_t* alive, uint8_t* out,
                              const int* offsets_host, int n, int w, int h,
                              void* stream) {
   if (n < 0) return (int)cudaErrorInvalidValue;
-  BandMask mask = {};
+  int r = 0;
   for (int k = 0; k < n; ++k) {
     const int dx = offsets_host[2 * k], dy = offsets_host[2 * k + 1];
-    if (dx < 0 || dx >= DXN || dy < -DYR || dy > DYR)
+    if (dx < 0 || dx > WIDE_R_MAX || dy < -WIDE_R_MAX || dy > WIDE_R_MAX)
       return (int)cudaErrorInvalidValue;
-    mask.m[dy + DYR] |= 1u << dx;
+    const int reach = dx > abs(dy) ? dx : abs(dy);
+    r = reach > r ? reach : r;
   }
   dim3 block(LANES, WARPS);
   dim3 grid((h + LANES - 1) / LANES, (w + BX - 1) / BX);
-  band_kernel<<<grid, block, SMEM_BYTES, (cudaStream_t)stream>>>(
-      px, py, dev, bdev, alive, out, mask, w, h);
+  if (r <= DYR) {
+    BandMask mask = {};
+    for (int k = 0; k < n; ++k)
+      mask.m[offsets_host[2 * k + 1] + DYR] |= 1u << offsets_host[2 * k];
+    band_kernel<<<grid, block, SMEM_BYTES, (cudaStream_t)stream>>>(
+        px, py, dev, bdev, alive, out, mask, w, h);
+    return (int)cudaGetLastError();
+  }
+  const size_t smem = wide_smem_bytes(r);
+  WideMask mask = {};
+  for (int k = 0; k < n; ++k)
+    mask.m[offsets_host[2 * k + 1] + r] |= 1ull << offsets_host[2 * k];
+  int err = (int)cudaFuncSetAttribute(
+      band_kernel_wide, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != 0) return err;
+  band_kernel_wide<<<grid, block, smem, (cudaStream_t)stream>>>(
+      px, py, dev, bdev, alive, out, mask, r, w, h);
   return (int)cudaGetLastError();
 }
 

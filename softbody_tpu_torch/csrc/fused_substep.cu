@@ -33,8 +33,9 @@
 // planes in shared memory, where each cell reads its reactions; a halo
 // owner reads its own five planes, one row above and one column each side
 // of the tile.  Collisions per thread at both ends from the staged tile,
-// with the square root and divide only for pairs that can touch.  The
-// kernel reads `mut` and writes a separate `mut_out`.
+// with the square root and divide only for pairs that can touch (where the
+// launch's constants allow it: pair_skip_allowed, checked by the entry).
+// The kernel reads `mut` and writes a separate `mut_out`.
 //
 // Exactness: sums in the plain version's (XLA) order, springs per class
 // as -own + reaction, collisions per half offset as
@@ -64,6 +65,8 @@ struct Consts {
   float v[N_CONSTS];
 };
 
+// SKIP: pair_skip_allowed for the launch's constants (as K1)
+template <bool SKIP>
 __global__ void __launch_bounds__(SUB_THREADS, 4)
 fused_substep_kernel(const float* __restrict__ mut,
                      const float* __restrict__ immut,
@@ -180,7 +183,8 @@ fused_substep_kernel(const float* __restrict__ mut,
   if (!live) return;
 
   // ---- collisions: half offsets, (acc + t(i, i+o)) - t(i-o, i) --------
-  Terms d = collide_half(t, lc, x, y, w, h, s, v[0], v[1], v[7], v[8]);
+  Terms d = collide_half(t, lc, x, y, w, h, s, v[0], v[1], v[7], v[8],
+                         SKIP);
   if (far != nullptr) {
     d.dvx = d.dvx + far[g];
     d.dvy = d.dvy + far[WH + g];
@@ -215,7 +219,9 @@ extern "C" int sb_fused_substep(const float* mut, const float* immut,
   const size_t smem = substep_smem_bytes(stencil);
   dim3 block(SUB_TY, SUB_TX);
   dim3 grid((h + SUB_TY - 1) / SUB_TY, (w + SUB_TX - 1) / SUB_TX);
-  fused_substep_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
+  const auto kernel = pair_skip_allowed(cs.v) ? fused_substep_kernel<true>
+                                              : fused_substep_kernel<false>;
+  kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
       mut, immut, far, mut_out, cs, w, h, stencil, quantized);
   return (int)cudaGetLastError();
 }
@@ -225,10 +231,10 @@ extern "C" int sb_fused_substep(const float* mut, const float* immut,
 extern "C" int sb_fused_substep_occupancy(int stencil, int* out) {
   const size_t smem = substep_smem_bytes(stencil);
   cudaFuncAttributes a;
-  int err = (int)cudaFuncGetAttributes(&a, fused_substep_kernel);
+  int err = (int)cudaFuncGetAttributes(&a, fused_substep_kernel<true>);
   if (err != 0) return err;
   err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &out[0], fused_substep_kernel, SUB_THREADS, smem);
+      &out[0], fused_substep_kernel<true>, SUB_THREADS, smem);
   out[1] = a.numRegs;
   out[2] = (int)a.localSizeBytes;
   out[3] = (int)smem;

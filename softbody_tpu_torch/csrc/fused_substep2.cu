@@ -28,8 +28,10 @@
 //   addresses;
 // - collisions: each thread evaluates its cell's terms of each half
 //   offset at both ends from the staged tile, but the square root and
-//   divide only for pairs that can touch (pair_terms): a pair well apart
-//   costs a few products, less than passing it through shared memory:
+//   divide only for pairs that can touch (pair_terms; the entry checks
+//   once per launch that the constants allow the skip, pair_skip_allowed):
+//   a pair well apart costs a few products, less than passing it through
+//   shared memory:
 //   sharing the pairs too (per offset, into shared pair slots behind a
 //   barrier) measured slower on the card (PERF.md, Findings).
 // The kernel reads `hot` and writes a separate `hot_out` (neighbours
@@ -59,6 +61,10 @@ struct Consts {
   float v[N_CONSTS + N_EDGEC];
 };
 
+// SKIP: pair_skip_allowed for the launch's constants (a template
+// parameter, so the usual instance compiles as if the skip were
+// unconditional)
+template <bool SKIP>
 __global__ void __launch_bounds__(SUB_THREADS, 5)
 fused_substep2_kernel(const float* __restrict__ hot,
                       const float* __restrict__ immut,
@@ -179,7 +185,8 @@ fused_substep2_kernel(const float* __restrict__ hot,
   if (!live) return;
 
   // ---- collisions: half offsets, (acc + t(i, i+o)) - t(i-o, i) --------
-  Terms d = collide_half(t, lc, x, y, w, h, s, v[0], v[1], v[7], v[8]);
+  Terms d = collide_half(t, lc, x, y, w, h, s, v[0], v[1], v[7], v[8],
+                         SKIP);
   if (far != nullptr) {
     d.dvx = d.dvx + far[g];
     d.dvy = d.dvy + far[WH + g];
@@ -219,7 +226,9 @@ extern "C" int sb_fused_substep2(const float* hot, const float* immut,
   const size_t smem = substep_smem_bytes(stencil);
   dim3 block(SUB_TY, SUB_TX);
   dim3 grid((h + SUB_TY - 1) / SUB_TY, (w + SUB_TX - 1) / SUB_TX);
-  fused_substep2_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
+  const auto kernel = pair_skip_allowed(cs.v) ? fused_substep2_kernel<true>
+                                              : fused_substep2_kernel<false>;
+  kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
       hot, immut, far, obs_in, hot_out, obs_out, cs, w, h, stencil,
       quantized);
   return (int)cudaGetLastError();
@@ -232,10 +241,10 @@ extern "C" int sb_fused_substep2(const float* hot, const float* immut,
 extern "C" int sb_fused_substep2_occupancy(int stencil, int* out) {
   const size_t smem = substep_smem_bytes(stencil);
   cudaFuncAttributes a;
-  int err = (int)cudaFuncGetAttributes(&a, fused_substep2_kernel);
+  int err = (int)cudaFuncGetAttributes(&a, fused_substep2_kernel<true>);
   if (err != 0) return err;
   err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &out[0], fused_substep2_kernel, SUB_THREADS, smem);
+      &out[0], fused_substep2_kernel<true>, SUB_THREADS, smem);
   out[1] = a.numRegs;
   out[2] = (int)a.localSizeBytes;
   out[3] = (int)smem;

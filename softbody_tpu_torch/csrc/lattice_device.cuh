@@ -97,13 +97,35 @@ struct Terms {
   float dvx, dvy, dax, day, dyn;
 };
 
-// pair (base b, partner p = b + o): the term the base receives (K1, K4)
+// Whether pair_terms may skip pairs apart under the consts vector `v`
+// (config.consts_vector order), checked on the host once per launch of K1
+// and K4: the conditions K3 checks (collide_stencil.cu:consts_allow_skip)
+// with clip's division by dt^2: ecoeff, friction, 2r and dt^2 finite,
+// (2r)^2 a normal float, and clip finite at the largest finite distance
+// (clip is monotonic in dist).  Where clip overflows (dt^2 tiny or 0),
+// the plain version's terms of a pair apart are ±0 × inf = NaN, which
+// only the full path gives.
+inline bool pair_skip_allowed(const float* v) {
+  const float big = 3.402823466e38f;
+  const float two_r = 2.0f * v[0];
+  const float dt2 = v[1] * v[1];
+  const float sq = two_r * two_r * 1.00001f;
+  const float clip_far = (two_r - sqrtf(big)) * 0.5f / dt2;
+  const float vals[] = {v[7], v[8], two_r, dt2, sq, clip_far};
+  for (float x : vals)
+    if (!(fabsf(x) <= big)) return false;  // ±inf or NaN
+  return sq >= 1.17549435e-38f;
+}
+
+// pair (base b, partner p = b + o): the term the base receives (K1, K4).
+// `skip`: pair_skip_allowed for the launch's constants.
 __device__ __forceinline__ Terms pair_terms(float bpx, float bpy, float bvx,
                                             float bvy, bool bal, float ppx,
                                             float ppy, float pvx, float pvy,
                                             bool pal, float co_sign,
                                             float two_r, float dt2,
-                                            float ecoeff, float friction) {
+                                            float ecoeff, float friction,
+                                            bool skip) {
   Terms t;
   bool valid = bal && pal;
   float ddx = ppx - bpx;
@@ -112,10 +134,10 @@ __device__ __forceinline__ Terms pair_terms(float bpx, float bpy, float bvx,
   // Most pairs lie well apart (d2 above (2r)^2 by far more than rounding:
   // dist > two_r for sure, finite).  Then the terms below are 0 without
   // the square root and the divide: dvx dvy dyn +0, and dax = ((-nx) *
-  // clip) * gate with nx = ddx * 0, clip < 0 and gate +0, a zero with
-  // ddx's sign (day likewise with ddy), formed here by the same products
-  // with clip = -1.
-  if (d2 > two_r * two_r * 1.00001f && d2 <= 3.402823466e38f) {
+  // clip) * gate with nx = ddx * 0, clip < 0 (finite: `skip`) and gate
+  // +0, a zero with ddx's sign (day likewise with ddy), formed here by the
+  // same products with clip = -1.
+  if (skip && d2 > two_r * two_r * 1.00001f && d2 <= 3.402823466e38f) {
     t.dyn = 0.0f;
     t.dvx = 0.0f;
     t.dvy = 0.0f;
@@ -363,12 +385,14 @@ __device__ __forceinline__ void spring_sums(const uint32_t* fp, int r, int l,
 // (acc + t(i, i+o)) - t(i-o, i): the order of
 // ops/stencil.py::_stencil_collisions.  The thread evaluates both terms
 // from the staged tile; pair_terms takes its square root and divide only
-// for pairs that can touch, so a pair well apart costs a few products at
-// each end, less than sharing it through shared memory would.
+// for pairs that can touch (where `skip`, pair_skip_allowed), so a pair
+// well apart costs a few products at each end, less than sharing it
+// through shared memory would.
 __device__ __forceinline__ Terms collide_half(const SmemTile& t, int lc,
                                               int x, int y, int w, int h,
                                               int s, float radius, float dt,
-                                              float ecoeff, float friction) {
+                                              float ecoeff, float friction,
+                                              bool skip) {
   Terms acc = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
   if (s <= 0) return acc;
   const float px = t.px[lc], py = t.py[lc], vx = t.vx[lc], vy = t.vy[lc];
@@ -383,7 +407,7 @@ __device__ __forceinline__ Terms collide_half(const SmemTile& t, int lc,
       const int lp = lc + ox * t.sy + oy;
       const Terms a = pair_terms(px, py, vx, vy, al_c, t.px[lp], t.py[lp],
                                  t.vx[lp], t.vy[lp], t.al[lp] > 0.0f,
-                                 co_sign, two_r, dt2, ecoeff, friction);
+                                 co_sign, two_r, dt2, ecoeff, friction, skip);
       // t(i-o, i), +0 where i-o lies outside the grid (back()'s fill)
       Terms r = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
       const int bx = x - ox, by = y - oy;
@@ -391,7 +415,7 @@ __device__ __forceinline__ Terms collide_half(const SmemTile& t, int lc,
         const int lb = lc - ox * t.sy - oy;
         r = pair_terms(t.px[lb], t.py[lb], t.vx[lb], t.vy[lb],
                        t.al[lb] > 0.0f, px, py, vx, vy, al_c, co_sign, two_r,
-                       dt2, ecoeff, friction);
+                       dt2, ecoeff, friction, skip);
       }
       acc.dvx = acc.dvx + a.dvx - r.dvx;
       acc.dvy = acc.dvy + a.dvy - r.dvy;

@@ -1,3 +1,13 @@
-"""Engine backends (port of ``softbody_tpu.engine``, lattice backends)."""
+"""The runtime (port of ``softbody_tpu.engine``): the host façade, the
+worker thread, the message protocol, the FIFO lock, and the backends
+that step each state representation."""
 
-from .backends import FusedLatticeBackend, LatticeBackend  # noqa: F401
+from .backends import (  # noqa: F401
+    FusedLatticeBackend,
+    LatticeBackend,
+    SimBackend,
+)
+from .engine import Engine, LatticeEngine  # noqa: F401
+from .lock import FifoLock  # noqa: F401
+from .protocol import EngineOptions, Message, MessageType  # noqa: F401
+from .worker import EngineStats, EngineWorker, RenderPacket  # noqa: F401

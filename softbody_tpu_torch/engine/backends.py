@@ -1,6 +1,10 @@
-"""Lattice engine backends (port of ``softbody_tpu/engine/backends.py``:
-the dense stencil backend and the fused backend built on it).
+"""Engine state backends: the port of ``softbody_tpu/engine/backends.py``.
+The worker's frame loop is backend-agnostic: a backend owns stepping,
+render extraction, snapshot IO, fault injection and stats for one state
+representation.
 
+:class:`SimBackend` steps the general gather-path :class:`SimState`
+(``ops/step.frame``; arbitrary topology).
 :class:`LatticeBackend` steps a :class:`LatticeState` with the stencil
 path (``ops/stencil.py``; its collisions through kernel K3 when
 ``cfg.use_pallas``) and, when far field is armed, a Verlet-style
@@ -8,17 +12,29 @@ candidate list that it rebuilds when the motion since the last rebuild
 could outrun the skin.  :class:`FusedLatticeBackend` steps persistent
 packed planes with the fused substep kernel (K1) and, when far field is
 armed, the fixed-cadence far-field frame (rebuilds with the band kernel
-K2, the far apply through the record table of kernel K7).  Only the strict physics is ported: the fused backend raises on any
-kernel variant, far mode, detection mode or band implementation it does
-not run, instead of dropping it.
+K2, the far apply through the record table of kernel K7).  Only the
+strict physics is ported: the fused backend raises on any kernel
+variant, far mode, detection mode or band implementation it does not
+run, instead of dropping it.
 
-Both run on the CUDA device unless the caller names another
-(``device="cpu"`` runs the plain torch versions)."""
+All run on the CUDA device unless the caller names another
+(``device="cpu"`` runs the plain torch versions).
+
+Render readback is decoupled from stepping.  ``extract`` runs on the
+worker's thread at frame end: it clones the render planes on the
+worker's stream and records an event after the clones, without a host
+sync.  ``packet_arrays`` runs on the caller's thread: on a side stream
+that waits only for that event, it copies the clones into pinned host
+buffers and waits for its own copies alone, so a packet never waits
+for the frames the worker has launched since."""
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import dataclasses
+import threading
+from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..config import PhysicsConstants, StaticConfig, UserInput, resolve_device
@@ -31,6 +47,7 @@ from ..ops.cuda.fused_substep2 import (
     pack_lattice2,
     unpack_lattice2,
 )
+from ..ops.collisions import broad_phase_overflow
 from ..ops.farfield import (
     crop_far_list,
     displacement_check,
@@ -39,9 +56,170 @@ from ..ops.farfield import (
     max_relative_speed,
     rebuild_far_list,
 )
-from ..ops.stencil import LatticeState, lattice_frame, lattice_frame_far
+from ..ops.step import frame as sim_frame
+from ..ops.stencil import (
+    EDGE_OFFSETS,
+    LatticeState,
+    lattice_frame,
+    lattice_frame_far,
+)
+from ..snapshot import (
+    SnapshotError,
+    load_lattice_snapshot,
+    load_snapshot,
+    save_lattice_snapshot,
+    save_snapshot,
+)
+from ..state import SimState
 
 FAR_BANDS = {"cuda": "kernel", "cpu": "plain"}
+
+
+class Extracted(NamedTuple):
+    """One frame's render planes as device copies (``extract``), and the
+    event on the worker's stream after the copies (None on the CPU)."""
+
+    tensors: Tuple[torch.Tensor, ...]
+    ready: Optional[torch.cuda.Event]
+
+
+class Readback:
+    """The two halves of the decoupled readback, shared by the backends:
+    ``extract`` on the stepping thread, ``to_host`` on any other."""
+
+    def __init__(self) -> None:
+        self._side = {}               # device index -> side stream
+        self._side_lock = threading.Lock()
+
+    @staticmethod
+    def extract(tensors) -> Extracted:
+        """Clones on the current stream and an event after them (no host
+        sync)."""
+        copies = tuple(t.clone() for t in tensors)
+        dev = copies[0].device
+        if dev.type != "cuda":
+            return Extracted(copies, None)
+        ready = torch.cuda.Event()
+        ready.record(torch.cuda.current_stream(dev))
+        return Extracted(copies, ready)
+
+    def _side_stream(self, dev: torch.device) -> torch.cuda.Stream:
+        with self._side_lock:
+            side = self._side.get(dev.index)
+            if side is None:
+                side = self._side[dev.index] = torch.cuda.Stream(device=dev)
+            return side
+
+    def to_host(self, ex: Extracted) -> Tuple[np.ndarray, ...]:
+        """The copies on the host.  On CUDA: a non-blocking side stream
+        waits for ``ex.ready``, copies into pinned buffers and records its
+        own event, which alone is waited for.  ``record_stream`` tells the
+        caching allocator that the side stream reads each copy, so once
+        the worker drops it its memory is not handed out again before the
+        side stream's copy has run."""
+        if ex.ready is None:
+            return tuple(t.numpy() for t in ex.tensors)
+        dev = ex.tensors[0].device
+        side = self._side_stream(dev)
+        with torch.cuda.device(dev), torch.cuda.stream(side):
+            side.wait_event(ex.ready)
+            host = []
+            for t in ex.tensors:
+                h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                h.copy_(t, non_blocking=True)
+                t.record_stream(side)
+                host.append(h)
+            done = torch.cuda.Event()
+            done.record(side)
+        done.synchronize()
+        return tuple(h.numpy() for h in host)
+
+
+def _corrupt_array(arr: torch.Tensor, rng: np.random.Generator
+                   ) -> torch.Tensor:
+    """Random u32 bit patterns at random offsets (≙ corruptBuffers,
+    engineWorker.ts:599-617), drawn from ``rng`` in the JAX package's
+    order, so one seed flips the same bits in both."""
+    host = arr.detach().cpu().numpy().copy()
+    flat = host.reshape(-1)
+    view = flat.view(np.uint32) if flat.dtype.itemsize == 4 else None
+    while rng.random() < 0.5:
+        pos = rng.integers(0, flat.size)
+        if view is not None:
+            view[pos] = rng.integers(0, 2**32, dtype=np.uint64)
+        elif flat.dtype == bool:
+            flat[pos] = bool(rng.integers(0, 2))
+    return torch.from_numpy(host).to(arr.device)
+
+
+class SimBackend:
+    """The general gather engine (``ops/step.frame``) on ``device``
+    (default: the CUDA device); snapshots in v0/v1 (``snapshot.py``)
+    within the capacities ``max_particles``/``max_beams``."""
+
+    _RENDER = ("pos", "particle_alive", "beam_a", "beam_b", "beam_alive",
+               "beam_strain", "beam_stress")
+    _CORRUPT = ("pos", "vel", "acc", "beam_length", "beam_target_length",
+                "beam_last_length", "beam_spring", "beam_damp",
+                "beam_yield_strain", "beam_strain_limit")
+
+    def __init__(self, cfg: StaticConfig,
+                 max_particles: Optional[int] = None,
+                 max_beams: Optional[int] = None, *, device=None) -> None:
+        self.cfg = cfg
+        self.max_particles = max_particles
+        self.max_beams = max_beams
+        self.device = resolve_device(device)
+        self._readback = Readback()
+
+    def step(self, state: SimState, consts: PhysicsConstants,
+             uin: UserInput) -> SimState:
+        return sim_frame(state, consts, uin, self.cfg)
+
+    def extract(self, state: SimState) -> Extracted:
+        return Readback.extract(getattr(state, k) for k in self._RENDER)
+
+    def packet_arrays(self, extracted: Extracted) -> Tuple[np.ndarray, ...]:
+        """(pos, particle_alive, beam_a, beam_b, beam_alive, beam_strain,
+        beam_stress) on the host; endpoints int32, as the JAX package
+        keeps them."""
+        pos, p_alive, ba, bb, b_alive, strain, stress = \
+            self._readback.to_host(extracted)
+        return (pos, p_alive, ba.astype(np.int32), bb.astype(np.int32),
+                b_alive, strain, stress)
+
+    def save(self, state: SimState, consts: PhysicsConstants) -> bytes:
+        return save_snapshot(state, consts)
+
+    def load(self, buf: bytes):
+        """``(state, consts)`` on the backend's device, or None for bytes
+        that are malformed or exceed the capacities."""
+        try:
+            return load_snapshot(buf, max_particles=self.max_particles,
+                                 max_beams=self.max_beams,
+                                 device=self.device)
+        except SnapshotError:
+            return None
+
+    def counts(self, state: SimState) -> Tuple[int, int]:
+        """(alive particles, alive beams), in one host read."""
+        n, m = torch.stack([state.particle_alive.sum(),
+                            state.beam_alive.sum()]).tolist()
+        return int(n), int(m)
+
+    def broad_phase_overflow(self, state: SimState) -> int:
+        """The broad phase's current truncation (grid cell-capacity or
+        window-row clipping), computed on demand."""
+        return int(broad_phase_overflow(state.pos, state.particle_alive,
+                                        self.cfg))
+
+    def corrupt(self, state: SimState, rng: np.random.Generator) -> SimState:
+        upd = {f: _corrupt_array(getattr(state, f), rng)
+               for f in self._CORRUPT}
+        if rng.random() < 0.1:
+            upd["particle_alive"] = _corrupt_array(state.particle_alive, rng)
+            upd["beam_alive"] = _corrupt_array(state.beam_alive, rng)
+        return dataclasses.replace(state, **upd)
 
 
 class LatticeBackend:
@@ -76,6 +254,8 @@ class LatticeBackend:
         self.far_pairs = 0
         self.far_overflow = 0
         self.far_chunks = 0           # frame chunks run (observability)
+        self._static_topology = None  # (beam_a, beam_b, class selections)
+        self._readback = Readback()
 
     def _motion(self, state: LatticeState) -> Tuple[float, float]:
         """(COM-relative displacement since the rebuild, max relative
@@ -164,6 +344,77 @@ class LatticeBackend:
                         + [e.alive.sum() for e in state.edges]).tolist()
         return int(n[0]), int(sum(n[1:]))
 
+    def extract(self, state: LatticeState) -> Extracted:
+        """Render planes, flattened: pos ``[W·H, 2]``, alive, then per
+        class strain, per class stress, per class edge alive ``[W·H]``."""
+        n = self.spec.width * self.spec.height
+        planes = [state.pos.reshape(n, 2), state.alive.reshape(n)]
+        for f in ("strain", "stress", "alive"):
+            planes += [getattr(e, f).reshape(n) for e in state.edges]
+        return Readback.extract(planes)
+
+    def _topology(self):
+        """Per edge class: the lattice's valid edges as endpoint indices
+        and the selection of them from the class's ``[W·H]`` plane
+        (cached)."""
+        if self._static_topology is None:
+            w, h = self.spec.width, self.spec.height
+            x = np.arange(w)[:, None]
+            y = np.arange(h)[None, :]
+            lin = (x * h + y).reshape(-1)
+            a_list, b_list, sel_list = [], [], []
+            for dx, dy in EDGE_OFFSETS:
+                sel = ((x + dx >= 0) & (x + dx < w) & (y + dy >= 0)
+                       & (y + dy < h)).reshape(-1)
+                a_list.append(lin[sel])
+                b_list.append(lin[sel] + dx * h + dy)
+                sel_list.append(sel)
+            self._static_topology = (a_list, b_list, sel_list)
+        return self._static_topology
+
+    def packet_arrays(self, extracted: Extracted) -> Tuple[np.ndarray, ...]:
+        """(pos, alive, beam_a, beam_b, beam_alive, beam_strain,
+        beam_stress) on the host: the lattice's edges as a beam list,
+        class by class, in the JAX package's order."""
+        host = self._readback.to_host(extracted)
+        pos, alive = host[0], host[1]
+        c = len(EDGE_OFFSETS)
+        strains, stresses, ealive = (host[2:2 + c], host[2 + c:2 + 2 * c],
+                                     host[2 + 2 * c:])
+        a_list, b_list, sel_list = self._topology()
+
+        def beams(planes):
+            return np.concatenate([p[sel] for p, sel in zip(planes,
+                                                            sel_list)])
+
+        return (pos, alive, np.concatenate(a_list).astype(np.int32),
+                np.concatenate(b_list).astype(np.int32), beams(ealive),
+                beams(strains), beams(stresses))
+
+    def save(self, state: LatticeState, consts: PhysicsConstants) -> bytes:
+        return save_lattice_snapshot(state, consts)
+
+    def load(self, buf: bytes):
+        """``(state, consts)`` on the backend's device, or None for bytes
+        that are not an L1 snapshot of this lattice's W × H."""
+        try:
+            state, consts = load_lattice_snapshot(buf, device=self.device)
+        except SnapshotError:
+            return None
+        if state.shape != (self.spec.width, self.spec.height):
+            return None
+        return state, consts
+
+    def corrupt(self, state: LatticeState,
+                rng: np.random.Generator) -> LatticeState:
+        upd = {f: _corrupt_array(getattr(state, f), rng)
+               for f in ("pos", "vel", "acc")}
+        edges = tuple(dataclasses.replace(
+            e, target_length=_corrupt_array(e.target_length, rng),
+            last_length=_corrupt_array(e.last_length, rng))
+            for e in state.edges)
+        return dataclasses.replace(state, edges=edges, **upd)
+
 
 def _stats_merge(a, b):
     """Accumulate frame stats: the rebuild count sums, the rest take the
@@ -229,6 +480,9 @@ class FusedLatticeBackend(LatticeBackend):
         self._immut = immut
         self._edge_consts = ec
         self._template = lstate
+        # a new world: a far list carried from the old one is dropped
+        self._far_list = None
+        self._far_active = None
         return hot, obs
 
     def unpack_state(self, state) -> LatticeState:
@@ -239,7 +493,9 @@ class FusedLatticeBackend(LatticeBackend):
         """One frame.  Far-field armed: the fixed-cadence frame
         (``fused_frame4``: rebuilds with K2, the far apply's mirror route
         with K7 or its narrow route per bucket, K1), stats accumulated on
-        the host (``far_stats``)."""
+        the host (``far_stats``).  The host reads the stats once per
+        rebuild (``fused_frame4`` needs each rebuild's pair count to pick
+        its bucket); the frame's stats vector is then a host tensor."""
         hot, obs = state
         if self.ff is None or self.cfg.collision_mode == "none":
             return fused_frame2(hot, obs, self._immut, self._edge_consts,
@@ -269,3 +525,27 @@ class FusedLatticeBackend(LatticeBackend):
         n = torch.stack([(self._immut[ALIVE] > 0).sum(),
                          (eal > 0).sum()]).tolist()
         return int(n[0]), int(n[1])
+
+    # the cold paths go through the LatticeState
+
+    def extract(self, state) -> Extracted:
+        return super().extract(self.unpack_state(state))
+
+    def save(self, state, consts: PhysicsConstants) -> bytes:
+        return super().save(self.unpack_state(state), consts)
+
+    def load(self, buf: bytes):
+        """As :meth:`LatticeBackend.load`, packed; None also for a world
+        whose edge parameters vary within a class (``pack_state`` cannot
+        take it)."""
+        loaded = super().load(buf)
+        if loaded is None:
+            return None
+        lstate, consts = loaded
+        try:
+            return self.pack_state(lstate), consts
+        except ValueError:
+            return None
+
+    def corrupt(self, state, rng: np.random.Generator):
+        return self.pack_state(super().corrupt(self.unpack_state(state), rng))

@@ -16,10 +16,17 @@ import torch
 from ..stencil import shifted
 from . import _lib
 
-# the band offsets K2 takes: dx in [0, BAND_DX), |dy| <= BAND_DY (the
-# half-plane band of chunk <= 4, as the TPU kernel requires)
+# K2's compile-time box: dx in [0, BAND_DX), |dy| <= BAND_DY (the
+# half-plane band of chunk <= 4, the TPU kernel's); a wider band, of
+# radius r = max(max dx, max |dy|) <= BAND_R_MAX (chunk <= 32), runs the
+# kernel whose box is set at launch, with a staged tile of
+# wide_smem_bytes(r) in shared memory
 BAND_DX = 8
 BAND_DY = 7
+BAND_R_MAX = 63
+# shared memory a block can have on an H100 (227 KB)
+SMEM_LIMIT = 232448
+_BX, _LANES = 16, 32       # K2's tile: W rows x H lanes per block
 _BIG = 3.0e38
 
 # launches of the CUDA kernel (the plain version does not count)
@@ -41,6 +48,33 @@ def band_flags_plain(px, py, dev, bdev, alive,
     return flag
 
 
+def wide_smem_bytes(r: int) -> int:
+    """Shared memory of the wide-band kernel at band radius ``r``: the
+    tile plus halo of px py dev and each staged row's dev range."""
+    sx, sy = _BX + r, _LANES + 2 * r
+    return (3 * sx * sy + 2 * sx) * 4
+
+
+def band_radius(offsets: Sequence[Tuple[int, int]]) -> int:
+    """The band radius K2 is launched at for ``offsets`` (0 for none):
+    ``max(max dx, max |dy|)``.  Raises where the kernel cannot take them:
+    dx < 0, or a radius past BAND_R_MAX (chunk 32), where the per-dy
+    offset mask (64 bits) runs out, a little before the staged tile would
+    outgrow the shared memory a block can have (radius 82)."""
+    offs = np.asarray(offsets, np.int64).reshape(-1, 2)
+    if (offs[:, 0] < 0).any():
+        raise ValueError("K2 takes half-plane band offsets (dx >= 0)")
+    r = int(np.abs(offs).max()) if len(offs) else 0
+    if r > BAND_R_MAX:
+        raise ValueError(
+            f"band radius {r} (chunk {(r + 1) // 2}): K2 takes radii up to "
+            f"{BAND_R_MAX} (chunk <= 32; a 64-bit offset mask per dy) and a "
+            f"staged tile within the {SMEM_LIMIT} bytes (227 KB) of shared "
+            f"memory a block can have on an H100 (this one: "
+            f"{wide_smem_bytes(r)} bytes)")
+    return r
+
+
 def band_flag_call(px, py, dev, bdev, alive, *,
                    offsets: Sequence[Tuple[int, int]]) -> torch.Tensor:
     """Band hit flags ``[W, H]`` (bool) for the half-plane ``offsets``.
@@ -49,10 +83,12 @@ def band_flag_call(px, py, dev, bdev, alive, *,
     contiguous on one device; ``dev`` is each particle's deviation
     allowance (zero where dead), ``bdev`` the precomputed
     ``base_reach + dev`` (keeping the ``(base + dev_i) + dev_j``
-    association of the plain loop).  ``offsets`` lie in ``dx ∈ [0,
-    BAND_DX)``, ``|dy| ≤ BAND_DY`` (``FarFieldSpec.band_half_offsets`` at
-    chunk ≤ 4).  On CUDA tensors the kernel runs on the current stream
-    without synchronising."""
+    association of the plain loop).  On CPU tensors the plain version
+    runs, for any offsets.  On CUDA tensors the kernel runs on the current
+    stream without synchronising: offsets within ``dx ∈ [0, BAND_DX)``,
+    ``|dy| ≤ BAND_DY`` (``FarFieldSpec.band_half_offsets`` at chunk ≤ 4)
+    through the compile-time box, wider bands (``band_radius``) through
+    the box set at launch."""
     global K2_LAUNCHES
     shape = tuple(px.shape)
     if len(shape) != 2:
@@ -68,19 +104,15 @@ def band_flag_call(px, py, dev, bdev, alive, *,
         raise ValueError(f"planes on several devices: {devices}")
     if not all(t.is_contiguous() for t in planes):
         raise ValueError("planes must be contiguous")
-    offs = np.asarray(offsets, np.int32).reshape(-1, 2)
-    if ((offs[:, 0] < 0) | (offs[:, 0] >= BAND_DX)
-            | (np.abs(offs[:, 1]) > BAND_DY)).any():
-        raise ValueError(f"band offsets must lie in dx [0, {BAND_DX}), "
-                         f"|dy| <= {BAND_DY} (chunk <= 4)")
     device = px.device
     if device.type == "cpu":
         return band_flags_plain(px, py, dev, bdev, alive, offsets)
     if device.type != "cuda":
         raise ValueError(f"no K2 kernel for device {device}")
+    band_radius(offsets)
     lib = _lib.library()
     out = torch.empty(shape, dtype=torch.bool, device=device)
-    offs_c = np.ascontiguousarray(offs)
+    offs_c = np.ascontiguousarray(offsets, np.int32).reshape(-1, 2)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.sb_band_flags(

@@ -11,12 +11,29 @@ import torch
 import jax.numpy as jnp
 
 from softbody_tpu.ops.farfield import FarFieldSpec as JFarFieldSpec
+from softbody_tpu.ops.farfield import far_candidate_count as \
+    j_far_candidate_count
 from softbody_tpu.ops.farfield import raw_chunk_planes as j_raw
+from softbody_tpu.ops.farfield import rebuild_far_list as j_rebuild_far_list
 from softbody_tpu.ops.pallas.band_detect import band_flag_call as j_band
-from softbody_tpu_torch.ops.cuda.band_detect import band_flag_call
-from softbody_tpu_torch.ops.farfield import FarFieldSpec, raw_chunk_planes
+from softbody_tpu_torch.ops.cuda.band_detect import (
+    BAND_DY,
+    SMEM_LIMIT,
+    band_flag_call,
+    band_flags_plain,
+    band_radius,
+    wide_smem_bytes,
+)
+from softbody_tpu_torch.ops.farfield import (
+    FarFieldSpec,
+    _chunk_dims,
+    far_candidate_count,
+    raw_chunk_planes,
+    rebuild_far_list,
+)
 
 from test_fused4 import _fold_planes
+from test_torch_farfield import _decoded
 
 FF_KW = dict(max_pairs=256, max_tile_pairs=64, skin=4.0, horizon=8)
 
@@ -94,24 +111,67 @@ def test_band_wrapper_validates_inputs():
         band_flag_call(px.double(), py, vx, vy, alive, offsets=offs)
     with pytest.raises(ValueError):
         band_flag_call(px.t(), py, vx, vy, alive, offsets=offs)
+    # an offset past K2's radii: the CUDA launch refuses it, the plain
+    # version on the CPU takes it (no partner there)
     with pytest.raises(ValueError):
-        band_flag_call(px, py, vx, vy, alive, offsets=[(0, 200)])
+        band_radius([(0, 200)])
+    assert not bool(band_flag_call(px, py, vx, vy, alive,
+                                   offsets=[(0, 200)]).any())
 
 
 def test_band_wrapper_takes_the_chunk4_band_box():
-    """K2 takes offsets with dx in [0, 8) and |dy| <= 7 (the half-plane
-    band of chunk <= 4, as the TPU kernel); others raise on either
-    device.  Inside the box any set goes: the bands of stencils 0-3, a
-    repeated offset, none."""
+    """On CPU tensors the wrapper runs the plain version for any offsets:
+    the chunk ≤ 4 box, offsets past it (K2's wider bands) and offsets K2
+    refuses.  K2's launch box (``band_radius``): the compile-time box up
+    to radius 7 (chunk 4), the box set at launch for chunks 8-32, a
+    refusal naming the shared-memory limit past that, and for dx < 0."""
     px, py, vx, vy, alive = (torch.from_numpy(a) for a in _random_planes(
         16, 16))
     dev = torch.where(alive, vx.abs(), 0.0)
     planes = (px, py, dev, dev + 12.0, alive)
-    for bad in ([(-1, 0)], [(8, 0)], [(0, 8)], [(3, -8)]):
-        with pytest.raises(ValueError):
-            band_flag_call(*planes, offsets=bad)
+    for offsets in ([(-1, 0)], [(8, 0)], [(0, 8)], [(3, -8)],
+                    FarFieldSpec(chunk=8).band_half_offsets(2)):
+        assert band_flag_call(*planes, offsets=offsets).equal(
+            band_flags_plain(*planes, offsets))
     for s in range(4):
         offsets = FarFieldSpec().band_half_offsets(s)
         assert band_flag_call(*planes, offsets=offsets + offsets[:3]).equal(
             band_flag_call(*planes, offsets=offsets))
     assert not bool(band_flag_call(*planes, offsets=[]).any())
+    assert band_radius(FarFieldSpec(chunk=1).band_half_offsets(2)) == 0
+    for chunk in (2, 4, 8, 16, 32):
+        offsets = FarFieldSpec(chunk=chunk).band_half_offsets(2)
+        r = band_radius(offsets)
+        assert r == 2 * chunk - 1
+        assert (r <= BAND_DY) == (chunk <= 4)
+        assert wide_smem_bytes(r) <= SMEM_LIMIT
+    with pytest.raises(ValueError, match="227 KB"):
+        band_radius(FarFieldSpec(chunk=64).band_half_offsets(2))
+    with pytest.raises(ValueError):
+        band_radius([(-1, 0)])
+
+
+def test_chunk8_rebuild_matches_jax():
+    """``FarFieldSpec(chunk=8, tile_chunks=2)`` (band radius 15, past the
+    TPU kernel's box): the dense backend's rebuild path — candidate count
+    and COM, the list's pairs and counts — equals JAX's XLA band loop on
+    a seeded crumpled 32 × 32 sheet."""
+    px, py, _vx, _vy, alive = _random_planes(32, 32, seed=11)
+    pos = np.stack([px, py], -1)
+    ffkw = dict(FF_KW, chunk=8, tile_chunks=2, max_pairs=1024)
+    kw = dict(s=2, radius=4.0)
+    j_total, j_com = j_far_candidate_count(
+        jnp.asarray(pos), jnp.asarray(alive), ff=JFarFieldSpec(**ffkw), **kw)
+    t_pos, t_alive = torch.from_numpy(pos), torch.from_numpy(alive)
+    t_total, t_com = far_candidate_count(t_pos, t_alive,
+                                         ff=FarFieldSpec(**ffkw), **kw)
+    assert int(t_total) == int(j_total) > 0
+    np.testing.assert_allclose(t_com.numpy(), np.asarray(j_com), rtol=1e-6)
+    jfl = j_rebuild_far_list(jnp.asarray(pos), jnp.asarray(alive),
+                             ff=JFarFieldSpec(**ffkw), **kw)
+    tfl = rebuild_far_list(t_pos, t_alive, ff=FarFieldSpec(**ffkw), **kw)
+    assert tfl.counts() == (int(jfl.n_pairs), int(jfl.overflow))
+    assert tfl.counts()[0] > 0
+    cwy = _chunk_dims(32, 32, FarFieldSpec(**ffkw))[1]
+    assert _decoded(tfl.ca, tfl.cb, tfl.valid, cwy) == _decoded(
+        jfl.ca, jfl.cb, jfl.valid, cwy)

@@ -5,6 +5,7 @@ there with ``python -m pytest tests/test_torch_cuda.py -m cuda
 ``chip_smoke.py`` makes the same checks at the main path's full size."""
 
 import dataclasses
+import time
 
 import pytest
 import torch
@@ -188,6 +189,58 @@ def test_k2_offset_sets(dev):
         assert torch.equal(got, ref)
 
 
+@pytest.mark.parametrize("chunk", [1, 2, 8, 16, 32])
+def test_k2_other_chunks(dev, chunk):
+    """The bands of chunks other than 4: none at chunk 1, the compile-time
+    box at 2, the box set at launch at 8-32; bit-exact."""
+    state, spec, cfg, _c, spacing, g = _stirred_cloth(dev, seed=5)
+    ff = FarFieldSpec(chunk=chunk, skin=0.75 * spacing, horizon=8)
+    px = state.pos[..., 0].contiguous()
+    py = state.pos[..., 1].contiguous()
+    dev_ = torch.where(state.alive, torch.rand(px.shape, generator=g,
+                                               device=dev) * spacing, 0.0)
+    bdev = (2.0 * cfg.particle_radius + ff.skin) + dev_
+    offsets = ff.band_half_offsets(2)
+    before = band_detect.K2_LAUNCHES
+    got = band_detect.band_flag_call(px, py, dev_, bdev, state.alive,
+                                     offsets=offsets)
+    ref = band_detect.band_flags_plain(px, py, dev_, bdev, state.alive,
+                                       offsets)
+    torch.cuda.synchronize()
+    assert band_detect.K2_LAUNCHES == before + 1
+    assert torch.equal(got, ref)
+    assert (int(ref.sum()) > 0) == (chunk > 1)
+
+
+def _same_bits(got, ref) -> bool:
+    """Bit for bit, NaN where ``ref`` has NaN (the payloads aside)."""
+    nan = torch.isnan(ref)
+    return (torch.equal(torch.isnan(got), nan)
+            and torch.equal(got[~nan].view(torch.int32),
+                            ref[~nan].view(torch.int32)))
+
+
+@pytest.mark.parametrize("stencil", [1, 2])
+def test_k1_k4_constants_that_overflow_clip(dev, stencil):
+    """dt = 1e-19: clip overflows for every pair apart, whose plain terms
+    are NaN; K1 and K4 must keep every pair on the full path."""
+    state, cfg, consts, _g = _stirred_lattice(dev, 97, 61, seed=7)
+    hot, _obs, immut, ec = fused_substep2.pack_lattice2(state)
+    cvec = torch.cat([tb.consts_vector(consts, tb.UserInput(), cfg, 61), ec])
+    cvec[1] = 1e-19
+    kw = dict(stencil=stencil, quantized=True)
+    got = fused_substep2.fused_substep2_call(hot, immut, cvec, **kw)
+    ref = fused_substep2.fused_substep2_plain(hot, immut, cvec, **kw)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(ref[:6]).any()) and _same_bits(got, ref)
+    mut, immut4 = fused_substep.pack_lattice(state)
+    cvec4 = cvec[:20].clone()
+    got = fused_substep.fused_substep_call(mut, immut4, cvec4, **kw)
+    ref = fused_substep.fused_substep_plain(mut, immut4, cvec4, **kw)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(ref[:6]).any()) and _same_bits(got, ref)
+
+
 @pytest.mark.parametrize("shape", K14_SHAPES, ids=K14_IDS)
 @pytest.mark.parametrize("stencil", [0, 1, 2, 3])
 @pytest.mark.parametrize("quantized", [True, False])
@@ -240,3 +293,34 @@ def test_k7_matches_plain(dev, w, h, w_out, h_out):
     assert recmirror.K7_LAUNCHES == before + 1
     ref = recmirror.mirror_records_plain(planes, w_out=w_out, h_out=h_out)
     assert torch.equal(got, ref)
+
+
+def test_fused_engine_on_the_card(dev):
+    """``LatticeEngine(fused=True)`` with far field on a 40 × 40 tearing
+    cloth: frames step on the worker thread through K1 and K2; once the
+    engine is hidden (no more frames), a packet equals a synchronous
+    readback of the copies it was made from, and the L1 round trip is
+    byte-equal."""
+    from softbody_tpu_torch.engine import EngineOptions, LatticeEngine
+
+    state, spec, cfg, consts, spacing, _g = _stirred_cloth(dev, seed=6)
+    opts = EngineOptions(subticks=cfg.subticks,
+                         particle_radius=cfg.particle_radius, target_fps=30.0)
+    ff = FarFieldSpec(max_pairs=1024, max_tile_pairs=64,
+                      skin=0.75 * spacing, horizon=8)
+    before = fused_substep2.K1_LAUNCHES
+    with LatticeEngine(state, spec, consts, opts, farfield=ff, fused=True,
+                       device=dev) as eng:
+        t_end = time.monotonic() + 60.0
+        while eng.stats().frame_index < 3:
+            assert time.monotonic() < t_end
+            time.sleep(0.01)
+        eng.set_hidden(True)
+        buf = eng.save_snapshot()  # after the pause: no frame steps now
+        pkt = eng.render_packet()
+        src = eng._worker._render_src
+        assert pkt.frame_index == eng.stats().frame_index
+        assert (pkt.pos == src.tensors[0].cpu().numpy()).all()
+        assert eng.load_snapshot(buf) and eng.save_snapshot() == buf
+        assert eng.error is None
+    assert fused_substep2.K1_LAUNCHES - before >= 3 * cfg.subticks

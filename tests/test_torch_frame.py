@@ -6,6 +6,8 @@ Tolerances are those of tests/test_fused4.py:136-139 (pos atol 5e-3,
 vel atol 5e-2): the two apply the far pairs with different f32 sum
 orders.  Far stats and the alive-beam count must be equal."""
 
+import functools
+
 import numpy as np
 import pytest
 
@@ -68,6 +70,18 @@ def _jax_run(ls, spec, cfg, consts, ffkw, frames, n_sub=None):
     return lattice_state_to_numpy(unpack_lattice2(hot, obs, ls)), stats
 
 
+@functools.lru_cache(maxsize=None)
+def hairpin_reference():
+    """Two JAX frames of the folded strip (``HAIRPIN_FF``, bucket 16),
+    run once per process: the reference of the hairpin cases here and in
+    tests/test_torch_recmirror.py (compiling the JAX frame in interpret
+    mode is most of such a case's time).  Its list holds every pair of
+    the fold, so a larger capacity or another bucket ladder computes the
+    same frames, their far-apply sums in another f32 order."""
+    ls, spec, cfg, consts, ffkw = _hairpin_scene()
+    return _jax_run(ls, spec, cfg, consts, ffkw, frames=2)
+
+
 def _port_backend(spec, cfg, ffkw, **kw):
     return FusedLatticeBackend(
         LatticeSpec(spec.width, spec.height,
@@ -84,7 +98,7 @@ def test_backend_matches_jax_fused_frame4():
     """Two frames of the folded strip through the backend's entry points
     (pack_state → step → unpack_state / far_stats / counts)."""
     ls, spec, cfg, consts, ffkw = _hairpin_scene()
-    ref, ref_stats = _jax_run(ls, spec, cfg, consts, ffkw, frames=2)
+    ref, ref_stats = hairpin_reference()
 
     be = _port_backend(spec, cfg, ffkw, far_buckets=(16,))
     state = be.pack_state(to_port(ls))

@@ -19,8 +19,10 @@ correctly rounded, so every output plane must equal the plain version bit
 for bit (NaN where the plain version has NaN).  This holds the kernels'
 indexing — tiles, halos, ragged edges, strided and interleaved planes,
 the spring reactions shared through shared memory, every barrier reached
-by every thread — and K3's skip of pairs that cannot touch at shapes and
-stencils the CPU can afford.  Skipped where there is no ``g++``."""
+by every thread — and the skip of pairs that cannot touch (K3, and K1/K4
+under constants that forbid it), K2's compile-time box (chunk ≤ 4) and
+the box set at launch (chunks 8 and 16), at shapes and stencils the CPU
+can afford.  Skipped where there is no ``g++``."""
 
 import ctypes
 import dataclasses
@@ -36,6 +38,7 @@ import torch
 import numpy as np
 
 import softbody_tpu_torch as tb
+from softbody_tpu_torch.config import N_CONSTS
 from softbody_tpu_torch.models import make_lattice
 from softbody_tpu_torch.ops.cuda import band_detect, collide_stencil
 from softbody_tpu_torch.ops.cuda import fused_substep, fused_substep2
@@ -144,6 +147,9 @@ inline unsigned __reduce_min_sync(unsigned, unsigned v) {
 using std::max;
 using std::min;
 inline int __ffs(int x) { return x ? __builtin_ctz((unsigned)x) + 1 : 0; }
+inline int __ffsll(long long x) {
+  return x ? __builtin_ctzll((unsigned long long)x) + 1 : 0;
+}
 // cp.async: a copy is queued, a commit closes the queued copies into
 // groups, wait_group 0 lands every closed group (copies never committed
 // never land)
@@ -175,6 +181,10 @@ typedef void* cudaStream_t;
 typedef int cudaError_t;
 constexpr cudaError_t cudaErrorInvalidValue = 1;
 struct cudaFuncAttributes { int numRegs; size_t localSizeBytes; };
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
+// the launch allocates the shared memory it is given (emu_launch)
+template <class F>
+cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return 0; }
 inline cudaError_t cudaGetLastError() { return 0; }
 inline const char* cudaGetErrorString(cudaError_t) { return "emulated"; }
 template <class F>
@@ -411,6 +421,37 @@ def test_k4_source_matches_plain(lib, stencil, shape):
         assert torch.equal(got, ref), f"quantized={quantized} far={with_far}"
 
 
+@pytest.mark.parametrize("stencil", [1, 2])
+def test_k1_k4_sources_constants_that_overflow_clip(lib, stencil):
+    """With dt = 1e-19, clip = (2r − dist)·0.5/dt² overflows for every pair
+    apart, whose plain terms are then ±0 × inf = NaN: the entries' check
+    of the constants (pair_skip_allowed) must keep every pair on the full
+    path, NaN where the plain version has NaN."""
+    w, h = SHAPES[0]
+    state, cfg, consts, g = _state(w, h, seed=19 + stencil)
+    hot, _obs, immut, ec = fused_substep2.pack_lattice2(state)
+    cvec = torch.cat([tb.consts_vector(consts, tb.UserInput(), cfg, h), ec])
+    cvec[1] = 1e-19
+    ref = fused_substep2.fused_substep2_plain(hot, immut, cvec,
+                                              stencil=stencil, quantized=True)
+    got = torch.empty_like(hot)
+    assert lib.sb_fused_substep2(_ptr(hot), _ptr(immut), None, None,
+                                 _ptr(got), None, _ptr(cvec), w, h, stencil,
+                                 1, None) == 0
+    nan = torch.isnan(ref[:6]).any(0)
+    assert 0 < int(nan.sum()) < nan.numel()
+    assert _same_bits(got, ref), "K1"
+    mut, immut4 = fused_substep.pack_lattice(state)
+    cvec4 = cvec[:N_CONSTS].clone()
+    ref = fused_substep.fused_substep_plain(mut, immut4, cvec4,
+                                            stencil=stencil, quantized=True)
+    got = torch.empty_like(mut)
+    assert lib.sb_fused_substep(_ptr(mut), _ptr(immut4), None, _ptr(got),
+                                _ptr(cvec4), w, h, stencil, 1, None) == 0
+    assert bool(torch.isnan(ref[:6]).any())
+    assert _same_bits(got, ref), "K4"
+
+
 def _same_bits(got, ref) -> bool:
     """Bit for bit, NaN where ``ref`` has NaN (the payloads aside)."""
     nan = torch.isnan(ref)
@@ -569,6 +610,22 @@ def test_k2_source_matches_plain(lib, stencil, shape):
     ref = band_detect.band_flags_plain(*planes, offsets)
     assert torch.equal(_k2_source(lib, planes, offsets), ref)
     assert 0 < int(ref.sum()) < int(planes[4].sum())
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=SHAPE_IDS)
+@pytest.mark.parametrize("chunk", [8, 16])
+def test_k2_source_wide_bands(lib, chunk, shape):
+    """The bands of chunks 8 and 16 at stencil 2 (radii 15 and 31: the
+    kernel whose box and shared memory are set at launch), and one with
+    odd reaches."""
+    w, h = shape
+    for odd in (False, True):
+        planes = _band_state(w, h, seed=23 + w + chunk, odd_dev=odd)
+        offsets = FarFieldSpec(chunk=chunk).band_half_offsets(2)
+        assert band_detect.band_radius(offsets) == 2 * chunk - 1
+        ref = band_detect.band_flags_plain(*planes, offsets)
+        assert torch.equal(_k2_source(lib, planes, offsets), ref), odd
+        assert 0 < int(ref.sum()) < int(planes[4].sum())
 
 
 @pytest.mark.parametrize("shape", SHAPES, ids=SHAPE_IDS)

@@ -27,11 +27,6 @@ from softbody_tpu import UserInput
 from softbody_tpu.ops import farfield4 as j4
 from softbody_tpu.ops.farfield import FarFieldSpec as JFarFieldSpec
 from softbody_tpu.ops.farfield import rebuild_far_list_planes as j_rebuild
-from softbody_tpu.ops.pallas.fused_substep2 import (
-    fused_frame4,
-    pack_lattice2,
-    unpack_lattice2,
-)
 from softbody_tpu_torch.convert import lattice_state_to_numpy
 from softbody_tpu_torch.ops import farfield4 as t4
 from softbody_tpu_torch.ops.cuda import recmirror
@@ -42,7 +37,12 @@ from softbody_tpu_torch.ops.farfield import (
 )
 
 from test_torch_farfield import DT, SCENES, _port_list
-from test_torch_frame import _assert_close, _hairpin_scene, _port_backend
+from test_torch_frame import (
+    _assert_close,
+    _hairpin_scene,
+    _port_backend,
+    hairpin_reference,
+)
 from torch_parity import consts_to_port, to_port, uin_to_port
 
 KW = dict(s=2, dt=DT, ecoeff=0.75, friction=0.1)
@@ -221,34 +221,19 @@ def test_mirror_route_raises_on_unported_layouts():
     assert fn() is not None
 
 
-def _jax_frames(ls, spec, cfg, consts, ffkw, frames, buckets):
-    uin = UserInput.none()
-    hot, obs, immut, ec = pack_lattice2(ls, tile_w=8)
-    acc = None
-    for _ in range(frames):
-        hot, obs, st = fused_frame4(
-            hot, obs, immut, ec, consts, uin, spec, cfg,
-            JFarFieldSpec(**ffkw), tile_w=8, interpret=True, buckets=buckets,
-            kvar=())
-        st = [int(x) for x in np.asarray(st)]
-        acc = st if acc is None else [acc[0] + st[0]] + [
-            max(a, b) for a, b in zip(acc[1:], st[1:])]
-    stats = dict(zip(("far_rebuilds", "far_pairs", "far_overflow",
-                      "far_active"), acc))
-    return lattice_state_to_numpy(unpack_lattice2(hot, obs, ls)), stats
-
-
 @pytest.mark.parametrize("buckets,route", [
     (None, "mirror"), ((64, 256), "narrow")])
 def test_fused_backend_fold_matches_jax(buckets, route):
     """Two frames of the folded strip through ``FusedLatticeBackend``
     with a 512-pair list: the default ladder applies through the mirror
     table, a ladder of buckets ≤ 256 through the narrow rows; both
-    against JAX's strict frame with the same ladder."""
+    against JAX's strict frames of the strip (``hairpin_reference``, one
+    run for both cases: its list holds the same pairs, applied in another
+    f32 order, which the tolerance covers)."""
     ls, spec, cfg, consts, ffkw = _hairpin_scene()
     ffkw = dict(ffkw, max_pairs=512)
     jb = (1024, 2048, 4096) if buckets is None else buckets
-    ref, ref_stats = _jax_frames(ls, spec, cfg, consts, ffkw, 2, jb)
+    ref, ref_stats = hairpin_reference()
     be = _port_backend(spec, cfg, ffkw, far_buckets=buckets)
     state = be.pack_state(to_port(ls))
     for _ in range(2):

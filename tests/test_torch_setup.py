@@ -41,6 +41,12 @@ PORT_MODULES = (
     "softbody_tpu_torch.ops.cuda.fused_substep",
     "softbody_tpu_torch.ops.cuda.recmirror",
     "softbody_tpu_torch.engine",
+    "softbody_tpu_torch.engine.backends",
+    "softbody_tpu_torch.engine.engine",
+    "softbody_tpu_torch.engine.lock",
+    "softbody_tpu_torch.engine.protocol",
+    "softbody_tpu_torch.engine.worker",
+    "softbody_tpu_torch.snapshot",
     "softbody_tpu_torch.state",
     "softbody_tpu_torch.models.lattice",
     "softbody_tpu_torch.models.scenes",
