@@ -24,7 +24,14 @@ to 0 just before it and read just after:
   bench scene stepping on its worker thread while this thread polls
   render packets (K1, K2, K7), its L1 snapshot round trip, fault
   injection and re-creation; ``LatticeEngine`` on path A (K3); ``Engine``
-  on the general path.
+  on the general path;
+- the planified general-topology path (phase 12): BASELINE config 3, the
+  100k self-colliding cloth, embedded into planes by ``PlanifiedBackend``
+  and stepped far-armed with ``use_pallas`` (K3 every substep, K2 every
+  rebuild, K7 in every far apply above 256 pairs); config 4 planified
+  behind ``Engine``; the small fold through both far-apply routes, card
+  against CPU; ``FusedLatticeBackend(far_activation=True)`` on the bench
+  scene (K1, K2, K7); the directed-CSR engine at config 3.
 
 Every phase raises on failure.
 
@@ -61,12 +68,18 @@ from softbody_tpu_torch.engine import (
     FusedLatticeBackend,
     LatticeBackend,
     LatticeEngine,
+    PlanifiedBackend,
     SimBackend,
 )
 from softbody_tpu_torch.models import make_lattice, tearing_cloth_lattice
-from softbody_tpu_torch.convert import sim_state_to_numpy
+from softbody_tpu_torch.convert import (
+    planified_state_from_numpy,
+    planified_state_to_numpy,
+    sim_state_to_numpy,
+)
 from softbody_tpu_torch.models import scenes
 from softbody_tpu_torch.ops import farfield4
+from softbody_tpu_torch.ops import planify
 from softbody_tpu_torch.ops import step as gstep
 from softbody_tpu_torch.ops.collisions import broad_phase_overflow
 from softbody_tpu_torch.ops.cuda import (
@@ -102,6 +115,11 @@ from softbody_tpu_torch.ops.cuda.fused_substep2 import (
     fused_substep2_plain,
     pack_lattice2,
 )
+from softbody_tpu_torch.ops.directed import (
+    build_directed,
+    directed_beam_pass,
+    directed_frame,
+)
 from softbody_tpu_torch.ops.farfield import (
     FarFieldSpec,
     _chunk_dims,
@@ -116,6 +134,7 @@ from softbody_tpu_torch.ops.farfield4 import (
     mirror_table,
     unmirror_table,
 )
+from softbody_tpu_torch.ops.forces import accumulate_forces, beam_forces
 from softbody_tpu_torch.ops.stencil import (
     LatticeSpec,
     half_offsets,
@@ -182,6 +201,24 @@ K14_STENCILS = (0, 1, 2, 3)
 # K3 is held at stencils 1-3, at 64x64, 1M and this ragged shape
 K3_STENCILS = (1, 2, 3)
 K3_RAGGED = (97, 61)
+
+# the planified phase: scripts/bench_config3.py:46-50 settles the 100k
+# cloth 4 frames on the general engine before embedding it, then runs it
+# planified and far-armed (its :53-107; 1 warm + 8 timed frames here)
+PLANIFIED_N = 100_000
+PLANIFIED_SETTLE = 4
+PLANIFIED_FRAMES = 8
+# config 4 behind the engine: frames polled (after the first), then the
+# fused backend on the bench scene with and without the activation
+# schedule (frames 8-10, the end of phase 6's window: far pairs appear
+# from about frame 7 in phases 6 and 11) and the directed engine at
+# config 3 (2 frames)
+PLANIFIED_ENGINE_FRAMES = 4
+ACTIVATION_WARM, ACTIVATION_FRAMES = 7, 3
+DIRECTED_FRAMES = 2
+# one substep with K3 (full offsets) against the half-offset sum:
+# tests/test_pallas.py's tolerances (the collision sums' order)
+K3_VS_HALF_TOL = dict(rtol=1e-5, atol=1e-3)
 
 # the card's peaks for the bound (NVIDIA's H100 SXM data sheet): device
 # memory rate, and float32 outside the tensor cores
@@ -1564,6 +1601,508 @@ def check_wide_k2_and_skip_flag(dev) -> None:
         "bitwise equal to the plain versions, NaN included, stencils 1, 2")
 
 
+# ---------------------------------------------------------------------------
+# the planified path: general topologies on the dense stencil path
+
+
+def _clone(obj):
+    """An independent device copy of a state (tensors, tuples and
+    dataclasses of them)."""
+    if isinstance(obj, torch.Tensor):
+        return obj.clone()
+    if isinstance(obj, tuple):
+        return tuple(_clone(o) for o in obj)
+    if dataclasses.is_dataclass(obj):
+        return dataclasses.replace(obj, **{
+            f.name: _clone(getattr(obj, f.name))
+            for f in dataclasses.fields(obj)})
+    return obj
+
+
+def _close(label, got, ref, rtol, atol) -> float:
+    """Raises unless ``|got − ref| ≤ atol + rtol·|ref|`` everywhere;
+    returns the max abs difference."""
+    bad = ~((got - ref).abs() <= atol + rtol * ref.abs())
+    if int(bad.sum()):
+        raise AssertionError(f"{label}: {int(bad.sum())} values outside "
+                             f"rtol {rtol} / atol {atol}")
+    return (got - ref).abs().max().item()
+
+
+def check_planified_k3_vs_half(ps, spec, cfg, consts) -> None:
+    """The first substep of the packed config-3 state with its collisions
+    through K3 (full offsets) against the JAX default (``use_pallas``
+    off: the half-offset sum), the far delta left out of both: they
+    differ only in the collision sum's order."""
+    uin = tb.UserInput()
+    a = planify.planified_substep(ps, consts, uin, spec, cfg)
+    b = planify.planified_substep(ps, consts, uin, spec,
+                                  dataclasses.replace(cfg, use_pallas=False))
+    errs = {k: _close(f"planified config 3, K3 vs the half-offset sum, {k}",
+                      getattr(a.lat, k), getattr(b.lat, k), **K3_VS_HALF_TOL)
+            for k in ("pos", "vel", "acc")}
+    log(f"planified config 3, one substep: K3 (use_pallas) vs the "
+        f"half-offset sum within rtol {K3_VS_HALF_TOL['rtol']} / atol "
+        f"{K3_VS_HALF_TOL['atol']} (max |diff| {errs})")
+
+
+def _planified_kernels(ps, spec, cfg, consts, ff) -> tuple:
+    """K3 and K2 at the planified path's final state on its plane, held
+    bit-exact against their plain versions and timed by device time
+    beside their bounds (``_bound``, ``_k3_ops``)."""
+    lat = ps.lat
+    s = spec.collision_stencil
+    views = (lat.pos[..., 0], lat.pos[..., 1], lat.vel[..., 0],
+             lat.vel[..., 1])
+    planes = [v.contiguous() for v in views] + [lat.alive]
+    kw = dict(radius=cfg.particle_radius, dt=cfg.dt, ecoeff=consts.ecoeff,
+              friction=consts.friction, stencil=s)
+    ref = torch.stack(collide_stencil_plain(*planes, **kw))
+    got = torch.stack(collide_stencil_call(*views, lat.alive, **kw))
+    torch.cuda.synchronize()
+    n_bad = int(_differs(got, ref).sum())
+    if n_bad:
+        raise AssertionError(f"K3 planified config 3 final state: {n_bad} "
+                             "delta values differ from the plain version")
+    *bplanes, offsets = _band_inputs(*views, lat.alive, cfg, ff, s)
+    flagged = _hold_k2("planified config 3 final state", bplanes, offsets)
+    n = lat.alive.numel()
+    t = {"K3": _device_ms(lambda: collide_stencil_call(*views, lat.alive,
+                                                       **kw), 50),
+         "K3 plain": _timed_ms(lambda: collide_stencil_plain(*planes, **kw),
+                               3),
+         "K2": _device_ms(lambda: band_flag_call(*bplanes, offsets=offsets),
+                          50),
+         "K2 plain": _timed_ms(lambda: band_flags_plain(*bplanes, offsets),
+                               3)}
+    pairs = _band_pairs_evaluated(*bplanes, offsets)
+    _log_bound("K3 planified", n * (4 * 4 + 1) + 5 * 4 * n, _k3_ops(n, s))
+    _log_bound("K2 planified", n * (4 * 4 + 1) + n, 7 * pairs)
+    bounds = {"K3": _bound(n * (4 * 4 + 1) + 5 * 4 * n, _k3_ops(n, s)),
+              "K2": _bound(n * (4 * 4 + 1) + n, 7 * pairs)}
+    log(f"K3 planified config 3 final state: deltas bit-exact (stencil "
+        f"{s}, {spec.width}x{spec.height}); K2 {flagged} particles flagged, "
+        f"{pairs} pairs evaluated; " + ", ".join(
+            f"{k} {v:.4f} ms" for k, v in t.items()) + "; bounds "
+        + ", ".join(f"{k} {v[0]:.4f} ms ({v[1]})"
+                    for k, v in bounds.items()))
+    return t, bounds
+
+
+def run_directed_config3(flat, cfg, consts, uin, card) -> float:
+    """The directed-CSR engine at config 3 from the settled flat state:
+    its beam pass's force totals bit-exact against the flat pass
+    (``ops/forces.py``, int32 sums at 2^16), then DIRECTED_FRAMES frames
+    timed (CUDA events)."""
+    t0 = time.perf_counter()
+    ds, _slot_edge = build_directed(flat)
+    t_build = time.perf_counter() - t0
+    force, _upd = directed_beam_pass(ds, cfg)
+    ref = accumulate_forces(flat, beam_forces(flat, cfg)[0], cfg)
+    n_bad = int((force != ref).any(dim=1).sum())
+    if n_bad:
+        raise AssertionError(f"directed config 3: {n_bad} particles' beam "
+                             "force totals differ from the flat pass")
+    box = [ds]
+
+    def step():
+        box[0] = directed_frame(box[0], consts, uin, cfg)
+
+    ms = _frames(step, DIRECTED_FRAMES)
+    ds = box[0]
+    live = ds.alive
+    if not bool(torch.isfinite(torch.cat([ds.pos[live],
+                                          ds.vel[live]])).all()):
+        raise AssertionError("directed config 3: non-finite state")
+    rate = DIRECTED_FRAMES * cfg.subticks / (sum(ms) / 1000.0)
+    log(f"directed config 3: tables [{ds.n}, {ds.degree}] built in "
+        f"{t_build:.1f} s; beam force totals bit-exact against the flat "
+        f"pass; {DIRECTED_FRAMES} frames ({cfg.collision_mode} broad "
+        f"phase), frame ms {[round(x, 1) for x in ms]} = {rate:.1f} "
+        f"substeps/s on {card}")
+    return rate
+
+
+def run_planified_config3(dev, card) -> dict:
+    """BASELINE config 3 on the planified path at full size
+    (``scripts/bench_config3.py``'s ``planified`` mode with
+    ``use_pallas``): the 100k cloth settled PLANIFIED_SETTLE frames on the
+    general engine, embedded by ``PlanifiedBackend`` (stencil 3, far
+    field K 16384, skin 3r, cadence 8), one warm frame, then
+    PLANIFIED_FRAMES frames with the launch counts from 0: K3 64 and K2 8
+    per frame, K7 once per substep whose bucket exceeds 256; finite state,
+    ``far_overflow`` 0.  Then one profiled frame, K3 and K2 at the final
+    state, and the directed engine from the same settled state."""
+    consts, uin = tb.PhysicsConstants(), tb.UserInput()
+    flat, cfg0 = scenes.self_colliding_cloth(PLANIFIED_N, device=dev)
+    t0 = time.perf_counter()
+    for _ in range(PLANIFIED_SETTLE):
+        flat = gstep.frame(flat, consts, uin, cfg0)
+    torch.cuda.synchronize()
+    t_settle = time.perf_counter() - t0
+    cfg = dataclasses.replace(cfg0, collision_mode="allpairs",
+                              use_pallas=True)
+    ff = FarFieldSpec(max_pairs=16384, max_tile_pairs=256,
+                      skin=3.0 * cfg0.particle_radius, horizon=8)
+    be = PlanifiedBackend(cfg, collision_stencil=3, farfield=ff, device=dev)
+    t0 = time.perf_counter()
+    ps = be.pack_state(flat)
+    t_embed = time.perf_counter() - t0
+    spec, aux = be.spec, be.aux
+    n0, m0 = be.counts(ps)
+    log(f"planified config 3: settled {PLANIFIED_SETTLE} frames in "
+        f"{t_settle:.1f} s, embedded in {t_embed:.1f} s: plane "
+        f"{spec.width}x{spec.height} ({spec.width * spec.height} cells, "
+        f"{n0} particles alive, {m0} beams), {len(spec.edge_offsets)} "
+        f"offset classes {list(spec.edge_offsets)}, {aux.n_exceptions} "
+        f"exception beams (capacity {ps.x.capacity})")
+    check_planified_k3_vs_half(ps, spec, cfg, consts)
+
+    box = [ps]
+
+    def step():
+        box[0] = be.step(box[0], consts, uin)
+
+    step()
+    warm = be.far_stats()
+    collide_stencil.K3_LAUNCHES = 0
+    band_detect.K2_LAUNCHES = 0
+    recmirror.K7_LAUNCHES = 0
+    routes0 = dict(farfield4.APPLY_ROUTES)
+    ms = _frames(step, PLANIFIED_FRAMES)
+    k3, k2 = collide_stencil.K3_LAUNCHES, band_detect.K2_LAUNCHES
+    k7 = recmirror.K7_LAUNCHES
+    routes = {k: v - routes0[k] for k, v in farfield4.APPLY_ROUTES.items()}
+    stats = be.far_stats()
+    ps = box[0]
+    substeps = PLANIFIED_FRAMES * cfg.subticks
+    if not bool(torch.isfinite(torch.stack([ps.lat.pos, ps.lat.vel])).all()):
+        raise AssertionError("planified config 3: non-finite state")
+    if stats["far_overflow"] != 0:
+        raise AssertionError(f"planified config 3: far stats {stats}")
+    if k3 != substeps:
+        raise AssertionError(f"planified config 3: K3 launched {k3} times "
+                             f"for {substeps} substeps")
+    if k2 != 8 * PLANIFIED_FRAMES or k2 != stats["far_rebuilds"]:
+        raise AssertionError(f"planified config 3: K2 launched {k2} times, "
+                             f"far stats {stats}")
+    # the apply ladder is (1024, 4096, 16384): every substep with active
+    # pairs takes a bucket above 256, the mirror route, one K7 launch
+    if k7 != routes["mirror"] or routes["narrow"]:
+        raise AssertionError(f"planified config 3: K7 launched {k7} times; "
+                             f"far applies by route {routes}")
+    n1, m1 = be.counts(ps)
+    rate = substeps / (sum(ms) / 1000.0)
+    log(f"planified config 3: {PLANIFIED_FRAMES} frames = {substeps} "
+        f"substeps, frame ms {[round(x, 1) for x in ms]} = {rate:.1f} "
+        f"substeps/s ({rate * n1:.4g} particle-substeps/s); alive beams "
+        f"{m0} -> {m1}; far stats warm frame {warm}, timed {stats}; K3 "
+        f"{k3} = {cfg.subticks} x {PLANIFIED_FRAMES}, K2 {k2} = 8 x "
+        f"{PLANIFIED_FRAMES}, K7 {k7} ({'on' if k7 else 'none of'} the "
+        f"substeps with active pairs: {routes['mirror']} mirror-route "
+        f"applies, bucket > 256) on {card}")
+    profile_frame("planified config 3", step, sum(ms) / len(ms),
+                  cfg.subticks)
+    t, bounds = _planified_kernels(box[0], spec, cfg, consts, ff)
+    directed_rate = run_directed_config3(flat, cfg0, consts, uin, card)
+    return dict(k2=k2, k3=k3, k7=k7, rate=rate, t=t, bounds=bounds,
+                stats=stats, directed_rate=directed_rate)
+
+
+def _config4_backend(dev, collide: bool = True) -> tuple:
+    """BASELINE config 4 (``multi_blob(64)``) and a far-armed
+    ``PlanifiedBackend`` for it with ``use_pallas`` (the CLI's ``play
+    --path planified --farfield`` far field: skin 3r, cadence 8)."""
+    flat, cfg4 = scenes.multi_blob(64, device=dev)
+    cfg = tb.StaticConfig(subticks=cfg4.subticks,
+                          particle_radius=cfg4.particle_radius,
+                          collision_mode=(cfg4.collision_mode if collide
+                                          else "none"),
+                          use_pallas=True)
+    ff = FarFieldSpec(skin=3.0 * cfg4.particle_radius, horizon=8)
+    return flat, cfg, PlanifiedBackend(cfg, farfield=ff, device=dev)
+
+
+def check_planified_config4_cpu(dev) -> None:
+    """One backend frame of config 4 on the card against the CPU: with
+    collisions off, edge and exception state bit-exact (quantized
+    forces); with them on, particle planes within GENERAL_ATOL."""
+    consts, uin = tb.PhysicsConstants(), tb.UserInput()
+    for collide in (False, True):
+        out = {}
+        for d in ("cpu", dev):
+            flat, _cfg, be = _config4_backend(d, collide)
+            ps = be.step(be.pack_state(flat), consts, uin)
+            out[str(d)] = (planified_state_to_numpy(ps), be.far_stats())
+        (got, st_g), (ref, st_c) = out[str(dev)], out["cpu"]
+        errs = {k: float(np.abs(got["lat"][k] - ref["lat"][k]).max())
+                for k in GENERAL_ATOL}
+        if any(not errs[k] <= GENERAL_ATOL[k] for k in errs):
+            raise AssertionError(f"planified config 4 (collisions "
+                                 f"{collide}): cuda vs cpu {errs}")
+        same = all(np.array_equal(eg[k], er[k])
+                   for eg, er in zip(got["lat"]["edges"], ref["lat"]["edges"])
+                   for k in ("target_length", "last_length", "alive")) and \
+            all(np.array_equal(got["x"][k], ref["x"][k])
+                for k in ("target_length", "last_length", "alive"))
+        if not collide and not same:
+            raise AssertionError("planified config 4, collisions off: edge "
+                                 "or exception state differs cuda vs cpu")
+        log(f"planified config 4, one backend frame, collisions "
+            f"{'on' if collide else 'off'}: cuda vs cpu max |err| {errs}, "
+            f"edge and exception state {'bit-exact' if same else 'differ'}"
+            f", far stats cuda {st_g} / cpu {st_c}")
+
+
+def run_planified_engine(dev, card) -> None:
+    """Config 4 planified behind ``Engine`` on the card: frames on the
+    worker thread with ``render_packet()`` polled every 5 ms, each packet
+    bitwise
+    equal to ``unplanify`` of an independent clone of its frame (kept at
+    extract), K3 64 per frame, K7 once per mirror-route apply; then the v1 snapshot round trip, three
+    ``corrupt_buffers`` with stepping going on, and ``recreate()`` (which,
+    as in the JAX package, comes back on the default ``SimBackend``)."""
+    consts = tb.PhysicsConstants()
+    flat, cfg, be = _config4_backend(dev)
+    ps = be.pack_state(flat)
+    spec, aux = be.spec, be.aux
+    if aux.n_exceptions == 0:
+        raise AssertionError("planified config 4: no exception beams")
+    # the backend alone first: two frames timed, one profiled
+    box = [ps]
+
+    def step():
+        box[0] = be.step(box[0], consts, tb.UserInput())
+
+    ms = _frames(step, 2)
+    profile_frame("planified config 4", step, sum(ms) / len(ms),
+                  cfg.subticks)
+    log(f"planified config 4 backend alone: frame ms "
+        f"{[round(x, 1) for x in ms]} = "
+        f"{2 * cfg.subticks / (sum(ms) / 1000.0):.1f} substeps/s, far stats "
+        f"{be.far_stats()}")
+    ps = be.pack_state(flat)
+    opts = EngineOptions(subticks=cfg.subticks,
+                         particle_radius=cfg.particle_radius,
+                         collision_mode=cfg.collision_mode, use_pallas=True,
+                         target_fps=None)
+    collide_stencil.K3_LAUNCHES = 0
+    recmirror.K7_LAUNCHES = 0
+    routes0 = dict(farfield4.APPLY_ROUTES)
+    eng = Engine(ps, consts, opts, backend=be)
+    try:
+        worker = eng._worker
+        extract, kept = be.extract, {}
+
+        def witness(state):
+            ex = extract(state)
+            kept[worker._frame_index] = _clone(state)
+            for old in [k for k in kept if k < worker._frame_index - 16]:
+                del kept[old]
+            return ex
+
+        be.extract = witness
+        far, packets, seen = {}, {}, []
+        t0 = time.perf_counter()
+        while len(packets) < PLANIFIED_ENGINE_FRAMES:
+            pkt = eng.render_packet()
+            if pkt is not None and pkt.frame_index not in packets:
+                packets[pkt.frame_index] = pkt
+                seen.append((time.perf_counter(), pkt.frame_index))
+            if eng.error is not None or time.perf_counter() > t0 + 120.0:
+                raise AssertionError(f"planified engine: {eng.error!r}, "
+                                     f"{len(packets)} packets")
+            time.sleep(0.005)
+        frames = _pause(eng, far)
+        k3, k7 = collide_stencil.K3_LAUNCHES, recmirror.K7_LAUNCHES
+        routes = {k: v - routes0[k] for k, v in farfield4.APPLY_ROUTES.items()}
+        if k3 != cfg.subticks * frames:
+            raise AssertionError(f"planified engine: {frames} frames "
+                                 f"launched K3 {k3} times")
+        # the ladder is (1024, 4096): every substep with active pairs
+        # takes a bucket above 256, the mirror route, one K7 launch
+        if not k7 or k7 != routes["mirror"] or routes["narrow"]:
+            raise AssertionError(f"planified engine: K7 launched {k7} "
+                                 f"times, far applies by route {routes}")
+        torch.cuda.synchronize()
+        names = ("pos", "particle_alive", "beam_a", "beam_b", "beam_alive",
+                 "beam_strain", "beam_stress")
+        for idx, pkt in packets.items():
+            ref = sim_state_to_numpy(planify.unplanify(kept[idx], flat, aux))
+            for name in names:
+                a, b = np.asarray(getattr(pkt, name)), ref[name]
+                if a.dtype != b.dtype or a.tobytes() != b.tobytes():
+                    raise AssertionError(f"planified engine: the packet of "
+                                         f"frame {idx} differs from "
+                                         f"unplanify in {name}")
+        fps = (seen[-1][1] - seen[0][1]) / (seen[-1][0] - seen[0][0])
+        log(f"planified engine, config 4 multi_blob(64): plane "
+            f"{spec.width}x{spec.height}, {len(spec.edge_offsets)} offset "
+            f"classes, {aux.n_exceptions} exception beams; {frames} frames "
+            f"on the worker thread, {fps:.2f} frames/s with render_packet() "
+            f"polled every 5 ms; {len(packets)} packets bitwise equal to "
+            f"unplanify of their frame; K3 {k3} = {cfg.subticks} x {frames},"
+            f" K7 {k7} (one per mirror-route apply: {routes['mirror']} of "
+            f"{cfg.subticks * frames} substeps); far stats over the reads "
+            f"{far} on {card}")
+        buf = eng.save_snapshot()
+        if buf[:4] == b"SBL1" or not eng.load_snapshot(buf):
+            raise AssertionError("planified engine: its v1 snapshot refused")
+        if eng.save_snapshot() != buf:
+            raise AssertionError("planified engine: save -> load -> save "
+                                 "differs")
+        for _ in range(3):
+            eng.corrupt_buffers()
+        eng.set_hidden(False)
+        _wait_frames(eng, frames + 2, {})
+        new = eng.recreate()
+    finally:
+        eng.destroy()
+    try:
+        st = _wait_frames(new, 1, {})
+        log(f"planified engine: v1 snapshot ({len(buf)} bytes) save -> load "
+            f"-> save byte-equal; 3 corrupt_buffers, stepping went on; "
+            f"recreate() stepped {st.frame_index} frame(s) on "
+            f"{type(new._worker.backend).__name__}")
+    finally:
+        new.destroy()
+
+
+def _fold_strip(dev):
+    """The strip of tests/test_planify.py:203-260 (24 × 2, spacing 12)
+    embedded flat, its planes then moved to the fold (its left third
+    over its right third, approaching): ``(PlanifiedState, spec)``."""
+    nx, ny, sp = 24, 2, 12.0
+    pos = np.array([[100.0 + i * sp, 500.0 + j * sp]
+                    for i in range(nx) for j in range(ny)], np.float32)
+    beams = np.array([[i * ny + j, i * ny + j + d] for i in range(nx)
+                      for j in range(ny) for d in (ny, 1)
+                      if (d == ny and i + 1 < nx) or (d == 1 and j + 1 < ny)],
+                     np.int32)
+    lengths = np.linalg.norm(pos[beams[:, 0]] - pos[beams[:, 1]],
+                             axis=1).astype(np.float32)
+    m = len(beams)
+    props = {"spring": np.full(m, 50.0, np.float32),
+             "damp": np.full(m, 5.0, np.float32),
+             "yield_strain": np.full(m, 10.0, np.float32),
+             "strain_limit": np.full(m, 10.0, np.float32)}
+    flat = scenes._build(pos, beams, lengths, props, device="cpu")
+    ps, spec, aux = planify.planify(flat, collision_stencil=3,
+                                    chunk_multiple=16)
+    pos2, vel2 = pos.copy(), np.zeros_like(pos)
+    for i in range(nx // 3):
+        for j in range(ny):
+            p = i * ny + j
+            pos2[p] = (pos[(nx - 1 - i) * ny + j, 0], 500.0 + j * sp + 16.0)
+            vel2[p, 1] = -40.0
+
+    def planes(flat_xy):
+        out = np.zeros((aux.width * aux.height, 2), np.float32)
+        out[aux.cell_of] = flat_xy
+        return out.reshape(aux.width, aux.height, 2)
+
+    fields = planified_state_to_numpy(ps)
+    fields["lat"]["pos"], fields["lat"]["vel"] = planes(pos2), planes(vel2)
+    return planified_state_from_numpy(**fields, device=dev), spec
+
+
+def check_planified_fold(dev) -> None:
+    """The fold through ``planified_frame_far`` on the card against the
+    CPU, once through the narrow route (a 256-pair list) and once through
+    the mirror route (512 pairs: bucket 512 > 256, K7 once per substep
+    on the card): far stats equal and non-empty, positions and
+    velocities within check_small_fold's tolerances."""
+    cfg = tb.StaticConfig(subticks=4, particle_radius=4.0)
+    consts, uin = tb.PhysicsConstants(), tb.UserInput()
+    for route, max_pairs in (("narrow", 256), ("mirror", 512)):
+        ff = FarFieldSpec(max_pairs=max_pairs, max_tile_pairs=64, skin=18.0,
+                          horizon=2)
+        out = {}
+        for d in ("cpu", dev):
+            ps, spec = _fold_strip(d)
+            before = dict(farfield4.APPLY_ROUTES)
+            k7 = recmirror.K7_LAUNCHES
+            ps, st = planify.planified_frame_far(ps, consts, uin, spec, cfg,
+                                                 ff)
+            k7 = recmirror.K7_LAUNCHES - k7
+            ran = {k: v - before[k] for k, v in farfield4.APPLY_ROUTES.items()}
+            if ran[route] != cfg.subticks or sum(ran.values()) != ran[route]:
+                raise AssertionError(f"planified fold on {d}: applies by "
+                                     f"route {ran}, want all {route}")
+            # K7 once per mirror-route apply on the card; the CPU runs its
+            # plain version
+            if k7 != (ran["mirror"] if d == dev else 0):
+                raise AssertionError(f"planified fold on {d}: K7 launched "
+                                     f"{k7} times, applies by route {ran}")
+            out[str(d)] = (st.tolist(), ps.lat.pos.cpu(), ps.lat.vel.cpu())
+        (st_g, pos_g, vel_g), (st_c, pos_c, vel_c) = out[str(dev)], out["cpu"]
+        dpos = (pos_g - pos_c).abs().max().item()
+        dvel = (vel_g - vel_c).abs().max().item()
+        if st_g != st_c or st_g[1] == 0 or st_g[2] or not (
+                dpos <= 5e-3 and dvel <= 5e-2):
+            raise AssertionError(f"planified fold, {route} route: stats cuda "
+                                 f"{st_g} cpu {st_c}, |dpos| {dpos}, |dvel| "
+                                 f"{dvel}")
+        log(f"planified fold {spec.width}x{spec.height}, {route} route: cuda "
+            f"== cpu plain (stats {st_g}; max |dpos| {dpos:.3g}, |dvel| "
+            f"{dvel:.3g}); K7 {k7} on the card")
+
+
+def run_fused_activation(dev, bench_rate: float, card: str) -> dict:
+    """``FusedLatticeBackend`` on the bench scene with the activation
+    schedule off, then on, over the same frames: ACTIVATION_WARM frames,
+    then frames 8-10 with the launch counts from 0 (K1 64 per frame, K2
+    once per rebuild, K7 once per mirror-route apply; far pairs present,
+    ``far_active ≤ far_pairs``, ``far_overflow`` 0), then one profiled
+    frame."""
+    state, spec, cfg, consts, spacing = _scene(N_PARTICLES, dev)
+    uin = tb.UserInput()
+    substeps = ACTIVATION_FRAMES * cfg.subticks
+    rates = {}
+    for act in (False, True):
+        be = FusedLatticeBackend(spec, cfg, farfield=_far_spec(spacing),
+                                 far_activation=act, device=dev)
+        box = [be.pack_state(state)]
+
+        def step():
+            box[0] = be.step(box[0], consts, uin)
+
+        for _ in range(ACTIVATION_WARM):
+            step()
+        be.far_stats()
+        fused_substep2.K1_LAUNCHES = 0
+        band_detect.K2_LAUNCHES = 0
+        recmirror.K7_LAUNCHES = 0
+        routes0 = dict(farfield4.APPLY_ROUTES)
+        ms = _frames(step, ACTIVATION_FRAMES)
+        k1, k2 = fused_substep2.K1_LAUNCHES, band_detect.K2_LAUNCHES
+        k7 = recmirror.K7_LAUNCHES
+        routes = {k: v - routes0[k] for k, v in farfield4.APPLY_ROUTES.items()}
+        stats = be.far_stats()
+        label = f"fused backend, far_activation={act}"
+        if not bool(torch.isfinite(box[0][0][:6]).all()):
+            raise AssertionError(f"{label}: non-finite state")
+        if (stats["far_overflow"] or stats["far_active"] > stats["far_pairs"]
+                or not stats["far_active"] or k1 != substeps
+                or k2 != stats["far_rebuilds"] or not k7
+                or k7 != routes["mirror"] or routes["narrow"]):
+            raise AssertionError(f"{label}: far stats {stats}, K1 {k1}, K2 "
+                                 f"{k2}, K7 {k7}, routes {routes}")
+        rates[act] = substeps / (sum(ms) / 1000.0)
+        profile_frame(label, step, sum(ms) / len(ms), cfg.subticks)
+        log(f"{label}, bench scene frames {ACTIVATION_WARM + 1}-"
+            f"{ACTIVATION_WARM + ACTIVATION_FRAMES}: frame ms "
+            f"{[round(x, 1) for x in ms]} = {rates[act]:.1f} substeps/s; far "
+            f"stats {stats} (the profiled frame after them: "
+            f"{be.far_stats()}); K1 {k1}, K2 {k2}, K7 {k7} on {card}")
+        del be, box
+    log(f"fused backend on the bench scene, frames {ACTIVATION_WARM + 1}-"
+        f"{ACTIVATION_WARM + ACTIVATION_FRAMES}: {rates[True]:.1f} substeps/s "
+        f"with far_activation, {rates[False]:.1f} without (phase 6 over "
+        f"frames 3-10: {bench_rate:.1f}) on {card}")
+    return dict(rate=rates[True], rate_off=rates[False])
+
+
 def _occupancy() -> None:
     """K1's, K4's and K3's residency per SM at the stencil radii they are
     held at, and K2's (registers, spills and shared memory from the
@@ -1694,6 +2233,29 @@ def main() -> int:
     check_wide_k2_and_skip_flag(dev)
     log(f"phase 11 runtime: {time.perf_counter() - t11:.1f} s")
 
+    # phase 12: the planified general-topology path at full size (config
+    # 3 far-armed with K3, K2 and K7, each counted from 0 over its timed
+    # frames; the directed engine from the same settled state), config 4
+    # behind the engine and card vs CPU, the fold through both far-apply
+    # routes, and the activation schedule on the bench scene
+    t12 = [time.perf_counter()]
+
+    def lap():
+        t12.append(time.perf_counter())
+        return round(t12[-1] - t12[-2], 1)
+
+    plan = run_planified_config3(dev, card)
+    parts = {"config 3": lap()}
+    run_planified_engine(dev, card)
+    parts["config 4 engine"] = lap()
+    check_planified_config4_cpu(dev)
+    parts["config 4 vs cpu"] = lap()
+    check_planified_fold(dev)
+    parts["fold"] = lap()
+    act = run_fused_activation(dev, run["rate"], card)
+    parts["activation"] = lap()
+    log(f"phase 12 planified: {t12[-1] - t12[0]:.1f} s ({parts})")
+
     pallas = "softbody_tpu/ops/pallas/"
     probe_src = "scripts/probe_recmirror.py"
     rows = (
@@ -1719,9 +2281,21 @@ def main() -> int:
          "bound_by": bounds[k][1], "library_ms": t.get(f"{k} library")}
         for k, name, src, tpu, launches in rows
     ]
+    for row in kernels:
+        k = row["name"].split()[0]
+        if k in ("K2", "K3", "K7"):
+            row["launches_planified"] = plan[k.lower()]
     log(f"path A rate: {rate_a:.1f} substeps/s, path B rate: "
         f"{rate_b:.1f} substeps/s on {card}")
     log(f"bench path rate: {run['rate']:.1f} substeps/s on {card}")
+    log(f"planified config 3: {plan['rate']:.1f} substeps/s (general engine "
+        f"at config 3: {dict(general).get(GENERAL_CONFIGS[2][0], 0.0):.1f}; "
+        f"directed: {plan['directed_rate']:.1f}); K3 on its "
+        f"{plan['t']['K3']:.4f} ms (bound {plan['bounds']['K3'][0]:.4f}), K2 "
+        f"{plan['t']['K2']:.4f} ms (bound {plan['bounds']['K2'][0]:.4f}); "
+        f"fused backend with far_activation {act['rate']:.1f} substeps/s "
+        f"(without it, the same frames: {act['rate_off']:.1f}) "
+        f"on {card}")
     log(f"K1 at stencil 0 {t['K1 s0']:.4f} ms (stencil 2 {t['K1']:.4f}), "
         f"K4 at stencil 0 {t['K4 s0']:.4f} ms (stencil 2 {t['K4']:.4f}) "
         f"on {card}")

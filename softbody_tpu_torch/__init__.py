@@ -19,6 +19,8 @@ from .convert import (  # noqa: F401
     constants_from_numpy,
     lattice_state_from_numpy,
     lattice_state_to_numpy,
+    planified_state_from_numpy,
+    planified_state_to_numpy,
     sim_state_from_numpy,
     sim_state_to_numpy,
     user_input_from_numpy,

@@ -1,5 +1,5 @@
-"""numpy ↔ torch conversion of the states (lattice and general),
-constants and user input.
+"""numpy ↔ torch conversion of the states (lattice, planified and
+general), constants and user input.
 
 The "weights" of this system are its state: a world built or stepped by
 the JAX package, read out as numpy arrays, becomes the same world here
@@ -66,6 +66,47 @@ def lattice_state_to_numpy(state) -> dict:
                               bool if k == "alive" else np.float32)
                 for k in EDGE_FIELDS} for e in state.edges],
     )
+
+
+def planified_state_from_numpy(lat: Mapping, x: Mapping[str, np.ndarray], *,
+                               device=None):
+    """A :class:`~.ops.planify.PlanifiedState` on ``device`` (default: the
+    CUDA device) from numpy fields: ``lat`` in the layout of
+    :func:`lattice_state_to_numpy`, ``x`` the exception list's fields
+    (``ia``/``ib`` plane cells, the float32 beam fields, ``alive``), as
+    :func:`planified_state_to_numpy` returns them.  Carries a state
+    embedded by the JAX package into the port without re-embedding."""
+    from .ops.planify import EXCEPTION_FIELDS, ExceptionBeams, PlanifiedState
+
+    device = resolve_device(device)
+    missing = set(EXCEPTION_FIELDS) - set(x)
+    if missing:
+        raise ValueError(f"exception list lacks fields {sorted(missing)}")
+
+    def tensor(k, a):
+        if k in ("ia", "ib"):
+            return torch.from_numpy(np.array(a, np.int64)).to(device)
+        return (_bool if k == "alive" else _f32)(a, device)
+
+    return PlanifiedState(
+        lat=lattice_state_from_numpy(**lat, device=device),
+        x=ExceptionBeams(**{k: tensor(k, x[k]) for k in EXCEPTION_FIELDS}))
+
+
+def planified_state_to_numpy(ps) -> dict:
+    """The inverse of :func:`planified_state_from_numpy`: ``dict(lat=...,
+    x=...)`` of numpy arrays (cells int32, as the JAX package keeps
+    them).  Works on the JAX package's ``PlanifiedState`` too."""
+    from .ops.planify import EXCEPTION_FIELDS
+
+    def field(k):
+        a = np.asarray(_host(getattr(ps.x, k)))
+        if k in ("ia", "ib"):
+            return a.astype(np.int32)
+        return a.astype(bool if k == "alive" else np.float32)
+
+    return dict(lat=lattice_state_to_numpy(ps.lat),
+                x={k: field(k) for k in EXCEPTION_FIELDS})
 
 
 def sim_state_from_numpy(*, device=None, inc_beam=None, inc_sign=None,

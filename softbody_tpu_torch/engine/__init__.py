@@ -5,6 +5,7 @@ that step each state representation."""
 from .backends import (  # noqa: F401
     FusedLatticeBackend,
     LatticeBackend,
+    PlanifiedBackend,
     SimBackend,
 )
 from .engine import Engine, LatticeEngine  # noqa: F401

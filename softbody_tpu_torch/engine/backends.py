@@ -12,10 +12,12 @@ candidate list that it rebuilds when the motion since the last rebuild
 could outrun the skin.  :class:`FusedLatticeBackend` steps persistent
 packed planes with the fused substep kernel (K1) and, when far field is
 armed, the fixed-cadence far-field frame (rebuilds with the band kernel
-K2, the far apply through the record table of kernel K7).  Only the
-strict physics is ported: the fused backend raises on any kernel
-variant, far mode, detection mode or band implementation it does not
-run, instead of dropping it.
+K2, the far apply through the record table of kernel K7), optionally
+activation-scheduled.  Only the strict physics is ported: the fused
+backend raises on any kernel variant, far mode, detection mode or band
+implementation it does not run, instead of dropping it.
+:class:`PlanifiedBackend` steps a :class:`SimState` of any topology
+embedded into planes (``ops/planify.py``) on the stencil path.
 
 All run on the CUDA device unless the caller names another
 (``device="cpu"`` runs the plain torch versions).
@@ -58,8 +60,8 @@ from ..ops.farfield import (
 )
 from ..ops.step import frame as sim_frame
 from ..ops.stencil import (
-    EDGE_OFFSETS,
     LatticeState,
+    check_reference_offsets,
     lattice_frame,
     lattice_frame_far,
 )
@@ -363,7 +365,7 @@ class LatticeBackend:
             y = np.arange(h)[None, :]
             lin = (x * h + y).reshape(-1)
             a_list, b_list, sel_list = [], [], []
-            for dx, dy in EDGE_OFFSETS:
+            for dx, dy in self.spec.edge_offsets:
                 sel = ((x + dx >= 0) & (x + dx < w) & (y + dy >= 0)
                        & (y + dy < h)).reshape(-1)
                 a_list.append(lin[sel])
@@ -378,7 +380,7 @@ class LatticeBackend:
         class by class, in the JAX package's order."""
         host = self._readback.to_host(extracted)
         pos, alive = host[0], host[1]
-        c = len(EDGE_OFFSETS)
+        c = len(self.spec.edge_offsets)
         strains, stresses, ealive = (host[2:2 + c], host[2 + c:2 + 2 * c],
                                      host[2 + 2 * c:])
         a_list, b_list, sel_list = self._topology()
@@ -430,9 +432,12 @@ class FusedLatticeBackend(LatticeBackend):
     ``device``: as :class:`LatticeBackend` (default: the CUDA device).
     ``far_band``: ``"kernel"`` on CUDA, ``"plain"`` on the CPU (None
     picks it from ``device``); the band wrapper itself dispatches on the
-    tensor's device, so any other value is an error.  ``far_mode`` must
-    be ``"v4"``, ``far_detect`` ``"xla"``, ``far_activation`` False and
-    ``kernel_variants`` empty: the strict path is the one ported."""
+    tensor's device, so any other value is an error.
+    ``far_activation``: each rebuild schedules its pairs' first possible
+    contact and each substep applies only those that can touch by then
+    (``fused_frame4(activation=True)``).  ``far_mode`` must be ``"v4"``,
+    ``far_detect`` ``"xla"`` and ``kernel_variants`` empty: the strict
+    path is the one ported."""
 
     def __init__(self, spec, cfg: StaticConfig, farfield=None, *,
                  device=None, far_mode: str = "v4",
@@ -451,8 +456,7 @@ class FusedLatticeBackend(LatticeBackend):
         if far_detect != "xla":
             raise ValueError(f"far_detect {far_detect!r} is not ported "
                              "(only 'xla')")
-        if far_activation:
-            raise ValueError("far_activation is not ported")
+        check_reference_offsets(spec)
         want = FAR_BANDS[self.device.type]
         if far_band is None:
             far_band = want
@@ -462,6 +466,7 @@ class FusedLatticeBackend(LatticeBackend):
         self.far_band = far_band
         self.far_mode = far_mode
         self.far_buckets = far_buckets
+        self.far_activation = far_activation
         self._immut = None
         self._edge_consts = None
         self._template = None
@@ -503,7 +508,7 @@ class FusedLatticeBackend(LatticeBackend):
         kw = {} if self.far_buckets is None else {"buckets": self.far_buckets}
         hot, obs, st = fused_frame4(hot, obs, self._immut, self._edge_consts,
                                     consts, uin, self.spec, self.cfg, self.ff,
-                                    **kw)
+                                    activation=self.far_activation, **kw)
         st = st.tolist()
         self._stats_acc = (st if self._stats_acc is None
                            else _stats_merge(self._stats_acc, st))
@@ -549,3 +554,162 @@ class FusedLatticeBackend(LatticeBackend):
 
     def corrupt(self, state, rng: np.random.Generator):
         return self.pack_state(super().corrupt(self.unpack_state(state), rng))
+
+
+class PlanifiedBackend(SimBackend):
+    """General topologies on the dense stencil path, on ``device``
+    (default: the CUDA device): a :class:`SimState` is embedded into
+    ``[W, H]`` planes (``ops/planify.py``), beams into dense offset
+    classes plus an exception list merged into the same int32 force
+    accumulator.  Its collisions go through the stencil (K3 under
+    ``cfg.use_pallas``); ``farfield`` arms the activation-scheduled far
+    frame (``planified_frame_far``: K2 per rebuild, K7 in applies above
+    256 pairs) for contacts that develop after the embedding.
+
+    The state is a :class:`~..ops.planify.PlanifiedState`; the embedding
+    lives on the backend and is rebuilt on ``pack_state`` and ``load``.
+    Far-armed embeddings are aligned to the far field's chunk grid
+    (``chunk_multiple = chunk · tile_chunks``).
+
+    Readback does not sync the stepping thread: ``extract`` gathers the
+    render fields on the device, in flat particle and beam order, through
+    index tensors kept from the embedding (each particle's cell, each
+    beam's slot in its class planes and the exception list
+    concatenated), and ``packet_arrays`` copies them as the other
+    backends do; packets equal ``unplanify``'s fields bit for bit.
+
+    ``far_stats`` returns ``far_active`` beside the other three keys:
+    the JAX package's ``EngineStats`` has no such field, so its worker
+    fails on this backend's stats once far field is armed; the port's
+    takes it."""
+
+    def __init__(self, cfg: StaticConfig,
+                 max_particles: Optional[int] = None,
+                 max_beams: Optional[int] = None,
+                 collision_stencil: int = 3, farfield=None, *,
+                 device=None) -> None:
+        super().__init__(cfg, max_particles, max_beams, device=device)
+        self.collision_stencil = collision_stencil
+        self.ff = farfield
+        self._stats_acc = None
+        self._spec = None
+        self._aux = None
+        self._template = None
+        self._cell_index = None   # [N] plane cell of each particle
+        self._beam_slot = None    # [M] slot in the concatenated beam state
+
+    @property
+    def spec(self):
+        """The current embedding's :class:`LatticeSpec`."""
+        return self._spec
+
+    @property
+    def aux(self):
+        """The current embedding's host maps (``PlanifyAux``)."""
+        return self._aux
+
+    def pack_state(self, state: SimState):
+        """SimState (on the backend's device) → PlanifiedState, embedding
+        it anew; keeps the embedding and its device index maps."""
+        from ..ops.planify import planify
+
+        if state.pos.device.type != self.device.type:
+            raise ValueError(f"state on {state.pos.device}, backend on "
+                             f"{self.device}")
+        cm = self.ff.chunk * self.ff.tile_chunks if self.ff else 1
+        ps, spec, aux = planify(state,
+                                collision_stencil=self.collision_stencil,
+                                chunk_multiple=cm)
+        self._spec, self._aux, self._template = spec, aux, state
+        n_cells = aux.width * aux.height
+        slot = np.where(aux.beam_class >= 0,
+                        aux.beam_class * n_cells + aux.beam_cell,
+                        len(spec.edge_offsets) * n_cells + aux.beam_cell)
+        self._cell_index = torch.from_numpy(aux.cell_of).to(self.device)
+        self._beam_slot = torch.from_numpy(slot).to(self.device)
+        return ps
+
+    def unpack_state(self, ps) -> SimState:
+        from ..ops.planify import unplanify
+
+        return unplanify(ps, self._template, self._aux)
+
+    def step(self, ps, consts: PhysicsConstants, uin: UserInput):
+        """One frame: ``planified_frame``, or with far field armed (and
+        collisions on) ``planified_frame_far``, whose stats accumulate
+        on the host (``far_stats``)."""
+        from ..ops.planify import planified_frame, planified_frame_far
+
+        if self.ff is not None and self.cfg.collision_mode != "none":
+            ps, st = planified_frame_far(ps, consts, uin, self._spec,
+                                         self.cfg, self.ff)
+            st = st.tolist()
+            self._stats_acc = (st if self._stats_acc is None
+                               else _stats_merge(self._stats_acc, st))
+            return ps
+        return planified_frame(ps, consts, uin, self._spec, self.cfg)
+
+    def far_stats(self) -> dict:
+        """Stats since the last read (the accumulator resets on read):
+        rebuilds, max n_pairs, max overflow, max active pairs; {} when no
+        far frame ran."""
+        if self._stats_acc is None:
+            return {}
+        vals, self._stats_acc = self._stats_acc, None
+        return {"far_rebuilds": vals[0], "far_pairs": vals[1],
+                "far_overflow": vals[2], "far_active": vals[3]}
+
+    def _beam_state(self, ps, field: str) -> torch.Tensor:
+        """One beam field over every flat beam ``[M]``, on the device."""
+        flat = torch.cat([getattr(e, field).reshape(-1) for e in ps.lat.edges]
+                         + [getattr(ps.x, field)])
+        return flat[self._beam_slot]
+
+    def extract(self, ps) -> Extracted:
+        """The render fields in flat order (``SimBackend.extract``'s),
+        gathered on the device."""
+        cell = self._cell_index
+        return Readback.extract((
+            ps.lat.pos.reshape(-1, 2)[cell],
+            ps.lat.alive.reshape(-1)[cell],
+            self._template.beam_a, self._template.beam_b,
+            self._beam_state(ps, "alive"), self._beam_state(ps, "strain"),
+            self._beam_state(ps, "stress")))
+
+    def save(self, ps, consts: PhysicsConstants) -> bytes:
+        return save_snapshot(self.unpack_state(ps), consts)
+
+    def load(self, buf: bytes):
+        """``(PlanifiedState, consts)`` embedded anew, or None for bytes
+        ``SimBackend.load`` refuses."""
+        got = super().load(buf)
+        if got is None:
+            return None
+        state, consts = got
+        return self.pack_state(state), consts
+
+    def counts(self, ps) -> Tuple[int, int]:
+        """(alive particles, alive beams: every class plane and the
+        exception list), in one host read."""
+        beams = torch.cat([e.alive.reshape(-1) for e in ps.lat.edges]
+                          + [ps.x.alive])
+        n, m = torch.stack([ps.lat.alive.sum(), beams.sum()]).tolist()
+        return int(n), int(m)
+
+    def corrupt(self, ps, rng: np.random.Generator):
+        """Corrupt the flat state (``SimBackend.corrupt``: the JAX
+        package's draws, so one seed flips the same bits), then write it
+        into the current embedding.  The JAX package re-embeds with a new
+        width search, which a corrupted coordinate can send into a plane
+        ~10¹⁵ columns wide (a host loop that does not end); the layout
+        kept here gives the same flat state and always returns."""
+        from ..ops.planify import embed
+
+        flat = super().corrupt(self.unpack_state(ps), rng)
+        self._template = flat
+        return embed(flat, self._aux)
+
+    def broad_phase_overflow(self, ps) -> int:
+        """The dense index stencil has no capacity to overflow (the far
+        field's truncation is in ``far_stats``)."""
+        return 0

@@ -35,7 +35,12 @@ from ..farfield import (
     max_relative_speed,
     rebuild_far_list_planes,
 )
-from ..stencil import LatticeState, Scalars, substep_planes
+from ..stencil import (
+    LatticeState,
+    Scalars,
+    check_reference_offsets,
+    substep_planes,
+)
 from . import _lib
 from .fused_substep2 import MAX_STENCIL, _check_plane_stack
 
@@ -168,6 +173,7 @@ def fused_substep_call(mut, immut, consts_vec, *, stencil: int,
 
 
 def _frame_args(consts, uin, spec, cfg):
+    check_reference_offsets(spec)
     cvec = consts_vector(consts, uin, cfg, spec.height)
     stencil = 0 if cfg.collision_mode == "none" else spec.collision_stencil
     return cvec, stencil, cfg.force_mode == "quantized"

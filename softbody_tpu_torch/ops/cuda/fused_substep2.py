@@ -28,9 +28,18 @@ from ...config import (
     UserInput,
     consts_vector,
 )
-from ..farfield import rebuild_far_list_planes
+from ..farfield import (
+    crop_active,
+    rebuild_far_list_planes,
+    rebuild_far_list_planes_active,
+)
 from ..farfield4 import bucketed_far_delta_planes
-from ..stencil import LatticeState, Scalars, substep_planes
+from ..stencil import (
+    LatticeState,
+    Scalars,
+    check_reference_offsets,
+    substep_planes,
+)
 from . import _lib
 
 PX, PY, VX, VY, AX, AY = range(6)
@@ -203,6 +212,7 @@ def fused_substep2_call(hot, immut, consts_vec, *, stencil: int,
 
 
 def _frame_consts(consts, uin, spec, cfg, edge_consts):
+    check_reference_offsets(spec)
     cvec = torch.cat([consts_vector(consts, uin, cfg, spec.height),
                       edge_consts.to("cpu", torch.float32)])
     stencil = 0 if cfg.collision_mode == "none" else spec.collision_stencil
@@ -227,7 +237,8 @@ def fused_frame2(hot, obs, immut, edge_consts, consts: PhysicsConstants,
 def fused_frame4(hot, obs, immut, edge_consts, consts: PhysicsConstants,
                  uin: UserInput, spec, cfg: StaticConfig, ffspec,
                  n_sub: Optional[int] = None,
-                 buckets: Tuple[int, ...] = (1024, 2048, 4096)):
+                 buckets: Tuple[int, ...] = (1024, 2048, 4096),
+                 activation: bool = False):
     """One far-armed frame, fixed cadence (the JAX ``fused_frame4``,
     strict branch): ``n // R`` blocks of [rebuild → R substeps] with
     ``R = min(ffspec.horizon, n)``, plus a remainder block that also
@@ -236,9 +247,14 @@ def fused_frame4(hot, obs, immut, edge_consts, consts: PhysicsConstants,
     narrow, larger ones through the record table of kernel K7) then runs
     K1; the frame's last substep is the observing one.
 
+    ``activation``: the rebuild also schedules each pair's first possible
+    contact (``farfield.pair_activation``) and substep ``s`` of a block
+    applies only the sorted list's first ``n_active[s]`` pairs.
+
     Returns ``(hot', obs', stats)`` with ``stats`` a CPU int32 ``[4]``:
-    rebuilds, max n_pairs, max overflow, max active pairs (= n_pairs:
-    the activation schedule is not ported)."""
+    rebuilds, max n_pairs, max overflow, max active pairs (a block's
+    active count at its last substep; ``n_pairs`` without
+    ``activation``)."""
     ff = ffspec
     cvec, stencil, quantized = _frame_consts(consts, uin, spec, cfg,
                                              edge_consts)
@@ -247,21 +263,29 @@ def fused_frame4(hot, obs, immut, edge_consts, consts: PhysicsConstants,
     R = min(ff.horizon, n)
     blocks = [R] * (n // R) + ([n % R] if n % R else [])
     ecoeff = consts.ecoeff
+    kw = dict(s=spec.collision_stencil, ff=ff, radius=cfg.particle_radius)
     st = [0, 0, 0, 0]
     for bi, size in enumerate(blocks):
-        fl = rebuild_far_list_planes(
-            hot[PX], hot[PY], alive, s=spec.collision_stencil, ff=ff,
-            radius=cfg.particle_radius, vx=hot[VX], vy=hot[VY], dt=cfg.dt)
-        # the bucket choice needs n_pairs on the host: one read per
-        # rebuild, which also carries the stats
-        n_pairs, overflow = fl.counts()
+        if activation:
+            fl, n_act = rebuild_far_list_planes_active(
+                hot[PX], hot[PY], alive, vx=hot[VX], vy=hot[VY], dt=cfg.dt,
+                R=R, **kw)
+            # the bucket choice needs the counts on the host: one read per
+            # rebuild, which also carries the stats and the schedule
+            n_pairs, overflow, *active = torch.cat([
+                torch.stack([fl.n_pairs, fl.overflow]), n_act]).tolist()
+        else:
+            fl = rebuild_far_list_planes(hot[PX], hot[PY], alive, vx=hot[VX],
+                                         vy=hot[VY], dt=cfg.dt, **kw)
+            n_pairs, overflow = fl.counts()
+            active = [n_pairs] * size
         st = [st[0] + 1, max(st[1], n_pairs), max(st[2], overflow),
-              max(st[3], n_pairs)]
+              max(st[3], active[size - 1])]
         for j in range(size):
+            fl_j = crop_active(fl, active[j]) if activation else fl
             far = bucketed_far_delta_planes(
-                hot, immut[ALIVE], fl, n_pairs, s=spec.collision_stencil,
-                ff=ff, radius=cfg.particle_radius, dt=cfg.dt, ecoeff=ecoeff,
-                friction=consts.friction, buckets=buckets)
+                hot, immut[ALIVE], fl_j, active[j], dt=cfg.dt, ecoeff=ecoeff,
+                friction=consts.friction, buckets=buckets, **kw)
             observing = bi == len(blocks) - 1 and j == size - 1
             out = fused_substep2_call(
                 hot, immut, cvec, stencil=stencil, quantized=quantized,

@@ -36,7 +36,7 @@ import torch
 
 from ..config import resolve_device
 from .cuda.band_detect import band_flag_call
-from .stencil import _mul32, device_scalar, shifted, sqrt32
+from .stencil import _mul32, device_scalar, f32_to_i32, shifted, sqrt32
 
 _BIG = 3.0e38
 
@@ -269,10 +269,11 @@ def extrude_chunk_planes(raw: RawChunkPlanes, cany, *, ff: FarFieldSpec,
 
 
 def _chunk_detection(pxu, pyu, alive, *, s: int, ff: FarFieldSpec,
-                     radius: float, vxu=None, vyu=None,
-                     dt: float = 0.0) -> ChunkPlanes:
-    """Particle planes → :class:`ChunkPlanes`; with velocities the AABBs
-    are swept for ``horizon`` substeps."""
+                     radius: float, vxu=None, vyu=None, dt: float = 0.0,
+                     return_raw: bool = False):
+    """Particle planes → :class:`ChunkPlanes` (with ``return_raw``, also
+    the :class:`RawChunkPlanes` they were swept from); with velocities
+    the AABBs are swept for ``horizon`` substeps."""
     if vxu is not None:
         n_alive_v = torch.clamp(alive.to(torch.float32).sum(), min=1.0)
         vbar = (torch.where(alive, vxu, 0.0).sum() / n_alive_v,
@@ -286,7 +287,8 @@ def _chunk_detection(pxu, pyu, alive, *, s: int, ff: FarFieldSpec,
         T_band=T, vbar=vbar)
     iminx, imaxx, iminy, imaxy = extrude_chunk_planes(
         raw, cany, ff=ff, radius=radius, T=T, extruded=vxu is not None)
-    return ChunkPlanes(iminx, imaxx, iminy, imaxy, cany, raw.band, com)
+    cp = ChunkPlanes(iminx, imaxx, iminy, imaxy, cany, raw.band, com)
+    return (cp, raw) if return_raw else cp
 
 
 def _candidates_from_chunks(cp: ChunkPlanes, *, ff: FarFieldSpec):
@@ -510,6 +512,82 @@ def rebuild_far_list_planes(px, py, alive, *, s: int, ff: FarFieldSpec,
         torch.zeros_like(px) if vx is None else vx,
         torch.zeros_like(py) if vy is None else vy,
         ff=ff)
+
+
+def pair_activation(fl: FarList, raw: RawChunkPlanes, *, ff: FarFieldSpec,
+                    radius: float, dt: float, R: int):
+    """Per-pair activation schedule for one cadence block of ``R``
+    substeps (the JAX ``pair_activation``).
+
+    For each listed chunk pair, a lower bound ``s0`` on the first
+    substep at which any of its particles can touch: per axis, the raw
+    AABB gap above ``2r + skin`` closes at most at the difference of the
+    chunks' velocity extremes per substep, and contact needs both axes,
+    so ``s0 = ceil(min(max(tx, ty), R))``.  The list is reordered by
+    ``s0`` (stable; invalid entries last) and ``n_active[s]`` counts the
+    valid entries with ``s0 ≤ s``: the apply at substep ``s`` crops to
+    that prefix.  A pair gated off contributes zero to the pair math
+    (impulses act only below ``2r``), so the schedule changes the far
+    apply's f32 summation order and nothing else.
+
+    The float32 expressions are the JAX package's, the division between
+    two tensors (see ``stencil.device_scalar``), so ``s0`` and the
+    order are bit-exact against it.  Returns ``(fl_sorted, n_active)``,
+    ``n_active`` int32 ``[R]`` on the list's device."""
+    tab = torch.stack([raw.minx, raw.maxx, raw.miny, raw.maxy,
+                       raw.vminx, raw.vmaxx, raw.vminy, raw.vmaxy],
+                      dim=-1).reshape(-1, 8)
+    a = tab[fl.ca]
+    b = tab[fl.cb]
+    dev = tab.device
+    thr = float(np.float32(2.0 * radius + ff.skin))
+    dtf = float(np.float32(dt))
+    tiny = device_scalar(1e-30, dev)
+
+    def t_dir(gap, rate):
+        t = (gap - thr) / torch.maximum(rate * dtf, tiny)
+        return torch.where(gap > thr, t, 0.0)
+
+    def axis_time(lo, hi, vlo, vhi):
+        # first substep count at which the axis gap can reach ``thr``;
+        # at most one direction has a positive gap
+        g1 = b[:, lo] - a[:, hi]                       # b right of a
+        r1 = torch.clamp(a[:, vhi] - b[:, vlo], min=0.0)
+        g2 = a[:, lo] - b[:, hi]
+        r2 = torch.clamp(b[:, vhi] - a[:, vlo], min=0.0)
+        return torch.maximum(t_dir(g1, r1), t_dir(g2, r2))
+
+    t = torch.maximum(axis_time(0, 1, 4, 5), axis_time(2, 3, 6, 7))
+    s0 = f32_to_i32(torch.ceil(torch.clamp(t, max=float(R))))
+    key = torch.where(fl.valid, s0, R + 1)
+    order = torch.argsort(key, stable=True)
+    key_s = key[order]
+    valid_s = fl.valid[order]
+    steps = torch.arange(R, dtype=key_s.dtype, device=dev)
+    n_active = ((key_s[None, :] <= steps[:, None]) & valid_s[None, :]).sum(
+        dim=1, dtype=torch.int32)
+    fl_sorted = dataclasses.replace(fl, ca=fl.ca[order], cb=fl.cb[order],
+                                    valid=valid_s)
+    return fl_sorted, n_active
+
+
+def rebuild_far_list_planes_active(px, py, alive, *, s: int,
+                                   ff: FarFieldSpec, radius: float, vx, vy,
+                                   dt: float, R: int):
+    """:func:`rebuild_far_list_planes` (velocity-swept) and
+    :func:`pair_activation` over one chunk detection: ``(fl, n_active
+    [R])`` with the list sorted by activation substep."""
+    cp, raw = _chunk_detection(px, py, alive, s=s, ff=ff, radius=radius,
+                               vxu=vx, vyu=vy, dt=dt, return_raw=True)
+    fl = rebuild_far_list_from_chunks(cp, px, py, vx, vy, ff=ff)
+    return pair_activation(fl, raw, ff=ff, radius=radius, dt=dt, R=R)
+
+
+def crop_active(fl: FarList, n_active: int) -> FarList:
+    """The sorted list cut to its first ``n_active`` entries (host int):
+    the pairs that can touch by the current substep."""
+    keep = torch.arange(fl.capacity, device=fl.valid.device) < n_active
+    return dataclasses.replace(fl, valid=fl.valid & keep)
 
 
 def rebuild_far_list(pos, alive, *, s: int, ff: FarFieldSpec,

@@ -16,11 +16,57 @@ so the quantized sums are bit-exact against it.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from ..config import BEAM_STRESS_SCALE, PARTICLE_FORCE_SCALE, StaticConfig
 from ..state import SimState
 from .stencil import f32_to_i32, sqrt32
+
+
+class BeamTerms(NamedTuple):
+    """What :func:`beam_terms` returns for a batch of beams."""
+
+    fx: torch.Tensor        # force on endpoint b (a takes −F); not masked
+    fy: torch.Tensor
+    target: torch.Tensor    # the beam fields, updated where active
+    last: torch.Tensor
+    strain: torch.Tensor
+    stress: torch.Tensor
+    breaks: torch.Tensor    # active and past the strain limit
+
+
+def beam_terms(dx, dy, active, *, target, last, length, spring, damp,
+               yield_strain, strain_limit, strain, stress) -> BeamTerms:
+    """The spring law (compute.wgsl:96-131) on any batch shape: the flat
+    pass, the planified exception pass and the directed pass share it.
+    ``(dx, dy)``: the a → b difference; ``active``: the beam and both
+    its endpoints alive; the rest are the beam's fields."""
+    raw_len = sqrt32(dx * dx + dy * dy)
+    zero = raw_len == 0.0
+    # compute.wgsl:104-107 — nudge to (0, -1e-10) to avoid 0/0
+    dx = torch.where(zero, 0.0, dx)
+    dy = torch.where(zero, -1.0e-10, dy)
+    length_now = torch.where(zero, 1.0e-10, raw_len)
+
+    force_mag = (target - length_now) * spring + (last - length_now) * damp
+    inv_len = torch.reciprocal(length_now)
+
+    stretch = (length_now - target) / length
+    yielded = stretch.abs() > yield_strain
+    new_target = torch.where(
+        yielded, length_now - yield_strain * length * torch.sign(stretch),
+        target)
+    breaks = (length_now - length).abs() > length * strain_limit
+    return BeamTerms(
+        fx=(force_mag * dx) * inv_len,
+        fy=(force_mag * dy) * inv_len,
+        target=torch.where(active, new_target, target),
+        last=torch.where(active, length_now, last),
+        strain=torch.where(active, stretch.abs() / yield_strain, strain),
+        stress=torch.where(active, force_mag * BEAM_STRESS_SCALE, stress),
+        breaks=active & breaks)
 
 
 def beam_forces(state: SimState, cfg: StaticConfig):
@@ -34,46 +80,39 @@ def beam_forces(state: SimState, cfg: StaticConfig):
     # a beam is active only when it and both its endpoints are alive
     active = (state.beam_alive & state.particle_alive[a]
               & state.particle_alive[b])
-
     diff = pos[b] - pos[a]
-    dx, dy = diff[:, 0], diff[:, 1]
-    raw_len = sqrt32(dx * dx + dy * dy)
-    zero = raw_len == 0.0
-    # compute.wgsl:104-107 — nudge to (0, -1e-10) to avoid 0/0
-    dx = torch.where(zero, 0.0, dx)
-    dy = torch.where(zero, -1.0e-10, dy)
-    length_now = torch.where(zero, 1.0e-10, raw_len)
-
-    force_mag = ((state.beam_target_length - length_now) * state.beam_spring
-                 + (state.beam_last_length - length_now) * state.beam_damp)
-    inv_len = torch.reciprocal(length_now)
-    force_vec = torch.stack([(force_mag * dx) * inv_len,
-                             (force_mag * dy) * inv_len], dim=-1)
-
-    strain = (length_now - state.beam_target_length) / state.beam_length
-    yielded = strain.abs() > state.beam_yield_strain
-    new_target = torch.where(
-        yielded,
-        length_now - state.beam_yield_strain * state.beam_length
-        * torch.sign(strain),
-        state.beam_target_length)
-    breaks = ((length_now - state.beam_length).abs()
-              > state.beam_length * state.beam_strain_limit)
-
+    t = beam_terms(
+        diff[:, 0], diff[:, 1], active,
+        target=state.beam_target_length, last=state.beam_last_length,
+        length=state.beam_length, spring=state.beam_spring,
+        damp=state.beam_damp, yield_strain=state.beam_yield_strain,
+        strain_limit=state.beam_strain_limit, strain=state.beam_strain,
+        stress=state.beam_stress)
     upd = {
-        "beam_target_length": torch.where(active, new_target,
-                                          state.beam_target_length),
-        "beam_last_length": torch.where(active, length_now,
-                                        state.beam_last_length),
-        "beam_stress": torch.where(active, force_mag * BEAM_STRESS_SCALE,
-                                   state.beam_stress),
-        "beam_strain": torch.where(active,
-                                   strain.abs() / state.beam_yield_strain,
-                                   state.beam_strain),
-        "beam_alive": state.beam_alive & ~(active & breaks),
+        "beam_target_length": t.target,
+        "beam_last_length": t.last,
+        "beam_stress": t.stress,
+        "beam_strain": t.strain,
+        "beam_alive": state.beam_alive & ~t.breaks,
     }
-    force_vec = torch.where(active[:, None], force_vec, 0.0)
-    return force_vec, upd, active & breaks
+    force_vec = torch.where(active[:, None], torch.stack([t.fx, t.fy], -1),
+                            0.0)
+    return force_vec, upd, t.breaks
+
+
+def endpoint_sums(n: int, a: torch.Tensor, b: torch.Tensor,
+                  force_vec: torch.Tensor, quantized: bool) -> torch.Tensor:
+    """``[n, 2]`` sums of ``−force_vec`` at ``a`` and ``+force_vec`` at
+    ``b`` through one ``index_add_``.  ``quantized``: each contribution
+    truncated to int32 at scale 65536 (WGSL ``i32()``,
+    compute.wgsl:127-130) and the sum left in int32, exact in any order;
+    else float32 (on CUDA in no fixed order)."""
+    if quantized:
+        force_vec = f32_to_i32(torch.trunc(force_vec * PARTICLE_FORCE_SCALE))
+    total = torch.zeros((n, 2), dtype=force_vec.dtype,
+                        device=force_vec.device)
+    return total.index_add_(0, torch.cat([a, b]),
+                            torch.cat([-force_vec, force_vec]))
 
 
 def accumulate_forces(state: SimState, force_vec: torch.Tensor,
@@ -81,27 +120,17 @@ def accumulate_forces(state: SimState, force_vec: torch.Tensor,
     """Beam endpoint forces summed per particle ``[N, 2]``.
 
     ``force_mode="quantized"``: each contribution truncated to int32 at
-    scale 65536 (WGSL ``i32()``, compute.wgsl:127-130) and summed in
-    int32, so the total is exact in any order.  Through the state's CSR
-    incidence when it has one (a gather), else ``index_add_`` (on CUDA
-    the f32 segment sums have no fixed order)."""
-    n = state.max_particles
-    dev = force_vec.device
-    if cfg.force_mode == "quantized":
-        q = f32_to_i32(torch.trunc(force_vec * PARTICLE_FORCE_SCALE))
-        if state.inc_beam is not None:
-            contrib = q[state.inc_beam] * state.inc_sign[..., None].to(
-                torch.int32)
-            total = contrib.sum(dim=1, dtype=torch.int32)
-        else:
-            total = torch.zeros((n, 2), dtype=torch.int32, device=dev)
-            total.index_add_(0, torch.cat([state.beam_a, state.beam_b]),
-                             torch.cat([-q, q]))
-        return total.to(torch.float32) / PARTICLE_FORCE_SCALE
-    if state.inc_beam is not None:
-        contrib = force_vec[state.inc_beam] * state.inc_sign[..., None].to(
-            torch.float32)
-        return contrib.sum(dim=1)
-    total = torch.zeros((n, 2), dtype=torch.float32, device=dev)
-    return total.index_add_(0, torch.cat([state.beam_a, state.beam_b]),
-                            torch.cat([-force_vec, force_vec]))
+    scale 65536 and summed in int32, so the total is exact in any order.
+    Through the state's CSR incidence when it has one (a gather), else
+    :func:`endpoint_sums`."""
+    quantized = cfg.force_mode == "quantized"
+    if state.inc_beam is None:
+        total = endpoint_sums(state.max_particles, state.beam_a,
+                              state.beam_b, force_vec, quantized)
+    else:
+        fv = (f32_to_i32(torch.trunc(force_vec * PARTICLE_FORCE_SCALE))
+              if quantized else force_vec)
+        contrib = fv[state.inc_beam] * state.inc_sign[..., None].to(fv.dtype)
+        total = contrib.sum(dim=1, dtype=fv.dtype)
+    return total.to(torch.float32) / PARTICLE_FORCE_SCALE if quantized \
+        else total

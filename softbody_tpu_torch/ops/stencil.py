@@ -2,9 +2,11 @@
 ``softbody_tpu/ops/stencil.py``.
 
 A lattice world lives on ``[W, H]`` planes.  Its beams connect constant
-index offsets (four edge classes), so every physics term is a shifted
-stencil: springs evaluate each edge once at its lower endpoint and apply
-the reaction shifted to the partner; collisions evaluate each unordered
+index offsets (one edge class per offset: the four of ``EDGE_OFFSETS``
+for lattice scenes, any set for the planified path, ``ops/planify.py``),
+so every physics term is a shifted stencil: springs evaluate each edge
+once at its lower endpoint and apply the reaction shifted to the
+partner; collisions evaluate each unordered
 index pair within Chebyshev radius ``s`` once (half offsets) and apply
 the exact negation to the partner (compute.wgsl:150-168 pair math).
 
@@ -91,6 +93,14 @@ class LatticeSpec:
     def collision_half_offsets(self) -> Tuple[Tuple[int, int], ...]:
         """Half-plane offsets: each unordered pair once."""
         return half_offsets(self.collision_stencil)
+
+
+def check_reference_offsets(spec: LatticeSpec) -> None:
+    """The fused kernels (K1, K4) evaluate the four classes of
+    ``EDGE_OFFSETS`` only: raise for a spec with any other offsets."""
+    if tuple(spec.edge_offsets) != EDGE_OFFSETS:
+        raise ValueError(f"the fused kernels take the edge offsets "
+                         f"{EDGE_OFFSETS} only, got {spec.edge_offsets}")
 
 
 def half_offsets(s: int) -> Tuple[Tuple[int, int], ...]:
@@ -197,22 +207,30 @@ class SpringUpdate(NamedTuple):
     stress: torch.Tensor     # force_mag · BEAM_STRESS_SCALE (observability)
 
 
-def spring_pass(px, py, alive, edges: Sequence, quantized: bool):
-    """Spring forces of the four edge classes (``EDGE_OFFSETS``) and the
-    edge-state updates.
+def spring_pass(px, py, alive, edges: Sequence, quantized: bool,
+                offsets: Sequence[Tuple[int, int]] = EDGE_OFFSETS,
+                extra_force=None):
+    """Spring forces of the edge classes (class ``c`` at ``offsets[c]``,
+    evaluated in that order) and the edge-state updates.
 
     ``edges[c]`` has the :class:`EdgeClass` attributes ``length``,
     ``target_length``, ``last_length``, ``spring``, ``damp``,
     ``yield_strain``, ``strain_limit`` (planes or 0-d float32 tensors)
-    and ``alive`` (bool plane).  Returns ``(bfx, bfy, updates)``.
-    Quantized forces accumulate ``trunc(F·65536)`` in int32, so the sum
-    is exact whatever the order (compute.wgsl:127-130)."""
+    and ``alive`` (bool plane).  ``extra_force``: ``(fx, fy)`` planes
+    added to the accumulator before the classes (int32 at scale 65536
+    when quantized, else float32: the planified path's exception beams).
+    Returns ``(bfx, bfy, updates)``.  Quantized forces accumulate
+    ``trunc(F·65536)`` in int32, so the sum is exact whatever the order
+    (compute.wgsl:127-130)."""
     w, h = px.shape
     acc_t = torch.int32 if quantized else torch.float32
     fx = torch.zeros((w, h), dtype=acc_t, device=px.device)
     fy = torch.zeros((w, h), dtype=acc_t, device=px.device)
+    if extra_force is not None:
+        fx = fx + extra_force[0]
+        fy = fy + extra_force[1]
     updates: List[SpringUpdate] = []
-    for (dx, dy), e in zip(EDGE_OFFSETS, edges):
+    for (dx, dy), e in zip(offsets, edges):
         active = e.alive & alive & shifted(alive, dx, dy, False)
         ddx = shifted(px, dx, dy) - px
         ddy = shifted(py, dx, dy) - py
@@ -388,14 +406,18 @@ def _integrate_components(px, py, vx, vy, ax, ay, alive, pinned,
 
 def substep_planes(px, py, vx, vy, ax, ay, alive, pinned, edges, sc: Scalars,
                    *, stencil: int, quantized: bool, far_deltas=(),
-                   full_stencil: bool = False):
-    """One substep on component planes: springs, collisions, each of the
+                   full_stencil: bool = False,
+                   offsets: Sequence[Tuple[int, int]] = EDGE_OFFSETS,
+                   extra_force=None):
+    """One substep on component planes: springs (``spring_pass`` over
+    ``offsets``, ``extra_force`` first), collisions, each of the
     ``far_deltas`` (``[5, W, H]`` stacks of dvx dvy dax day dyn, or
     None) in turn, integration.  ``full_stencil``: the collisions go
     through the K3 wrapper (``ops/cuda/collide_stencil.py``, full offset
     set) instead of the half-offset sum.  Returns the six new particle
     planes and the spring updates."""
-    bfx, bfy, ups = spring_pass(px, py, alive, edges, quantized)
+    bfx, bfy, ups = spring_pass(px, py, alive, edges, quantized, offsets,
+                                extra_force)
     kw = dict(radius=sc.radius, dt=sc.dt, ecoeff=sc.ecoeff,
               friction=sc.friction)
     if stencil == 0:
@@ -432,19 +454,20 @@ def lattice_substep(
     far_delta: Optional[torch.Tensor] = None,
     far=None,
     ffspec=None,
+    extra_force=None,
 ) -> LatticeState:
     """One substep of the dense path (semantics of compute.wgsl:90-203).
 
+    Edge class ``c`` connects the offset ``spec.edge_offsets[c]``.
     ``update_observability``: write per-edge strain/stress (only the
     frame's last substep needs them).  ``far_delta``: precomputed
     ``[5, W, H]`` far-field delta planes (dvx dvy dax day dyn) from the
     bucketed apply (``ops/farfield4.py``).  ``far``/``ffspec``: a
     candidate :class:`~.farfield.FarList` and its spec, whose pair terms
     (``farfield.far_collision_terms``) are added after ``far_delta``.
+    ``extra_force``: ``(fx, fy)`` planes merged into the spring
+    accumulator before the classes (``spring_pass``).
     ``cfg.use_pallas``: collisions through kernel K3."""
-    if tuple(spec.edge_offsets) != EDGE_OFFSETS:
-        raise ValueError("the torch lattice path supports the four "
-                         "reference edge classes only")
     sc = Scalars.of(consts_vector(consts, uin, cfg, spec.height))
     collide = cfg.collision_mode != "none"
     px, py = state.pos[..., 0], state.pos[..., 1]
@@ -465,6 +488,8 @@ def lattice_substep(
         quantized=cfg.force_mode == "quantized",
         far_deltas=(far_delta if collide else None, far_terms),
         full_stencil=cfg.use_pallas,
+        offsets=spec.edge_offsets,
+        extra_force=extra_force,
     )
     new_edges = []
     for e, u in zip(state.edges, ups):

@@ -324,3 +324,158 @@ def test_fused_engine_on_the_card(dev):
         assert eng.load_snapshot(buf) and eng.save_snapshot() == buf
         assert eng.error is None
     assert fused_substep2.K1_LAUNCHES - before >= 3 * cfg.subticks
+
+
+def test_planified_substeps_with_k3_match_cpu(dev):
+    """Two planified substeps of ``multi_blob(4)`` with ``use_pallas``
+    (K3, the exception pass on the card) against the same substeps on
+    the CPU (K3's plain version): the embedding identical, edge and
+    exception state bit-exact, particles within K1's tolerances (the
+    integration's float ops on two devices)."""
+    from softbody_tpu_torch.models import scenes
+    from softbody_tpu_torch.ops import planify
+
+    out = {}
+    for d in ("cpu", dev):
+        state, _cfg = scenes.multi_blob(4, blob_radius=30.0, device=d)
+        ps, spec, aux = planify.planify(state, collision_stencil=3,
+                                        chunk_multiple=16)
+        cfg = tb.StaticConfig(subticks=8, particle_radius=10.5,
+                              use_pallas=True)
+        before = collide_stencil.K3_LAUNCHES
+        for _ in range(2):
+            ps = planify.planified_substep(ps, tb.PhysicsConstants(),
+                                           tb.UserInput(), spec, cfg)
+        out[str(d)] = (ps, aux, collide_stencil.K3_LAUNCHES - before)
+    (ref, aux_c, k3_c), (got, aux_g, k3_g) = out["cpu"], out[str(dev)]
+    assert (k3_c, k3_g) == (0, 2) and aux_g.n_exceptions > 0
+    assert (aux_c.cell_of == aux_g.cell_of).all()
+    for e_g, e_c in zip(got.lat.edges, ref.lat.edges):
+        for k in ("target_length", "last_length", "alive"):
+            assert torch.equal(getattr(e_g, k).cpu(), getattr(e_c, k)), k
+    for k in ("target_length", "last_length", "alive"):
+        assert torch.equal(getattr(got.x, k).cpu(), getattr(ref.x, k)), k
+    for k, tol in (("pos", 1e-4), ("vel", 1e-3), ("acc", 1e-2)):
+        torch.testing.assert_close(getattr(got.lat, k).cpu(),
+                                   getattr(ref.lat, k), rtol=0, atol=tol)
+
+
+def _hairpin(dev):
+    """A 96 × 4 strip folded back on itself (tests/test_farfield.py::
+    hairpin): index-distant layers in contact, approaching slowly."""
+    w, h, spacing = 96, 4, 10.0
+    ls = make_lattice(w, h, spacing, spring=0.0, damp=0.0,
+                      yield_strain=10.0, strain_limit=100.0, device=dev)
+    half = w // 2
+    pos = torch.zeros((w, h, 2))
+    vel = torch.zeros((w, h, 2))
+    for i in range(w):
+        xi = i if i < half else w - 1 - i
+        pos[i, :, 0] = 100.0 + xi * spacing + (0.0 if i < half else 5.0)
+        pos[i, :, 1] = ((300.0 if i < half else 306.0)
+                        + torch.arange(h) * 30.0)
+        vel[i, :, 1] = 1.5 if i < half else -1.5
+    return dataclasses.replace(ls, pos=pos.to(dev), vel=vel.to(dev))
+
+
+def test_fused_frame4_activation_matches_plain(dev):
+    """``fused_frame4(activation=True)`` on the hairpin through K1, K2
+    and K7 (a 512-pair list: bucket 512, the mirror route) against the
+    same two frames on the CPU (the plain versions): the same stats, the
+    state within the far apply's tolerances (tests/test_torch_frame.py;
+    a stirred cloth is too chaotic for any tolerance over a frame: a
+    1e-6 change of its velocities moves positions by 0.1 in 8
+    substeps)."""
+    from softbody_tpu_torch.ops.stencil import LatticeSpec
+
+    spec = LatticeSpec(96, 4)
+    cfg = tb.StaticConfig(subticks=8, particle_radius=4.0)
+    ff = FarFieldSpec(max_pairs=512, max_tile_pairs=64, skin=4.0, horizon=8)
+    out = {}
+    for d in ("cpu", dev):
+        hot, obs, immut, ec = fused_substep2.pack_lattice2(_hairpin(d))
+        before = recmirror.K7_LAUNCHES
+        for _ in range(2):
+            hot, obs, st = fused_substep2.fused_frame4(
+                hot, obs, immut, ec, tb.PhysicsConstants(), tb.UserInput(),
+                spec, cfg, ff, activation=True)
+        out[str(d)] = (hot.cpu(), st.tolist(), recmirror.K7_LAUNCHES - before)
+    (ref, st_c, k7_c), (got, st_g, k7_g) = out["cpu"], out[str(dev)]
+    assert st_g == st_c and st_c[1] > 0 and st_c[3] <= st_c[1]
+    assert k7_c == 0 and k7_g == 2 * cfg.subticks
+    torch.testing.assert_close(got[0:2], ref[0:2], rtol=0, atol=5e-3)
+    torch.testing.assert_close(got[2:4], ref[2:4], rtol=0, atol=5e-2)
+
+
+def test_stirred_cloth_activation_matches_cpu(dev):
+    """The stirred 40 × 40 cloth (one state, copied to both devices): the
+    activation schedule of its first rebuild is bit-exact card vs CPU
+    (K2 on the card); then one frame of ``fused_frame4`` card vs CPU with
+    the schedule off and on, under torch's deterministic algorithms (the
+    far apply's row scatter then sums in list order, as on the CPU): the
+    far stats equal, positions within the far apply's tolerance (5e-3).
+
+    Without a fixed order the card's scatter sums with atomics.  This
+    scene magnifies one rounding difference to tens of units in a frame,
+    with or without the schedule: on the CPU, the schedule alone (which
+    changes only the order of the far sums) parts the frame by as much.
+    Both are printed beside the card's default-order divergence."""
+    from softbody_tpu_torch.convert import (
+        lattice_state_from_numpy,
+        lattice_state_to_numpy,
+    )
+    from softbody_tpu_torch.ops.farfield import rebuild_far_list_planes_active
+
+    state, spec, cfg, consts, spacing, _g = _stirred_cloth("cpu", seed=6)
+    fields = lattice_state_to_numpy(state)
+    ff = FarFieldSpec(max_pairs=1024, max_tile_pairs=64,
+                      skin=0.75 * spacing, horizon=8)
+    sched, out = {}, {}
+
+    def frame(st, act):
+        hot, obs, immut, ec = fused_substep2.pack_lattice2(st)
+        hot, obs, s = fused_substep2.fused_frame4(
+            hot, obs, immut, ec, consts, tb.UserInput(), spec, cfg, ff,
+            activation=act)
+        return hot[0:2].cpu(), s.tolist()
+
+    det = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    for d in ("cpu", dev):
+        st = lattice_state_from_numpy(**fields, device=d)
+        fl, n_act = rebuild_far_list_planes_active(
+            st.pos[..., 0], st.pos[..., 1], st.alive, s=spec.collision_stencil,
+            ff=ff, radius=cfg.particle_radius, vx=st.vel[..., 0],
+            vy=st.vel[..., 1], dt=cfg.dt, R=ff.horizon)
+        sched[str(d)] = [t.cpu() for t in (fl.ca, fl.cb, fl.valid,
+                                           fl.n_pairs, fl.overflow, n_act)]
+        for act in (False, True):
+            out[str(d), act, "default"] = frame(st, act)
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                out[str(d), act, "fixed"] = frame(st, act)
+            finally:
+                torch.use_deterministic_algorithms(det[0], warn_only=det[1])
+    for a, b in zip(sched["cpu"], sched[str(dev)]):
+        assert torch.equal(a, b)
+    assert int(sched["cpu"][3]) > 0
+
+    def dpos(a, b):
+        return (out[a][0] - out[b][0]).abs().max().item()
+
+    for act in (False, True):
+        # the CPU's order is fixed either way
+        assert torch.equal(out["cpu", act, "fixed"][0],
+                           out["cpu", act, "default"][0])
+        st_c, st_g = out["cpu", act, "fixed"][1], out[str(dev), act, "fixed"][1]
+        assert st_g == st_c and st_c[1] > 0
+    print("stirred cloth, one frame, max |dpos| card vs CPU: "
+          + ", ".join(f"schedule {'on' if act else 'off'} {order} order "
+                      f"{dpos((str(dev), act, order), ('cpu', act, order)):.4g}"
+                      for act in (False, True) for order in ("default", "fixed"))
+          + "; CPU schedule on vs off "
+          f"{dpos(('cpu', True, 'fixed'), ('cpu', False, 'fixed')):.4g}")
+    for act in (False, True):
+        torch.testing.assert_close(out[str(dev), act, "fixed"][0],
+                                   out["cpu", act, "fixed"][0], rtol=0,
+                                   atol=5e-3)

@@ -53,7 +53,8 @@ def _slit_cloth_scene():
     return ls, spec, cfg, consts, ff
 
 
-def _jax_run(ls, spec, cfg, consts, ffkw, frames, n_sub=None):
+def _jax_run(ls, spec, cfg, consts, ffkw, frames, n_sub=None,
+             activation=False):
     uin = UserInput.none()
     hot, obs, immut, ec = pack_lattice2(ls, tile_w=8)
     acc = None
@@ -61,7 +62,7 @@ def _jax_run(ls, spec, cfg, consts, ffkw, frames, n_sub=None):
         hot, obs, st = fused_frame4(
             hot, obs, immut, ec, consts, uin, spec, cfg,
             JFarFieldSpec(**ffkw), tile_w=8, interpret=True, buckets=(16,),
-            kvar=(), n_sub=n_sub)
+            kvar=(), n_sub=n_sub, activation=activation)
         st = [int(x) for x in np.asarray(st)]
         acc = st if acc is None else [acc[0] + st[0]] + [
             max(a, b) for a, b in zip(acc[1:], st[1:])]
@@ -117,6 +118,25 @@ def test_backend_matches_jax_fused_frame4():
                               "far_overflow": 0}
 
 
+def test_backend_far_activation_matches_jax():
+    """``far_activation=True``: two frames of the folded strip against
+    JAX's strict ``fused_frame4(activation=True)`` (the backend with
+    ``kernel_variants=()``): the same far stats, ``far_active`` included,
+    and the state within ``_assert_close``."""
+    ls, spec, cfg, consts, ffkw = _hairpin_scene()
+    be = _port_backend(spec, cfg, ffkw, far_buckets=(16,),
+                       far_activation=True)
+    state = be.pack_state(to_port(ls))
+    ref, ref_stats = _jax_run(ls, spec, cfg, consts, ffkw, frames=2,
+                              activation=True)
+    for _ in range(2):
+        state = be.step(state, consts_to_port(consts),
+                        uin_to_port(UserInput.none()))
+    assert be.far_stats() == ref_stats
+    assert 0 < ref_stats["far_active"] <= ref_stats["far_pairs"]
+    _assert_close(lattice_state_to_numpy(be.unpack_state(state)), ref)
+
+
 def test_slit_cloth_frame_matches_jax():
     """The bench scene's shape at 32×32: one frame of 16 substeps (two
     cadence blocks) of the port's fused_frame4 against JAX's."""
@@ -150,7 +170,6 @@ def _assert_close(got, ref):
     dict(kernel_variants=("rsqrt",)),
     dict(far_mode="v3"),
     dict(far_detect="kernel"),
-    dict(far_activation=True),
 ])
 def test_backend_rejects_unported_options(bad):
     _ls, spec, cfg, _c, ffkw = _hairpin_scene()
@@ -158,6 +177,25 @@ def test_backend_rejects_unported_options(bad):
         _port_backend(spec, cfg, ffkw, **bad)
     assert _port_backend(spec, cfg, ffkw, far_band="plain").far_band == \
         "plain"
+
+
+def test_fused_paths_reject_other_edge_offsets():
+    """K1 and K4 evaluate the four reference edge classes only: a spec
+    with other offsets (a planified plane's) is refused, not stepped."""
+    from softbody_tpu_torch.models import make_lattice
+    from softbody_tpu_torch.ops.cuda.fused_substep import (
+        fused_frame,
+        pack_lattice,
+    )
+
+    spec = LatticeSpec(8, 8, edge_offsets=((0, 1), (0, 2), (1, 0), (1, 1)))
+    cfg = tb.StaticConfig(subticks=2)
+    with pytest.raises(ValueError, match="edge offsets"):
+        FusedLatticeBackend(spec, cfg, device="cpu")
+    mut, immut = pack_lattice(make_lattice(8, 8, 10.0, device="cpu"))
+    with pytest.raises(ValueError, match="edge offsets"):
+        fused_frame(mut, immut, tb.PhysicsConstants(), tb.UserInput(), spec,
+                    cfg)
 
 
 def test_backend_without_far_field_matches_lattice_frame():

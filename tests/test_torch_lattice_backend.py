@@ -25,7 +25,11 @@ from softbody_tpu_torch.convert import (
     lattice_state_from_numpy,
     lattice_state_to_numpy,
 )
-from softbody_tpu_torch.engine import FusedLatticeBackend, LatticeBackend
+from softbody_tpu_torch.engine import (
+    FusedLatticeBackend,
+    LatticeBackend,
+    PlanifiedBackend,
+)
 from softbody_tpu_torch.models import (
     cloth_lattice,
     make_lattice,
@@ -162,6 +166,7 @@ ENTRY_POINTS = {
     "lattice_state_from_numpy": lambda: lattice_state_from_numpy(
         **random_state(6, 6, seed=0)),
     "empty_far_list": lambda: empty_far_list(4, 4, FarFieldSpec()),
+    "PlanifiedBackend": lambda: PlanifiedBackend(tb.StaticConfig()),
 }
 
 

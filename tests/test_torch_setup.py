@@ -55,6 +55,8 @@ PORT_MODULES = (
     "softbody_tpu_torch.ops.integrate",
     "softbody_tpu_torch.ops.collisions",
     "softbody_tpu_torch.ops.step",
+    "softbody_tpu_torch.ops.planify",
+    "softbody_tpu_torch.ops.directed",
     "chip_smoke",
     "kernel_variants",
 )
