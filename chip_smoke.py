@@ -31,7 +31,13 @@ to 0 just before it and read just after:
   rebuild, K7 in every far apply above 256 pairs); config 4 planified
   behind ``Engine``; the small fold through both far-apply routes, card
   against CPU; ``FusedLatticeBackend(far_activation=True)`` on the bench
-  scene (K1, K2, K7); the directed-CSR engine at config 3.
+  scene (K1, K2, K7); the directed-CSR engine at config 3;
+- the CLI (phase 13), as a user first runs it, in this process:
+  ``run`` of the 1M tearing cloth on the lattice path and of the 100k
+  cloth planified and far-armed (K2, K7), ``render`` of the 1M cloth,
+  ``play`` headless of the 1M cloth far-armed (K2) and of the default
+  scene, ``snapshot create``/``info`` of the 1M scene, the editor; the
+  renderer and the far apply's fixed order held card against CPU.
 
 Every phase raises on failure.
 
@@ -50,11 +56,17 @@ before it lists each kernel's launches, error and times.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import io
 import itertools
 import json
+import math
+import struct
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -62,6 +74,8 @@ import numpy as np
 import torch
 
 import softbody_tpu_torch as tb
+from softbody_tpu_torch import cli, viz
+from softbody_tpu_torch.editor import SoftbodyEditor
 from softbody_tpu_torch.engine import (
     Engine,
     EngineOptions,
@@ -71,8 +85,16 @@ from softbody_tpu_torch.engine import (
     PlanifiedBackend,
     SimBackend,
 )
-from softbody_tpu_torch.models import make_lattice, tearing_cloth_lattice
+from softbody_tpu_torch.mapping import SceneRegistry
+from softbody_tpu_torch.models import (
+    add_rectangle,
+    lattice_to_simstate,
+    make_lattice,
+    tearing_cloth_lattice,
+)
 from softbody_tpu_torch.convert import (
+    lattice_state_from_numpy,
+    lattice_state_to_numpy,
     planified_state_from_numpy,
     planified_state_to_numpy,
     sim_state_to_numpy,
@@ -141,7 +163,7 @@ from softbody_tpu_torch.ops.stencil import (
     shifted,
     sqrt32,
 )
-from softbody_tpu_torch.snapshot import save_snapshot
+from softbody_tpu_torch.snapshot import load_snapshot, save_snapshot
 
 # the bench scene of bench.py:79-107 (1000 x 1000 lattice, ~3.98M springs)
 N_PARTICLES = 1_000_000
@@ -219,6 +241,17 @@ DIRECTED_FRAMES = 2
 # one substep with K3 (full offsets) against the half-offset sum:
 # tests/test_pallas.py's tolerances (the collision sums' order)
 K3_VS_HALF_TOL = dict(rtol=1e-5, atol=1e-3)
+
+# the CLI phase (13): the verbs a user runs first, at their defaults and
+# full size (the 1M tearing cloth; the 100k self-colliding cloth
+# planified and far-armed), each called in this process with the launch
+# counts from 0; the renderer held card vs CPU on a stirred 48 x 48
+# cloth; the far apply's fixed order on the stirred 40 x 40 cloth
+CLI_FRAMES = 3
+CLI_LATTICE_N = 1_000_000
+CLI_PLANIFIED_N = 100_000
+CLI_PLAY_S = (8.0, 3.0)
+CLI_EDITOR_SIDE = 32
 
 # the card's peaks for the bound (NVIDIA's H100 SXM data sheet): device
 # memory rate, and float32 outside the tensor cores
@@ -1122,6 +1155,9 @@ def time_at_final_state(run, spec, cfg, consts, parent=None) -> dict:
         # (3 applies, ~300 launches: the device's launch queue holds ~1000)
         t["apply device"] = _device_ms(apply, 3)
         t["apply windowed device"] = _device_ms(apply_windowed, 3)
+        # where the apply's device time goes (its scatter sums in list
+        # order: a sort and an in-order sum per table row)
+        profile_frame("far apply, mirror route", apply, t["apply"], 1)
         dtab = far_terms_from_mirror(table, crop_far_list(fl, k), w=wp,
                                      h=hp, **pair_kw)
         t["apply: pairs"] = _timed_ms(lambda: far_terms_from_mirror(
@@ -2103,6 +2139,286 @@ def run_fused_activation(dev, bench_rate: float, card: str) -> dict:
     return dict(rate=rates[True], rate_off=rates[False])
 
 
+def _cli(argv, dev) -> tuple:
+    """``softbody_tpu_torch.cli.main(argv + ["--device", dev])`` in this
+    process (so the launch counters see its kernels), its standard output
+    captured; returns (output, its last line as JSON or None, seconds)."""
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(list(argv) + ["--device", str(dev)])
+    secs = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"cli {argv}: exit code {rc}")
+    text = out.getvalue()
+    last = text.strip().splitlines()[-1] if text.strip() else ""
+    try:
+        parsed = json.loads(last)
+    except json.JSONDecodeError:
+        parsed = None
+    return text, parsed, secs
+
+
+def _launches() -> dict:
+    return {"K1": fused_substep2.K1_LAUNCHES, "K2": band_detect.K2_LAUNCHES,
+            "K3": collide_stencil.K3_LAUNCHES,
+            "K4": fused_substep.K4_LAUNCHES, "K7": recmirror.K7_LAUNCHES}
+
+
+def _zero_launches() -> None:
+    fused_substep2.K1_LAUNCHES = 0
+    band_detect.K2_LAUNCHES = 0
+    collide_stencil.K3_LAUNCHES = 0
+    fused_substep.K4_LAUNCHES = 0
+    recmirror.K7_LAUNCHES = 0
+
+
+def _engine_threads() -> list:
+    return [t for t in threading.enumerate()
+            if t.name == "softbody-engine-worker" and t.is_alive()]
+
+
+def _play(argv, dev, card) -> dict:
+    """``play`` headless: standard input a buffer (not a terminal), the
+    frames drawn into the captured output; the engine destroyed after."""
+    stdin = sys.stdin
+    sys.stdin = io.StringIO()
+    _zero_launches()
+    try:
+        text, _, secs = _cli(["play"] + argv, dev)
+    finally:
+        sys.stdin = stdin
+    k = _launches()
+    frames = text.count("\x1b[H")
+    hud = [line for line in text.split("\x1b[H")[-1].splitlines()
+           if "substeps/s |" in line]
+    if not frames or not hud:
+        raise AssertionError(f"play {argv}: {frames} frames drawn, HUD "
+                             f"{hud}")
+    if _engine_threads():
+        raise AssertionError(f"play {argv}: engine worker left alive")
+    log(f"cli play {' '.join(argv)}: {frames} frames drawn in {secs:.1f} s, "
+        f"launches {k}; last HUD: {hud[-1].strip()[:110]!r} on {card}")
+    return k
+
+
+def check_render_card_vs_cpu(dev) -> None:
+    """The rasterizer on the card against the CPU's, as uint8, on a
+    stirred 48 x 48 cloth (several beam and particle chunks) with a fifth
+    of its beams dead and random stresses."""
+    state, spec, cfg, _consts, spacing = _scene(48 * 48, "cpu")
+    state = _stirred(state, spacing, SEED + 13)
+    sim = lattice_to_simstate(state, build_incidence=False, device="cpu")
+    g = torch.Generator().manual_seed(SEED + 13)
+    sim.beam_alive &= torch.rand(sim.beam_alive.shape, generator=g) > 0.2
+    sim.beam_stress = torch.randn(sim.beam_stress.shape, generator=g)
+    imgs = []
+    for d in ("cpu", dev):
+        on_d = dataclasses.replace(sim, **{
+            f.name: getattr(sim, f.name).to(d)
+            for f in dataclasses.fields(sim) if getattr(sim, f.name) is not None})
+        img = viz.render_state(on_d, cfg, resolution=512)
+        imgs.append(torch.round(img * 255).to(torch.uint8).cpu())
+    drawn = int((imgs[0].sum(-1) > 0).sum())
+    if not torch.equal(imgs[0], imgs[1]) or drawn < 10_000:
+        raise AssertionError(f"render card vs CPU: {drawn} pixels drawn, "
+                             f"{int((imgs[0] != imgs[1]).sum())} differ")
+    log(f"render_frame card == CPU as uint8 (48x48 stirred cloth, "
+        f"{int(sim.beam_alive.sum())} beams alive, {drawn} pixels drawn)")
+
+
+def check_far_order(dev) -> None:
+    """Repair 0 on the card: the stirred 40 x 40 cloth's frame with the
+    activation schedule off and on, twice on the card without torch's
+    deterministic algorithms: the runs are bit-identical and equal the
+    CPU's frame bit for bit (the far apply sums in list order)."""
+    if torch.are_deterministic_algorithms_enabled():
+        raise AssertionError("deterministic algorithms are on")
+    # tests/test_torch_cuda.py::test_stirred_cloth_activation_matches_cpu
+    state, spec, cfg, consts = tearing_cloth_lattice(
+        n_particles=40 * 40, fall_speed=2.5, slits=2, strain_limit=0.22,
+        yield_strain=0.18, device="cpu")
+    spacing = 980.0 / (spec.width - 1)
+    g = torch.Generator().manual_seed(6)
+
+    def noise(scale):
+        return torch.randn(state.pos.shape, generator=g) * scale
+
+    state = dataclasses.replace(state, pos=state.pos + noise(0.3 * spacing),
+                                vel=state.vel + noise(6.0 * spacing))
+    ff = FarFieldSpec(max_pairs=1024, max_tile_pairs=64,
+                      skin=0.75 * spacing, horizon=8)
+    routes0 = dict(farfield4.APPLY_ROUTES)
+    out = {}
+    for d, runs in (("cpu", 1), (dev, 2)):
+        st = lattice_state_from_numpy(**lattice_state_to_numpy(state),
+                                      device=d)
+        for act in (False, True):
+            for run in range(runs):
+                hot, obs, immut, ec = pack_lattice2(st)
+                hot, obs, stats = fused_substep2.fused_frame4(
+                    hot, obs, immut, ec, consts, tb.UserInput(), spec, cfg,
+                    ff, activation=act)
+                out[str(d), act, run] = (hot[0:6].cpu(), stats.tolist())
+    routes = {k: v - routes0[k] for k, v in farfield4.APPLY_ROUTES.items()}
+    for act in (False, True):
+        cpu = out["cpu", act, 0]
+        g0, g1 = out[str(dev), act, 0], out[str(dev), act, 1]
+        same = torch.equal(g0[0], g1[0]) and g0[1] == g1[1]
+        equal = torch.equal(g0[0], cpu[0]) and g0[1] == cpu[1]
+        if not (same and equal) or cpu[1][1] == 0:
+            raise AssertionError(
+                f"far order, schedule {act}: card runs identical {same}, "
+                f"card == CPU {equal}; far stats {g0[1]} / {cpu[1]}; max "
+                f"|dpos| card-card {(g0[0] - g1[0]).abs().max().item():.4g},"
+                f" card-CPU {(g0[0] - cpu[0]).abs().max().item():.4g}")
+    log(f"far apply order (stirred 40x40 cloth, one frame, schedule off and "
+        f"on, far stats {out['cpu', True, 0][1]}, applies by route "
+        f"{routes}): two card runs bit-identical and equal to the CPU, "
+        f"deterministic algorithms off")
+
+
+def run_cli(dev, card: str) -> dict:
+    """Phase 13: the CLI's verbs in this process at full size, each with
+    the launch counts from 0: ``run`` of the 1M tearing cloth on the
+    lattice path and of the 100k cloth planified and far-armed (K2 at
+    every rebuild), ``render`` of the 1M cloth, ``play`` of the 1M cloth
+    far-armed (K2) and of the default scene, ``snapshot create`` and
+    ``info`` of the 1M general scene, the editor, and the far apply's
+    fixed order card vs CPU."""
+    parts = {}
+    t0 = time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        parts[name] = round(time.perf_counter() - t0, 1)
+        t0 = time.perf_counter()
+
+    launches_cli = {"K2": 0, "K7": 0}
+
+    def add(k):
+        for key in launches_cli:
+            launches_cli[key] += k[key]
+
+    _zero_launches()
+    _, out, secs = _cli(["run", "--scene", "tearing_cloth", "--path",
+                         "lattice", "--n", str(CLI_LATTICE_N), "--frames",
+                         str(CLI_FRAMES)], dev)
+    k = _launches()
+    add(k)
+    if not out or not out["finite"]:
+        raise AssertionError(f"cli run lattice: {out}")
+    log(f"cli run --scene tearing_cloth --path lattice ({CLI_LATTICE_N} "
+        f"particles, {CLI_FRAMES} frames): beams_alive {out['beams_alive']}, "
+        f"{out['substeps_per_sec']} substeps/s, finite; {secs:.1f} s; "
+        f"launches {k} on {card}")
+    lap("run lattice")
+
+    _zero_launches()
+    _, out, secs = _cli(["run", "--scene", "self_colliding_cloth", "--n",
+                         str(CLI_PLANIFIED_N), "--path", "planified",
+                         "--farfield", "--frames", str(CLI_FRAMES)], dev)
+    k = _launches()
+    add(k)
+    if not out or not out["finite"] or k["K2"] == 0:
+        raise AssertionError(f"cli run planified --farfield: {out}, "
+                             f"launches {k}")
+    log(f"cli run --scene self_colliding_cloth --n {CLI_PLANIFIED_N} --path "
+        f"planified --farfield ({CLI_FRAMES} frames): beams_alive "
+        f"{out['beams_alive']}, {out['substeps_per_sec']} substeps/s, "
+        f"finite; {secs:.1f} s; K2 {k['K2']}, K7 {k['K7']} launches "
+        f"({k}) on {card}")
+    lap("run planified")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        _zero_launches()
+        _, out, secs = _cli(["render", "--scene", "tearing_cloth", "--path",
+                             "lattice", "--n", str(CLI_LATTICE_N),
+                             "--frames", "1", "--resolution", "512",
+                             "--out", tmp], dev)
+        pngs = sorted(Path(tmp).glob("*.png"))
+        if not out or out["frames_written"] != 1 or len(pngs) != 1:
+            raise AssertionError(f"cli render: {out}, {pngs}")
+        log(f"cli render --scene tearing_cloth --path lattice --frames 1 "
+            f"--resolution 512: {pngs[0].name}, {pngs[0].stat().st_size} "
+            f"bytes, verb {secs:.1f} s; launches {_launches()}")
+    lstate, _spec, lcfg, _ = tearing_cloth_lattice(n_particles=CLI_LATTICE_N,
+                                                   device=dev)
+    sim = lattice_to_simstate(lstate, build_incidence=False, device=dev)
+    del lstate
+    ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        img = viz.render_state(sim, lcfg, resolution=512)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t1) * 1e3)
+    if tuple(img.shape) != (512, 512, 3) or not bool(torch.isfinite(img).all()):
+        raise AssertionError(f"render at 1M: {tuple(img.shape)}")
+    log(f"render_state of the {int(sim.particle_count)}-particle, "
+        f"{int(sim.beam_count)}-beam cloth at 512 px: ms "
+        f"{[round(x, 1) for x in ms]} (host clock around a sync) on {card}")
+    del sim, img
+    check_render_card_vs_cpu(dev)
+    lap("render")
+
+    add(_play(["--scene", "tearing_cloth", "--path", "lattice", "--farfield",
+               "--n", str(CLI_LATTICE_N), "--duration",
+               str(CLI_PLAY_S[0])], dev, card))
+    if launches_cli["K2"] == 0:
+        raise AssertionError("cli play --farfield: K2 not launched")
+    _play(["--scene", "default", "--duration", str(CLI_PLAY_S[1])], dev, card)
+    lap("play")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "tearing_cloth.sbt")
+        _, created, secs_c = _cli(["snapshot", "create", path, "--scene",
+                                   "tearing_cloth", "--n",
+                                   str(CLI_LATTICE_N)], dev)
+        _, info, secs_i = _cli(["snapshot", "info", path], dev)
+        with open(path, "rb") as f:
+            head = f.read(12)
+        n_p, n_b = struct.unpack("<II", head[4:12])
+        if (head[:4] != b"SBT1" or info["format"] != "v1"
+                or (info["particles"], info["beams"]) != (n_p, n_b)
+                or n_p != math.isqrt(CLI_LATTICE_N) ** 2):
+            raise AssertionError(f"cli snapshot: {created}, {info}, header "
+                                 f"{head[:4]!r} {n_p} {n_b}")
+        log(f"cli snapshot create/info of tearing_cloth: {created['bytes']} "
+            f"bytes in {secs_c:.1f} s; info {n_p} particles, {n_b} beams in "
+            f"{secs_i:.1f} s")
+    lap("snapshot")
+
+    reg = SceneRegistry()
+    add_rectangle(reg, 200.0, 300.0, 12.0, CLI_EDITOR_SIDE, CLI_EDITOR_SIDE,
+                  60.0, 2.0, 0.3, 0.6)
+    ed = SoftbodyEditor(reg, device=dev)
+    st, consts = load_snapshot(ed.save(), device=dev)
+    eng = Engine(st, consts, EngineOptions(target_fps=None), device=dev)
+    try:
+        t1 = time.perf_counter()
+        while eng.stats().frame_index < 2:
+            if time.perf_counter() - t1 > 120:
+                raise AssertionError("editor scene: no 2 frames in 120 s")
+            time.sleep(0.01)
+        pkt = eng.render_packet()
+    finally:
+        eng.destroy()
+    img = ed.render(resolution=512, overlay=True)
+    if (img.dtype != np.uint8 or img.shape != (512, 512, 3)
+            or not np.isfinite(pkt.pos).all() or _engine_threads()):
+        raise AssertionError(f"editor: image {img.dtype} {img.shape}")
+    log(f"editor: {reg.particle_count} particles, {reg.beam_count} beams "
+        f"saved, loaded on {dev}, 2 engine frames, render {img.shape} "
+        f"uint8")
+    lap("editor")
+
+    check_far_order(dev)
+    lap("far order")
+    log(f"phase 13 cli parts (s): {parts}")
+    return launches_cli
+
+
 def _occupancy() -> None:
     """K1's, K4's and K3's residency per SM at the stencil radii they are
     held at, and K2's (registers, spills and shared memory from the
@@ -2256,6 +2572,12 @@ def main() -> int:
     parts["activation"] = lap()
     log(f"phase 12 planified: {t12[-1] - t12[0]:.1f} s ({parts})")
 
+    # phase 13: the CLI's verbs at full size (K2 and K7 counted from 0 in
+    # each), the editor, the renderer and the far apply's fixed order
+    t13 = time.perf_counter()
+    launches_cli = run_cli(dev, card)
+    log(f"phase 13 cli: {time.perf_counter() - t13:.1f} s")
+
     pallas = "softbody_tpu/ops/pallas/"
     probe_src = "scripts/probe_recmirror.py"
     rows = (
@@ -2285,9 +2607,14 @@ def main() -> int:
         k = row["name"].split()[0]
         if k in ("K2", "K3", "K7"):
             row["launches_planified"] = plan[k.lower()]
+        if k in ("K2", "K7"):
+            row["launches_cli"] = launches_cli[k]
     log(f"path A rate: {rate_a:.1f} substeps/s, path B rate: "
         f"{rate_b:.1f} substeps/s on {card}")
-    log(f"bench path rate: {run['rate']:.1f} substeps/s on {card}")
+    log(f"bench path rate: {run['rate']:.1f} substeps/s; far apply at its "
+        f"final state (fixed-order scatter): device "
+        f"{t.get('apply device', float('nan')):.4f} ms per substep, "
+        f"host-paced {t.get('apply', float('nan')):.4f} ms on {card}")
     log(f"planified config 3: {plan['rate']:.1f} substeps/s (general engine "
         f"at config 3: {dict(general).get(GENERAL_CONFIGS[2][0], 0.0):.1f}; "
         f"directed: {plan['directed_rate']:.1f}); K3 on its "

@@ -7,9 +7,17 @@ as plain torch ops around hand-written Hopper kernels (``csrc/``, K1–K7).
 Every module mirrors the JAX package's module of the same name; the JAX
 package is the reference the port is tested against.  This package never
 imports JAX.
+
+The exports match the JAX package's, but for ``frame_jit``: torch runs
+eagerly, so ``frame`` is the one frame function (there is no jit and no
+donated state).  ``python -m softbody_tpu_torch`` is the CLI
+(``cli.py``).
 """
 
 from .config import (  # noqa: F401
+    DEFAULT_BOUNDS_SIZE,
+    DEFAULT_PARTICLE_RADIUS,
+    DEFAULT_SUBTICKS,
     PhysicsConstants,
     StaticConfig,
     UserInput,
@@ -25,6 +33,7 @@ from .convert import (  # noqa: F401
     sim_state_to_numpy,
     user_input_from_numpy,
 )
+from .ops import frame, substep  # noqa: F401
 from .state import SimState, empty_state, state_from_numpy  # noqa: F401
 
 __version__ = "0.1.0"

@@ -1,9 +1,10 @@
 """Scene builders (port of ``softbody_tpu.models``): dense lattices and
 the general engine's scene families."""
 
-from .lattice import lattice_arrays, merge_scenes  # noqa: F401
+from .lattice import add_rectangle, lattice_arrays, merge_scenes  # noqa: F401
 from .lattice_dense import (  # noqa: F401
     cloth_lattice,
+    lattice_to_simstate,
     make_lattice,
     tearing_cloth_lattice,
 )

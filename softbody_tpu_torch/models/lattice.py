@@ -1,14 +1,16 @@
 """Rectangular spring lattice generator (a copy of the numpy builders of
 ``softbody_tpu/models/lattice.py``) — the workhorse scene primitive
 (≙ ``addRectangle``, main.ts:203-213: per grid node, a vertical beam, a
-horizontal beam, and both diagonals at √2·spacing).  The registry-based
-``add_rectangle`` comes with the port of ``mapping.py``."""
+horizontal beam, and both diagonals at √2·spacing), and the
+registry-based ``add_rectangle``."""
 
 from __future__ import annotations
 
 import math
 
 import numpy as np
+
+from ..mapping import BeamObj, ParticleObj, SceneRegistry, Vec2
 
 
 def lattice_arrays(
@@ -65,6 +67,43 @@ def lattice_arrays(
         "strain_limit": np.full(m, strain_limit, np.float32),
     }
     return pos.astype(np.float32), beams, lengths, props
+
+
+def add_rectangle(
+    reg: SceneRegistry,
+    ox: float,
+    oy: float,
+    spacing: float,
+    w: int,
+    h: int,
+    spring: float,
+    damp: float,
+    yield_strain: float = math.inf,
+    strain_limit: float = math.inf,
+) -> None:
+    """Registry-based lattice builder mirroring the reference's call shape."""
+    pos, beams, lengths, props = lattice_arrays(
+        ox, oy, spacing, w, h, spring, damp, yield_strain, strain_limit
+    )
+    base_ids = []
+    for p in pos:
+        pid = reg.first_empty_particle_id
+        reg.add_particle(ParticleObj(pid, Vec2(float(p[0]), float(p[1]))))
+        base_ids.append(pid)
+    for k in range(beams.shape[0]):
+        bid = reg.first_empty_beam_id
+        reg.add_beam(
+            BeamObj(
+                bid,
+                base_ids[int(beams[k, 0])],
+                base_ids[int(beams[k, 1])],
+                length=float(lengths[k]),
+                spring=spring,
+                damp=damp,
+                yield_strain=yield_strain,
+                strain_limit=strain_limit,
+            )
+        )
 
 
 def merge_scenes(*scenes):

@@ -4,7 +4,9 @@ and moved to ``device`` once: the CUDA device unless the caller names
 another (``config.resolve_device``; it raises without a card).
 
 The ``[W, H]`` layout flattens to linear index ``x*H + y``, the particle
-order of the reference's ``addRectangle`` (main.ts:203-213)."""
+order of the reference's ``addRectangle`` (main.ts:203-213);
+:func:`lattice_to_simstate` flattens a lattice to the general
+:class:`SimState` in that order."""
 
 from __future__ import annotations
 
@@ -12,10 +14,12 @@ import math
 from typing import Optional, Tuple
 
 import numpy as np
+import torch
 
 from ..config import PhysicsConstants, StaticConfig
 from ..convert import lattice_state_from_numpy
 from ..ops.stencil import EDGE_OFFSETS, LatticeSpec, LatticeState
+from ..state import SimState, state_from_numpy
 
 
 def _lattice_numpy(w, h, spacing, ox, oy, spring, damp, yield_strain,
@@ -154,3 +158,74 @@ def cloth_lattice(
         particle_radius=min(10.0, spacing * 0.45),
     )
     return state, spec, cfg
+
+
+def lattice_to_simstate(state: LatticeState, *, build_incidence: bool = True,
+                        device=None) -> SimState:
+    """Flatten to the general SimState (linear index = x*H + y) on
+    ``device`` (default: the CUDA device), in NumPy on the host over the
+    state's planes, as the JAX package does."""
+    def host(t):
+        return t.detach().cpu().numpy()
+
+    w, h = state.shape
+    n = w * h
+    pos = host(state.pos).reshape(n, 2)
+    vel = host(state.vel).reshape(n, 2)
+    acc = host(state.acc).reshape(n, 2)
+    pinned = host(state.pinned).reshape(n)
+    alive = host(state.alive).reshape(n)
+
+    beams = []
+    props = {k: [] for k in ("length", "target", "last", "spring", "damp",
+                             "yield", "limit", "strain", "stress")}
+    x = np.arange(w)[:, None]
+    y = np.arange(h)[None, :]
+    lin = (x * h + y)
+    for (dx, dy), e in zip(EDGE_OFFSETS, state.edges):
+        valid = host(e.alive) & (
+            (x + dx >= 0) & (x + dx < w) & (y + dy >= 0) & (y + dy < h)
+        )
+        idx = np.nonzero(valid.reshape(n))
+        a = lin.reshape(n)[idx]
+        b = a + dx * h + dy
+        beams.append(np.stack([a, b], -1))
+        for key, arr in (
+            ("length", e.length), ("target", e.target_length),
+            ("last", e.last_length), ("spring", e.spring), ("damp", e.damp),
+            ("yield", e.yield_strain), ("limit", e.strain_limit),
+            ("strain", e.strain), ("stress", e.stress),
+        ):
+            props[key].append(host(arr)[valid])
+
+    beams_np = (
+        np.concatenate(beams).astype(np.int32)
+        if beams else np.zeros((0, 2), np.int32)
+    )
+
+    def cat(k):
+        return (
+            np.concatenate(props[k]).astype(np.float32)
+            if props[k] else np.zeros((0,), np.float32)
+        )
+
+    sim = state_from_numpy(
+        pos, vel, acc=acc, pinned=pinned,
+        beams=beams_np if len(beams_np) else None,
+        beam_length=cat("length"),
+        beam_spring=cat("spring"), beam_damp=cat("damp"),
+        beam_yield_strain=cat("yield"), beam_strain_limit=cat("limit"),
+        beam_target_length=cat("target"), beam_last_length=cat("last"),
+        build_incidence=build_incidence, device=device,
+    )
+    if len(beams_np):
+        m = sim.max_beams
+        strain = np.zeros(m, np.float32)
+        stress = np.zeros(m, np.float32)
+        strain[: len(beams_np)] = cat("strain")
+        stress[: len(beams_np)] = cat("stress")
+        sim.beam_strain = torch.from_numpy(strain).to(sim.pos.device)
+        sim.beam_stress = torch.from_numpy(stress).to(sim.pos.device)
+    if not alive.all():
+        sim.particle_alive = torch.from_numpy(alive).to(sim.pos.device)
+    return sim

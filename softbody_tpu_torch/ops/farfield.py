@@ -36,7 +36,14 @@ import torch
 
 from ..config import resolve_device
 from .cuda.band_detect import band_flag_call
-from .stencil import _mul32, device_scalar, f32_to_i32, shifted, sqrt32
+from .stencil import (
+    _mul32,
+    device_scalar,
+    f32_to_i32,
+    index_sum,
+    shifted,
+    sqrt32,
+)
 
 _BIG = 3.0e38
 
@@ -759,18 +766,17 @@ def far_pair_contributions(g, fl: FarList, cx_ids, cy_ids, *, s: int,
 
 
 def far_scatter_contributions(contrib, cx_ids, cy_ids, *, c: int, wp: int,
-                              hp: int):
-    """Scatter-add ``contrib [n, 5, c²]`` into ``[5, wp, hp]`` planes
-    (``index_add_``: on CUDA the f32 sums have no fixed order)."""
+                              hp: int, valid: torch.Tensor):
+    """Scatter-add ``contrib [n, 5, c²]`` into ``[5, wp, hp]`` planes, each
+    cell's sums in list order on every device (``stencil.index_sum``);
+    the sides of empty slots (``valid [n]`` false: all zeros) left out."""
     cc = c * c
     kk = torch.arange(cc, device=contrib.device)
     lin = ((cx_ids[:, None] * c + kk[None, :] // c) * hp
            + (cy_ids[:, None] * c + kk[None, :] % c)).reshape(-1)
-    vals = contrib.permute(1, 0, 2).reshape(5, -1)
-    out = torch.zeros((5, wp * hp), dtype=torch.float32,
-                      device=contrib.device)
-    out.index_add_(1, lin, vals)
-    return out.reshape(5, wp, hp)
+    vals = contrib.permute(0, 2, 1).reshape(-1, 5)
+    keep = valid[:, None].expand(-1, cc).reshape(-1)
+    return index_sum(lin, vals, wp * hp, keep).T.reshape(5, wp, hp)
 
 
 def far_collision_terms(px, py, vx, vy, alive, fl: FarList, *, s: int,
@@ -792,6 +798,7 @@ def far_collision_terms(px, py, vx, vy, alive, fl: FarList, *, s: int,
         g, fl, cx_ids, cy_ids, s=s, ff=ff, radius=radius, dt=dt,
         ecoeff=ecoeff, friction=friction,
         world_h=hp if world_h is None else world_h)
-    planes = far_scatter_contributions(contrib, cx_ids, cy_ids, c=c, wp=wp,
-                                       hp=hp)[:, :w, :h]
+    planes = far_scatter_contributions(
+        contrib, cx_ids, cy_ids, c=c, wp=wp, hp=hp,
+        valid=torch.cat([fl.valid, fl.valid]))[:, :w, :h]
     return tuple(planes[i] for i in range(5))

@@ -8,7 +8,8 @@ as in the JAX package, per bucket:
 - buckets ≤ 256 (:func:`far_delta_planes_narrow`): each pair side's
   window is gathered as 20 narrow rows (5 fields × 4 plane rows × 32
   lanes) of a ``[5·W·Hm/32, 32]`` view of the planes, and the deltas are
-  scatter-added back the same way;
+  scatter-added back the same way, in list order on every device
+  (``stencil.index_sum``);
 - larger buckets: the planes are relaid once into the (4, 32) record
   table (:func:`mirror_table`, kernel K7 on the card), one record row is
   gathered per pair side (:func:`far_terms_from_mirror`), the delta
@@ -49,6 +50,7 @@ from .farfield import (
     crop_far_list,
     far_pair_contributions,
 )
+from .stencil import index_sum
 
 PX, PY, VX, VY = range(4)
 # buckets at or below this take the narrow-row route
@@ -163,8 +165,8 @@ def far_terms_from_mirror(table: torch.Tensor, fl: FarList, *, s: int,
     ``[(Hm/32)·(w/4), 640]`` delta table (dvx dvy dax day dyn in the
     record layout).  One gathered row per pair side, the windows selected
     per offset, the exact pair math (``farfield.far_pair_contributions``),
-    the inverse placement and one row scatter-add (``index_add_``: in
-    list order on the CPU, with atomics on CUDA)."""
+    the inverse placement and one row scatter-add, in list order on every
+    device (``stencil.index_sum``; the empty slots' rows left out)."""
     _check_layout(mb, mb_out)
     c = _check_chunk(ff)
     hm = _mh(h)
@@ -177,8 +179,8 @@ def far_terms_from_mirror(table: torch.Tensor, fl: FarList, *, s: int,
         g, fl, cx, cy, s=s, ff=ff, radius=radius, dt=dt, ecoeff=ecoeff,
         friction=friction, world_h=hm)
     drows = _place_windows(contrib, off, c).reshape(n2k, REC)
-    dtab = table.new_zeros(((hm // MB) * cw, REC))
-    return dtab.index_add_(0, row_ids, drows)
+    return index_sum(row_ids, drows, (hm // MB) * cw,
+                     keep=torch.cat([fl.valid, fl.valid]))
 
 
 def far_delta_planes_narrow(planes5, fl: FarList, *, s: int,
@@ -204,8 +206,9 @@ def far_delta_planes_narrow(planes5, fl: FarList, *, s: int,
     contrib = far_pair_contributions(
         _select_windows(seg, off, c), fl, cx, cy, s=s, ff=ff, radius=radius,
         dt=dt, ecoeff=ecoeff, friction=friction, world_h=hm)
-    out = view.new_zeros((NF * w * nb, MB))
-    out.index_add_(0, rows, _place_windows(contrib, off, c).reshape(-1, MB))
+    keep = torch.cat([fl.valid, fl.valid])[:, None].expand(-1, NF * c)
+    out = index_sum(rows, _place_windows(contrib, off, c).reshape(-1, MB),
+                    NF * w * nb, keep=keep.reshape(-1))
     return out.reshape(NF, w, hm)[:, :, :h]
 
 

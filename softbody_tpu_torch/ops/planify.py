@@ -40,7 +40,11 @@ import torch
 
 from ..config import PhysicsConstants, StaticConfig, UserInput
 from ..state import SimState
-from .farfield import crop_active, rebuild_far_list_planes_active
+from .farfield import (
+    _chunk_dims,
+    crop_active,
+    rebuild_far_list_planes_active,
+)
 from .farfield4 import bucketed_far_delta_from_fn
 from .forces import beam_terms, endpoint_sums
 from .stencil import EdgeClass, LatticeSpec, LatticeState, lattice_substep
@@ -419,6 +423,12 @@ def planified_frame_far(ps: PlanifiedState, consts: PhysicsConstants,
     R = min(ff.horizon, n)
     blocks = [R] * (n // R) + ([n % R] if n % R else [])
     kw = dict(s=spec.collision_stencil, ff=ff, radius=cfg.particle_radius)
+    # the apply runs on the width padded to whole tiles, as the rebuild's
+    # chunk grid is: the list's empty slots name that grid's last chunk,
+    # past the plane's own width when it is not a multiple of the tile
+    # (JAX's gather clamps such rows, and the masked slots add nothing;
+    # torch's indexing raises)
+    wp = _chunk_dims(spec.width, spec.height, ff)[2]
     st = [0, 0, 0, 0]
     for bi, size in enumerate(blocks):
         lat = ps.lat
@@ -440,7 +450,9 @@ def planified_frame_far(ps: PlanifiedState, consts: PhysicsConstants,
             delta = bucketed_far_delta_from_fn(
                 planes5, crop_active(fl, active[j]), active[j], dt=cfg.dt,
                 ecoeff=consts.ecoeff, friction=consts.friction,
-                w=spec.width, h=spec.height, buckets=buckets, **kw)
+                w=wp, h=spec.height, buckets=buckets, **kw)
+            if delta is not None:
+                delta = delta[:, :spec.width]
             observing = bi == len(blocks) - 1 and j == size - 1
             ps = planified_substep(ps, consts, uin, spec, cfg,
                                    update_observability=observing,

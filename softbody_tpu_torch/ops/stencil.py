@@ -171,6 +171,39 @@ def sqrt32(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(x.to(torch.float64)).to(torch.float32)
 
 
+def index_sum(index: torch.Tensor, src: torch.Tensor, n: int,
+              keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``[n, k]`` rows: row ``i`` is the sum of the rows of ``src [N, k]``
+    whose ``index`` is ``i``, added one by one in ascending source order
+    starting from +0.0 — what the CPU's sequential ``index_add_`` on
+    zeros computes, so the card reproduces the CPU bit for bit and run to
+    run.  On CUDA, ``index_add_`` sums with atomics in no fixed order;
+    ``index_put_(accumulate=True)`` sorts the indices stably and sums
+    each index's run in order from zero, one thread per run.  It does
+    that for rows of two or more values only (rows of one are summed as
+    a warp tree), so such rows are refused there.  On the CPU,
+    ``index_put_`` is the one that runs threads in no fixed order, so the
+    CPU keeps ``index_add_``.
+
+    ``keep`` ``[N]`` bool: rows where it is false are left out of the
+    sums, each sent to a spare row of its own past ``n`` (the shapes stay
+    fixed and no host read is needed).  Leaving out rows of ±0.0 changes
+    no sum: a sum started from +0.0 is never -0.0, and x ± 0.0 = x.  The
+    far apply leaves out its empty list slots this way: they all name one
+    chunk, whose run would otherwise be summed by one thread."""
+    if keep is not None:
+        spare = torch.arange(n, n + index.shape[0], device=index.device)
+        return index_sum(torch.where(keep, index, spare), src,
+                         n + index.shape[0])[:n]
+    out = src.new_zeros((n,) + tuple(src.shape[1:]))
+    if src.device.type == "cpu":
+        return out.index_add_(0, index, src)
+    if src.dim() != 2 or src.shape[1] < 2:
+        raise ValueError(f"index_sum sums rows of >= 2 values in a fixed "
+                         f"order on CUDA, got {tuple(src.shape)}")
+    return out.index_put_((index,), src, accumulate=True)
+
+
 def shifted(a: torch.Tensor, dx: int, dy: int, fill=0) -> torch.Tensor:
     """``out[..., x, y] = a[..., x + dx, y + dy]``; ``fill`` outside."""
     w, h = a.shape[-2], a.shape[-1]

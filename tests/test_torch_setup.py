@@ -57,6 +57,14 @@ PORT_MODULES = (
     "softbody_tpu_torch.ops.step",
     "softbody_tpu_torch.ops.planify",
     "softbody_tpu_torch.ops.directed",
+    "softbody_tpu_torch.cli",
+    "softbody_tpu_torch.viz",
+    "softbody_tpu_torch.tui",
+    "softbody_tpu_torch.mapping",
+    "softbody_tpu_torch.editor",
+    "softbody_tpu_torch.utils",
+    "softbody_tpu_torch.utils.png",
+    "softbody_tpu_torch.utils.profiling",
     "chip_smoke",
     "kernel_variants",
 )
