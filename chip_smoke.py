@@ -88,10 +88,12 @@ from softbody_tpu_torch.engine import (
 from softbody_tpu_torch.mapping import SceneRegistry
 from softbody_tpu_torch.models import (
     add_rectangle,
+    cloth_lattice,
     lattice_to_simstate,
     make_lattice,
     tearing_cloth_lattice,
 )
+from softbody_tpu_torch.models.lattice_dense import folded_strip_lattice
 from softbody_tpu_torch.convert import (
     lattice_state_from_numpy,
     lattice_state_to_numpy,
@@ -133,9 +135,11 @@ from softbody_tpu_torch.ops.cuda.fused_substep2 import (
     PY,
     VX,
     VY,
+    fused_frame4,
     fused_substep2_call,
     fused_substep2_plain,
     pack_lattice2,
+    unpack_lattice2,
 )
 from softbody_tpu_torch.ops.directed import (
     build_directed,
@@ -160,8 +164,38 @@ from softbody_tpu_torch.ops.forces import accumulate_forces, beam_forces
 from softbody_tpu_torch.ops.stencil import (
     LatticeSpec,
     half_offsets,
+    lattice_frame,
     shifted,
     sqrt32,
+)
+from softbody_tpu_torch.parallel import (
+    batched_frame_fn,
+    device_put_batched,
+    make_mesh,
+    pad_state_for_mesh,
+    shard_state,
+    spatial_frame_fn,
+    stack_states,
+    unshard_state,
+    unstack_states,
+)
+from softbody_tpu_torch.parallel.fused_spatial import (
+    fused_spatial_frame_fn,
+    ghost_width,
+    interiors,
+    pack_lattice_sharded,
+    shard_stacks,
+)
+from softbody_tpu_torch.parallel.fused_spatial2 import (
+    far_stats,
+    fused_spatial2_frame_fn,
+    pack_lattice2_sharded,
+    shard_stacks2,
+)
+from softbody_tpu_torch.parallel.lattice_spatial import (
+    lattice_spatial_frame_fn,
+    shard_lattice,
+    unshard_lattice,
 )
 from softbody_tpu_torch.snapshot import load_snapshot, save_snapshot
 
@@ -252,6 +286,28 @@ CLI_LATTICE_N = 1_000_000
 CLI_PLANIFIED_N = 100_000
 CLI_PLAY_S = (8.0, 3.0)
 CLI_EDITOR_SIDE = 32
+
+# the parallel phase (14), every shard on this card: path A in 4 slabs
+# (frames 1-3), path B in 4 slabs (frames 1-8), the bench scene far-armed
+# in 2 slabs (frames 1-2 warm, 3-10 timed; W = 1000 gives 500-column
+# slabs, a multiple of the far field's chunk 4) with a rebuild every 8
+# substeps, and one frame from the single-device frame 9 held against its
+# own frame 10; each profiled over a short step of 8 substeps.  That frame
+# may differ from fused_frame4's only where a particle sums far
+# contributions of several pairs in another order (the sharded apply's
+# list order, each slab's own swept envelope), a float32 rounding that a
+# frame of contacts grows: held to 1% of the lattice spacing (~0.98) in
+# position and in one substep's displacement (velocity x dt, dt = 1/64),
+# and to equal edge liveness.  A control frame with the far field off
+# must break these limits, or they could not tell a dropped far apply
+SHARD_FRAMES_A = 3
+SHARD_FRAMES_B = 8
+SHARD_BENCH = (2, 8)
+SHARD_REBUILD = 8
+SHARD_PARITY_FRAME = 9
+SHARD_PROFILE_SUBSTEPS = 8
+SHARD_GENERAL_N = 100_000
+SHARD_BENCH_ATOL = {"pos": 1e-2, "vel": 0.64, "edges alive differ": 0}
 
 # the card's peaks for the bound (NVIDIA's H100 SXM data sheet): device
 # memory rate, and float32 outside the tensor cores
@@ -2419,6 +2475,531 @@ def run_cli(dev, card: str) -> dict:
     return launches_cli
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the parallel layer (softbody_tpu_torch/parallel), every shard on
+# this card: a mesh of devices=[cuda] * n, single-controller
+
+
+def _shard_mesh(dev, n: int, dp: int = 1):
+    """A dp × (n/dp) mesh whose every shard is ``dev``."""
+    return make_mesh(n, dp=dp, devices=[torch.device(dev)] * n)
+
+
+def _short(cfg, n: int = SHARD_PROFILE_SUBSTEPS):
+    """``cfg`` with ``n`` substeps a frame: the profiled step (its dt
+    differs; the launches per substep and the host's pace do not)."""
+    return dataclasses.replace(cfg, subticks=n)
+
+
+def _idle_and_launches(step, substeps: int) -> tuple:
+    """``step`` (``substeps`` substeps of a path already run) once timed by
+    CUDA events and once under ``torch.profiler``: (device idle share
+    against the unprofiled time, kernel launches per substep)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    ms = _frames(step, 1)[0]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    return 1.0 - busy_ms / ms, len(kernels) / substeps
+
+
+def _log_sharded(label: str, rate: float, rate_one: float, idle: float,
+                 per_substep: float, card: str, extra: str = "") -> None:
+    log(f"phase 14 {label}: {rate:.1f} substeps/s sharded, {rate_one:.1f} "
+        f"unsharded in this run; {per_substep:.1f} launches per substep, "
+        f"device idle share {idle:.2f} (one profiled step of "
+        f"{SHARD_PROFILE_SUBSTEPS} substeps){extra} on {card}")
+
+
+def _tensors_differ(pairs) -> list:
+    """``[(name, max |a − b|)]`` of the pairs not bit-equal (NaN equal to
+    NaN)."""
+    out = []
+    for name, a, b in pairs:
+        same = (a == b) | (torch.isnan(a) & torch.isnan(b)) if \
+            a.dtype.is_floating_point else a == b
+        if not bool(same.all()):
+            d = (a.to(torch.float32) - b.to(torch.float32)).abs()
+            out.append((name, torch.nan_to_num(d, nan=float("inf")).max()
+                        .item()))
+    return out
+
+
+def _lattice_pairs(a, b):
+    pairs = [(k, getattr(a, k), getattr(b, k))
+             for k in ("pos", "vel", "acc", "alive", "pinned")]
+    for c, (ea, eb) in enumerate(zip(a.edges, b.edges)):
+        pairs += [(f"edge{c} {f.name}", getattr(ea, f.name),
+                   getattr(eb, f.name)) for f in dataclasses.fields(ea)]
+    return pairs
+
+
+def run_sharded_path_a(dev, card: str) -> dict:
+    """Path A in 4 slabs: ``lattice_spatial`` over a 1×4 mesh on the
+    default 1M cloth with ``use_pallas`` (K3 on each slab every substep),
+    frames 1-3, bit for bit against the single-device ``lattice_frame``
+    over the same frames."""
+    state, spec, cfg, consts = tearing_cloth_lattice(
+        n_particles=N_PARTICLES, device=dev)
+    cfg = dataclasses.replace(cfg, use_pallas=True)
+    uin = tb.UserInput()
+    one = [state]
+
+    def step_one():
+        one[0] = lattice_frame(one[0], consts, uin, spec, cfg)
+
+    ms_one = _frames(step_one, SHARD_FRAMES_A)
+    mesh = _shard_mesh(dev, 4)
+    fn = lattice_spatial_frame_fn(spec, cfg, mesh)
+    box = [shard_lattice(state, mesh)]
+
+    def step():
+        box[0] = fn(box[0], consts, uin)
+
+    collide_stencil.K3_LAUNCHES = 0
+    ms = _frames(step, SHARD_FRAMES_A)
+    k3 = collide_stencil.K3_LAUNCHES
+    substeps = SHARD_FRAMES_A * cfg.subticks
+    if k3 != 4 * substeps:
+        raise AssertionError(f"path A in slabs: K3 launched {k3} times for "
+                             f"{substeps} substeps on 4 slabs")
+    got = unshard_lattice(box[0])
+    diff = _tensors_differ(_lattice_pairs(got, one[0]))
+    if diff:
+        raise AssertionError(f"path A in slabs differs from lattice_frame: "
+                             f"{diff}")
+    fn_s = lattice_spatial_frame_fn(spec, _short(cfg), mesh)
+    idle, per = _idle_and_launches(lambda: fn_s(box[0], consts, uin),
+                                   SHARD_PROFILE_SUBSTEPS)
+    rate = substeps / (sum(ms) / 1e3)
+    rate_one = substeps / (sum(ms_one) / 1e3)
+    _log_sharded(f"path A in 4 slabs ({spec.width}x{spec.height}, frames "
+                 f"1-{SHARD_FRAMES_A}, K3 {k3} launches = 4 per substep, "
+                 "equal to lattice_frame bit for bit)", rate, rate_one,
+                 idle, per, card)
+    return dict(k3=k3, rate=rate, rate_one=rate_one)
+
+
+def run_sharded_path_b(dev, card: str) -> dict:
+    """Path B in 4 slabs: ``fused_spatial`` over 1×4 on the default scene
+    (K4 on each slab every substep, a ghost ring of the stencil's reach),
+    frames 1-8, bit for bit against the single-device ``fused_frame``;
+    then K4's device time per substep on the 4 slabs against the whole
+    lattice's."""
+    state, spec, cfg, consts = tearing_cloth_lattice(
+        n_particles=N_PARTICLES, device=dev)
+    uin = tb.UserInput()
+    mut, immut = pack_lattice(state)
+    one = [mut]
+
+    def step_one():
+        one[0] = fused_frame(one[0], immut, consts, uin, spec, cfg)
+
+    ms_one = _frames(step_one, SHARD_FRAMES_B)
+    mesh = _shard_mesh(dev, 4)
+    ring = ghost_width(spec)
+    m, im, w_loc = pack_lattice_sharded(state, 4, ghost=ring)
+    m, im = shard_stacks(m, im, mesh)
+    fn = fused_spatial_frame_fn(spec, cfg, mesh)
+    box = [m]
+
+    def step():
+        box[0] = fn(box[0], im, consts, uin)
+
+    fused_substep.K4_LAUNCHES = 0
+    ms = _frames(step, SHARD_FRAMES_B)
+    k4 = fused_substep.K4_LAUNCHES
+    substeps = SHARD_FRAMES_B * cfg.subticks
+    if k4 != 4 * substeps:
+        raise AssertionError(f"path B in slabs: K4 launched {k4} times for "
+                             f"{substeps} substeps on 4 slabs")
+    got = interiors(box[0], w_loc, dev)
+    diff = _tensors_differ([("mut", got, one[0])])
+    if diff:
+        raise AssertionError(f"path B in slabs differs from fused_frame: "
+                             f"{diff}")
+    cvec = tb.consts_vector(consts, uin, cfg, spec.height)
+    kw = dict(stencil=spec.collision_stencil,
+              quantized=cfg.force_mode == "quantized")
+    k4_one = _device_ms(lambda: fused_substep_call(one[0], immut, cvec,
+                                                   **kw), 50)
+    k4_slabs = _device_ms(lambda: [fused_substep_call(a, b, cvec, **kw)
+                                   for a, b in zip(box[0], im)], 50)
+    fn_s = fused_spatial_frame_fn(spec, _short(cfg), mesh)
+    idle, per = _idle_and_launches(lambda: fn_s(box[0], im, consts, uin),
+                                   SHARD_PROFILE_SUBSTEPS)
+    rate = substeps / (sum(ms) / 1e3)
+    rate_one = substeps / (sum(ms_one) / 1e3)
+    _log_sharded(f"path B in 4 slabs ({spec.width}x{spec.height}, slabs of "
+                 f"{w_loc} + 2x{ring} ghost columns, frames "
+                 f"1-{SHARD_FRAMES_B}, K4 {k4} launches = 4 per substep, "
+                 "equal to fused_frame bit for bit)", rate, rate_one, idle,
+                 per, card, extra=f"; K4 device ms per substep: 4 slabs "
+                 f"{k4_slabs:.4f}, whole lattice {k4_one:.4f} (ratio "
+                 f"{k4_slabs / k4_one:.3f})")
+    return dict(k4=k4, rate=rate, rate_one=rate_one, k4_slabs=k4_slabs,
+                k4_one=k4_one)
+
+
+def _bench_sharded_frame(hot, obs, spec, cfg, consts, ff, n: int,
+                         template) -> tuple:
+    """One frame of the bench scene in ``n`` slabs from the single-device
+    stacks ``hot``/``obs``, far-armed unless ``ff`` is None: the frame's
+    hot stack (the slabs' interiors) and its far record."""
+    ls = unpack_lattice2(hot, obs, template)
+    h, o, im, ec, w_loc = pack_lattice2_sharded(ls, n,
+                                                ghost=ghost_width(spec, ff))
+    mesh = _shard_mesh(hot.device, n)
+    h, o, im = shard_stacks2(h, o, im, mesh)
+    fn = fused_spatial2_frame_fn(spec, cfg, mesh, ffspec=ff,
+                                 rebuild_every=SHARD_REBUILD)
+    far_stats()
+    h, o = fn(h, o, im, ec, consts, tb.UserInput())
+    return interiors(h, w_loc, hot.device), far_stats()
+
+
+def run_sharded_bench(dev, card: str, bench_rate: float) -> dict:
+    """The bench scene far-armed in 2 slabs (``fused_spatial2``, the bench
+    far spec, a rebuild every 8 substeps: K1 on each slab every substep,
+    K2 on each slab every rebuild): frames 1-2 warm, frames 3-10 timed and
+    counted; a finite state, far_overflow 0 and far pairs.  Then one frame
+    from the single-device ``fused_frame4``'s frame 9 in 1 and in 2 slabs
+    against its own frame 10."""
+    state, spec, cfg, consts, spacing = _scene(N_PARTICLES, dev)
+    ff = _far_spec(spacing)
+    uin = tb.UserInput()
+    mesh = _shard_mesh(dev, 2)
+    h, o, im, ec, w_loc = pack_lattice2_sharded(state, 2,
+                                                ghost=ghost_width(spec, ff))
+    h, o, im = shard_stacks2(h, o, im, mesh)
+    fn = fused_spatial2_frame_fn(spec, cfg, mesh, ffspec=ff,
+                                 rebuild_every=SHARD_REBUILD)
+    box = [(h, o)]
+
+    def step():
+        box[0] = fn(*box[0], im, ec, consts, uin)
+
+    warm, timed = SHARD_BENCH
+    for _ in range(warm):
+        step()
+    far_stats()
+    fused_substep2.K1_LAUNCHES = 0
+    band_detect.K2_LAUNCHES = 0
+    ms = _frames(step, timed)
+    k1, k2 = fused_substep2.K1_LAUNCHES, band_detect.K2_LAUNCHES
+    stats = far_stats()
+    substeps = timed * cfg.subticks
+    rebuilds = substeps // SHARD_REBUILD
+    hot = interiors(box[0][0], w_loc, dev)
+    if not bool(torch.isfinite(hot[:6]).all()):
+        raise AssertionError("bench in slabs: non-finite particle state")
+    if k1 != 2 * substeps or k2 != 2 * rebuilds or \
+            stats["rebuilds"] != rebuilds:
+        raise AssertionError(f"bench in slabs: K1 {k1}, K2 {k2} launches, "
+                             f"far record {stats}, for {substeps} substeps "
+                             f"and {rebuilds} rebuilds on 2 slabs")
+    if stats["max_overflow"] != 0 or stats["max_pairs"] == 0:
+        raise AssertionError(f"bench in slabs: far record {stats}")
+    fn_s = fused_spatial2_frame_fn(spec, _short(cfg), mesh, ffspec=ff,
+                                   rebuild_every=SHARD_REBUILD)
+    idle, per = _idle_and_launches(
+        lambda: fn_s(box[0][0], box[0][1], im, ec, consts, uin),
+        SHARD_PROFILE_SUBSTEPS)
+    far_stats()
+    rate = substeps / (sum(ms) / 1e3)
+
+    # parity on one frame: frame 9 of the single-device fused_frame4
+    hot1, obs1, imm1, ec1 = pack_lattice2(state)
+    one = [(hot1, obs1)]
+
+    def step_one():
+        h_, o_, _st = fused_frame4(*one[0], imm1, ec1, consts, uin, spec,
+                                   cfg, ff, buckets=FAR_BUCKETS)
+        one[0] = (h_, o_)
+
+    ms_one = _frames(step_one, SHARD_PARITY_FRAME)
+    hot9, obs9 = one[0]
+    step_one()
+    ref10 = one[0][0]
+    got = {n: _bench_sharded_frame(hot9, obs9, spec, cfg, consts, ff, n,
+                                   state) for n in (1, 2)}
+    errs = {}
+    for n, (g, st) in got.items():
+        if not bool(torch.isfinite(g[:6]).all()) or st["max_overflow"]:
+            raise AssertionError(f"bench frame 10 in {n} slab(s): far "
+                                 f"record {st}")
+        errs[n] = _bench_errs(g, ref10)
+        if not _within_bench_atol(errs[n]):
+            raise AssertionError(f"bench frame 10 in {n} slab(s) against "
+                                 f"fused_frame4: max |err| {errs[n]} "
+                                 f"(limits {SHARD_BENCH_ATOL})")
+    # the control: the same frame in 2 slabs with the far field off
+    ctl = _bench_errs(_bench_sharded_frame(hot9, obs9, spec, cfg, consts,
+                                           None, 2, state)[0], ref10)
+    if _within_bench_atol(ctl):
+        raise AssertionError(f"bench frame 10 in 2 slabs with the far field "
+                             f"off is within the limits {SHARD_BENCH_ATOL} "
+                             f"(max |err| {ctl}): they cannot tell a "
+                             "dropped far apply")
+    same_1_2 = not _tensors_differ([("hot", got[1][0], got[2][0])])
+    rate_one = SHARD_PARITY_FRAME * cfg.subticks / (sum(ms_one) / 1e3)
+    _log_sharded(
+        f"bench scene far-armed in 2 slabs (frames 3-{warm + timed}, K1 "
+        f"{k1} launches = 2 per substep, K2 {k2} = 2 per rebuild, far "
+        f"record {stats})", rate, rate_one, idle, per, card,
+        extra=f"; the bench path (phase 6) {bench_rate:.1f} substeps/s; "
+        f"frame {SHARD_PARITY_FRAME + 1} from fused_frame4's frame "
+        f"{SHARD_PARITY_FRAME} against its own: 1 slab {errs[1]}, 2 slabs "
+        f"{errs[2]} (limits {SHARD_BENCH_ATOL}), the control with the far "
+        f"field off {ctl}; 1 and 2 slabs "
+        f"{'bit-identical' if same_1_2 else 'not bit-identical'}")
+    return dict(k1=k1, k2=k2, rate=rate, rate_one=rate_one, errs=errs,
+                ctl=ctl, same_1_2=same_1_2, stats=stats)
+
+
+def _bench_errs(g, ref) -> dict:
+    """Max |difference| of two hot stacks in position and velocity, and
+    the count of edges alive in one and not the other."""
+    errs = {k: (g[sl] - ref[sl]).abs().max().item()
+            for k, sl in (("pos", slice(0, 2)), ("vel", slice(2, 4)))}
+    errs["edges alive differ"] = sum(
+        int(((g[6 + 3 * c + 2] > 0) != (ref[6 + 3 * c + 2] > 0)).sum())
+        for c in range(4))
+    return errs
+
+
+def _within_bench_atol(errs: dict) -> bool:
+    return all(errs[k] <= lim for k, lim in SHARD_BENCH_ATOL.items())
+
+
+def _general_errs(got, ref) -> dict:
+    g, r = sim_state_to_numpy(got), sim_state_to_numpy(ref)
+    errs = {k: float(np.abs(g[k] - r[k]).max()) for k in GENERAL_ATOL}
+    errs["beams alive differ"] = int((g["beam_alive"]
+                                      != r["beam_alive"]).sum())
+    return errs
+
+
+def _hold_general(label: str, errs: dict) -> None:
+    if (any(not errs[k] <= GENERAL_ATOL[k] for k in GENERAL_ATOL)
+            or errs["beams alive differ"]):
+        raise AssertionError(f"{label}: max |err| {errs} against the "
+                             f"single-device frame (limits {GENERAL_ATOL}, "
+                             "beams alive equal)")
+
+
+def _stirred_world(st, seed: int):
+    """``st`` with velocity noise from ``seed`` (worlds of a batch
+    differ)."""
+    g = torch.Generator(device=st.pos.device).manual_seed(seed)
+    return dataclasses.replace(st, vel=st.vel + torch.randn(
+        st.vel.shape, generator=g, device=st.pos.device) * 5.0)
+
+
+def run_sharded_general(dev, card: str) -> dict:
+    """The general engine sharded: config 3 (the 100k self-colliding
+    cloth, grid) over sp = 4, one frame against the single-device frame;
+    config 1 ``cloth(32, 32)`` × 2 worlds over a 2×4 dp×sp mesh; and
+    ``batched_frame_fn`` on ``multi_blob(64)`` × 4 worlds over dp = 4,
+    each world bit for bit its own single-device frame."""
+    consts, uin = tb.PhysicsConstants(), tb.UserInput()
+    st, cfg = scenes.self_colliding_cloth(SHARD_GENERAL_N, device=dev)
+    st = pad_state_for_mesh(st, 4)
+    one = [st]
+
+    def step_one():
+        one[0] = gstep.frame(one[0], consts, uin, cfg)
+
+    ms_one = _frames(step_one, 1)
+    mesh = _shard_mesh(dev, 4)
+    fn = spatial_frame_fn(cfg, mesh)
+    box = [shard_state(st, mesh)]
+
+    def step():
+        box[0] = fn(box[0], consts, uin)
+
+    ms = _frames(step, 1)
+    errs3 = _general_errs(unshard_state(box[0]), one[0])
+    _hold_general("config 3 over sp = 4", errs3)
+    fn_s = spatial_frame_fn(_short(cfg), mesh)
+    idle, per = _idle_and_launches(lambda: fn_s(box[0], consts, uin),
+                                   SHARD_PROFILE_SUBSTEPS)
+    rate = cfg.subticks / (sum(ms) / 1e3)
+    rate_one = cfg.subticks / (sum(ms_one) / 1e3)
+
+    # config 1 x 2 worlds over dp x sp = 2 x 4
+    w1, cfg1 = scenes.cloth(32, 32, device=dev)
+    worlds = [pad_state_for_mesh(w, 4) for w in (w1, _stirred_world(w1, 1))]
+    mesh8 = _shard_mesh(dev, 8, dp=2)
+    out = unstack_states(unshard_state(spatial_frame_fn(
+        cfg1, mesh8, dp_axis="dp")(shard_state(stack_states(worlds), mesh8,
+                                               dp_axis="dp"), consts, uin)))
+    errs1 = [_general_errs(g, gstep.frame(w, consts, uin, cfg1))
+             for g, w in zip(out, worlds)]
+    for e in errs1:
+        _hold_general("config 1 x 2 worlds over 2x4", e)
+
+    # multi_blob(64) x 4 worlds over dp = 4
+    w4, cfg4 = scenes.multi_blob(64, device=dev)
+    worlds4 = [_stirred_world(w4, s) for s in range(4)]
+    mesh4 = _shard_mesh(dev, 4, dp=4)
+    t0 = time.perf_counter()
+    outs = unstack_states(batched_frame_fn(cfg4, mesh4)(
+        device_put_batched(stack_states(worlds4), mesh4), consts, uin))
+    torch.cuda.synchronize()
+    batch_s = time.perf_counter() - t0
+    for i, (g, w) in enumerate(zip(outs, worlds4)):
+        r = gstep.frame(w, consts, uin, cfg4)
+        diff = _tensors_differ([(k, getattr(g, k), getattr(r, k)) for k in
+                                ("pos", "vel", "acc", "beam_alive",
+                                 "beam_target_length")])
+        if diff:
+            raise AssertionError(f"multi_blob(64) world {i} of the batch "
+                                 f"differs from its own frame: {diff}")
+    _log_sharded(
+        f"general engine config 3 over sp = 4 (one frame, max |err| "
+        f"{errs3} against the single-device frame)", rate, rate_one, idle,
+        per, card, extra=f"; config 1 x 2 worlds over dp x sp = 2x4: max "
+        f"|err| {errs1}; multi_blob(64) x 4 worlds over dp = 4: each world "
+        f"equal to its own frame bit for bit, "
+        f"{4 * cfg4.subticks / batch_s:.1f} substeps/s over the batch "
+        "(host clock)")
+    return dict(rate=rate, rate_one=rate_one)
+
+
+def run_sharded_dryrun(dev, card: str) -> dict:
+    """The JAX package's multi-chip dryrun (``__graft_entry__.py:93-206``)
+    at its tiny shapes on an 8-shard mesh, each path against its
+    single-device port path: the general engine over dp×sp = 2×4, the
+    lattice halo exchange, K4 in slabs, and K1 in slabs with the far
+    field (rebuild every 2 substeps) on a strip folded across every slab
+    boundary, where the dryrun's flat cloth has no far pair."""
+    consts, uin = tb.PhysicsConstants(), tb.UserInput()
+    n, dp = 8, 2
+    sp = n // dp
+    cfg = tb.StaticConfig(subticks=4, collision_mode="grid",
+                          particle_radius=8.0, force_mode="quantized")
+    # the dryrun's batch: dp copies of the 6 x 6 cloth
+    worlds = [pad_state_for_mesh(scenes.cloth(w=6, h=6, spacing=20.0,
+                                              device=dev)[0], sp)
+              for _ in range(dp)]
+    mesh = _shard_mesh(dev, n, dp=dp)
+    fn = spatial_frame_fn(cfg, mesh, dp_axis="dp")
+    sh = shard_state(stack_states(worlds), mesh, dp_axis="dp")
+    ms = _frames(lambda: fn(sh, consts, uin), 1)
+    out = unstack_states(unshard_state(fn(sh, consts, uin)))
+    ms_one = _frames(lambda: gstep.frame(worlds[0], consts, uin, cfg), 1)
+    errs = [_general_errs(g, gstep.frame(w, consts, uin, cfg))
+            for g, w in zip(out, worlds)]
+    for e in errs:
+        _hold_general("dryrun general dp x sp", e)
+    idle, per = _idle_and_launches(lambda: fn(sh, consts, uin),
+                                   cfg.subticks * dp)
+    rate = dp * cfg.subticks / (sum(ms) / 1e3)
+    rate_one = cfg.subticks / (sum(ms_one) / 1e3)
+
+    lat = tb.StaticConfig(subticks=4, particle_radius=5.0)
+    w, h = 8 * n, 8
+    ls, _, _ = cloth_lattice(w=w, h=h, spacing=12.0, device=dev)
+    spec = LatticeSpec(w, h, collision_stencil=2)
+    lmesh = _shard_mesh(dev, n)
+    got = unshard_lattice(lattice_spatial_frame_fn(spec, lat, lmesh)(
+        shard_lattice(ls, lmesh), consts, uin))
+    diff = _tensors_differ(_lattice_pairs(
+        got, lattice_frame(ls, consts, uin, spec, lat)))
+    if diff:
+        raise AssertionError(f"dryrun lattice halo exchange: {diff}")
+
+    mut, immut = pack_lattice(ls)
+    m, im, w_loc = pack_lattice_sharded(ls, n, ghost=ghost_width(spec))
+    m, im = shard_stacks(m, im, lmesh)
+    got4 = interiors(fused_spatial_frame_fn(spec, lat, lmesh)(
+        m, im, consts, uin), w_loc, dev)
+    diff = _tensors_differ([("mut", got4, fused_frame(
+        mut, immut, consts, uin, spec, lat))])
+    if diff:
+        raise AssertionError(f"dryrun K4 in slabs: {diff}")
+
+    # the dryrun's far spec on the strip folded at its shape (its flat
+    # cloth gives the far field no pair): contacts across every boundary,
+    # more candidates than the dryrun's list of 64 holds, so 128
+    ff = FarFieldSpec(skin=8.0, horizon=4, max_pairs=128, max_tile_pairs=32)
+    ls = folded_strip_lattice(w, h, device=dev)
+    h2, o2, i2, ec, w_loc2 = pack_lattice2_sharded(
+        ls, n, ghost=ghost_width(spec, ff))
+    h2, o2, i2 = shard_stacks2(h2, o2, i2, lmesh)
+    far_stats()
+    h2, o2 = fused_spatial2_frame_fn(spec, lat, lmesh, ffspec=ff,
+                                     rebuild_every=2)(h2, o2, i2, ec,
+                                                      consts, uin)
+    rec = far_stats()
+    hot, obs, imm, ec1 = pack_lattice2(ls)
+    ref, _o, _st = fused_frame4(hot, obs, imm, ec1, consts, uin, spec, lat,
+                                ff)
+    got2 = interiors(h2, w_loc2, dev)
+    e2 = {k: (got2[sl] - ref[sl]).abs().max().item()
+          for k, sl in (("pos", slice(0, 2)), ("vel", slice(2, 4)))}
+    if (rec["rebuilds"] != 2 or rec["max_overflow"] or not rec["max_pairs"]
+            or any(not e2[k] <= SHARD_BENCH_ATOL[k] for k in e2)):
+        raise AssertionError(f"dryrun K1 in slabs with the far field: far "
+                             f"record {rec}, max |err| {e2} against "
+                             f"fused_frame4 (limits {SHARD_BENCH_ATOL})")
+    exact2 = not _tensors_differ([("hot", got2, ref)])
+    # the control: the fold in slabs with the far field off
+    h0, o0, i0, ec0, _ = pack_lattice2_sharded(ls, n,
+                                               ghost=ghost_width(spec))
+    h0, o0, i0 = shard_stacks2(h0, o0, i0, lmesh)
+    ctl = interiors(fused_spatial2_frame_fn(spec, lat, lmesh)(
+        h0, o0, i0, ec0, consts, uin)[0], w_loc2, dev)
+    e_ctl = {k: (ctl[sl] - ref[sl]).abs().max().item()
+             for k, sl in (("pos", slice(0, 2)), ("vel", slice(2, 4)))}
+    if all(e_ctl[k] <= SHARD_BENCH_ATOL[k] for k in e_ctl):
+        raise AssertionError(f"dryrun fold with the far field off is within "
+                             f"the limits {SHARD_BENCH_ATOL} (max |err| "
+                             f"{e_ctl}): they cannot tell a dropped far "
+                             "apply")
+    _log_sharded(
+        f"dryrun paths on 8 shards (general dp x sp = 2x4 max |err| "
+        f"{errs}; lattice halo and K4 in slabs equal to one device bit for "
+        f"bit; K1 in slabs with the far field on the folded strip: far "
+        f"record {rec}, max |err| {e2} against fused_frame4, "
+        f"{'bit-identical' if exact2 else 'not bit-identical'}; the "
+        f"control with the far field off {e_ctl})", rate,
+        rate_one, idle, per, card, extra=" (rates of the general dp x sp "
+        "frame, both worlds, against one world's single-device frame)")
+    return dict(rate=rate)
+
+
+def run_sharded(dev, card: str, bench_rate: float) -> dict:
+    """Phase 14: the sharded paths at full width, every shard on this
+    card; the launches of K3, K4, K1 and K2 in sub-phases 1-3."""
+    t = [time.perf_counter()]
+
+    def lap():
+        t.append(time.perf_counter())
+        return round(t[-1] - t[-2], 1)
+
+    a = run_sharded_path_a(dev, card)
+    parts = {"path A": lap()}
+    b = run_sharded_path_b(dev, card)
+    parts["path B"] = lap()
+    bench = run_sharded_bench(dev, card, bench_rate)
+    parts["bench"] = lap()
+    run_sharded_general(dev, card)
+    parts["general"] = lap()
+    run_sharded_dryrun(dev, card)
+    parts["dryrun"] = lap()
+    log(f"phase 14 parallel: {t[-1] - t[0]:.1f} s ({parts})")
+    return {"K1": bench["k1"], "K2": bench["k2"], "K3": a["k3"],
+            "K4": b["k4"]}
+
+
 def _occupancy() -> None:
     """K1's, K4's and K3's residency per SM at the stencil radii they are
     held at, and K2's (registers, spills and shared memory from the
@@ -2578,6 +3159,10 @@ def main() -> int:
     launches_cli = run_cli(dev, card)
     log(f"phase 13 cli: {time.perf_counter() - t13:.1f} s")
 
+    # phase 14: the parallel layer at full width, every shard on this card
+    # (K3, K4, K1 and K2 counted from 0 in sub-phases 1-3)
+    launches_sharded = run_sharded(dev, card, run["rate"])
+
     pallas = "softbody_tpu/ops/pallas/"
     probe_src = "scripts/probe_recmirror.py"
     rows = (
@@ -2609,6 +3194,8 @@ def main() -> int:
             row["launches_planified"] = plan[k.lower()]
         if k in ("K2", "K7"):
             row["launches_cli"] = launches_cli[k]
+        if k in launches_sharded:
+            row["launches_sharded"] = launches_sharded[k]
     log(f"path A rate: {rate_a:.1f} substeps/s, path B rate: "
         f"{rate_b:.1f} substeps/s on {card}")
     log(f"bench path rate: {run['rate']:.1f} substeps/s; far apply at its "

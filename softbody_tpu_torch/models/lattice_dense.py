@@ -83,6 +83,30 @@ def make_lattice(
         device)
 
 
+def folded_strip_lattice(w: int = 32, h: int = 8, spacing: float = 10.0,
+                         gap: float = 6.0, device=None) -> LatticeState:
+    """A springless ``w × h`` strip folded back on itself along x (the
+    strip of tests/test_fused_spatial2.py's ``boundary_fold``): column
+    ``i`` of the right half lies over column ``w − 1 − i`` of the left,
+    ``gap`` above it, the halves approaching at 1.5 a step.  The layers'
+    contacts span every column-slab boundary, so a sharded far field has
+    pairs across slabs."""
+    arrays = _lattice_numpy(w, h, spacing, 10.0, 10.0, 0.0, 0.0, 10.0,
+                            100.0, True, None)
+    half = w // 2
+    i = np.arange(w)
+    right = i >= half
+    xi = np.where(right, w - 1 - i, i)
+    x = 100.0 + xi * spacing + np.where(right, spacing * 0.5, 0.0)
+    y0 = np.where(right, 300.0 + gap, 300.0)
+    pos = np.stack(np.broadcast_arrays(
+        x[:, None], y0[:, None] + np.arange(h) * spacing * 3.0), -1)
+    arrays["pos"] = pos.astype(np.float32)
+    arrays["vel"] = np.zeros((w, h, 2), np.float32)
+    arrays["vel"][..., 1] = np.where(right, -1.5, 1.5)[:, None]
+    return _to_state(arrays, device)
+
+
 def tearing_cloth_lattice(
     n_particles: int = 1_000_000,
     spring: float = 200.0,

@@ -24,8 +24,14 @@ The float32 expressions follow the JAX package (true divisions, square
 roots through ``stencil.sqrt32``); sums over partners run in torch's
 order, so results agree with it to float32 rounding.  Index floats
 (``arange(n)`` as float32, as ``_grid`` and ``_window`` carry them) are
-exact below 2²⁴ particles.  The ``query=`` restriction of the JAX
-functions (the sharded path) is not ported.
+exact below 2²⁴ particles.
+
+``query=(pos_q, vel_q, alive_q, idx_q)`` restricts the terms to a subset
+of the particles against the full arrays, as the JAX functions do: the
+sharded general engine (``parallel/spatial.py``) evaluates each slab
+against the gathered world.  ``idx_q`` are the subset's global indices
+(self-exclusion and the nudge's order).  ``allpairs`` and ``grid`` take
+any subset; ``window`` takes the full set only, as in JAX.
 """
 
 from __future__ import annotations
@@ -44,18 +50,21 @@ _WINDOW_PAIRS = 1 << 24
 
 def collision_terms(pos: torch.Tensor, vel: torch.Tensor,
                     alive: torch.Tensor, consts: PhysicsConstants,
-                    cfg: StaticConfig):
-    """Dispatch on ``cfg.collision_mode``.  Returns ``(dv [N, 2], da [N,
-    2], dy [N])``: the velocity impulse sum, the acceleration
-    (penetration) sum and the coincident shift of ``p.y``."""
+                    cfg: StaticConfig, *, query=None):
+    """Dispatch on ``cfg.collision_mode``.  Returns ``(dv [Q, 2], da [Q,
+    2], dy [Q])``: the velocity impulse sum, the acceleration
+    (penetration) sum and the coincident shift of ``p.y`` of the queried
+    particles (``query``, default all ``N``)."""
     if cfg.collision_mode == "none":
-        z2 = torch.zeros_like(pos)
-        return z2, z2.clone(), torch.zeros_like(pos[:, 0])
+        z2 = torch.zeros_like(pos if query is None else query[0])
+        return z2, z2.clone(), torch.zeros_like(z2[:, 0])
     if cfg.collision_mode == "allpairs":
-        return _allpairs(pos, vel, alive, consts, cfg)
+        return _allpairs(pos, vel, alive, consts, cfg, query)
     if cfg.collision_mode == "grid":
-        return _grid(pos, vel, alive, consts, cfg)
+        return _grid(pos, vel, alive, consts, cfg, query)
     if cfg.collision_mode == "window":
+        if query is not None and query[0].shape[0] != pos.shape[0]:
+            raise NotImplementedError("window mode supports full-set queries")
         return _window(pos, vel, alive, consts, cfg)
     raise ValueError(cfg.collision_mode)
 
@@ -107,22 +116,24 @@ def _summed(terms):
             dy)
 
 
-def _allpairs(pos, vel, alive, consts, cfg):
+def _allpairs(pos, vel, alive, consts, cfg, query):
     n = pos.shape[0]
-    dev = pos.device
     tile = min(cfg.collision_tile, n)
-    idx = torch.arange(n, device=dev)
-    dv = torch.zeros_like(pos)
-    da = torch.zeros_like(pos)
-    dy = torch.zeros_like(pos[:, 0])
+    idx = torch.arange(n, device=pos.device)
+    pos_q, vel_q, alive_q, idx_q = (pos, vel, alive, idx) if query is None \
+        else query
+    dv = torch.zeros_like(pos_q)
+    da = torch.zeros_like(pos_q)
+    dy = torch.zeros_like(pos_q[:, 0])
     # tiles in order; the last one is short where the JAX scan reads a
     # zero pad (dead partners, which contribute exact zeros)
     for start in range(0, n, tile):
         j = slice(start, min(start + tile, n))
-        valid = alive[:, None] & alive[None, j] & (idx[:, None] != idx[None, j])
+        valid = (alive_q[:, None] & alive[None, j]
+                 & (idx_q[:, None] != idx[None, j]))
         tdv, tda, tdy = _summed(_pair_terms(
-            pos, vel, pos[None, j], vel[None, j], valid, consts, cfg, idx,
-            idx[None, j]))
+            pos_q, vel_q, pos[None, j], vel[None, j], valid, consts, cfg,
+            idx_q, idx[None, j]))
         dv = dv + tdv
         da = da + tda
         dy = dy + tdy
@@ -178,12 +189,16 @@ def build_grid(pos, alive, cfg: StaticConfig):
     return order, starts, overflow
 
 
-def _grid(pos, vel, alive, consts, cfg):
+def _grid(pos, vel, alive, consts, cfg, query):
     n = pos.shape[0]
     k = cfg.grid_cell_capacity
     dev = pos.device
+    pos_q, vel_q, alive_q, idx_q = (
+        (pos, vel, alive, torch.arange(n, device=dev)) if query is None
+        else query)
+    q = pos_q.shape[0]
     order, starts, _ = build_grid(pos, alive, cfg)
-    cx, cy, g = _cell_coords(pos, cfg)
+    cx, cy, g = _cell_coords(pos_q, cfg)
     # the 3 x 3 neighbour cells, dx-major (built on the device: a copy
     # from the host would wait for the stream)
     step3 = torch.arange(-1, 2, device=dev)
@@ -193,18 +208,17 @@ def _grid(pos, vel, alive, consts, cfg):
     ncell = torch.where(in_range, nx * g + ny, g * g)      # empty pad cell
 
     table_sorted = _packed_table(pos, vel, alive)[order]
-    c_start = starts[ncell]                                 # [N, 9]
+    c_start = starts[ncell]                                 # [Q, 9]
     c_count = torch.clamp(starts[ncell + 1] - c_start, max=k)
     slot = torch.arange(k, device=dev)
-    cand = c_start[..., None] + slot                        # [N, 9, K]
-    in_cell = (slot < c_count[..., None]).reshape(n, 9 * k)
-    rows = table_sorted[cand.reshape(n, 9 * k).clamp(0, n - 1)]
+    cand = c_start[..., None] + slot                        # [Q, 9, K]
+    in_cell = (slot < c_count[..., None]).reshape(q, 9 * k)
+    rows = table_sorted[cand.reshape(q, 9 * k).clamp(0, n - 1)]
     cand_idx = rows[..., 5].to(torch.int64)
-    idx = torch.arange(n, device=dev)
-    valid = (in_cell & (rows[..., 4] > 0.0) & (cand_idx != idx[:, None])
-             & alive[:, None])
-    return _summed(_pair_terms(pos, vel, rows[..., 0:2], rows[..., 2:4],
-                               valid, consts, cfg, idx, cand_idx))
+    valid = (in_cell & (rows[..., 4] > 0.0) & (cand_idx != idx_q[:, None])
+             & alive_q[:, None])
+    return _summed(_pair_terms(pos_q, vel_q, rows[..., 0:2], rows[..., 2:4],
+                               valid, consts, cfg, idx_q, cand_idx))
 
 
 def _window_bounds(sorted_cid, g: int, n: int, wrows: int):

@@ -488,6 +488,7 @@ def lattice_substep(
     far=None,
     ffspec=None,
     extra_force=None,
+    lin_x_offset=0,
 ) -> LatticeState:
     """One substep of the dense path (semantics of compute.wgsl:90-203).
 
@@ -500,7 +501,12 @@ def lattice_substep(
     (``farfield.far_collision_terms``) are added after ``far_delta``.
     ``extra_force``: ``(fx, fy)`` planes merged into the spring
     accumulator before the classes (``spring_pass``).
-    ``cfg.use_pallas``: collisions through kernel K3."""
+    ``cfg.use_pallas``: collisions through kernel K3.
+    ``lin_x_offset``: the global x of column 0 of a column slab, accepted
+    and ignored.  The coincident tiebreak ``sign(lin_i − lin_j)`` is the
+    per-offset constant ``−sign(dx·H + dy)``, the same on any slab, so the
+    JAX package's argument is vestigial there too
+    (``softbody_tpu/parallel/lattice_spatial.py:66-71``)."""
     sc = Scalars.of(consts_vector(consts, uin, cfg, spec.height))
     collide = cfg.collision_mode != "none"
     px, py = state.pos[..., 0], state.pos[..., 1]

@@ -512,3 +512,166 @@ def test_render_frame_card_matches_cpu(dev):
         imgs.append(torch.round(img * 255).to(torch.uint8).cpu())
     assert torch.equal(imgs[0], imgs[1])
     assert int((imgs[0].sum(-1) > 0).sum()) > 10_000
+
+
+def _slab_mesh(dev, n=4):
+    from softbody_tpu_torch.parallel import make_mesh
+
+    return make_mesh(n, dp=1, devices=[dev] * n)
+
+
+def test_sharded_fused_frames_match_unsharded(dev):
+    """The stirred 40 × 40 cloth in 4 slabs on one card: K4
+    (``fused_spatial``) and K1 (``fused_spatial2``, near field) equal the
+    single-device frames bit for bit, each kernel launched once a slab a
+    substep."""
+    from softbody_tpu_torch.parallel import fused_spatial as pfs
+    from softbody_tpu_torch.parallel import fused_spatial2 as pfs2
+
+    state, spec, cfg, consts, _spacing, _g = _stirred_cloth(dev)
+    cfg = dataclasses.replace(cfg, subticks=8)
+    uin = tb.UserInput()
+    mesh = _slab_mesh(dev)
+    ring = pfs.ghost_width(spec)
+
+    mut, immut = fused_substep.pack_lattice(state)
+    ref4 = fused_substep.fused_frame(mut, immut, consts, uin, spec, cfg)
+    m, im, w_loc = pfs.pack_lattice_sharded(state, 4, ghost=ring)
+    m, im = pfs.shard_stacks(m, im, mesh)
+    k4 = fused_substep.K4_LAUNCHES
+    out = pfs.fused_spatial_frame_fn(spec, cfg, mesh)(m, im, consts, uin)
+    assert fused_substep.K4_LAUNCHES - k4 == 4 * cfg.subticks
+    assert torch.equal(pfs.interiors(out, w_loc, dev), ref4)
+
+    hot, obs, imm, ec = fused_substep2.pack_lattice2(state)
+    ref_h, ref_o = fused_substep2.fused_frame2(hot, obs, imm, ec, consts,
+                                               uin, spec, cfg)
+    h, o, i2, ec2, w_loc = pfs2.pack_lattice2_sharded(state, 4, ghost=ring)
+    h, o, i2 = pfs2.shard_stacks2(h, o, i2, mesh)
+    k1 = fused_substep2.K1_LAUNCHES
+    h, o = pfs2.fused_spatial2_frame_fn(spec, cfg, mesh)(h, o, i2, ec2,
+                                                         consts, uin)
+    assert fused_substep2.K1_LAUNCHES - k1 == 4 * cfg.subticks
+    assert torch.equal(pfs.interiors(h, w_loc, dev), ref_h)
+    assert torch.equal(pfs.interiors(o, w_loc, dev), ref_o)
+
+
+def test_sharded_lattice_with_k3_matches_unsharded(dev):
+    """``lattice_spatial`` with ``use_pallas`` in 4 slabs on one card: K3
+    on each slab every substep, the frame equal to the single-device
+    ``lattice_frame`` bit for bit."""
+    from softbody_tpu_torch.ops.stencil import lattice_frame
+    from softbody_tpu_torch.parallel.lattice_spatial import (
+        lattice_spatial_frame_fn,
+        shard_lattice,
+        unshard_lattice,
+    )
+
+    state, spec, cfg, consts, _spacing, _g = _stirred_cloth(dev)
+    cfg = dataclasses.replace(cfg, subticks=8, use_pallas=True)
+    uin = tb.UserInput()
+    mesh = _slab_mesh(dev)
+    ref = lattice_frame(state, consts, uin, spec, cfg)
+    k3 = collide_stencil.K3_LAUNCHES
+    got = unshard_lattice(lattice_spatial_frame_fn(spec, cfg, mesh)(
+        shard_lattice(state, mesh), consts, uin))
+    assert collide_stencil.K3_LAUNCHES - k3 == 4 * cfg.subticks
+    for k in ("pos", "vel", "acc"):
+        assert torch.equal(getattr(got, k), getattr(ref, k)), k
+    for eg, er in zip(got.edges, ref.edges):
+        for f in dataclasses.fields(eg):
+            assert torch.equal(getattr(eg, f.name), getattr(er, f.name))
+
+
+def test_psum_int32_card_matches_cpu(dev):
+    """``psum`` of int32 shards on one card equals the CPU's (int32 sums
+    are exact in any order, wrapping included)."""
+    from softbody_tpu_torch.parallel.mesh import psum
+
+    g = torch.Generator().manual_seed(0)
+    xs = [torch.randint(-2**31, 2**31 - 1, (1000, 2), generator=g,
+                        dtype=torch.int32) for _ in range(4)]
+    ref = psum(xs)[0]
+    got = psum([x.to(dev) for x in xs])
+    assert all(torch.equal(t.cpu(), ref) for t in got)
+
+
+def test_sharded_frames_across_cards(dev):
+    """Four shards spread over the cards present (round robin; needs two
+    or more): every sharded frame equals the same frame with all four
+    shards on one card bit for bit (the collectives copy and sum in shard
+    order wherever the shards live), the far-armed one with far pairs
+    across the slabs, and the near-field frames equal the unsharded
+    ones."""
+    from softbody_tpu_torch.models import scenes
+    from softbody_tpu_torch.models.lattice_dense import folded_strip_lattice
+    from softbody_tpu_torch.ops.stencil import LatticeSpec, lattice_frame
+    from softbody_tpu_torch.parallel import (
+        make_mesh,
+        pad_state_for_mesh,
+        shard_state,
+        spatial_frame_fn,
+        unshard_state,
+    )
+    from softbody_tpu_torch.parallel import fused_spatial as pfs
+    from softbody_tpu_torch.parallel import fused_spatial2 as pfs2
+    from softbody_tpu_torch.parallel.lattice_spatial import (
+        lattice_spatial_frame_fn,
+        shard_lattice,
+        unshard_lattice,
+    )
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        pytest.skip("needs two or more CUDA devices")
+    spread = make_mesh(4, dp=1, devices=[torch.device("cuda", i % cards)
+                                         for i in range(4)])
+    one = _slab_mesh(dev)
+    state, spec, cfg, consts, _spacing, _g = _stirred_cloth(dev, side=64)
+    cfg = dataclasses.replace(cfg, subticks=8, use_pallas=True)
+    uin = tb.UserInput()
+
+    ref = lattice_frame(state, consts, uin, spec, cfg)
+    got = unshard_lattice(lattice_spatial_frame_fn(spec, cfg, spread)(
+        shard_lattice(state, spread), consts, uin), device=dev)
+    assert torch.equal(got.pos, ref.pos) and torch.equal(got.vel, ref.vel)
+
+    mut, immut = fused_substep.pack_lattice(state)
+    m, im, w_loc = pfs.pack_lattice_sharded(state, 4,
+                                            ghost=pfs.ghost_width(spec))
+    m, im = pfs.shard_stacks(m, im, spread)
+    out = pfs.fused_spatial_frame_fn(spec, cfg, spread)(m, im, consts, uin)
+    assert torch.equal(pfs.interiors(out, w_loc, dev),
+                       fused_substep.fused_frame(mut, immut, consts, uin,
+                                                 spec, cfg))
+
+    # the far field on a strip folded across every slab boundary (the
+    # settings of tests/test_fused_spatial2.py's fold): far pairs join
+    # slabs on different cards
+    fold = folded_strip_lattice(64, 8, device=dev)
+    fspec = LatticeSpec(64, 8, collision_stencil=2)
+    fcfg = tb.StaticConfig(subticks=8, collision_mode="allpairs",
+                           particle_radius=4.0, force_mode="quantized")
+    ff = FarFieldSpec(max_pairs=1024, max_tile_pairs=64, skin=4.0,
+                      horizon=8)
+    hots = {}
+    for name, mesh in (("spread", spread), ("one card", one)):
+        h, o, i2, ec, w_loc = pfs2.pack_lattice2_sharded(
+            fold, 4, ghost=pfs.ghost_width(fspec, ff))
+        h, o, i2 = pfs2.shard_stacks2(h, o, i2, mesh)
+        pfs2.far_stats()
+        h, o = pfs2.fused_spatial2_frame_fn(fspec, fcfg, mesh, ffspec=ff)(
+            h, o, i2, ec, consts, uin)
+        hots[name] = pfs.interiors(h, w_loc, dev)
+        stats = pfs2.far_stats()
+        print(f"far record, {name}: {stats}")
+        assert stats["max_overflow"] == 0 and stats["max_pairs"] > 0, stats
+    assert torch.equal(hots["spread"], hots["one card"])
+
+    flat, gcfg = scenes.cloth(32, 32, device=dev)
+    flat = pad_state_for_mesh(flat, 4)
+    outs = [unshard_state(spatial_frame_fn(gcfg, mesh)(
+        shard_state(flat, mesh), consts, uin), device=dev)
+        for mesh in (spread, one)]
+    assert torch.equal(outs[0].pos, outs[1].pos)
+    assert torch.equal(outs[0].beam_alive, outs[1].beam_alive)

@@ -65,6 +65,13 @@ PORT_MODULES = (
     "softbody_tpu_torch.utils",
     "softbody_tpu_torch.utils.png",
     "softbody_tpu_torch.utils.profiling",
+    "softbody_tpu_torch.parallel",
+    "softbody_tpu_torch.parallel.mesh",
+    "softbody_tpu_torch.parallel.batched",
+    "softbody_tpu_torch.parallel.spatial",
+    "softbody_tpu_torch.parallel.lattice_spatial",
+    "softbody_tpu_torch.parallel.fused_spatial",
+    "softbody_tpu_torch.parallel.fused_spatial2",
     "chip_smoke",
     "kernel_variants",
 )
