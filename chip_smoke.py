@@ -8,7 +8,10 @@ their plain versions.  The paths, each with the kernel launch counts set
 to 0 just before it and read just after:
 
 - the bench path: the 1M-particle tearing cloth with far-field
-  self-collision through ``FusedLatticeBackend`` (kernels K1, K2);
+  self-collision through ``FusedLatticeBackend`` with its default kernel
+  variants, bench.py's (K1 in its rsqrt+rollgroup instance, K2, K7),
+  timed in turns with the same backend strict (``kernel_variants=()``,
+  K1 strict); K1's four instances held against their plain versions;
 - path A: the dense ``LatticeBackend`` with ``use_pallas`` on the 1M
   tearing cloth with default arguments and far field armed with
   ``FarFieldSpec()`` (``play --path lattice --farfield``; K3, K2);
@@ -244,11 +247,19 @@ GENERAL_ATOL = {"pos": 2e-3, "vel": 4e-3}
 # the bench far field's 16384
 RUNTIME_FRAMES = 2
 
-# K1 and K4 against their plain versions: edge planes bit-exact,
-# particle planes within the port's parity tolerances
-# (tests/test_torch_substep.py); K2's flags and K3's deltas bit-exact
-# (K3: NaN where the plain version has NaN)
-K1_ATOL = {"pos": 1e-4, "vel": 1e-3, "acc": 1e-2, "obs": 1e-5}
+# K4 against its plain version: edge planes bit-exact, particle planes
+# within the port's parity tolerances (tests/test_torch_substep.py); K1
+# (each instance) bit-exact in every plane; K2's flags and K3's deltas
+# bit-exact (K3: NaN where the plain version has NaN)
+K4_ATOL = {"pos": 1e-4, "vel": 1e-3, "acc": 1e-2}
+# K1's instances (rsqrt, rollgroup flags) by name (fused_substep2.
+# k1_instance), and the JAX kernel's own tolerance between its variants
+# and strict (tests/test_fused2.py:217), for the bench frame and the
+# small fold
+K1_INSTANCES = {"strict": (False, False), "rsqrt": (True, False),
+                "rollgroup": (False, True), "rsqrt+rollgroup": (True, True)}
+VARIANT_ATOL = {"pos": 5e-2, "vel": 2e-1}
+VARIANT_SUBSTEPS = 4
 # the shapes K1 and K4 are held at: the bench lattice, and shapes whose
 # sides are multiples of neither tile side (16 rows x 32 lanes), one a
 # single lane wide; and the stencil radii
@@ -424,61 +435,62 @@ def _k14_state(w: int, h: int, dev, seed: int):
     return state, cfg, consts, g
 
 
-def _hold(label, got, ref, planes):
-    """``got`` against ``ref`` on the particle planes (pos, vel, acc) and
-    the named extra planes: the max |err| of each, raising above
-    K1_ATOL."""
+def _hold(label, got, ref):
+    """``got`` against ``ref`` on the particle planes (pos, vel, acc): the
+    max |err| of each, raising above K4_ATOL."""
     errs = {
         "pos": (got[0:2] - ref[0:2]).abs().max().item(),
         "vel": (got[2:4] - ref[2:4]).abs().max().item(),
         "acc": (got[4:6] - ref[4:6]).abs().max().item(),
-        **planes,
     }
     for k, e in errs.items():
-        if not e <= K1_ATOL[k]:
+        if not e <= K4_ATOL[k]:
             raise AssertionError(f"{label}: {k} max |err| {e} > "
-                                 f"{K1_ATOL[k]}")
+                                 f"{K4_ATOL[k]}")
     return errs
 
 
-def check_k1(w: int, h: int, dev) -> float:
-    """K1 against its plain version on the card at ``w × h``, at stencils
-    K14_STENCILS, quantized and float forces, with and without a far
-    stack, hot and observing: edge planes bit-exact, particle planes
-    (and obs on alive edges) within K1_ATOL."""
+def check_k1(w: int, h: int, dev) -> dict:
+    """K1's four instances (strict and the JAX kernel's arithmetic
+    variants) against the plain version with the same flags on the card
+    at ``w × h``, stencils K14_STENCILS, quantized and float forces, far
+    stack off and on, hot and observing, the mouse grabbing: every plane
+    bit for bit (the plain version's ``torch.rsqrt`` runs the card's
+    ``rsqrtf``).  Returns the largest |err| per instance (0.0)."""
     state, cfg, consts, g = _k14_state(w, h, dev, SEED + w + h)
     hot, obs, immut, ec = pack_lattice2(state)
-    cvec = torch.cat([tb.consts_vector(consts, tb.UserInput(), cfg, h), ec])
+    uin = tb.UserInput(mouse_active=True, mouse_pos=(490.0, 510.0),
+                       mouse_vel=(3.0, -1.0))
+    cvec = torch.cat([tb.consts_vector(consts, uin, cfg, h), ec])
     far = torch.randn((5, w, h), generator=g, device=dev) * 0.5
     worst = {}
-    for s, quantized, with_far, observe in itertools.product(
-            K14_STENCILS, (True, False), (False, True), (False, True)):
-        kw = dict(stencil=s, quantized=quantized,
-                  far=far if with_far else None,
-                  obs_in=obs if observe else None)
-        label = (f"K1 {w}x{h} s={s} quantized={quantized} far={with_far} "
-                 f"observe={observe}")
-        ref = fused_substep2_plain(hot, immut, cvec, **kw)
-        got = fused_substep2_call(hot, immut, cvec, **kw)
-        torch.cuda.synchronize()
-        ref_hot, ref_obs = ref if observe else (ref, None)
-        got_hot, got_obs = got if observe else (got, None)
-        if not torch.equal(got_hot[6:], ref_hot[6:]):
-            n_bad = int((got_hot[6:] != ref_hot[6:]).sum())
-            raise AssertionError(f"{label}: {n_bad} edge-plane values "
-                                 "differ from the plain version")
-        extra = {}
-        if observe:
-            live = torch.repeat_interleave(ref_hot[8::3] > 0, 2, dim=0)
-            extra["obs"] = ((got_obs - ref_obs).abs() * live).max().item()
-        for k, e in _hold(label, got_hot, ref_hot, extra).items():
-            worst[k] = max(worst.get(k, 0.0), e)
-    broke = int(((hot[8::3] > 0) & (ref_hot[8::3] == 0)).sum())
-    log(f"K1 {w}x{h}: {len(K14_STENCILS) * 8} cases (stencils "
-        f"{K14_STENCILS}, quantized/float, far on/off, observing on/off), "
-        f"edge planes bit-exact, max |err| {worst} ({broke} edges broke in "
-        "the last case)")
-    return max(worst.values())
+    for name, (rsqrt, rollgroup) in K1_INSTANCES.items():
+        worst[name] = 0.0
+        for s, quantized, with_far, observe in itertools.product(
+                K14_STENCILS, (True, False), (False, True), (False, True)):
+            kw = dict(stencil=s, quantized=quantized,
+                      far=far if with_far else None,
+                      obs_in=obs if observe else None,
+                      rsqrt=rsqrt, rollgroup=rollgroup)
+            ref = fused_substep2_plain(hot, immut, cvec, **kw)
+            got = fused_substep2_call(hot, immut, cvec, **kw)
+            torch.cuda.synchronize()
+            pairs = zip(got, ref) if observe else ((got, ref),)
+            for a, b in pairs:
+                n_bad = int(_differs(a, b).sum())
+                err = (a - b).abs().max().item()
+                if n_bad:
+                    raise AssertionError(
+                        f"K1 {name} {w}x{h} s={s} quantized={quantized} "
+                        f"far={with_far} observe={observe}: {n_bad} values "
+                        f"differ from the plain version (max |err| {err})")
+                worst[name] = max(worst[name], err)
+    broke = int(((hot[8::3] > 0) & (ref[0][8::3] == 0)).sum())
+    log(f"K1 {w}x{h}: {', '.join(K1_INSTANCES)} x stencils {K14_STENCILS}"
+        f" x quantized/float x far on/off x observing on/off, the mouse "
+        f"grabbing: every plane bit-exact against the plain version "
+        f"({broke} edges broke in the last case)")
+    return worst
 
 
 def _band_inputs(px, py, vx, vy, alive, cfg, ff, stencil):
@@ -625,7 +637,7 @@ def check_k4(w: int, h: int, dev) -> float:
     and length times a factor in [0.5, 1.5)), at stencils K14_STENCILS,
     quantized and float forces, with and without a far stack: edge planes
     (target, last, strain, stress, alive) bit-exact, particle planes
-    within K1_ATOL."""
+    within K4_ATOL."""
     state, cfg, consts, g = _k14_state(w, h, dev, SEED + 3 + w + h)
     mut, immut = pack_lattice(state)
     immut[2:] *= 0.5 + torch.rand(immut[2:].shape, generator=g, device=dev)
@@ -644,7 +656,7 @@ def check_k4(w: int, h: int, dev) -> float:
             n_bad = int((got[6:] != ref[6:]).sum())
             raise AssertionError(f"{label}: {n_bad} edge-plane values "
                                  "differ from the plain version")
-        for k, e in _hold(label, got, ref, {}).items():
+        for k, e in _hold(label, got, ref).items():
             worst[k] = max(worst.get(k, 0.0), e)
     eal = slice(10, 26, 5)
     broke = int(((mut[eal] > 0) & (ref[eal] == 0)).sum())
@@ -903,15 +915,19 @@ def _small_fold(dev) -> dict:
     ff = FarFieldSpec(max_pairs=512, max_tile_pairs=64, skin=4.0, horizon=8)
     out = {}
     cfg = tb.StaticConfig(subticks=8, particle_radius=4.0)
-    # the far apply's two routes: a ladder of buckets <= 256 (narrow) and
-    # the default ladder on a 512-pair list (the mirror table, K7)
-    for route, max_pairs, buckets in (("narrow", 64, (16,)),
-                                      ("mirror", 512, None)):
+    # the far apply's two routes, strict: a ladder of buckets <= 256
+    # (narrow) and the default ladder on a 512-pair list (the mirror
+    # table, K7); and the backend's default variants on a 64-pair list
+    # (krec: the mirror table for every bucket)
+    for label, route, max_pairs, buckets, kw in (
+            ("narrow route", "narrow", 64, (16,), {"kernel_variants": ()}),
+            ("mirror route", "mirror", 512, None, {"kernel_variants": ()}),
+            ("default variants", "mirror", 64, None, {})):
         fused = FusedLatticeBackend(spec, cfg, device=dev,
                                     far_buckets=buckets,
                                     farfield=dataclasses.replace(
                                         ff, max_pairs=max_pairs,
-                                        max_tile_pairs=32))
+                                        max_tile_pairs=32), **kw)
         hot = fused.pack_state(_hairpin(dev))
         before = dict(farfield4.APPLY_ROUTES)
         for _ in range(2):
@@ -920,7 +936,7 @@ def _small_fold(dev) -> dict:
         if ran[route] != 2 * cfg.subticks or sum(ran.values()) != ran[route]:
             raise AssertionError(f"small fold, fused backend: far applies "
                                  f"by route {ran}, want all {route}")
-        out[f"fused backend, {route} route"] = (fused.far_stats(), hot[0][0:4])
+        out[f"fused backend, {label}"] = (fused.far_stats(), hot[0][0:4])
     cfg = dataclasses.replace(cfg, use_pallas=True)
     dense = LatticeBackend(spec, cfg, farfield=ff, device=dev)
     st = _hairpin(dev)
@@ -941,7 +957,9 @@ def check_small_fold() -> None:
     """The small fold on the card against the CPU (the plain versions):
     far stats equal and non-empty, positions and velocities within
     tests/test_torch_frame.py's tolerances (the far apply's scatter
-    order differs on the card)."""
+    order differs on the card); the default variants within
+    VARIANT_ATOL (the card's ``rsqrtf`` is an approximation, the CPU's
+    ``rsqrt`` is ``1/sqrt``)."""
     cpu, gpu = _small_fold("cpu"), _small_fold("cuda")
     for k, (s_g, pv_g) in gpu.items():
         s_c, pv_c = cpu[k]
@@ -950,7 +968,9 @@ def check_small_fold() -> None:
                                  f"cuda {s_g}")
         dpos = (pv_g[0] - pv_c[0]).abs().max().item()
         dvel = (pv_g[1] - pv_c[1]).abs().max().item()
-        if not (dpos <= 5e-3 and dvel <= 5e-2):
+        atol = ((VARIANT_ATOL["pos"], VARIANT_ATOL["vel"]) if "default" in k
+                else (5e-3, 5e-2))
+        if not (dpos <= atol[0] and dvel <= atol[1]):
             raise AssertionError(f"small fold, {k}: cuda vs cpu |dpos| "
                                  f"{dpos} |dvel| {dvel}")
         log(f"small fold 96x4, {k}: cuda == cpu plain (far stats {s_g}; "
@@ -1085,79 +1105,177 @@ def run_path_b(dev) -> dict:
                 k4=k4, rate=rate)
 
 
-def run_main_path(state, spec, cfg, consts, spacing) -> dict:
-    """The bench scene through FusedLatticeBackend: a warm frame, then
-    TIMED_FRAMES frames with the kernels' launch counts from zero."""
-    be = FusedLatticeBackend(spec, cfg, farfield=_far_spec(spacing),
-                             device="cuda")
-    packed = be.pack_state(state)
-    uin = tb.UserInput()
-    n0, m0 = be.counts(packed)
-    t0 = time.perf_counter()
-    recmirror.K7_LAUNCHES = 0
-    packed = be.step(packed, consts, uin)
-    torch.cuda.synchronize()
-    first = be.far_stats()
-    log(f"main path: first frame {time.perf_counter() - t0:.2f} s, "
-        f"far stats {first}, K7 launches {recmirror.K7_LAUNCHES}")
-    if first["far_pairs"] == 0 and recmirror.K7_LAUNCHES:
-        raise AssertionError("main path: K7 launched before far pairs "
-                             "exist")
-    for _ in range(WARM_FRAMES - 1):
-        packed = be.step(packed, consts, uin)
-    be.far_stats()  # reset the window
-
+def _zero_k1_k2_k7() -> None:
     fused_substep2.K1_LAUNCHES = 0
+    for k in fused_substep2.K1_INSTANCE_LAUNCHES:
+        fused_substep2.K1_INSTANCE_LAUNCHES[k] = 0
     band_detect.K2_LAUNCHES = 0
     recmirror.K7_LAUNCHES = 0
-    routes0 = dict(farfield4.APPLY_ROUTES)
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    t0 = time.perf_counter()
-    start.record()
-    for _ in range(TIMED_FRAMES):
-        packed = be.step(packed, consts, uin)
-    end.record()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    k1, k2 = fused_substep2.K1_LAUNCHES, band_detect.K2_LAUNCHES
-    k7 = recmirror.K7_LAUNCHES
-    routes = {k: v - routes0[k] for k, v in farfield4.APPLY_ROUTES.items()}
-    stats = be.far_stats()
 
+
+def run_main_path(state, spec, cfg, consts, spacing) -> dict:
+    """The bench scene through ``FusedLatticeBackend`` as bench.py runs
+    it, with the default kernel variants (JAX's: K1 in its
+    rsqrt+rollgroup instance), and the same backend strict
+    (``kernel_variants=()``) from the same state: a first and a warm
+    frame each, then TIMED_FRAMES frames each in turns (default, strict,
+    strict, default; TIMED_FRAMES / 2 frames a turn), the kernels'
+    launch counts from zero before each turn and summed per path."""
+    uin = tb.UserInput()
+    runs = {}
+    for path, kvar in (("default", None), ("strict", ())):
+        kw = {} if kvar is None else {"kernel_variants": kvar}
+        be = FusedLatticeBackend(spec, cfg, farfield=_far_spec(spacing),
+                                 device="cuda", **kw)
+        packed = be.pack_state(state)
+        n0, m0 = be.counts(packed)
+        t0 = time.perf_counter()
+        recmirror.K7_LAUNCHES = 0
+        packed = be.step(packed, consts, uin)
+        torch.cuda.synchronize()
+        first = be.far_stats()
+        log(f"main path ({path}, kvar {be.kvar}): first frame "
+            f"{time.perf_counter() - t0:.2f} s, far stats {first}, K7 "
+            f"launches {recmirror.K7_LAUNCHES}")
+        if first["far_pairs"] == 0 and recmirror.K7_LAUNCHES:
+            raise AssertionError("main path: K7 launched before far pairs "
+                                 "exist")
+        for _ in range(WARM_FRAMES - 1):
+            packed = be.step(packed, consts, uin)
+        be.far_stats()  # reset the window
+        runs[path] = dict(be=be, packed=packed, n0=n0, m0=m0, ms=0.0,
+                          wall=0.0, k1=0, k2=0, k7=0, stats=None,
+                          k1_instances=dict.fromkeys(
+                              fused_substep2.K1_INSTANCE_LAUNCHES, 0),
+                          routes=dict.fromkeys(farfield4.APPLY_ROUTES, 0))
+    half = TIMED_FRAMES // 2
+    for path in ("default", "strict", "strict", "default"):
+        r = runs[path]
+        _zero_k1_k2_k7()
+        routes0 = dict(farfield4.APPLY_ROUTES)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(half):
+            r["packed"] = r["be"].step(r["packed"], consts, uin)
+        end.record()
+        torch.cuda.synchronize()
+        r["wall"] += time.perf_counter() - t0
+        r["ms"] += start.elapsed_time(end)
+        r["k1"] += fused_substep2.K1_LAUNCHES
+        r["k2"] += band_detect.K2_LAUNCHES
+        r["k7"] += recmirror.K7_LAUNCHES
+        for k, v in fused_substep2.K1_INSTANCE_LAUNCHES.items():
+            r["k1_instances"][k] += v
+        for k, v in farfield4.APPLY_ROUTES.items():
+            r["routes"][k] += v - routes0[k]
     substeps = TIMED_FRAMES * cfg.subticks
-    hot = packed[0]
-    if not bool(torch.isfinite(hot[:6]).all()):
-        raise AssertionError("main path: non-finite particle state")
-    if tuple(hot.shape) != (18, spec.width, spec.height):
-        raise AssertionError(f"main path: hot shape {tuple(hot.shape)}")
-    if stats["far_overflow"] != 0:
-        raise AssertionError(f"main path: far_overflow {stats}")
-    if k1 != substeps:
-        raise AssertionError(f"main path: K1 launched {k1} times for "
-                             f"{substeps} substeps")
-    if k2 != stats["far_rebuilds"] or k2 == 0:
-        raise AssertionError(f"main path: K2 launched {k2} times for "
-                             f"{stats['far_rebuilds']} rebuilds")
-    # the default ladder's smallest bucket is 1024 > 256: every substep
-    # with pairs applies them through the mirror table, one K7 launch
-    if k7 == 0 or k7 != routes["mirror"] or routes["narrow"]:
-        raise AssertionError(f"main path: K7 launched {k7} times; far "
-                             f"applies by route {routes}")
-    n1, m1 = be.counts(packed)
-    ms = start.elapsed_time(end)
-    rate = substeps / (ms / 1000.0)
-    pos = hot[0:2]
-    log(f"main path: {spec.width}x{spec.height} lattice, {n1} particles, "
-        f"alive beams {m0} -> {m1}; {TIMED_FRAMES} frames = {substeps} "
-        f"substeps in {ms:.1f} ms (CUDA events; host {wall:.3f} s) = "
-        f"{rate:.1f} substeps/s; far stats {stats}; K1 launches {k1}, "
-        f"K2 launches {k2}, K7 launches {k7} ({k7} of {substeps} substeps "
-        f"with far pairs); pos range [{pos.min().item():.2f}, "
-        f"{pos.max().item():.2f}]")
-    return dict(be=be, packed=packed, k1=k1, k2=k2, k7=k7, rate=rate,
-                frame_ms=ms / TIMED_FRAMES, stats=stats)
+    for path, r in runs.items():
+        be, hot = r["be"], r["packed"][0]
+        stats = r["stats"] = be.far_stats()
+        k1, k2, k7, routes = r["k1"], r["k2"], r["k7"], r["routes"]
+        instance = "rsqrt+rollgroup" if path == "default" else "strict"
+        if not bool(torch.isfinite(hot[:6]).all()):
+            raise AssertionError(f"main path ({path}): non-finite particle "
+                                 "state")
+        if tuple(hot.shape) != (18, spec.width, spec.height):
+            raise AssertionError(f"main path ({path}): hot shape "
+                                 f"{tuple(hot.shape)}")
+        if stats["far_overflow"] != 0 or stats["far_pairs"] == 0:
+            raise AssertionError(f"main path ({path}): far stats {stats}")
+        if k1 != substeps or r["k1_instances"][instance] != substeps:
+            raise AssertionError(f"main path ({path}): K1 launched {k1} "
+                                 f"times ({r['k1_instances']}) for "
+                                 f"{substeps} substeps")
+        if k2 != stats["far_rebuilds"] or k2 == 0:
+            raise AssertionError(f"main path ({path}): K2 launched {k2} "
+                                 f"times for {stats['far_rebuilds']} "
+                                 "rebuilds")
+        # the default ladder's smallest bucket is 1024 > 256: every
+        # substep with pairs applies them through the mirror table, one
+        # K7 launch (krec, the default, changes nothing here)
+        if k7 == 0 or k7 != routes["mirror"] or routes["narrow"]:
+            raise AssertionError(f"main path ({path}): K7 launched {k7} "
+                                 f"times; far applies by route {routes}")
+        n1, m1 = be.counts(r["packed"])
+        r["rate"] = substeps / (r["ms"] / 1000.0)
+        r["frame_ms"] = r["ms"] / TIMED_FRAMES
+        pos = hot[0:2]
+        log(f"main path ({path}): {spec.width}x{spec.height} lattice, {n1} "
+            f"particles, alive beams {r['m0']} -> {m1}; {TIMED_FRAMES} "
+            f"frames = {substeps} substeps in {r['ms']:.1f} ms (CUDA "
+            f"events, in turns; host {r['wall']:.3f} s) = "
+            f"{r['rate']:.1f} substeps/s; far stats {stats}; K1 launches "
+            f"{k1} ({instance}), K2 launches {k2}, K7 launches {k7} ({k7} "
+            f"of {substeps} substeps with far pairs); pos range "
+            f"[{pos.min().item():.2f}, {pos.max().item():.2f}]")
+    run = runs["default"]
+    run["strict"] = runs["strict"]
+    return run
+
+
+def check_default_frame10(state, spec, cfg, consts, spacing) -> dict:
+    """Frame 10 of the bench scene (the first in which the far field
+    changes its state) from the strict path's frame 9, through the
+    default backend, the strict one, and the strict one from frame 9
+    with every vx one ulp up (the control).  The default's first
+    VARIANT_SUBSTEPS substeps of frame 10 stay within VARIANT_ATOL of
+    strict's, edge liveness equal (JAX's own variant test runs that many
+    substeps); its whole frame is finite, with far pairs and no
+    overflow.  Over a whole frame the tearing sheet turns any rounding
+    difference into an O(1) one (the control shows how far), so frame
+    10 as a whole is compared beside the control, not held to the
+    tolerance.  Returns the largest differences by horizon."""
+    uin = tb.UserInput()
+    ff = _far_spec(spacing)
+    strict = FusedLatticeBackend(spec, cfg, farfield=ff, device="cuda",
+                                 kernel_variants=())
+    default = FusedLatticeBackend(spec, cfg, farfield=ff, device="cuda")
+    hot9, obs9 = strict.pack_state(state)
+    for _ in range(9):
+        hot9, obs9 = strict.step((hot9, obs9), consts, uin)
+    ulp = hot9.clone()
+    ulp[VX] = torch.nextafter(ulp[VX], torch.full_like(ulp[VX], math.inf))
+
+    def frame(kvar, n_sub, hot=hot9):
+        h, _o, st = fused_frame4(hot.clone(), obs9.clone(), strict._immut,
+                                 strict._edge_consts, consts, uin, spec, cfg,
+                                 ff, n_sub=n_sub, kvar=kvar)
+        return h, dict(zip(("far_rebuilds", "far_pairs", "far_overflow",
+                            "far_active"), st.tolist()))
+
+    def diff(a, b):
+        return {"pos": (a[0:2] - b[0:2]).abs().max().item(),
+                "vel": (a[2:4] - b[2:4]).abs().max().item(),
+                "edges alive differ": int((a[8::3] != b[8::3]).sum())}
+
+    kvar = default._checked_kvar(consts)
+    out = {}
+    for n_sub in (VARIANT_SUBSTEPS, 16, cfg.subticks):
+        ref, _st = frame((), n_sub)
+        got, st = frame(kvar, n_sub)
+        out[n_sub] = {"default": diff(got, ref),
+                      "strict, vx one ulp up": diff(frame((), n_sub, ulp)[0],
+                                                    ref)}
+        if (not bool(torch.isfinite(got[:6]).all()) or st["far_overflow"]
+                or not st["far_pairs"]):
+            raise AssertionError(f"bench frame 10, default, {n_sub} "
+                                 f"substeps: far stats {st}")
+    errs = out[VARIANT_SUBSTEPS]["default"]
+    if not (errs["pos"] <= VARIANT_ATOL["pos"]
+            and errs["vel"] <= VARIANT_ATOL["vel"]
+            and errs["edges alive differ"] == 0):
+        raise AssertionError(
+            f"bench frame 10, default vs strict from the same frame 9, "
+            f"{VARIANT_SUBSTEPS} substeps: {errs} beyond {VARIANT_ATOL}")
+    log(f"bench frame 10 from strict's frame 9, default {kvar} vs strict: "
+        f"first {VARIANT_SUBSTEPS} substeps max |err| {errs} (within "
+        f"{VARIANT_ATOL}; the one-ulp control "
+        f"{out[VARIANT_SUBSTEPS]['strict, vx one ulp up']}); 16 substeps "
+        f"{out[16]}; the whole frame {out[cfg.subticks]}")
+    return out
 
 
 def time_at_final_state(run, spec, cfg, consts, parent=None) -> dict:
@@ -1232,8 +1350,19 @@ def time_at_final_state(run, spec, cfg, consts, parent=None) -> dict:
     cvec = torch.cat([tb.consts_vector(consts, tb.UserInput(), cfg,
                                        spec.height), be._edge_consts])
     k1kw = dict(stencil=s, quantized=True, far=far)
-    t["K1"] = _device_ms(lambda: fused_substep2_call(hot, immut, cvec,
-                                                     **k1kw), 50)
+    # K1's instances, each timed on the bench path's inputs; the default
+    # (rsqrt+rollgroup, the main path's) and strict in turns (strict,
+    # default, default, strict)
+    k1fn = {name: (lambda f=flags: fused_substep2_call(
+        hot, immut, cvec, rsqrt=f[0], rollgroup=f[1], **k1kw))
+        for name, flags in K1_INSTANCES.items()}
+    turns = {"strict": [], "rsqrt+rollgroup": []}
+    for name in ("strict", "rsqrt+rollgroup", "rsqrt+rollgroup", "strict"):
+        turns[name].append(_device_ms(k1fn[name], 50))
+    for name in K1_INSTANCES:
+        t[f"K1 {name}"] = (sum(turns[name]) / 2 if name in turns
+                           else _device_ms(k1fn[name], 50))
+    t["K1"] = t["K1 rsqrt+rollgroup"]
     t["K1 s0"] = _device_ms(lambda: fused_substep2_call(
         hot, immut, cvec, **dict(k1kw, stencil=0)), 50)
     t["compare"] = {}
@@ -1242,8 +1371,20 @@ def time_at_final_state(run, spec, cfg, consts, parent=None) -> dict:
             lambda: _raw_k1(parent, hot, immut, cvec, st, True, far),
             lambda: _raw_k1(_lib.library(), hot, immut, cvec, st, True, far),
             50)
-    t["K1 plain"] = _timed_ms(lambda: fused_substep2_plain(hot, immut, cvec,
-                                                           **k1kw), 5)
+    for name, (rq, rg) in K1_INSTANCES.items():
+        t[f"K1 {name} plain"] = _timed_ms(
+            lambda: fused_substep2_plain(hot, immut, cvec, rsqrt=rq,
+                                         rollgroup=rg, **k1kw), 5)
+    t["K1 plain"] = t["K1 rsqrt+rollgroup plain"]
+    log("K1 at the bench final state, device ms in turns: strict "
+        f"{turns['strict'][0]:.4f}, default (rsqrt+rollgroup) "
+        f"{turns['rsqrt+rollgroup'][0]:.4f}, default "
+        f"{turns['rsqrt+rollgroup'][1]:.4f}, strict {turns['strict'][1]:.4f}"
+        " (ratio default / strict "
+        f"{t['K1 rsqrt+rollgroup'] / t['K1 strict']:.3f}); rsqrt "
+        f"{t['K1 rsqrt']:.4f}, rollgroup {t['K1 rollgroup']:.4f}; plain "
+        + ", ".join(f"{n} {t[f'K1 {n} plain']:.2f}" for n in K1_INSTANCES)
+        + " ms")
     planes5 = planes
     *planes, offsets = _band_inputs(hot[PX], hot[PY], hot[VX], hot[VY],
                                     alive, cfg, ff, s)
@@ -1674,23 +1815,30 @@ def check_wide_k2_and_skip_flag(dev) -> None:
     cvec = torch.cat([tb.consts_vector(consts, tb.UserInput(), cfg, h), ec])
     cvec[1] = 1e-19
     mut, immut4 = pack_lattice(st)
-    for k, call, plain, args in (
+    default = dict(rsqrt=True, rollgroup=True)
+    for k, call, plain, args, flags in (
             ("K1", fused_substep2_call, fused_substep2_plain,
-             (hot, immut, cvec)),
+             (hot, immut, cvec), {}),
+            ("K1 rsqrt+rollgroup", fused_substep2_call, fused_substep2_plain,
+             (hot, immut, cvec), default),
             ("K4", fused_substep_call, fused_substep_plain,
-             (mut, immut4, cvec[:20].clone()))):
+             (mut, immut4, cvec[:20].clone()), {})):
         for s in (1, 2):
-            kw = dict(stencil=s, quantized=True)
+            kw = dict(stencil=s, quantized=True, **flags)
             ref = plain(*args, **kw)
             got = call(*args, **kw)
             torch.cuda.synchronize()
             n_bad = int(_differs(got, ref).sum())
             n_nan = int(torch.isnan(ref).any(0).sum())
-            if n_bad or not n_nan:
+            # strict: the terms of pairs apart are ±0 x inf = NaN, which
+            # the skip must not hide; under rsqrt they are +0
+            if n_bad or (not n_nan and not flags):
                 raise AssertionError(f"{k} dt=1e-19 s={s}: {n_bad} values "
                                      f"differ ({n_nan} NaN particles)")
-    log(f"K1/K4 at {w}x{h} with dt = 1e-19 (clip overflows, no skip): "
-        "bitwise equal to the plain versions, NaN included, stencils 1, 2")
+    log(f"K1/K4 at {w}x{h} with dt = 1e-19 (clip overflows, no skip; "
+        "K1's rsqrt+rollgroup instance skips: its terms of a pair apart "
+        "are +0 whatever clip is): bitwise equal to the plain versions, "
+        "NaN included, stencils 1, 2")
 
 
 # ---------------------------------------------------------------------------
@@ -2153,7 +2301,8 @@ def run_fused_activation(dev, bench_rate: float, card: str) -> dict:
     rates = {}
     for act in (False, True):
         be = FusedLatticeBackend(spec, cfg, farfield=_far_spec(spacing),
-                                 far_activation=act, device=dev)
+                                 far_activation=act, device=dev,
+                                 kernel_variants=())
         box = [be.pack_state(state)]
 
         def step():
@@ -3080,9 +3229,12 @@ def main() -> int:
     st, cfg_r, consts_r, g = _k14_state(*K3_RAGGED, dev, SEED + 4)
     errs["K3"] = max(errs["K3"], check_k3(
         "{}x{}".format(*K3_RAGGED), st, cfg_r, consts_r, g))
+    k1_errs = dict.fromkeys(K1_INSTANCES, 0.0)
     for w, h in K14_SHAPES:
-        errs["K1"] = max(errs["K1"], check_k1(w, h, dev))
+        for name, e in check_k1(w, h, dev).items():
+            k1_errs[name] = max(k1_errs[name], e)
         errs["K4"] = max(errs["K4"], check_k4(w, h, dev))
+    errs["K1"] = k1_errs["rsqrt+rollgroup"]
     log("phases 2-3 kernels vs plain: ok")
 
     # phase 4: the probe (K5-K7 at the probe's and the 1M sizes)
@@ -3092,10 +3244,14 @@ def main() -> int:
     # phase 5: small end-to-end against the plain versions on the CPU
     check_small_fold()
 
-    # phase 6: the bench path at full size
+    # phase 6: the bench path at full size, bench.py's default variants
+    # and strict in turns; frame 10 of both from one frame 9
     state, spec, cfg, consts, spacing = scenes_1m[N_PARTICLES]
     run = run_main_path(state, spec, cfg, consts, spacing)
-    del scenes_1m
+    strict_run = run.pop("strict")
+    del strict_run["be"], strict_run["packed"]
+    frame10 = check_default_frame10(state, spec, cfg, consts, spacing)
+    del scenes_1m, state
 
     # phase 7: times at the bench path's final state, kernels against
     # their plain versions
@@ -3149,7 +3305,7 @@ def main() -> int:
     parts["config 4 vs cpu"] = lap()
     check_planified_fold(dev)
     parts["fold"] = lap()
-    act = run_fused_activation(dev, run["rate"], card)
+    act = run_fused_activation(dev, strict_run["rate"], card)
     parts["activation"] = lap()
     log(f"phase 12 planified: {t12[-1] - t12[0]:.1f} s ({parts})")
 
@@ -3188,6 +3344,15 @@ def main() -> int:
          "bound_by": bounds[k][1], "library_ms": t.get(f"{k} library")}
         for k, name, src, tpu, launches in rows
     ]
+    # K1 per instance: launches on the bench path (the default's turns,
+    # the strict turns), device ms at its final state, plain ms, max
+    # |err| against the plain version
+    kernels[0]["instances"] = {
+        name: {"launches": run["k1_instances"][name]
+               + strict_run["k1_instances"][name],
+               "ms": t[f"K1 {name}"], "plain_ms": t[f"K1 {name} plain"],
+               "max_abs_err": k1_errs[name]}
+        for name in K1_INSTANCES}
     for row in kernels:
         k = row["name"].split()[0]
         if k in ("K2", "K3", "K7"):
@@ -3198,6 +3363,11 @@ def main() -> int:
             row["launches_sharded"] = launches_sharded[k]
     log(f"path A rate: {rate_a:.1f} substeps/s, path B rate: "
         f"{rate_b:.1f} substeps/s on {card}")
+    log(f"bench path, default variants (bench.py's): {run['rate']:.1f} "
+        f"substeps/s, K1 rsqrt+rollgroup {t['K1 rsqrt+rollgroup']:.4f} ms; "
+        f"strict in turns: {strict_run['rate']:.1f} substeps/s, K1 strict "
+        f"{t['K1 strict']:.4f} ms; frame 10 from one frame 9, default vs "
+        f"strict by substeps run {frame10} on {card}")
     log(f"bench path rate: {run['rate']:.1f} substeps/s; far apply at its "
         f"final state (fixed-order scatter): device "
         f"{t.get('apply device', float('nan')):.4f} ms per substep, "

@@ -1,9 +1,12 @@
 // K1: one whole lattice substep, hand-written for Hopper (sm_90a).
 //
 // Replaces: softbody_tpu/ops/pallas/fused_substep2.py:_kernel2 (the
-// Pallas TPU kernel launched by fused_substep2_call), strict physics
-// only (no kernel variants).  Plain version:
-// softbody_tpu_torch/ops/stencil.py (substep_planes), reached through
+// Pallas TPU kernel launched by fused_substep2_call), in four instances:
+// strict, and the JAX kernel's arithmetic variants rsqrt, rollgroup and
+// both (its default, rollgroup + rsqrt + dexp2 + layout flags; dexp2 is
+// the strict drag's |v|^2 = |v|*|v| already, the layout flags are
+// Mosaic's).  Plain version: softbody_tpu_torch/ops/stencil.py
+// (substep_planes, with the same flags), reached through
 // softbody_tpu_torch/ops/cuda/fused_substep2.py:fused_substep2_plain.
 //
 // What bounds it on the card: device-memory bytes, once the arithmetic
@@ -38,7 +41,9 @@
 // must see the previous substep).
 //
 // Exactness: each cell sums per class -own + reaction and per half
-// offset (acc + t(i, i+o)) - t(i-o, i), the order of the plain version.
+// offset (acc + t(i, i+o)) - t(i-o, i), the order of the plain version
+// (under ROLLGROUP its grouped order: lattice_device.cuh, collide_half
+// and spring_sums).
 // A reaction read from the force planes is the value the owner computed
 // for its own spring, the same function of the same operands, so sharing
 // it is bit-identical; outside the grid it is +0, the plain version's
@@ -63,8 +68,9 @@ struct Consts {
 
 // SKIP: pair_skip_allowed for the launch's constants (a template
 // parameter, so the usual instance compiles as if the skip were
-// unconditional)
-template <bool SKIP>
+// unconditional; under RSQRT always true).  RSQRT, ROLLGROUP: the
+// arithmetic variants (lattice_device.cuh).
+template <bool SKIP, bool RSQRT, bool ROLLGROUP>
 __global__ void __launch_bounds__(SUB_THREADS, 5)
 fused_substep2_kernel(const float* __restrict__ hot,
                       const float* __restrict__ immut,
@@ -128,7 +134,7 @@ fused_substep2_kernel(const float* __restrict__ hot,
     const float damp = v[N_CONSTS + 5 * c + 1];
     const int lp = lc + dx * t.sy + dy;
     const Spring own =
-        spring_eval(px, py, t.px[lp], t.py[lp],
+        spring_eval<RSQRT>(px, py, t.px[lp], t.py[lp],
                     eal[c] && al_c && t.al[lp] > 0.0f, tgt[c], lst[c], k,
                     damp);
     fp[2 * c * SUB_FN + force_index(r, l)] = force_bits(own.fvx, quantized);
@@ -169,7 +175,7 @@ fused_substep2_kernel(const float* __restrict__ hot,
       }
       const int lo = (hr + R) * t.sy + hl + R;
       const int lp = lo + EDX[hc] * t.sy + EDY[hc];
-      const Spring sp = spring_eval(
+      const Spring sp = spring_eval<RSQRT>(
           t.px[lo], t.py[lo], t.px[lp], t.py[lp],
           heal && t.al[lo] > 0.0f && t.al[lp] > 0.0f, htgt, hlst, k, damp);
       fvx = sp.fvx;
@@ -181,12 +187,12 @@ fused_substep2_kernel(const float* __restrict__ hot,
   }
   __syncthreads();
   float bfx, bfy;
-  spring_sums(fp, r, l, quantized, bfx, bfy);
+  spring_sums<ROLLGROUP>(fp, r, l, quantized, bfx, bfy);
   if (!live) return;
 
   // ---- collisions: half offsets, (acc + t(i, i+o)) - t(i-o, i) --------
-  Terms d = collide_half(t, lc, x, y, w, h, s, v[0], v[1], v[7], v[8],
-                         SKIP);
+  Terms d = collide_half<RSQRT, ROLLGROUP>(t, lc, x, y, w, h, s, v[0], v[1],
+                                           v[7], v[8], SKIP);
   if (far != nullptr) {
     d.dvx = d.dvx + far[g];
     d.dvy = d.dvy + far[WH + g];
@@ -199,7 +205,7 @@ fused_substep2_kernel(const float* __restrict__ hot,
   const Particle in = {px, py, t.vx[lc], t.vy[lc], hot[AX * WH + g],
                        hot[AY * WH + g]};
   const Particle o =
-      integrate(in, al_c, immut[WH + g] > 0.0f, d, bfx, bfy, v);
+      integrate<RSQRT>(in, al_c, immut[WH + g] > 0.0f, d, bfx, bfy, v);
   hot_out[PX * WH + g] = o.px;
   hot_out[PY * WH + g] = o.py;
   hot_out[VX * WH + g] = o.vx;
@@ -216,22 +222,44 @@ extern "C" const char* sb_error_string(int err) {
 
 // Pointers are device pointers except `consts_host` (40 floats, copied
 // into the launch by value).  `far` and `obs_in`/`obs_out` may be null.
-extern "C" int sb_fused_substep2(const float* hot, const float* immut,
-                                 const float* far, const float* obs_in,
-                                 float* hot_out, float* obs_out,
-                                 const float* consts_host, int w, int h,
-                                 int stencil, int quantized, void* stream) {
+// `rsqrt`, `rollgroup` pick the instance.
+extern "C" int sb_fused_substep2_variant(const float* hot, const float* immut,
+                                         const float* far,
+                                         const float* obs_in, float* hot_out,
+                                         float* obs_out,
+                                         const float* consts_host, int w,
+                                         int h, int stencil, int quantized,
+                                         int rsqrt, int rollgroup,
+                                         void* stream) {
   Consts cs;
   memcpy(cs.v, consts_host, sizeof(cs.v));
   const size_t smem = substep_smem_bytes(stencil);
   dim3 block(SUB_TY, SUB_TX);
   dim3 grid((h + SUB_TY - 1) / SUB_TY, (w + SUB_TX - 1) / SUB_TX);
-  const auto kernel = pair_skip_allowed(cs.v) ? fused_substep2_kernel<true>
-                                              : fused_substep2_kernel<false>;
+  const bool skip = pair_skip_allowed(cs.v);
+  const auto kernel =
+      rsqrt ? (rollgroup ? fused_substep2_kernel<true, true, true>
+                         : fused_substep2_kernel<true, true, false>)
+      : rollgroup ? (skip ? fused_substep2_kernel<true, false, true>
+                          : fused_substep2_kernel<false, false, true>)
+                  : (skip ? fused_substep2_kernel<true, false, false>
+                          : fused_substep2_kernel<false, false, false>);
   kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
       hot, immut, far, obs_in, hot_out, obs_out, cs, w, h, stencil,
       quantized);
   return (int)cudaGetLastError();
+}
+
+// The strict instance (the entry of earlier builds, kept for comparing
+// checkouts).
+extern "C" int sb_fused_substep2(const float* hot, const float* immut,
+                                 const float* far, const float* obs_in,
+                                 float* hot_out, float* obs_out,
+                                 const float* consts_host, int w, int h,
+                                 int stencil, int quantized, void* stream) {
+  return sb_fused_substep2_variant(hot, immut, far, obs_in, hot_out, obs_out,
+                                   consts_host, w, h, stencil, quantized, 0,
+                                   0, stream);
 }
 
 // The kernel's residency at stencil radius `stencil`: out[0] blocks per
@@ -241,10 +269,12 @@ extern "C" int sb_fused_substep2(const float* hot, const float* immut,
 extern "C" int sb_fused_substep2_occupancy(int stencil, int* out) {
   const size_t smem = substep_smem_bytes(stencil);
   cudaFuncAttributes a;
-  int err = (int)cudaFuncGetAttributes(&a, fused_substep2_kernel<true>);
+  int err = (int)cudaFuncGetAttributes(
+      &a, fused_substep2_kernel<true, false, false>);
   if (err != 0) return err;
   err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &out[0], fused_substep2_kernel<true>, SUB_THREADS, smem);
+      &out[0], fused_substep2_kernel<true, false, false>, SUB_THREADS,
+      smem);
   out[1] = a.numRegs;
   out[2] = (int)a.localSizeBytes;
   out[3] = (int)smem;

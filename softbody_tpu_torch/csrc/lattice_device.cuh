@@ -7,6 +7,18 @@
 // (softbody_tpu_torch/ops/stencil.py) in the same order; with
 // -fmad=false and no fast math each one rounds as there.
 //
+// Kernel variants.  spring_eval, pair_terms, integrate and collide_half
+// take the JAX kernel's arithmetic variants as template flags, strict
+// by default (K3 and K4 use only the defaults):
+// - RSQRT: rsqrtf and products where strict takes sqrtf and a divide,
+//   contact and grab tests on squared distances, the terms of a pair not
+//   in contact +0 (fused_substep2.py:593-600, :736-745, :850-854,
+//   :884-889).  rsqrtf is the card's approximate reciprocal square root
+//   (rsqrt.approx.f32), which torch.rsqrt on CUDA tensors also runs;
+// - ROLLGROUP (K1's collide_half and spring_sums): the partners'
+//   reactions summed per dy after the loop over offsets or classes
+//   (fused_substep2.py:646-658, :764-786).
+//
 // The block substep.  K1 and K4 are bound by device-memory bytes once
 // their arithmetic is cut to what the inputs need.  Every spring and
 // every collision pair that can touch costs an IEEE square root and
@@ -70,7 +82,9 @@ struct Spring {
   bool active;
 };
 
-// owner o, partner p = o + (dx, dy); identical at both endpoints
+// owner o, partner p = o + (dx, dy); identical at both endpoints.
+// RSQRT: inv = rsqrt(d2) (1e10 at d2 = 0) and ln = d2 * inv.
+template <bool RSQRT = false>
 __device__ __forceinline__ Spring spring_eval(float opx, float opy,
                                               float ppx, float ppy,
                                               bool active, float tgt,
@@ -78,15 +92,28 @@ __device__ __forceinline__ Spring spring_eval(float opx, float opy,
   Spring r;
   float ddx = ppx - opx;
   float ddy = ppy - opy;
-  float raw = sqrtf(ddx * ddx + ddy * ddy);
-  bool zero = raw == 0.0f;
-  if (zero) {
-    ddx = 0.0f;
-    ddy = -1.0e-10f;
+  float inv;
+  if constexpr (RSQRT) {
+    const float d2 = ddx * ddx + ddy * ddy;
+    const bool zero = d2 == 0.0f;
+    if (zero) {
+      ddx = 0.0f;
+      ddy = -1.0e-10f;
+    }
+    inv = zero ? 1.0e10f : rsqrtf(d2);
+    r.ln = zero ? 1.0e-10f : d2 * inv;
+    r.fmag = (tgt - r.ln) * k + (lst - r.ln) * c;
+  } else {
+    float raw = sqrtf(ddx * ddx + ddy * ddy);
+    bool zero = raw == 0.0f;
+    if (zero) {
+      ddx = 0.0f;
+      ddy = -1.0e-10f;
+    }
+    r.ln = zero ? 1.0e-10f : raw;
+    r.fmag = (tgt - r.ln) * k + (lst - r.ln) * c;
+    inv = 1.0f / r.ln;
   }
-  r.ln = zero ? 1.0e-10f : raw;
-  r.fmag = (tgt - r.ln) * k + (lst - r.ln) * c;
-  float inv = 1.0f / r.ln;
   r.fvx = active ? r.fmag * ddx * inv : 0.0f;
   r.fvy = active ? r.fmag * ddy * inv : 0.0f;
   r.active = active;
@@ -104,7 +131,9 @@ struct Terms {
 // (2r)^2 a normal float, and clip finite at the largest finite distance
 // (clip is monotonic in dist).  Where clip overflows (dt^2 tiny or 0),
 // the plain version's terms of a pair apart are ±0 × inf = NaN, which
-// only the full path gives.
+// only the full path gives.  Under RSQRT the terms of a pair apart are
+// +0 whatever the constants (each is selected, not multiplied by a
+// gate): its skip needs no check.
 inline bool pair_skip_allowed(const float* v) {
   const float big = 3.402823466e38f;
   const float two_r = 2.0f * v[0];
@@ -118,7 +147,8 @@ inline bool pair_skip_allowed(const float* v) {
 }
 
 // pair (base b, partner p = b + o): the term the base receives (K1, K4).
-// `skip`: pair_skip_allowed for the launch's constants.
+// `skip`: pair_skip_allowed for the launch's constants (RSQRT: always).
+template <bool RSQRT = false>
 __device__ __forceinline__ Terms pair_terms(float bpx, float bpy, float bvx,
                                             float bvy, bool bal, float ppx,
                                             float ppy, float pvx, float pvy,
@@ -131,6 +161,32 @@ __device__ __forceinline__ Terms pair_terms(float bpx, float bpy, float bvx,
   float ddx = ppx - bpx;
   float ddy = ppy - bpy;
   const float d2 = ddx * ddx + ddy * ddy;
+  if constexpr (RSQRT) {
+    // contact where 0 < d2 < (2r)^2; every term of any other pair is +0,
+    // so the test in the squared domain skips exactly the pairs apart
+    const float two_r2 = two_r * two_r;
+    t = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    if (skip && d2 >= two_r2) return t;
+    const bool coincident = valid && d2 == 0.0f;
+    const bool overlap = valid && d2 > 0.0f && d2 < two_r2;
+    t.dyn = coincident ? co_sign : 0.0f;
+    if (!overlap) return t;
+    const float inv = rsqrtf(d2);
+    const float dist = d2 * inv;
+    const float nx = ddx * inv;
+    const float ny = ddy * inv;
+    const float rvx = bvx - pvx;
+    const float rvy = bvy - pvy;
+    const float imp_n = ecoeff * (rvx * nx + rvy * ny);
+    const float max_fric = imp_n * friction;
+    const float imp_t = tmin(tmax(rvx * -ny + rvy * nx, -max_fric), max_fric);
+    t.dvx = -(imp_n * nx + imp_t * -ny);
+    t.dvy = -(imp_n * ny + imp_t * nx);
+    const float clip = (two_r - dist) * 0.5f / dt2;
+    t.dax = -nx * clip;
+    t.day = -ny * clip;
+    return t;
+  }
   // Most pairs lie well apart (d2 above (2r)^2 by far more than rounding:
   // dist > two_r for sure, finite).  Then the terms below are 0 without
   // the square root and the divide: dvx dvy dyn +0, and dax = ((-nx) *
@@ -181,7 +237,9 @@ struct Particle {
 
 // Body forces, drag, user force, mouse grab, semi-implicit Euler and the
 // border (compute.wgsl:171-199).  `v` is the consts vector
-// (config.consts_vector order).
+// (config.consts_vector order).  RSQRT: 1/speed = rsqrt(|v|^2) and the
+// grab test on squared distances.
+template <bool RSQRT = false>
 __device__ __forceinline__ Particle integrate(Particle in, bool al_c,
                                               bool pinned, Terms d, float bfx,
                                               float bfy, const float* v) {
@@ -197,9 +255,17 @@ __device__ __forceinline__ Particle integrate(Particle in, bool al_c,
   float a_x = in.ax + d.dax + gx_;
   float a_y = in.ay + d.day + gy_;
 
-  const float speed = sqrtf(v_x * v_x + v_y * v_y);
-  const bool moving = speed > 0.0f;
-  const float inv_speed = 1.0f / (moving ? speed : 1.0f);
+  float inv_speed;
+  bool moving;
+  if constexpr (RSQRT) {
+    const float s2 = v_x * v_x + v_y * v_y;
+    moving = s2 > 0.0f;
+    inv_speed = rsqrtf(moving ? s2 : 1.0f);
+  } else {
+    const float speed = sqrtf(v_x * v_x + v_y * v_y);
+    moving = speed > 0.0f;
+    inv_speed = 1.0f / (moving ? speed : 1.0f);
+  }
   a_x = a_x - (moving ? drag_c * tpow(fabsf(v_x), drag_e) * v_x * inv_speed
                       : 0.0f);
   a_y = a_y - (moving ? drag_c * tpow(fabsf(v_y), drag_e) * v_y * inv_speed
@@ -210,8 +276,10 @@ __device__ __forceinline__ Particle integrate(Particle in, bool al_c,
 
   const float mdx = mpx - p_x;
   const float mdy = mpy - p_y;
-  const bool grabbed =
-      (sqrtf(mdx * mdx + mdy * mdy) < radius * 10.0f) && (mact > 0.0f);
+  const float grab_r = radius * 10.0f;
+  const bool near = RSQRT ? mdx * mdx + mdy * mdy < grab_r * grab_r
+                          : sqrtf(mdx * mdx + mdy * mdy) < grab_r;
+  const bool grabbed = near && (mact > 0.0f);
   a_x = a_x + (grabbed ? (mvx - v_x) * ustr - gx_ : 0.0f);
   a_y = a_y + (grabbed ? (mvy - v_y) * ustr - gy_ : 0.0f);
 
@@ -352,23 +420,46 @@ __device__ __forceinline__ int force_index(int r, int l) {
 // Spring forces of tile cell (r, l) from the force planes `fp` (class c:
 // x at fp + 2c SUB_FN, y after it): per class -own + reaction, the order
 // of ops/stencil.py::spring_pass (int32 sums wrap like XLA's).
+// ROLLGROUP, float sums: per class -own, with the reaction at once only
+// for class 1 (dy = 0); then the reactions of dy = 1 (classes 0, 2) and
+// of dy = -1 (class 3), the groups of EDGE_OFFSETS in the order each dy
+// first appears.  The int32 sums are exact in any order: unchanged.
+template <bool ROLLGROUP = false>
 __device__ __forceinline__ void spring_sums(const uint32_t* fp, int r, int l,
                                             int quantized, float& bfx,
                                             float& bfy) {
   uint32_t fxq = 0u, fyq = 0u;
   float fxf = 0.0f, fyf = 0.0f;
+  const int io = force_index(r, l);
 #pragma unroll
   for (int c = 0; c < 4; ++c) {
     const uint32_t* fx = fp + 2 * c * SUB_FN;
     const uint32_t* fy = fx + SUB_FN;
-    const int io = force_index(r, l);
     const int ir = force_index(r - EDX[c], l - EDY[c]);
     if (quantized) {
       fxq = fxq - fx[io] + fx[ir];
       fyq = fyq - fy[io] + fy[ir];
+    } else if (ROLLGROUP) {
+      fxf = fxf - __uint_as_float(fx[io]);
+      fyf = fyf - __uint_as_float(fy[io]);
+      if (c == 1) {
+        fxf = fxf + __uint_as_float(fx[ir]);
+        fyf = fyf + __uint_as_float(fy[ir]);
+      }
     } else {
       fxf = fxf - __uint_as_float(fx[io]) + __uint_as_float(fx[ir]);
       fyf = fyf - __uint_as_float(fy[io]) + __uint_as_float(fy[ir]);
+    }
+  }
+  if (ROLLGROUP && !quantized) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      if (c == 1) continue;
+      const uint32_t* fx = fp + 2 * c * SUB_FN;
+      const uint32_t* fy = fx + SUB_FN;
+      const int ir = force_index(r - EDX[c], l - EDY[c]);
+      fxf = fxf + __uint_as_float(fx[ir]);
+      fyf = fyf + __uint_as_float(fy[ir]);
     }
   }
   if (quantized) {
@@ -388,6 +479,24 @@ __device__ __forceinline__ void spring_sums(const uint32_t* fp, int r, int l,
 // for pairs that can touch (where `skip`, pair_skip_allowed), so a pair
 // well apart costs a few products at each end, less than sharing it
 // through shared memory would.
+//
+// ROLLGROUP: the same terms, each evaluated once, in another order:
+// first every offset's own term t(i, i+o) and, for dy = 0, its reaction,
+// in offset order; then, one dy group at a time (1 .. s, then -s .. -1:
+// the order each dy first appears among the half offsets), the group's
+// reactions t(i-o, i) summed in offset order from its first, and the sum
+// subtracted.  One group sum is live at a time (the loops are reordered,
+// not 2s partial sums kept).
+__device__ __forceinline__ Terms add_terms(Terms a, Terms b) {
+  return {a.dvx + b.dvx, a.dvy + b.dvy, a.dax + b.dax, a.day + b.day,
+          a.dyn + b.dyn};
+}
+__device__ __forceinline__ Terms sub_terms(Terms a, Terms b) {
+  return {a.dvx - b.dvx, a.dvy - b.dvy, a.dax - b.dax, a.day - b.day,
+          a.dyn - b.dyn};
+}
+
+template <bool RSQRT = false, bool ROLLGROUP = false>
 __device__ __forceinline__ Terms collide_half(const SmemTile& t, int lc,
                                               int x, int y, int w, int h,
                                               int s, float radius, float dt,
@@ -399,29 +508,43 @@ __device__ __forceinline__ Terms collide_half(const SmemTile& t, int lc,
   const bool al_c = t.al[lc] > 0.0f;
   const float two_r = 2.0f * radius;
   const float dt2 = dt * dt;
+  // t(i-o, i), +0 where i-o lies outside the grid (back()'s fill)
+  auto reaction = [&](int ox, int oy, float co_sign) {
+    Terms r = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    const int bx = x - ox, by = y - oy;
+    if (bx >= 0 && bx < w && by >= 0 && by < h) {
+      const int lb = lc - ox * t.sy - oy;
+      r = pair_terms<RSQRT>(t.px[lb], t.py[lb], t.vx[lb], t.vy[lb],
+                            t.al[lb] > 0.0f, px, py, vx, vy, al_c, co_sign,
+                            two_r, dt2, ecoeff, friction, skip);
+    }
+    return r;
+  };
   for (int ox = 0; ox <= s; ++ox) {
     for (int oy = -s; oy <= s; ++oy) {
       if (ox == 0 && oy <= 0) continue;
       // coincident nudge sign(lin_i - lin_j) = -sign(ox*H + oy)
       const float co_sign = -tsign((float)(ox * h + oy));
       const int lp = lc + ox * t.sy + oy;
-      const Terms a = pair_terms(px, py, vx, vy, al_c, t.px[lp], t.py[lp],
-                                 t.vx[lp], t.vy[lp], t.al[lp] > 0.0f,
-                                 co_sign, two_r, dt2, ecoeff, friction, skip);
-      // t(i-o, i), +0 where i-o lies outside the grid (back()'s fill)
-      Terms r = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-      const int bx = x - ox, by = y - oy;
-      if (bx >= 0 && bx < w && by >= 0 && by < h) {
-        const int lb = lc - ox * t.sy - oy;
-        r = pair_terms(t.px[lb], t.py[lb], t.vx[lb], t.vy[lb],
-                       t.al[lb] > 0.0f, px, py, vx, vy, al_c, co_sign, two_r,
-                       dt2, ecoeff, friction, skip);
+      const Terms a = pair_terms<RSQRT>(
+          px, py, vx, vy, al_c, t.px[lp], t.py[lp], t.vx[lp], t.vy[lp],
+          t.al[lp] > 0.0f, co_sign, two_r, dt2, ecoeff, friction, skip);
+      if (ROLLGROUP && oy != 0) {
+        acc = add_terms(acc, a);
+      } else {
+        acc = sub_terms(add_terms(acc, a), reaction(ox, oy, co_sign));
       }
-      acc.dvx = acc.dvx + a.dvx - r.dvx;
-      acc.dvy = acc.dvy + a.dvy - r.dvy;
-      acc.dax = acc.dax + a.dax - r.dax;
-      acc.day = acc.day + a.day - r.day;
-      acc.dyn = acc.dyn + a.dyn - r.dyn;
+    }
+  }
+  if (ROLLGROUP) {
+    for (int gi = 0; gi < 2 * s; ++gi) {
+      const int oy = gi < s ? gi + 1 : gi - 2 * s;
+      Terms g = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+      for (int ox = oy > 0 ? 0 : 1; ox <= s; ++ox) {
+        const Terms r = reaction(ox, oy, -tsign((float)(ox * h + oy)));
+        g = ox == (oy > 0 ? 0 : 1) ? r : add_terms(g, r);
+      }
+      acc = sub_terms(acc, g);
     }
   }
   return acc;

@@ -42,8 +42,10 @@ import torch
 from ..config import PhysicsConstants, StaticConfig, UserInput, resolve_device
 from ..ops.cuda.fused_substep2 import (
     ALIVE,
+    DEFAULT_KVAR,
     EAL,
     N_HOT,
+    check_kvar,
     fused_frame2,
     fused_frame4,
     pack_lattice2,
@@ -435,21 +437,32 @@ class FusedLatticeBackend(LatticeBackend):
     tensor's device, so any other value is an error.
     ``far_activation``: each rebuild schedules its pairs' first possible
     contact and each substep applies only those that can touch by then
-    (``fused_frame4(activation=True)``).  ``far_mode`` must be ``"v4"``,
-    ``far_detect`` ``"xla"`` and ``kernel_variants`` empty: the strict
-    path is the one ported."""
+    (``fused_frame4(activation=True)``).  ``far_mode`` must be ``"v4"``
+    and ``far_detect`` ``"xla"``.
+
+    ``kernel_variants``: the JAX kernel's flags (``fused_substep2.
+    KERNEL_VARIANTS``), by default the JAX backend's (``DEFAULT_KVAR``:
+    rollgroup, rsqrt, dexp2, lanecut, krec, ealpack), so the same call
+    runs the same physics in both packages; ``kernel_variants=()`` is
+    the strict path.  ``self.kvar`` keeps JAX's drop rule
+    (``softbody_tpu/engine/backends.py:441-442``): a ladder with a bucket
+    ≤ 256 drops ``krec``, whose route would change the far apply's sum
+    order there (the terminal ``max_pairs`` bucket is not looked at, as
+    in JAX).  ``step`` drops ``dexp2`` whenever the drag exponent is not
+    2.  The attribution knobs ``nospring`` and ``noint`` and unknown
+    names raise."""
 
     def __init__(self, spec, cfg: StaticConfig, farfield=None, *,
                  device=None, far_mode: str = "v4",
                  far_buckets: Optional[Tuple[int, ...]] = None,
                  far_band: Optional[str] = None, far_detect: str = "xla",
                  far_activation: bool = False,
-                 kernel_variants: Tuple[str, ...] = ()) -> None:
+                 kernel_variants: Tuple[str, ...] = DEFAULT_KVAR) -> None:
         super().__init__(spec, cfg, farfield=farfield, device=device)
-        if tuple(kernel_variants):
-            raise ValueError(
-                f"kernel variants {tuple(kernel_variants)!r} are not ported: "
-                "only the strict path (kernel_variants=()) runs")
+        kvar = check_kvar(kernel_variants)
+        if far_buckets is not None and any(b <= 256 for b in far_buckets):
+            kvar = tuple(v for v in kvar if v != "krec")
+        self.kvar = kvar
         if far_mode != "v4":
             raise ValueError(f"far_mode {far_mode!r} is not ported "
                              "(only 'v4')")
@@ -502,17 +515,26 @@ class FusedLatticeBackend(LatticeBackend):
         rebuild (``fused_frame4`` needs each rebuild's pair count to pick
         its bucket); the frame's stats vector is then a host tensor."""
         hot, obs = state
+        kvar = self._checked_kvar(consts)
         if self.ff is None or self.cfg.collision_mode == "none":
             return fused_frame2(hot, obs, self._immut, self._edge_consts,
-                                consts, uin, self.spec, self.cfg)
+                                consts, uin, self.spec, self.cfg, kvar=kvar)
         kw = {} if self.far_buckets is None else {"buckets": self.far_buckets}
         hot, obs, st = fused_frame4(hot, obs, self._immut, self._edge_consts,
                                     consts, uin, self.spec, self.cfg, self.ff,
-                                    activation=self.far_activation, **kw)
+                                    activation=self.far_activation,
+                                    kvar=kvar, **kw)
         st = st.tolist()
         self._stats_acc = (st if self._stats_acc is None
                            else _stats_merge(self._stats_acc, st))
         return hot, obs
+
+    def _checked_kvar(self, consts: PhysicsConstants) -> Tuple[str, ...]:
+        """``self.kvar`` without ``dexp2`` unless the drag exponent is
+        exactly 2 (the constants can change between frames)."""
+        if "dexp2" in self.kvar and float(consts.drag_exp) != 2.0:
+            return tuple(v for v in self.kvar if v != "dexp2")
+        return self.kvar
 
     def far_stats(self) -> dict:
         """Stats since the last read (the accumulator resets on read):

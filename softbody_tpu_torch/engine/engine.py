@@ -218,11 +218,12 @@ class LatticeEngine(Engine):
 
     ``fused=False``: :class:`LatticeBackend` (the stencil path; its
     collisions through K3 under ``options.use_pallas``).  ``fused=True``:
-    the strict :class:`FusedLatticeBackend` (K1; with ``farfield`` the
-    fixed-cadence far field with K2 and K7).  The JAX package's
-    ``LatticeEngine(fused=True)`` runs its backend's default kernel
-    variants (rsqrt, dexp2, …), which differ from the strict physics by
-    1–2 ulp per operation; compare with its backend built with
+    :class:`FusedLatticeBackend` with its default kernel variants, the
+    JAX package's (rollgroup, rsqrt, dexp2 and layout flags; K1 in its
+    rsqrt+rollgroup instance; with ``farfield`` the fixed-cadence far
+    field with K2 and K7), as the JAX package's ``LatticeEngine(fused=
+    True)`` runs them.  They differ from the strict physics by 1–2 ulp
+    per operation; the strict path is that backend with
     ``kernel_variants=()``.  ``tile_w`` is the TPU kernel's tile width: it
     is accepted for the JAX signature and ignored (the CUDA kernels pick
     their own tiles)."""

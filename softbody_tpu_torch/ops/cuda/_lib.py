@@ -114,6 +114,12 @@ def bind(path: Path) -> ctypes.CDLL:
     lib.sb_fused_substep2.argtypes = [_P, _P, _P, _P, _P, _P, _P,
                                       _I, _I, _I, _I, _P]
     lib.sb_fused_substep2.restype = _I
+    # int sb_fused_substep2_variant(..., stencil, quantized, rsqrt,
+    #                               rollgroup, stream): the same with K1's
+    # instance picked (libraries built before it existed lack it)
+    if hasattr(lib, "sb_fused_substep2_variant"):
+        lib.sb_fused_substep2_variant.argtypes = [_P] * 7 + [_I] * 6 + [_P]
+        lib.sb_fused_substep2_variant.restype = _I
     # int sb_band_flags(px, py, dev, bdev, alive, out, offsets_host,
     #                   n_offsets, w, h, stream)
     lib.sb_band_flags.argtypes = [_P, _P, _P, _P, _P, _P, _P,

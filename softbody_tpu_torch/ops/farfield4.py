@@ -30,8 +30,10 @@ and the deltas are cropped back to ``[W, H]``.  Linear indices (the
 coincident nudge's order) use ``world_h = Hm``, the padded height
 rounded up to 32, as the JAX package passes.
 
-The lane block ``mb``/``mb_out`` = 128 and the pre-built ``table=`` /
-``as_table=`` records (kernel variants kmirror/krec) are not ported: the
+Under the JAX kernel variant ``krec`` every bucket takes the record
+table (``softbody_tpu/ops/farfield4.py:277``: ``k <= 256 and not
+as_table``): ``narrow_max=0``.  The lane block ``mb``/``mb_out`` = 128
+and the pre-built ``table=`` / ``as_table=`` records are not ported: the
 functions raise on them.
 """
 
@@ -230,10 +232,11 @@ def bucketed_far_delta_from_fn(
     mb_out: Optional[int] = None,
     table: Optional[torch.Tensor] = None,
     as_table: bool = False,
+    narrow_max: int = NARROW_MAX,
 ) -> Optional[torch.Tensor]:
     """Core bucketed apply over a deferred plane source: crop the list to
-    the smallest capacity bucket ≥ ``n_pairs`` and apply it narrow (≤ 256)
-    or through the mirror table.  ``planes5_fn()`` returns the five
+    the smallest capacity bucket ≥ ``n_pairs`` and apply it narrow (≤
+    ``narrow_max``, 256; 0 under ``krec``) or through the mirror table.  ``planes5_fn()`` returns the five
     planes (px, py, vx, vy, alive), of ``[w, h]`` or smaller (zero-padded
     to it); it is called only when there are pairs.  ``n_pairs`` is
     ``fl.n_pairs`` read on the host: eager torch picks the bucket there,
@@ -256,7 +259,7 @@ def bucketed_far_delta_from_fn(
     flk = crop_far_list(fl, k)
     kw = dict(s=s, ff=ff, radius=radius, dt=dt, ecoeff=ecoeff,
               friction=friction, w=w, h=h)
-    if k <= NARROW_MAX:
+    if k <= narrow_max:
         APPLY_ROUTES["narrow"] += 1
         return far_delta_planes_narrow(planes5_fn(), flk, **kw)
     APPLY_ROUTES["mirror"] += 1
@@ -275,6 +278,7 @@ def bucketed_far_delta_planes(hot: torch.Tensor, alive_f: torch.Tensor,
                               mb: int = MB, mb_out: Optional[int] = None,
                               table: Optional[torch.Tensor] = None,
                               as_table: bool = False,
+                              narrow_max: int = NARROW_MAX,
                               ) -> Optional[torch.Tensor]:
     """Far delta planes ``[5, W, H]`` (dvx dvy dax day dyn, contiguous)
     for the packed state ``hot`` (px py vx vy at ``plane_idx``) and the
@@ -291,5 +295,6 @@ def bucketed_far_delta_planes(hot: torch.Tensor, alive_f: torch.Tensor,
     d = bucketed_far_delta_from_fn(
         planes5_fn, fl, n_pairs, s=s, ff=ff, radius=radius, dt=dt,
         ecoeff=ecoeff, friction=friction, w=wp, h=hp, buckets=buckets,
-        mb=mb, mb_out=mb_out, table=table, as_table=as_table)
+        mb=mb, mb_out=mb_out, table=table, as_table=as_table,
+        narrow_max=narrow_max)
     return None if d is None else d[:, :w, :h].contiguous()

@@ -13,7 +13,13 @@ the exact negation to the partner (compute.wgsl:150-168 pair math).
 These functions are also the plain versions of the fused substep kernel
 (``ops/cuda/fused_substep2.py``): the kernel evaluates the same float32
 expressions in the same order, with no fused multiply-add, so its
-integer spring sums and edge planes match bit for bit.
+integer spring sums and edge planes match bit for bit.  Two of the JAX
+kernel's variants (``softbody_tpu/ops/pallas/fused_substep2.py``
+``kvar``) change its arithmetic, and are flags here for that kernel
+only: ``rsqrt`` (a reciprocal square root and products where strict
+takes a square root and a divide; contact and grab tests on squared
+distances) and ``rollgroup`` (the partners' reactions summed per Δy,
+after the loop over classes or offsets).  Strict is the default.
 
 Out-of-range neighbours read as dead particles at the origin (the JAX
 package's zero pad).
@@ -242,7 +248,8 @@ class SpringUpdate(NamedTuple):
 
 def spring_pass(px, py, alive, edges: Sequence, quantized: bool,
                 offsets: Sequence[Tuple[int, int]] = EDGE_OFFSETS,
-                extra_force=None):
+                extra_force=None, rsqrt: bool = False,
+                rollgroup: bool = False):
     """Spring forces of the edge classes (class ``c`` at ``offsets[c]``,
     evaluated in that order) and the edge-state updates.
 
@@ -254,7 +261,14 @@ def spring_pass(px, py, alive, edges: Sequence, quantized: bool,
     when quantized, else float32: the planified path's exception beams).
     Returns ``(bfx, bfy, updates)``.  Quantized forces accumulate
     ``trunc(F·65536)`` in int32, so the sum is exact whatever the order
-    (compute.wgsl:127-130)."""
+    (compute.wgsl:127-130).
+
+    ``rsqrt``: ``ln = d2·rsqrt(d2)`` and the force's ``1/ln`` is that
+    ``rsqrt`` (``fused_substep2.py:593-600``).  ``rollgroup``: each class
+    subtracts its own force in class order, a class with Δy = 0 adds its
+    reaction at once, and the other reactions are added after the loop,
+    grouped by Δy in the order each Δy first appears
+    (``fused_substep2.py:646-658``)."""
     w, h = px.shape
     acc_t = torch.int32 if quantized else torch.float32
     fx = torch.zeros((w, h), dtype=acc_t, device=px.device)
@@ -263,19 +277,24 @@ def spring_pass(px, py, alive, edges: Sequence, quantized: bool,
         fx = fx + extra_force[0]
         fy = fy + extra_force[1]
     updates: List[SpringUpdate] = []
+    deferred: dict = {}    # rollgroup: Δy -> [(fx, fy, dx)]
     for (dx, dy), e in zip(offsets, edges):
         active = e.alive & alive & shifted(alive, dx, dy, False)
         ddx = shifted(px, dx, dy) - px
         ddy = shifted(py, dx, dy) - py
-        raw_len = sqrt32(ddx * ddx + ddy * ddy)
-        zero = raw_len == 0.0
+        d2 = ddx * ddx + ddy * ddy
+        zero = d2 == 0.0
         # zero-length guard (compute.wgsl:104-107): diff → (0, -1e-10)
         ddx = torch.where(zero, 0.0, ddx)
         ddy = torch.where(zero, -1.0e-10, ddy)
-        ln = torch.where(zero, 1.0e-10, raw_len)
+        if rsqrt:
+            inv_len = torch.where(zero, 1.0e10, torch.rsqrt(d2))
+            ln = torch.where(zero, 1.0e-10, d2 * inv_len)
+        else:
+            ln = torch.where(zero, 1.0e-10, sqrt32(d2))
+            inv_len = torch.reciprocal(ln)
 
         fmag = (e.target_length - ln) * e.spring + (e.last_length - ln) * e.damp
-        inv_len = torch.reciprocal(ln)
         fvx = fmag * ddx * inv_len
         fvy = fmag * ddy * inv_len
         strain = (ln - e.target_length) / e.length
@@ -298,13 +317,19 @@ def spring_pass(px, py, alive, edges: Sequence, quantized: bool,
         fvx = torch.where(active, fvx, 0.0)
         fvy = torch.where(active, fvy, 0.0)
         if quantized:
-            qx = f32_to_i32(torch.trunc(fvx * PARTICLE_FORCE_SCALE))
-            qy = f32_to_i32(torch.trunc(fvy * PARTICLE_FORCE_SCALE))
-            fx = fx - qx + back(qx, dx, dy)
-            fy = fy - qy + back(qy, dx, dy)
+            fvx = f32_to_i32(torch.trunc(fvx * PARTICLE_FORCE_SCALE))
+            fvy = f32_to_i32(torch.trunc(fvy * PARTICLE_FORCE_SCALE))
+        fx = fx - fvx
+        fy = fy - fvy
+        if rollgroup and dy != 0:
+            deferred.setdefault(dy, []).append((fvx, fvy, dx))
         else:
-            fx = fx - fvx + back(fvx, dx, dy)
-            fy = fy - fvy + back(fvy, dx, dy)
+            fx = fx + back(fvx, dx, dy)
+            fy = fy + back(fvy, dx, dy)
+    for dy, group in deferred.items():
+        for gx, gy, dx in group:
+            fx = fx + back(gx, dx, dy)
+            fy = fy + back(gy, dx, dy)
 
     if quantized:
         fx = fx.to(torch.float32) / PARTICLE_FORCE_SCALE
@@ -313,33 +338,50 @@ def spring_pass(px, py, alive, edges: Sequence, quantized: bool,
 
 
 def _stencil_collisions(px, py, vx, vy, alive, *, s: int, radius: float,
-                        dt: float, ecoeff: float, friction: float):
+                        dt: float, ecoeff: float, friction: float,
+                        rsqrt: bool = False, rollgroup: bool = False):
     """Reference pair math over the half-offset stencil of radius ``s``.
 
     Each unordered pair is evaluated once at its lower endpoint and its
     exact negation applied to the partner, per offset in the order of
     :func:`half_offsets`: ``acc = (acc + t) - back(t)``.  The coincident
     nudge ``sign(lin_i − lin_j)`` is the per-offset constant
-    ``−sign(dx·H + dy)``.  Returns (dvx, dvy, dax, day, dyn)."""
+    ``−sign(dx·H + dy)``.  Returns (dvx, dvy, dax, day, dyn).
+
+    ``rsqrt`` (``fused_substep2.py:736-745``): contact where ``0 < d2 <
+    (2r)²``, ``inv = rsqrt(d2)``, ``dist = d2·inv``, and every term of a
+    pair apart is +0.  ``rollgroup`` (``:764-786``): an offset with
+    Δy ≠ 0 adds only its own term in the loop; its reaction joins the
+    sum of its Δy's group (started from the group's first reaction), and
+    after the loop each group is subtracted, in the order each Δy first
+    appears in :func:`half_offsets` (1 … s, then −s … −1)."""
     w, h = px.shape
     two_r = _mul32(2.0, radius)
+    two_r2 = _mul32(two_r, two_r)
     dt2 = device_scalar(_mul32(dt, dt), px.device)
     z = torch.zeros_like(px)
     dvx, dvy, dax, day, dyn = z, z, z, z, z
+    groups: dict = {}     # rollgroup: Δy -> summed reactions
     for ox, oy in half_offsets(s):
         valid = alive & shifted(alive, ox, oy, False)
         ddx = shifted(px, ox, oy) - px
         ddy = shifted(py, ox, oy) - py
-        dist = sqrt32(ddx * ddx + ddy * ddy)
-        coincident = valid & (dist == 0.0)
-        overlap = valid & (dist > 0.0) & (dist < two_r)
+        d2 = ddx * ddx + ddy * ddy
+        if rsqrt:
+            coincident = valid & (d2 == 0.0)
+            overlap = valid & (d2 > 0.0) & (d2 < two_r2)
+            inv = torch.where(
+                overlap, torch.rsqrt(torch.where(overlap, d2, 1.0)), 0.0)
+            dist = d2 * inv
+        else:
+            dist = sqrt32(d2)
+            coincident = valid & (dist == 0.0)
+            overlap = valid & (dist > 0.0) & (dist < two_r)
+            inv = torch.where(
+                overlap, torch.reciprocal(torch.where(overlap, dist, 1.0)),
+                0.0)
 
         co = torch.where(coincident, -float(np.sign(ox * h + oy)), 0.0)
-        dyn = dyn + co - back(co, ox, oy)
-
-        inv = torch.where(
-            overlap, torch.reciprocal(torch.where(overlap, dist, 1.0)), 0.0
-        )
         nx, ny = ddx * inv, ddy * inv
         rvx = vx - shifted(vx, ox, oy)
         rvy = vy - shifted(vy, ox, oy)
@@ -351,23 +393,39 @@ def _stencil_collisions(px, py, vx, vy, alive, *, s: int, radius: float,
         pdvx = -(imp_n * nx + imp_t * -ny)
         pdvy = -(imp_n * ny + imp_t * nx)
         clip = (two_r - dist) * 0.5 / dt2
-        gate = overlap.to(torch.float32)
-        pdax = -nx * clip * gate
-        pday = -ny * clip * gate
+        if rsqrt:
+            pdax = torch.where(overlap, -nx * clip, 0.0)
+            pday = torch.where(overlap, -ny * clip, 0.0)
+        else:
+            gate = overlap.to(torch.float32)
+            pdax = -nx * clip * gate
+            pday = -ny * clip * gate
         pdvx = torch.where(overlap, pdvx, 0.0)
         pdvy = torch.where(overlap, pdvy, 0.0)
 
-        dvx = dvx + pdvx - back(pdvx, ox, oy)
-        dvy = dvy + pdvy - back(pdvy, ox, oy)
-        dax = dax + pdax - back(pdax, ox, oy)
-        day = day + pday - back(pday, ox, oy)
+        terms = (pdvx, pdvy, pdax, pday, co)
+        acc = (dvx, dvy, dax, day, dyn)
+        if rollgroup and oy != 0:
+            acc = [a + t for a, t in zip(acc, terms)]
+            react = [back(t, ox, oy) for t in terms]
+            groups[oy] = (react if oy not in groups else
+                          [g + r for g, r in zip(groups[oy], react)])
+        else:
+            acc = [a + t - back(t, ox, oy) for a, t in zip(acc, terms)]
+        dvx, dvy, dax, day, dyn = acc
+    for react in groups.values():
+        dvx, dvy, dax, day, dyn = [a - r for a, r in zip(
+            (dvx, dvy, dax, day, dyn), react)]
     return dvx, dvy, dax, day, dyn
 
 
 def _integrate_components(px, py, vx, vy, ax, ay, alive, pinned,
-                          dvx, dvy, dax, day, dyn, bfx, bfy, sc: Scalars):
+                          dvx, dvy, dax, day, dyn, bfx, bfy, sc: Scalars,
+                          rsqrt: bool = False):
     """Body forces, drag, user force, mouse grab, semi-implicit Euler and
-    the border (compute.wgsl:171-199), on component planes."""
+    the border (compute.wgsl:171-199), on component planes.  ``rsqrt``
+    (``fused_substep2.py:850-854``, ``:884-889``): ``1/speed`` is
+    ``rsqrt(|v|²)`` and the grab test compares squared distances."""
     r = sc.radius
     p_x = px
     p_y = py + torch.where(alive, dyn, 0.0)
@@ -376,9 +434,12 @@ def _integrate_components(px, py, vx, vy, ax, ay, alive, pinned,
     a_x = ax + dax + sc.gx
     a_y = ay + day + sc.gy
 
-    speed = sqrt32(v_x * v_x + v_y * v_y)
-    moving = speed > 0.0
-    inv_speed = torch.reciprocal(torch.where(moving, speed, 1.0))
+    s2 = v_x * v_x + v_y * v_y
+    moving = s2 > 0.0
+    if rsqrt:
+        inv_speed = torch.rsqrt(torch.where(moving, s2, 1.0))
+    else:
+        inv_speed = torch.reciprocal(torch.where(moving, sqrt32(s2), 1.0))
     a_x = a_x - torch.where(
         moving,
         sc.drag_coeff * torch.pow(v_x.abs(), sc.drag_exp) * v_x * inv_speed,
@@ -395,8 +456,12 @@ def _integrate_components(px, py, vx, vy, ax, ay, alive, pinned,
 
     mdx = sc.mouse_px - p_x
     mdy = sc.mouse_py - p_y
-    grabbed = (sqrt32(mdx * mdx + mdy * mdy) < _mul32(r, 10.0)) & (
-        sc.mouse_active > 0.0)
+    grab_r = _mul32(r, 10.0)
+    if rsqrt:
+        near = mdx * mdx + mdy * mdy < _mul32(grab_r, grab_r)
+    else:
+        near = sqrt32(mdx * mdx + mdy * mdy) < grab_r
+    grabbed = near & (sc.mouse_active > 0.0)
     a_x = a_x + torch.where(
         grabbed, (sc.mouse_vx - v_x) * sc.user_strength - sc.gx, 0.0)
     a_y = a_y + torch.where(
@@ -441,16 +506,22 @@ def substep_planes(px, py, vx, vy, ax, ay, alive, pinned, edges, sc: Scalars,
                    *, stencil: int, quantized: bool, far_deltas=(),
                    full_stencil: bool = False,
                    offsets: Sequence[Tuple[int, int]] = EDGE_OFFSETS,
-                   extra_force=None):
+                   extra_force=None, rsqrt: bool = False,
+                   rollgroup: bool = False):
     """One substep on component planes: springs (``spring_pass`` over
     ``offsets``, ``extra_force`` first), collisions, each of the
     ``far_deltas`` (``[5, W, H]`` stacks of dvx dvy dax day dyn, or
     None) in turn, integration.  ``full_stencil``: the collisions go
     through the K3 wrapper (``ops/cuda/collide_stencil.py``, full offset
-    set) instead of the half-offset sum.  Returns the six new particle
-    planes and the spring updates."""
+    set) instead of the half-offset sum.  ``rsqrt``/``rollgroup``: the
+    fused kernel K1's arithmetic variants (half-offset collisions only).
+    Returns the six new particle planes and the spring updates."""
+    if full_stencil and (rsqrt or rollgroup):
+        raise ValueError("the kernel variants apply to the half-offset "
+                         "collisions only")
     bfx, bfy, ups = spring_pass(px, py, alive, edges, quantized, offsets,
-                                extra_force)
+                                extra_force, rsqrt=rsqrt,
+                                rollgroup=rollgroup)
     kw = dict(radius=sc.radius, dt=sc.dt, ecoeff=sc.ecoeff,
               friction=sc.friction)
     if stencil == 0:
@@ -463,7 +534,8 @@ def substep_planes(px, py, vx, vy, ax, ay, alive, pinned, edges, sc: Scalars,
             px, py, vx, vy, alive, stencil=stencil, **kw)
     else:
         dvx, dvy, dax, day, dyn = _stencil_collisions(
-            px, py, vx, vy, alive, s=stencil, **kw)
+            px, py, vx, vy, alive, s=stencil, rsqrt=rsqrt,
+            rollgroup=rollgroup, **kw)
     for fd in far_deltas:
         if fd is None:
             continue
@@ -473,7 +545,8 @@ def substep_planes(px, py, vx, vy, ax, ay, alive, pinned, edges, sc: Scalars,
         day = day + fd[3]
         dyn = dyn + fd[4]
     planes = _integrate_components(px, py, vx, vy, ax, ay, alive, pinned,
-                                   dvx, dvy, dax, day, dyn, bfx, bfy, sc)
+                                   dvx, dvy, dax, day, dyn, bfx, bfy, sc,
+                                   rsqrt=rsqrt)
     return planes, ups
 
 

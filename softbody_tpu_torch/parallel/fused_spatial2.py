@@ -303,9 +303,7 @@ def fused_spatial2_frame_fn(
            consts: PhysicsConstants, uin: UserInput
            ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
         check_ring(hot_sh, w_loc, hx, n_dev)
-        cvec, stencil, quantized = _frame_consts(consts, uin, spec, cfg,
-                                                 edge_consts)
-        kw = dict(stencil=stencil, quantized=quantized)
+        cvec, kw = _frame_consts(consts, uin, spec, cfg, edge_consts, ())
         hs = list(hot_sh)
         if ff is None:
             return near_frame(hs, obs_sh, immut_sh, cvec, kw)

@@ -34,6 +34,7 @@ from softbody_tpu_torch.ops.farfield import (
 
 from test_fused4 import _fold_planes
 from test_torch_farfield import _decoded
+from torch_threads import two_torch_threads  # noqa: F401
 
 FF_KW = dict(max_pairs=256, max_tile_pairs=64, skin=4.0, horizon=8)
 

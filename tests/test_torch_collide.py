@@ -41,6 +41,7 @@ from softbody_tpu_torch.ops.stencil import LatticeSpec, lattice_substep
 
 from test_pallas import perturbed_lattice
 from torch_parity import consts_to_port, to_port, uin_to_port
+from torch_threads import two_torch_threads  # noqa: F401
 
 NAMES = ("dvx", "dvy", "dax", "day", "dyn")
 CFG = StaticConfig(subticks=8, particle_radius=10.0)

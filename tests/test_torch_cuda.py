@@ -20,6 +20,7 @@ from softbody_tpu_torch.ops.cuda import (
     recmirror,
 )
 from softbody_tpu_torch.ops.farfield import FarFieldSpec
+from torch_threads import two_torch_threads  # noqa: F401
 
 pytestmark = pytest.mark.cuda
 
@@ -112,6 +113,43 @@ def test_k1_matches_plain(dev, observe, with_far, quantized, stencil,
         live = torch.repeat_interleave(ref_hot[8::3] > 0, 2, dim=0)
         torch.testing.assert_close(got[1] * live, ref[1] * live, rtol=0,
                                    atol=1e-5)
+
+
+K1_INSTANCES = [(False, False), (True, False), (False, True), (True, True)]
+K1_INSTANCE_IDS = ["strict", "rsqrt", "rollgroup", "rsqrt+rollgroup"]
+
+
+@pytest.mark.parametrize("shape", [(1000, 1000), (97, 61)],
+                         ids=["1000x1000", "97x61"])
+@pytest.mark.parametrize("stencil", [0, 1, 2, 3])
+@pytest.mark.parametrize("quantized", [True, False])
+@pytest.mark.parametrize("instance", K1_INSTANCES, ids=K1_INSTANCE_IDS)
+def test_k1_instances_match_plain(dev, instance, quantized, stencil, shape):
+    """Each of K1's four instances (strict and the JAX kernel's
+    arithmetic variants rsqrt, rollgroup, both) against the plain version
+    with the same flags, far stack on, observing, the mouse grabbing:
+    bit for bit (the plain version's ``torch.rsqrt`` runs the card's
+    ``rsqrtf`` as the kernel does), counted under its instance."""
+    rsqrt, rollgroup = instance
+    w, h = shape
+    state, cfg, consts, g = _stirred_lattice(dev, w, h, seed=3 * w + h)
+    hot, obs, immut, ec = fused_substep2.pack_lattice2(state)
+    uin = tb.UserInput(mouse_active=True, mouse_pos=(490.0, 510.0),
+                       mouse_vel=(3.0, -1.0))
+    cvec = torch.cat([tb.consts_vector(consts, uin, cfg, h), ec])
+    far = torch.randn((5, w, h), generator=g, device=dev) * 0.5
+    kw = dict(stencil=stencil, quantized=quantized, far=far, obs_in=obs,
+              rsqrt=rsqrt, rollgroup=rollgroup)
+    name = fused_substep2.k1_instance(rsqrt, rollgroup)
+    before = dict(fused_substep2.K1_INSTANCE_LAUNCHES)
+    got = fused_substep2.fused_substep2_call(hot, immut, cvec, **kw)
+    ref = fused_substep2.fused_substep2_plain(hot, immut, cvec, **kw)
+    torch.cuda.synchronize()
+    after = fused_substep2.K1_INSTANCE_LAUNCHES
+    assert {k: after[k] - before[k] for k in after} == {
+        k: int(k == name) for k in after}
+    for a, b in zip(got, ref):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32)), name
 
 
 def test_k2_matches_plain(dev):

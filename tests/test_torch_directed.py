@@ -22,6 +22,7 @@ from softbody_tpu_torch.ops.directed import (
 from softbody_tpu_torch.ops.forces import accumulate_forces, beam_forces
 
 from torch_parity import jittered, sim_to_jax, sim_to_port
+from torch_threads import two_torch_threads  # noqa: F401
 
 TABLES = ("partner", "slot_sign", "slot_alive", "spring", "damp",
           "yield_strain", "strain_limit", "length", "target", "last",

@@ -422,7 +422,8 @@ def _backends(arrays, spec_kw=None):
     return {
         "dense": (LatticeBackend(spec, cfg, device="cpu"),
                   jbackends.LatticeBackend(jspec, jcfg)),
-        "fused": (FusedLatticeBackend(spec, cfg, device="cpu"),
+        "fused": (FusedLatticeBackend(spec, cfg, device="cpu",
+                                      kernel_variants=()),
                   jbackends.FusedLatticeBackend(jspec, jcfg, tile_w=8,
                                                 kernel_variants=())),
     }

@@ -28,6 +28,7 @@ from softbody_tpu_torch.ops.farfield4 import bucketed_far_delta_planes
 
 from test_farfield import hairpin
 from test_fused4 import _fold_planes
+from torch_threads import two_torch_threads  # noqa: F401
 
 DT = 1 / 64
 

@@ -31,6 +31,7 @@ from softbody_tpu_torch.ops.stencil import LatticeSpec
 
 from test_farfield import hairpin
 from torch_parity import consts_to_port, to_port, uin_to_port
+from torch_threads import two_torch_threads  # noqa: F401
 
 HAIRPIN_FF = dict(max_pairs=64, max_tile_pairs=32, skin=4.0, horizon=8)
 HAIRPIN_CFG = dict(subticks=8, collision_mode="allpairs", particle_radius=4.0,
@@ -84,6 +85,9 @@ def hairpin_reference():
 
 
 def _port_backend(spec, cfg, ffkw, **kw):
+    """The port's backend over the JAX scene's spec and config, strict
+    (``kernel_variants=()``) unless ``kw`` names variants."""
+    kw.setdefault("kernel_variants", ())
     return FusedLatticeBackend(
         LatticeSpec(spec.width, spec.height,
                     collision_stencil=spec.collision_stencil),
@@ -167,7 +171,7 @@ def _assert_close(got, ref):
     dict(far_band="kernal"),
     dict(far_band="kernel"),          # the CPU's band pass is "plain"
     dict(far_band="xla"),
-    dict(kernel_variants=("rsqrt",)),
+    dict(kernel_variants=("nospring",)),
     dict(far_mode="v3"),
     dict(far_detect="kernel"),
 ])
@@ -211,7 +215,7 @@ def test_backend_without_far_field_matches_lattice_frame():
         n_particles=24 * 24, fall_speed=40.0, slits=2, strain_limit=0.22,
         yield_strain=0.18, device="cpu")
     cfg = tb.StaticConfig(subticks=8, particle_radius=cfg.particle_radius)
-    be = FusedLatticeBackend(spec, cfg, device="cpu")
+    be = FusedLatticeBackend(spec, cfg, device="cpu", kernel_variants=())
     packed = be.step(be.pack_state(state), consts, tb.UserInput())
     got = lattice_state_to_numpy(be.unpack_state(packed))
     ref = lattice_state_to_numpy(lattice_frame(state, consts, tb.UserInput(),

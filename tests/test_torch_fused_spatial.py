@@ -60,6 +60,7 @@ from softbody_tpu_torch.parallel import fused_spatial2 as tfs2
 from test_fused_spatial import scene
 from test_fused_spatial2 import RADIUS, boundary_fold
 from torch_parity import consts_to_port, to_port, uin_to_port
+from torch_threads import two_torch_threads  # noqa: F401
 
 pytestmark = pytest.mark.skipif(
     len(jax.devices()) < 4, reason="needs 4 virtual devices"

@@ -40,6 +40,7 @@ from torch_parity import (
     uin_to_port,
     vary_edge_params,
 )
+from torch_threads import two_torch_threads  # noqa: F401
 
 
 def _varied(ls, seed):

@@ -39,6 +39,7 @@ from torch_parity import (
     sim_to_port,
     uin_to_port,
 )
+from torch_threads import two_torch_threads  # noqa: F401
 
 SCENES = {
     "default": lambda: jscenes.default_scene(),

@@ -34,6 +34,7 @@ from test_step_vs_oracle import cloth_grid
 from test_torch_general import SCENES, _cfgs, _world
 from torch_parity import consts_to_port, jittered, sim_to_jax, sim_to_port
 from torch_parity import uin_to_port
+from torch_threads import two_torch_threads  # noqa: F401
 
 SCENE_BUILDERS = {
     "default_scene": {},

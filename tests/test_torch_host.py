@@ -7,6 +7,7 @@ the overlaid render equal as uint8)."""
 
 import json
 import math
+import time
 
 import numpy as np
 import pytest
@@ -198,7 +199,10 @@ def _editor_session(pkg_editor, pkg_mapping, **kw):
     return ed
 
 
-def test_editor_session_saves_and_renders_like_jax():
+def test_editor_session_saves_and_renders_like_jax(monkeypatch):
+    # the HUD prints the renders of the last second: a clock that stands
+    # still keeps a slow first render (JAX compiles it) inside that window
+    monkeypatch.setattr(time, "monotonic", lambda: 1000.0)
     jed = _editor_session(jeditor, jmapping)
     ted = _editor_session(teditor, tmapping, device="cpu")
     assert ted.registry.particle_count == jed.registry.particle_count

@@ -44,6 +44,7 @@ from softbody_tpu_torch.ops.cuda import band_detect, collide_stencil
 from softbody_tpu_torch.ops.cuda import fused_substep, fused_substep2
 from softbody_tpu_torch.ops.cuda._lib import CSRC
 from softbody_tpu_torch.ops.farfield import FarFieldSpec
+from torch_threads import two_torch_threads  # noqa: F401
 
 EMULATED = ("fused_substep2.cu", "fused_substep.cu", "collide_stencil.cu",
             "band_detect.cu")
@@ -146,6 +147,9 @@ inline unsigned __reduce_min_sync(unsigned, unsigned v) {
 }
 using std::max;
 using std::min;
+// the card's rsqrtf is an approximation (rsqrt.approx.f32); the plain
+// version on the CPU takes torch's rsqrt, which rounds as 1/sqrtf
+inline float rsqrtf(float x) { return 1.0f / std::sqrt(x); }
 inline int __ffs(int x) { return x ? __builtin_ctz((unsigned)x) + 1 : 0; }
 inline int __ffsll(long long x) {
   return x ? __builtin_ctzll((unsigned long long)x) + 1 : 0;
@@ -326,12 +330,14 @@ def lib(tmp_path_factory):
     lib = ctypes.CDLL(str(so))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.sb_fused_substep2.argtypes = [p] * 7 + [i] * 4 + [p]
+    lib.sb_fused_substep2_variant.argtypes = [p] * 7 + [i] * 6 + [p]
     lib.sb_fused_substep.argtypes = [p] * 5 + [i] * 4 + [p]
     lib.sb_collide_stencil.argtypes = [p] * 6 + [f] * 4 + [i] * 3 + [p]
     lib.sb_collide_stencil_strided.argtypes = ([p] * 7 + [f] * 4 + [i] * 3
                                                + [p])
     lib.sb_band_flags.argtypes = [p] * 7 + [i] * 3 + [p]
-    for fn in (lib.sb_fused_substep2, lib.sb_fused_substep,
+    for fn in (lib.sb_fused_substep2, lib.sb_fused_substep2_variant,
+               lib.sb_fused_substep,
                lib.sb_collide_stencil, lib.sb_collide_stencil_strided,
                lib.sb_band_flags):
         fn.restype = i
@@ -397,6 +403,54 @@ def test_k1_source_matches_plain(lib, stencil, shape):
         assert torch.equal(got_hot, ref_hot), case
         if observe:
             assert torch.equal(got_obs, ref_obs), case
+
+
+@pytest.mark.parametrize("rsqrt,rollgroup", [(True, False), (False, True),
+                                             (True, True)],
+                         ids=["rsqrt", "rollgroup", "rsqrt+rollgroup"])
+def test_k1_variant_sources_match_plain(lib, rsqrt, rollgroup):
+    """K1's instances under the arithmetic variants against the plain
+    version with the same flags (``rsqrtf`` emulated as torch's CPU
+    ``rsqrt``), at stencils 1 and 3, quantized and float, with a far
+    stack and the mouse grabbing, and observing; under ``rsqrt`` also with
+    dt = 1e-19 (clip overflows; the variant's skip stays on: the terms of
+    a pair apart are +0 there whatever the constants).  The radius is
+    0.8 spacings, so that most pairs out to offset (1, 1) touch and the
+    sums of one Δy group, and the groups themselves, meet in one cell."""
+    w, h = SHAPES[0]
+    state, cfg, consts, g = _state(w, h, seed=29)
+    cfg = dataclasses.replace(cfg, particle_radius=16.0)
+    hot, obs, immut, ec = fused_substep2.pack_lattice2(state)
+    uin = tb.UserInput(mouse_active=True,
+                       mouse_pos=tuple(state.pos[w // 2, h // 2].tolist()),
+                       mouse_vel=(3.0, -1.0))
+    cvec = torch.cat([tb.consts_vector(consts, uin, cfg, h), ec])
+    far = torch.randn((5, w, h), generator=g) * 0.5
+    tiny_dt = cvec.clone()
+    tiny_dt[1] = 1e-19
+    cases = [(cvec, s, q, far, obs) for s in (1, 3) for q in (True, False)]
+    if rsqrt:
+        cases.append((tiny_dt, 2, True, None, None))
+    flags = dict(rsqrt=rsqrt, rollgroup=rollgroup)
+    for cv, stencil, quantized, f, obs_in in cases:
+        ref = fused_substep2.fused_substep2_plain(
+            hot, immut, cv, stencil=stencil, quantized=quantized, far=f,
+            obs_in=obs_in, **flags)
+        got_hot = torch.empty_like(hot)
+        got_obs = None if obs_in is None else torch.empty_like(obs)
+        assert lib.sb_fused_substep2_variant(
+            _ptr(hot), _ptr(immut), _ptr(f), _ptr(obs_in), _ptr(got_hot),
+            _ptr(got_obs), _ptr(cv), w, h, stencil, int(quantized),
+            int(rsqrt), int(rollgroup), None) == 0
+        ref_hot, ref_obs = ref if obs_in is not None else (ref, None)
+        case = f"s={stencil} quantized={quantized} dt={float(cv[1])}"
+        assert _same_bits(got_hot, ref_hot), case
+        if obs_in is not None:
+            assert torch.equal(got_obs, ref_obs), case
+        strict = fused_substep2.fused_substep2_plain(
+            hot, immut, cv, stencil=stencil, quantized=quantized, far=f)
+        if not quantized or rsqrt:   # the variant is not strict here
+            assert not torch.equal(strict, ref_hot), case
 
 
 @pytest.mark.parametrize("shape", SHAPES, ids=SHAPE_IDS)

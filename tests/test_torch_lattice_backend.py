@@ -50,6 +50,7 @@ from torch_parity import (
     to_port,
     uin_to_port,
 )
+from torch_threads import two_torch_threads  # noqa: F401
 
 FF = dict(max_pairs=512, max_tile_pairs=64, skin=4.0, horizon=8)
 

@@ -39,6 +39,7 @@ from softbody_tpu_torch.parallel.lattice_spatial import (
 )
 
 from torch_parity import consts_to_port, to_jax, to_port, uin_to_port
+from torch_threads import two_torch_threads  # noqa: F401
 
 pytestmark = pytest.mark.skipif(
     len(jax.devices()) < 8, reason="needs 8 virtual devices"

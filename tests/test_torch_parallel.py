@@ -69,6 +69,7 @@ from torch_parity import (
     sim_to_port,
     uin_to_port,
 )
+from torch_threads import two_torch_threads  # noqa: F401
 
 pytestmark = pytest.mark.skipif(
     len(jax.devices()) < 8, reason="needs 8 virtual devices"

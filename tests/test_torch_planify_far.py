@@ -39,6 +39,7 @@ from softbody_tpu_torch.ops.stencil import LatticeSpec
 
 from test_torch_planify import CONSTS, NX, NY, SP, UIN, _flat_strip
 from torch_parity import consts_to_port, uin_to_port
+from torch_threads import two_torch_threads  # noqa: F401
 
 # the fold (tests/test_planify.py:235-262)
 FOLD_CFG = dict(subticks=4, collision_mode="allpairs", particle_radius=4.0,

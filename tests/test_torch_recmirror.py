@@ -44,6 +44,7 @@ from test_torch_frame import (
     hairpin_reference,
 )
 from torch_parity import consts_to_port, to_port, uin_to_port
+from torch_threads import two_torch_threads  # noqa: F401
 
 KW = dict(s=2, dt=DT, ecoeff=0.75, friction=0.1)
 

@@ -26,6 +26,7 @@ from softbody_tpu_torch.models import cloth_lattice, make_lattice
 from softbody_tpu_torch.models import scenes, tearing_cloth_lattice
 
 from torch_parity import consts_to_port, random_state, uin_to_port
+from torch_threads import two_torch_threads  # noqa: F401
 
 PORT_MODULES = (
     "softbody_tpu_torch",

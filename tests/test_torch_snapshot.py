@@ -29,6 +29,7 @@ from torch_parity import (
     sim_to_port,
     to_jax,
 )
+from torch_threads import two_torch_threads  # noqa: F401
 
 CONSTS_8 = np.float32([0.25, -0.75, 0.3, 0.4, 0.6, 0.15, 0.002, 2.5])
 

@@ -41,6 +41,7 @@ from torch_parity import (
     to_port,
     uin_to_port,
 )
+from torch_threads import two_torch_threads  # noqa: F401
 
 
 def _slit_cloth():
