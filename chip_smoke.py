@@ -35,6 +35,12 @@ to 0 just before it and read just after:
   behind ``Engine``; the small fold through both far-apply routes, card
   against CPU; ``FusedLatticeBackend(far_activation=True)`` on the bench
   scene (K1, K2, K7); the directed-CSR engine at config 3;
+- the fused backend's other far modes (phase 15): K1's trig, detect and
+  knobs instances held against their plain versions; the bench scene
+  through ``FusedLatticeBackend(far_detect="kernel")`` (K1 with its
+  detect instance, K2, K7) in turns with xla detection, and in the
+  triggered mode ``far_mode="v3"`` (K1's trig instances); the knobs on
+  one far-off frame each; the fold card against CPU;
 - the CLI (phase 13), as a user first runs it, in this process:
   ``run`` of the 1M tearing cloth on the lattice path and of the 100k
   cloth planified and far-armed (K2, K7), ``render`` of the 1M cloth,
@@ -138,10 +144,16 @@ from softbody_tpu_torch.ops.cuda.fused_substep2 import (
     PY,
     VX,
     VY,
+    X_TBAND,
+    X_VBX,
+    X_VBY,
+    fused_frame2_auto,
+    fused_frame2_far,
     fused_frame4,
     fused_substep2_call,
     fused_substep2_plain,
     pack_lattice2,
+    rebuild_far_list_packed2,
     unpack_lattice2,
 )
 from softbody_tpu_torch.ops.directed import (
@@ -153,6 +165,7 @@ from softbody_tpu_torch.ops.farfield import (
     FarFieldSpec,
     _chunk_dims,
     crop_far_list,
+    empty_far_list,
     far_collision_terms,
     rebuild_far_list_planes,
 )
@@ -319,6 +332,22 @@ SHARD_PARITY_FRAME = 9
 SHARD_PROFILE_SUBSTEPS = 8
 SHARD_GENERAL_N = 100_000
 SHARD_BENCH_ATOL = {"pos": 1e-2, "vel": 0.64, "edges alive differ": 0}
+
+# the far modes phase (15): K1's mode instances held against their plain
+# versions at these shapes (the trig sums within TRIG_SUM_RTOL of the sum
+# of |v|: their order differs); the bench scene with kernel detection and
+# xla detection in turns (frames 3-10, as phase 6), and frame 10 of both
+# from one frame 9 (the first VARIANT_SUBSTEPS substeps within
+# VARIANT_ATOL); the bench scene in the triggered mode with bench.py's v3
+# far field (bench.py:108-112: 512 pairs, 256 tile pairs, skin 1.5
+# spacings, horizon 32), frames 3-10; the knobs' instances (not physics)
+# on one frame of the bench scene without far field, as
+# scripts/bench_sweep.py's nf_nospring / nf_void / nf_pipe run them
+K1_MODE_SHAPES = ((1000, 1000), (97, 61))
+TRIG_SUM_RTOL = 1e-5
+V3_FF = dict(max_pairs=512, max_tile_pairs=256, horizon=32)
+KNOB_RUNS = (("nospring", 2, ("nospring",)), ("void", 0, ("nospring",)),
+             ("pipe", 0, ("nospring", "noint")))
 
 # the card's peaks for the bound (NVIDIA's H100 SXM data sheet): device
 # memory rate, and float32 outside the tensor cores
@@ -815,6 +844,17 @@ def _raw_k1(lib, hot, immut, cvec, stencil, quantized, far):
         None if far is None else far.data_ptr(), None, out.data_ptr(), None,
         cvec.data_ptr(), hot.shape[1], hot.shape[2], stencil,
         int(quantized), _stream()), "K1")
+    return out
+
+
+def _raw_k1v(lib, hot, immut, cvec, stencil, quantized, far, rsqrt,
+             rollgroup):
+    out = torch.empty_like(hot)
+    _lib.check(lib.sb_fused_substep2_variant(
+        hot.data_ptr(), immut.data_ptr(),
+        None if far is None else far.data_ptr(), None, out.data_ptr(), None,
+        cvec.data_ptr(), hot.shape[1], hot.shape[2], stencil,
+        int(quantized), int(rsqrt), int(rollgroup), _stream()), "K1")
     return out
 
 
@@ -1371,6 +1411,12 @@ def time_at_final_state(run, spec, cfg, consts, parent=None) -> dict:
             lambda: _raw_k1(parent, hot, immut, cvec, st, True, far),
             lambda: _raw_k1(_lib.library(), hot, immut, cvec, st, True, far),
             50)
+    if parent is not None and hasattr(parent, "sb_fused_substep2_variant"):
+        # the bench path's instance (the default variants)
+        t["compare"][f"K1 rsqrt+rollgroup s{s}"] = _turns(
+            lambda: _raw_k1v(parent, hot, immut, cvec, s, True, far, 1, 1),
+            lambda: _raw_k1v(_lib.library(), hot, immut, cvec, s, True, far,
+                             1, 1), 50)
     for name, (rq, rg) in K1_INSTANCES.items():
         t[f"K1 {name} plain"] = _timed_ms(
             lambda: fused_substep2_plain(hot, immut, cvec, rsqrt=rq,
@@ -3149,6 +3195,512 @@ def run_sharded(dev, card: str, bench_rate: float) -> dict:
             "K4": b["k4"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the fused backend's other far modes (K1's trig, detect and
+# knobs instances)
+
+
+def _k1_mode_instances() -> tuple:
+    """K1's mode instances by name (fused_substep2.k1_instance)."""
+    return (("strict+trig", "strict+trig+detect")
+            + tuple(f"{a}+detect" for a in K1_INSTANCES)
+            + tuple(f"{a}+knobs" for a in K1_INSTANCES))
+
+
+def _extras(hot, alive, radius: float, skin: float, dt: float, *,
+            t_band: float, det: float = 1.0, tau: float = 0.0):
+    """The far-field scalars of a K1 call with trig or detect (CPU
+    float32 [8]): the band's mean velocity of ``hot``, T_band, the base
+    reach 2r + skin."""
+    n = alive.sum().clamp(min=1).to(torch.float32)
+    vbar = torch.stack([torch.where(alive, hot[VX], 0.0).sum() / n,
+                        torch.where(alive, hot[VY], 0.0).sum() / n]).tolist()
+    return torch.tensor([tau, det, vbar[0], vbar[1], t_band,
+                         2.0 * radius + skin, 2.0 * dt, 0.0],
+                        dtype=torch.float32)
+
+
+def _hold_trig(label, got, ref, vx, vy, alive) -> None:
+    """The trig statistics: maxima bit for bit, sums within TRIG_SUM_RTOL
+    of the sums of |v| (their order differs)."""
+    if int(_differs(got[:2], ref[:2]).sum()):
+        raise AssertionError(f"{label}: trig maxima {got[:2].tolist()} vs "
+                             f"plain {ref[:2].tolist()}")
+    scale = torch.stack([torch.where(alive, vx.abs(), 0.0).sum(),
+                         torch.where(alive, vy.abs(), 0.0).sum()])
+    if not bool(((got[2:] - ref[2:]).abs() <= TRIG_SUM_RTOL * scale).all()):
+        raise AssertionError(f"{label}: trig sums {got[2:].tolist()} vs "
+                             f"plain {ref[2:].tolist()} (scale "
+                             f"{scale.tolist()})")
+
+
+def check_k1_modes(w: int, h: int, dev) -> dict:
+    """K1's mode instances against the plain version with the same flags
+    at ``w × h`` on the stirred lattice: trig and trig+detect (strict) at
+    stencils 1, 2 x quantized/float x observing on/off; detect in each
+    arithmetic instance at stencils 1, 2 x quantized/float; the knobs in
+    each (nospring, noint, both; stencil 2).  Every state and obs plane
+    and the side planes bit for bit, the trig maxima too, the trig sums
+    within TRIG_SUM_RTOL.  Returns the largest |err| per instance."""
+    state, cfg, consts, g = _k14_state(w, h, dev, SEED + 7 + w + h)
+    hot, obs, immut, ec = pack_lattice2(state)
+    alive = immut[0] > 0
+    spacing = 980.0 / max(max(w, h) - 1, 1)
+    base = torch.cat([tb.consts_vector(consts, tb.UserInput(), cfg, h), ec])
+    far = torch.randn((5, w, h), generator=g, device=dev) * 0.5
+    refs = (hot[:4] + torch.randn((4, w, h), generator=g, device=dev)
+            * 0.1 * spacing).contiguous()
+    worst = dict.fromkeys(_k1_mode_instances(), 0.0)
+    cases = []
+    for s, q, observe in itertools.product((1, 2), (True, False),
+                                           (False, True)):
+        for det in (False, True):
+            cases.append(("strict+trig" + ("+detect" if det else ""),
+                          dict(stencil=s, quantized=q, refs=refs,
+                               detect=det, obs_in=obs if observe else None)))
+    for (name, (rq, rg)), s, q in itertools.product(
+            K1_INSTANCES.items(), (1, 2), (True, False)):
+        cases.append((f"{name}+detect", dict(stencil=s, quantized=q,
+                                              detect=True, rsqrt=rq,
+                                              rollgroup=rg)))
+    for (name, (rq, rg)), (ns, ni) in itertools.product(
+            K1_INSTANCES.items(), ((True, False), (False, True),
+                                   (True, True))):
+        cases.append((f"{name}+knobs", dict(stencil=2, quantized=True,
+                                             nospring=ns, noint=ni,
+                                             obs_in=obs, rsqrt=rq,
+                                             rollgroup=rg)))
+    flagged = 0
+    for name, kw in cases:
+        modes = kw.get("refs") is not None or kw.get("detect", False)
+        cvec = base
+        if modes:
+            cvec = torch.cat([base, _extras(
+                hot, alive, cfg.particle_radius, 0.75 * spacing, cfg.dt,
+                t_band=9 * cfg.dt, tau=cfg.dt)])
+        kw = dict(far=far, **kw)
+        ref = fused_substep2_plain(hot, immut, cvec, **kw)
+        got = fused_substep2_call(hot, immut, cvec, **kw)
+        torch.cuda.synchronize()
+        ref = list(ref) if isinstance(ref, tuple) else [ref]
+        got = list(got) if isinstance(got, tuple) else [got]
+        label = f"K1 {name} {w}x{h} {kw['stencil']=} {kw['quantized']=}"
+        if kw.get("refs") is not None:
+            i = 2 if kw.get("obs_in") is not None else 1
+            _hold_trig(label, got.pop(i), ref.pop(i), got[0][VX],
+                       got[0][VY], alive)
+        if kw.get("detect"):
+            flagged += int(ref[-1][8].sum())
+        for a, b in zip(got, ref):
+            n_bad = int(_differs(a, b).sum())
+            if n_bad:
+                raise AssertionError(f"{label}: {n_bad} values differ from "
+                                     "the plain version")
+            worst[name] = max(worst[name], (a[torch.isfinite(b)] - b[
+                torch.isfinite(b)]).abs().max().item() if b.numel() else 0.0)
+    if not flagged:
+        raise AssertionError(f"K1 detect {w}x{h}: no band flag set")
+    log(f"K1 modes {w}x{h}: {len(cases)} cases ({', '.join(worst)}): state, "
+        f"obs and side planes and trig maxima bit-exact, trig sums within "
+        f"{TRIG_SUM_RTOL} of the sums of |v| ({flagged} band-flagged row "
+        f"groups)")
+    return worst
+
+
+def _detect_bound(hot, immut, cvec, s: int, side_cells: int) -> tuple:
+    """K1's detect instance: K1's bytes plus the side planes written;
+    K1's operations plus 7 per band pair the data needs (up to each
+    cell's first hit) and ~8 per cell for its deviation and row-group
+    reduces."""
+    alive = immut[0] > 0
+    ex = cvec[40:].tolist()
+    ddx, ddy = hot[VX] - ex[X_VBX], hot[VY] - ex[X_VBY]
+    dev = torch.where(alive, sqrt32(ddx * ddx + ddy * ddy) * ex[X_TBAND],
+                      0.0)
+    n = alive.numel()
+    pairs = _band_pairs_evaluated(hot[PX], hot[PY], dev, ex[5] + dev, alive,
+                                  FarFieldSpec().band_half_offsets(s))
+    n_bytes = (18 + 2 + 5 + 18) * 4 * n + 9 * 4 * side_cells
+    return n_bytes, _substep_ops(n, s) + 7 * pairs + 8 * n
+
+
+def _time_instance(label, fn, plain, bound) -> dict:
+    """Device ms of ``fn`` (one K1 call), host-paced ms of its plain
+    version, and its bound."""
+    ms = _device_ms(fn, 50)
+    plain_ms = _timed_ms(plain, 3)
+    _log_bound(label, *bound)
+    b = _bound(*bound)
+    log(f"{label}: {ms:.4f} ms (plain {plain_ms:.2f} ms), bound "
+        f"{b[0]:.4f} ms ({b[1]}), {b[0] / ms:.2f} of the bound")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b[0],
+            "bound_by": b[1]}
+
+
+def _gate_detect_run(mode: str, r: dict, k1: dict, want: dict) -> None:
+    """A finite state, no overflow, K1 by instance as ``want``, K2 once a
+    frame (kernel detection: block 0's side planes) or once a rebuild
+    (xla), K7 in the far applies."""
+    hot = r["box"][0][0]
+    want_k2 = TIMED_FRAMES if mode == "kernel" else r["stats"]["far_rebuilds"]
+    if (not bool(torch.isfinite(hot[:6]).all())
+            or r["stats"]["far_overflow"] or k1 != want
+            or r["k2"] != want_k2 or not r["k7"]):
+        raise AssertionError(f"kernel detect, {mode}: far stats "
+                             f"{r['stats']}, K1 {k1} (want {want}), K2 "
+                             f"{r['k2']} (want {want_k2}), K7 {r['k7']}")
+
+
+def run_kernel_detect(state, spec, cfg, consts, spacing, card) -> dict:
+    """The bench scene through ``FusedLatticeBackend(far_detect=
+    "kernel")`` (the default variants: K1 rsqrt+rollgroup, and its detect
+    instance at each block's last substep but the frame's last; K2 once a
+    frame for block 0's side planes; K7 per mirror-route apply) and with
+    xla detection, frames 3-10 in turns (xla, kernel, kernel, xla), the
+    launch counts from 0 before each turn; then frame 10 of both from the
+    xla path's frame 9; then the detect instance timed at the final
+    state.  Gates: equal rebuilds, no overflow, finite state, the launch
+    counts, and frame 10's first VARIANT_SUBSTEPS substeps within
+    VARIANT_ATOL."""
+    uin = tb.UserInput()
+    ff = _far_spec(spacing)
+    runs = {}
+    for mode in ("xla", "kernel"):
+        be = FusedLatticeBackend(spec, cfg, farfield=ff, far_detect=mode,
+                                 device=state.pos.device)
+        box = [be.pack_state(state)]
+        for _ in range(WARM_FRAMES):
+            box[0] = be.step(box[0], consts, uin)
+        be.far_stats()
+        runs[mode] = dict(be=be, box=box, ms=0.0, reads=0,
+                          k1=dict.fromkeys(
+                              fused_substep2.K1_INSTANCE_LAUNCHES, 0),
+                          k2=0, k7=0)
+    for mode in ("xla", "kernel", "kernel", "xla"):
+        r = runs[mode]
+        _zero_k1_k2_k7()
+        reads0 = fused_substep2.HOST_READS
+
+        def step(r=r):
+            r["box"][0] = r["be"].step(r["box"][0], consts, uin)
+
+        r["ms"] += sum(_frames(step, TIMED_FRAMES // 2))
+        r["reads"] += fused_substep2.HOST_READS - reads0
+        for k, v in fused_substep2.K1_INSTANCE_LAUNCHES.items():
+            r["k1"][k] += v
+        r["k2"] += band_detect.K2_LAUNCHES
+        r["k7"] += recmirror.K7_LAUNCHES
+    substeps = TIMED_FRAMES * cfg.subticks
+    blocks = cfg.subticks // ff.horizon
+    for mode, r in runs.items():
+        r["stats"] = r["be"].far_stats()
+        r["rate"] = substeps / (r["ms"] / 1000.0)
+        n_det = TIMED_FRAMES * (blocks - 1) if mode == "kernel" else 0
+        k1 = {k: v for k, v in r["k1"].items() if v}
+        want = {"rsqrt+rollgroup": substeps - n_det}
+        if n_det:
+            want["rsqrt+rollgroup+detect"] = n_det
+        _gate_detect_run(mode, r, k1, want)
+        idle, per = _idle_and_launches(lambda r=r: r["box"].__setitem__(
+            0, r["be"].step(r["box"][0], consts, uin)), cfg.subticks)
+        r["idle"], r["launches_per_substep"] = idle, per
+        log(f"phase 15 bench scene, {mode} detection: frames 3-10 "
+            f"{r['rate']:.1f} substeps/s; far stats {r['stats']}; K1 {k1}, "
+            f"K2 {r['k2']}, K7 {r['k7']}; {r['reads'] / substeps:.3f} host "
+            f"reads and {per:.1f} launches per substep, device idle share "
+            f"{idle:.2f} (one profiled frame) on {card}")
+    if runs["kernel"]["stats"]["far_rebuilds"] != \
+            runs["xla"]["stats"]["far_rebuilds"]:
+        raise AssertionError(f"kernel detect: rebuilds "
+                             f"{runs['kernel']['stats']} vs "
+                             f"{runs['xla']['stats']}")
+
+    # frame 10 of both from one frame 9 (frames 1-9 anew, xla detection),
+    # in kernel detection's variants (krec dropped)
+    be9 = FusedLatticeBackend(spec, cfg, farfield=ff, device=state.pos.device,
+                              far_detect="kernel")
+    hot9, obs9 = be9.pack_state(state)
+    for _ in range(9):
+        hot9, obs9 = fused_frame4(hot9, obs9, be9._immut, be9._edge_consts,
+                                  consts, uin, spec, cfg, ff,
+                                  kvar=be9.kvar)[:2]
+    ulp = hot9.clone()
+    ulp[VX] = torch.nextafter(ulp[VX], torch.full_like(ulp[VX], math.inf))
+
+    def frame(mode, n_sub, hot=hot9):
+        h, _o, st = fused_frame4(hot.clone(), obs9.clone(), be9._immut,
+                                 be9._edge_consts, consts, uin, spec, cfg,
+                                 ff, n_sub=n_sub, detect_mode=mode,
+                                 kvar=be9.kvar)
+        return h, st.tolist()
+
+    def diff(a, b):
+        return {"pos": (a[0:2] - b[0:2]).abs().max().item(),
+                "vel": (a[2:4] - b[2:4]).abs().max().item(),
+                "edges alive differ": int((a[8::3] != b[8::3]).sum())}
+
+    out = {}
+    for n_sub in (VARIANT_SUBSTEPS, 16, cfg.subticks):
+        ref, st_x = frame("xla", n_sub)
+        got, st_k = frame("kernel", n_sub)
+        out[n_sub] = {"kernel": diff(got, ref), "stats": (st_k, st_x),
+                      "xla, vx one ulp up": diff(frame("xla", n_sub,
+                                                       ulp)[0], ref)}
+        if not bool(torch.isfinite(got[:6]).all()) or st_k[2]:
+            raise AssertionError(f"bench frame 10, kernel detect, {n_sub} "
+                                 f"substeps: stats {st_k}")
+    errs = out[VARIANT_SUBSTEPS]["kernel"]
+    if not (errs["pos"] <= VARIANT_ATOL["pos"]
+            and errs["vel"] <= VARIANT_ATOL["vel"]
+            and errs["edges alive differ"] == 0):
+        raise AssertionError(f"bench frame 10, kernel vs xla detection, "
+                             f"{VARIANT_SUBSTEPS} substeps: {errs}")
+    log(f"phase 15 bench frame 10 from one frame 9, kernel vs xla "
+        f"detection (kvar {be9.kvar}): first {VARIANT_SUBSTEPS} substeps "
+        f"{errs} (within {VARIANT_ATOL}); by substeps run {out}")
+
+    # the detect instance at the kernel path's final state
+    be = runs["kernel"]["be"]
+    hot, _obs = runs["kernel"]["box"][0]
+    immut = be._immut
+    alive = immut[0] > 0
+    s = spec.collision_stencil
+    fl = rebuild_far_list_planes(hot[PX], hot[PY], alive, vx=hot[VX],
+                                 vy=hot[VY], dt=cfg.dt, s=s, ff=ff,
+                                 radius=cfg.particle_radius)
+    far = bucketed_far_delta_planes(
+        hot, immut[0], fl, fl.counts()[0], s=s, ff=ff,
+        radius=cfg.particle_radius, dt=cfg.dt, ecoeff=consts.ecoeff,
+        friction=consts.friction, buckets=FAR_BUCKETS)
+    cvec = torch.cat([tb.consts_vector(consts, uin, cfg, spec.height),
+                      be._edge_consts, _extras(
+                          hot, alive, cfg.particle_radius, ff.skin, cfg.dt,
+                          t_band=(ff.horizon + 1) * cfg.dt)])
+    w4 = -(-spec.width // 4) * spec.height
+    timing = {}
+    for name, (rq, rg) in K1_INSTANCES.items():
+        kw = dict(stencil=s, quantized=True, far=far, detect=True,
+                  rsqrt=rq, rollgroup=rg)
+        timing[f"{name}+detect"] = _time_instance(
+            f"K1 {name}+detect at the kernel-detect final state",
+            lambda kw=kw: fused_substep2_call(hot, immut, cvec, **kw),
+            lambda kw=kw: fused_substep2_plain(hot, immut, cvec, **kw),
+            _detect_bound(hot, immut, cvec, s, w4))
+    return dict(rate=runs["kernel"]["rate"], rate_xla=runs["xla"]["rate"],
+                k1=runs["kernel"]["k1"], k2=runs["kernel"]["k2"],
+                k7=runs["kernel"]["k7"], timing=timing, frame10=out,
+                reads=runs["kernel"]["reads"] / substeps,
+                per_substep=runs["kernel"]["launches_per_substep"],
+                idle=runs["kernel"]["idle"])
+
+
+def run_v3(state, spec, cfg, consts, spacing, card) -> dict:
+    """The bench scene through ``FusedLatticeBackend(far_mode="v3")`` with
+    bench.py's v3 far field: two frames, then frames 3-10 with the launch
+    counts from 0 (K1 in its strict trig instances only, one per
+    substep: JAX's triggered frame runs strict; K2 and K7 none, the
+    carried side planes came from K2 in frame 1), the rebuilds per
+    frame, host reads and launches per substep; then the trig instances
+    timed at the final state.  Gate: a finite state."""
+    uin = tb.UserInput()
+    ff = FarFieldSpec(skin=1.5 * spacing, **V3_FF)
+    be = FusedLatticeBackend(spec, cfg, farfield=ff, far_mode="v3",
+                             device=state.pos.device)
+    box = [be.pack_state(state)]
+
+    def step():
+        box[0] = be.step(box[0], consts, uin)
+
+    for _ in range(WARM_FRAMES):
+        step()
+    first = be.far_stats()
+    _zero_k1_k2_k7()
+    reads0 = fused_substep2.HOST_READS
+    per_frame, ms = [], []
+    for _ in range(TIMED_FRAMES):
+        ms += _frames(step, 1)
+        per_frame.append(be.far_stats())
+    reads = fused_substep2.HOST_READS - reads0
+    substeps = TIMED_FRAMES * cfg.subticks
+    k1 = {k: v for k, v in fused_substep2.K1_INSTANCE_LAUNCHES.items() if v}
+    hot = box[0][0]
+    if (not bool(torch.isfinite(hot[:6]).all())
+            or sum(k1.values()) != substeps
+            or set(k1) - {"strict+trig", "strict+trig+detect"}
+            or band_detect.K2_LAUNCHES or recmirror.K7_LAUNCHES):
+        raise AssertionError(f"v3: K1 {k1}, K2 {band_detect.K2_LAUNCHES}, "
+                             f"K7 {recmirror.K7_LAUNCHES}")
+    rate = substeps / (sum(ms) / 1000.0)
+    idle, per = _idle_and_launches(step, cfg.subticks)
+    log(f"phase 15 bench scene, far_mode v3 ({ff}): frames 1-2 {first}; "
+        f"frames 3-10 {rate:.1f} substeps/s, frame ms "
+        f"{[round(x, 1) for x in ms]}; per frame "
+        f"{[(d['far_rebuilds'], d['far_pairs'], d['far_overflow']) for d in per_frame]}"
+        f" (rebuilds, max pairs, overflow); K1 {k1}; {reads / substeps:.3f} "
+        f"host reads and {per:.1f} launches per substep, device idle share "
+        f"{idle:.2f} (one profiled frame) on {card}")
+    # the trig instances at the final state, on the carried list's refs
+    immut = be._immut
+    alive = immut[0] > 0
+    fl = be._far_list
+    refs = torch.stack([fl.px_ref, fl.py_ref, fl.vx_ref, fl.vy_ref])
+    cvec = torch.cat([tb.consts_vector(consts, uin, cfg, spec.height),
+                      be._edge_consts, _extras(
+                          hot, alive, cfg.particle_radius, ff.skin, cfg.dt,
+                          t_band=(ff.horizon + 1) * cfg.dt, tau=cfg.dt)])
+    s = spec.collision_stencil
+    n = alive.numel()
+    w4 = -(-spec.width // 4) * spec.height
+    timing = {}
+    for det in (False, True):
+        name = "strict+trig" + ("+detect" if det else "")
+        kw = dict(stencil=s, quantized=True, refs=refs, detect=det)
+        nb, ops = (_detect_bound(hot, immut, cvec, s, w4) if det else
+                   ((18 + 2 + 5 + 18) * 4 * n, _substep_ops(n, s)))
+        # no far planes here (the far apply is timed elsewhere): minus 5
+        # planes read; plus the refs read and ~12 operations per cell
+        timing[name] = _time_instance(
+            f"K1 {name} at the v3 final state",
+            lambda kw=kw: fused_substep2_call(hot, immut, cvec, **kw),
+            lambda kw=kw: fused_substep2_plain(hot, immut, cvec, **kw),
+            (nb - 5 * 4 * n + 4 * 4 * n, ops + 12 * n))
+    return dict(rate=rate, k1=k1, timing=timing, reads=reads / substeps,
+                per_substep=per, idle=idle, per_frame=per_frame)
+
+
+def run_knobs(state, spec, cfg, consts, card) -> dict:
+    """The knobs (not physics), as scripts/bench_sweep.py runs them: one
+    frame of the bench scene without far field through
+    ``FusedLatticeBackend(kernel_variants=knobs)`` per KNOB_RUNS entry,
+    the launch counts from 0 (K1's strict knobs instance once per
+    substep), then each timed at that frame's state beside strict K1 at
+    the same stencil: the split of K1's time into springs, collisions
+    and the bare pipe."""
+    uin = tb.UserInput()
+    timing = {}
+    n = spec.width * spec.height
+    for label, s, kvar in KNOB_RUNS:
+        sp = dataclasses.replace(spec, collision_stencil=s)
+        be = FusedLatticeBackend(sp, cfg, device=state.pos.device,
+                                 kernel_variants=kvar)
+        box = [be.pack_state(state)]
+        _zero_k1_k2_k7()
+        box[0] = be.step(box[0], consts, uin)
+        torch.cuda.synchronize()
+        k1 = {k: v for k, v in fused_substep2.K1_INSTANCE_LAUNCHES.items()
+              if v}
+        if k1 != {"strict+knobs": cfg.subticks}:
+            raise AssertionError(f"knobs {label}: K1 {k1}")
+        hot, _obs = box[0]
+        cvec = torch.cat([tb.consts_vector(consts, uin, cfg, spec.height),
+                          be._edge_consts])
+        kw = dict(stencil=s, quantized=True, nospring="nospring" in kvar,
+                  noint="noint" in kvar)
+        t = _time_instance(
+            f"K1 strict+knobs {label} (stencil {s}, {kvar})",
+            lambda kw=kw: fused_substep2_call(hot, be._immut, cvec, **kw),
+            lambda kw=kw: fused_substep2_plain(hot, be._immut, cvec, **kw),
+            ((18 + 2 + 18) * 4 * n,
+             _substep_ops(n, s) - (0 if "noint" not in kvar else 60 * n)
+             - 4 * (16 + 8 + 11) * n))
+        t["strict_ms"] = _device_ms(lambda: fused_substep2_call(
+            hot, be._immut, cvec, stencil=s, quantized=True), 50)
+        t["launches"] = k1["strict+knobs"]
+        timing[label] = t
+    log("phase 15 knobs, device ms at stencil 2 / 0: " + ", ".join(
+        f"{k} {v['ms']:.4f} (strict {v['strict_ms']:.4f})"
+        for k, v in timing.items()) + f" on {card}")
+    return dict(timing=timing)
+
+
+def _far_modes_fold(dev) -> dict:
+    """The folded strip on ``dev``, strict: two frames of the backend in
+    the triggered mode and with kernel detection, one
+    ``fused_frame2_far`` frame from a rebuilt list, two
+    ``fused_frame2_auto`` frames; far stats and (pos, vel) on the host."""
+    consts, uin = tb.PhysicsConstants(), tb.UserInput()
+    spec = LatticeSpec(96, 4)
+    cfg = tb.StaticConfig(subticks=8, particle_radius=4.0)
+    ff = FarFieldSpec(max_pairs=64, max_tile_pairs=32, skin=4.0, horizon=8)
+    out = {}
+    for label, kw in (("v3", dict(far_mode="v3")),
+                      ("kernel detect", dict(far_detect="kernel"))):
+        be = FusedLatticeBackend(spec, cfg, farfield=ff, device=dev,
+                                 kernel_variants=(), **kw)
+        st = be.pack_state(_hairpin(dev))
+        for _ in range(2):
+            st = be.step(st, consts, uin)
+        out[label] = (be.far_stats(), st[0][0:4])
+    hot, obs, immut, ec = pack_lattice2(_hairpin(dev))
+    fl = rebuild_far_list_packed2(hot, immut, s=2, ff=ff, radius=4.0)
+    h2, _o = fused_frame2_far(hot, obs, immut, ec, fl, consts, uin, spec,
+                              cfg, ff, kvar=())
+    out["fused_frame2_far"] = ({"far_pairs": fl.counts()[0]}, h2[0:4])
+    fl = empty_far_list(96, 4, ff, device=dev)
+    st3 = [0, 0, 0]
+    for _ in range(2):
+        hot, obs, fl, st = fused_frame2_auto(hot, obs, immut, ec, fl, consts,
+                                             uin, spec, cfg, ff)
+        st = st.tolist()
+        st3 = [st3[0] + st[0], max(st3[1], st[1]), max(st3[2], st[2])]
+    out["fused_frame2_auto"] = (dict(zip(("far_rebuilds", "far_pairs",
+                                          "far_overflow"), st3)), hot[0:4])
+    return {k: (s, p.reshape(2, 2, 96, 4).cpu()) for k, (s, p) in out.items()}
+
+
+def check_far_modes_fold() -> None:
+    """The folded strip on the card against the CPU (plain versions) in
+    the triggered mode, with kernel detection, ``fused_frame2_far`` and
+    ``fused_frame2_auto``: far pairs found, positions and velocities
+    within 5e-3 / 5e-2 (the far apply's sum order and the band's mean
+    velocity differ)."""
+    cpu, gpu = _far_modes_fold("cpu"), _far_modes_fold("cuda")
+    for k, (s_g, pv_g) in gpu.items():
+        s_c, pv_c = cpu[k]
+        dpos = (pv_g[0] - pv_c[0]).abs().max().item()
+        dvel = (pv_g[1] - pv_c[1]).abs().max().item()
+        if not s_g["far_pairs"] or not (dpos <= 5e-3 and dvel <= 5e-2):
+            raise AssertionError(f"far modes fold, {k}: cuda {s_g} vs cpu "
+                                 f"{s_c}, |dpos| {dpos} |dvel| {dvel}")
+        log(f"phase 15 fold 96x4, {k}: cuda vs cpu plain, far stats cuda "
+            f"{s_g} cpu {s_c}; max |dpos| {dpos:.3g}, |dvel| {dvel:.3g}")
+
+
+def run_far_modes(dev, card) -> dict:
+    """Phase 15: K1's mode instances against their plain versions, the
+    fold card vs CPU, then the bench scene with kernel detection and in
+    the triggered mode, then the knobs."""
+    t0 = time.perf_counter()
+    errs = dict.fromkeys(_k1_mode_instances(), 0.0)
+    for w, h in K1_MODE_SHAPES:
+        for k, e in check_k1_modes(w, h, dev).items():
+            errs[k] = max(errs[k], e)
+    check_far_modes_fold()
+    state, spec, cfg, consts, spacing = _scene(N_PARTICLES, dev)
+    kd = run_kernel_detect(state, spec, cfg, consts, spacing, card)
+    v3 = run_v3(state, spec, cfg, consts, spacing, card)
+    knobs = run_knobs(state, spec, cfg, consts, card)
+    log(f"phase 15 far modes: {time.perf_counter() - t0:.1f} s")
+    inst = {}
+    for name in _k1_mode_instances():
+        if name.endswith("+knobs"):
+            continue
+        src = kd if name.endswith("+detect") and "trig" not in name else v3
+        launches = (kd["k1"].get(name, 0) if src is kd
+                    else v3["k1"].get(name, 0))
+        row = {"launches": launches, "max_abs_err": errs[name]}
+        row.update(src["timing"].get(name, {}))
+        inst[name] = row
+    for label, t in knobs["timing"].items():
+        inst[f"strict+knobs {label}"] = dict(
+            t, max_abs_err=errs["strict+knobs"])
+    for name in K1_INSTANCES:
+        if name != "strict":   # held against the plain version only
+            inst[f"{name}+knobs"] = {"launches": 0,
+                                     "max_abs_err": errs[f"{name}+knobs"]}
+    return dict(instances=inst, kd=kd, v3=v3, knobs=knobs)
+
+
 def _occupancy() -> None:
     """K1's, K4's and K3's residency per SM at the stencil radii they are
     held at, and K2's (registers, spills and shared memory from the
@@ -3163,6 +3715,14 @@ def _occupancy() -> None:
             f"{o['threads']} threads, {o['registers']} registers, "
             f"{o['local_bytes']} B local, {o['smem_bytes']} B shared"
             for s, o in occ.items()))
+    # K1's strict mode instances at stencil 2 (the mode in the argument's
+    # high byte: trig 1, detect 2, knobs 4)
+    for label, mode in (("trig", 1), ("detect", 2), ("trig+detect", 3),
+                        ("knobs", 4)):
+        o = _lib.occupancy("fused_substep2", (mode << 8) | 2)
+        log(f"  K1 strict+{label} residency at s=2: {o['blocks_per_sm']} "
+            f"blocks/SM, {o['registers']} registers, {o['local_bytes']} B "
+            f"local, {o['smem_bytes']} B shared")
 
 
 def _log_compare(compare: dict, card: str) -> None:
@@ -3319,6 +3879,12 @@ def main() -> int:
     # (K3, K4, K1 and K2 counted from 0 in sub-phases 1-3)
     launches_sharded = run_sharded(dev, card, run["rate"])
 
+    # phase 15: the fused backend's other far modes: K1's trig, detect
+    # and knobs instances against their plain versions, the fold card vs
+    # CPU, the bench scene with kernel detection (K1, K2, K7) and in the
+    # triggered mode (K1), the knobs (each counted from 0)
+    far_modes = run_far_modes(dev, card)
+
     pallas = "softbody_tpu/ops/pallas/"
     probe_src = "scripts/probe_recmirror.py"
     rows = (
@@ -3353,8 +3919,14 @@ def main() -> int:
                "ms": t[f"K1 {name}"], "plain_ms": t[f"K1 {name} plain"],
                "max_abs_err": k1_errs[name]}
         for name in K1_INSTANCES}
+    kernels[0]["instances"].update(far_modes["instances"])
+    kd = far_modes["kd"]
+    kernels[0]["launches_kernel_detect"] = sum(kd["k1"].values())
+    kernels[0]["launches_v3"] = sum(far_modes["v3"]["k1"].values())
     for row in kernels:
         k = row["name"].split()[0]
+        if k in ("K2", "K7"):
+            row["launches_kernel_detect"] = kd[k.lower()]
         if k in ("K2", "K3", "K7"):
             row["launches_planified"] = plan[k.lower()]
         if k in ("K2", "K7"):
@@ -3392,6 +3964,16 @@ def main() -> int:
         f"{card}")
     log("general path rates: " + ", ".join(f"{k} {v:.1f} substeps/s"
                                            for k, v in general)
+        + f" on {card}")
+    v3 = far_modes["v3"]
+    log(f"far modes on the bench scene: kernel detection {kd['rate']:.1f} "
+        f"substeps/s (xla detection in turns {kd['rate_xla']:.1f}), "
+        f"{kd['reads']:.3f} host reads and {kd['per_substep']:.1f} launches "
+        f"per substep; v3 {v3['rate']:.1f} substeps/s, {v3['reads']:.3f} "
+        f"host reads and {v3['per_substep']:.1f} launches per substep; K1 "
+        "mode instances " + ", ".join(
+            f"{k} {v['ms']:.4f} ms (bound {v['bound_ms']:.4f})"
+            for k, v in far_modes["instances"].items() if "ms" in v)
         + f" on {card}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -74,6 +74,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "band_device.cuh"
+
 namespace {
 
 constexpr int CX = 4;                    // W cells per thread
@@ -236,11 +238,8 @@ band_kernel(const float* __restrict__ px, const float* __restrict__ py,
         if (!((m >> dx) & 1u)) continue;
 #pragma unroll
         for (int j = 0; j < CX; ++j) {
-          const float ddx = qpx[j + dx] - cpx[j];
-          const float ddy = qpy[j + dx] - cpy[j];
-          const float d2 = ddx * ddx + ddy * ddy;
-          const float reach = cb[j] + qdv[j + dx];
-          hit[j] = hit[j] | (d2 < reach * reach);
+          hit[j] = hit[j] | band_pair_hit(cpx[j], cpy[j], cb[j], qpx[j + dx],
+                                          qpy[j + dx], qdv[j + dx]);
         }
       }
     }
@@ -383,11 +382,8 @@ band_kernel_wide(const float* __restrict__ px, const float* __restrict__ py,
 #pragma unroll
         for (int j = 0; j < CX; ++j) {
           const int q = base + (j + dx) * sy;
-          const float ddx = s_px[q] - cpx[j];
-          const float ddy = s_py[q] - cpy[j];
-          const float d2 = ddx * ddx + ddy * ddy;
-          const float reach = cb[j] + s_dev[q];
-          hit[j] = hit[j] | (d2 < reach * reach);
+          hit[j] = hit[j] | band_pair_hit(cpx[j], cpy[j], cb[j], s_px[q],
+                                          s_py[q], s_dev[q]);
         }
       }
     }

@@ -1,13 +1,36 @@
 // K1: one whole lattice substep, hand-written for Hopper (sm_90a).
 //
 // Replaces: softbody_tpu/ops/pallas/fused_substep2.py:_kernel2 (the
-// Pallas TPU kernel launched by fused_substep2_call), in four instances:
-// strict, and the JAX kernel's arithmetic variants rsqrt, rollgroup and
-// both (its default, rollgroup + rsqrt + dexp2 + layout flags; dexp2 is
-// the strict drag's |v|^2 = |v|*|v| already, the layout flags are
-// Mosaic's).  Plain version: softbody_tpu_torch/ops/stencil.py
-// (substep_planes, with the same flags), reached through
-// softbody_tpu_torch/ops/cuda/fused_substep2.py:fused_substep2_plain.
+// Pallas TPU kernel launched by fused_substep2_call), in the instances
+// its flags call for: strict, and the JAX kernel's arithmetic variants
+// rsqrt, rollgroup and both (its default, rollgroup + rsqrt + dexp2 +
+// layout flags; dexp2 is the strict drag's |v|^2 = |v|*|v| already, the
+// layout flags are Mosaic's); each also in the modes of the far-field
+// frames and of the attribution knobs (MODE, below).  Plain version:
+// softbody_tpu_torch/ops/stencil.py (substep_planes, with the same
+// flags), reached through softbody_tpu_torch/ops/cuda/fused_substep2.py:
+// fused_substep2_plain (the modes' parts: trig_stats_plain,
+// detect_side_plain there).
+//
+// Modes (template bits of MODE; JAX's _kernel2 flags):
+// - M_TRIG (`trig`, fused_substep2.py:962-984): the rebuild trigger's
+//   partials on the OUTPUT state against the far list's linear reference
+//   motion (refs [4,W,H]: px py vx vy at rebuild, tau = consts[40 +
+//   X_TAU]): per block the max over alive cells of dd^2 and dv^2 and the
+//   sums of vx' and vy' (a fixed tree in shared memory, no atomics), into
+//   stats [blocks, 4]; the wrapper reduces the blocks in a fixed order;
+// - M_DETECT (`detect`, :405-486): on the INPUT state, per group of 4
+//   rows along W and per column, the alive-masked min and max of px py
+//   vx vy (fill +-3e38) and the band flag, into side [9, ceil(W/4), H];
+//   runtime-gated by consts[40 + X_DET] (off: side is not written).  The
+//   block stages a halo of max(s, 7) (the band reaches 7 rows after the
+//   tile and 7 lanes each side), computes each staged cell's band
+//   deviation dev = |v - vbar| T_band once into shared memory, and each
+//   cell tests its band offsets (band_device.cuh, K2's test);
+// - M_KNOBS (`nospring`, `noint`, :561-574, :942-949; not physics, the
+//   knobs that split the kernel's time): runtime flags: nospring skips
+//   the springs and passes the edge and obs planes through, noint passes
+//   the six particle planes through.
 //
 // What bounds it on the card: device-memory bytes, once the arithmetic
 // is cut to what the inputs need.  At 1M particles a substep reads 18
@@ -21,7 +44,8 @@
 // - an 8 (W) x 32 (H) tile per block of 256 threads, one cell each,
 //   every plane load and store a coalesced 128-byte row;
 //   __launch_bounds__(256, 5) keeps 40 warps resident per SM;
-// - the tile plus a halo of max(s, 1) of px py vx vy alive is staged
+// - the tile plus a halo of max(s, 1) (detect: max(s, 7)) of px py vx vy
+//   alive is staged
 //   with cp.async (no index division, zero fill outside the grid) while
 //   each thread loads its own 12 edge planes;
 // - springs, evaluated once: each cell's own spring and those of the
@@ -40,6 +64,10 @@
 // The kernel reads `hot` and writes a separate `hot_out` (neighbours
 // must see the previous substep).
 //
+// Penetration clip: (2r - dist) * 0.5 * inv_dt2 with inv_dt2 = 1/(dt*dt)
+// in float32, as JAX's kernel (fused_substep2.py:394, :757); K4 and the
+// stencil path divide by dt^2, as theirs do.
+//
 // Exactness: each cell sums per class -own + reaction and per half
 // offset (acc + t(i, i+o)) - t(i-o, i), the order of the plain version
 // (under ROLLGROUP its grouped order: lattice_device.cuh, collide_half
@@ -53,6 +81,7 @@
 
 #include <string.h>
 
+#include "band_device.cuh"
 #include "lattice_device.cuh"
 
 namespace {
@@ -61,16 +90,46 @@ constexpr int PX = 0, PY = 1, VX = 2, VY = 3, AX = 4, AY = 5;
 constexpr int EDGE0 = 6;                 // class c: tgt, lst, eal at 6 + 3c
 constexpr int N_CONSTS = 20;
 constexpr int N_EDGEC = 20;              // class c: spr dmp yld lim len at 20 + 5c
+// the far-field frames' scalars after the edge constants
+// (fused_substep2.py:96-98)
+constexpr int N_EXTRA = 8;
+constexpr int XB = N_CONSTS + N_EDGEC;
+constexpr int X_TAU = 0, X_DET = 1, X_VBX = 2, X_VBY = 3, X_TBAND = 4,
+              X_REACH = 5;
+constexpr int N_STATS = 4;               // max dd2, max dv2, sum vx, sum vy
+constexpr int N_SIDE = 9;
+constexpr float SIDE_BIG = 3.0e38f;
+constexpr int BAND_R = 7;                // band reach: 2 * chunk - 1
+
+// MODE bits
+constexpr int M_TRIG = 1, M_DETECT = 2, M_KNOBS = 4;
 
 struct Consts {
-  float v[N_CONSTS + N_EDGEC];
+  float v[N_CONSTS + N_EDGEC + N_EXTRA];
 };
+
+__host__ __device__ __forceinline__ int k1_halo(int s, int mode) {
+  const int R = s > 1 ? s : 1;
+  return (mode & M_DETECT) && R < BAND_R ? BAND_R : R;
+}
+
+// Dynamic shared memory of K1: the staged tile, the force planes, then
+// under M_DETECT the dev plane and the cells' band flags, under M_TRIG
+// the reduction's N_STATS planes.
+__host__ __device__ __forceinline__ size_t k1_smem_bytes(int s, int mode) {
+  const int R = k1_halo(s, mode);
+  size_t n = sub_stage_floats(R) + 8 * SUB_FN;
+  if (mode & M_DETECT)
+    n += (size_t)(SUB_TX + 2 * R) * (SUB_TY + 2 * R) + SUB_THREADS;
+  if (mode & M_TRIG) n += (size_t)N_STATS * SUB_THREADS;
+  return n * sizeof(float);
+}
 
 // SKIP: pair_skip_allowed for the launch's constants (a template
 // parameter, so the usual instance compiles as if the skip were
 // unconditional; under RSQRT always true).  RSQRT, ROLLGROUP: the
-// arithmetic variants (lattice_device.cuh).
-template <bool SKIP, bool RSQRT, bool ROLLGROUP>
+// arithmetic variants (lattice_device.cuh).  MODE: the M_* bits above.
+template <bool SKIP, bool RSQRT, bool ROLLGROUP, int MODE>
 __global__ void __launch_bounds__(SUB_THREADS, 5)
 fused_substep2_kernel(const float* __restrict__ hot,
                       const float* __restrict__ immut,
@@ -78,9 +137,15 @@ fused_substep2_kernel(const float* __restrict__ hot,
                       const float* __restrict__ obs_in,
                       float* __restrict__ hot_out,
                       float* __restrict__ obs_out, const Consts cs, int w,
-                      int h, int s, int quantized) {
+                      int h, int s, int quantized,
+                      const float* __restrict__ refs,
+                      float* __restrict__ stats, float* __restrict__ side,
+                      int nospring, int noint) {
+  constexpr bool TRIG = (MODE & M_TRIG) != 0;
+  constexpr bool DETECT = (MODE & M_DETECT) != 0;
+  constexpr bool KNOBS = (MODE & M_KNOBS) != 0;
   extern __shared__ float smem[];
-  const int R = s > 1 ? s : 1;
+  const int R = k1_halo(s, MODE);
   const size_t WH = (size_t)w * h;
   const int x0 = blockIdx.y * SUB_TX;
   const int y0 = blockIdx.x * SUB_TY;
@@ -88,7 +153,9 @@ fused_substep2_kernel(const float* __restrict__ hot,
                                       hot + VX * WH, hot + VY * WH, immut,
                                       x0, y0, R, w, h);
   uint32_t* fp = (uint32_t*)(smem + sub_stage_floats(R));
+  float* extra = smem + sub_stage_floats(R) + 8 * SUB_FN;
   const float* v = cs.v;
+  const bool skip_springs = KNOBS && nospring;
 
   const int r = threadIdx.y, l = threadIdx.x;
   const int x = x0 + r, y = y0 + l;
@@ -126,92 +193,293 @@ fused_substep2_kernel(const float* __restrict__ hot,
   const bool al_c = t.al[lc] > 0.0f;
   const float px = t.px[lc], py = t.py[lc];
 
-  // ---- springs: own edges into the force planes, edge-state update ----
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    const int dx = EDX[c], dy = EDY[c];
-    const float k = v[N_CONSTS + 5 * c + 0];
-    const float damp = v[N_CONSTS + 5 * c + 1];
-    const int lp = lc + dx * t.sy + dy;
-    const Spring own =
-        spring_eval<RSQRT>(px, py, t.px[lp], t.py[lp],
-                    eal[c] && al_c && t.al[lp] > 0.0f, tgt[c], lst[c], k,
-                    damp);
-    fp[2 * c * SUB_FN + force_index(r, l)] = force_bits(own.fvx, quantized);
-    fp[(2 * c + 1) * SUB_FN + force_index(r, l)] =
-        force_bits(own.fvy, quantized);
-    if (live) {
-      const float yld = v[N_CONSTS + 5 * c + 2];
-      const float lim = v[N_CONSTS + 5 * c + 3];
-      const float len = v[N_CONSTS + 5 * c + 4];
-      const size_t pt = (size_t)(EDGE0 + 3 * c) * WH;
-      const float strain = (own.ln - tgt[c]) / len;
-      const bool yielded = fabsf(strain) > yld;
-      const float new_tgt =
-          yielded ? own.ln - yld * len * tsign(strain) : tgt[c];
-      const bool breaks = fabsf(own.ln - len) > len * lim;
-      hot_out[pt + g] = own.active ? new_tgt : tgt[c];
-      hot_out[pt + WH + g] = own.active ? own.ln : lst[c];
-      hot_out[pt + 2 * WH + g] =
-          (eal[c] && !(own.active && breaks)) ? 1.0f : 0.0f;
-      if (obs_in != nullptr) {
-        const size_t po = (size_t)(2 * c) * WH;
-        obs_out[po + g] = own.active ? fabsf(strain) / yld : obs_in[po + g];
-        obs_out[po + WH + g] =
-            own.active ? own.fmag * STRESS_SCALE : obs_in[po + WH + g];
+  // ---- detect: each cell's band flag on the input state ----------------
+  bool det_on = false;
+  if constexpr (DETECT) {
+    det_on = v[XB + X_DET] > 0.0f;
+    if (det_on) {
+      const int sn = (SUB_TX + 2 * R) * t.sy;
+      float* dv = extra;
+      const float vbx = v[XB + X_VBX], vby = v[XB + X_VBY];
+      const float tband = v[XB + X_TBAND];
+      for (int i = r * SUB_TY + l; i < sn; i += SUB_THREADS) {
+        const float ddx = t.vx[i] - vbx;
+        const float ddy = t.vy[i] - vby;
+        dv[i] = t.al[i] > 0.0f ? sqrtf(ddx * ddx + ddy * ddy) * tband : 0.0f;
       }
-    }
-  }
-  if (halo) {
-    float fvx = 0.0f, fvy = 0.0f;  // +0 outside the grid: back()'s fill
-    if (halo_in) {
-      float k = 0.0f, damp = 0.0f;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        if (c == hc) {
-          k = v[N_CONSTS + 5 * c + 0];
-          damp = v[N_CONSTS + 5 * c + 1];
+      __syncthreads();
+      bool hit = false;
+      if (al_c) {
+        const float cb = v[XB + X_REACH] + dv[lc];
+        for (int dx = 0; dx <= BAND_R && !hit; ++dx) {
+          for (int dy = -BAND_R; dy <= BAND_R; ++dy) {
+            if (!band_offset(dx, dy, s)) continue;
+            const int lp = lc + dx * t.sy + dy;
+            if (t.al[lp] > 0.0f &&
+                band_pair_hit(px, py, cb, t.px[lp], t.py[lp], dv[lp])) {
+              hit = true;
+              break;
+            }
+          }
         }
       }
-      const int lo = (hr + R) * t.sy + hl + R;
-      const int lp = lo + EDX[hc] * t.sy + EDY[hc];
-      const Spring sp = spring_eval<RSQRT>(
-          t.px[lo], t.py[lo], t.px[lp], t.py[lp],
-          heal && t.al[lo] > 0.0f && t.al[lp] > 0.0f, htgt, hlst, k, damp);
-      fvx = sp.fvx;
-      fvy = sp.fvy;
+      extra[sn + r * SUB_TY + l] = hit ? 1.0f : 0.0f;
     }
-    fp[2 * hc * SUB_FN + force_index(hr, hl)] = force_bits(fvx, quantized);
-    fp[(2 * hc + 1) * SUB_FN + force_index(hr, hl)] =
-        force_bits(fvy, quantized);
+  }
+
+  // ---- springs: own edges into the force planes, edge-state update ----
+  if (skip_springs) {
+    // nospring: the edge and obs planes pass through
+    if (live) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const size_t pt = (size_t)(EDGE0 + 3 * c) * WH;
+        hot_out[pt + g] = tgt[c];
+        hot_out[pt + WH + g] = lst[c];
+        hot_out[pt + 2 * WH + g] = eal[c] ? 1.0f : 0.0f;
+        if (obs_in != nullptr) {
+          const size_t po = (size_t)(2 * c) * WH;
+          obs_out[po + g] = obs_in[po + g];
+          obs_out[po + WH + g] = obs_in[po + WH + g];
+        }
+      }
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int dx = EDX[c], dy = EDY[c];
+      const float k = v[N_CONSTS + 5 * c + 0];
+      const float damp = v[N_CONSTS + 5 * c + 1];
+      const int lp = lc + dx * t.sy + dy;
+      const Spring own =
+          spring_eval<RSQRT>(px, py, t.px[lp], t.py[lp],
+                      eal[c] && al_c && t.al[lp] > 0.0f, tgt[c], lst[c], k,
+                      damp);
+      fp[2 * c * SUB_FN + force_index(r, l)] = force_bits(own.fvx, quantized);
+      fp[(2 * c + 1) * SUB_FN + force_index(r, l)] =
+          force_bits(own.fvy, quantized);
+      if (live) {
+        const float yld = v[N_CONSTS + 5 * c + 2];
+        const float lim = v[N_CONSTS + 5 * c + 3];
+        const float len = v[N_CONSTS + 5 * c + 4];
+        const size_t pt = (size_t)(EDGE0 + 3 * c) * WH;
+        const float strain = (own.ln - tgt[c]) / len;
+        const bool yielded = fabsf(strain) > yld;
+        const float new_tgt =
+            yielded ? own.ln - yld * len * tsign(strain) : tgt[c];
+        const bool breaks = fabsf(own.ln - len) > len * lim;
+        hot_out[pt + g] = own.active ? new_tgt : tgt[c];
+        hot_out[pt + WH + g] = own.active ? own.ln : lst[c];
+        hot_out[pt + 2 * WH + g] =
+            (eal[c] && !(own.active && breaks)) ? 1.0f : 0.0f;
+        if (obs_in != nullptr) {
+          const size_t po = (size_t)(2 * c) * WH;
+          obs_out[po + g] = own.active ? fabsf(strain) / yld : obs_in[po + g];
+          obs_out[po + WH + g] =
+              own.active ? own.fmag * STRESS_SCALE : obs_in[po + WH + g];
+        }
+      }
+    }
+    if (halo) {
+      float fvx = 0.0f, fvy = 0.0f;  // +0 outside the grid: back()'s fill
+      if (halo_in) {
+        float k = 0.0f, damp = 0.0f;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          if (c == hc) {
+            k = v[N_CONSTS + 5 * c + 0];
+            damp = v[N_CONSTS + 5 * c + 1];
+          }
+        }
+        const int lo = (hr + R) * t.sy + hl + R;
+        const int lp = lo + EDX[hc] * t.sy + EDY[hc];
+        const Spring sp = spring_eval<RSQRT>(
+            t.px[lo], t.py[lo], t.px[lp], t.py[lp],
+            heal && t.al[lo] > 0.0f && t.al[lp] > 0.0f, htgt, hlst, k, damp);
+        fvx = sp.fvx;
+        fvy = sp.fvy;
+      }
+      fp[2 * hc * SUB_FN + force_index(hr, hl)] = force_bits(fvx, quantized);
+      fp[(2 * hc + 1) * SUB_FN + force_index(hr, hl)] =
+          force_bits(fvy, quantized);
+    }
   }
   __syncthreads();
-  float bfx, bfy;
-  spring_sums<ROLLGROUP>(fp, r, l, quantized, bfx, bfy);
-  if (!live) return;
+  float bfx = 0.0f, bfy = 0.0f;
+  if (!skip_springs) spring_sums<ROLLGROUP>(fp, r, l, quantized, bfx, bfy);
 
-  // ---- collisions: half offsets, (acc + t(i, i+o)) - t(i-o, i) --------
-  Terms d = collide_half<RSQRT, ROLLGROUP>(t, lc, x, y, w, h, s, v[0], v[1],
-                                           v[7], v[8], SKIP);
-  if (far != nullptr) {
-    d.dvx = d.dvx + far[g];
-    d.dvy = d.dvy + far[WH + g];
-    d.dax = d.dax + far[2 * WH + g];
-    d.day = d.day + far[3 * WH + g];
-    d.dyn = d.dyn + far[4 * WH + g];
+  // ---- detect: the side planes, one thread per 4-row group and column --
+  if constexpr (DETECT) {
+    if (det_on && (r & 3) == 0 && live) {
+      const int sn = (SUB_TX + 2 * R) * t.sy;
+      float mn[4] = {SIDE_BIG, SIDE_BIG, SIDE_BIG, SIDE_BIG};
+      float mx[4] = {-SIDE_BIG, -SIDE_BIG, -SIDE_BIG, -SIDE_BIG};
+      float band = 0.0f;
+      const float* planes[4] = {t.px, t.py, t.vx, t.vy};
+      for (int k = 0; k < 4; ++k) {
+        const int li = lc + k * t.sy;
+        const bool a = t.al[li] > 0.0f;
+#pragma unroll
+        for (int p = 0; p < 4; ++p) {
+          const float val = planes[p][li];
+          mn[p] = k == 0 ? (a ? val : SIDE_BIG) : tmin(mn[p], a ? val : SIDE_BIG);
+          mx[p] = k == 0 ? (a ? val : -SIDE_BIG)
+                         : tmax(mx[p], a ? val : -SIDE_BIG);
+        }
+        band = tmax(band, extra[sn + (r + k) * SUB_TY + l]);
+      }
+      const size_t sw = (size_t)((w + 3) / 4) * h;
+      const size_t gi = (size_t)(x / 4) * h + y;
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        side[(2 * p) * sw + gi] = mn[p];
+        side[(2 * p + 1) * sw + gi] = mx[p];
+      }
+      side[8 * sw + gi] = band;
+    }
+  }
+  if constexpr (!TRIG) {
+    if (!live) return;
   }
 
-  // ---- integration (compute.wgsl:171-199) -----------------------------
-  const Particle in = {px, py, t.vx[lc], t.vy[lc], hot[AX * WH + g],
-                       hot[AY * WH + g]};
-  const Particle o =
-      integrate<RSQRT>(in, al_c, immut[WH + g] > 0.0f, d, bfx, bfy, v);
-  hot_out[PX * WH + g] = o.px;
-  hot_out[PY * WH + g] = o.py;
-  hot_out[VX * WH + g] = o.vx;
-  hot_out[VY * WH + g] = o.vy;
-  hot_out[AX * WH + g] = o.ax;
-  hot_out[AY * WH + g] = o.ay;
+  float part[N_STATS] = {0.0f, 0.0f, 0.0f, 0.0f};
+  if (live) {
+    // ---- collisions: half offsets, (acc + t(i, i+o)) - t(i-o, i) ------
+    Terms d = collide_half<RSQRT, ROLLGROUP, true>(
+        t, lc, x, y, w, h, s, v[0], v[1], v[7], v[8], SKIP);
+    if (far != nullptr) {
+      d.dvx = d.dvx + far[g];
+      d.dvy = d.dvy + far[WH + g];
+      d.dax = d.dax + far[2 * WH + g];
+      d.day = d.day + far[3 * WH + g];
+      d.dyn = d.dyn + far[4 * WH + g];
+    }
+
+    // ---- integration (compute.wgsl:171-199) ---------------------------
+    const Particle in = {px, py, t.vx[lc], t.vy[lc], hot[AX * WH + g],
+                         hot[AY * WH + g]};
+    const Particle o =
+        KNOBS && noint
+            ? in
+            : integrate<RSQRT>(in, al_c, immut[WH + g] > 0.0f, d, bfx, bfy,
+                               v);
+    hot_out[PX * WH + g] = o.px;
+    hot_out[PY * WH + g] = o.py;
+    hot_out[VX * WH + g] = o.vx;
+    hot_out[VY * WH + g] = o.vy;
+    hot_out[AX * WH + g] = o.ax;
+    hot_out[AY * WH + g] = o.ay;
+
+    // ---- trig: this cell's deviation from the linear reference --------
+    if constexpr (TRIG) {
+      if (al_c) {
+        const float tau = v[XB + X_TAU];
+        const float rvx = refs[2 * WH + g], rvy = refs[3 * WH + g];
+        const float ddx = o.px - (refs[g] + rvx * tau);
+        const float ddy = o.py - (refs[WH + g] + rvy * tau);
+        const float dvx = o.vx - rvx;
+        const float dvy = o.vy - rvy;
+        part[0] = ddx * ddx + ddy * ddy;
+        part[1] = dvx * dvx + dvy * dvy;
+        part[2] = o.vx;
+        part[3] = o.vy;
+      }
+    }
+  }
+  if constexpr (TRIG) {
+    // the block's partials: a fixed tree over the 256 cells (max with
+    // NaN kept, sums in one order), no atomics
+    float* red = extra + ((MODE & M_DETECT)
+                              ? (SUB_TX + 2 * R) * t.sy + SUB_THREADS
+                              : 0);
+    const int tid = r * SUB_TY + l;
+#pragma unroll
+    for (int k = 0; k < N_STATS; ++k) red[k * SUB_THREADS + tid] = part[k];
+    __syncthreads();
+    for (int half = SUB_THREADS / 2; half > 0; half >>= 1) {
+      if (tid < half) {
+#pragma unroll
+        for (int k = 0; k < N_STATS; ++k) {
+          const float a = red[k * SUB_THREADS + tid];
+          const float b = red[k * SUB_THREADS + tid + half];
+          red[k * SUB_THREADS + tid] = k < 2 ? tmax(a, b) : a + b;
+        }
+      }
+      __syncthreads();
+    }
+    if (tid == 0) {
+      const size_t blk = (size_t)blockIdx.y * gridDim.x + blockIdx.x;
+#pragma unroll
+      for (int k = 0; k < N_STATS; ++k)
+        stats[blk * N_STATS + k] = red[k * SUB_THREADS];
+    }
+  }
+}
+
+using K1Kernel = void (*)(const float*, const float*, const float*,
+                          const float*, float*, float*, const Consts, int,
+                          int, int, int, const float*, float*, float*, int,
+                          int);
+
+template <int MODE>
+K1Kernel k1_arith(bool skip, bool rsqrt, bool rollgroup) {
+  return rsqrt ? (rollgroup ? fused_substep2_kernel<true, true, true, MODE>
+                            : fused_substep2_kernel<true, true, false, MODE>)
+         : rollgroup
+             ? (skip ? fused_substep2_kernel<true, false, true, MODE>
+                     : fused_substep2_kernel<false, false, true, MODE>)
+             : (skip ? fused_substep2_kernel<true, false, false, MODE>
+                     : fused_substep2_kernel<false, false, false, MODE>);
+}
+
+// K1's instances: the arithmetic variants in modes 0 (every fused path),
+// M_DETECT (the fixed-cadence frame's kernel detection) and M_KNOBS (the
+// attribution knobs); M_TRIG and M_TRIG | M_DETECT (the triggered frame,
+// which JAX runs strict) strict only.  nullptr for any other.
+K1Kernel k1_pick(int mode, bool skip, bool rsqrt, bool rollgroup) {
+  const bool strict = !rsqrt && !rollgroup;
+  switch (mode) {
+    case 0:
+      return k1_arith<0>(skip, rsqrt, rollgroup);
+    case M_DETECT:
+      return k1_arith<M_DETECT>(skip, rsqrt, rollgroup);
+    case M_KNOBS:
+      return k1_arith<M_KNOBS>(skip, rsqrt, rollgroup);
+    case M_TRIG:
+      if (!strict) return nullptr;
+      return skip ? fused_substep2_kernel<true, false, false, M_TRIG>
+                  : fused_substep2_kernel<false, false, false, M_TRIG>;
+    case M_TRIG | M_DETECT:
+      if (!strict) return nullptr;
+      return skip ? fused_substep2_kernel<true, false, false,
+                                          M_TRIG | M_DETECT>
+                  : fused_substep2_kernel<false, false, false,
+                                          M_TRIG | M_DETECT>;
+  }
+  return nullptr;
+}
+
+int k1_launch(const float* hot, const float* immut, const float* far,
+              const float* obs_in, const float* refs, float* hot_out,
+              float* obs_out, float* stats, float* side,
+              const float* consts_host, int w, int h, int stencil,
+              int quantized, int rsqrt, int rollgroup, int mode,
+              int nospring, int noint, void* stream) {
+  Consts cs;
+  memset(cs.v, 0, sizeof(cs.v));
+  const int n = (mode & (M_TRIG | M_DETECT)) ? N_CONSTS + N_EDGEC + N_EXTRA
+                                             : N_CONSTS + N_EDGEC;
+  memcpy(cs.v, consts_host, n * sizeof(float));
+  const K1Kernel kernel =
+      k1_pick(mode, pair_skip_allowed(cs.v, true), rsqrt, rollgroup);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  const size_t smem = k1_smem_bytes(stencil, mode);
+  dim3 block(SUB_TY, SUB_TX);
+  dim3 grid((h + SUB_TY - 1) / SUB_TY, (w + SUB_TX - 1) / SUB_TX);
+  kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
+      hot, immut, far, obs_in, hot_out, obs_out, cs, w, h, stencil,
+      quantized, refs, stats, side, nospring, noint);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -231,23 +499,29 @@ extern "C" int sb_fused_substep2_variant(const float* hot, const float* immut,
                                          int h, int stencil, int quantized,
                                          int rsqrt, int rollgroup,
                                          void* stream) {
-  Consts cs;
-  memcpy(cs.v, consts_host, sizeof(cs.v));
-  const size_t smem = substep_smem_bytes(stencil);
-  dim3 block(SUB_TY, SUB_TX);
-  dim3 grid((h + SUB_TY - 1) / SUB_TY, (w + SUB_TX - 1) / SUB_TX);
-  const bool skip = pair_skip_allowed(cs.v);
-  const auto kernel =
-      rsqrt ? (rollgroup ? fused_substep2_kernel<true, true, true>
-                         : fused_substep2_kernel<true, true, false>)
-      : rollgroup ? (skip ? fused_substep2_kernel<true, false, true>
-                          : fused_substep2_kernel<false, false, true>)
-                  : (skip ? fused_substep2_kernel<true, false, false>
-                          : fused_substep2_kernel<false, false, false>);
-  kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
-      hot, immut, far, obs_in, hot_out, obs_out, cs, w, h, stencil,
-      quantized);
-  return (int)cudaGetLastError();
+  return k1_launch(hot, immut, far, obs_in, nullptr, hot_out, obs_out,
+                   nullptr, nullptr, consts_host, w, h, stencil, quantized,
+                   rsqrt, rollgroup, 0, 0, 0, stream);
+}
+
+// Every mode: `trig` (refs [4,W,H] in, stats [blocks, 4] out: blocks =
+// ceil(H/32) * ceil(W/8)), `detect` (side [9, ceil(W/4), H] out), and
+// the knobs `nospring`, `noint` (M_KNOBS; not with trig or detect).
+// `consts_host` holds 48 floats under trig or detect, else 40.  Returns
+// cudaErrorInvalidValue for a combination without an instance.
+extern "C" int sb_fused_substep2_mode(
+    const float* hot, const float* immut, const float* far,
+    const float* obs_in, const float* refs, float* hot_out, float* obs_out,
+    float* stats, float* side, const float* consts_host, int w, int h,
+    int stencil, int quantized, int rsqrt, int rollgroup, int trig,
+    int detect, int nospring, int noint, void* stream) {
+  const bool knobs = nospring || noint;
+  if (knobs && (trig || detect)) return (int)cudaErrorInvalidValue;
+  const int mode = (trig ? M_TRIG : 0) | (detect ? M_DETECT : 0) |
+                   (knobs ? M_KNOBS : 0);
+  return k1_launch(hot, immut, far, obs_in, refs, hot_out, obs_out, stats,
+                   side, consts_host, w, h, stencil, quantized, rsqrt,
+                   rollgroup, mode, nospring, noint, stream);
 }
 
 // The strict instance (the entry of earlier builds, kept for comparing
@@ -262,19 +536,22 @@ extern "C" int sb_fused_substep2(const float* hot, const float* immut,
                                    0, stream);
 }
 
-// The kernel's residency at stencil radius `stencil`: out[0] blocks per
-// SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor), out[1] registers
-// per thread, out[2] local (spill) bytes per thread, out[3] dynamic
-// shared bytes per block, out[4] threads per block.
+// The residency of K1's strict instance in mode `stencil >> 8` (0: the
+// plain substep; M_* bits) at stencil radius `stencil & 255`: out[0]
+// blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor), out[1]
+// registers per thread, out[2] local (spill) bytes per thread, out[3]
+// dynamic shared bytes per block, out[4] threads per block.
 extern "C" int sb_fused_substep2_occupancy(int stencil, int* out) {
-  const size_t smem = substep_smem_bytes(stencil);
+  const int mode = stencil >> 8;
+  stencil &= 255;
+  const size_t smem = k1_smem_bytes(stencil, mode);
+  const K1Kernel kernel = k1_pick(mode, true, false, false);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   cudaFuncAttributes a;
-  int err = (int)cudaFuncGetAttributes(
-      &a, fused_substep2_kernel<true, false, false>);
+  int err = (int)cudaFuncGetAttributes(&a, kernel);
   if (err != 0) return err;
   err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &out[0], fused_substep2_kernel<true, false, false>, SUB_THREADS,
-      smem);
+      &out[0], kernel, SUB_THREADS, smem);
   out[1] = a.numRegs;
   out[2] = (int)a.localSizeBytes;
   out[3] = (int)smem;

@@ -127,20 +127,23 @@ struct Terms {
 // Whether pair_terms may skip pairs apart under the consts vector `v`
 // (config.consts_vector order), checked on the host once per launch of K1
 // and K4: the conditions K3 checks (collide_stencil.cu:consts_allow_skip)
-// with clip's division by dt^2: ecoeff, friction, 2r and dt^2 finite,
-// (2r)^2 a normal float, and clip finite at the largest finite distance
-// (clip is monotonic in dist).  Where clip overflows (dt^2 tiny or 0),
-// the plain version's terms of a pair apart are ±0 × inf = NaN, which
-// only the full path gives.  Under RSQRT the terms of a pair apart are
-// +0 whatever the constants (each is selected, not multiplied by a
-// gate): its skip needs no check.
-inline bool pair_skip_allowed(const float* v) {
+// with clip's factor, 1/dt^2 (K1, `inv_dt2`: the JAX kernel multiplies by
+// it, fused_substep2.py:394) or a division by dt^2 (K4): ecoeff,
+// friction, 2r and the factor finite, (2r)^2 a normal float, and clip
+// finite at the largest finite distance (clip is monotonic in dist).
+// Where clip overflows (dt^2 tiny or 0), the plain version's terms of a
+// pair apart are ±0 × inf = NaN, which only the full path gives.  Under
+// RSQRT the terms of a pair apart are +0 whatever the constants (each is
+// selected, not multiplied by a gate): its skip needs no check.
+inline bool pair_skip_allowed(const float* v, bool inv_dt2 = false) {
   const float big = 3.402823466e38f;
   const float two_r = 2.0f * v[0];
   const float dt2 = v[1] * v[1];
+  const float scale = inv_dt2 ? 1.0f / dt2 : dt2;
   const float sq = two_r * two_r * 1.00001f;
-  const float clip_far = (two_r - sqrtf(big)) * 0.5f / dt2;
-  const float vals[] = {v[7], v[8], two_r, dt2, sq, clip_far};
+  const float gap = (two_r - sqrtf(big)) * 0.5f;
+  const float clip_far = inv_dt2 ? gap * scale : gap / scale;
+  const float vals[] = {v[7], v[8], two_r, scale, sq, clip_far};
   for (float x : vals)
     if (!(fabsf(x) <= big)) return false;  // ±inf or NaN
   return sq >= 1.17549435e-38f;
@@ -148,12 +151,13 @@ inline bool pair_skip_allowed(const float* v) {
 
 // pair (base b, partner p = b + o): the term the base receives (K1, K4).
 // `skip`: pair_skip_allowed for the launch's constants (RSQRT: always).
-template <bool RSQRT = false>
+// `dt2s`: dt^2, or 1/dt^2 under INV_DT2 (K1: clip multiplies by it).
+template <bool RSQRT = false, bool INV_DT2 = false>
 __device__ __forceinline__ Terms pair_terms(float bpx, float bpy, float bvx,
                                             float bvy, bool bal, float ppx,
                                             float ppy, float pvx, float pvy,
                                             bool pal, float co_sign,
-                                            float two_r, float dt2,
+                                            float two_r, float dt2s,
                                             float ecoeff, float friction,
                                             bool skip) {
   Terms t;
@@ -182,7 +186,8 @@ __device__ __forceinline__ Terms pair_terms(float bpx, float bpy, float bvx,
     const float imp_t = tmin(tmax(rvx * -ny + rvy * nx, -max_fric), max_fric);
     t.dvx = -(imp_n * nx + imp_t * -ny);
     t.dvy = -(imp_n * ny + imp_t * nx);
-    const float clip = (two_r - dist) * 0.5f / dt2;
+    const float clip = INV_DT2 ? (two_r - dist) * 0.5f * dt2s
+                               : (two_r - dist) * 0.5f / dt2s;
     t.dax = -nx * clip;
     t.day = -ny * clip;
     return t;
@@ -215,7 +220,8 @@ __device__ __forceinline__ Terms pair_terms(float bpx, float bpy, float bvx,
   float imp_t = tmin(tmax(rvx * -ny + rvy * nx, -max_fric), max_fric);
   float pdvx = -(imp_n * nx + imp_t * -ny);
   float pdvy = -(imp_n * ny + imp_t * nx);
-  float clip = (two_r - dist) * 0.5f / dt2;
+  float clip = INV_DT2 ? (two_r - dist) * 0.5f * dt2s
+                     : (two_r - dist) * 0.5f / dt2s;
   float gate = overlap ? 1.0f : 0.0f;
   t.dax = -nx * clip * gate;
   t.day = -ny * clip * gate;
@@ -496,7 +502,7 @@ __device__ __forceinline__ Terms sub_terms(Terms a, Terms b) {
           a.dyn - b.dyn};
 }
 
-template <bool RSQRT = false, bool ROLLGROUP = false>
+template <bool RSQRT = false, bool ROLLGROUP = false, bool INV_DT2 = false>
 __device__ __forceinline__ Terms collide_half(const SmemTile& t, int lc,
                                               int x, int y, int w, int h,
                                               int s, float radius, float dt,
@@ -507,16 +513,17 @@ __device__ __forceinline__ Terms collide_half(const SmemTile& t, int lc,
   const float px = t.px[lc], py = t.py[lc], vx = t.vx[lc], vy = t.vy[lc];
   const bool al_c = t.al[lc] > 0.0f;
   const float two_r = 2.0f * radius;
-  const float dt2 = dt * dt;
+  const float dt2s = INV_DT2 ? 1.0f / (dt * dt) : dt * dt;
   // t(i-o, i), +0 where i-o lies outside the grid (back()'s fill)
   auto reaction = [&](int ox, int oy, float co_sign) {
     Terms r = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
     const int bx = x - ox, by = y - oy;
     if (bx >= 0 && bx < w && by >= 0 && by < h) {
       const int lb = lc - ox * t.sy - oy;
-      r = pair_terms<RSQRT>(t.px[lb], t.py[lb], t.vx[lb], t.vy[lb],
-                            t.al[lb] > 0.0f, px, py, vx, vy, al_c, co_sign,
-                            two_r, dt2, ecoeff, friction, skip);
+      r = pair_terms<RSQRT, INV_DT2>(t.px[lb], t.py[lb], t.vx[lb],
+                                     t.vy[lb], t.al[lb] > 0.0f, px, py, vx,
+                                     vy, al_c, co_sign, two_r, dt2s, ecoeff,
+                                     friction, skip);
     }
     return r;
   };
@@ -526,9 +533,9 @@ __device__ __forceinline__ Terms collide_half(const SmemTile& t, int lc,
       // coincident nudge sign(lin_i - lin_j) = -sign(ox*H + oy)
       const float co_sign = -tsign((float)(ox * h + oy));
       const int lp = lc + ox * t.sy + oy;
-      const Terms a = pair_terms<RSQRT>(
+      const Terms a = pair_terms<RSQRT, INV_DT2>(
           px, py, vx, vy, al_c, t.px[lp], t.py[lp], t.vx[lp], t.vy[lp],
-          t.al[lp] > 0.0f, co_sign, two_r, dt2, ecoeff, friction, skip);
+          t.al[lp] > 0.0f, co_sign, two_r, dt2s, ecoeff, friction, skip);
       if (ROLLGROUP && oy != 0) {
         acc = add_terms(acc, a);
       } else {

@@ -10,12 +10,16 @@ path (``ops/stencil.py``; its collisions through kernel K3 when
 ``cfg.use_pallas``) and, when far field is armed, a Verlet-style
 candidate list that it rebuilds when the motion since the last rebuild
 could outrun the skin.  :class:`FusedLatticeBackend` steps persistent
-packed planes with the fused substep kernel (K1) and, when far field is
-armed, the fixed-cadence far-field frame (rebuilds with the band kernel
-K2, the far apply through the record table of kernel K7), optionally
-activation-scheduled.  Only the strict physics is ported: the fused
-backend raises on any kernel variant, far mode, detection mode or band
-implementation it does not run, instead of dropping it.
+packed planes with the fused substep kernel (K1, by default in the JAX
+backend's kernel variants) and, when far field is armed, one of the JAX
+backend's two far modes: the fixed-cadence frame ("v4": rebuilds with
+the band kernel K2 or from K1's detection side planes, the far apply
+through the record table of kernel K7 or its narrow rows, optionally
+activation-scheduled) or the triggered frame ("v3": K1's trigger
+statistics and side planes decide and seed the rebuilds, the list
+carried across frames).  It raises on an option it does not run (an
+unknown kernel variant, far mode, detection mode or band pass, a record
+layout other than 32 lanes) instead of dropping it.
 :class:`PlanifiedBackend` steps a :class:`SimState` of any topology
 embedded into planes (``ops/planify.py``) on the stencil path.
 
@@ -46,15 +50,19 @@ from ..ops.cuda.fused_substep2 import (
     EAL,
     N_HOT,
     check_kvar,
+    far3_carry_init,
     fused_frame2,
+    fused_frame3_auto,
     fused_frame4,
     pack_lattice2,
     unpack_lattice2,
 )
 from ..ops.collisions import broad_phase_overflow
+from ..ops.farfield4 import _check_layout
 from ..ops.farfield import (
     crop_far_list,
     displacement_check,
+    empty_far_list,
     empty_far_list_at,
     far_candidate_count,
     max_relative_speed,
@@ -429,61 +437,87 @@ def _stats_merge(a, b):
 class FusedLatticeBackend(LatticeBackend):
     """Lattice backend over packed planes ``(hot [18,W,H], obs [8,W,H])``
     on ``device``; the immutable planes and edge constants live on the
-    backend (edge parameters must be uniform per class).
+    backend (edge parameters must be uniform per class).  The keyword
+    arguments are the JAX backend's.
 
     ``device``: as :class:`LatticeBackend` (default: the CUDA device).
-    ``far_band``: ``"kernel"`` on CUDA, ``"plain"`` on the CPU (None
-    picks it from ``device``); the band wrapper itself dispatches on the
-    tensor's device, so any other value is an error.
+    ``tile_w``: the TPU kernel's slab width; accepted and ignored (K1's
+    tile is its own).
+    ``far_mode``: ``"v4"`` (default; ``fused_frame4``, no far state across
+    frames) or ``"v3"`` (``fused_frame3_auto``: the list, K1's side planes
+    and the trigger vector carried across frames, dropped by
+    ``pack_state``; K1 strict, whatever ``kernel_variants`` say, as in
+    JAX).
+    ``far_detect`` (v4): ``"xla"``, each rebuild detects on its state, or
+    ``"kernel"``, from the side planes of K1's detect instance.
+    ``far_band``: the rebuild's band pass: ``"kernel"`` (K2, on CUDA) or
+    ``"plain"`` (on the CPU, its plain version); ``"xla"`` (JAX's name)
+    is the plain loop on either device; None picks the device's own.
     ``far_activation``: each rebuild schedules its pairs' first possible
     contact and each substep applies only those that can touch by then
-    (``fused_frame4(activation=True)``).  ``far_mode`` must be ``"v4"``
-    and ``far_detect`` ``"xla"``.
+    (``fused_frame4(activation=True)``).
+    ``far_mb``/``far_mb_out``: the far apply's record layout; 32 (and
+    None) only, anything else raises.
 
     ``kernel_variants``: the JAX kernel's flags (``fused_substep2.
     KERNEL_VARIANTS``), by default the JAX backend's (``DEFAULT_KVAR``:
     rollgroup, rsqrt, dexp2, lanecut, krec, ealpack), so the same call
     runs the same physics in both packages; ``kernel_variants=()`` is
-    the strict path.  ``self.kvar`` keeps JAX's drop rule
-    (``softbody_tpu/engine/backends.py:441-442``): a ladder with a bucket
-    ≤ 256 drops ``krec``, whose route would change the far apply's sum
-    order there (the terminal ``max_pairs`` bucket is not looked at, as
-    in JAX).  ``step`` drops ``dexp2`` whenever the drag exponent is not
-    2.  The attribution knobs ``nospring`` and ``noint`` and unknown
-    names raise."""
+    the strict path; the attribution knobs ``nospring`` and ``noint``
+    (not physics) are taken.  ``self.kvar`` keeps JAX's drop rules
+    (``softbody_tpu/engine/backends.py:417-443``): v3 drops the layout
+    flags and ``kmirror``/``krec``, kernel detection drops
+    ``kmirror``/``krec``, and a ladder with a bucket ≤ 256 drops
+    ``krec``, whose route would change the far apply's sum order there
+    (the terminal ``max_pairs`` bucket is not looked at, as in JAX).
+    ``step`` drops ``dexp2`` whenever the drag exponent is not 2.
+    Unknown names raise."""
 
-    def __init__(self, spec, cfg: StaticConfig, farfield=None, *,
-                 device=None, far_mode: str = "v4",
+    def __init__(self, spec, cfg: StaticConfig, farfield=None,
+                 tile_w: int = 128, far_mode: str = "v4",
                  far_buckets: Optional[Tuple[int, ...]] = None,
-                 far_band: Optional[str] = None, far_detect: str = "xla",
-                 far_activation: bool = False,
-                 kernel_variants: Tuple[str, ...] = DEFAULT_KVAR) -> None:
+                 far_activation: bool = False, far_mb: int = 32,
+                 far_mb_out: Optional[int] = None, far_detect: str = "xla",
+                 far_band: Optional[str] = None,
+                 kernel_variants: Tuple[str, ...] = DEFAULT_KVAR, *,
+                 device=None) -> None:
         super().__init__(spec, cfg, farfield=farfield, device=device)
         kvar = check_kvar(kernel_variants)
+        if far_mode not in ("v4", "v3"):
+            raise ValueError(f"far_mode {far_mode!r}: 'v4' or 'v3'")
+        if far_detect not in ("xla", "kernel"):
+            raise ValueError(f"far_detect {far_detect!r}: 'xla' or 'kernel'")
+        _check_layout(far_mb, far_mb_out)
+        if far_mode == "v3":
+            kvar = tuple(v for v in kvar if v not in ("lanecut", "ealpack"))
+        if far_mode == "v3" or far_detect == "kernel":
+            kvar = tuple(v for v in kvar if v not in ("kmirror", "krec"))
         if far_buckets is not None and any(b <= 256 for b in far_buckets):
             kvar = tuple(v for v in kvar if v != "krec")
         self.kvar = kvar
-        if far_mode != "v4":
-            raise ValueError(f"far_mode {far_mode!r} is not ported "
-                             "(only 'v4')")
-        if far_detect != "xla":
-            raise ValueError(f"far_detect {far_detect!r} is not ported "
-                             "(only 'xla')")
         check_reference_offsets(spec)
         want = FAR_BANDS[self.device.type]
         if far_band is None:
             far_band = want
-        if far_band != want:
+        if far_band not in (want, "xla"):
             raise ValueError(f"far_band {far_band!r} on {self.device.type}: "
-                             f"the band pass there is {want!r}")
+                             f"the band pass there is {want!r} (or 'xla', "
+                             "the plain loop)")
         self.far_band = far_band
+        self._band_impl = "kernel" if far_band == "kernel" else "plain"
+        self.tile_w = tile_w
         self.far_mode = far_mode
+        self.far_detect = far_detect
         self.far_buckets = far_buckets
         self.far_activation = far_activation
+        self.far_mb = far_mb
+        self.far_mb_out = far_mb_out
         self._immut = None
         self._edge_consts = None
         self._template = None
         self._stats_acc = None
+        self._far_side = None    # v3: K1's side planes (carried)
+        self._far_trig = None    # v3: the trigger vector (carried)
 
     def pack_state(self, lstate: LatticeState):
         """LatticeState (on the backend's device) → packed ``(hot, obs)``;
@@ -498,9 +532,12 @@ class FusedLatticeBackend(LatticeBackend):
         self._immut = immut
         self._edge_consts = ec
         self._template = lstate
-        # a new world: a far list carried from the old one is dropped
+        # a new world: a far list, side planes and trigger vector carried
+        # from the old one are dropped
         self._far_list = None
         self._far_active = None
+        self._far_side = None
+        self._far_trig = None
         return hot, obs
 
     def unpack_state(self, state) -> LatticeState:
@@ -508,22 +545,42 @@ class FusedLatticeBackend(LatticeBackend):
         return unpack_lattice2(hot, obs, self._template)
 
     def step(self, state, consts: PhysicsConstants, uin: UserInput):
-        """One frame.  Far-field armed: the fixed-cadence frame
-        (``fused_frame4``: rebuilds with K2, the far apply's mirror route
-        with K7 or its narrow route per bucket, K1), stats accumulated on
-        the host (``far_stats``).  The host reads the stats once per
-        rebuild (``fused_frame4`` needs each rebuild's pair count to pick
-        its bucket); the frame's stats vector is then a host tensor."""
+        """One frame.  Far-field armed: ``far_mode="v4"``, the
+        fixed-cadence frame (``fused_frame4``: rebuilds with K2 or from
+        K1's side planes, the far apply's mirror route with K7 or its
+        narrow route per bucket, K1), the host reading each rebuild's
+        pair count to pick its bucket; ``"v3"``, the triggered frame
+        (``fused_frame3_auto``) with the list, side planes and trigger
+        vector carried from the last frame (``far3_carry_init`` and an
+        empty list after ``pack_state``), the host reading the trigger
+        once per substep.  Stats accumulate on the host
+        (``far_stats``)."""
         hot, obs = state
         kvar = self._checked_kvar(consts)
         if self.ff is None or self.cfg.collision_mode == "none":
             return fused_frame2(hot, obs, self._immut, self._edge_consts,
                                 consts, uin, self.spec, self.cfg, kvar=kvar)
-        kw = {} if self.far_buckets is None else {"buckets": self.far_buckets}
-        hot, obs, st = fused_frame4(hot, obs, self._immut, self._edge_consts,
-                                    consts, uin, self.spec, self.cfg, self.ff,
-                                    activation=self.far_activation,
-                                    kvar=kvar, **kw)
+        if self.far_mode == "v3":
+            if self._far_list is None:
+                self._far_list = empty_far_list(
+                    self.spec.width, self.spec.height, self.ff,
+                    device=self.device)
+                self._far_side, self._far_trig = far3_carry_init(
+                    hot, self._immut, self.cfg, self.spec, self.ff)
+            (hot, obs, self._far_list, self._far_side, self._far_trig,
+             st) = fused_frame3_auto(
+                hot, obs, self._immut, self._edge_consts, self._far_list,
+                self._far_side, self._far_trig, consts, uin, self.spec,
+                self.cfg, self.ff)
+        else:
+            kw = ({} if self.far_buckets is None
+                  else {"buckets": self.far_buckets})
+            hot, obs, st = fused_frame4(
+                hot, obs, self._immut, self._edge_consts, consts, uin,
+                self.spec, self.cfg, self.ff,
+                activation=self.far_activation, far_mb=self.far_mb,
+                far_mb_out=self.far_mb_out, detect_mode=self.far_detect,
+                band_impl=self._band_impl, kvar=kvar, **kw)
         st = st.tolist()
         self._stats_acc = (st if self._stats_acc is None
                            else _stats_merge(self._stats_acc, st))
@@ -538,12 +595,16 @@ class FusedLatticeBackend(LatticeBackend):
 
     def far_stats(self) -> dict:
         """Stats since the last read (the accumulator resets on read):
-        total rebuilds, max n_pairs, max overflow, max active pairs."""
+        total rebuilds, max n_pairs, max overflow, and under v4 max active
+        pairs."""
         if self._stats_acc is None:
             return super().far_stats()
         vals, self._stats_acc = self._stats_acc, None
-        return {"far_rebuilds": vals[0], "far_pairs": vals[1],
-                "far_overflow": vals[2], "far_active": vals[3]}
+        out = {"far_rebuilds": vals[0], "far_pairs": vals[1],
+               "far_overflow": vals[2]}
+        if len(vals) > 3:
+            out["far_active"] = vals[3]
+        return out
 
     def counts(self, state) -> Tuple[int, int]:
         """(alive particles, alive beams) from the packed planes."""

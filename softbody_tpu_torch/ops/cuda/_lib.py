@@ -29,7 +29,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("fused_substep2.cu", "band_detect.cu", "collide_stencil.cu",
            "fused_substep.cu", "recmirror.cu")
-HEADERS = ("lattice_device.cuh",)
+HEADERS = ("lattice_device.cuh", "band_device.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -56,7 +56,9 @@ def _nvcc() -> str:
 def library_path(csrc: Path = CSRC) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for name in SOURCES + HEADERS:
-        h.update((csrc / name).read_bytes())
+        # another checkout's csrc/ may predate a header
+        if (csrc / name).exists() or name in SOURCES:
+            h.update((csrc / name).read_bytes())
     return BUILD_DIR / f"libsoftbody_kernels_{h.hexdigest()[:16]}.so"
 
 
@@ -120,6 +122,13 @@ def bind(path: Path) -> ctypes.CDLL:
     if hasattr(lib, "sb_fused_substep2_variant"):
         lib.sb_fused_substep2_variant.argtypes = [_P] * 7 + [_I] * 6 + [_P]
         lib.sb_fused_substep2_variant.restype = _I
+    # int sb_fused_substep2_mode(hot, immut, far, obs_in, refs, hot_out,
+    #     obs_out, stats, side, consts_host, w, h, stencil, quantized,
+    #     rsqrt, rollgroup, trig, detect, nospring, noint, stream): every
+    #     mode of K1 (libraries built before it existed lack it)
+    if hasattr(lib, "sb_fused_substep2_mode"):
+        lib.sb_fused_substep2_mode.argtypes = [_P] * 10 + [_I] * 10 + [_P]
+        lib.sb_fused_substep2_mode.restype = _I
     # int sb_band_flags(px, py, dev, bdev, alive, out, offsets_host,
     #                   n_offsets, w, h, stream)
     lib.sb_band_flags.argtypes = [_P, _P, _P, _P, _P, _P, _P,

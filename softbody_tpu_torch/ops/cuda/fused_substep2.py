@@ -22,7 +22,27 @@ version already evaluate ``|v|**2`` as ``|v|·|v|``, the same float.
 mirror route, kernel K7): the JAX kernel then reads the delta records
 itself, which is that route's result bit for bit.  The rest are the TPU
 kernel's layout (:data:`LAYOUT_VARIANTS`): bit-exact there by contract
-(tests/test_fused4.py), nothing here.
+(tests/test_fused4.py), nothing here.  ``nospring`` and ``noint`` are the
+JAX kernel's attribution knobs, not physics (:data:`KNOBS`): the springs
+contribute nothing and the edge and obs planes pass through, or the six
+particle planes pass through; they split K1's time into springs,
+collisions and the bare pipe.
+
+The far-field frames' modes of K1 (``fused_substep2_call(refs=...,
+detect=...)``, JAX's ``trig`` and ``detect``): the rebuild trigger's
+statistics of the output state against the far list's linear reference
+motion, and the detection side planes of the input state (per group of
+four rows along W and per column: alive-masked min and max of px py vx
+vy and the band flag).  The frames: :func:`fused_frame2` (no far field),
+:func:`fused_frame2_far` (a given list), :func:`fused_frame2_auto`
+(rebuilds on the deviation trigger, ``farfield.list_invalid``),
+:func:`fused_frame3_auto` (the triggered frame: trigger and detection in
+K1, the list, side planes and trigger vector carried across frames) and
+:func:`fused_frame4` (fixed cadence; ``detect_mode="kernel"`` takes each
+block's detection from K1).  JAX decides the rebuilds on the device
+(``lax.cond``); here the host reads each decision, once per substep in
+the triggered frames (:func:`fused_frame2_auto`, :func:`fused_frame3_auto`)
+and once per block in the fixed-cadence frame.
 """
 
 from __future__ import annotations
@@ -31,6 +51,7 @@ import dataclasses
 from types import SimpleNamespace
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from ...config import (
@@ -41,18 +62,32 @@ from ...config import (
     consts_vector,
 )
 from ..farfield import (
+    ChunkPlanes,
+    chunk_any_alive,
     crop_active,
+    crop_far_list,
+    displacement_check,
+    extrude_chunk_planes,
+    far_collision_terms,
+    kernel_side_from_planes,
+    list_invalid,
+    max_relative_speed,
+    raw_planes_from_side,
+    rebuild_far_list_from_chunks,
     rebuild_far_list_planes,
     rebuild_far_list_planes_active,
 )
-from ..farfield4 import NARROW_MAX, bucketed_far_delta_planes
+from ..farfield4 import NARROW_MAX, _check_layout, bucketed_far_delta_planes
 from ..stencil import (
+    EDGE_OFFSETS,
     LatticeState,
     Scalars,
     check_reference_offsets,
+    sqrt32,
     substep_planes,
 )
 from . import _lib
+from .band_detect import band_flags_plain
 
 PX, PY, VX, VY, AX, AY = range(6)
 TGT, LST, EAL = range(3)     # + 6 + 3c
@@ -63,20 +98,52 @@ N_IMM = 2
 N_EDGEC = 20                 # per class: spring damp yield limit length
 EDGE_PARAMS = ("spring", "damp", "yield_strain", "strain_limit", "length")
 MAX_STENCIL = 8
+# the far-field frames' scalars appended to the consts vector under trig
+# or detect (fused_substep2.py:96-98): tau (the output state's time since
+# the rebuild), the detect flag, the band's mean velocity, T_band, the
+# band's base reach, speed_safety·dt
+X_TAU, X_DET, X_VBX, X_VBY, X_TBAND, X_REACH, X_SAFDT, X_SPARE = range(8)
+N_EXTRA = 8
+# trig statistics [4]: max squared position and velocity deviation, sums
+# of the alive velocities
+N_STATS = 4
+# detection side planes [9, ceil(W/4), H]
+(S_MINX, S_MAXX, S_MINY, S_MAXY,
+ S_VMINX, S_VMAXX, S_VMINY, S_VMAXY, S_BAND) = range(9)
+N_SIDE = 9
+FF_CHUNK = 4                 # the side planes' row group (FarFieldSpec.chunk)
+SIDE_BIG = 3.0e38
+# the triggered frame's carry vector [8] (fused_substep2.py:1640-1643)
+T_MAXDD2, T_MAXDV2, T_VBX, T_VBY, T_SIDE_AGE = range(5)
+N_TRIG = 8
+_SUB_TX, _SUB_TY = 8, 32     # K1's tile (lattice_device.cuh), for stats
 
+# the host reads the far-armed frames make to decide rebuilds and pick
+# buckets (each one a synchronisation with the device)
+HOST_READS = 0
+
+_ARITH = ("strict", "rsqrt", "rollgroup", "rsqrt+rollgroup")
 # launches of the CUDA kernel (the plain version does not count), in all
-# and by instance (k1_instance)
+# and by instance (k1_instance): the arithmetic variants, each also in
+# the modes "detect" and "knobs"; "trig" and "trig+detect" strict only
 K1_LAUNCHES = 0
-K1_INSTANCE_LAUNCHES = {"strict": 0, "rsqrt": 0, "rollgroup": 0,
-                        "rsqrt+rollgroup": 0}
+K1_INSTANCE_LAUNCHES = {
+    **{a: 0 for a in _ARITH},
+    **{f"{a}+detect": 0 for a in _ARITH},
+    **{f"{a}+knobs": 0 for a in _ARITH},
+    "strict+trig": 0, "strict+trig+detect": 0,
+}
 
 # Mosaic layout and pipeline flags of the TPU kernel; bit-exact by the
 # JAX package's contract (tests/test_fused4.py, the layout-flags test),
 # so they change nothing here
 LAYOUT_VARIANTS = ("lanecut", "ealpack", "outfull", "inbuf3", "kmirror")
+# the JAX kernel's attribution knobs (not physics)
+KNOBS = ("nospring", "noint")
 # the JAX kernel's variant flags (softbody_tpu/ops/pallas/
 # fused_substep2.py ``kvar``) that the port takes
-KERNEL_VARIANTS = ("rsqrt", "rollgroup", "dexp2", "krec") + LAYOUT_VARIANTS
+KERNEL_VARIANTS = (("rsqrt", "rollgroup", "dexp2", "krec") + KNOBS
+                   + LAYOUT_VARIANTS)
 # the JAX FusedLatticeBackend's default (softbody_tpu/engine/
 # backends.py:372-374), bench.py's BENCH_KVAR
 DEFAULT_KVAR = ("rollgroup", "rsqrt", "dexp2", "lanecut", "krec", "ealpack")
@@ -84,8 +151,7 @@ DEFAULT_KVAR = ("rollgroup", "rsqrt", "dexp2", "lanecut", "krec", "ealpack")
 
 def check_kvar(kvar) -> Tuple[str, ...]:
     """``kvar`` as a tuple; raises ``ValueError`` naming any flag outside
-    :data:`KERNEL_VARIANTS` (the JAX kernel's attribution knobs
-    ``nospring`` and ``noint`` are not physics and are not ported)."""
+    :data:`KERNEL_VARIANTS`."""
     kvar = tuple(kvar)
     bad = [v for v in kvar if v not in KERNEL_VARIANTS]
     if bad:
@@ -94,11 +160,14 @@ def check_kvar(kvar) -> Tuple[str, ...]:
     return kvar
 
 
-def k1_instance(rsqrt: bool, rollgroup: bool) -> str:
-    """The name of K1's instance for these arithmetic flags."""
+def k1_instance(rsqrt: bool, rollgroup: bool, trig: bool = False,
+                detect: bool = False, knobs: bool = False) -> str:
+    """The name of K1's instance for these arithmetic flags and modes."""
     names = [n for n, on in (("rsqrt", rsqrt), ("rollgroup", rollgroup))
-             if on]
-    return "+".join(names) or "strict"
+             if on] or ["strict"]
+    names += [n for n, on in (("trig", trig), ("detect", detect),
+                              ("knobs", knobs)) if on]
+    return "+".join(names)
 
 
 def uniform_edge_consts(state: LatticeState) -> Optional[torch.Tensor]:
@@ -157,17 +226,84 @@ def unpack_lattice2(hot: torch.Tensor, obs: torch.Tensor,
     )
 
 
+def _band_offsets(stencil: int, chunk: int = FF_CHUNK):
+    """The half-plane band of the side planes' flag (``_band_offsets`` of
+    the JAX kernel; ``FarFieldSpec.band_half_offsets``)."""
+    r = 2 * chunk - 1
+    return tuple((dx, dy) for dx in range(0, r + 1) for dy in range(-r, r + 1)
+                 if (dx > 0 or dy > 0) and max(abs(dx), abs(dy)) > stencil)
+
+
+def _row_groups(plane, alive, op, fill):
+    """``[ceil(W/4), H]``: ``op`` over each group of four rows of
+    ``where(alive, plane, fill)``, a partial last group filled."""
+    w, h = plane.shape
+    w4 = -(-w // FF_CHUNK)
+    v = torch.full((w4 * FF_CHUNK, h), fill, dtype=torch.float32,
+                   device=plane.device)
+    v[:w] = torch.where(alive, plane, fill)
+    return op(v.reshape(w4, FF_CHUNK, h), dim=1)
+
+
+def detect_side_plain(px, py, vx, vy, alive, extras, *, stencil: int):
+    """Plain version of K1's ``detect`` side planes ``[9, ceil(W/4), H]``
+    of the state ``px py vx vy`` (``alive`` bool; ``extras`` the
+    ``N_EXTRA`` host floats): per group of four rows and per column the
+    alive-masked min and max of each plane (fill ±3e38) and the band flag
+    (``fused_substep2.py:405-486``): an alive particle with an alive
+    partner at a band offset within ``d² < ((base + dev_i) + dev_j)²``,
+    ``dev = |v − v̄|·T_band`` (0 where dead); the band loop is K2's plain
+    version."""
+    out = []
+    for plane in (px, py, vx, vy):
+        out.append(_row_groups(plane, alive, torch.amin, SIDE_BIG))
+        out.append(_row_groups(plane, alive, torch.amax, -SIDE_BIG))
+    ddx = vx - extras[X_VBX]
+    ddy = vy - extras[X_VBY]
+    dev = torch.where(alive, sqrt32(ddx * ddx + ddy * ddy) * extras[X_TBAND],
+                      0.0)
+    flag = band_flags_plain(px, py, dev, extras[X_REACH] + dev, alive,
+                            _band_offsets(stencil))
+    out.append(_row_groups((alive & flag).to(torch.float32), alive,
+                           torch.amax, 0.0))
+    return torch.stack(out)
+
+
+def trig_stats_plain(px, py, vx, vy, alive, refs, tau: float):
+    """Plain version of K1's ``trig`` statistics ``[4]`` of the output
+    state ``px py vx vy`` against the linear reference motion ``refs
+    [4,W,H]`` (px py vx vy at the rebuild) at time ``tau``
+    (``fused_substep2.py:962-984``): the max over alive particles of
+    ``dd²`` and ``dv²`` and the sums of their ``vx`` and ``vy``."""
+    rddx = px - (refs[0] + refs[2] * tau)
+    rddy = py - (refs[1] + refs[3] * tau)
+    rdvx = vx - refs[2]
+    rdvy = vy - refs[3]
+    dd2 = torch.where(alive, rddx * rddx + rddy * rddy, 0.0)
+    dv2 = torch.where(alive, rdvx * rdvx + rdvy * rdvy, 0.0)
+    return torch.stack([dd2.amax(), dv2.amax(),
+                        torch.where(alive, vx, 0.0).sum(),
+                        torch.where(alive, vy, 0.0).sum()])
+
+
 def fused_substep2_plain(hot, immut, consts_vec, *, stencil: int,
-                         quantized: bool, far=None, obs_in=None,
-                         rsqrt: bool = False, rollgroup: bool = False):
+                         quantized: bool, far=None, obs_in=None, refs=None,
+                         detect: bool = False, rsqrt: bool = False,
+                         rollgroup: bool = False, nospring: bool = False,
+                         noint: bool = False):
     """Plain torch version of K1: the stencil path's substep on the packed
     planes (``ops/stencil.py``, with its ``rsqrt``/``rollgroup``
-    variants), edge parameters from the consts vector.  Returns ``hot'``
-    or, with ``obs_in``, ``(hot', obs')``."""
+    variants and K1's ``inv_dt2`` clip), edge parameters from the consts
+    vector; with ``refs`` the trig statistics (:func:`trig_stats_plain`),
+    with ``detect`` (and the consts' detect flag on) the side planes
+    (:func:`detect_side_plain`); ``nospring``/``noint`` the knobs.
+    Returns ``hot'`` plus, in order, ``obs'`` / ``stats`` / ``side`` for
+    each one asked for."""
     sc = Scalars.of(consts_vec)
     # edge scalars as 0-d tensors on the state's device: float32
     # arithmetic, and true division on CUDA (see stencil.device_scalar)
     ec = consts_vec[N_CONSTS:N_CONSTS + N_EDGEC].to(hot.device)
+    extras = consts_vec[N_CONSTS + N_EDGEC:].tolist()
     edges = []
     for c in range(4):
         mb = 6 + 3 * c
@@ -178,20 +314,39 @@ def fused_substep2_plain(hot, immut, consts_vec, *, stencil: int,
     alive = immut[ALIVE] > 0.0
     planes, ups = substep_planes(
         hot[PX], hot[PY], hot[VX], hot[VY], hot[AX], hot[AY],
-        alive, immut[PINNED] > 0.0, edges, sc,
+        alive, immut[PINNED] > 0.0, () if nospring else edges, sc,
         stencil=stencil, quantized=quantized, far_deltas=(far,),
-        rsqrt=rsqrt, rollgroup=rollgroup)
-    out = list(planes)
-    for u in ups:
-        out += [u.target, u.last, u.alive.to(torch.float32)]
-    hot_out = torch.stack(out)
-    if obs_in is None:
-        return hot_out
-    obs = []
-    for c, u in enumerate(ups):
-        obs += [torch.where(u.active, u.strain, obs_in[2 * c]),
-                torch.where(u.active, u.stress, obs_in[2 * c + 1])]
-    return hot_out, torch.stack(obs)
+        offsets=() if nospring else EDGE_OFFSETS, rsqrt=rsqrt,
+        rollgroup=rollgroup, inv_dt2=True)
+    out = list(hot[:6]) if noint else list(planes)
+    if nospring:
+        for e in edges:
+            out += [e.target_length, e.last_length,
+                    e.alive.to(torch.float32)]
+    else:
+        for u in ups:
+            out += [u.target, u.last, u.alive.to(torch.float32)]
+    res = [torch.stack(out)]
+    if obs_in is not None:
+        if nospring:
+            res.append(obs_in.clone())
+        else:
+            obs = []
+            for c, u in enumerate(ups):
+                obs += [torch.where(u.active, u.strain, obs_in[2 * c]),
+                        torch.where(u.active, u.stress, obs_in[2 * c + 1])]
+            res.append(torch.stack(obs))
+    if refs is not None:
+        res.append(trig_stats_plain(out[PX], out[PY], out[VX], out[VY],
+                                    alive, refs, extras[X_TAU]))
+    if detect:
+        w, h = alive.shape
+        res.append(detect_side_plain(hot[PX], hot[PY], hot[VX], hot[VY],
+                                     alive, extras, stencil=stencil)
+                   if extras[X_DET] > 0.0 else
+                   torch.empty((N_SIDE, -(-w // FF_CHUNK), h),
+                               device=hot.device))
+    return res[0] if len(res) == 1 else tuple(res)
 
 
 def _check_plane_stack(name, t, n, shape, device):
@@ -209,17 +364,27 @@ def _check_plane_stack(name, t, n, shape, device):
 
 
 def fused_substep2_call(hot, immut, consts_vec, *, stencil: int,
-                        quantized: bool, far=None, obs_in=None,
-                        rsqrt: bool = False, rollgroup: bool = False):
-    """One substep (kernel K1), strict or in the instance that
-    ``rsqrt``/``rollgroup`` pick.
+                        quantized: bool, far=None, obs_in=None, refs=None,
+                        detect: bool = False, rsqrt: bool = False,
+                        rollgroup: bool = False, nospring: bool = False,
+                        noint: bool = False):
+    """One substep (kernel K1), in the instance that ``rsqrt``/
+    ``rollgroup`` and the modes pick.
 
     ``hot [18,W,H]``, ``immut [2,W,H]``, optional ``far [5,W,H]`` delta
-    planes and ``obs_in [8,W,H]`` (the observing variant), all float32,
-    contiguous, on one device; ``consts_vec`` a CPU float32 ``[40]``.
-    On CUDA tensors the kernel runs on the current stream (no
-    synchronisation); on CPU tensors the plain version runs.  Returns
-    ``hot'`` or ``(hot', obs')``."""
+    planes, ``obs_in [8,W,H]`` (the observing variant) and ``refs
+    [4,W,H]`` (px py vx vy of the far list's rebuild: the trig mode), all
+    float32, contiguous, on one device; ``consts_vec`` a CPU float32
+    ``[40]``, or ``[48]`` (the ``N_EXTRA`` scalars appended) under
+    ``refs`` or ``detect``.  ``detect``: the side planes, when the consts'
+    detect flag is on (else the side output is not written).  The trig
+    mode runs the strict arithmetic only (JAX's triggered frame does);
+    the knobs ``nospring``/``noint`` run without trig and detect.  On
+    CUDA tensors the kernel runs on the current stream (no
+    synchronisation; the trig statistics' per-block partials are reduced
+    there in a fixed order); on CPU tensors the plain version runs.
+    Returns ``hot'`` plus, in order, ``obs'`` / ``stats [4]`` / ``side
+    [9, ceil(W/4), H]`` for each one asked for."""
     global K1_LAUNCHES
     if hot.dim() != 3:
         raise ValueError(f"hot must be [18, W, H], got {tuple(hot.shape)}")
@@ -231,36 +396,65 @@ def fused_substep2_call(hot, immut, consts_vec, *, stencil: int,
         _check_plane_stack("far", far, 5, shape, dev)
     if obs_in is not None:
         _check_plane_stack("obs_in", obs_in, N_OBS, shape, dev)
+    trig = refs is not None
+    if trig:
+        _check_plane_stack("refs", refs, 4, shape, dev)
+    n_consts = N_CONSTS + N_EDGEC + (N_EXTRA if trig or detect else 0)
     if (consts_vec.device.type != "cpu" or consts_vec.dtype != torch.float32
-            or tuple(consts_vec.shape) != (N_CONSTS + N_EDGEC,)):
-        raise ValueError("consts_vec must be a CPU float32 [40] tensor")
+            or tuple(consts_vec.shape) != (n_consts,)):
+        raise ValueError(f"consts_vec must be a CPU float32 [{n_consts}] "
+                         "tensor")
     if not 0 <= stencil <= MAX_STENCIL:
         raise ValueError(f"stencil {stencil} outside [0, {MAX_STENCIL}]")
+    knobs = nospring or noint
+    if knobs and (trig or detect):
+        raise ValueError("the knobs nospring/noint run without trig and "
+                         "detect")
+    if trig and (rsqrt or rollgroup):
+        raise ValueError("the trig mode runs the strict arithmetic only")
+    kw = dict(stencil=stencil, quantized=quantized, far=far, obs_in=obs_in,
+              refs=refs, detect=detect, rsqrt=rsqrt, rollgroup=rollgroup,
+              nospring=nospring, noint=noint)
     if dev.type == "cpu":
-        return fused_substep2_plain(hot, immut, consts_vec, stencil=stencil,
-                                    quantized=quantized, far=far,
-                                    obs_in=obs_in, rsqrt=rsqrt,
-                                    rollgroup=rollgroup)
+        return fused_substep2_plain(hot, immut, consts_vec, **kw)
     if dev.type != "cuda":
         raise ValueError(f"no K1 kernel for device {dev}")
     lib = _lib.library()
     cvec = consts_vec.contiguous()
+    w, h = shape
     hot_out = torch.empty_like(hot)
     obs_out = None if obs_in is None else torch.empty_like(obs_in)
+    n_blocks = -(-h // _SUB_TY) * -(-w // _SUB_TX)
+    stats = (torch.empty((n_blocks, N_STATS), dtype=torch.float32,
+                         device=dev) if trig else None)
+    side = (torch.empty((N_SIDE, -(-w // FF_CHUNK), h), dtype=torch.float32,
+                        device=dev) if detect else None)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.sb_fused_substep2_variant(
-            hot.data_ptr(), immut.data_ptr(),
-            None if far is None else far.data_ptr(),
-            None if obs_in is None else obs_in.data_ptr(),
-            hot_out.data_ptr(),
-            None if obs_out is None else obs_out.data_ptr(),
-            cvec.data_ptr(), shape[0], shape[1], stencil, int(quantized),
-            int(rsqrt), int(rollgroup), stream)
+        err = lib.sb_fused_substep2_mode(
+            hot.data_ptr(), immut.data_ptr(), ptr(far), ptr(obs_in),
+            ptr(refs), hot_out.data_ptr(), ptr(obs_out), ptr(stats),
+            ptr(side), cvec.data_ptr(), w, h, stencil, int(quantized),
+            int(rsqrt), int(rollgroup), int(trig), int(detect),
+            int(nospring), int(noint), stream)
     _lib.check(err, "K1 fused_substep2")
     K1_LAUNCHES += 1
-    K1_INSTANCE_LAUNCHES[k1_instance(rsqrt, rollgroup)] += 1
-    return hot_out if obs_in is None else (hot_out, obs_out)
+    K1_INSTANCE_LAUNCHES[k1_instance(rsqrt, rollgroup, trig, detect,
+                                     knobs)] += 1
+    res = [hot_out]
+    if obs_out is not None:
+        res.append(obs_out)
+    if trig:
+        # the blocks' partials in one fixed order (no float atomics)
+        res.append(torch.cat([stats[:, :2].amax(dim=0),
+                              stats[:, 2:].sum(dim=0)]))
+    if detect:
+        res.append(side)
+    return res[0] if len(res) == 1 else tuple(res)
 
 
 def _frame_consts(consts, uin, spec, cfg, edge_consts, kvar):
@@ -276,44 +470,327 @@ def _frame_consts(consts, uin, spec, cfg, edge_consts, kvar):
     stencil = 0 if cfg.collision_mode == "none" else spec.collision_stencil
     return cvec, dict(stencil=stencil,
                       quantized=cfg.force_mode == "quantized",
-                      rsqrt="rsqrt" in kvar, rollgroup="rollgroup" in kvar)
+                      rsqrt="rsqrt" in kvar, rollgroup="rollgroup" in kvar,
+                      nospring="nospring" in kvar, noint="noint" in kvar)
 
 
 def fused_frame2(hot, obs, immut, edge_consts, consts: PhysicsConstants,
                  uin: UserInput, spec, cfg: StaticConfig,
-                 n_sub: Optional[int] = None, kvar: Tuple[str, ...] = ()):
+                 n_sub: Optional[int] = None, observe: bool = True,
+                 kvar: Tuple[str, ...] = ()):
     """One frame without far field: ``n−1`` substeps + 1 observing
-    substep, K1 in the instance of ``kvar``.  Returns ``(hot', obs')``."""
+    substep, K1 in the instance of ``kvar``.  ``observe=False`` runs ``n``
+    substeps and passes ``obs`` through.  Returns ``(hot', obs')``."""
     cvec, k1kw = _frame_consts(consts, uin, spec, cfg, edge_consts, kvar)
     n = cfg.subticks if n_sub is None else n_sub
-    for _ in range(n - 1):
+    for _ in range(n - 1 if observe else n):
         hot = fused_substep2_call(hot, immut, cvec, **k1kw)
+    if not observe:
+        return hot, obs
     return fused_substep2_call(hot, immut, cvec, obs_in=obs, **k1kw)
+
+
+def _far_planes(hot, alive, fl, spec, cfg, ff, consts):
+    """The far delta planes ``[5, W, H]`` of list ``fl`` on the state
+    ``hot``: the windowed-gather pair math (``farfield.
+    far_collision_terms``)."""
+    return torch.stack(far_collision_terms(
+        hot[PX], hot[PY], hot[VX], hot[VY], alive, fl,
+        s=spec.collision_stencil, ff=ff, radius=cfg.particle_radius,
+        dt=cfg.dt, ecoeff=consts.ecoeff, friction=consts.friction))
+
+
+def fused_frame2_far(hot, obs, immut, edge_consts, fl,
+                     consts: PhysicsConstants, uin: UserInput, spec,
+                     cfg: StaticConfig, ffspec, n_sub: Optional[int] = None,
+                     observe: bool = True, kvar: Tuple[str, ...] = ()):
+    """:func:`fused_frame2` with far-field contacts of the given list
+    ``fl``: each substep computes the far delta planes from the current
+    state (:func:`_far_planes`) and K1 adds them.  Returns ``(hot',
+    obs')``."""
+    cvec, k1kw = _frame_consts(consts, uin, spec, cfg, edge_consts, kvar)
+    alive = immut[ALIVE] > 0.0
+    n = cfg.subticks if n_sub is None else n_sub
+    for j in range(n):
+        far = _far_planes(hot, alive, fl, spec, cfg, ffspec, consts)
+        if observe and j == n - 1:
+            return fused_substep2_call(hot, immut, cvec, far=far,
+                                       obs_in=obs, **k1kw)
+        hot = fused_substep2_call(hot, immut, cvec, far=far, **k1kw)
+    return hot, obs
+
+
+def _read(t: torch.Tensor) -> list:
+    """``t.tolist()``, counted in :data:`HOST_READS`."""
+    global HOST_READS
+    HOST_READS += 1
+    return t.tolist()
+
+
+def _counts(fl) -> Tuple[int, int]:
+    """``(n_pairs, overflow)`` of ``fl`` in one counted host read."""
+    n, o = _read(torch.stack([fl.n_pairs, fl.overflow]))
+    return int(n), int(o)
+
+
+class _ListRecord:
+    """A triggered frame's far stats ``[rebuilds, max n_pairs, max
+    overflow]`` over the lists its substeps ran with (after each
+    substep's rebuild decision, as JAX's frames record them), from the
+    host reads the frame makes anyway: substep ``j``'s read carries the
+    counts of the list it starts with, which is substep ``j − 1``'s list;
+    at ``j = 0`` it is the frame's own only when that substep does not
+    rebuild; a list rebuilt by the last substep is read at the end
+    (:meth:`close`)."""
+
+    def __init__(self):
+        self.st = [0, 0, 0]
+        self.unread = False
+
+    def substep(self, j: int, need: bool, n_pairs: int, overflow: int):
+        if j > 0 or not need:
+            self.st[1] = max(self.st[1], n_pairs)
+            self.st[2] = max(self.st[2], overflow)
+        self.st[0] += int(need)
+        self.unread = need
+
+    def close(self, fl) -> torch.Tensor:
+        if self.unread:
+            self.substep(1, False, *_counts(fl))
+        return torch.tensor(self.st, dtype=torch.int32)
+
+
+def fused_frame2_auto(hot, obs, immut, edge_consts, fl,
+                      consts: PhysicsConstants, uin: UserInput, spec,
+                      cfg: StaticConfig, ffspec, n_sub: Optional[int] = None,
+                      observe: bool = True):
+    """The far-field-autonomous frame of the JAX package: before each
+    substep the deviation trigger (``farfield.list_invalid``) decides a
+    velocity-extruded rebuild (``rebuild_far_list_planes``, K2's band
+    pass); the far delta planes are computed while the list has pairs.
+    K1 strict, as in JAX.  The host reads the trigger and the list's
+    counts once per substep (one ``.tolist()``); a list rebuilt in a
+    substep is applied whole there and counted at the next read.
+    Returns ``(hot', obs', fl', stats)`` with ``stats`` a CPU int32
+    ``[3]``: rebuilds, max n_pairs, max overflow."""
+    ff = ffspec
+    cvec, k1kw = _frame_consts(consts, uin, spec, cfg, edge_consts, ())
+    alive = immut[ALIVE] > 0.0
+    n = cfg.subticks if n_sub is None else n_sub
+    rec = _ListRecord()
+    for j in range(n):
+        need_d = list_invalid(hot[PX], hot[PY], hot[VX], hot[VY], alive, fl,
+                              cfg.dt, ff)
+        need, n_pairs, overflow = (int(v) for v in _read(torch.stack([
+            need_d.to(torch.int64), fl.n_pairs.to(torch.int64),
+            fl.overflow.to(torch.int64)])))
+        rec.substep(j, bool(need), n_pairs, overflow)
+        if need:
+            fl = rebuild_far_list_planes(
+                hot[PX], hot[PY], alive, s=spec.collision_stencil, ff=ff,
+                radius=cfg.particle_radius, vx=hot[VX], vy=hot[VY],
+                dt=cfg.dt)
+        far = (None if not need and n_pairs == 0 else
+               _far_planes(hot, alive, fl, spec, cfg, ff, consts))
+        out = fused_substep2_call(
+            hot, immut, cvec, far=far,
+            obs_in=obs if observe and j == n - 1 else None, **k1kw)
+        hot, obs = out if observe and j == n - 1 else (out, obs)
+        fl = dataclasses.replace(fl, age=fl.age + 1)
+    return hot, obs, fl, rec.close(fl)
+
+
+def far3_carry_init(hot, immut, cfg: StaticConfig, spec, ffspec):
+    """The triggered frame's initial ``(side, trig)`` carry
+    (:func:`fused_frame3_auto`): the side planes of the packed state from
+    ``farfield.kernel_side_from_planes`` (K2's band pass) and the trigger
+    vector with ``T_MAXDD2`` huge, so that the first substep rebuilds,
+    the alive mean velocity, and the side planes' age 1."""
+    alive = immut[ALIVE] > 0.0
+    n_alive = torch.clamp(alive.to(torch.float32).sum(), min=1.0)
+    vbx = torch.where(alive, hot[VX], 0.0).sum() / n_alive
+    vby = torch.where(alive, hot[VY], 0.0).sum() / n_alive
+    side = kernel_side_from_planes(
+        hot[PX], hot[PY], alive, hot[VX], hot[VY],
+        s=spec.collision_stencil, ff=ffspec, radius=cfg.particle_radius,
+        T_band=float((ffspec.horizon + 1) * cfg.dt), vbar=(vbx, vby))
+    trig = torch.zeros(N_TRIG, dtype=torch.float32, device=hot.device)
+    trig[T_MAXDD2] = 1.0e30
+    trig[T_VBX] = vbx
+    trig[T_VBY] = vby
+    trig[T_SIDE_AGE] = 1.0
+    return side, trig
+
+
+def _rebuild_from_side(hot, side, cany, *, ff, radius: float, T: float):
+    """A far list from K1's side planes (the detection of ``side``'s
+    state): the chunk planes (``raw_planes_from_side``) swept for ``T``,
+    then the candidate compaction, referenced to ``hot``."""
+    w, h = hot.shape[1:]
+    raw = raw_planes_from_side(side, w, h, (0, 0), ff)
+    iminx, imaxx, iminy, imaxy = extrude_chunk_planes(
+        raw, cany, ff=ff, radius=radius, T=T, extruded=True)
+    cp = ChunkPlanes(iminx, imaxx, iminy, imaxy, cany, raw.band,
+                     torch.zeros(2, dtype=torch.float32, device=hot.device))
+    return rebuild_far_list_from_chunks(cp, hot[PX], hot[PY], hot[VX],
+                                        hot[VY], ff=ff)
+
+
+def _f32(x) -> float:
+    return float(np.float32(x))
+
+
+def fused_frame3_auto(hot, obs, immut, edge_consts, fl, side, trig,
+                      consts: PhysicsConstants, uin: UserInput, spec,
+                      cfg: StaticConfig, ffspec, n_sub: Optional[int] = None,
+                      observe: bool = True,
+                      buckets: Tuple[int, ...] = (512, 2048)):
+    """The triggered far-field frame (JAX's ``fused_frame3_auto``): K1
+    itself produces the trigger statistics (trig mode) and, when the
+    detection flag is on, the side planes (detect mode); the list, the
+    side planes and the trigger vector ride across frames
+    (:func:`far3_carry_init` makes the first ``side``/``trig``).
+
+    Per substep, from the trigger vector: ``maxdev = √max dd² +
+    speed_safety·dt·√max dv²`` (float32 on the device); ``need = maxdev >
+    skin/2 | age ≥ horizon`` rebuilds from the carried side planes, swept
+    for ``(horizon + side_age + 1)·dt`` (they describe the state
+    ``side_age`` substeps back); ``det = need | maxdev > skin/4 | age ≥
+    horizon − 2`` runs K1's detect instance and takes its side planes.
+    The far apply crops the list to the smallest of ``buckets`` (below
+    ``max_pairs``) or ``max_pairs`` that holds it.  K1 strict, as in JAX.
+
+    The host reads ``need``, ``det``, the band's mean velocity, the side
+    age and the list's counts once per substep (one ``.tolist()``); a
+    list rebuilt in a substep is applied at its full capacity there and
+    counted at the next read.  Returns ``(hot', obs', fl', side', trig',
+    stats)``, ``stats`` a CPU int32 ``[3]``: rebuilds, max n_pairs, max
+    overflow."""
+    ff = ffspec
+    cvec0, k1kw = _frame_consts(consts, uin, spec, cfg, edge_consts, ())
+    dev = hot.device
+    alive = immut[ALIVE] > 0.0
+    n = cfg.subticks if n_sub is None else n_sub
+    budget = np.float32(0.5 * ff.skin)
+    base_reach = _f32(2.0 * cfg.particle_radius + ff.skin)
+    safdt = _f32(ff.speed_safety * cfg.dt)
+    t_band = _f32((ff.horizon + 1) * cfg.dt)
+    n_alive = torch.clamp(alive.to(torch.float32).sum(), min=1.0)
+    cany = chunk_any_alive(alive, ff)
+    ladder = tuple(b for b in buckets if b < ff.max_pairs) + (ff.max_pairs,)
+    refs = torch.stack([fl.px_ref, fl.py_ref, fl.vx_ref, fl.vy_ref])
+    rec = _ListRecord()
+    for j in range(n):
+        maxdev = sqrt32(trig[T_MAXDD2]) + safdt * sqrt32(trig[T_MAXDV2])
+        vals = _read(torch.stack([
+            (maxdev > float(budget)).to(torch.float64),
+            (maxdev > float(np.float32(0.5) * budget)).to(torch.float64),
+            trig[T_VBX].to(torch.float64), trig[T_VBY].to(torch.float64),
+            trig[T_SIDE_AGE].to(torch.float64),
+            fl.n_pairs.to(torch.float64), fl.overflow.to(torch.float64),
+        ]))
+        need = bool(vals[0]) or fl.age >= ff.horizon
+        det = need or bool(vals[1]) or fl.age >= ff.horizon - 2
+        vbx, vby, side_age = vals[2:5]
+        n_pairs, overflow = int(vals[5]), int(vals[6])
+        rec.substep(j, need, n_pairs, overflow)
+        if need:
+            T = _f32((np.float32(ff.horizon) + np.float32(side_age)
+                      + np.float32(1.0)) * np.float32(cfg.dt))
+            fl = _rebuild_from_side(hot, side, cany, ff=ff,
+                                    radius=cfg.particle_radius, T=T)
+            refs = torch.stack([fl.px_ref, fl.py_ref, fl.vx_ref, fl.vy_ref])
+            k = ff.max_pairs
+        else:
+            k = (0 if n_pairs == 0 else
+                 next(b for b in ladder if b >= min(n_pairs, ff.max_pairs)))
+        far = (None if k == 0 else _far_planes(
+            hot, alive, crop_far_list(fl, k), spec, cfg, ff, consts))
+        extras = torch.tensor([
+            _f32(np.float32(fl.age + 1) * np.float32(cfg.dt)),
+            float(det), vbx, vby, t_band, base_reach, safdt, 0.0],
+            dtype=torch.float32)
+        observing = observe and j == n - 1
+        outs = list(fused_substep2_call(
+            hot, immut, torch.cat([cvec0, extras]), far=far,
+            obs_in=obs if observing else None, refs=refs, detect=det,
+            **k1kw))
+        hot = outs.pop(0)
+        if observing:
+            obs = outs.pop(0)
+        stats = outs.pop(0)
+        if det:
+            side = outs.pop(0)
+        trig = torch.zeros(N_TRIG, dtype=torch.float32, device=dev)
+        trig[:2] = stats[:2]
+        trig[2:4] = stats[2:4] / n_alive
+        trig[T_SIDE_AGE] = 1.0 if det else side_age + 1.0
+        fl = dataclasses.replace(fl, age=fl.age + 1)
+    return hot, obs, fl, side, trig, rec.close(fl)
+
+
+def rebuild_far_list_packed2(hot, immut, *, s: int, ff, radius: float):
+    """Far-list rebuild from the packed stacks (no velocity sweep)."""
+    return rebuild_far_list_planes(hot[PX], hot[PY], immut[ALIVE] > 0.0, s=s,
+                                   ff=ff, radius=radius)
+
+
+def packed_far_motion2(hot, immut, fl):
+    """``(max COM-relative displacement since the rebuild, max speed
+    relative to the mean)`` of the packed state (0-d tensors)."""
+    pos = torch.stack([hot[PX], hot[PY]], dim=-1)
+    vel = torch.stack([hot[VX], hot[VY]], dim=-1)
+    alive = immut[ALIVE] > 0.0
+    return displacement_check(pos, alive, fl), max_relative_speed(vel, alive)
 
 
 def fused_frame4(hot, obs, immut, edge_consts, consts: PhysicsConstants,
                  uin: UserInput, spec, cfg: StaticConfig, ffspec,
                  n_sub: Optional[int] = None,
                  buckets: Tuple[int, ...] = (1024, 2048, 4096),
-                 activation: bool = False, kvar: Tuple[str, ...] = ()):
-    """One far-armed frame, fixed cadence (the JAX ``fused_frame4``, its
-    xla-detect branch): ``n // R`` blocks of [rebuild → R substeps] with
-    ``R = min(ffspec.horizon, n)``, plus a remainder block that also
-    rebuilds.  Each substep applies the far pairs through the JAX v4
-    route (``ops/farfield4.py::bucketed_far_delta_planes``: buckets ≤ 256
+                 activation: bool = False, far_mb: int = 32,
+                 far_mb_out: Optional[int] = None, detect_mode: str = "xla",
+                 band_impl: str = "kernel", kvar: Tuple[str, ...] = ()):
+    """One far-armed frame, fixed cadence (the JAX ``fused_frame4``):
+    ``n // R`` blocks of [rebuild → R substeps] with ``R =
+    min(ffspec.horizon, n)``, plus a remainder block that also rebuilds.
+    Each substep applies the far pairs through the JAX v4 route
+    (``ops/farfield4.py::bucketed_far_delta_planes``: buckets ≤ 256
     narrow, larger ones through the record table of kernel K7; under
     ``krec`` every bucket through the table) then runs K1 in the instance
     of ``kvar``; the frame's last substep is the observing one.
 
+    ``detect_mode="xla"``: each rebuild detects on its state (K2 for the
+    band, or its plain loop under ``band_impl="plain"``: JAX's "xla").
+    ``"kernel"``: each block's last substep runs K1's detect instance, and
+    the next block rebuilds from its side planes (``raw_planes_from_side``,
+    swept for ``(R + 1)·dt``: they describe the state one substep back);
+    block 0's come from ``kernel_side_from_planes``; the last block never
+    detects.  The host reads each detecting substep's band mean velocity
+    (one ``.tolist()`` per block).  It refuses ``activation`` and the
+    ``krec``/``kmirror`` carry, as JAX does.
+
     ``activation``: the rebuild also schedules each pair's first possible
     contact (``farfield.pair_activation``) and substep ``s`` of a block
     applies only the sorted list's first ``n_active[s]`` pairs.
+    ``far_mb``/``far_mb_out``: the record layout, 32 only.
 
     Returns ``(hot', obs', stats)`` with ``stats`` a CPU int32 ``[4]``:
     rebuilds, max n_pairs, max overflow, max active pairs (a block's
     active count at its last substep; ``n_pairs`` without
     ``activation``)."""
     ff = ffspec
+    _check_layout(far_mb, far_mb_out)
+    if detect_mode not in ("xla", "kernel"):
+        raise ValueError(f"detect_mode {detect_mode!r}: 'xla' or 'kernel'")
+    kernel_detect = detect_mode == "kernel"
+    if kernel_detect and activation:
+        raise ValueError("detect_mode='kernel' is incompatible with the "
+                         "activation schedule (it needs raw pre-extrusion "
+                         "planes at rebuild time)")
+    if kernel_detect and ("krec" in kvar or "kmirror" in kvar):
+        raise ValueError("kvar 'kmirror'/'krec' is incompatible with "
+                         "detect_mode='kernel'")
     cvec, k1kw = _frame_consts(consts, uin, spec, cfg, edge_consts, kvar)
     narrow_max = 0 if "krec" in kvar else NARROW_MAX
     alive = immut[ALIVE] > 0.0
@@ -322,20 +799,42 @@ def fused_frame4(hot, obs, immut, edge_consts, consts: PhysicsConstants,
     blocks = [R] * (n // R) + ([n % R] if n % R else [])
     ecoeff = consts.ecoeff
     kw = dict(s=spec.collision_stencil, ff=ff, radius=cfg.particle_radius)
+    if kernel_detect:
+        cany = chunk_any_alive(alive, ff)
+        n_alive = torch.clamp(alive.to(torch.float32).sum(), min=1.0)
+        t_band = float((R + 1) * cfg.dt)
+        extras0 = [0.0, 1.0, 0.0, 0.0, _f32(t_band),
+                   _f32(2.0 * cfg.particle_radius + ff.skin),
+                   _f32(ff.speed_safety * cfg.dt), 0.0]
+
+        def vbar_of(h):
+            return (torch.where(alive, h[VX], 0.0).sum() / n_alive,
+                    torch.where(alive, h[VY], 0.0).sum() / n_alive)
+
+        side = kernel_side_from_planes(
+            hot[PX], hot[PY], alive, hot[VX], hot[VY], T_band=t_band,
+            vbar=vbar_of(hot), band_impl=band_impl, **kw)
     st = [0, 0, 0, 0]
     for bi, size in enumerate(blocks):
-        if activation:
+        last_block = bi == len(blocks) - 1
+        if kernel_detect:
+            fl = _rebuild_from_side(hot, side, cany, ff=ff,
+                                    radius=cfg.particle_radius, T=t_band)
+            n_pairs, overflow = _counts(fl)
+            active = [n_pairs] * size
+        elif activation:
             fl, n_act = rebuild_far_list_planes_active(
                 hot[PX], hot[PY], alive, vx=hot[VX], vy=hot[VY], dt=cfg.dt,
-                R=R, **kw)
+                R=R, band_impl=band_impl, **kw)
             # the bucket choice needs the counts on the host: one read per
             # rebuild, which also carries the stats and the schedule
-            n_pairs, overflow, *active = torch.cat([
-                torch.stack([fl.n_pairs, fl.overflow]), n_act]).tolist()
+            n_pairs, overflow, *active = _read(torch.cat([
+                torch.stack([fl.n_pairs, fl.overflow]), n_act]))
         else:
             fl = rebuild_far_list_planes(hot[PX], hot[PY], alive, vx=hot[VX],
-                                         vy=hot[VY], dt=cfg.dt, **kw)
-            n_pairs, overflow = fl.counts()
+                                         vy=hot[VY], dt=cfg.dt,
+                                         band_impl=band_impl, **kw)
+            n_pairs, overflow = _counts(fl)
             active = [n_pairs] * size
         st = [st[0] + 1, max(st[1], n_pairs), max(st[2], overflow),
               max(st[3], active[size - 1])]
@@ -345,7 +844,15 @@ def fused_frame4(hot, obs, immut, edge_consts, consts: PhysicsConstants,
                 hot, immut[ALIVE], fl_j, active[j], dt=cfg.dt, ecoeff=ecoeff,
                 friction=consts.friction, buckets=buckets,
                 narrow_max=narrow_max, **kw)
-            observing = bi == len(blocks) - 1 and j == size - 1
+            if kernel_detect and not last_block and j == size - 1:
+                extras = list(extras0)
+                extras[X_VBX:X_VBY + 1] = _read(torch.stack(vbar_of(hot)))
+                hot, side = fused_substep2_call(
+                    hot, immut, torch.cat([cvec, torch.tensor(
+                        extras, dtype=torch.float32)]),
+                    far=far, detect=True, **k1kw)
+                continue
+            observing = last_block and j == size - 1
             out = fused_substep2_call(
                 hot, immut, cvec, far=far, obs_in=obs if observing else None,
                 **k1kw)

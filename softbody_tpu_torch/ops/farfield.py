@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 from ..config import resolve_device
-from .cuda.band_detect import band_flag_call
+from .cuda.band_detect import band_flag_call, band_flags_plain
 from .stencil import (
     _mul32,
     device_scalar,
@@ -164,6 +164,9 @@ class FarList:
     com_ref: torch.Tensor   # [2] alive-mean position at rebuild
     vx_ref: torch.Tensor
     vy_ref: torch.Tensor
+    # substeps since the rebuild, on the host (the triggered frames
+    # decide their rebuilds there)
+    age: int = 0
 
     @property
     def capacity(self) -> int:
@@ -202,14 +205,21 @@ def _chunk_reduce(plane, op, c):
 # rebuild
 
 
+BAND_IMPLS = ("kernel", "plain")
+
+
 def raw_chunk_planes(pxu, pyu, alive, *, s: int, ff: FarFieldSpec,
                      radius: float, vxu=None, vyu=None, T_band: float = 0.0,
-                     vbar=None):
+                     vbar=None, band_impl: str = "kernel"):
     """Particle planes → ``(RawChunkPlanes, cany, com)``.
 
     Band reach per pair is ``(2r + skin + dev_i) + dev_j`` with
     ``dev = |v − v̄|·T_band`` (zero without velocities); the band pass is
-    kernel K2 (``band_flag_call``)."""
+    kernel K2 (``band_flag_call``: its plain version on CPU tensors), or
+    under ``band_impl="plain"`` the plain loop on every device (the JAX
+    package's ``band_impl="xla"``, a measurement option)."""
+    if band_impl not in BAND_IMPLS:
+        raise ValueError(f"band_impl {band_impl!r}: one of {BAND_IMPLS}")
     w, h = pxu.shape
     cwx, cwy, wp, hp = _chunk_dims(w, h, ff)
     c = ff.chunk
@@ -239,9 +249,11 @@ def raw_chunk_planes(pxu, pyu, alive, *, s: int, ff: FarFieldSpec,
             (cwx, cwy), dtype=torch.float32, device=pxu.device)
         dev = torch.zeros_like(pxu)
     base_reach = float(np.float32(2.0 * radius + ff.skin))
-    flag = band_flag_call(
-        pxu.contiguous(), pyu.contiguous(), dev, base_reach + dev,
-        alive.contiguous(), offsets=ff.band_half_offsets(s))
+    band_args = (pxu.contiguous(), pyu.contiguous(), dev, base_reach + dev,
+                 alive.contiguous())
+    flag = (band_flag_call(*band_args, offsets=ff.band_half_offsets(s))
+            if band_impl == "kernel" else
+            band_flags_plain(*band_args, ff.band_half_offsets(s)))
     cflag = _chunk_reduce(_pad_plane(flag, wp, hp, False), torch.any, c)
 
     n_alive = torch.clamp(alive.to(torch.float32).sum(), min=1.0)
@@ -277,7 +289,7 @@ def extrude_chunk_planes(raw: RawChunkPlanes, cany, *, ff: FarFieldSpec,
 
 def _chunk_detection(pxu, pyu, alive, *, s: int, ff: FarFieldSpec,
                      radius: float, vxu=None, vyu=None, dt: float = 0.0,
-                     return_raw: bool = False):
+                     return_raw: bool = False, band_impl: str = "kernel"):
     """Particle planes → :class:`ChunkPlanes` (with ``return_raw``, also
     the :class:`RawChunkPlanes` they were swept from); with velocities
     the AABBs are swept for ``horizon`` substeps."""
@@ -291,7 +303,7 @@ def _chunk_detection(pxu, pyu, alive, *, s: int, ff: FarFieldSpec,
         T = 0.0
     raw, cany, com = raw_chunk_planes(
         pxu, pyu, alive, s=s, ff=ff, radius=radius, vxu=vxu, vyu=vyu,
-        T_band=T, vbar=vbar)
+        T_band=T, vbar=vbar, band_impl=band_impl)
     iminx, imaxx, iminy, imaxy = extrude_chunk_planes(
         raw, cany, ff=ff, radius=radius, T=T, extruded=vxu is not None)
     cp = ChunkPlanes(iminx, imaxx, iminy, imaxy, cany, raw.band, com)
@@ -509,11 +521,12 @@ def rebuild_far_list_from_chunks(cp: ChunkPlanes, px_ref, py_ref, vx_ref,
 
 def rebuild_far_list_planes(px, py, alive, *, s: int, ff: FarFieldSpec,
                             radius: float, vx=None, vy=None,
-                            dt: float = 0.0) -> FarList:
+                            dt: float = 0.0,
+                            band_impl: str = "kernel") -> FarList:
     """Build the candidate chunk-pair list from current positions (and,
     with ``vx``/``vy``/``dt``, velocity-swept)."""
     cp = _chunk_detection(px, py, alive, s=s, ff=ff, radius=radius,
-                          vxu=vx, vyu=vy, dt=dt)
+                          vxu=vx, vyu=vy, dt=dt, band_impl=band_impl)
     return rebuild_far_list_from_chunks(
         cp, px, py,
         torch.zeros_like(px) if vx is None else vx,
@@ -580,14 +593,123 @@ def pair_activation(fl: FarList, raw: RawChunkPlanes, *, ff: FarFieldSpec,
 
 def rebuild_far_list_planes_active(px, py, alive, *, s: int,
                                    ff: FarFieldSpec, radius: float, vx, vy,
-                                   dt: float, R: int):
+                                   dt: float, R: int,
+                                   band_impl: str = "kernel"):
     """:func:`rebuild_far_list_planes` (velocity-swept) and
     :func:`pair_activation` over one chunk detection: ``(fl, n_active
     [R])`` with the list sorted by activation substep."""
     cp, raw = _chunk_detection(px, py, alive, s=s, ff=ff, radius=radius,
-                               vxu=vx, vyu=vy, dt=dt, return_raw=True)
+                               vxu=vx, vyu=vy, dt=dt, return_raw=True,
+                               band_impl=band_impl)
     fl = rebuild_far_list_from_chunks(cp, px, py, vx, vy, ff=ff)
     return pair_activation(fl, raw, ff=ff, radius=radius, dt=dt, R=R)
+
+
+def chunk_any_alive(alive, ff: FarFieldSpec) -> torch.Tensor:
+    """Per-chunk any-alive plane ``[cwx, cwy]`` (fixed for a fused frame,
+    whose particle alive mask does not change)."""
+    w, h = alive.shape
+    _cwx, _cwy, wp, hp = _chunk_dims(w, h, ff)
+    return _chunk_reduce(_pad_plane(alive, wp, hp, False), torch.any,
+                         ff.chunk)
+
+
+def raw_planes_from_side(side, plane_w: int, plane_h: int,
+                         interior_off: Tuple[int, int],
+                         ff: FarFieldSpec) -> RawChunkPlanes:
+    """The fused kernel's detection side planes → :class:`RawChunkPlanes`
+    on the chunk grid of ``(plane_w, plane_h)``.
+
+    ``side [9, wi/4, hi]`` holds per group of four rows (row ``j``: rows
+    ``[4j, 4j+4)`` of the kernel's interior) and per column the min and
+    max of px py vx vy and the band flag; this finishes the reduce over
+    each four columns and places the result at the interior's chunk
+    offset, the other chunks empty (±3e38, band false).  A partial last
+    group of columns is filled as ``_pad_plane`` fills (the JAX
+    package's interiors are whole chunks)."""
+    c = ff.chunk
+    cwx, cwy, _, _ = _chunk_dims(plane_w, plane_h, ff)
+    ox, oy = interior_off
+    if ox % c or oy % c:
+        raise ValueError("interior offset must be chunk-aligned")
+    rows, hi = side.shape[1:]
+    hc = -(-hi // c)
+
+    def lred(plane, op, fill):
+        v = torch.full((rows, hc * c), fill, dtype=torch.float32,
+                       device=side.device)
+        v[:, :hi] = plane
+        out = torch.full((cwx, cwy), fill, dtype=torch.float32,
+                         device=side.device)
+        out[ox // c:ox // c + rows, oy // c:oy // c + hc] = op(
+            v.reshape(rows, hc, c), dim=2)
+        return out
+
+    return RawChunkPlanes(
+        minx=lred(side[0], torch.amin, _BIG),
+        maxx=lred(side[1], torch.amax, -_BIG),
+        miny=lred(side[2], torch.amin, _BIG),
+        maxy=lred(side[3], torch.amax, -_BIG),
+        vminx=lred(side[4], torch.amin, _BIG),
+        vmaxx=lred(side[5], torch.amax, -_BIG),
+        vminy=lred(side[6], torch.amin, _BIG),
+        vmaxy=lred(side[7], torch.amax, -_BIG),
+        band=lred(side[8], torch.amax, 0.0) > 0.0,
+    )
+
+
+def kernel_side_from_planes(pxu, pyu, alive, vxu, vyu, *, s: int,
+                            ff: FarFieldSpec, radius: float,
+                            T_band: float, vbar,
+                            interior_off: Tuple[int, int] = (0, 0),
+                            interior_shape: Optional[Tuple[int, int]] = None,
+                            band_impl: str = "kernel") -> torch.Tensor:
+    """The fused kernel's detection side planes ``[9, ceil(wi/4), hi]``
+    from :func:`raw_chunk_planes` (K2's band pass): what seeds the side
+    carry before the kernel has detected.  Row ``j`` holds chunk row
+    ``j``'s values, each column its chunk's value (the reduce over four
+    columns that :func:`raw_planes_from_side` finishes is exact on
+    repeats), so ``raw_planes_from_side(kernel_side_from_planes(...))``
+    equals ``raw_chunk_planes(...)``.  ``interior_off``/``interior_shape``
+    (default: the whole plane) as in the JAX package; the side planes'
+    row group is four, so ``ff.chunk`` must be 4."""
+    c = ff.chunk
+    if c != 4:
+        raise ValueError("the side planes group four rows: chunk must be 4")
+    raw, _cany, _com = raw_chunk_planes(
+        pxu, pyu, alive, s=s, ff=ff, radius=radius, vxu=vxu, vyu=vyu,
+        T_band=T_band, vbar=vbar, band_impl=band_impl)
+    ox, oy = interior_off
+    wi, hi = pxu.shape if interior_shape is None else interior_shape
+    if ox % c or oy % c:
+        raise ValueError("interior offset must be chunk-aligned")
+
+    def emb(plane):
+        sl = plane[ox // c:ox // c + -(-wi // c), oy // c:oy // c + -(-hi // c)]
+        return torch.repeat_interleave(sl.to(torch.float32), c, dim=1)[:, :hi]
+
+    return torch.stack([emb(p) for p in raw])
+
+
+def list_invalid(px, py, vx, vy, alive, fl: FarList, dt: float,
+                 ff: FarFieldSpec) -> torch.Tensor:
+    """True (a 0-d bool tensor on the planes' device) when the extruded
+    list no longer covers the next substep: some alive particle's
+    deviation from its linear reference motion ``p_ref + v_ref·τ`` (τ =
+    ``fl.age·dt``) plus the margin ``speed_safety·|v − v_ref|·dt``
+    exceeds skin/2, or the list has reached its extrusion horizon.  In
+    float32 on the device, as the JAX package's."""
+    tau = float(np.float32(fl.age) * np.float32(dt))
+    ddx = px - (fl.px_ref + fl.vx_ref * tau)
+    ddy = py - (fl.py_ref + fl.vy_ref * tau)
+    dev = sqrt32(ddx * ddx + ddy * ddy)
+    dvx = vx - fl.vx_ref
+    dvy = vy - fl.vy_ref
+    margin = float(np.float32(ff.speed_safety * dt)) * sqrt32(
+        dvx * dvx + dvy * dvy)
+    slack = torch.where(alive, dev + margin, 0.0)
+    return (slack.amax() > float(np.float32(0.5 * ff.skin))) | (
+        fl.age >= ff.horizon)
 
 
 def crop_active(fl: FarList, n_active: int) -> FarList:

@@ -339,7 +339,8 @@ def spring_pass(px, py, alive, edges: Sequence, quantized: bool,
 
 def _stencil_collisions(px, py, vx, vy, alive, *, s: int, radius: float,
                         dt: float, ecoeff: float, friction: float,
-                        rsqrt: bool = False, rollgroup: bool = False):
+                        rsqrt: bool = False, rollgroup: bool = False,
+                        inv_dt2: bool = False):
     """Reference pair math over the half-offset stencil of radius ``s``.
 
     Each unordered pair is evaluated once at its lower endpoint and its
@@ -354,11 +355,24 @@ def _stencil_collisions(px, py, vx, vy, alive, *, s: int, radius: float,
     Δy ≠ 0 adds only its own term in the loop; its reaction joins the
     sum of its Δy's group (started from the group's first reaction), and
     after the loop each group is subtracted, in the order each Δy first
-    appears in :func:`half_offsets` (1 … s, then −s … −1)."""
+    appears in :func:`half_offsets` (1 … s, then −s … −1).
+
+    ``inv_dt2``: the penetration clip multiplies by ``1/(dt·dt)`` (float32)
+    as the fused kernel K1 does (``fused_substep2.py:394``, ``:757``); by
+    default it divides by ``dt·dt``, as the JAX stencil path
+    (``ops/stencil.py:488``) and K4 do.  The two agree only where ``dt²``
+    is a power of two."""
     w, h = px.shape
     two_r = _mul32(2.0, radius)
     two_r2 = _mul32(two_r, two_r)
-    dt2 = device_scalar(_mul32(dt, dt), px.device)
+    dt2_host = _mul32(dt, dt)
+    if inv_dt2:
+        # a host float32 product needs no device scalar: torch multiplies
+        # by it in float32 on every device
+        with np.errstate(divide="ignore", over="ignore"):
+            idt2 = float(np.float32(1.0) / np.float32(dt2_host))
+    else:
+        dt2 = device_scalar(dt2_host, px.device)
     z = torch.zeros_like(px)
     dvx, dvy, dax, day, dyn = z, z, z, z, z
     groups: dict = {}     # rollgroup: Δy -> summed reactions
@@ -392,7 +406,8 @@ def _stencil_collisions(px, py, vx, vy, alive, *, s: int, radius: float,
         )
         pdvx = -(imp_n * nx + imp_t * -ny)
         pdvy = -(imp_n * ny + imp_t * nx)
-        clip = (two_r - dist) * 0.5 / dt2
+        clip = ((two_r - dist) * 0.5 * idt2 if inv_dt2
+                else (two_r - dist) * 0.5 / dt2)
         if rsqrt:
             pdax = torch.where(overlap, -nx * clip, 0.0)
             pday = torch.where(overlap, -ny * clip, 0.0)
@@ -507,14 +522,15 @@ def substep_planes(px, py, vx, vy, ax, ay, alive, pinned, edges, sc: Scalars,
                    full_stencil: bool = False,
                    offsets: Sequence[Tuple[int, int]] = EDGE_OFFSETS,
                    extra_force=None, rsqrt: bool = False,
-                   rollgroup: bool = False):
+                   rollgroup: bool = False, inv_dt2: bool = False):
     """One substep on component planes: springs (``spring_pass`` over
     ``offsets``, ``extra_force`` first), collisions, each of the
     ``far_deltas`` (``[5, W, H]`` stacks of dvx dvy dax day dyn, or
     None) in turn, integration.  ``full_stencil``: the collisions go
     through the K3 wrapper (``ops/cuda/collide_stencil.py``, full offset
     set) instead of the half-offset sum.  ``rsqrt``/``rollgroup``: the
-    fused kernel K1's arithmetic variants (half-offset collisions only).
+    fused kernel K1's arithmetic variants (half-offset collisions only);
+    ``inv_dt2``: K1's penetration clip (``_stencil_collisions``).
     Returns the six new particle planes and the spring updates."""
     if full_stencil and (rsqrt or rollgroup):
         raise ValueError("the kernel variants apply to the half-offset "
@@ -535,7 +551,7 @@ def substep_planes(px, py, vx, vy, ax, ay, alive, pinned, edges, sc: Scalars,
     else:
         dvx, dvy, dax, day, dyn = _stencil_collisions(
             px, py, vx, vy, alive, s=stencil, rsqrt=rsqrt,
-            rollgroup=rollgroup, **kw)
+            rollgroup=rollgroup, inv_dt2=inv_dt2, **kw)
     for fd in far_deltas:
         if fd is None:
             continue

@@ -152,6 +152,112 @@ def test_k1_instances_match_plain(dev, instance, quantized, stencil, shape):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32)), name
 
 
+K1_MODES = [
+    dict(refs=True), dict(refs=True, detect=True), dict(detect=True),
+    dict(detect=True, rsqrt=True, rollgroup=True), dict(nospring=True),
+    dict(noint=True, rollgroup=True), dict(nospring=True, noint=True),
+]
+K1_MODE_IDS = ["trig", "trig+detect", "detect", "detect-rsqrt+rollgroup",
+               "nospring", "noint-rollgroup", "nospring+noint"]
+
+
+@pytest.mark.parametrize("shape", [(1000, 1000), (97, 61)],
+                         ids=["1000x1000", "97x61"])
+@pytest.mark.parametrize("stencil", [1, 2])
+@pytest.mark.parametrize("mode", K1_MODES, ids=K1_MODE_IDS)
+def test_k1_modes_match_plain(dev, mode, stencil, shape):
+    """K1's far-field modes (trig: the trigger statistics of the output
+    state; detect: the side planes of the input state) and the knobs
+    against the plain version with the same flags, far stack on: every
+    plane bit for bit, the trig maxima too, the trig sums within 1e-5 of
+    the sums of |v| (their order differs), counted under the instance."""
+    w, h = shape
+    state, cfg, consts, g = _stirred_lattice(dev, w, h, seed=5 * w + h)
+    hot, obs, immut, ec = fused_substep2.pack_lattice2(state)
+    alive = immut[0] > 0
+    spacing = 980.0 / (max(w, h) - 1)
+    cvec = torch.cat([tb.consts_vector(consts, tb.UserInput(), cfg, h), ec])
+    trig, detect = mode.get("refs", False), mode.get("detect", False)
+    if trig or detect:
+        n = alive.sum().to(torch.float32)
+        vbar = [float((torch.where(alive, hot[k], 0.0).sum() / n).item())
+                for k in (2, 3)]
+        cvec = torch.cat([cvec, torch.tensor(
+            [cfg.dt, 1.0, vbar[0], vbar[1], 9 * cfg.dt,
+             2 * cfg.particle_radius + 0.75 * spacing, 2 * cfg.dt, 0.0])])
+    kw = dict(mode, stencil=stencil, quantized=True,
+              far=torch.randn((5, w, h), generator=g, device=dev) * 0.5,
+              refs=(hot[:4] + torch.randn((4, w, h), generator=g,
+                                          device=dev)).contiguous()
+              if trig else None)
+    name = fused_substep2.k1_instance(
+        kw.get("rsqrt", False), kw.get("rollgroup", False), trig, detect,
+        kw.get("nospring", False) or kw.get("noint", False))
+    before = dict(fused_substep2.K1_INSTANCE_LAUNCHES)
+    got = fused_substep2.fused_substep2_call(hot, immut, cvec, **kw)
+    ref = fused_substep2.fused_substep2_plain(hot, immut, cvec, **kw)
+    torch.cuda.synchronize()
+    after = fused_substep2.K1_INSTANCE_LAUNCHES
+    assert {k: after[k] - before[k] for k in after} == {
+        k: int(k == name) for k in after}
+    got = list(got) if isinstance(got, tuple) else [got]
+    ref = list(ref) if isinstance(ref, tuple) else [ref]
+    if trig:
+        gs, rs = got.pop(1), ref.pop(1)
+        assert torch.equal(gs[:2], rs[:2]), name
+        scale = torch.stack([torch.where(alive, got[0][k].abs(), 0.0).sum()
+                             for k in (2, 3)])
+        assert bool(((gs[2:] - rs[2:]).abs() <= 1e-5 * scale).all()), name
+    for a, b in zip(got, ref):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32)), name
+
+
+def _hairpin_lattice(dev):
+    """A 96 x 4 strip folded back on itself (tests/test_farfield.py::
+    hairpin, without JAX): index-distant layers in contact."""
+    import numpy as np
+
+    w, h, spacing = 96, 4, 10.0
+    ls = make_lattice(w, h, spacing, spring=0.0, damp=0.0, yield_strain=10.0,
+                      strain_limit=100.0, device=dev)
+    pos = np.zeros((w, h, 2), np.float32)
+    vel = np.zeros((w, h, 2), np.float32)
+    for i in range(w):
+        lower = i < w // 2
+        pos[i, :, 0] = 100.0 + (i if lower else w - 1 - i) * spacing + (
+            0.0 if lower else 5.0)
+        pos[i, :, 1] = (300.0 if lower else 306.0) + np.arange(h) * 30.0
+        vel[i, :, 1] = 1.5 if lower else -1.5
+    return dataclasses.replace(ls, pos=torch.from_numpy(pos).to(dev),
+                               vel=torch.from_numpy(vel).to(dev))
+
+
+def test_far_modes_match_cpu(dev):
+    """Two frames of the folded strip in the triggered mode and with
+    kernel detection (strict) on the card against the CPU: the same far
+    stats, state within 5e-3 / 5e-2 (the band's mean velocity and the
+    far apply sum in another order)."""
+    from softbody_tpu_torch.engine import FusedLatticeBackend
+    from softbody_tpu_torch.ops.stencil import LatticeSpec
+
+    ff = FarFieldSpec(max_pairs=64, max_tile_pairs=32, skin=4.0, horizon=8)
+    cfg = tb.StaticConfig(subticks=8, particle_radius=4.0)
+    for kw in (dict(far_mode="v3"), dict(far_detect="kernel")):
+        outs = []
+        for d in ("cpu", dev):
+            be = FusedLatticeBackend(LatticeSpec(96, 4), cfg, farfield=ff,
+                                     device=d, kernel_variants=(), **kw)
+            st = be.pack_state(_hairpin_lattice(d))
+            for _ in range(2):
+                st = be.step(st, tb.PhysicsConstants(), tb.UserInput())
+            outs.append((be.far_stats(), st[0][:4].cpu()))
+        assert outs[0][0] == outs[1][0] and outs[0][0]["far_pairs"] > 0, kw
+        torch.testing.assert_close(outs[1][1][:2], outs[0][1][:2], rtol=0,
+                                   atol=5e-3)
+        torch.testing.assert_close(outs[1][1][2:], outs[0][1][2:], rtol=0,
+                                   atol=5e-2)
+
+
 def test_k2_matches_plain(dev):
     state, spec, cfg, _c, spacing, g = _stirred_cloth(dev, seed=1)
     ff = FarFieldSpec(skin=0.75 * spacing, horizon=8)

@@ -170,10 +170,10 @@ def _assert_close(got, ref):
 @pytest.mark.parametrize("bad", [
     dict(far_band="kernal"),
     dict(far_band="kernel"),          # the CPU's band pass is "plain"
-    dict(far_band="xla"),
-    dict(kernel_variants=("nospring",)),
-    dict(far_mode="v3"),
-    dict(far_detect="kernel"),
+    dict(far_mb=128),                 # only the 32-lane record layout
+    dict(far_mb_out=128),
+    dict(far_mode="v5"),
+    dict(far_detect="kernal"),
 ])
 def test_backend_rejects_unported_options(bad):
     _ls, spec, cfg, _c, ffkw = _hairpin_scene()
@@ -181,6 +181,50 @@ def test_backend_rejects_unported_options(bad):
         _port_backend(spec, cfg, ffkw, **bad)
     assert _port_backend(spec, cfg, ffkw, far_band="plain").far_band == \
         "plain"
+
+
+@pytest.mark.parametrize("opts", [
+    dict(far_band="xla"),
+    dict(kernel_variants=("nospring",)),
+    dict(far_mode="v3"),
+    dict(far_detect="kernel"),
+], ids=["far_band-xla", "nospring", "v3", "kernel-detect"])
+def test_backend_takes_jax_options(opts):
+    """The JAX backend's options that earlier slices refused: each builds
+    the backend and steps the folded strip through a frame with finite
+    positions and far pairs found (``nospring``: the attribution knob,
+    the strip's springs then pass their state through)."""
+    ls, spec, cfg, consts, ffkw = _hairpin_scene()
+    be = _port_backend(spec, cfg, ffkw, **opts)
+    state = be.pack_state(to_port(ls))
+    state = be.step(state, consts_to_port(consts),
+                    uin_to_port(UserInput.none()))
+    got = lattice_state_to_numpy(be.unpack_state(state))
+    assert np.isfinite(got["pos"]).all()
+    st = be.far_stats()
+    assert st["far_pairs"] > 0 and st["far_overflow"] == 0, st
+    assert ("far_active" in st) == (opts.get("far_mode") != "v3")
+
+
+def test_backend_takes_bench_keywords():
+    """bench.py's construction of the backend (bench.py:143-150), the
+    port's class in the JAX one's place, with the same keywords (far_band
+    "xla": bench.py's BENCH_FAR_BAND choice that runs on the CPU)."""
+    _ls, spec, cfg, _c, ffkw = _hairpin_scene()
+    kvar = ("rollgroup", "rsqrt", "dexp2", "lanecut", "krec", "ealpack")
+    be = FusedLatticeBackend(
+        LatticeSpec(spec.width, spec.height,
+                    collision_stencil=spec.collision_stencil),
+        tb.StaticConfig(particle_radius=cfg.particle_radius,
+                        subticks=cfg.subticks,
+                        collision_mode=cfg.collision_mode,
+                        force_mode=cfg.force_mode),
+        farfield=FarFieldSpec(**ffkw), tile_w=64, far_mode="v4",
+        far_buckets=None, far_activation=False, far_mb=32,
+        far_detect="xla", far_band="xla", kernel_variants=kvar,
+        device="cpu")
+    assert be.tile_w == 64 and be.far_band == "xla" and be.kvar == kvar
+    assert be._band_impl == "plain"
 
 
 def test_fused_paths_reject_other_edge_offsets():

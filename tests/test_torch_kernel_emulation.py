@@ -42,7 +42,7 @@ from softbody_tpu_torch.config import N_CONSTS
 from softbody_tpu_torch.models import make_lattice
 from softbody_tpu_torch.ops.cuda import band_detect, collide_stencil
 from softbody_tpu_torch.ops.cuda import fused_substep, fused_substep2
-from softbody_tpu_torch.ops.cuda._lib import CSRC
+from softbody_tpu_torch.ops.cuda._lib import CSRC, HEADERS
 from softbody_tpu_torch.ops.farfield import FarFieldSpec
 from torch_threads import two_torch_threads  # noqa: F401
 
@@ -94,7 +94,7 @@ struct EmuBlock {
     }
   }
 };
-inline thread_local dim3 threadIdx, blockIdx;
+inline thread_local dim3 threadIdx, blockIdx, gridDim;
 inline thread_local EmuBlock* emu_block;
 inline thread_local float* emu_shared;
 inline void __syncthreads() { emu_block->bar.arrive_and_wait(); }
@@ -235,6 +235,7 @@ void emu_launch(dim3 grid, dim3 block, size_t smem, cudaStream_t, F f) {
   for (unsigned i = 0; i < n; ++i)
     threads.emplace_back([&, i] {
       threadIdx = dim3(i % block.x, i / block.x);
+      gridDim = grid;
       emu_block = &blk;
       emu_shared = shared.data();
       for (unsigned by = 0; by < grid.y; ++by)
@@ -310,7 +311,7 @@ def lib(tmp_path_factory):
         pytest.skip("needs g++ to compile the kernels' sources for the CPU")
     d = tmp_path_factory.mktemp("emulated_kernels")
     (d / "cuda_runtime.h").write_text(RUNTIME_H)
-    for name in EMULATED + ("lattice_device.cuh",):
+    for name in EMULATED + HEADERS:
         (d / name).write_text(_emulated_source((CSRC / name).read_text()))
 
     def run(*args):
@@ -331,12 +332,14 @@ def lib(tmp_path_factory):
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.sb_fused_substep2.argtypes = [p] * 7 + [i] * 4 + [p]
     lib.sb_fused_substep2_variant.argtypes = [p] * 7 + [i] * 6 + [p]
+    lib.sb_fused_substep2_mode.argtypes = [p] * 10 + [i] * 10 + [p]
     lib.sb_fused_substep.argtypes = [p] * 5 + [i] * 4 + [p]
     lib.sb_collide_stencil.argtypes = [p] * 6 + [f] * 4 + [i] * 3 + [p]
     lib.sb_collide_stencil_strided.argtypes = ([p] * 7 + [f] * 4 + [i] * 3
                                                + [p])
     lib.sb_band_flags.argtypes = [p] * 7 + [i] * 3 + [p]
     for fn in (lib.sb_fused_substep2, lib.sb_fused_substep2_variant,
+               lib.sb_fused_substep2_mode,
                lib.sb_fused_substep,
                lib.sb_collide_stencil, lib.sb_collide_stencil_strided,
                lib.sb_band_flags):
@@ -451,6 +454,134 @@ def test_k1_variant_sources_match_plain(lib, rsqrt, rollgroup):
             hot, immut, cv, stencil=stencil, quantized=quantized, far=f)
         if not quantized or rsqrt:   # the variant is not strict here
             assert not torch.equal(strict, ref_hot), case
+
+
+def _k1_mode_source(lib, hot, immut, cvec, *, stencil, quantized, far=None,
+                    obs_in=None, refs=None, detect=False, rsqrt=False,
+                    rollgroup=False, nospring=False, noint=False,
+                    side_fill=None):
+    """K1's source through its mode entry, the trig partials reduced as
+    the wrapper reduces them: ``(hot', obs' or None, stats or None, side
+    or None)``."""
+    w, h = hot.shape[1:]
+    got_hot = torch.empty_like(hot)
+    got_obs = None if obs_in is None else torch.empty_like(obs_in)
+    nb = -(-h // 32) * -(-w // 8)
+    stats = None if refs is None else torch.empty((nb, 4))
+    side = None
+    if detect:
+        side = torch.full((9, -(-w // 4), h),
+                          float("nan") if side_fill is None else side_fill)
+    assert lib.sb_fused_substep2_mode(
+        _ptr(hot), _ptr(immut), _ptr(far), _ptr(obs_in), _ptr(refs),
+        _ptr(got_hot), _ptr(got_obs), _ptr(stats), _ptr(side), _ptr(cvec),
+        w, h, stencil, int(quantized), int(rsqrt), int(rollgroup),
+        int(refs is not None), int(detect), int(nospring), int(noint),
+        None) == 0
+    if stats is not None:
+        stats = torch.cat([stats[:, :2].amax(0), stats[:, 2:].sum(0)])
+    return got_hot, got_obs, stats, side
+
+
+def _mode_extras(state, cfg, *, tau, det, t_band):
+    """The far-field frames' scalars: the band's mean velocity, T_band and
+    base reach 2r + one spacing."""
+    alive = state.alive
+    vbar = state.vel[alive].mean(0).tolist()
+    return torch.tensor([tau, det, vbar[0], vbar[1], t_band,
+                         2.0 * cfg.particle_radius + 20.0, 0.03, 0.0],
+                        dtype=torch.float32)
+
+
+# (modes, rsqrt, rollgroup, stencil, quantized)
+MODE_CASES = [
+    (("trig",), False, False, 2, True),
+    (("detect",), False, False, 1, True),
+    (("detect",), True, True, 2, False),
+    (("trig", "detect"), False, False, 2, False),
+    (("nospring",), False, False, 2, True),
+    (("noint",), False, True, 1, False),
+    (("nospring", "noint"), True, False, 2, True),
+]
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=SHAPE_IDS)
+@pytest.mark.parametrize(
+    "modes,rsqrt,rollgroup,stencil,quantized", MODE_CASES,
+    ids=["+".join(c[0]) + ("-rsqrt" if c[1] else "")
+         + ("-rollgroup" if c[2] else "") for c in MODE_CASES])
+def test_k1_mode_sources_match_plain(lib, shape, modes, rsqrt, rollgroup,
+                                     stencil, quantized):
+    """K1's modes against the plain version with the same flags, with a far
+    stack and observing: the output state bit for bit; ``detect``: the
+    side planes bit for bit (W = 37 ends in a partial group of rows), band
+    flags both set and clear; ``trig``: the maxima bit for bit, the sums
+    within 1e-5 relative (their order differs: a tree per block, then the
+    blocks); the knobs: what passes through equals the input."""
+    w, h = shape
+    state, cfg, consts, g = _state(w, h, seed=41 + w + stencil)
+    hot, obs, immut, ec = fused_substep2.pack_lattice2(state)
+    base = torch.cat([tb.consts_vector(consts, tb.UserInput(), cfg, h), ec])
+    trig, detect = "trig" in modes, "detect" in modes
+    refs = None
+    cvec = base
+    if trig or detect:
+        # T_band: a band whose flags are neither all set nor all clear
+        cvec = torch.cat([base, _mode_extras(
+            state, cfg, tau=0.05, det=1.0,
+            t_band=0.02 if stencil == 1 else 0.06)])
+    if trig:
+        refs = (hot[:4] + torch.randn((4, w, h), generator=g)).contiguous()
+    far = torch.randn((5, w, h), generator=g) * 0.5
+    kw = dict(stencil=stencil, quantized=quantized, far=far, obs_in=obs,
+              refs=refs, detect=detect, rsqrt=rsqrt, rollgroup=rollgroup,
+              nospring="nospring" in modes, noint="noint" in modes)
+    if trig or detect:
+        kw["obs_in"] = None if detect else obs
+    ref = fused_substep2.fused_substep2_plain(hot, immut, cvec, **kw)
+    ref = list(ref) if isinstance(ref, tuple) else [ref]
+    got_hot, got_obs, got_stats, got_side = _k1_mode_source(
+        lib, hot, immut, cvec, **kw)
+    assert _same_bits(got_hot, ref.pop(0))
+    if kw["obs_in"] is not None:
+        ref_obs = ref.pop(0)
+        assert torch.equal(got_obs, ref_obs)
+        if "nospring" in modes:
+            assert torch.equal(ref_obs, obs)
+    if trig:
+        ref_stats = ref.pop(0)
+        assert _same_bits(got_stats[:2], ref_stats[:2])
+        torch.testing.assert_close(got_stats[2:], ref_stats[2:], rtol=1e-5,
+                                   atol=0.0)
+    if detect:
+        ref_side = ref.pop(0)
+        assert _same_bits(got_side, ref_side)
+        alive_groups = ref_side[0] < 1e38
+        band = ref_side[8][alive_groups]
+        assert 0 < int(band.sum()) < band.numel()
+    if "nospring" in modes:
+        assert torch.equal(got_hot[6:], hot[6:])
+    if "noint" in modes:
+        assert torch.equal(got_hot[:6], hot[:6])
+
+
+def test_k1_detect_source_flag_off(lib):
+    """``detect`` with the consts' detect flag off: the side planes are not
+    written, the state is the flag-on state."""
+    w, h = SHAPES[0]
+    state, cfg, consts, _g = _state(w, h, seed=47)
+    hot, _obs, immut, ec = fused_substep2.pack_lattice2(state)
+    base = torch.cat([tb.consts_vector(consts, tb.UserInput(), cfg, h), ec])
+    outs = []
+    for det in (0.0, 1.0):
+        cvec = torch.cat([base, _mode_extras(state, cfg, tau=0.0, det=det,
+                                             t_band=0.02)])
+        outs.append(_k1_mode_source(lib, hot, immut, cvec, stencil=2,
+                                    quantized=True, detect=True,
+                                    side_fill=-7.0))
+    assert bool((outs[0][3] == -7.0).all())
+    assert not bool((outs[1][3] == -7.0).any())
+    assert torch.equal(outs[0][0], outs[1][0])
 
 
 @pytest.mark.parametrize("shape", SHAPES, ids=SHAPE_IDS)

@@ -72,15 +72,26 @@ def _jax_k1(arrays, cfg, consts, uin, stencil, kvar):
     written), unpacked to numpy fields."""
     js = to_jax(arrays)
     hot, obs, immut, ec = J.pack_lattice2(js, tile_w=8)
-    wp, hp = J.padded_dims(W, H, 8)
     cvec = jnp.concatenate([J._consts_vector(consts, uin, cfg, H), ec])
+    out = _jax_k1_compiled(stencil, cfg.force_mode == "quantized",
+                           tuple(kvar))(hot, immut, cvec)
+    return lattice_state_to_numpy(to_port(J.unpack_lattice2(out, obs, js)))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_k1_compiled(stencil, quantized, kvar):
+    """The JAX kernel on this file's W × H (interpret mode, compiled as
+    written), once per flag set: the constants are its operands."""
+    wp, hp = J.padded_dims(W, H, 8)
     fn = jax.jit(functools.partial(
         J.fused_substep2_call, w=wp, h=hp, stencil=stencil,
-        quantized=cfg.force_mode == "quantized", tile_w=8, interpret=True,
-        kvar=kvar))
-    out = fn.lower(hot, immut, cvec).compile(compiler_options={
-        "xla_disable_hlo_passes": "fusion,algsimp"})(hot, immut, cvec)
-    return lattice_state_to_numpy(to_port(J.unpack_lattice2(out, obs, js)))
+        quantized=quantized, tile_w=8, interpret=True, kvar=kvar))
+    shapes = [jax.ShapeDtypeStruct(s, jnp.float32) for s in (
+        (J.N_HOT, wp + 2 * J.PAD_W, hp + J.PAD_H + J.lane_pad_hr(H, hp)),
+        (J.N_IMM, wp + 2 * J.PAD_W, hp + J.PAD_H + J.lane_pad_hr(H, hp)),
+        (40,))]
+    return fn.lower(*shapes).compile(compiler_options={
+        "xla_disable_hlo_passes": "fusion,algsimp"})
 
 
 def _port_k1(arrays, cfg, consts, uin, stencil, **flags):
@@ -129,6 +140,61 @@ def test_k1_dexp2_matches_jax():
     already evaluates ``|v|**2`` as ``|v|·|v|``, the same float."""
     scene = _scene(True, 1)
     _bits_equal(_port_k1(*scene, 1), _jax_k1(*scene, 1, ("dexp2",)))
+
+
+@pytest.mark.parametrize("subticks", [4, 6, 48, 64])
+def test_k1_strict_matches_jax_at_subticks(subticks):
+    """The penetration clip multiplies by ``1/(dt·dt)`` as the JAX kernel
+    does (``fused_substep2.py:394``): strict K1 equals JAX's bit for bit
+    at every substep count, not only where ``dt²`` is a power of two.  At
+    6 and 48 the stencil path's division by ``dt²`` gives other bits on
+    the same scene, so the scene tells the two apart."""
+    arrays, cfg, consts, uin = _scene(True, 1)
+    cfg = StaticConfig(subticks=subticks, collision_mode="allpairs",
+                       particle_radius=cfg.particle_radius,
+                       force_mode="quantized")
+    ref = _jax_k1(arrays, cfg, consts, uin, 1, ())
+    _bits_equal(_port_k1(arrays, cfg, consts, uin, 1), ref)
+    divided = _port_k1_dividing(arrays, cfg, consts, uin, 1)
+    assert np.array_equal(divided["vel"], ref["vel"]) == (subticks
+                                                          in (4, 64))
+
+
+def _port_k1_dividing(arrays, cfg, consts, uin, stencil):
+    """K1's plain version with the stencil path's clip (a division by
+    ``dt²``): what the port ran before it multiplied."""
+    from softbody_tpu_torch.ops import stencil as S
+
+    orig = S._stencil_collisions
+
+    def dividing(*args, **kw):
+        kw["inv_dt2"] = False
+        return orig(*args, **kw)
+
+    S._stencil_collisions = dividing
+    try:
+        return _port_k1(arrays, cfg, consts, uin, stencil)
+    finally:
+        S._stencil_collisions = orig
+
+
+@pytest.mark.parametrize("kvar", [("nospring",), ("noint",)],
+                         ids=["nospring", "noint"])
+def test_k1_knobs_match_jax(kvar):
+    """The attribution knobs against the JAX kernel with the same
+    ``kvar``, bit for bit: ``nospring`` (the edge planes pass through and
+    the springs add nothing), ``noint`` (the particle planes pass
+    through)."""
+    scene = _scene(True, 1)
+    ref = _jax_k1(*scene, 1, kvar)
+    got = _port_k1(*scene, 1, nospring="nospring" in kvar,
+                   noint="noint" in kvar)
+    _bits_equal(got, ref)
+    arrays = scene[0]
+    if "noint" in kvar:
+        np.testing.assert_array_equal(got["vel"], arrays["vel"])
+    else:
+        assert not np.array_equal(got["vel"], arrays["vel"])
 
 
 def test_k1_rsqrt_within_variant_tolerance_of_strict():
@@ -252,11 +318,31 @@ def test_backend_kvar_matches_jax(buckets):
                 jbe._checked_kvar(jc), (kvar, e)
 
 
-@pytest.mark.parametrize("bad", [("nospring",), ("noint",),
+@pytest.mark.parametrize("opts", [dict(far_mode="v3"),
+                                  dict(far_detect="kernel")],
+                         ids=["v3", "kernel-detect"])
+def test_backend_kvar_drop_rules_match_jax(opts):
+    """``backend.kvar`` under the other far modes against the JAX
+    backend's: v3 drops the layout flags and the record carry, kernel
+    detection the record carry."""
+    _ls, spec, cfg = _hairpin_port_cfg()
+    jspec = JLatticeSpec(spec.width, spec.height, collision_stencil=2)
+    jcfg = StaticConfig(**HAIRPIN_CFG)
+    for kvar in VARIANT_SETS:
+        kw = {} if kvar is None else {"kernel_variants": kvar}
+        be = FusedLatticeBackend(spec, cfg, farfield=FarFieldSpec(
+            **HAIRPIN_FF), device="cpu", **opts, **kw)
+        jbe = jbackends.FusedLatticeBackend(
+            jspec, jcfg, farfield=JFarFieldSpec(**HAIRPIN_FF), tile_w=8,
+            **opts, **kw)
+        assert be.kvar == jbe.kvar, (kvar, opts)
+
+
+@pytest.mark.parametrize("bad", [("nospring", "nospin"), ("noints",),
                                  ("rsqrt", "rolgroup")])
 def test_backend_rejects_unported_variants(bad):
-    """The JAX kernel's attribution knobs (not physics) and a typo raise,
-    naming the flag."""
+    """Names outside the JAX kernel's flags (typos of the attribution
+    knobs and of a variant) raise, naming the flag."""
     _ls, spec, cfg = _hairpin_port_cfg()
     with pytest.raises(ValueError, match=bad[-1]):
         FusedLatticeBackend(spec, cfg, device="cpu", kernel_variants=bad)
