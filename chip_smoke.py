@@ -39,8 +39,10 @@ to 0 just before it and read just after:
   knobs instances held against their plain versions; the bench scene
   through ``FusedLatticeBackend(far_detect="kernel")`` (K1 with its
   detect instance, K2, K7) in turns with xla detection, and in the
-  triggered mode ``far_mode="v3"`` (K1's trig instances); the knobs on
-  one far-off frame each; the fold card against CPU;
+  triggered mode ``far_mode="v3"`` (K1's trig instances); the detect
+  and trig instances timed at those runs' final states against their
+  bounds, with their loss a frame (beside ``--parent``'s, in turns); the
+  knobs on one far-off frame each; the fold card against CPU;
 - the CLI (phase 13), as a user first runs it, in this process:
   ``run`` of the 1M tearing cloth on the lattice path and of the 100k
   cloth planified and far-armed (K2, K7), ``render`` of the 1M cloth,
@@ -53,8 +55,9 @@ Every phase raises on failure.
     python3 chip_smoke.py [--parent DIR]
 
 ``--parent DIR``: also build the kernels of the checkout at DIR (another
-commit of this repo) and time its K1, K2, K3 and K4 beside this tree's,
-in turns, on the same inputs.
+commit of this repo) and time its K1 (with its detect and trig
+instances), K2, K3 and K4 beside this tree's, in turns, on the same
+inputs.
 
 Needs one CUDA device and ``nvcc`` (``CUDA_HOME``, default
 ``/usr/local/cuda``); refuses to run without a device.  The last line
@@ -856,6 +859,28 @@ def _raw_k1v(lib, hot, immut, cvec, stencil, quantized, far, rsqrt,
         cvec.data_ptr(), hot.shape[1], hot.shape[2], stencil,
         int(quantized), int(rsqrt), int(rollgroup), _stream()), "K1")
     return out
+
+
+def _raw_k1m(lib, hot, immut, cvec, stencil, far, refs, detect, rsqrt,
+             rollgroup):
+    """K1's mode entry (trig with ``refs``, ``detect``), quantized: ``(hot',
+    stats [blocks, 4] or None, side or None)``."""
+    w, h = hot.shape[1:]
+    out = torch.empty_like(hot)
+    stats = (None if refs is None else torch.empty(
+        (-(-h // 32) * -(-w // 8), 4), device=hot.device))
+    side = (torch.empty((9, -(-w // 4), h), device=hot.device) if detect
+            else None)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    _lib.check(lib.sb_fused_substep2_mode(
+        hot.data_ptr(), immut.data_ptr(), ptr(far), None, ptr(refs),
+        out.data_ptr(), None, ptr(stats), ptr(side), cvec.data_ptr(), w, h,
+        stencil, 1, int(rsqrt), int(rollgroup), int(refs is not None),
+        int(detect), 0, 0, _stream()), "K1 mode")
+    return out, stats, side
 
 
 def _raw_k2(lib, planes, offsets):
@@ -3351,7 +3376,8 @@ def _gate_detect_run(mode: str, r: dict, k1: dict, want: dict) -> None:
                              f"{r['k2']} (want {want_k2}), K7 {r['k7']}")
 
 
-def run_kernel_detect(state, spec, cfg, consts, spacing, card) -> dict:
+def run_kernel_detect(state, spec, cfg, consts, spacing, card,
+                      parent=None) -> dict:
     """The bench scene through ``FusedLatticeBackend(far_detect=
     "kernel")`` (the default variants: K1 rsqrt+rollgroup, and its detect
     instance at each block's last substep but the frame's last; K2 once a
@@ -3361,7 +3387,8 @@ def run_kernel_detect(state, spec, cfg, consts, spacing, card) -> dict:
     xla path's frame 9; then the detect instance timed at the final
     state.  Gates: equal rebuilds, no overflow, finite state, the launch
     counts, and frame 10's first VARIANT_SUBSTEPS substeps within
-    VARIANT_ATOL."""
+    VARIANT_ATOL.  ``parent``: the default + detect instance also timed
+    beside the parent's (``_turns``)."""
     uin = tb.UserInput()
     ff = _far_spec(spacing)
     runs = {}
@@ -3486,6 +3513,12 @@ def run_kernel_detect(state, spec, cfg, consts, spacing, card) -> dict:
             lambda kw=kw: fused_substep2_call(hot, immut, cvec, **kw),
             lambda kw=kw: fused_substep2_plain(hot, immut, cvec, **kw),
             _detect_bound(hot, immut, cvec, s, w4))
+    if _has_mode_entry(parent):
+        timing["rsqrt+rollgroup+detect"]["compare"] = _turns(
+            lambda: _raw_k1m(parent, hot, immut, cvec, s, far, None, True,
+                             1, 1),
+            lambda: _raw_k1m(_lib.library(), hot, immut, cvec, s, far, None,
+                             True, 1, 1), 50)
     return dict(rate=runs["kernel"]["rate"], rate_xla=runs["xla"]["rate"],
                 k1=runs["kernel"]["k1"], k2=runs["kernel"]["k2"],
                 k7=runs["kernel"]["k7"], timing=timing, frame10=out,
@@ -3494,14 +3527,15 @@ def run_kernel_detect(state, spec, cfg, consts, spacing, card) -> dict:
                 idle=runs["kernel"]["idle"])
 
 
-def run_v3(state, spec, cfg, consts, spacing, card) -> dict:
+def run_v3(state, spec, cfg, consts, spacing, card, parent=None) -> dict:
     """The bench scene through ``FusedLatticeBackend(far_mode="v3")`` with
     bench.py's v3 far field: two frames, then frames 3-10 with the launch
     counts from 0 (K1 in its strict trig instances only, one per
     substep: JAX's triggered frame runs strict; K2 and K7 none, the
     carried side planes came from K2 in frame 1), the rebuilds per
     frame, host reads and launches per substep; then the trig instances
-    timed at the final state.  Gate: a finite state."""
+    timed at the final state (beside the parent's, ``_turns``, where
+    ``parent`` is given).  Gate: a finite state."""
     uin = tb.UserInput()
     ff = FarFieldSpec(skin=1.5 * spacing, **V3_FF)
     be = FusedLatticeBackend(spec, cfg, farfield=ff, far_mode="v3",
@@ -3564,6 +3598,12 @@ def run_v3(state, spec, cfg, consts, spacing, card) -> dict:
             lambda kw=kw: fused_substep2_call(hot, immut, cvec, **kw),
             lambda kw=kw: fused_substep2_plain(hot, immut, cvec, **kw),
             (nb - 5 * 4 * n + 4 * 4 * n, ops + 12 * n))
+        if _has_mode_entry(parent):
+            timing[name]["compare"] = _turns(
+                lambda det=det: _raw_k1m(parent, hot, immut, cvec, s, None,
+                                         refs, det, 0, 0),
+                lambda det=det: _raw_k1m(_lib.library(), hot, immut, cvec, s,
+                                         None, refs, det, 0, 0), 50)
     return dict(rate=rate, k1=k1, timing=timing, reads=reads / substeps,
                 per_substep=per, idle=idle, per_frame=per_frame)
 
@@ -3666,10 +3706,42 @@ def check_far_modes_fold() -> None:
             f"{s_g} cpu {s_c}; max |dpos| {dpos:.3g}, |dvel| {dvel:.3g}")
 
 
-def run_far_modes(dev, card) -> dict:
+def _has_mode_entry(parent) -> bool:
+    return parent is not None and hasattr(parent, "sb_fused_substep2_mode")
+
+
+# K1's mode instances whose detect pass (K2's band search) and trig
+# reduction (warp shuffles) were redesigned for the H100
+REDESIGNED = ("rsqrt+rollgroup+detect", "strict+trig", "strict+trig+detect")
+
+
+def _log_redesigned(inst: dict, card: str) -> None:
+    """The redesigned instances' device ms against their bounds and the
+    loss a frame, (ms - bound) x launches a frame, of this tree and (in
+    turns on the same inputs) of the parent."""
+    for name in REDESIGNED:
+        row = inst[name]
+        per_frame = row["launches"] / TIMED_FRAMES
+        msg = (f"phase 15 {name}: {row['ms']:.4f} ms against a bound of "
+               f"{row['bound_ms']:.4f} ({row['bound_ms'] / row['ms']:.2f} of "
+               f"it), {per_frame:.2f} launches a frame, loss a frame "
+               f"{(row['ms'] - row['bound_ms']) * per_frame:.3f} ms")
+        if "compare" in row:
+            p, c = row["compare"]["parent"], row["compare"]["this"]
+            pm, cm = sum(p) / 2, sum(c) / 2
+            msg += (f"; in turns parent {p[0]:.4f}, this {c[0]:.4f}, this "
+                    f"{c[1]:.4f}, parent {p[1]:.4f} (parent / this "
+                    f"{pm / cm:.3f}; loss a frame parent "
+                    f"{(pm - row['bound_ms']) * per_frame:.3f} ms, this "
+                    f"{(cm - row['bound_ms']) * per_frame:.3f} ms)")
+        log(msg + f" on {card}")
+
+
+def run_far_modes(dev, card, parent=None) -> dict:
     """Phase 15: K1's mode instances against their plain versions, the
     fold card vs CPU, then the bench scene with kernel detection and in
-    the triggered mode, then the knobs."""
+    the triggered mode (the redesigned instances timed at their final
+    states, beside ``parent``'s where given), then the knobs."""
     t0 = time.perf_counter()
     errs = dict.fromkeys(_k1_mode_instances(), 0.0)
     for w, h in K1_MODE_SHAPES:
@@ -3677,8 +3749,8 @@ def run_far_modes(dev, card) -> dict:
             errs[k] = max(errs[k], e)
     check_far_modes_fold()
     state, spec, cfg, consts, spacing = _scene(N_PARTICLES, dev)
-    kd = run_kernel_detect(state, spec, cfg, consts, spacing, card)
-    v3 = run_v3(state, spec, cfg, consts, spacing, card)
+    kd = run_kernel_detect(state, spec, cfg, consts, spacing, card, parent)
+    v3 = run_v3(state, spec, cfg, consts, spacing, card, parent)
     knobs = run_knobs(state, spec, cfg, consts, card)
     log(f"phase 15 far modes: {time.perf_counter() - t0:.1f} s")
     inst = {}
@@ -3698,6 +3770,11 @@ def run_far_modes(dev, card) -> dict:
         if name != "strict":   # held against the plain version only
             inst[f"{name}+knobs"] = {"launches": 0,
                                      "max_abs_err": errs[f"{name}+knobs"]}
+    _log_redesigned(inst, card)
+    for name in REDESIGNED:
+        cmp = inst[name].pop("compare", None)
+        if cmp is not None:
+            inst[name]["parent_ms"] = sum(cmp["parent"]) / 2
     return dict(instances=inst, kd=kd, v3=v3, knobs=knobs)
 
 
@@ -3883,7 +3960,7 @@ def main() -> int:
     # and knobs instances against their plain versions, the fold card vs
     # CPU, the bench scene with kernel detection (K1, K2, K7) and in the
     # triggered mode (K1), the knobs (each counted from 0)
-    far_modes = run_far_modes(dev, card)
+    far_modes = run_far_modes(dev, card, parent)
 
     pallas = "softbody_tpu/ops/pallas/"
     probe_src = "scripts/probe_recmirror.py"

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time named variants of the port's K2 and K3 sources beside another
-checkout's kernels, in turns, on one NVIDIA GPU.
+"""Time named variants of the port's K1 (its detect and trig instances),
+K2 and K3 sources beside another checkout's kernels, in turns, on one NVIDIA GPU.
 
 Each variant is this tree's ``softbody_tpu_torch/csrc`` with a few
 textual edits (``VARIANTS``): a design step left out, or a choice made
@@ -8,10 +8,13 @@ otherwise.  The script writes each variant's sources under ``--out``,
 builds them (``ops/cuda/_lib.build``), holds every variant bit-exact
 against the plain versions, and times it in turns with the parent's
 kernel (parent, variant, variant, parent) on the inputs the paths give
-the kernels: K2 at the bench path's final state (frames 3-10 of
-``chip_smoke.py``'s main path), K3 on path A's state after
-``chip_smoke.PATH_A_FRAMES`` frames, through the interleaved views of the
-state (the parent: its four contiguous copies and its kernel).
+the kernels: K2 and K1's detect and trig instances at the bench path's
+final state (frames 3-10 of ``chip_smoke.py``'s main path; K1 with
+kernel detection's constants, its state and side planes held bit for
+bit, its trig statistics as ``chip_smoke.py`` holds them), K3 on path
+A's state after ``chip_smoke.PATH_A_FRAMES`` frames, through the
+interleaved views of the state (the parent: its four contiguous copies
+and its kernel).
 
     python3 kernel_variants.py --parent DIR [--out DIR] [NAME ...]
 
@@ -39,11 +42,28 @@ from softbody_tpu_torch.ops.cuda import _lib
 from softbody_tpu_torch.ops.cuda.fused_substep2 import PX, PY, VX, VY
 from softbody_tpu_torch.ops.farfield import FarFieldSpec
 
+K1_SRC = "fused_substep2.cu"
 K2_SRC = "band_detect.cu"
 K3_SRC = "collide_stencil.cu"
 # name -> (kernel, [(source, text, replacement), ...])
 VARIANTS = {
-    "this tree": ("K2 K3", []),
+    "this tree": ("K1d K1t K2 K3", []),
+    "K1 detect, 2 threads a group": ("K1d", [(
+        K1_SRC, "constexpr int DET_SPLIT = 4;",
+        "constexpr int DET_SPLIT = 2;")]),
+    "K1 detect, 1 thread a group": ("K1d", [(
+        K1_SRC, "constexpr int DET_SPLIT = 4;",
+        "constexpr int DET_SPLIT = 1;")]),
+    "K1 detect, exact compares only": ("K1d", [(
+        K1_SRC, "if (nearest < rb) {", "if (true) {")]),
+    "K1 detect, band planes of every staged row": ("K1d", [(
+        K1_SRC, "for (int row = R + r; row < sx; row += SUB_TX) {",
+        "for (int row = r; row < sx; row += SUB_TX) {")]),
+    "K1 detect at 4 blocks per SM": ("K1d", [(
+        K1_SRC, "return (mode & M_TRIG) ? 4 : 5;",
+        "return (mode & (M_TRIG | M_DETECT)) ? 4 : 5;")]),
+    "K1 trig at 5 blocks per SM": ("K1t", [(
+        K1_SRC, "return (mode & M_TRIG) ? 4 : 5;", "return 5;")]),
     "K3 without the skip": ("K3", [(
         K3_SRC, "const bool fast = __syncthreads_and(vel_finite) && "
         "consts_finite;", "const bool fast = __syncthreads_and(vel_finite) "
@@ -135,16 +155,67 @@ def main() -> int:
     *k2_planes, offsets = cs._band_inputs(
         hot[PX], hot[PY], hot[VX], hot[VY], alive, cfg, run["be"].ff,
         spec.collision_stencil)
+    flags = cs.band_flags_plain(*k2_planes, offsets)
+    # K1's mode instances at the same state (no far planes): default +
+    # detect (kernel detection's), strict + trig and strict + trig +
+    # detect (the triggered frame's; refs: the state one spacing off)
+    immut, s = run["be"]._immut, spec.collision_stencil
+    cvec = torch.cat([tb.consts_vector(consts, tb.UserInput(), cfg,
+                                       spec.height),
+                      run["be"]._edge_consts, cs._extras(
+                          hot, alive, cfg.particle_radius, run["be"].ff.skin,
+                          cfg.dt, t_band=(run["be"].ff.horizon + 1) * cfg.dt,
+                          tau=cfg.dt)])
+    refs = (hot[:4] + spacing).contiguous()
+    k1_modes = {"default+detect": dict(detect=True, rsqrt=True,
+                                       rollgroup=True),
+                "strict+trig": dict(refs=refs),
+                "strict+trig+detect": dict(refs=refs, detect=True)}
+    k1_refs = {name: cs.fused_substep2_plain(hot, immut, cvec, stencil=s,
+                                             quantized=True, **kw)
+               for name, kw in k1_modes.items()}
     del run
     views, k3_alive, kw = _k3_inputs(dev)
-    flags = cs.band_flags_plain(*k2_planes, offsets)
     deltas = torch.stack(cs.collide_stencil_plain(*views, k3_alive, **kw))
+
+    def k1_mode(lib, name):
+        m = k1_modes[name]
+        return cs._raw_k1m(lib, hot, immut, cvec, s, None, m.get("refs"),
+                           m.get("detect", False), m.get("rsqrt", False),
+                           m.get("rollgroup", False))
+
+    def k1_held(lib, name) -> bool:
+        """The instance's state and side planes equal the plain version's
+        bit for bit, its trig statistics as chip_smoke.py holds them."""
+        got_hot, stats, side = k1_mode(lib, name)
+        ref = list(k1_refs[name])
+        same = not bool(cs._differs(got_hot, ref.pop(0)).any())
+        if stats is not None:
+            cs._hold_trig(f"{name} trig", torch.cat(
+                [stats[:, :2].amax(0), stats[:, 2:].sum(0)]), ref.pop(0),
+                got_hot[VX], got_hot[VY], alive)
+        if side is not None:
+            same = same and not bool(cs._differs(side, ref.pop(0)).any())
+        return same
 
     def parent_k3():
         return cs._raw_k3(parent, [v.contiguous() for v in views]
                           + [k3_alive], **kw)
 
     for name, (kernels, lib) in libs.items():
+        for key, names in (("K1d", ("default+detect",
+                                    "strict+trig+detect")),
+                           ("K1t", ("strict+trig", "strict+trig+detect"))):
+            if key not in kernels:
+                continue
+            for k1 in names:
+                if not k1_held(lib, k1):
+                    raise AssertionError(f"{name}: K1 {k1} differs")
+                ms = cs._turns(lambda k1=k1: k1_mode(parent, k1),
+                               lambda k1=k1: k1_mode(lib, k1), 50)
+                cs.log(f"{name}, K1 {k1} at the bench final state: device "
+                       f"ms parent {ms['parent']}, variant {ms['this']} on "
+                       f"{card}")
         if "K2" in kernels:
             if not torch.equal(cs._raw_k2(lib, k2_planes, offsets), flags):
                 raise AssertionError(f"{name}: K2 flags differ")

@@ -8,6 +8,7 @@
 #pragma once
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
@@ -32,6 +33,15 @@ __device__ __forceinline__ bool band_pair_hit(float cpx, float cpy, float cb,
 __device__ __forceinline__ bool band_offset(int dx, int dy, int s) {
   const int cheb = dx > (dy < 0 ? -dy : dy) ? dx : (dy < 0 ? -dy : dy);
   return (dx > 0 || dy > 0) && cheb > s && cheb <= 7;
+}
+
+// The band's offsets at one dy (|dy| <= 7) as a mask, bit dx set where
+// band_offset(dx, dy, s): beyond the stencil on the dy axis (|dy| > s)
+// every dx in [0, 8) but dx = 0 for dy < 0; within it dx in (s, 8).
+__device__ __forceinline__ uint32_t band_dx_mask(int dy, int s) {
+  const int ady = dy < 0 ? -dy : dy;
+  if (ady > s) return dy > 0 ? 0xffu : 0xfeu;
+  return (0xffu << (s + 1)) & 0xffu;
 }
 
 }  // namespace

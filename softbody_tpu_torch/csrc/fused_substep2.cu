@@ -17,20 +17,49 @@
 //   partials on the OUTPUT state against the far list's linear reference
 //   motion (refs [4,W,H]: px py vx vy at rebuild, tau = consts[40 +
 //   X_TAU]): per block the max over alive cells of dd^2 and dv^2 and the
-//   sums of vx' and vy' (a fixed tree in shared memory, no atomics), into
-//   stats [blocks, 4]; the wrapper reduces the blocks in a fixed order;
+//   sums of vx' and vy', into stats [blocks, 4]; the wrapper reduces the
+//   blocks in a fixed order;
 // - M_DETECT (`detect`, :405-486): on the INPUT state, per group of 4
 //   rows along W and per column, the alive-masked min and max of px py
 //   vx vy (fill +-3e38) and the band flag, into side [9, ceil(W/4), H];
 //   runtime-gated by consts[40 + X_DET] (off: side is not written).  The
 //   block stages a halo of max(s, 7) (the band reaches 7 rows after the
-//   tile and 7 lanes each side), computes each staged cell's band
-//   deviation dev = |v - vbar| T_band once into shared memory, and each
-//   cell tests its band offsets (band_device.cuh, K2's test);
+//   tile and 7 lanes each side);
 // - M_KNOBS (`nospring`, `noint`, :561-574, :942-949; not physics, the
 //   knobs that split the kernel's time): runtime flags: nospring skips
 //   the springs and passes the edge and obs planes through, noint passes
 //   the six particle planes through.
+//
+// The detect pass (K2's design, band_detect.cu, inside K1's block).  Only
+// the group flag is stored (the OR over a group's 4 rows), so four
+// threads share each of the tile's 64 group-columns, splitting the 15 dy
+// of the band between them (DET_SPLIT; thread q takes dy + 7 = q, q + 4,
+// ...), all four in one warp, where a ballot after each dy stops the
+// group at its first hit and a vote stops the warp when every group is
+// done.  Per dy a thread loads its group's 11 partner rows once and
+// tests them against its 4 cells:
+// - an exact one-axis pre-test first: a pair can hit only if |ddx| (or
+//   |ddy|) < rb, rb bounding |reach| over the partner rows' deviations.
+//   Each staged row's range of |v - vbar|^2 over alive cells (NaN left
+//   out) is reduced once while staging; sqrt and * T_band are monotone,
+//   so the range's ends bound every deviation of the rows, and no square
+//   root is taken per cell;
+// - the exact compare (band_pair_hit, the plain association (base +
+//   dev_i) + dev_j bit for bit) only for a dy whose pre-test passes,
+//   with each deviation computed there;
+// - dead and out-of-grid cells are copied at +inf into two band planes
+//   beside the staged tile (the springs and collisions read the tile
+//   unchanged): both tests fail for them without an alive load.  The
+//   band planes and row ranges cover the staged rows from the tile's
+//   first on: the band reaches rows after a cell only.
+// Splitting a group's dy 2 ways or not at all, the exact compares without
+// the pre-test, and band planes for every staged row measured slower
+// (kernel_variants.py, PERF.md §6).
+// The trig pass: each cell's four partials reduced over its warp by
+// __shfl_xor_sync butterflies (a fixed order; the maxima NaN-keeping),
+// then the 8 warps' partials by one thread each; no float atomics.  The
+// refs planes are copied with cp.async beside the staged tile, so their
+// latency hides behind the staging and no register holds them.
 //
 // What bounds it on the card: device-memory bytes, once the arithmetic
 // is cut to what the inputs need.  At 1M particles a substep reads 18
@@ -79,6 +108,7 @@
 // float op rounds as in torch, so the int32 spring sums and the edge
 // planes equal the plain version's bit for bit.
 
+#include <math.h>
 #include <string.h>
 
 #include "band_device.cuh"
@@ -100,6 +130,15 @@ constexpr int N_STATS = 4;               // max dd2, max dv2, sum vx, sum vy
 constexpr int N_SIDE = 9;
 constexpr float SIDE_BIG = 3.0e38f;
 constexpr int BAND_R = 7;                // band reach: 2 * chunk - 1
+// the detect pass: groups of DET_CX rows along W (the side planes'
+// chunk), DET_SPLIT threads per group-column, each taking every
+// DET_SPLIT-th dy of the band
+constexpr int DET_CX = 4;
+constexpr int DET_SPLIT = 4;
+constexpr int DET_GPW = 32 / DET_SPLIT;           // group-columns per warp
+constexpr int DET_GC = SUB_TX / DET_CX * SUB_TY;  // group-columns per tile
+constexpr int DET_PR = DET_CX + BAND_R;           // partner rows per dy
+constexpr int DET_NDY = 2 * BAND_R + 1;
 
 // MODE bits
 constexpr int M_TRIG = 1, M_DETECT = 2, M_KNOBS = 4;
@@ -113,16 +152,180 @@ __host__ __device__ __forceinline__ int k1_halo(int s, int mode) {
   return (mode & M_DETECT) && R < BAND_R ? BAND_R : R;
 }
 
-// Dynamic shared memory of K1: the staged tile, the force planes, then
-// under M_DETECT the dev plane and the cells' band flags, under M_TRIG
-// the reduction's N_STATS planes.
+// Dynamic shared memory of K1: the staged tile and the force planes;
+// under M_DETECT the band planes (px, py; +inf where dead) of the staged
+// tile and each staged row's (max, min) of |v - vbar|^2; under M_TRIG
+// the refs of the tile's cells and the warps' partials.
 __host__ __device__ __forceinline__ size_t k1_smem_bytes(int s, int mode) {
   const int R = k1_halo(s, mode);
+  const size_t sx = SUB_TX + 2 * R;
   size_t n = sub_stage_floats(R) + 8 * SUB_FN;
-  if (mode & M_DETECT)
-    n += (size_t)(SUB_TX + 2 * R) * (SUB_TY + 2 * R) + SUB_THREADS;
-  if (mode & M_TRIG) n += (size_t)N_STATS * SUB_THREADS;
+  if (mode & M_DETECT) n += 2 * sx * (SUB_TY + 2 * R) + 2 * sx;
+  if (mode & M_TRIG) n += 4 * SUB_THREADS + N_STATS * (SUB_THREADS / 32);
   return n * sizeof(float);
+}
+
+// Blocks per SM each instance is built for (__launch_bounds__): 5 (48
+// registers); the trig instances 4 (64 registers): at 48 they spill, and
+// at 4 blocks they measured faster (kernel_variants.py, PERF.md §6).
+__host__ __device__ constexpr int k1_min_blocks(int mode) {
+  return (mode & M_TRIG) ? 4 : 5;
+}
+
+// the lanes of one group-column in a warp: lane = q * DET_GPW + column
+__host__ __device__ constexpr uint32_t det_group_lanes() {
+  uint32_t m = 0u;
+  for (int q = 0; q < DET_SPLIT; ++q) m |= 1u << (q * DET_GPW);
+  return m;
+}
+
+// The detect pass's search and side planes (every thread of the block
+// calls it, after the band planes bpx/bpy and the row keys rkey are
+// published).  Thread (warp, lane) takes group-column gc = warp * DET_GPW
+// + lane % DET_GPW and the dy slot q = lane / DET_GPW.
+__device__ __forceinline__ void detect_groups(const SmemTile& t,
+                                              const float* bpx,
+                                              const float* bpy,
+                                              const uint32_t* rkey,
+                                              const float* v, int s, int R,
+                                              int x0, int y0, int w, int h,
+                                              float* __restrict__ side) {
+  const int lane = threadIdx.x, warp = threadIdx.y;
+  const int q = lane / DET_GPW;
+  const int gc = warp * DET_GPW + lane % DET_GPW;
+  const bool gc_in = gc < DET_GC;
+  const int r0 = gc_in ? gc / SUB_TY * DET_CX : 0;  // the group's tile row
+  const int col = gc % SUB_TY;                      // its tile column
+  const int sy = t.sy;
+  const int s0 = (r0 + R) * sy + col + R;  // staged index of its first cell
+  const float base = v[XB + X_REACH], tband = v[XB + X_TBAND];
+  const float vbx = v[XB + X_VBX], vby = v[XB + X_VBY];
+
+  bool any_alive = false;
+#pragma unroll
+  for (int j = 0; j < DET_CX; ++j)
+    any_alive = any_alive || t.al[s0 + j * sy] > 0.0f;
+  // rb bounds |reach| = |(base + dev_i) + dev_j| over the partner rows
+  // r0 .. r0 + DET_PR - 1 (the group's own rows among them): each row's
+  // alive |v - vbar|^2 lie in [kmin, kmax] (bits of floats >= +0, NaN
+  // left out), and sqrt, * T_band and + are monotone, so every deviation
+  // that is not NaN lies in [dlo, dhi] (fminf / fmaxf drop an end that is
+  // NaN: inf * 0 or 0 * inf, where only the other end's values are not
+  // NaN).  Where one end of reach is NaN (inf - inf) rb is +inf; where
+  // both are, no reach is a number.  No row key: no alive partner.
+  float rb = 0.0f;
+  {
+    uint32_t kmax = 0u, kmin = 0xffffffffu;
+#pragma unroll
+    for (int p = 0; p < DET_PR; ++p) {
+      kmax = max(kmax, rkey[2 * (r0 + R + p)]);
+      kmin = min(kmin, rkey[2 * (r0 + R + p) + 1]);
+    }
+    if (kmin <= kmax) {
+      const float da = sqrtf(__uint_as_float(kmin)) * tband;
+      const float db = sqrtf(__uint_as_float(kmax)) * tband;
+      const float dlo = fminf(da, db), dhi = fmaxf(da, db);
+      const float lo = (base + dlo) + dlo, hi = (base + dhi) + dhi;
+      rb = lo == lo && hi == hi ? fmaxf(fabsf(lo), fabsf(hi))
+           : lo == lo || hi == hi ? INFINITY
+                                  : 0.0f;
+    }
+  }
+
+  bool hit = false;
+  bool done = !(gc_in && any_alive) || s >= BAND_R;
+#pragma unroll 1
+  for (int i = 0; i < (DET_NDY + DET_SPLIT - 1) / DET_SPLIT; ++i) {
+    if (__all_sync(0xffffffffu, done)) break;
+    const int k = q + DET_SPLIT * i;  // dy + BAND_R
+    const uint32_t m = k < DET_NDY ? band_dx_mask(k - BAND_R, s) : 0u;
+    if (!done && m != 0u) {
+      const int dy = k - BAND_R;
+      const int pb = s0 + dy;  // partner row p of cell j at dx = p - j
+      // the one-axis test: x where every dx of the dy is at least |dy|
+      // (the partners lie apart along W), else y; |partner - cell| >= rb
+      // proves no hit, and NaN or an infinite operand fails (fminf drops
+      // NaN); the cells' values are read here, not held in registers
+      const bool by_x = __ffs((int)m) - 1 >= abs(dy);
+      const float* ax = by_x ? bpx : bpy;
+      float ca[DET_CX], box[DET_CX];
+#pragma unroll
+      for (int j = 0; j < DET_CX; ++j) {
+        ca[j] = ax[s0 + j * sy];
+        box[j] = INFINITY;
+      }
+#pragma unroll
+      for (int p = 0; p < DET_PR; ++p) {
+        const float a = ax[pb + p * sy];
+#pragma unroll
+        for (int j = 0; j < DET_CX; ++j) {
+          const int dx = p - j;
+          if (dx >= 0 && dx <= BAND_R && ((m >> dx) & 1u))
+            box[j] = fminf(box[j], fabsf(a - ca[j]));
+        }
+      }
+      float nearest = box[0];
+#pragma unroll
+      for (int j = 1; j < DET_CX; ++j) nearest = fminf(nearest, box[j]);
+      if (nearest < rb) {
+        // the exact compares of this dy, each deviation computed here
+        // (a dead cell or partner at +inf fails whatever its deviation)
+        float cpx[DET_CX], cpy[DET_CX], cb[DET_CX];
+#pragma unroll
+        for (int j = 0; j < DET_CX; ++j) {
+          const int c = s0 + j * sy;
+          const float ddx = t.vx[c] - vbx;
+          const float ddy = t.vy[c] - vby;
+          cpx[j] = bpx[c];
+          cpy[j] = bpy[c];
+          cb[j] = base + sqrtf(ddx * ddx + ddy * ddy) * tband;
+        }
+        for (int p = 0; p < DET_PR && !hit; ++p) {
+          const int c = pb + p * sy;
+          const float ddx = t.vx[c] - vbx;
+          const float ddy = t.vy[c] - vby;
+          const float qdev = sqrtf(ddx * ddx + ddy * ddy) * tband;
+#pragma unroll
+          for (int j = 0; j < DET_CX; ++j) {
+            const int dx = p - j;
+            if (dx >= 0 && dx <= BAND_R && ((m >> dx) & 1u))
+              hit = hit || band_pair_hit(cpx[j], cpy[j], cb[j], bpx[c],
+                                         bpy[c], qdev);
+          }
+        }
+      }
+    }
+    // the group's threads learn of a hit: it stops there
+    const uint32_t votes = __ballot_sync(0xffffffffu, hit);
+    if ((votes >> (lane % DET_GPW)) & det_group_lanes()) {
+      hit = true;
+      done = true;
+    }
+  }
+
+  // the side planes: thread q the min and max of plane q (px py vx vy,
+  // alive-masked, the group's first row giving the start), q = 0 the flag
+  const int gx = x0 + r0, gy = y0 + col;
+  if (gc_in && gx < w && gy < h) {
+    const size_t sw = (size_t)((w + 3) / 4) * h;
+    const size_t gi = (size_t)(gx / 4) * h + gy;
+    const int plane_stride = (int)(t.py - t.px);
+    for (int p = q; p < 4; p += DET_SPLIT) {
+      const float* pl = t.px + p * plane_stride;
+      float mn = 0.0f, mx = 0.0f;
+#pragma unroll
+      for (int j = 0; j < DET_CX; ++j) {
+        const int c = s0 + j * sy;
+        const bool a = t.al[c] > 0.0f;
+        const float val = pl[c];
+        mn = j == 0 ? (a ? val : SIDE_BIG) : tmin(mn, a ? val : SIDE_BIG);
+        mx = j == 0 ? (a ? val : -SIDE_BIG) : tmax(mx, a ? val : -SIDE_BIG);
+      }
+      side[(2 * p) * sw + gi] = mn;
+      side[(2 * p + 1) * sw + gi] = mx;
+    }
+    if (q == 0) side[8 * sw + gi] = hit ? 1.0f : 0.0f;
+  }
 }
 
 // SKIP: pair_skip_allowed for the launch's constants (a template
@@ -130,7 +333,7 @@ __host__ __device__ __forceinline__ size_t k1_smem_bytes(int s, int mode) {
 // unconditional; under RSQRT always true).  RSQRT, ROLLGROUP: the
 // arithmetic variants (lattice_device.cuh).  MODE: the M_* bits above.
 template <bool SKIP, bool RSQRT, bool ROLLGROUP, int MODE>
-__global__ void __launch_bounds__(SUB_THREADS, 5)
+__global__ void __launch_bounds__(SUB_THREADS, k1_min_blocks(MODE))
 fused_substep2_kernel(const float* __restrict__ hot,
                       const float* __restrict__ immut,
                       const float* __restrict__ far,
@@ -154,13 +357,32 @@ fused_substep2_kernel(const float* __restrict__ hot,
                                       x0, y0, R, w, h);
   uint32_t* fp = (uint32_t*)(smem + sub_stage_floats(R));
   float* extra = smem + sub_stage_floats(R) + 8 * SUB_FN;
+  const int sx = SUB_TX + 2 * R;
+  const int sn = sx * t.sy;
+  // detect: the band planes, then each staged row's (max, min) key
+  float* bpx = extra;
+  float* bpy = extra + sn;
+  uint32_t* rkey = (uint32_t*)(extra + 2 * sn);
+  // trig: the refs of the tile's cells, then the warps' partials
+  float* rf = extra + (DETECT ? 2 * sn + 2 * sx : 0);
+  float* wpart = rf + 4 * SUB_THREADS;
   const float* v = cs.v;
   const bool skip_springs = KNOBS && nospring;
 
   const int r = threadIdx.y, l = threadIdx.x;
+  const int tid = r * SUB_TY + l;
   const int x = x0 + r, y = y0 + l;
   const bool live = x < w && y < h;
   const size_t g = live ? (size_t)x * h + y : 0;
+
+  if constexpr (TRIG) {
+    // this cell's refs, copied beside the staged tile (zero outside the
+    // grid); they land at stage_wait()
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      cp_async_f32(rf + k * SUB_THREADS + tid, refs + k * WH + g, live);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
 
   // own edge planes, loaded while the tile is in flight
   float tgt[4], lst[4];
@@ -174,8 +396,7 @@ fused_substep2_kernel(const float* __restrict__ hot,
   }
   // this thread's halo owner (the last warps take them) and its planes
   int hc = 0, hr = 0, hl = 0;
-  const bool halo =
-      halo_owner(SUB_THREADS - 1 - (r * SUB_TY + l), hc, hr, hl);
+  const bool halo = halo_owner(SUB_THREADS - 1 - tid, hc, hr, hl);
   const bool halo_in = halo && x0 + hr >= 0 && x0 + hr < w &&
                        y0 + hl >= 0 && y0 + hl < h;
   float htgt = 0.0f, hlst = 0.0f;
@@ -193,37 +414,36 @@ fused_substep2_kernel(const float* __restrict__ hot,
   const bool al_c = t.al[lc] > 0.0f;
   const float px = t.px[lc], py = t.py[lc];
 
-  // ---- detect: each cell's band flag on the input state ----------------
+  // ---- detect, staging: the band planes and each row's range ----------
+  // (a warp per staged row from the tile's first on: the band reaches
+  // rows after a cell only; published by the springs' barrier)
   bool det_on = false;
   if constexpr (DETECT) {
     det_on = v[XB + X_DET] > 0.0f;
     if (det_on) {
-      const int sn = (SUB_TX + 2 * R) * t.sy;
-      float* dv = extra;
       const float vbx = v[XB + X_VBX], vby = v[XB + X_VBY];
-      const float tband = v[XB + X_TBAND];
-      for (int i = r * SUB_TY + l; i < sn; i += SUB_THREADS) {
-        const float ddx = t.vx[i] - vbx;
-        const float ddy = t.vy[i] - vby;
-        dv[i] = t.al[i] > 0.0f ? sqrtf(ddx * ddx + ddy * ddy) * tband : 0.0f;
-      }
-      __syncthreads();
-      bool hit = false;
-      if (al_c) {
-        const float cb = v[XB + X_REACH] + dv[lc];
-        for (int dx = 0; dx <= BAND_R && !hit; ++dx) {
-          for (int dy = -BAND_R; dy <= BAND_R; ++dy) {
-            if (!band_offset(dx, dy, s)) continue;
-            const int lp = lc + dx * t.sy + dy;
-            if (t.al[lp] > 0.0f &&
-                band_pair_hit(px, py, cb, t.px[lp], t.py[lp], dv[lp])) {
-              hit = true;
-              break;
-            }
+      for (int row = R + r; row < sx; row += SUB_TX) {
+        uint32_t kmax = 0u, kmin = 0xffffffffu;
+        for (int col = l; col < t.sy; col += SUB_TY) {
+          const int i = row * t.sy + col;
+          const bool a = t.al[i] > 0.0f;
+          bpx[i] = a ? t.px[i] : INFINITY;
+          bpy[i] = a ? t.py[i] : INFINITY;
+          const float ddx = t.vx[i] - vbx;
+          const float ddy = t.vy[i] - vby;
+          const float s2 = ddx * ddx + ddy * ddy;  // +0 and up, or NaN
+          if (a && s2 == s2) {
+            kmax = max(kmax, __float_as_uint(s2));
+            kmin = min(kmin, __float_as_uint(s2));
           }
         }
+        kmax = __reduce_max_sync(0xffffffffu, kmax);
+        kmin = __reduce_min_sync(0xffffffffu, kmin);
+        if (l == 0) {
+          rkey[2 * row] = kmax;
+          rkey[2 * row + 1] = kmin;
+        }
       }
-      extra[sn + r * SUB_TY + l] = hit ? 1.0f : 0.0f;
     }
   }
 
@@ -308,35 +528,10 @@ fused_substep2_kernel(const float* __restrict__ hot,
   float bfx = 0.0f, bfy = 0.0f;
   if (!skip_springs) spring_sums<ROLLGROUP>(fp, r, l, quantized, bfx, bfy);
 
-  // ---- detect: the side planes, one thread per 4-row group and column --
+  // ---- detect: the band search and the side planes -------------------
   if constexpr (DETECT) {
-    if (det_on && (r & 3) == 0 && live) {
-      const int sn = (SUB_TX + 2 * R) * t.sy;
-      float mn[4] = {SIDE_BIG, SIDE_BIG, SIDE_BIG, SIDE_BIG};
-      float mx[4] = {-SIDE_BIG, -SIDE_BIG, -SIDE_BIG, -SIDE_BIG};
-      float band = 0.0f;
-      const float* planes[4] = {t.px, t.py, t.vx, t.vy};
-      for (int k = 0; k < 4; ++k) {
-        const int li = lc + k * t.sy;
-        const bool a = t.al[li] > 0.0f;
-#pragma unroll
-        for (int p = 0; p < 4; ++p) {
-          const float val = planes[p][li];
-          mn[p] = k == 0 ? (a ? val : SIDE_BIG) : tmin(mn[p], a ? val : SIDE_BIG);
-          mx[p] = k == 0 ? (a ? val : -SIDE_BIG)
-                         : tmax(mx[p], a ? val : -SIDE_BIG);
-        }
-        band = tmax(band, extra[sn + (r + k) * SUB_TY + l]);
-      }
-      const size_t sw = (size_t)((w + 3) / 4) * h;
-      const size_t gi = (size_t)(x / 4) * h + y;
-#pragma unroll
-      for (int p = 0; p < 4; ++p) {
-        side[(2 * p) * sw + gi] = mn[p];
-        side[(2 * p + 1) * sw + gi] = mx[p];
-      }
-      side[8 * sw + gi] = band;
-    }
+    if (det_on)
+      detect_groups(t, bpx, bpy, rkey, v, s, R, x0, y0, w, h, side);
   }
   if constexpr (!TRIG) {
     if (!live) return;
@@ -374,9 +569,10 @@ fused_substep2_kernel(const float* __restrict__ hot,
     if constexpr (TRIG) {
       if (al_c) {
         const float tau = v[XB + X_TAU];
-        const float rvx = refs[2 * WH + g], rvy = refs[3 * WH + g];
-        const float ddx = o.px - (refs[g] + rvx * tau);
-        const float ddy = o.py - (refs[WH + g] + rvy * tau);
+        const float rvx = rf[2 * SUB_THREADS + tid];
+        const float rvy = rf[3 * SUB_THREADS + tid];
+        const float ddx = o.px - (rf[tid] + rvx * tau);
+        const float ddy = o.py - (rf[SUB_THREADS + tid] + rvy * tau);
         const float dvx = o.vx - rvx;
         const float dvy = o.vy - rvy;
         part[0] = ddx * ddx + ddy * ddy;
@@ -387,31 +583,30 @@ fused_substep2_kernel(const float* __restrict__ hot,
     }
   }
   if constexpr (TRIG) {
-    // the block's partials: a fixed tree over the 256 cells (max with
-    // NaN kept, sums in one order), no atomics
-    float* red = extra + ((MODE & M_DETECT)
-                              ? (SUB_TX + 2 * R) * t.sy + SUB_THREADS
-                              : 0);
-    const int tid = r * SUB_TY + l;
+    // the block's partials: xor butterflies over each warp (every lane
+    // ends with the same values: a + b rounds as b + a), then the warps
+    // in order; max with NaN kept, no atomics
 #pragma unroll
-    for (int k = 0; k < N_STATS; ++k) red[k * SUB_THREADS + tid] = part[k];
-    __syncthreads();
-    for (int half = SUB_THREADS / 2; half > 0; half >>= 1) {
-      if (tid < half) {
+    for (int off = 16; off > 0; off >>= 1) {
 #pragma unroll
-        for (int k = 0; k < N_STATS; ++k) {
-          const float a = red[k * SUB_THREADS + tid];
-          const float b = red[k * SUB_THREADS + tid + half];
-          red[k * SUB_THREADS + tid] = k < 2 ? tmax(a, b) : a + b;
-        }
+      for (int k = 0; k < N_STATS; ++k) {
+        const float o = __shfl_xor_sync(0xffffffffu, part[k], off);
+        part[k] = k < 2 ? tmax(part[k], o) : part[k] + o;
       }
-      __syncthreads();
     }
-    if (tid == 0) {
-      const size_t blk = (size_t)blockIdx.y * gridDim.x + blockIdx.x;
+    if (l == 0) {
 #pragma unroll
-      for (int k = 0; k < N_STATS; ++k)
-        stats[blk * N_STATS + k] = red[k * SUB_THREADS];
+      for (int k = 0; k < N_STATS; ++k) wpart[r * N_STATS + k] = part[k];
+    }
+    __syncthreads();
+    if (tid < N_STATS) {
+      float acc = wpart[tid];
+      for (int wi = 1; wi < SUB_TX; ++wi) {
+        const float b = wpart[wi * N_STATS + tid];
+        acc = tid < 2 ? tmax(acc, b) : acc + b;
+      }
+      const size_t blk = (size_t)blockIdx.y * gridDim.x + blockIdx.x;
+      stats[blk * N_STATS + tid] = acc;
     }
   }
 }

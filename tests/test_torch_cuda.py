@@ -7,6 +7,7 @@ there with ``python -m pytest tests/test_torch_cuda.py -m cuda
 import dataclasses
 import time
 
+import numpy as np
 import pytest
 import torch
 
@@ -21,6 +22,9 @@ from softbody_tpu_torch.ops.cuda import (
 )
 from softbody_tpu_torch.ops.farfield import FarFieldSpec
 from torch_threads import two_torch_threads  # noqa: F401
+
+import kernel_cases
+from kernel_cases import same_bits
 
 pytestmark = pytest.mark.cuda
 
@@ -156,9 +160,17 @@ K1_MODES = [
     dict(refs=True), dict(refs=True, detect=True), dict(detect=True),
     dict(detect=True, rsqrt=True, rollgroup=True), dict(nospring=True),
     dict(noint=True, rollgroup=True), dict(nospring=True, noint=True),
+    # detect's edge cases and non-finite velocities in the staged halo
+    # (tests/kernel_cases.py), as the CPU emulation of K1's source takes
+    dict(detect=True, kind="bound"), dict(refs=True, detect=True,
+                                          kind="bound"),
+    dict(detect=True, rsqrt=True, rollgroup=True, kind="nonfinite"),
+    dict(refs=True, detect=True, kind="nonfinite"),
 ]
 K1_MODE_IDS = ["trig", "trig+detect", "detect", "detect-rsqrt+rollgroup",
-               "nospring", "noint-rollgroup", "nospring+noint"]
+               "nospring", "noint-rollgroup", "nospring+noint",
+               "detect-bound", "trig+detect-bound",
+               "detect-rsqrt+rollgroup-nonfinite", "trig+detect-nonfinite"]
 
 
 @pytest.mark.parametrize("shape", [(1000, 1000), (97, 61)],
@@ -169,13 +181,23 @@ def test_k1_modes_match_plain(dev, mode, stencil, shape):
     """K1's far-field modes (trig: the trigger statistics of the output
     state; detect: the side planes of the input state) and the knobs
     against the plain version with the same flags, far stack on: every
-    plane bit for bit, the trig maxima too, the trig sums within 1e-5 of
-    the sums of |v| (their order differs), counted under the instance."""
+    plane bit for bit (NaN where the plain version has NaN), the trig
+    maxima too, the trig sums within 1e-5 of the sums of |v| (their order
+    differs; non-finite sums equal), counted under the instance.  Kinds
+    ``bound`` (each edge case's cells flagged as it expects) and
+    ``nonfinite``: ``tests/kernel_cases.py``."""
+    mode = dict(mode)
+    kind = mode.pop("kind", "stirred")
     w, h = shape
     state, cfg, consts, g = _stirred_lattice(dev, w, h, seed=5 * w + h)
+    spacing = 980.0 / (max(w, h) - 1)
+    base = 2 * cfg.particle_radius + 0.75 * spacing
+    want = {}
+    if kind == "bound":
+        state, want = kernel_cases.band_scenarios(
+            state, spacing, float(np.float32(base)))
     hot, obs, immut, ec = fused_substep2.pack_lattice2(state)
     alive = immut[0] > 0
-    spacing = 980.0 / (max(w, h) - 1)
     cvec = torch.cat([tb.consts_vector(consts, tb.UserInput(), cfg, h), ec])
     trig, detect = mode.get("refs", False), mode.get("detect", False)
     if trig or detect:
@@ -183,8 +205,13 @@ def test_k1_modes_match_plain(dev, mode, stencil, shape):
         vbar = [float((torch.where(alive, hot[k], 0.0).sum() / n).item())
                 for k in (2, 3)]
         cvec = torch.cat([cvec, torch.tensor(
-            [cfg.dt, 1.0, vbar[0], vbar[1], 9 * cfg.dt,
-             2 * cfg.particle_radius + 0.75 * spacing, 2 * cfg.dt, 0.0])])
+            [cfg.dt, 1.0, vbar[0], vbar[1], 9 * cfg.dt, base, 2 * cfg.dt,
+             0.0])])
+    if kind == "nonfinite":
+        # (the band's mean velocity is the stirred state's)
+        hot, obs, immut, ec = fused_substep2.pack_lattice2(
+            kernel_cases.halo_nonfinite(state, seed=w + h))
+        alive = immut[0] > 0
     kw = dict(mode, stencil=stencil, quantized=True,
               far=torch.randn((5, w, h), generator=g, device=dev) * 0.5,
               refs=(hot[:4] + torch.randn((4, w, h), generator=g,
@@ -204,19 +231,31 @@ def test_k1_modes_match_plain(dev, mode, stencil, shape):
     ref = list(ref) if isinstance(ref, tuple) else [ref]
     if trig:
         gs, rs = got.pop(1), ref.pop(1)
-        assert torch.equal(gs[:2], rs[:2]), name
+        assert same_bits(gs[:2], rs[:2]), name
         scale = torch.stack([torch.where(alive, got[0][k].abs(), 0.0).sum()
                              for k in (2, 3)])
-        assert bool(((gs[2:] - rs[2:]).abs() <= 1e-5 * scale).all()), name
+        fin = torch.isfinite(rs[2:])
+        assert same_bits(gs[2:][~fin], rs[2:][~fin]), name
+        assert bool(((gs[2:] - rs[2:]).abs()[fin]
+                     <= 1e-5 * scale[fin]).all()), name
     for a, b in zip(got, ref):
-        assert torch.equal(a.view(torch.int32), b.view(torch.int32)), name
+        assert same_bits(a, b), name
+    if want:
+        side = got[-1]
+        flags = band_detect.band_flags_plain(
+            hot[0], hot[1], torch.zeros_like(hot[0]),
+            torch.full_like(hot[0], float(cvec[45])), alive,
+            FarFieldSpec().band_half_offsets(stencil))
+        for (x, y), hit in want.items():
+            assert bool(flags[x, y]) == hit, (name, x, y)
+            x4 = x - x % 4
+            assert bool(side[8, x // 4, y]) == bool(
+                flags[x4:x4 + 4, y].any()), (name, x, y)
 
 
 def _hairpin_lattice(dev):
     """A 96 x 4 strip folded back on itself (tests/test_farfield.py::
     hairpin, without JAX): index-distant layers in contact."""
-    import numpy as np
-
     w, h, spacing = 96, 4, 10.0
     ls = make_lattice(w, h, spacing, spring=0.0, damp=0.0, yield_strain=10.0,
                       strain_limit=100.0, device=dev)
@@ -356,7 +395,7 @@ def test_k2_other_chunks(dev, chunk):
     assert (int(ref.sum()) > 0) == (chunk > 1)
 
 
-def _same_bits(got, ref) -> bool:
+def same_bits(got, ref) -> bool:
     """Bit for bit, NaN where ``ref`` has NaN (the payloads aside)."""
     nan = torch.isnan(ref)
     return (torch.equal(torch.isnan(got), nan)
@@ -376,13 +415,13 @@ def test_k1_k4_constants_that_overflow_clip(dev, stencil):
     got = fused_substep2.fused_substep2_call(hot, immut, cvec, **kw)
     ref = fused_substep2.fused_substep2_plain(hot, immut, cvec, **kw)
     torch.cuda.synchronize()
-    assert bool(torch.isnan(ref[:6]).any()) and _same_bits(got, ref)
+    assert bool(torch.isnan(ref[:6]).any()) and same_bits(got, ref)
     mut, immut4 = fused_substep.pack_lattice(state)
     cvec4 = cvec[:20].clone()
     got = fused_substep.fused_substep_call(mut, immut4, cvec4, **kw)
     ref = fused_substep.fused_substep_plain(mut, immut4, cvec4, **kw)
     torch.cuda.synchronize()
-    assert bool(torch.isnan(ref[:6]).any()) and _same_bits(got, ref)
+    assert bool(torch.isnan(ref[:6]).any()) and same_bits(got, ref)
 
 
 @pytest.mark.parametrize("shape", K14_SHAPES, ids=K14_IDS)

@@ -6,8 +6,10 @@ The kernels themselves run only on the card (``tests/test_torch_cuda.py``,
 compiler against a small emulation of the CUDA they use: one
 ``std::thread`` per CUDA thread of a block (reused from block to block);
 ``std::barrier`` for ``__syncthreads`` and, with a shared flag, for
-``__syncthreads_and`` and, per warp of 32 threads, ``__all_sync`` and
-``__reduce_{max,min}_sync``; the 4- and 8-byte ``cp.async`` copies land
+``__syncthreads_and``; per warp of 32 threads a barrier behind which
+each lane reads the others' posted values, for ``__all_sync``,
+``__ballot_sync``, ``__shfl_xor_sync`` and ``__reduce_{max,min}_sync``;
+the 4- and 8-byte ``cp.async`` copies land
 only when ``cp.async.wait_group 0`` waits for the group
 ``cp.async.commit_group`` closed (zero fill included; shared memory
 starts as NaN, so a copy read before it is committed and waited for
@@ -20,9 +22,10 @@ for bit (NaN where the plain version has NaN).  This holds the kernels'
 indexing — tiles, halos, ragged edges, strided and interleaved planes,
 the spring reactions shared through shared memory, every barrier reached
 by every thread — and the skip of pairs that cannot touch (K3, and K1/K4
-under constants that forbid it), K2's compile-time box (chunk ≤ 4) and
-the box set at launch (chunks 8 and 16), at shapes and stencils the CPU
-can afford.  Skipped where there is no ``g++``."""
+under constants that forbid it), K1's detect pass on its edge cases and
+non-finite halos (``kernel_cases.py``), K2's compile-time box (chunk ≤ 4)
+and the box set at launch (chunks 8 and 16), at shapes and stencils the
+CPU can afford.  Skipped where there is no ``g++``."""
 
 import ctypes
 import dataclasses
@@ -46,6 +49,9 @@ from softbody_tpu_torch.ops.cuda._lib import CSRC, HEADERS
 from softbody_tpu_torch.ops.farfield import FarFieldSpec
 from torch_threads import two_torch_threads  # noqa: F401
 
+import kernel_cases
+from kernel_cases import same_bits
+
 EMULATED = ("fused_substep2.cu", "fused_substep.cu", "collide_stencil.cu",
             "band_detect.cu")
 
@@ -57,6 +63,7 @@ RUNTIME_H = r"""
 #include <cstdint>
 #include <cstdlib>
 #include <algorithm>
+#include <array>
 #include <cstring>
 #include <memory>
 #include <thread>
@@ -76,74 +83,92 @@ struct dim3 {
 struct alignas(8) float2 {
   float x, y;
 };
-// a block: its barrier, and per warp of 32 threads a barrier and a vote
+// a block: its barrier and vote, and per warp of 32 threads a barrier and
+// two sets of lane slots for the warp collectives
 struct EmuBlock {
   unsigned threads, dim_x;
   std::barrier<> bar;
   std::atomic<int> vote{1};
   std::vector<std::unique_ptr<std::barrier<>>> warp_bar;
-  std::vector<std::atomic<int>> warp_vote;
-  std::vector<std::atomic<unsigned>> warp_acc;
+  std::vector<std::array<std::array<uint32_t, 32>, 2>> warp_slots;
   EmuBlock(unsigned n, unsigned dx)
-      : threads(n), dim_x(dx), bar(n), warp_vote((n + 31) / 32),
-        warp_acc((n + 31) / 32) {
-    for (unsigned w = 0; w < (n + 31) / 32; ++w) {
-      const unsigned in_warp = n - 32 * w < 32 ? n - 32 * w : 32;
-      warp_bar.emplace_back(std::make_unique<std::barrier<>>(in_warp));
-      warp_vote[w].store(1);
-    }
+      : threads(n), dim_x(dx), bar(n), warp_slots((n + 31) / 32) {
+    for (unsigned w = 0; w < (n + 31) / 32; ++w)
+      warp_bar.emplace_back(std::make_unique<std::barrier<>>(warp_lanes(w)));
+  }
+  unsigned warp_lanes(unsigned w) const {
+    return threads - 32 * w < 32 ? threads - 32 * w : 32;
   }
 };
 inline thread_local dim3 threadIdx, blockIdx, gridDim;
 inline thread_local EmuBlock* emu_block;
 inline thread_local float* emu_shared;
+inline thread_local unsigned emu_warp_calls;
 inline void __syncthreads() { emu_block->bar.arrive_and_wait(); }
-// a vote: every thread clears the flag or not, reads it after a barrier,
-// and the flag is set again behind a second barrier before anyone votes
-// anew
-inline int emu_vote(std::barrier<>& bar, std::atomic<int>& vote, int pred,
-                    bool first) {
-  if (!pred) vote.store(0);
-  bar.arrive_and_wait();
-  const int all = vote.load();
-  bar.arrive_and_wait();
-  if (first) vote.store(1);
-  bar.arrive_and_wait();
-  return all;
-}
+// __syncthreads_and: every thread clears the flag or not, reads it after
+// a barrier, and the flag is set again behind a second barrier before
+// anyone votes anew
 inline int __syncthreads_and(int pred) {
   EmuBlock& b = *emu_block;
-  return emu_vote(b.bar, b.vote, pred, threadIdx.x == 0 && threadIdx.y == 0);
-}
-inline bool __all_sync(unsigned, int pred) {
-  EmuBlock& b = *emu_block;
-  const unsigned lin = threadIdx.y * b.dim_x + threadIdx.x;
-  return emu_vote(*b.warp_bar[lin / 32], b.warp_vote[lin / 32], pred,
-                  lin % 32 == 0);
-}
-// __reduce_{max,min}_sync over a warp: the first lane seeds the
-// accumulator, every lane folds its value in, all read it back
-inline unsigned emu_warp_reduce(unsigned v, bool take_max) {
-  EmuBlock& b = *emu_block;
-  const unsigned lin = threadIdx.y * b.dim_x + threadIdx.x;
-  std::barrier<>& bar = *b.warp_bar[lin / 32];
-  std::atomic<unsigned>& acc = b.warp_acc[lin / 32];
-  if (lin % 32 == 0) acc.store(take_max ? 0u : ~0u);
-  bar.arrive_and_wait();
-  unsigned cur = acc.load();
-  while ((take_max ? v > cur : v < cur) &&
-         !acc.compare_exchange_weak(cur, v)) {
-  }
-  bar.arrive_and_wait();
-  const unsigned all = acc.load();
-  bar.arrive_and_wait();
+  if (!pred) b.vote.store(0);
+  b.bar.arrive_and_wait();
+  const int all = b.vote.load();
+  b.bar.arrive_and_wait();
+  if (threadIdx.x == 0 && threadIdx.y == 0) b.vote.store(1);
+  b.bar.arrive_and_wait();
   return all;
 }
+// A warp collective: each lane posts a 4-byte value into this call's set
+// of slots, one barrier, then each lane reads the slots it needs.  The
+// sets alternate from call to call: a lane can be one call ahead of a
+// slower lane, never two (the barrier between waits for it), so no set
+// is written while it is read.
+struct EmuWarp {
+  const std::array<uint32_t, 32>& slot;
+  unsigned lane, lanes;
+};
+inline EmuWarp emu_warp_post(uint32_t v) {
+  EmuBlock& b = *emu_block;
+  const unsigned lin = threadIdx.y * b.dim_x + threadIdx.x;
+  std::array<uint32_t, 32>& slot =
+      b.warp_slots[lin / 32][emu_warp_calls++ & 1u];
+  slot[lin % 32] = v;
+  b.warp_bar[lin / 32]->arrive_and_wait();
+  return {slot, lin % 32, b.warp_lanes(lin / 32)};
+}
+inline bool __all_sync(unsigned, int pred) {
+  const EmuWarp w = emu_warp_post(pred != 0);
+  for (unsigned i = 0; i < w.lanes; ++i)
+    if (!w.slot[i]) return false;
+  return true;
+}
+inline unsigned __ballot_sync(unsigned, int pred) {
+  const EmuWarp w = emu_warp_post(pred != 0);
+  unsigned out = 0u;
+  for (unsigned i = 0; i < w.lanes; ++i) out |= w.slot[i] << i;
+  return out;
+}
 inline unsigned __reduce_max_sync(unsigned, unsigned v) {
-  return emu_warp_reduce(v, true);
+  const EmuWarp w = emu_warp_post(v);
+  unsigned out = 0u;
+  for (unsigned i = 0; i < w.lanes; ++i) out = std::max(out, w.slot[i]);
+  return out;
 }
 inline unsigned __reduce_min_sync(unsigned, unsigned v) {
-  return emu_warp_reduce(v, false);
+  const EmuWarp w = emu_warp_post(v);
+  unsigned out = ~0u;
+  for (unsigned i = 0; i < w.lanes; ++i) out = std::min(out, w.slot[i]);
+  return out;
+}
+template <class T>
+inline T __shfl_xor_sync(unsigned, T v, int lane_mask) {
+  static_assert(sizeof(T) == 4, "4-byte shuffles only");
+  uint32_t u;
+  std::memcpy(&u, &v, 4);
+  const EmuWarp w = emu_warp_post(u);
+  T out;
+  std::memcpy(&out, &w.slot[w.lane ^ (unsigned)lane_mask], 4);
+  return out;
 }
 using std::max;
 using std::min;
@@ -243,6 +268,7 @@ void emu_launch(dim3 grid, dim3 block, size_t smem, cudaStream_t, F f) {
           if (i == 0) std::fill(shared.begin(), shared.end(), std::nanf(""));
           fence.arrive_and_wait();
           blockIdx = dim3(bx, by);
+          emu_warp_calls = 0;
           emu_queued.clear();
           emu_committed.clear();
           f();
@@ -447,7 +473,7 @@ def test_k1_variant_sources_match_plain(lib, rsqrt, rollgroup):
             int(rsqrt), int(rollgroup), None) == 0
         ref_hot, ref_obs = ref if obs_in is not None else (ref, None)
         case = f"s={stencil} quantized={quantized} dt={float(cv[1])}"
-        assert _same_bits(got_hot, ref_hot), case
+        assert same_bits(got_hot, ref_hot), case
         if obs_in is not None:
             assert torch.equal(got_obs, ref_obs), case
         strict = fused_substep2.fused_substep2_plain(
@@ -493,33 +519,49 @@ def _mode_extras(state, cfg, *, tau, det, t_band):
                         dtype=torch.float32)
 
 
-# (modes, rsqrt, rollgroup, stencil, quantized)
+# (modes, rsqrt, rollgroup, stencil, quantized, state): the stirred
+# lattice (``_state``), detect's edge cases
+# (``kernel_cases.band_scenarios``), or non-finite velocities in the
+# staged halo (``kernel_cases.halo_nonfinite``)
 MODE_CASES = [
-    (("trig",), False, False, 2, True),
-    (("detect",), False, False, 1, True),
-    (("detect",), True, True, 2, False),
-    (("trig", "detect"), False, False, 2, False),
-    (("nospring",), False, False, 2, True),
-    (("noint",), False, True, 1, False),
-    (("nospring", "noint"), True, False, 2, True),
+    (("trig",), False, False, 2, True, "stirred"),
+    (("detect",), False, False, 1, True, "stirred"),
+    (("detect",), True, True, 2, False, "stirred"),
+    (("trig", "detect"), False, False, 2, False, "stirred"),
+    (("nospring",), False, False, 2, True, "stirred"),
+    (("noint",), False, True, 1, False, "stirred"),
+    (("nospring", "noint"), True, False, 2, True, "stirred"),
+    (("detect",), False, False, 2, True, "bound"),
+    (("trig", "detect"), False, False, 2, True, "bound"),
+    (("detect",), True, True, 2, False, "nonfinite"),
+    (("trig", "detect"), False, False, 2, False, "nonfinite"),
 ]
 
 
 @pytest.mark.parametrize("shape", SHAPES, ids=SHAPE_IDS)
 @pytest.mark.parametrize(
-    "modes,rsqrt,rollgroup,stencil,quantized", MODE_CASES,
+    "modes,rsqrt,rollgroup,stencil,quantized,kind", MODE_CASES,
     ids=["+".join(c[0]) + ("-rsqrt" if c[1] else "")
-         + ("-rollgroup" if c[2] else "") for c in MODE_CASES])
+         + ("-rollgroup" if c[2] else "")
+         + ("" if c[5] == "stirred" else f"-{c[5]}") for c in MODE_CASES])
 def test_k1_mode_sources_match_plain(lib, shape, modes, rsqrt, rollgroup,
-                                     stencil, quantized):
+                                     stencil, quantized, kind):
     """K1's modes against the plain version with the same flags, with a far
     stack and observing: the output state bit for bit; ``detect``: the
     side planes bit for bit (W = 37 ends in a partial group of rows), band
     flags both set and clear; ``trig``: the maxima bit for bit, the sums
-    within 1e-5 relative (their order differs: a tree per block, then the
-    blocks); the knobs: what passes through equals the input."""
+    within 1e-5 relative (their order differs: butterflies per warp, the
+    warps, then the blocks); the knobs: what passes through equals the
+    input.  ``bound``: detect's edge cases, each scenario's cells flagged
+    as it expects; ``nonfinite``: NaN and ±inf velocities in the staged
+    halo, garbage in dead partners (NaN where the plain version has
+    NaN)."""
     w, h = shape
     state, cfg, consts, g = _state(w, h, seed=41 + w + stencil)
+    want = {}
+    if kind == "bound":
+        state, want = kernel_cases.band_scenarios(
+            state, 20.0, float(np.float32(2.0 * cfg.particle_radius + 20.0)))
     hot, obs, immut, ec = fused_substep2.pack_lattice2(state)
     base = torch.cat([tb.consts_vector(consts, tb.UserInput(), cfg, h), ec])
     trig, detect = "trig" in modes, "detect" in modes
@@ -530,6 +572,10 @@ def test_k1_mode_sources_match_plain(lib, shape, modes, rsqrt, rollgroup,
         cvec = torch.cat([base, _mode_extras(
             state, cfg, tau=0.05, det=1.0,
             t_band=0.02 if stencil == 1 else 0.06)])
+    if kind == "nonfinite":
+        # (the band's mean velocity is the stirred state's)
+        hot, obs, immut, ec = fused_substep2.pack_lattice2(
+            kernel_cases.halo_nonfinite(state, seed=w + h))
     if trig:
         refs = (hot[:4] + torch.randn((4, w, h), generator=g)).contiguous()
     far = torch.randn((5, w, h), generator=g) * 0.5
@@ -542,7 +588,7 @@ def test_k1_mode_sources_match_plain(lib, shape, modes, rsqrt, rollgroup,
     ref = list(ref) if isinstance(ref, tuple) else [ref]
     got_hot, got_obs, got_stats, got_side = _k1_mode_source(
         lib, hot, immut, cvec, **kw)
-    assert _same_bits(got_hot, ref.pop(0))
+    assert same_bits(got_hot, ref.pop(0))
     if kw["obs_in"] is not None:
         ref_obs = ref.pop(0)
         assert torch.equal(got_obs, ref_obs)
@@ -550,15 +596,38 @@ def test_k1_mode_sources_match_plain(lib, shape, modes, rsqrt, rollgroup,
             assert torch.equal(ref_obs, obs)
     if trig:
         ref_stats = ref.pop(0)
-        assert _same_bits(got_stats[:2], ref_stats[:2])
-        torch.testing.assert_close(got_stats[2:], ref_stats[2:], rtol=1e-5,
-                                   atol=0.0)
+        assert same_bits(got_stats[:2], ref_stats[:2])
+        # the sums within 1e-5 of the sums of |v| (chip_smoke.py's
+        # TRIG_SUM_RTOL), non-finite sums equal; the stirred lattice's
+        # within 1e-5 of themselves too
+        alive = immut[0] > 0
+        scale = torch.stack([torch.where(alive, got_hot[k].abs(), 0.0).sum()
+                             for k in (2, 3)])
+        fin = torch.isfinite(ref_stats[2:])
+        assert same_bits(got_stats[2:][~fin], ref_stats[2:][~fin])
+        assert bool(((got_stats[2:] - ref_stats[2:]).abs()[fin]
+                     <= 1e-5 * scale[fin]).all())
+        if kind == "stirred":
+            torch.testing.assert_close(got_stats[2:], ref_stats[2:],
+                                       rtol=1e-5, atol=0.0)
     if detect:
         ref_side = ref.pop(0)
-        assert _same_bits(got_side, ref_side)
+        assert same_bits(got_side, ref_side)
         alive_groups = ref_side[0] < 1e38
         band = ref_side[8][alive_groups]
         assert 0 < int(band.sum()) < band.numel()
+    if want:
+        ex = cvec[N_CONSTS + fused_substep2.N_EDGEC:].tolist()
+        alive = immut[0] > 0
+        flags = band_detect.band_flags_plain(
+            hot[0], hot[1], torch.zeros((w, h)),
+            torch.full((w, h), ex[fused_substep2.X_REACH]), alive,
+            fused_substep2._band_offsets(stencil))
+        for (x, y), hit in want.items():
+            assert bool(flags[x, y]) == hit, (x, y)
+            assert bool(got_side[8, x // 4, y]) == any(
+                bool(flags[x4, y]) for x4 in range(x - x % 4,
+                                                   min(w, x - x % 4 + 4)))
     if "nospring" in modes:
         assert torch.equal(got_hot[6:], hot[6:])
     if "noint" in modes:
@@ -625,7 +694,7 @@ def test_k1_k4_sources_constants_that_overflow_clip(lib, stencil):
                                  1, None) == 0
     nan = torch.isnan(ref[:6]).any(0)
     assert 0 < int(nan.sum()) < nan.numel()
-    assert _same_bits(got, ref), "K1"
+    assert same_bits(got, ref), "K1"
     mut, immut4 = fused_substep.pack_lattice(state)
     cvec4 = cvec[:N_CONSTS].clone()
     ref = fused_substep.fused_substep_plain(mut, immut4, cvec4,
@@ -634,15 +703,7 @@ def test_k1_k4_sources_constants_that_overflow_clip(lib, stencil):
     assert lib.sb_fused_substep(_ptr(mut), _ptr(immut4), None, _ptr(got),
                                 _ptr(cvec4), w, h, stencil, 1, None) == 0
     assert bool(torch.isnan(ref[:6]).any())
-    assert _same_bits(got, ref), "K4"
-
-
-def _same_bits(got, ref) -> bool:
-    """Bit for bit, NaN where ``ref`` has NaN (the payloads aside)."""
-    nan = torch.isnan(ref)
-    return (torch.equal(torch.isnan(got), nan)
-            and torch.equal(got[~nan].view(torch.int32),
-                            ref[~nan].view(torch.int32)))
+    assert same_bits(got, ref), "K4"
 
 
 def _k3_both_entries(lib, state, stencil, radius, dt, ecoeff, friction):
@@ -662,7 +723,7 @@ def _k3_both_entries(lib, state, stencil, radius, dt, ecoeff, friction):
     got = torch.empty_like(ref)
     assert lib.sb_collide_stencil(*(_ptr(t) for t in planes), _ptr(got),
                                   *scalars, w, h, stencil, None) == 0
-    assert _same_bits(got, ref), "contiguous entry"
+    assert same_bits(got, ref), "contiguous entry"
     # the interleaved views (staged as pairs), and planes laid out H-major
     # (row stride 1, element stride W)
     h_major = [t.t().contiguous().t() for t in planes[:4]]
@@ -672,7 +733,7 @@ def _k3_both_entries(lib, state, stencil, radius, dt, ecoeff, friction):
         assert lib.sb_collide_stencil_strided(
             *(_ptr(t) for t in vs), strides.ctypes.data, _ptr(state.alive),
             _ptr(got), *scalars, w, h, stencil, None) == 0
-        assert _same_bits(got, ref), f"strided entry, {layout}"
+        assert same_bits(got, ref), f"strided entry, {layout}"
     return ref
 
 
@@ -685,35 +746,6 @@ def test_k3_source_matches_plain(lib, stencil, shape):
                      consts.ecoeff, consts.friction)
 
 
-def _hostile(state, g):
-    """The state with what K3's skip must not hide: infinite and NaN
-    velocities in two tiles (the rest stay finite, so both paths run),
-    a fifth of the dead particles holding garbage positions (NaN, ±inf,
-    1e30, −0.0, a live neighbour's position; NaN spreads from them to
-    the deltas of their stencil) and an alive particle far out, whose
-    squared distances overflow."""
-    w, h = state.alive.shape
-    pos, vel, alive = state.pos.clone(), state.vel.clone(), state.alive.clone()
-    vel[1, min(h - 1, 1), 0] = float("inf")
-    vel[min(w - 1, 20), h // 2, 1] = float("nan")
-    vel[min(w - 1, 21), h // 2, 0] = float("-inf")
-    dead = ~alive
-    dead[3, :] = True
-    garbage = torch.tensor([float("nan"), float("inf"), float("-inf"), 1e30,
-                            -0.0], dtype=torch.float32)
-    pick = torch.randint(0, len(garbage) + 1, (w, h, 2), generator=g)
-    junk = torch.where(pick < len(garbage),
-                       garbage[pick.clamp(max=len(garbage) - 1)],
-                       torch.roll(pos, 1, dims=1))
-    messy = dead & (torch.rand((w, h), generator=g) < 0.2)
-    pos = torch.where(messy[..., None], junk, pos)
-    far = (w // 2, min(h - 1, 3))
-    pos[far[0], far[1]] = torch.tensor([1e20, -1e20])
-    alive = torch.where(dead, False, alive)
-    alive[far] = True
-    return dataclasses.replace(state, pos=pos, vel=vel, alive=alive)
-
-
 @pytest.mark.parametrize("shape", SHAPES, ids=SHAPE_IDS)
 @pytest.mark.parametrize("stencil", [1, 2, 3])
 def test_k3_source_nonfinite_and_garbage(lib, stencil, shape):
@@ -721,7 +753,7 @@ def test_k3_source_nonfinite_and_garbage(lib, stencil, shape):
     garbage in dead particles: NaN where the plain version has NaN."""
     w, h = shape
     state, cfg, consts, g = _state(w, h, seed=11 + w + h)
-    ref = _k3_both_entries(lib, _hostile(state, g), stencil,
+    ref = _k3_both_entries(lib, kernel_cases.hostile(state, g), stencil,
                            cfg.particle_radius, cfg.dt, consts.ecoeff,
                            consts.friction)
     nan = torch.isnan(ref).any(0)
