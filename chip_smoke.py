@@ -43,6 +43,13 @@ to 0 just before it and read just after:
   and trig instances timed at those runs' final states against their
   bounds, with their loss a frame (beside ``--parent``'s, in turns); the
   knobs on one far-off frame each; the fold card against CPU;
+- the compiled frames (phase 16): ``frame_jit`` at configs 1, 4 and 3,
+  a mouse drag (a capture a frame), two states through one graph, path A
+  through ``LatticeBackend``'s captured chunks (K3), the fold through
+  ``lattice_frame_far_jit``, the compiled ``directed_frame`` at config 3,
+  each held bit for bit against the same frames run op by op and timed
+  in turns with them; ``Engine`` and ``LatticeEngine`` (path A) stepping
+  captured frames on their worker threads while this thread polls;
 - the CLI (phase 13), as a user first runs it, in this process:
   ``run`` of the 1M tearing cloth on the lattice path and of the 100k
   cloth planified and far-armed (K2, K7), ``render`` of the 1M cloth,
@@ -114,7 +121,7 @@ from softbody_tpu_torch.convert import (
     sim_state_to_numpy,
 )
 from softbody_tpu_torch.models import scenes
-from softbody_tpu_torch.ops import farfield4
+from softbody_tpu_torch.ops import compiled, farfield4
 from softbody_tpu_torch.ops import planify
 from softbody_tpu_torch.ops import step as gstep
 from softbody_tpu_torch.ops.collisions import broad_phase_overflow
@@ -170,6 +177,7 @@ from softbody_tpu_torch.ops.farfield import (
     crop_far_list,
     empty_far_list,
     far_collision_terms,
+    rebuild_far_list,
     rebuild_far_list_planes,
 )
 from softbody_tpu_torch.ops.farfield4 import (
@@ -184,6 +192,9 @@ from softbody_tpu_torch.ops.stencil import (
     LatticeSpec,
     half_offsets,
     lattice_frame,
+    lattice_frame_far,
+    lattice_frame_far_jit,
+    lattice_frame_jit,
     shifted,
     sqrt32,
 )
@@ -351,6 +362,19 @@ TRIG_SUM_RTOL = 1e-5
 V3_FF = dict(max_pairs=512, max_tile_pairs=256, horizon=32)
 KNOB_RUNS = (("nospring", 2, ("nospring",)), ("void", 0, ("nospring",)),
              ("pipe", 0, ("nospring", "noint")))
+
+# the compiled frames (phase 16): frames per turn (eager, captured,
+# captured, eager) of configs 1, 4 and 3; the drag's frames, each with a
+# new mouse position and velocity; path A's frames held card-captured
+# against eager, then timed a frame a turn; the runtime's windows (alone,
+# polled, polled, alone) behind Engine and behind LatticeEngine on path A
+# (from frame 1; the worker runs frames ahead of the packets, into the
+# frames where the default far field's 512 pairs overflow: its stats are
+# logged, not held)
+COMPILED_TURN_FRAMES = (2, 2, 1)
+DRAG_FRAMES = 4
+COMPILED_PATH_A_FRAMES = 2
+COMPILED_RUNTIME_FRAMES = {"general": 5, "path A": 1}
 
 # the card's peaks for the bound (NVIDIA's H100 SXM data sheet): device
 # memory rate, and float32 outside the tensor cores
@@ -1055,19 +1079,21 @@ def _frames(step, n_frames: int):
 
 
 def profile_frame(label: str, step, frame_ms: float,
-                  substeps: int) -> None:
+                  substeps: int) -> dict:
     """One frame under ``torch.profiler``: device busy time (the sum of
     the kernels' durations; one stream, so they do not overlap), the
     device's idle share against ``frame_ms`` (the frame's time with the
-    profiler off: the profiler itself slows the host many times over),
-    the kernel launch count and the kernels that take most of the device
-    time."""
+    profiler off: the profiler itself slows the host), the kernel launch
+    count (a replayed CUDA graph's kernels each count) and the kernels
+    that take most of the device time.  Only the device's activity is
+    recorded: the host's ops were unused here and cost seconds a frame
+    to record and to read back.  Returns busy ms, idle share and
+    launches per substep."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         step()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
@@ -1084,13 +1110,16 @@ def profile_frame(label: str, step, frame_ms: float,
         f"; host {wall_ms:.1f} ms with the profiler on), {len(kernels)} "
         f"kernel launches ({len(kernels) / substeps:.1f} per substep); top: "
         + "; ".join(f"{name[:90]} {ms:.1f} ms" for name, ms in top))
+    return {"busy_ms": busy_ms, "idle": 1.0 - busy_ms / frame_ms,
+            "per_substep": len(kernels) / substeps}
 
 
 def run_path_a(dev) -> dict:
     """Path A at full width: ``play --path lattice --farfield`` on the 1M
     tearing cloth (default arguments, ``FarFieldSpec()``) with
-    ``use_pallas``, through ``LatticeBackend.step``; then one more frame
-    under the profiler."""
+    ``use_pallas``, through ``LatticeBackend.step`` (its chunks captured
+    CUDA graphs: the first frame captures); then a frame that only
+    replays under the profiler."""
     state, spec, cfg, consts = tearing_cloth_lattice(
         n_particles=N_PARTICLES, device=dev)
     cfg = dataclasses.replace(cfg, use_pallas=True)
@@ -1120,14 +1149,18 @@ def run_path_a(dev) -> dict:
         raise AssertionError("path A: non-finite particle state")
     n1, m1 = be.counts(state)
     rate = substeps / (sum(ms) / 1000.0)
+    rate_replayed = (len(ms) - 1) * cfg.subticks / (sum(ms[1:]) / 1000.0)
     log(f"path A: {spec.width}x{spec.height} lattice, {n1} particles, "
         f"alive beams {m0} -> {m1}; {PATH_A_FRAMES} frames = {substeps} "
         f"substeps, frame ms {[round(t, 1) for t in ms]} = {rate:.1f} "
-        f"substeps/s; far stats {stats}, {be.far_chunks} chunks; K3 "
+        f"substeps/s (frames 2-{PATH_A_FRAMES}, past the first frame's "
+        f"captures: {rate_replayed:.1f}); far stats {stats}, "
+        f"{be.far_chunks} chunks; K3 "
         f"launches {k3}, K2 launches {k2}; pos y range "
         f"[{state.pos[..., 1].min().item():.3f}, "
         f"{state.pos[..., 1].max().item():.3f}]")
-    profile_frame("path A", step, sum(ms) / len(ms), cfg.subticks)
+    _profile_replay("path A", step, sum(ms[1:]) / (len(ms) - 1),
+                    cfg.subticks, (lattice_frame_jit, lattice_frame_far_jit))
     return dict(state=box[0], cfg=cfg, consts=consts, spec=spec, k3=k3,
                 rate=rate)
 
@@ -1681,6 +1714,52 @@ def _witness(eng) -> dict:
     return kept
 
 
+def _alone_and_polled(eng, f: int, frames: int, far: dict,
+                      label: str) -> dict:
+    """From frame ``f``, four windows of ``frames`` frames: alone (this
+    thread reads the stats every 50 ms), polled (this thread calls
+    ``render_packet()`` flat-out), polled, alone.  Returns frames/s of
+    each kind, the packets' latencies (ms), up to 8 packets' positions
+    by frame index and the frame indices seen."""
+    packets, lat, seen = {}, [], [f]
+    spent = {"alone": [0, 0.0], "polled": [0, 0.0]}  # frames, seconds
+    for kind in ("alone", "polled", "polled", "alone"):
+        t0 = time.perf_counter()
+        if kind == "alone":
+            f1 = _wait_frames(eng, f + frames, far, every=0.05).frame_index
+        else:
+            while seen[-1] < f + frames:
+                ta = time.perf_counter()
+                pkt = eng.render_packet()
+                lat.append((time.perf_counter() - ta) * 1e3)
+                seen.append(pkt.frame_index)
+                if pkt.frame_index not in packets and len(packets) < 8:
+                    packets[pkt.frame_index] = pkt.pos
+                if ta > t0 + 120.0 or eng.error is not None:
+                    raise AssertionError(f"{label}: polled engine at frame "
+                                         f"{seen[-1]} ({eng.error!r})")
+            f1 = seen[-1]
+        spent[kind][0] += f1 - f
+        spent[kind][1] += time.perf_counter() - t0
+        f = f1
+    return {"fps_alone": spent["alone"][0] / spent["alone"][1],
+            "fps_polled": spent["polled"][0] / spent["polled"][1],
+            "spent": spent, "lat": lat, "packets": packets, "seen": seen}
+
+
+def _check_packets(packets: dict, kept: dict, seen: list, label: str) -> None:
+    """Frame indices monotonic, and every packet bitwise equal to the
+    clone of its frame's positions that ``_witness`` kept."""
+    if seen != sorted(seen):
+        raise AssertionError(f"{label}: packet frame indices not monotonic")
+    torch.cuda.synchronize()
+    for idx, pos in packets.items():
+        ref = kept[idx].cpu().numpy()
+        if pos.tobytes() != ref.tobytes():
+            raise AssertionError(f"{label}: the packet of frame {idx} "
+                                 "differs from that frame's positions")
+
+
 def run_runtime_fused(dev, card: str) -> dict:
     """The fused engine at 1M: ``LatticeEngine(fused=True)`` on the bench
     scene with the bench far field, stepping flat-out on its worker
@@ -1710,43 +1789,13 @@ def run_runtime_fused(dev, card: str) -> dict:
     try:
         kept = _witness(eng)
         f = _wait_frames(eng, 2, far).frame_index
-        packets, lat, seen = {}, [], [f]
-        spent = {"alone": [0, 0.0], "polled": [0, 0.0]}  # frames, seconds
-        for kind in ("alone", "polled", "polled", "alone"):
-            t0 = time.perf_counter()
-            if kind == "alone":  # this thread reads the stats every 50 ms
-                f1 = _wait_frames(eng, f + RUNTIME_FRAMES, far,
-                                  every=0.05).frame_index
-            else:                # this thread polls packets flat-out
-                while seen[-1] < f + RUNTIME_FRAMES:
-                    ta = time.perf_counter()
-                    pkt = eng.render_packet()
-                    lat.append((time.perf_counter() - ta) * 1e3)
-                    seen.append(pkt.frame_index)
-                    if pkt.frame_index not in packets and len(packets) < 8:
-                        packets[pkt.frame_index] = pkt.pos
-                    if ta > t0 + 120.0 or eng.error is not None:
-                        raise AssertionError(f"runtime: polled engine at "
-                                             f"frame {seen[-1]} "
-                                             f"({eng.error!r})")
-                f1 = seen[-1]
-            spent[kind][0] += f1 - f
-            spent[kind][1] += time.perf_counter() - t0
-            f = f1
-        fps_alone = spent["alone"][0] / spent["alone"][1]
-        fps_polled = spent["polled"][0] / spent["polled"][1]
+        win = _alone_and_polled(eng, f, RUNTIME_FRAMES, far, "runtime")
+        spent, lat, packets = win["spent"], win["lat"], win["packets"]
+        fps_alone, fps_polled = win["fps_alone"], win["fps_polled"]
         frames = _pause(eng, far)
         k1, k2 = fused_substep2.K1_LAUNCHES, band_detect.K2_LAUNCHES
         k7 = recmirror.K7_LAUNCHES
-        if seen != sorted(seen):
-            raise AssertionError("runtime: packet frame indices not "
-                                 "monotonic")
-        torch.cuda.synchronize()
-        for idx, pos in packets.items():
-            ref = kept[idx].cpu().numpy()
-            if pos.tobytes() != ref.tobytes():
-                raise AssertionError(f"runtime: the packet of frame {idx} "
-                                     "differs from that frame's positions")
+        _check_packets(packets, kept, win["seen"], "runtime")
         if k1 != cfg.subticks * frames or k2 != 8 * frames:
             raise AssertionError(f"runtime: {frames} frames launched K1 {k1}"
                                  f", K2 {k2} times")
@@ -3778,6 +3827,384 @@ def run_far_modes(dev, card, parent=None) -> dict:
     return dict(instances=inst, kd=kd, v3=v3, knobs=knobs)
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the compiled frames (ops/compiled.py: frames captured into CUDA
+# graphs and replayed), each against the same frame run op by op on the
+# card, bit for bit
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def _same(a, b) -> bool:
+    """Every tensor of two states equal bit for bit (NaN payloads too)."""
+    ta, tb_ = list(compiled.tensors(a)), list(compiled.tensors(b))
+    return len(ta) == len(tb_) and all(torch.equal(_bits(x), _bits(y))
+                                       for x, y in zip(ta, tb_))
+
+
+def _turns_ms(fns: dict, n: int) -> dict:
+    """Frame ms (CUDA events) of ``fns["eager"]`` and ``fns["captured"]``
+    in turns: eager, captured, captured, eager, ``n`` frames each."""
+    ms = {"eager": [], "captured": []}
+    for kind in ("eager", "captured", "captured", "eager"):
+        ms[kind] += _frames(fns[kind], n)
+    return ms
+
+
+def _rates(ms: dict, substeps: int) -> dict:
+    return {k: len(v) * substeps / (sum(v) / 1e3) for k, v in ms.items()}
+
+
+def _profile_replay(label: str, step, frame_ms: float, substeps: int,
+                    fns) -> dict:
+    """``profile_frame`` of a frame that only replays: a frame that
+    captures (a chunk length or list capacity met for the first time)
+    runs its warm-up op by op under the profiler and is profiled again,
+    up to three times."""
+    for _ in range(3):
+        before = sum(f.stats()["captures"] for f in fns)
+        prof = profile_frame(label, step, frame_ms, substeps)
+        if sum(f.stats()["captures"] for f in fns) == before:
+            return prof
+    raise AssertionError(f"{label}: every profiled frame captured")
+
+
+def run_compiled_general(dev, card: str) -> dict:
+    """BASELINE configs 1, 4 and 3 through ``frame_jit`` from a cleared
+    cache: the first call (warm-up, capture, replay) timed and held
+    against ``frame`` bit for bit; frames in turns with ``frame``; the
+    two trajectories still equal after the turns; one capture for all of
+    it; one eager and one replayed frame under the profiler."""
+    consts, uin = tb.PhysicsConstants(), tb.UserInput()
+    gstep.frame_jit.clear()
+    out = {}
+    for (label, build, _n, _warm), n in zip(GENERAL_CONFIGS,
+                                            COMPILED_TURN_FRAMES):
+        st, cfg = build(dev)
+        before = gstep.frame_jit.stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        c = gstep.frame_jit(st, consts, uin, cfg)
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        e = gstep.frame(st, consts, uin, cfg)
+        if not _same(c, e):
+            raise AssertionError(f"compiled {label}: the first captured "
+                                 "frame differs from the eager frame")
+        box = {"captured": c, "eager": e}
+        fns = {"captured": lambda: box.__setitem__("captured", gstep.frame_jit(
+                   box["captured"], consts, uin, cfg)),
+               "eager": lambda: box.__setitem__("eager", gstep.frame(
+                   box["eager"], consts, uin, cfg))}
+        ms = _turns_ms(fns, n)
+        if not _same(box["captured"], box["eager"]):
+            raise AssertionError(f"compiled {label}: after {4 * n} frames "
+                                 "in turns the trajectories differ")
+        captures = gstep.frame_jit.stats()["captures"] - before["captures"]
+        if captures != 1:
+            raise AssertionError(f"compiled {label}: {captures} captures")
+        rate = _rates(ms, cfg.subticks)
+        prof = {k: profile_frame(f"compiled {label}, {k}", fns[k],
+                                 sum(ms[k]) / len(ms[k]), cfg.subticks)
+                for k in ("eager", "captured")}
+        log(f"compiled {label}: first call (warm-up, capture, replay) "
+            f"{first_ms:.1f} ms, captured == eager bit for bit, and after "
+            f"{2 * n} frames each in turns; eager {rate['eager']:.1f}, "
+            f"captured {rate['captured']:.1f} substeps/s "
+            f"({rate['captured'] / rate['eager']:.2f}x); device ms a "
+            f"substep eager {prof['eager']['busy_ms'] / cfg.subticks:.4f}, "
+            f"captured {prof['captured']['busy_ms'] / cfg.subticks:.4f}; "
+            f"idle eager {prof['eager']['idle']:.2f}, captured "
+            f"{prof['captured']['idle']:.2f}; launches a substep "
+            f"{prof['eager']['per_substep']:.1f} / "
+            f"{prof['captured']['per_substep']:.1f} on {card}")
+        out[label.split()[1]] = dict(rate=rate, prof=prof,
+                                     first_ms=first_ms)
+    return out
+
+
+def run_compiled_drag(dev, card: str) -> dict:
+    """A mouse drag on ``cloth(32, 32)``: DRAG_FRAMES frames, each with a
+    new mouse position and velocity, through ``frame_jit``: each a miss
+    and a capture (the user input is baked into the graph), the frames
+    equal to ``frame``'s; the same drag again replays from the cache."""
+    consts = tb.PhysicsConstants()
+    st, cfg = scenes.cloth(32, 32, device=dev)
+    st = gstep.frame_jit(st, consts, tb.UserInput(), cfg)
+    uins = [tb.UserInput(mouse_active=True, mouse_pos=(300.0 + 25.0 * i,
+                                                       600.0),
+                         mouse_vel=(50.0, -12.5 * i))
+            for i in range(DRAG_FRAMES)]
+
+    def drag(frame):
+        s = st
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for u in uins:
+            s = frame(s, consts, u, cfg)
+        torch.cuda.synchronize()
+        return s, DRAG_FRAMES / (time.perf_counter() - t0)
+
+    before = gstep.frame_jit.stats()
+    got, fps = drag(gstep.frame_jit)
+    misses = gstep.frame_jit.stats()["misses"] - before["misses"]
+    ref, fps_eager = drag(gstep.frame)
+    again, fps_cached = drag(gstep.frame_jit)
+    misses_again = gstep.frame_jit.stats()["misses"] - before["misses"]
+    if not (_same(got, ref) and _same(again, ref)):
+        raise AssertionError("compiled drag: the captured frames differ "
+                             "from the eager frames")
+    if misses != DRAG_FRAMES or misses_again != misses:
+        raise AssertionError(f"compiled drag: {misses} misses, then "
+                             f"{misses_again}")
+    log(f"compiled drag, cloth(32, 32): {DRAG_FRAMES} frames each with a "
+        f"new mouse position and velocity, {misses} misses (a capture "
+        f"each) at {fps:.2f} frames/s; eager {fps_eager:.2f} frames/s; "
+        f"the same drag again, replayed, {fps_cached:.2f} frames/s; "
+        f"captured == eager bit for bit on {card}")
+    return {"fps": fps, "fps_eager": fps_eager, "fps_cached": fps_cached,
+            "misses": misses}
+
+
+def check_compiled_alternating(dev, card: str) -> None:
+    """Two states through the same captured frame in turns (one graph):
+    every returned state equal to its own eager trajectory after all the
+    calls."""
+    consts, uin = tb.PhysicsConstants(), tb.UserInput()
+    a, cfg = scenes.cloth(32, 32, device=dev)
+    runs = {"a": [a], "b": [_stirred_world(a, SEED + 16)]}
+    before = gstep.frame_jit.stats()
+    for _ in range(2):
+        for k in runs:
+            runs[k].append(gstep.frame_jit(runs[k][-1], consts, uin, cfg))
+    for k, states in runs.items():
+        ref = states[0]
+        for i, got in enumerate(states[1:], 1):
+            ref = gstep.frame(ref, consts, uin, cfg)
+            if not _same(got, ref):
+                raise AssertionError(f"compiled, two states: state {k} "
+                                     f"frame {i} differs from eager")
+    st = gstep.frame_jit.stats()
+    log(f"compiled, two states in turns through one graph: each of 4 "
+        f"returned states equal to its eager trajectory bit for bit "
+        f"({st['captures'] - before['captures']} captures, "
+        f"{st['replays'] - before['replays']} replays) on {card}")
+
+
+def run_compiled_path_a(dev, card: str) -> dict:
+    """Path A (``LatticeBackend`` with ``use_pallas`` and ``FarFieldSpec
+    ()`` on the 1M tearing cloth) through its compiled chunks, from
+    cleared caches, against the same backend stepping op by op
+    (``_frame`` / ``_frame_far`` set to the plain functions): each frame
+    equal bit for bit with the same far stats and chunks, K3 64 a
+    captured frame; then a frame a turn (eager, captured, captured,
+    eager); one captured frame under the profiler; the memory reserved
+    after the graphs."""
+    state, spec, cfg, consts = tearing_cloth_lattice(
+        n_particles=N_PARTICLES, device=dev)
+    cfg = dataclasses.replace(cfg, use_pallas=True)
+    uin = tb.UserInput()
+    lattice_frame_jit.clear()
+    lattice_frame_far_jit.clear()
+    before = {f.__name__: f.stats() for f in (lattice_frame_jit,
+                                              lattice_frame_far_jit)}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved0 = torch.cuda.memory_reserved()
+    be = {"captured": LatticeBackend(spec, cfg, farfield=FarFieldSpec(),
+                                     device=dev),
+          "eager": LatticeBackend(spec, cfg, farfield=FarFieldSpec(),
+                                  device=dev)}
+    be["eager"]._frame = lattice_frame
+    be["eager"]._frame_far = lattice_frame_far
+    box = {"captured": state, "eager": state}
+    del state
+    fns = {k: (lambda k=k: box.__setitem__(k, be[k].step(box[k], consts,
+                                                          uin)))
+           for k in be}
+    first = {"eager": [], "captured": []}
+    k3 = []
+    for i in range(COMPILED_PATH_A_FRAMES):
+        collide_stencil.K3_LAUNCHES = 0
+        first["captured"] += _frames(fns["captured"], 1)
+        k3.append(collide_stencil.K3_LAUNCHES)
+        first["eager"] += _frames(fns["eager"], 1)
+        if not _same(box["captured"], box["eager"]):
+            raise AssertionError(f"compiled path A: frame {i + 1} differs "
+                                 "from the eager backend's")
+    stats = {k: b.far_stats() for k, b in be.items()}
+    if (k3 != [cfg.subticks] * COMPILED_PATH_A_FRAMES
+            or stats["captured"] != stats["eager"]
+            or be["captured"].far_chunks != be["eager"].far_chunks
+            or stats["captured"]["far_overflow"]):
+        raise AssertionError(f"compiled path A: K3 {k3}, far stats {stats},"
+                             f" chunks {be['captured'].far_chunks} / "
+                             f"{be['eager'].far_chunks}")
+    ms = _turns_ms(fns, 1)
+    if not _same(box["captured"], box["eager"]):
+        raise AssertionError("compiled path A: the frames in turns differ")
+    torch.cuda.synchronize()
+    reserved = torch.cuda.memory_reserved()
+    graphs = {f.__name__: {k: v - before[f.__name__][k] if k != "graphs"
+                           else v for k, v in f.stats().items()}
+              for f in (lattice_frame_jit, lattice_frame_far_jit)}
+    rate = _rates(ms, cfg.subticks)
+    prof = _profile_replay("compiled path A, captured", fns["captured"],
+                           sum(ms["captured"]) / 2, cfg.subticks,
+                           (lattice_frame_jit, lattice_frame_far_jit))
+    profile_frame("compiled path A, eager", fns["eager"],
+                  sum(ms["eager"]) / 2, cfg.subticks)
+    log(f"compiled path A: frames 1-{COMPILED_PATH_A_FRAMES} captured ms "
+        f"{[round(t, 1) for t in first['captured']]} (K3 {k3}), eager ms "
+        f"{[round(t, 1) for t in first['eager']]}, each frame equal bit for "
+        f"bit, far stats {stats['captured']}, {be['captured'].far_chunks} "
+        f"chunks; then in turns eager {rate['eager']:.1f}, captured "
+        f"{rate['captured']:.1f} substeps/s "
+        f"({rate['captured'] / rate['eager']:.2f}x); graphs {graphs}; "
+        f"memory reserved {reserved / 2**30:.2f} GiB "
+        f"({(reserved - reserved0) / 2**30:.2f} GiB over the cleared "
+        f"caches) on {card}")
+    return {"rate": rate, "prof": prof, "k3": sum(k3),
+            "reserved_gib": reserved / 2**30,
+            "graphs_gib": (reserved - reserved0) / 2**30}
+
+
+def check_compiled_fold(dev, card: str) -> None:
+    """The small fold, far-armed with one list, through
+    ``lattice_frame_far_jit`` with K3: two calls (capture, replay) equal
+    to ``lattice_frame_far`` bit for bit, K3 once a substep a call."""
+    consts, uin = tb.PhysicsConstants(), tb.UserInput()
+    spec = LatticeSpec(96, 4)
+    cfg = tb.StaticConfig(subticks=8, particle_radius=4.0, use_pallas=True)
+    ff = FarFieldSpec(max_pairs=512, max_tile_pairs=64, skin=4.0, horizon=8)
+    st = _hairpin(dev)
+    fl = rebuild_far_list(st.pos, st.alive, s=2, ff=ff, radius=4.0)
+    pairs = fl.counts()[0]
+    k3 = 0
+    c = e = st
+    for i in range(2):
+        before = collide_stencil.K3_LAUNCHES
+        c = lattice_frame_far_jit(c, fl, consts, uin, spec, cfg, ff)
+        k3 += collide_stencil.K3_LAUNCHES - before
+        e = lattice_frame_far(e, fl, consts, uin, spec, cfg, ff)
+        if not _same(c, e):
+            raise AssertionError(f"compiled fold: call {i + 1} differs")
+    if pairs == 0 or k3 != 2 * cfg.subticks:
+        raise AssertionError(f"compiled fold: {pairs} far pairs, K3 {k3} "
+                             "in the captured calls")
+    log(f"compiled fold 96x4 ({pairs} far pairs): lattice_frame_far_jit == "
+        f"lattice_frame_far bit for bit over 2 calls, K3 {k3} on {card}")
+
+
+def run_compiled_directed(dev, card: str) -> dict:
+    """The compiled ``directed_frame`` at config 3 (the 100k
+    self-colliding cloth's directed tables) against its loop
+    (``directed_frame.__wrapped__``): the first call equal bit for bit,
+    and the trajectories equal after a frame a turn (eager, captured,
+    captured, eager)."""
+    consts, uin = tb.PhysicsConstants(), tb.UserInput()
+    flat, cfg = scenes.self_colliding_cloth(PLANIFIED_N, device=dev)
+    ds, _slot_edge = build_directed(flat)
+    eager = directed_frame.__wrapped__
+    box = {"captured": directed_frame(ds, consts, uin, cfg),
+           "eager": eager(ds, consts, uin, cfg)}
+    if not _same(box["captured"], box["eager"]):
+        raise AssertionError("compiled directed config 3: the first "
+                             "captured frame differs")
+    fns = {"captured": lambda: box.__setitem__("captured", directed_frame(
+               box["captured"], consts, uin, cfg)),
+           "eager": lambda: box.__setitem__("eager", eager(
+               box["eager"], consts, uin, cfg))}
+    rate = _rates(_turns_ms(fns, 1), cfg.subticks)
+    if not _same(box["captured"], box["eager"]):
+        raise AssertionError("compiled directed config 3: the frames in "
+                             "turns differ")
+    log(f"compiled directed config 3: captured == eager bit for bit over 3 "
+        f"frames; in turns eager {rate['eager']:.1f}, captured "
+        f"{rate['captured']:.1f} substeps/s on {card}")
+    return rate
+
+
+def run_compiled_runtime(dev, card: str) -> dict:
+    """The engines a user drives, now stepping captured frames on their
+    worker thread (captures there too) while this thread polls: ``Engine``
+    on ``cloth(32, 32)`` and ``LatticeEngine`` on path A (K3 64 a
+    frame), each in windows alone, polled, polled, alone: frames/s,
+    packet latency, packets bitwise equal to a clone of their frame."""
+    out = {}
+    consts = tb.PhysicsConstants()
+    st, cfg = scenes.cloth(32, 32, device=dev)
+    opts = EngineOptions(subticks=cfg.subticks,
+                         particle_radius=cfg.particle_radius,
+                         collision_mode=cfg.collision_mode, target_fps=None)
+    engines = [("general", lambda: Engine(st, consts, opts, device=dev))]
+    lstate, spec, lcfg, lconsts = tearing_cloth_lattice(
+        n_particles=N_PARTICLES, device=dev)
+    lopts = EngineOptions(subticks=lcfg.subticks,
+                          particle_radius=lcfg.particle_radius,
+                          use_pallas=True, target_fps=None)
+    engines.append(("path A", lambda: LatticeEngine(
+        lstate, spec, lconsts, lopts, farfield=FarFieldSpec(), device=dev)))
+    for label, make in engines:
+        collide_stencil.K3_LAUNCHES = 0
+        with make() as eng:
+            far = {}
+            kept = _witness(eng)
+            f = _wait_frames(eng, 1, far).frame_index
+            win = _alone_and_polled(eng, f, COMPILED_RUNTIME_FRAMES[label],
+                                    far, f"compiled runtime, {label}")
+            frames = _pause(eng, far)
+            k3 = collide_stencil.K3_LAUNCHES
+            _check_packets(win["packets"], kept, win["seen"],
+                           f"compiled runtime, {label}")
+            if eng.error is not None:
+                raise AssertionError(f"compiled runtime, {label}: "
+                                     f"{eng.error!r}")
+        if label == "path A" and k3 != lcfg.subticks * frames:
+            raise AssertionError(f"compiled runtime, path A: {frames} "
+                                 f"frames, K3 {k3}")
+        lat = sorted(win["lat"])
+        out[label] = dict(fps_alone=win["fps_alone"],
+                          fps_polled=win["fps_polled"],
+                          lat_median=lat[len(lat) // 2], lat_max=lat[-1])
+        log(f"compiled runtime, {label}: {frames} frames on the worker "
+            f"thread, {win['fps_alone']:.3f} frames/s alone, "
+            f"{win['fps_polled']:.3f} polled flat-out ({len(lat)} packets, "
+            f"latency median {out[label]['lat_median']:.2f} ms, max "
+            f"{out[label]['lat_max']:.1f} ms; {len(win['packets'])} packets "
+            f"bitwise equal to their frame's positions); K3 {k3}, far stats "
+            f"over the reads {far} on {card}")
+    del lstate
+    return out
+
+
+def run_compiled(dev, card: str) -> dict:
+    """Phase 16: the compiled frames against eager (see the functions)."""
+    laps = [time.perf_counter()]
+    parts = {}
+
+    def lap(name):
+        laps.append(time.perf_counter())
+        parts[name] = round(laps[-1] - laps[-2], 1)
+
+    out = {"general": run_compiled_general(dev, card)}
+    lap("general")
+    out["drag"] = run_compiled_drag(dev, card)
+    check_compiled_alternating(dev, card)
+    lap("drag, two states")
+    out["path A"] = run_compiled_path_a(dev, card)
+    lap("path A")
+    check_compiled_fold(dev, card)
+    out["directed"] = run_compiled_directed(dev, card)
+    lap("fold, directed")
+    out["runtime"] = run_compiled_runtime(dev, card)
+    lap("runtime")
+    log(f"phase 16 compiled: {laps[-1] - laps[0]:.1f} s ({parts})")
+    return out
+
+
 def _occupancy() -> None:
     """K1's, K4's and K3's residency per SM at the stencil radii they are
     held at, and K2's (registers, spills and shared memory from the
@@ -3962,6 +4389,11 @@ def main() -> int:
     # triggered mode (K1), the knobs (each counted from 0)
     far_modes = run_far_modes(dev, card, parent)
 
+    # phase 16: the compiled frames (captured CUDA graphs) against eager:
+    # configs 1, 4, 3, the drag, two states in turns, path A (K3 counted
+    # from 0 each frame), the fold, directed config 3, the runtime
+    comp = run_compiled(dev, card)
+
     pallas = "softbody_tpu/ops/pallas/"
     probe_src = "scripts/probe_recmirror.py"
     rows = (
@@ -4006,6 +4438,8 @@ def main() -> int:
             row["launches_kernel_detect"] = kd[k.lower()]
         if k in ("K2", "K3", "K7"):
             row["launches_planified"] = plan[k.lower()]
+        if k == "K3":
+            row["launches_compiled"] = comp["path A"]["k3"]
         if k in ("K2", "K7"):
             row["launches_cli"] = launches_cli[k]
         if k in launches_sharded:
@@ -4051,6 +4485,24 @@ def main() -> int:
         "mode instances " + ", ".join(
             f"{k} {v['ms']:.4f} ms (bound {v['bound_ms']:.4f})"
             for k, v in far_modes["instances"].items() if "ms" in v)
+        + f" on {card}")
+    gen = comp["general"]
+    log("compiled frames (phase 16), eager -> captured substeps/s: "
+        + ", ".join(f"config {k} {v['rate']['eager']:.1f} -> "
+                    f"{v['rate']['captured']:.1f} (idle "
+                    f"{v['prof']['eager']['idle']:.2f} -> "
+                    f"{v['prof']['captured']['idle']:.2f})"
+                    for k, v in gen.items())
+        + f", path A {comp['path A']['rate']['eager']:.1f} -> "
+        f"{comp['path A']['rate']['captured']:.1f} (captured idle "
+        f"{comp['path A']['prof']['idle']:.2f}; graphs "
+        f"{comp['path A']['graphs_gib']:.2f} GiB), directed config 3 "
+        f"{comp['directed']['eager']:.1f} -> "
+        f"{comp['directed']['captured']:.1f}; drag {comp['drag']['fps']:.2f}"
+        f" frames/s ({comp['drag']['misses']} misses; eager "
+        f"{comp['drag']['fps_eager']:.2f}); runtime frames/s alone / polled"
+        + "".join(f", {k} {v['fps_alone']:.2f} / {v['fps_polled']:.2f}"
+                  for k, v in comp["runtime"].items())
         + f" on {card}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,10 +8,11 @@ Every module mirrors the JAX package's module of the same name; the JAX
 package is the reference the port is tested against.  This package never
 imports JAX.
 
-The exports match the JAX package's, but for ``frame_jit``: torch runs
-eagerly, so ``frame`` is the one frame function (there is no jit and no
-donated state).  ``python -m softbody_tpu_torch`` is the CLI
-(``cli.py``).
+The exports match the JAX package's.  ``frame`` runs a frame op by op;
+``frame_jit``, the counterpart of JAX's jitted and donating frame, runs
+it on the card as one captured CUDA graph per key (``ops/compiled.py``)
+and as ``frame`` on the CPU.  ``python -m softbody_tpu_torch`` is the
+CLI (``cli.py``).
 """
 
 from .config import (  # noqa: F401
@@ -33,7 +34,7 @@ from .convert import (  # noqa: F401
     sim_state_to_numpy,
     user_input_from_numpy,
 )
-from .ops import frame, substep  # noqa: F401
+from .ops import frame, frame_jit, substep  # noqa: F401
 from .state import SimState, empty_state, state_from_numpy  # noqa: F401
 
 __version__ = "0.1.0"

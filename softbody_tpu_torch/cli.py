@@ -15,7 +15,9 @@ raises, and ``--device cpu`` runs the plain torch versions).  The verbs
 keep the JAX CLI's arguments, JSON lines and behaviour, including what
 it ignores: ``run --path lattice`` steps without the far field,
 ``render`` and ``play`` with ``--path planified`` run the general
-engine.
+engine.  ``run`` and ``render`` step through the compiled frames
+(``frame_jit``, ``lattice_frame_jit``: CUDA graphs on the card), ``play``
+through the engines' backends, which use the same.
 """
 
 from __future__ import annotations
@@ -114,7 +116,7 @@ def _build_lattice_scene(args, dev):
 
 
 def cmd_run(args) -> int:
-    from .ops.step import frame
+    from .ops.step import frame_jit
     from .utils.profiling import Profiler, device_trace
 
     dev = resolve_device(args.device)
@@ -122,7 +124,7 @@ def cmd_run(args) -> int:
     if args.path == "lattice":
         # the JAX CLI steps the lattice without the far field whatever
         # --farfield says (softbody_tpu/cli.py:107-119)
-        from .ops.stencil import lattice_frame
+        from .ops.stencil import lattice_frame_jit
 
         state, spec, cfg, consts = _build_lattice_scene(args, dev)
         w, h = state.shape
@@ -130,7 +132,7 @@ def cmd_run(args) -> int:
         m = sum(int(e.alive.sum()) for e in state.edges)
 
         def step(s):
-            return lattice_frame(s, consts, uin, spec, cfg)
+            return lattice_frame_jit(s, consts, uin, spec, cfg)
 
         def beams_alive(s):
             return sum(int(e.alive.sum()) for e in s.edges)
@@ -162,7 +164,7 @@ def cmd_run(args) -> int:
         m = int(state.beam_count)
 
         def step(s):
-            return frame(s, consts, uin, cfg)
+            return frame_jit(s, consts, uin, cfg)
 
         def beams_alive(s):
             return int(s.beam_alive.sum())
@@ -172,7 +174,7 @@ def cmd_run(args) -> int:
           f"collision={cfg.collision_mode} subticks={cfg.subticks}",
           file=sys.stderr)
     prof = Profiler(cfg.subticks, n)
-    # warm-up frame (the JAX CLI's compile)
+    # warm-up frame (the JAX CLI's compile; here the graph's capture)
     state = step(state)
     _sync(dev)
     prof.start()
@@ -207,7 +209,7 @@ def cmd_run(args) -> int:
 
 
 def cmd_render(args) -> int:
-    from .ops.step import frame
+    from .ops.step import frame_jit
     from .viz import render_state, save_png
 
     dev = resolve_device(args.device)
@@ -215,12 +217,12 @@ def cmd_render(args) -> int:
     uin = UserInput.none()
     if args.path == "lattice":
         from .models import lattice_to_simstate
-        from .ops.stencil import lattice_frame
+        from .ops.stencil import lattice_frame_jit
 
         lstate, spec, cfg, consts = _build_lattice_scene(args, dev)
 
         def advance(s):
-            return lattice_frame(s, consts, uin, spec, cfg)
+            return lattice_frame_jit(s, consts, uin, spec, cfg)
 
         def renderable(s):
             return lattice_to_simstate(s, build_incidence=False, device=dev)
@@ -233,7 +235,7 @@ def cmd_render(args) -> int:
         consts = PhysicsConstants.default()
 
         def advance(s):
-            return frame(s, consts, uin, cfg)
+            return frame_jit(s, consts, uin, cfg)
 
         def renderable(s):
             return s

@@ -23,6 +23,7 @@ import torch
 DEFAULT_BOUNDS_SIZE = 1000.0
 DEFAULT_PARTICLE_RADIUS = 10.0
 DEFAULT_SUBTICKS = 64
+DEFAULT_BLUR = 0.4
 # Fixed-point force-accumulation scale (compute.wgsl:70).
 PARTICLE_FORCE_SCALE = 65536.0
 # Stress visualization scale (compute.wgsl:71): stress = force_mag / 20.

@@ -4,10 +4,11 @@ render extraction, snapshot IO, fault injection and stats for one state
 representation.
 
 :class:`SimBackend` steps the general gather-path :class:`SimState`
-(``ops/step.frame``; arbitrary topology).
+(``ops/step.frame_jit``; arbitrary topology).
 :class:`LatticeBackend` steps a :class:`LatticeState` with the stencil
-path (``ops/stencil.py``; its collisions through kernel K3 when
-``cfg.use_pallas``) and, when far field is armed, a Verlet-style
+path (``ops/stencil.lattice_frame_jit`` / ``lattice_frame_far_jit``;
+its collisions through kernel K3 when ``cfg.use_pallas``) and, when far
+field is armed, a Verlet-style
 candidate list that it rebuilds when the motion since the last rebuild
 could outrun the skin.  :class:`FusedLatticeBackend` steps persistent
 packed planes with the fused substep kernel (K1, by default in the JAX
@@ -68,12 +69,12 @@ from ..ops.farfield import (
     max_relative_speed,
     rebuild_far_list,
 )
-from ..ops.step import frame as sim_frame
+from ..ops.step import frame_jit
 from ..ops.stencil import (
     LatticeState,
     check_reference_offsets,
-    lattice_frame,
-    lattice_frame_far,
+    lattice_frame_far_jit,
+    lattice_frame_jit,
 )
 from ..snapshot import (
     SnapshotError,
@@ -165,8 +166,10 @@ def _corrupt_array(arr: torch.Tensor, rng: np.random.Generator
 
 
 class SimBackend:
-    """The general gather engine (``ops/step.frame``) on ``device``
-    (default: the CUDA device); snapshots in v0/v1 (``snapshot.py``)
+    """The general gather engine on ``device`` (default: the CUDA
+    device), stepped through ``ops/step.frame_jit`` (on the card one
+    captured CUDA graph per frame, as JAX's ``_sim_step`` is one jitted,
+    donating program); snapshots in v0/v1 (``snapshot.py``)
     within the capacities ``max_particles``/``max_beams``."""
 
     _RENDER = ("pos", "particle_alive", "beam_a", "beam_b", "beam_alive",
@@ -186,7 +189,7 @@ class SimBackend:
 
     def step(self, state: SimState, consts: PhysicsConstants,
              uin: UserInput) -> SimState:
-        return sim_frame(state, consts, uin, self.cfg)
+        return frame_jit(state, consts, uin, self.cfg)
 
     def extract(self, state: SimState) -> Extracted:
         return Readback.extract(getattr(state, k) for k in self._RENDER)
@@ -245,11 +248,19 @@ class LatticeBackend:
     the skin/2 validity budget and rebuilds the list when it would run
     out.  An empty list keeps the near-field-only frame; capacity buckets
     (``_FAR_BUCKETS``) keep the per-substep gather small when few pairs
-    are active."""
+    are active.
+
+    The chunks run through ``lattice_frame_jit`` / ``lattice_frame_far_jit``
+    (``self._frame`` / ``self._frame_far``, as in JAX): on the card one
+    captured CUDA graph per chunk length (1, 2, 4, ..., 64) and list
+    capacity (a bucket or ``max_pairs``), replayed; the rebuild decisions
+    (``_motion``, ``_far_rebuild``, the chunk lengths) stay on the
+    host."""
 
     _FAR_BUCKETS = (64, 256, 1024)
     # below this validity horizon (in substeps) a rebuild is cheaper than
-    # dicing the frame further; chunks are powers of two
+    # dicing the frame further; chunks are powers of two, which bounds the
+    # number of graphs
     _MIN_CHUNK = 4
 
     def __init__(self, spec, cfg: StaticConfig, farfield=None, *,
@@ -260,6 +271,8 @@ class LatticeBackend:
         self.device = resolve_device(device)
         if self.device.type not in FAR_BANDS:
             raise ValueError(f"no kernels for device {self.device}")
+        self._frame = lattice_frame_jit
+        self._frame_far = lattice_frame_far_jit
         self._far_list = None         # full-capacity list
         self._far_active = None       # cropped list passed to the frame
         self.far_rebuilds = 0
@@ -306,11 +319,10 @@ class LatticeBackend:
 
     def _frame_chunk(self, state, consts, uin, n_sub):
         if self._far_active is not None:
-            return lattice_frame_far(state, self._far_active, consts, uin,
-                                     self.spec, self.cfg, self.ff,
-                                     n_sub=n_sub)
-        return lattice_frame(state, consts, uin, self.spec, self.cfg,
-                             n_sub=n_sub)
+            return self._frame_far(state, self._far_active, consts, uin,
+                                   self.spec, self.cfg, self.ff, n_sub=n_sub)
+        return self._frame(state, consts, uin, self.spec, self.cfg,
+                           n_sub=n_sub)
 
     def step(self, state: LatticeState, consts: PhysicsConstants,
              uin: UserInput) -> LatticeState:
@@ -326,7 +338,7 @@ class LatticeBackend:
             raise ValueError(f"state on {state.device}, backend on "
                              f"{self.device}")
         if self.ff is None or self.cfg.collision_mode == "none":
-            return lattice_frame(state, consts, uin, self.spec, self.cfg)
+            return self._frame(state, consts, uin, self.spec, self.cfg)
         dt = self.cfg.dt
         budget = self.ff.skin * 0.5
         remaining = self.cfg.subticks

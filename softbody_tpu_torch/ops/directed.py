@@ -37,6 +37,7 @@ from ..config import (
 )
 from ..state import SimState
 from .collisions import collision_terms
+from .compiled import Compiled
 from .forces import beam_terms
 from .integrate import integrate_particles
 from .stencil import f32_to_i32
@@ -212,11 +213,18 @@ def directed_substep(ds: DirectedState, consts: PhysicsConstants,
     return dataclasses.replace(ds, pos=pos, vel=vel, acc=acc, **upd)
 
 
-def directed_frame(ds: DirectedState, consts: PhysicsConstants,
-                   uin: UserInput, cfg: StaticConfig,
-                   n_sub: Optional[int] = None) -> DirectedState:
+def _directed_frame(ds: DirectedState, consts: PhysicsConstants,
+                    uin: UserInput, cfg: StaticConfig,
+                    n_sub: Optional[int] = None) -> DirectedState:
     """One frame: ``cfg.subticks`` substeps (or ``n_sub``)."""
     n = cfg.subticks if n_sub is None else n_sub
     for _ in range(n):
         ds = directed_substep(ds, consts, uin, cfg)
     return ds
+
+
+# compiled, as the JAX package's jitted and donating ``directed_frame``
+# (``ops/compiled.py``: one CUDA graph per key on the card; the loop
+# above, ``directed_frame.__wrapped__``, on the CPU)
+directed_frame = Compiled(_directed_frame, static_argnames=("cfg", "n_sub"))
+directed_frame_jit = directed_frame

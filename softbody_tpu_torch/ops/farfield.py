@@ -196,6 +196,22 @@ def _pad_plane(x: torch.Tensor, wp: int, hp: int, fill) -> torch.Tensor:
     return out
 
 
+def chunk_view(x: torch.Tensor, ff: FarFieldSpec) -> torch.Tensor:
+    """Padded ``[Wp, Hp]`` plane → chunk-major ``[Cn, chunk·chunk]``."""
+    c = ff.chunk
+    wp, hp = x.shape
+    return (x.reshape(wp // c, c, hp // c, c).permute(0, 2, 1, 3)
+            .reshape((wp // c) * (hp // c), c * c))
+
+
+def unchunk_view(x: torch.Tensor, wp: int, hp: int,
+                 ff: FarFieldSpec) -> torch.Tensor:
+    """Chunk-major ``[Cn, chunk·chunk]`` → padded ``[Wp, Hp]`` plane."""
+    c = ff.chunk
+    return (x.reshape(wp // c, hp // c, c, c).permute(0, 2, 1, 3)
+            .reshape(wp, hp))
+
+
 def _chunk_reduce(plane, op, c):
     wp, hp = plane.shape
     return op(plane.reshape(wp // c, c, hp // c, c), dim=(1, 3))

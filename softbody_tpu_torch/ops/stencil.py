@@ -23,6 +23,13 @@ after the loop over classes or offsets).  Strict is the default.
 
 Out-of-range neighbours read as dead particles at the origin (the JAX
 package's zero pad).
+
+``lattice_frame_jit``, ``lattice_frame_far_jit`` and
+``lattice_substep_jit`` are the compiled counterparts of the JAX
+package's jitted functions (``ops/compiled.py``): CUDA graphs on the
+card, captured once per key (``n_sub`` and the far list's capacity among
+it) and replayed, K3 launched inside them with ``cfg.use_pallas``; the
+functions themselves on the CPU.
 """
 
 from __future__ import annotations
@@ -41,6 +48,7 @@ from ..config import (
     UserInput,
     consts_vector,
 )
+from .compiled import Compiled
 
 
 @dataclasses.dataclass
@@ -674,3 +682,13 @@ def lattice_frame_far(
         state = lattice_substep(state, consts, uin, spec, cfg, far=far,
                                 ffspec=ffspec)
     return state
+
+
+lattice_frame_jit = Compiled(lattice_frame,
+                             static_argnames=("spec", "cfg", "n_sub"))
+
+lattice_frame_far_jit = Compiled(
+    lattice_frame_far, static_argnames=("spec", "cfg", "ffspec", "n_sub"))
+
+lattice_substep_jit = Compiled(lattice_substep,
+                               static_argnames=("spec", "cfg", "ffspec"))

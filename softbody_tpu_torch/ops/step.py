@@ -7,6 +7,11 @@ Both the beam and the particle pass of a substep read the incoming
 state and the substep returns a new one: the reference's particle
 double-buffering (engineWorker.ts:655-658).  The JAX package runs a
 frame as one ``lax.scan``; eager torch runs it as a Python loop.
+
+``substep_jit`` and ``frame_jit`` are the compiled counterparts of the
+JAX package's jitted functions (``ops/compiled.py``): on CUDA tensors a
+frame is one CUDA graph of its ``cfg.subticks`` substeps, captured once
+per key and replayed; on CPU tensors they run ``substep`` and ``frame``.
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ import dataclasses
 from ..config import PhysicsConstants, StaticConfig, UserInput
 from ..state import SimState
 from .collisions import collision_terms
+from .compiled import Compiled
 from .forces import accumulate_forces, beam_forces
 from .integrate import integrate_particles
 
@@ -42,9 +48,16 @@ def frame(state: SimState, consts: PhysicsConstants, uin: UserInput,
     return state
 
 
+substep_jit = Compiled(substep, static_argnames=("cfg",))
+
+# the hot entry point of the runtime (``SimBackend.step``) and the CLI
+frame_jit = Compiled(frame, static_argnames=("cfg",))
+
+
 def run_frames(state: SimState, consts: PhysicsConstants, uin: UserInput,
                cfg: StaticConfig, num_frames: int) -> SimState:
-    """``num_frames`` frames, one after another (benchmarks, tests)."""
+    """``num_frames`` frames through ``frame_jit``, one after another
+    (benchmarks, tests)."""
     for _ in range(num_frames):
-        state = frame(state, consts, uin, cfg)
+        state = frame_jit(state, consts, uin, cfg)
     return state

@@ -858,3 +858,117 @@ def test_sharded_frames_across_cards(dev):
         for mesh in (spread, one)]
     assert torch.equal(outs[0].pos, outs[1].pos)
     assert torch.equal(outs[0].beam_alive, outs[1].beam_alive)
+
+
+def _same_tensors(a, b) -> bool:
+    from softbody_tpu_torch.ops.compiled import tensors
+
+    ta, tb_ = list(tensors(a)), list(tensors(b))
+    return len(ta) == len(tb_) and all(torch.equal(x, y)
+                                       for x, y in zip(ta, tb_))
+
+
+@pytest.mark.parametrize("scene", ["general", "lattice K3", "fold backend",
+                                   "directed"])
+def test_compiled_frames_match_eager(dev, scene):
+    """The captured frames (``ops/compiled.py``) against the same frames
+    run op by op on the card, bit for bit, two calls each (capture, then
+    a replay): the general frame on a jittered ``cloth(8, 8)``, the
+    lattice frame with K3 (one launch a substep on each replay) on the
+    stirred 40 × 40 cloth, ``LatticeBackend`` with K3 on the far-armed
+    fold (its chunks through ``lattice_frame_far_jit``), the directed
+    frame on 8 blobs."""
+    from softbody_tpu_torch.engine import LatticeBackend
+    from softbody_tpu_torch.models import scenes
+    from softbody_tpu_torch.ops import step as gstep
+    from softbody_tpu_torch.ops.directed import build_directed, directed_frame
+    from softbody_tpu_torch.ops.stencil import (
+        LatticeSpec,
+        lattice_frame,
+        lattice_frame_far,
+        lattice_frame_jit,
+    )
+
+    consts, uin = tb.PhysicsConstants(), tb.UserInput()
+    k3_per_call = 0
+    if scene == "general":
+        st, cfg = scenes.cloth(8, 8, device=dev)
+        g = torch.Generator(device=dev).manual_seed(3)
+        st = dataclasses.replace(st, vel=torch.randn(
+            st.vel.shape, generator=g, device=dev) * 3.0)
+
+        def captured(s):
+            return gstep.frame_jit(s, consts, uin, cfg)
+
+        def eager(s):
+            return gstep.frame(s, consts, uin, cfg)
+    elif scene == "lattice K3":
+        st, spec, cfg, consts, _spacing, _g = _stirred_cloth(dev)
+        cfg = dataclasses.replace(cfg, subticks=8, use_pallas=True)
+        k3_per_call = cfg.subticks
+
+        def captured(s):
+            return lattice_frame_jit(s, consts, uin, spec, cfg)
+
+        def eager(s):
+            return lattice_frame(s, consts, uin, spec, cfg)
+    elif scene == "fold backend":
+        st = _hairpin(dev)
+        spec = LatticeSpec(96, 4)
+        cfg = tb.StaticConfig(subticks=8, particle_radius=4.0,
+                              use_pallas=True)
+        ff = FarFieldSpec(max_pairs=512, max_tile_pairs=64, skin=4.0,
+                          horizon=8)
+        k3_per_call = cfg.subticks
+        be_c = LatticeBackend(spec, cfg, farfield=ff, device=dev)
+        be_e = LatticeBackend(spec, cfg, farfield=ff, device=dev)
+        be_e._frame, be_e._frame_far = lattice_frame, lattice_frame_far
+
+        def captured(s):
+            return be_c.step(s, consts, uin)
+
+        def eager(s):
+            return be_e.step(s, consts, uin)
+    else:
+        st, cfg = scenes.multi_blob(8, device=dev)
+        st = build_directed(st)[0]
+
+        def captured(s):
+            return directed_frame(s, consts, uin, cfg)
+
+        def eager(s):
+            return directed_frame.__wrapped__(s, consts, uin, cfg)
+
+    c = e = st
+    for call in range(2):
+        k3 = collide_stencil.K3_LAUNCHES
+        c = captured(c)
+        assert collide_stencil.K3_LAUNCHES - k3 == k3_per_call, call
+        e = eager(e)
+        assert _same_tensors(c, e), f"{scene}, call {call}"
+    if scene == "fold backend":
+        assert be_c.far_stats() == be_e.far_stats()
+        assert be_c.far_stats()["far_pairs"] > 0
+
+
+def test_compiled_frame_with_host_read_raises(dev):
+    """A frame that reads a device value on the host (``.item()``) cannot
+    be captured: the call raises and returns nothing; a frame captured
+    after it runs."""
+    from softbody_tpu_torch.models import scenes
+    from softbody_tpu_torch.ops import step as gstep
+    from softbody_tpu_torch.ops.compiled import Compiled
+
+    def reads(state, consts, uin, cfg):
+        if state.pos.sum().item() > 0.0:
+            state = gstep.substep(state, consts, uin, cfg)
+        return state
+
+    st, cfg = scenes.cloth(8, 8, device=dev)
+    consts, uin = tb.PhysicsConstants(), tb.UserInput()
+    compiled = Compiled(reads, static_argnames=("cfg",))
+    with pytest.raises(RuntimeError):
+        compiled(st, consts, uin, cfg)
+    assert compiled.stats()["captures"] == 0
+    got = gstep.frame_jit(st, consts, uin, cfg)
+    assert _same_tensors(got, gstep.frame(st, consts, uin, cfg))

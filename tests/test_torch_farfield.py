@@ -233,3 +233,19 @@ def test_motion_checks_match_jax():
                                        torch.from_numpy(alive)))
     np.testing.assert_allclose(got, ref, rtol=1e-6)
     assert got > 1.0
+
+
+@pytest.mark.parametrize("chunk", [4, 8])
+def test_chunk_views_match_jax(chunk):
+    """``chunk_view`` and ``unchunk_view`` on a padded plane bit for bit
+    against the JAX package's, and back to the plane."""
+    ff_kw = dict(chunk=chunk, tile_chunks=2)
+    wp, hp = 4 * chunk, 6 * chunk
+    x = np.random.default_rng(chunk).normal(size=(wp, hp)).astype(np.float32)
+    ref = np.asarray(jff.chunk_view(jnp.asarray(x), JFarFieldSpec(**ff_kw)))
+    got = tff.chunk_view(torch.from_numpy(x), FarFieldSpec(**ff_kw))
+    np.testing.assert_array_equal(got.numpy(), ref)
+    back = tff.unchunk_view(got, wp, hp, FarFieldSpec(**ff_kw))
+    np.testing.assert_array_equal(back.numpy(), x)
+    np.testing.assert_array_equal(back.numpy(), np.asarray(jff.unchunk_view(
+        jnp.asarray(ref), wp, hp, JFarFieldSpec(**ff_kw))))

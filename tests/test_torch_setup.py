@@ -58,6 +58,7 @@ PORT_MODULES = (
     "softbody_tpu_torch.ops.step",
     "softbody_tpu_torch.ops.planify",
     "softbody_tpu_torch.ops.directed",
+    "softbody_tpu_torch.ops.compiled",
     "softbody_tpu_torch.cli",
     "softbody_tpu_torch.viz",
     "softbody_tpu_torch.tui",
