@@ -50,6 +50,15 @@ to 0 just before it and read just after:
   each held bit for bit against the same frames run op by op and timed
   in turns with them; ``Engine`` and ``LatticeEngine`` (path A) stepping
   captured frames on their worker threads while this thread polls;
+- the compiled fused frames (phase 17): ``FusedLatticeBackend`` on the
+  bench scene (its default variants and strict, kernel detection, v3)
+  stepping whole-frame CUDA graphs whose far-apply bucket, rebuild
+  trigger and K1 instance are IF nodes decided on the card
+  (``fused_frame4_jit``, ``fused_frame3_auto_jit``), each in turns with
+  its eager twin over frames 3-10: every frame and its stats bit for
+  bit, launches equal, no host read in a frame, the first call's time
+  and memory, the idle share; ``LatticeEngine(fused=True)`` alone and
+  polled;
 - the CLI (phase 13), as a user first runs it, in this process:
   ``run`` of the 1M tearing cloth on the lattice path and of the 100k
   cloth planified and far-armed (K2, K7), ``render`` of the 1M cloth,
@@ -77,6 +86,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import io
 import itertools
 import json
@@ -195,6 +205,7 @@ from softbody_tpu_torch.ops.stencil import (
     lattice_frame_far,
     lattice_frame_far_jit,
     lattice_frame_jit,
+    lattice_substep_jit,
     shifted,
     sqrt32,
 )
@@ -271,8 +282,11 @@ GENERAL_ATOL = {"pos": 2e-3, "vel": 4e-3}
 # after 2 warm frames: stepping alone, polled, polled, alone (frames 2-10;
 # the order cancels the frames' drift in cost, which grows as far pairs
 # appear); past frame ~12 the crumpling sheet's candidate pairs outgrow
-# the bench far field's 16384
+# the bench far field's 16384, and the engine stepping captured frames
+# runs past the windows into them (~16 frames): ``far_overflow`` 0 is
+# held over the reads up to RUNTIME_HELD_FRAMES, the later ones logged
 RUNTIME_FRAMES = 2
+RUNTIME_HELD_FRAMES = 12
 
 # K4 against its plain version: edge planes bit-exact, particle planes
 # within the port's parity tolerances (tests/test_torch_substep.py); K1
@@ -375,6 +389,9 @@ COMPILED_TURN_FRAMES = (2, 2, 1)
 DRAG_FRAMES = 4
 COMPILED_PATH_A_FRAMES = 2
 COMPILED_RUNTIME_FRAMES = {"general": 5, "path A": 1}
+# the compiled fused frames (phase 17): frames per turn (eager, captured,
+# captured, eager) over frames 3-10 of each fused path
+FUSED_TURN_FRAMES = 4
 
 # the card's peaks for the bound (NVIDIA's H100 SXM data sheet): device
 # memory rate, and float32 outside the tensor cores
@@ -1018,9 +1035,11 @@ def _small_fold(dev) -> dict:
                                         ff, max_pairs=max_pairs,
                                         max_tile_pairs=32), **kw)
         hot = fused.pack_state(_hairpin(dev))
+        compiled.sync_counts()
         before = dict(farfield4.APPLY_ROUTES)
         for _ in range(2):
             hot = fused.step(hot, consts, uin)
+        compiled.sync_counts()
         ran = {k: v - before[k] for k, v in farfield4.APPLY_ROUTES.items()}
         if ran[route] != 2 * cfg.subticks or sum(ran.values()) != ran[route]:
             raise AssertionError(f"small fold, fused backend: far applies "
@@ -1100,6 +1119,20 @@ def profile_frame(label: str, step, frame_ms: float,
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    # within the profiled frame itself: the time some kernel ran (the
+    # union of their intervals) over the span from the first kernel's
+    # start to the last one's end (the profiler stretches each of
+    # thousands of short kernels, so the sum can pass the unprofiled
+    # frame's time)
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    union, (lo, hi) = 0, spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            union, lo, hi = union + hi - lo, a, b
+        else:
+            hi = max(hi, b)
+    union += hi - lo
+    span = max(b for _a, b in spans) - spans[0][0]
     by_name = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + (
@@ -1110,8 +1143,13 @@ def profile_frame(label: str, step, frame_ms: float,
         f"; host {wall_ms:.1f} ms with the profiler on), {len(kernels)} "
         f"kernel launches ({len(kernels) / substeps:.1f} per substep); top: "
         + "; ".join(f"{name[:90]} {ms:.1f} ms" for name, ms in top))
+    log(f"{label} profile: kernels ran {union / 1e3:.1f} ms of the "
+        f"profiled frame's {span / 1e3:.1f} ms device span (idle share "
+        f"within it {1.0 - union / span:.2f})")
     return {"busy_ms": busy_ms, "idle": 1.0 - busy_ms / frame_ms,
-            "per_substep": len(kernels) / substeps}
+            "per_substep": len(kernels) / substeps,
+            "idle_span": 1.0 - union / span, "union_ms": union / 1e3,
+            "span_ms": span / 1e3}
 
 
 def run_path_a(dev) -> dict:
@@ -1204,6 +1242,11 @@ def run_path_b(dev) -> dict:
 
 
 def _zero_k1_k2_k7() -> None:
+    # the launches that captured frames counted on the device (their
+    # conditional bodies: K7 under a mirror rung, K1's detect and trig
+    # instances under the trigger) are folded in before a counter is set
+    # to 0 or read
+    compiled.sync_counts()
     fused_substep2.K1_LAUNCHES = 0
     for k in fused_substep2.K1_INSTANCE_LAUNCHES:
         fused_substep2.K1_INSTANCE_LAUNCHES[k] = 0
@@ -1228,9 +1271,11 @@ def run_main_path(state, spec, cfg, consts, spacing) -> dict:
         packed = be.pack_state(state)
         n0, m0 = be.counts(packed)
         t0 = time.perf_counter()
+        compiled.sync_counts()
         recmirror.K7_LAUNCHES = 0
         packed = be.step(packed, consts, uin)
         torch.cuda.synchronize()
+        compiled.sync_counts()
         first = be.far_stats()
         log(f"main path ({path}, kvar {be.kvar}): first frame "
             f"{time.perf_counter() - t0:.2f} s, far stats {first}, K7 "
@@ -1262,6 +1307,7 @@ def run_main_path(state, spec, cfg, consts, spacing) -> dict:
         torch.cuda.synchronize()
         r["wall"] += time.perf_counter() - t0
         r["ms"] += start.elapsed_time(end)
+        compiled.sync_counts()
         r["k1"] += fused_substep2.K1_LAUNCHES
         r["k2"] += band_detect.K2_LAUNCHES
         r["k7"] += recmirror.K7_LAUNCHES
@@ -1670,14 +1716,18 @@ def _wait_frames(eng, n: int, far: dict, timeout: float = 120.0,
                  every: float = 0.01):
     """Poll ``eng.stats()`` every ``every`` s until frame ``n``; every
     read's far stats are folded into ``far`` (the fused backend's window
-    resets on read): pairs and overflow as maxima.  Raises on a worker
-    error."""
+    resets on read): pairs and overflow as maxima, ``held_overflow``
+    over the reads up to frame RUNTIME_HELD_FRAMES (a read covers the
+    frames since the last one).  Raises on a worker error."""
     t_end = time.monotonic() + timeout
     while True:
         st = eng.stats()
         far["far_pairs"] = max(far.get("far_pairs", 0), st.far_pairs)
         far["far_overflow"] = max(far.get("far_overflow", 0),
                                   st.far_overflow)
+        if st.frame_index <= RUNTIME_HELD_FRAMES:
+            far["held_overflow"] = max(far.get("held_overflow", 0),
+                                       st.far_overflow)
         far["far_active"] = max(far.get("far_active", 0), st.far_active)
         if st.frame_index >= n:
             return st
@@ -1769,7 +1819,8 @@ def run_runtime_fused(dev, card: str) -> dict:
     bitwise equal to
     the frame they name (an independent clone kept at extract), K1 64 and
     K2 8 launches per frame, K7 once far pairs exist, ``far_overflow`` 0
-    over every stats read.  Then, paused, the L1 snapshot round trip
+    over every stats read up to frame RUNTIME_HELD_FRAMES (logged after
+    it).  Then, paused, the L1 snapshot round trip
     (save → load → save byte-equal, timed), three ``corrupt_buffers``
     with stepping going on, and ``recreate(subticks=32)``."""
     state, spec, cfg, consts, spacing = _scene(N_PARTICLES, dev)
@@ -1779,9 +1830,7 @@ def run_runtime_fused(dev, card: str) -> dict:
                          collision_mode=cfg.collision_mode,
                          force_mode=cfg.force_mode, target_fps=None)
     far = {}
-    fused_substep2.K1_LAUNCHES = 0
-    band_detect.K2_LAUNCHES = 0
-    recmirror.K7_LAUNCHES = 0
+    _zero_k1_k2_k7()
     eng = LatticeEngine(state, spec, consts, opts, farfield=_far_spec(spacing),
                         fused=True, device=dev)
     del state
@@ -1793,13 +1842,15 @@ def run_runtime_fused(dev, card: str) -> dict:
         spent, lat, packets = win["spent"], win["lat"], win["packets"]
         fps_alone, fps_polled = win["fps_alone"], win["fps_polled"]
         frames = _pause(eng, far)
+        compiled.sync_counts()
         k1, k2 = fused_substep2.K1_LAUNCHES, band_detect.K2_LAUNCHES
         k7 = recmirror.K7_LAUNCHES
         _check_packets(packets, kept, win["seen"], "runtime")
         if k1 != cfg.subticks * frames or k2 != 8 * frames:
             raise AssertionError(f"runtime: {frames} frames launched K1 {k1}"
                                  f", K2 {k2} times")
-        if far["far_overflow"] or (far["far_pairs"] > 0) != (k7 > 0):
+        if (far.get("held_overflow", 1) or (far["far_pairs"] > 0)
+                != (k7 > 0)):
             raise AssertionError(f"runtime: far stats {far}, K7 {k7}")
         lat_ms = sorted(lat)
         out.update(fps_alone=fps_alone, fps_polled=fps_polled,
@@ -2431,11 +2482,10 @@ def run_fused_activation(dev, bench_rate: float, card: str) -> dict:
         for _ in range(ACTIVATION_WARM):
             step()
         be.far_stats()
-        fused_substep2.K1_LAUNCHES = 0
-        band_detect.K2_LAUNCHES = 0
-        recmirror.K7_LAUNCHES = 0
+        _zero_k1_k2_k7()
         routes0 = dict(farfield4.APPLY_ROUTES)
         ms = _frames(step, ACTIVATION_FRAMES)
+        compiled.sync_counts()
         k1, k2 = fused_substep2.K1_LAUNCHES, band_detect.K2_LAUNCHES
         k7 = recmirror.K7_LAUNCHES
         routes = {k: v - routes0[k] for k, v in farfield4.APPLY_ROUTES.items()}
@@ -2485,12 +2535,14 @@ def _cli(argv, dev) -> tuple:
 
 
 def _launches() -> dict:
+    compiled.sync_counts()
     return {"K1": fused_substep2.K1_LAUNCHES, "K2": band_detect.K2_LAUNCHES,
             "K3": collide_stencil.K3_LAUNCHES,
             "K4": fused_substep.K4_LAUNCHES, "K7": recmirror.K7_LAUNCHES}
 
 
 def _zero_launches() -> None:
+    compiled.sync_counts()
     fused_substep2.K1_LAUNCHES = 0
     band_detect.K2_LAUNCHES = 0
     collide_stencil.K3_LAUNCHES = 0
@@ -3455,13 +3507,14 @@ def run_kernel_detect(state, spec, cfg, consts, spacing, card,
     for mode in ("xla", "kernel", "kernel", "xla"):
         r = runs[mode]
         _zero_k1_k2_k7()
-        reads0 = fused_substep2.HOST_READS
+        reads0 = compiled.HOST_READS
 
         def step(r=r):
             r["box"][0] = r["be"].step(r["box"][0], consts, uin)
 
         r["ms"] += sum(_frames(step, TIMED_FRAMES // 2))
-        r["reads"] += fused_substep2.HOST_READS - reads0
+        r["reads"] += compiled.HOST_READS - reads0
+        compiled.sync_counts()
         for k, v in fused_substep2.K1_INSTANCE_LAUNCHES.items():
             r["k1"][k] += v
         r["k2"] += band_detect.K2_LAUNCHES
@@ -3598,12 +3651,13 @@ def run_v3(state, spec, cfg, consts, spacing, card, parent=None) -> dict:
         step()
     first = be.far_stats()
     _zero_k1_k2_k7()
-    reads0 = fused_substep2.HOST_READS
+    reads0 = compiled.HOST_READS
     per_frame, ms = [], []
     for _ in range(TIMED_FRAMES):
         ms += _frames(step, 1)
         per_frame.append(be.far_stats())
-    reads = fused_substep2.HOST_READS - reads0
+    reads = compiled.HOST_READS - reads0
+    compiled.sync_counts()
     substeps = TIMED_FRAMES * cfg.subticks
     k1 = {k: v for k, v in fused_substep2.K1_INSTANCE_LAUNCHES.items() if v}
     hot = box[0][0]
@@ -3675,7 +3729,7 @@ def run_knobs(state, spec, cfg, consts, card) -> dict:
         box = [be.pack_state(state)]
         _zero_k1_k2_k7()
         box[0] = be.step(box[0], consts, uin)
-        torch.cuda.synchronize()
+        compiled.sync_counts()
         k1 = {k: v for k, v in fused_substep2.K1_INSTANCE_LAUNCHES.items()
               if v}
         if k1 != {"strict+knobs": cfg.subticks}:
@@ -4205,6 +4259,250 @@ def run_compiled(dev, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the compiled fused frames (fused_frame4_jit, fused_frame3_auto_jit,
+# far3_carry_init_jit: whole frames captured into CUDA graphs, their bucket
+# and trigger decided on the device by IF nodes), each against the same
+# frame run op by op on the card, bit for bit
+
+
+def _eager_twin(be):
+    """``be`` stepping the plain frames (op by op, its decisions read on
+    the host) instead of their captured counterparts."""
+    be._frame4 = fused_substep2.fused_frame4
+    be._frame3 = fused_substep2.fused_frame3_auto
+    be._carry_init = fused_substep2.far3_carry_init
+    be._frame2 = fused_substep2.fused_frame2
+    return be
+
+
+def _add_delta(acc: dict, delta: dict) -> None:
+    for key, d in delta.items():
+        name = key[1]
+        if isinstance(d, dict):
+            acc.setdefault(name, {})
+            for i, n in d.items():
+                acc[name][i] = acc[name].get(i, 0) + n
+        else:
+            acc[name] = acc.get(name, 0) + d
+
+
+def _fused_jits():
+    return (fused_substep2.fused_frame4_jit, fused_substep2.fused_frame3_auto_jit,
+            fused_substep2.far3_carry_init_jit, fused_substep2.fused_frame2_jit)
+
+
+def run_fused_captured_path(label: str, make, state, cfg, consts, card,
+                            bench: bool, graphs: int = 1) -> dict:
+    """One fused path (``make()`` builds its backend) from the scene's
+    state: a captured backend and its eager twin.  Frame 1: the captured
+    call (warm-up, capture, replay) timed and its memory measured (device
+    memory reserved over the cleared caches, before and after); frames
+    1-2 equal bit for bit; frames 3-10 in turns (eager, captured,
+    captured, eager; FUSED_TURN_FRAMES frames a turn), every frame's
+    state and stats accumulator equal bit for bit to the eager frame's,
+    every launch counter and far-apply route equal over the turns
+    (device-counted bodies folded in), no host read in a captured frame;
+    ``far_overflow`` 0 on the bench path; one profiled frame each;
+    ``graphs`` captures in all (v3: its carry's initialisation and its
+    frame)."""
+    uin = tb.UserInput()
+    bes = {"captured": make(), "eager": _eager_twin(make())}
+    box = {k: be.pack_state(state) for k, be in bes.items()}
+    captures = sum(j.stats()["captures"] for j in _fused_jits())
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    r0 = torch.cuda.memory_reserved()
+    t0 = time.perf_counter()
+    box["captured"] = bes["captured"].step(box["captured"], consts, uin)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.empty_cache()
+    graphs_gib = (torch.cuda.memory_reserved() - r0) / 2**30
+    box["eager"] = bes["eager"].step(box["eager"], consts, uin)
+    for f in (1, 2):
+        if f == 2:
+            for k, be in bes.items():
+                box[k] = be.step(box[k], consts, uin)
+        if not (_same(box["captured"], box["eager"]) and _same(
+                bes["captured"]._stats_acc, bes["eager"]._stats_acc)):
+            raise AssertionError(f"fused captured, {label}: frame {f} "
+                                 "differs from the eager frame")
+    first = {k: be.far_stats() for k, be in bes.items()}
+    if first["captured"] != first["eager"]:
+        raise AssertionError(f"fused captured, {label}: frames 1-2 far "
+                             f"stats {first}")
+    rec = {k: dict(frames=[], ms=[], counts={}, reads=0) for k in bes}
+    for kind in ("eager", "captured", "captured", "eager"):
+        be, r = bes[kind], rec[kind]
+        compiled.sync_counts()
+        before, reads0 = compiled.read_counts(), compiled.HOST_READS
+
+        def step(kind=kind, be=be, r=r):
+            box[kind] = be.step(box[kind], consts, uin)
+            r["frames"].append((box[kind], be._stats_acc))
+
+        r["ms"] += _frames(step, FUSED_TURN_FRAMES)
+        r["reads"] += compiled.HOST_READS - reads0
+        compiled.sync_counts()
+        _add_delta(r["counts"], compiled._count_delta(compiled.read_counts(),
+                                                      before))
+    n = 2 * FUSED_TURN_FRAMES
+    for i, (c, e) in enumerate(zip(rec["captured"]["frames"],
+                                   rec["eager"]["frames"])):
+        if not _same(c, e):
+            raise AssertionError(f"fused captured, {label}: frame {i + 3} "
+                                 "differs from the eager frame")
+    stats = {k: be.far_stats() for k, be in bes.items()}
+    counts = {k: r["counts"] for k, r in rec.items()}
+    if counts["captured"] != counts["eager"]:
+        raise AssertionError(f"fused captured, {label}: launches "
+                             f"{counts['captured']} != eager's "
+                             f"{counts['eager']}")
+    if rec["captured"]["reads"] or stats["captured"] != stats["eager"]:
+        raise AssertionError(f"fused captured, {label}: host reads "
+                             f"{rec['captured']['reads']}, far stats "
+                             f"{stats}")
+    if bench and (stats["captured"]["far_overflow"]
+                  or not stats["captured"]["far_pairs"]):
+        raise AssertionError(f"fused captured, {label}: far stats "
+                             f"{stats['captured']}")
+    hot = box["captured"][0]
+    if not bool(torch.isfinite(hot[:6]).all()):
+        raise AssertionError(f"fused captured, {label}: non-finite state")
+    rate = _rates({k: r["ms"] for k, r in rec.items()}, cfg.subticks)
+
+    def stepper(kind):
+        def step():
+            box[kind] = bes[kind].step(box[kind], consts, uin)
+        return step
+
+    prof = {k: profile_frame(f"fused captured, {label}, {k}", stepper(k),
+                             sum(rec[k]["ms"]) / n, cfg.subticks)
+            for k in ("eager", "captured")}
+    if not _same(box["captured"], box["eager"]):
+        raise AssertionError(f"fused captured, {label}: the profiled "
+                             "frames differ")
+    new = sum(j.stats()["captures"] for j in _fused_jits()) - captures
+    if new != graphs:
+        raise AssertionError(f"fused captured, {label}: {new} captures")
+    per_frame = {k: (v if not isinstance(v, dict) else
+                     {i: c / n for i, c in v.items()})
+                 for k, v in counts["captured"].items()}
+    log(f"fused captured, {label}: first call (warm-up, capture, replay) "
+        f"{first_ms:.1f} ms, {graphs_gib:.3f} GiB reserved by it (the "
+        f"graph, its bodies' pool, its static inputs and outputs and the "
+        f"frame returned); frames 1-2 equal (far stats {first['captured']})"
+        f"; frames 3-10 in turns, every frame's state and stats equal to "
+        f"eager bit for bit; far stats {stats['captured']}; launches over "
+        f"the {n} frames equal eager's: {counts['captured']}; host reads "
+        f"captured 0, eager {rec['eager']['reads'] / (n * cfg.subticks):.3f}"
+        f" a substep; eager {rate['eager']:.1f}, captured "
+        f"{rate['captured']:.1f} substeps/s "
+        f"({rate['captured'] / rate['eager']:.2f}x); device ms a substep "
+        f"eager {prof['eager']['busy_ms'] / cfg.subticks:.4f}, captured "
+        f"{prof['captured']['busy_ms'] / cfg.subticks:.4f} (kernel sums "
+        f"under the profiler); idle against the unprofiled frame eager "
+        f"{prof['eager']['idle']:.2f}, captured "
+        f"{prof['captured']['idle']:.2f}; within the profiled frame's "
+        f"device span eager {prof['eager']['idle_span']:.2f}, captured "
+        f"{prof['captured']['idle_span']:.2f}; launches a substep "
+        f"{prof['eager']['per_substep']:.1f} / "
+        f"{prof['captured']['per_substep']:.1f} on {card}")
+    return dict(rate=rate, prof=prof, first_ms=first_ms,
+                graphs_gib=graphs_gib, counts=counts["captured"],
+                per_frame=per_frame, stats=stats["captured"])
+
+
+def run_fused_captured_engine(dev, card: str) -> dict:
+    """``LatticeEngine(fused=True)`` on the bench scene, its worker
+    stepping the captured ``fused_frame4``: windows alone, polled,
+    polled, alone (frames 2-10); packets bitwise equal to a clone of
+    their frame; K1 64 and K2 8 a frame; no host read in the frames."""
+    state, spec, cfg, consts, spacing = _scene(N_PARTICLES, dev)
+    opts = EngineOptions(subticks=cfg.subticks,
+                         particle_radius=cfg.particle_radius,
+                         bounds_size=cfg.bounds_size,
+                         collision_mode=cfg.collision_mode,
+                         force_mode=cfg.force_mode, target_fps=None)
+    far = {}
+    _zero_k1_k2_k7()
+    reads0 = compiled.HOST_READS
+    with LatticeEngine(state, spec, consts, opts,
+                       farfield=_far_spec(spacing), fused=True,
+                       device=dev) as eng:
+        del state
+        kept = _witness(eng)
+        f = _wait_frames(eng, 2, far).frame_index
+        win = _alone_and_polled(eng, f, RUNTIME_FRAMES, far,
+                                "fused captured engine")
+        frames = _pause(eng, far)
+        compiled.sync_counts()
+        k1, k2 = fused_substep2.K1_LAUNCHES, band_detect.K2_LAUNCHES
+        k7 = recmirror.K7_LAUNCHES
+        _check_packets(win["packets"], kept, win["seen"],
+                       "fused captured engine")
+        if eng.error is not None:
+            raise AssertionError(f"fused captured engine: {eng.error!r}")
+    reads = compiled.HOST_READS - reads0
+    if (k1 != cfg.subticks * frames or k2 != 8 * frames or reads
+            or far.get("held_overflow", 1)
+            or (far["far_pairs"] > 0) != (k7 > 0)):
+        raise AssertionError(f"fused captured engine: {frames} frames, K1 "
+                             f"{k1}, K2 {k2}, K7 {k7}, host reads {reads}, "
+                             f"far stats {far}")
+    lat = sorted(win["lat"])
+    out = dict(fps_alone=win["fps_alone"], fps_polled=win["fps_polled"],
+               lat_median=lat[len(lat) // 2], lat_max=lat[-1])
+    log(f"fused captured engine 1M: {frames} frames on the worker thread, "
+        f"{win['fps_alone']:.3f} frames/s alone, {win['fps_polled']:.3f} "
+        f"polled flat-out ({len(lat)} packets, latency median "
+        f"{out['lat_median']:.1f} ms, max {out['lat_max']:.1f} ms; "
+        f"{len(win['packets'])} packets bitwise equal to their frame's "
+        f"positions); K1 {k1}, K2 {k2}, K7 {k7}, host reads in the frames "
+        f"{reads}; far stats over the reads {far} on {card}")
+    return out
+
+
+def run_fused_compiled(dev, card: str) -> dict:
+    """Phase 17: the bench path's default variants and strict, kernel
+    detection and v3, each captured against eager (see
+    run_fused_captured_path), then the engine."""
+    t0 = time.perf_counter()
+    # every graph dropped, so that the pool they share is released and
+    # each path's first call shows its own memory
+    for j in _fused_jits() + (gstep.frame_jit, gstep.substep_jit,
+                              lattice_frame_jit, lattice_frame_far_jit,
+                              lattice_substep_jit, directed_frame):
+        j.clear()
+    gc.collect()
+    state, spec, cfg, consts, spacing = _scene(N_PARTICLES, dev)
+    ff = _far_spec(spacing)
+    paths = {
+        "bench default": lambda: FusedLatticeBackend(spec, cfg, farfield=ff,
+                                                     device=dev),
+        "bench strict": lambda: FusedLatticeBackend(
+            spec, cfg, farfield=ff, device=dev, kernel_variants=()),
+        "kernel detection": lambda: FusedLatticeBackend(
+            spec, cfg, farfield=ff, device=dev, far_detect="kernel"),
+        "v3": lambda: FusedLatticeBackend(
+            spec, cfg, farfield=FarFieldSpec(skin=1.5 * spacing, **V3_FF),
+            far_mode="v3", device=dev),
+    }
+    out = {label: run_fused_captured_path(
+        label, make, state, cfg, consts, card, bench=label != "v3",
+        graphs=2 if label == "v3" else 1) for label, make in paths.items()}
+    del state
+    out["engine"] = run_fused_captured_engine(dev, card)
+    launches = {}
+    for label in paths:
+        _add_delta(launches, {(None, k): v
+                              for k, v in out[label]["counts"].items()})
+    out["launches"] = launches
+    log(f"phase 17 fused compiled: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def _occupancy() -> None:
     """K1's, K4's and K3's residency per SM at the stencil radii they are
     held at, and K2's (registers, spills and shared memory from the
@@ -4394,6 +4692,12 @@ def main() -> int:
     # from 0 each frame), the fold, directed config 3, the runtime
     comp = run_compiled(dev, card)
 
+    # phase 17: the compiled fused frames (whole-frame CUDA graphs with
+    # IF nodes) against eager: the bench path default and strict, kernel
+    # detection, v3 (each captured in turns with its eager twin, launches
+    # equal), the engine alone and polled
+    fused_comp = run_fused_compiled(dev, card)
+
     pallas = "softbody_tpu/ops/pallas/"
     probe_src = "scripts/probe_recmirror.py"
     rows = (
@@ -4440,6 +4744,10 @@ def main() -> int:
             row["launches_planified"] = plan[k.lower()]
         if k == "K3":
             row["launches_compiled"] = comp["path A"]["k3"]
+        if k in ("K1", "K2", "K7"):
+            row["launches_fused_captured"] = fused_comp["launches"].get(
+                {"K1": "K1_INSTANCE_LAUNCHES", "K2": "K2_LAUNCHES",
+                 "K7": "K7_LAUNCHES"}[k], 0)
         if k in ("K2", "K7"):
             row["launches_cli"] = launches_cli[k]
         if k in launches_sharded:
@@ -4504,6 +4812,17 @@ def main() -> int:
         + "".join(f", {k} {v['fps_alone']:.2f} / {v['fps_polled']:.2f}"
                   for k, v in comp["runtime"].items())
         + f" on {card}")
+    log("compiled fused frames (phase 17), eager -> captured substeps/s: "
+        + ", ".join(f"{k} {v['rate']['eager']:.1f} -> "
+                    f"{v['rate']['captured']:.1f} (idle in the device "
+                    f"span {v['prof']['eager']['idle_span']:.2f} -> "
+                    f"{v['prof']['captured']['idle_span']:.2f}; first call "
+                    f"{v['first_ms']:.0f} ms; {v['graphs_gib']:.2f} GiB)"
+                    for k, v in fused_comp.items()
+                    if k not in ("engine", "launches"))
+        + f"; engine frames/s alone / polled "
+        f"{fused_comp['engine']['fps_alone']:.3f} / "
+        f"{fused_comp['engine']['fps_polled']:.3f} on {card}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -30,6 +30,12 @@
 //   the springs and passes the edge and obs planes through, noint passes
 //   the six particle planes through.
 //
+// The far-field scalars consts[40 .. 47] (X_*) come from the launch's
+// constants, or from device memory where the launch passes `xdev`
+// (sb_fused_substep2_modex): a captured frame computes them on the
+// device (the far list's age, the trigger's band velocity), so no value
+// of the state is baked into a graph's launch.
+//
 // The detect pass (K2's design, band_detect.cu, inside K1's block).  Only
 // the group flag is stored (the OR over a group's 4 rows), so four
 // threads share each of the tile's 64 group-columns, splitting the 15 dy
@@ -187,7 +193,7 @@ __device__ __forceinline__ void detect_groups(const SmemTile& t,
                                               const float* bpx,
                                               const float* bpy,
                                               const uint32_t* rkey,
-                                              const float* v, int s, int R,
+                                              const float* xv, int s, int R,
                                               int x0, int y0, int w, int h,
                                               float* __restrict__ side) {
   const int lane = threadIdx.x, warp = threadIdx.y;
@@ -198,8 +204,8 @@ __device__ __forceinline__ void detect_groups(const SmemTile& t,
   const int col = gc % SUB_TY;                      // its tile column
   const int sy = t.sy;
   const int s0 = (r0 + R) * sy + col + R;  // staged index of its first cell
-  const float base = v[XB + X_REACH], tband = v[XB + X_TBAND];
-  const float vbx = v[XB + X_VBX], vby = v[XB + X_VBY];
+  const float base = xv[X_REACH], tband = xv[X_TBAND];
+  const float vbx = xv[X_VBX], vby = xv[X_VBY];
 
   bool any_alive = false;
 #pragma unroll
@@ -343,7 +349,8 @@ fused_substep2_kernel(const float* __restrict__ hot,
                       int h, int s, int quantized,
                       const float* __restrict__ refs,
                       float* __restrict__ stats, float* __restrict__ side,
-                      int nospring, int noint) {
+                      int nospring, int noint,
+                      const float* __restrict__ xdev) {
   constexpr bool TRIG = (MODE & M_TRIG) != 0;
   constexpr bool DETECT = (MODE & M_DETECT) != 0;
   constexpr bool KNOBS = (MODE & M_KNOBS) != 0;
@@ -367,6 +374,8 @@ fused_substep2_kernel(const float* __restrict__ hot,
   float* rf = extra + (DETECT ? 2 * sn + 2 * sx : 0);
   float* wpart = rf + 4 * SUB_THREADS;
   const float* v = cs.v;
+  // the far-field scalars (X_*), from device memory or the constants
+  const float* xv = xdev != nullptr ? xdev : v + XB;
   const bool skip_springs = KNOBS && nospring;
 
   const int r = threadIdx.y, l = threadIdx.x;
@@ -419,9 +428,9 @@ fused_substep2_kernel(const float* __restrict__ hot,
   // rows after a cell only; published by the springs' barrier)
   bool det_on = false;
   if constexpr (DETECT) {
-    det_on = v[XB + X_DET] > 0.0f;
+    det_on = xv[X_DET] > 0.0f;
     if (det_on) {
-      const float vbx = v[XB + X_VBX], vby = v[XB + X_VBY];
+      const float vbx = xv[X_VBX], vby = xv[X_VBY];
       for (int row = R + r; row < sx; row += SUB_TX) {
         uint32_t kmax = 0u, kmin = 0xffffffffu;
         for (int col = l; col < t.sy; col += SUB_TY) {
@@ -531,7 +540,7 @@ fused_substep2_kernel(const float* __restrict__ hot,
   // ---- detect: the band search and the side planes -------------------
   if constexpr (DETECT) {
     if (det_on)
-      detect_groups(t, bpx, bpy, rkey, v, s, R, x0, y0, w, h, side);
+      detect_groups(t, bpx, bpy, rkey, xv, s, R, x0, y0, w, h, side);
   }
   if constexpr (!TRIG) {
     if (!live) return;
@@ -568,7 +577,7 @@ fused_substep2_kernel(const float* __restrict__ hot,
     // ---- trig: this cell's deviation from the linear reference --------
     if constexpr (TRIG) {
       if (al_c) {
-        const float tau = v[XB + X_TAU];
+        const float tau = xv[X_TAU];
         const float rvx = rf[2 * SUB_THREADS + tid];
         const float rvy = rf[3 * SUB_THREADS + tid];
         const float ddx = o.px - (rf[tid] + rvx * tau);
@@ -614,7 +623,7 @@ fused_substep2_kernel(const float* __restrict__ hot,
 using K1Kernel = void (*)(const float*, const float*, const float*,
                           const float*, float*, float*, const Consts, int,
                           int, int, int, const float*, float*, float*, int,
-                          int);
+                          int, const float*);
 
 template <int MODE>
 K1Kernel k1_arith(bool skip, bool rsqrt, bool rollgroup) {
@@ -659,11 +668,13 @@ int k1_launch(const float* hot, const float* immut, const float* far,
               float* obs_out, float* stats, float* side,
               const float* consts_host, int w, int h, int stencil,
               int quantized, int rsqrt, int rollgroup, int mode,
-              int nospring, int noint, void* stream) {
+              int nospring, int noint, void* stream,
+              const float* xdev = nullptr) {
   Consts cs;
   memset(cs.v, 0, sizeof(cs.v));
-  const int n = (mode & (M_TRIG | M_DETECT)) ? N_CONSTS + N_EDGEC + N_EXTRA
-                                             : N_CONSTS + N_EDGEC;
+  const int n = (mode & (M_TRIG | M_DETECT)) && xdev == nullptr
+                    ? N_CONSTS + N_EDGEC + N_EXTRA
+                    : N_CONSTS + N_EDGEC;
   memcpy(cs.v, consts_host, n * sizeof(float));
   const K1Kernel kernel =
       k1_pick(mode, pair_skip_allowed(cs.v, true), rsqrt, rollgroup);
@@ -673,7 +684,7 @@ int k1_launch(const float* hot, const float* immut, const float* far,
   dim3 grid((h + SUB_TY - 1) / SUB_TY, (w + SUB_TX - 1) / SUB_TX);
   kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
       hot, immut, far, obs_in, hot_out, obs_out, cs, w, h, stencil,
-      quantized, refs, stats, side, nospring, noint);
+      quantized, refs, stats, side, nospring, noint, xdev);
   return (int)cudaGetLastError();
 }
 
@@ -717,6 +728,26 @@ extern "C" int sb_fused_substep2_mode(
   return k1_launch(hot, immut, far, obs_in, refs, hot_out, obs_out, stats,
                    side, consts_host, w, h, stencil, quantized, rsqrt,
                    rollgroup, mode, nospring, noint, stream);
+}
+
+// The mode entry with the N_EXTRA far-field scalars read by the kernel
+// from `xdev` (device memory, 8 floats; null: from `consts_host`, which
+// then holds 48 floats under trig or detect, as above).  With `xdev`,
+// `consts_host` holds 40 floats: a captured frame computes the scalars
+// on the device.
+extern "C" int sb_fused_substep2_modex(
+    const float* hot, const float* immut, const float* far,
+    const float* obs_in, const float* refs, float* hot_out, float* obs_out,
+    float* stats, float* side, const float* consts_host, int w, int h,
+    int stencil, int quantized, int rsqrt, int rollgroup, int trig,
+    int detect, int nospring, int noint, void* stream, const float* xdev) {
+  const bool knobs = nospring || noint;
+  if (knobs && (trig || detect)) return (int)cudaErrorInvalidValue;
+  const int mode = (trig ? M_TRIG : 0) | (detect ? M_DETECT : 0) |
+                   (knobs ? M_KNOBS : 0);
+  return k1_launch(hot, immut, far, obs_in, refs, hot_out, obs_out, stats,
+                   side, consts_host, w, h, stencil, quantized, rsqrt,
+                   rollgroup, mode, nospring, noint, stream, xdev);
 }
 
 // The strict instance (the entry of earlier builds, kept for comparing

@@ -51,10 +51,10 @@ from ..ops.cuda.fused_substep2 import (
     EAL,
     N_HOT,
     check_kvar,
-    far3_carry_init,
-    fused_frame2,
-    fused_frame3_auto,
-    fused_frame4,
+    far3_carry_init_jit,
+    fused_frame2_jit,
+    fused_frame3_auto_jit,
+    fused_frame4_jit,
     pack_lattice2,
     unpack_lattice2,
 )
@@ -446,6 +446,13 @@ def _stats_merge(a, b):
     return [a[0] + b[0]] + [max(x, y) for x, y in zip(a[1:], b[1:])]
 
 
+def _stats_merge_device(a, b):
+    """:func:`_stats_merge` of two int32 stats vectors on the device (no
+    host read; JAX's backend merges its device arrays the same way)."""
+    return b if a is None else torch.cat([a[:1] + b[:1],
+                                          torch.maximum(a[1:], b[1:])])
+
+
 class FusedLatticeBackend(LatticeBackend):
     """Lattice backend over packed planes ``(hot [18,W,H], obs [8,W,H])``
     on ``device``; the immutable planes and edge constants live on the
@@ -470,6 +477,13 @@ class FusedLatticeBackend(LatticeBackend):
     (``fused_frame4(activation=True)``).
     ``far_mb``/``far_mb_out``: the far apply's record layout; 32 (and
     None) only, anything else raises.
+
+    The frames are the compiled ones (``fused_frame4_jit``,
+    ``fused_frame3_auto_jit``, ``far3_carry_init_jit``,
+    ``fused_frame2_jit``: one CUDA graph per key on the card, replayed
+    with no host read; the functions on the CPU).  ``self._frame4``,
+    ``_frame3``, ``_carry_init`` and ``_frame2`` hold them: set them to
+    the plain functions for an eager twin.
 
     ``kernel_variants``: the JAX kernel's flags (``fused_substep2.
     KERNEL_VARIANTS``), by default the JAX backend's (``DEFAULT_KVAR``:
@@ -530,6 +544,10 @@ class FusedLatticeBackend(LatticeBackend):
         self._stats_acc = None
         self._far_side = None    # v3: K1's side planes (carried)
         self._far_trig = None    # v3: the trigger vector (carried)
+        self._frame4 = fused_frame4_jit
+        self._frame3 = fused_frame3_auto_jit
+        self._carry_init = far3_carry_init_jit
+        self._frame2 = fused_frame2_jit
 
     def pack_state(self, lstate: LatticeState):
         """LatticeState (on the backend's device) → packed ``(hot, obs)``;
@@ -560,42 +578,39 @@ class FusedLatticeBackend(LatticeBackend):
         """One frame.  Far-field armed: ``far_mode="v4"``, the
         fixed-cadence frame (``fused_frame4``: rebuilds with K2 or from
         K1's side planes, the far apply's mirror route with K7 or its
-        narrow route per bucket, K1), the host reading each rebuild's
-        pair count to pick its bucket; ``"v3"``, the triggered frame
-        (``fused_frame3_auto``) with the list, side planes and trigger
-        vector carried from the last frame (``far3_carry_init`` and an
-        empty list after ``pack_state``), the host reading the trigger
-        once per substep.  Stats accumulate on the host
-        (``far_stats``)."""
+        narrow route per bucket, K1), the bucket chosen on the device;
+        ``"v3"``, the triggered frame (``fused_frame3_auto``) with the
+        list, side planes and trigger vector carried from the last frame
+        (``far3_carry_init`` and an empty list after ``pack_state``), the
+        trigger decided on the device.  No host read: the stats
+        accumulate on the device (``far_stats`` reads them)."""
         hot, obs = state
         kvar = self._checked_kvar(consts)
         if self.ff is None or self.cfg.collision_mode == "none":
-            return fused_frame2(hot, obs, self._immut, self._edge_consts,
+            return self._frame2(hot, obs, self._immut, self._edge_consts,
                                 consts, uin, self.spec, self.cfg, kvar=kvar)
         if self.far_mode == "v3":
             if self._far_list is None:
                 self._far_list = empty_far_list(
                     self.spec.width, self.spec.height, self.ff,
                     device=self.device)
-                self._far_side, self._far_trig = far3_carry_init(
+                self._far_side, self._far_trig = self._carry_init(
                     hot, self._immut, self.cfg, self.spec, self.ff)
             (hot, obs, self._far_list, self._far_side, self._far_trig,
-             st) = fused_frame3_auto(
+             st) = self._frame3(
                 hot, obs, self._immut, self._edge_consts, self._far_list,
                 self._far_side, self._far_trig, consts, uin, self.spec,
                 self.cfg, self.ff)
         else:
             kw = ({} if self.far_buckets is None
                   else {"buckets": self.far_buckets})
-            hot, obs, st = fused_frame4(
+            hot, obs, st = self._frame4(
                 hot, obs, self._immut, self._edge_consts, consts, uin,
                 self.spec, self.cfg, self.ff,
                 activation=self.far_activation, far_mb=self.far_mb,
                 far_mb_out=self.far_mb_out, detect_mode=self.far_detect,
                 band_impl=self._band_impl, kvar=kvar, **kw)
-        st = st.tolist()
-        self._stats_acc = (st if self._stats_acc is None
-                           else _stats_merge(self._stats_acc, st))
+        self._stats_acc = _stats_merge_device(self._stats_acc, st)
         return hot, obs
 
     def _checked_kvar(self, consts: PhysicsConstants) -> Tuple[str, ...]:
@@ -608,10 +623,11 @@ class FusedLatticeBackend(LatticeBackend):
     def far_stats(self) -> dict:
         """Stats since the last read (the accumulator resets on read):
         total rebuilds, max n_pairs, max overflow, and under v4 max active
-        pairs."""
+        pairs.  The one host read of the fused frames' stats (they
+        accumulate on the device)."""
         if self._stats_acc is None:
             return super().far_stats()
-        vals, self._stats_acc = self._stats_acc, None
+        vals, self._stats_acc = self._stats_acc.tolist(), None
         out = {"far_rebuilds": vals[0], "far_pairs": vals[1],
                "far_overflow": vals[2]}
         if len(vals) > 3:

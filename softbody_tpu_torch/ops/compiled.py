@@ -14,6 +14,8 @@ for the CPU, where the plain torch versions run: no graph exists there).
   ``n_sub``), by value;
 - every tensor argument's shape, dtype, strides and device (a far list's
   capacity is its tensors' shape);
+- every CPU tensor of a frame on the card by value (its bytes): host
+  constants such as the edge constants, which the launches bake in;
 - every other argument by value, floats by their bits: the physics
   constants and the user input.  The frame functions read these on the
   host (``config.consts_vector`` through ``stencil.Scalars``,
@@ -47,6 +49,25 @@ every replay adds that again; what the warm-up and the capture counted
 is taken back (the warm-up's result is discarded, the capture launches
 nothing).
 
+**Conditional bodies** (:func:`device_if`, :func:`device_switch`): the
+counterpart of ``lax.cond`` / ``lax.switch`` in a frame.  A body runs
+where its predicate (a 0-d tensor on the device) holds: on the CPU the
+predicate is read and the body run; on the card, run eagerly, likewise,
+each read counted in :data:`HOST_READS`; under capture the body is
+recorded into a CUDA-graph IF node (built by ``csrc/graph_cond.cu``:
+the card's torch has no conditional-node API), which the device
+evaluates at replay with no host read.  A body returns nothing: it
+writes its results into tensors allocated before it (torch's own
+``if_else_node`` pattern).  Its temporaries come from a second pool
+per device, drawn on by the capturing thread only while a body is
+recorded; bodies do not nest.  The warm-up runs every body, whatever
+its predicate (kernels load at their first launch, as
+``ControlFlowOpWarmupDispatchMode`` warms both sides of a cond).  The
+launches in a body vary from replay to replay: each body adds one to a
+device counter (one slot per distinct set of launches), and
+:func:`sync_counts` folds those counters into the host's, outside the
+frames.
+
 **No fallback**: on CUDA tensors a capture or a replay that fails
 raises.  A host synchronisation inside the function (``.item()``,
 ``.tolist()`` of a device tensor, ``nonzero``, a blocking copy) fails
@@ -66,18 +87,20 @@ from __future__ import annotations
 
 import collections
 import copy
+import ctypes
 import dataclasses
 import functools
 import importlib
 import inspect
 import struct
 import threading
+import weakref
 from typing import Callable, Dict, Sequence
 
 import torch
 
-# the kernel wrappers' launch counters: (module, name), an int or a dict
-# of ints (K1's per instance)
+# the kernel wrappers' launch counters and the far apply's routes:
+# (module, name), an int or a dict of ints (K1's per instance)
 LAUNCH_COUNTERS = (
     (".cuda.fused_substep2", "K1_LAUNCHES"),
     (".cuda.fused_substep2", "K1_INSTANCE_LAUNCHES"),
@@ -87,18 +110,34 @@ LAUNCH_COUNTERS = (
     (".cuda.recmirror", "K5_LAUNCHES"),
     (".cuda.recmirror", "K6_LAUNCHES"),
     (".cuda.recmirror", "K7_LAUNCHES"),
+    (".farfield4", "APPLY_ROUTES"),
 )
 
 # graphs kept per compiled function (JAX keeps every compilation; a
 # graph holds its static inputs and outputs, a state's size each)
 MAX_GRAPHS = 32
 
-# one call at a time, process-wide; per CUDA device one memory pool and
-# the event after the last call's copies; the graphs of failed captures
+# one call at a time, process-wide; per CUDA device the live graphs (they
+# share one memory pool) and the event after the last call's copies; the
+# graphs of failed captures and the pools they left unusable
 _LOCK = threading.RLock()
-_POOLS: Dict[int, tuple] = {}
+_POOLS: Dict[int, "weakref.WeakSet"] = {}
+_POISONED: set = set()
 _LAST: Dict[int, torch.cuda.Event] = {}
 _ABANDONED: list = []
+# per CUDA device the stream frames are captured on, and the stream and
+# pool that conditional bodies are recorded with (_streams); the device
+# counters of the live graphs' bodies
+_STREAMS: Dict[int, tuple] = {}
+_COND_COUNTS: list = []
+# per thread: ``warming`` (a warm-up runs every body), ``cond`` (the
+# device counters of the capture in progress), ``in_body``
+_TLS = threading.local()
+
+# the host reads that decide a frame's branches on the card (each a
+# synchronisation with the device): device_if's and device_switch's eager
+# reads of CUDA predicates; a captured frame makes none
+HOST_READS = 0
 
 
 def read_counts() -> dict:
@@ -146,6 +185,172 @@ def _add_counts(delta: dict) -> None:
             setattr(m, name, getattr(m, name) + d)
 
 
+def _scaled(delta: dict, n: int) -> dict:
+    return {k: ({i: c * n for i, c in d.items()} if isinstance(d, dict)
+                else d * n) for k, d in delta.items()}
+
+
+def host_read(t: torch.Tensor) -> list:
+    """``t.tolist()``; a read of a CUDA tensor is counted in
+    :data:`HOST_READS`."""
+    global HOST_READS
+    if t.device.type == "cuda":
+        HOST_READS += 1
+    return t.tolist()
+
+
+class _CondCounts:
+    """The launches of one capture's conditional bodies, counted on the
+    device: slot ``i`` of ``counter`` counts the replays in which a body
+    with the launches ``deltas[i]`` ran (bodies with equal launches share
+    a slot); :meth:`fold` adds what is new since the last fold to the
+    host counters."""
+
+    SLOTS = 64
+
+    def __init__(self, device: torch.device) -> None:
+        self.counter = torch.zeros(self.SLOTS, dtype=torch.int64,
+                                   device=device)
+        self.deltas: list = []
+        self.folded: list = []
+
+    def slot(self, delta: dict) -> torch.Tensor:
+        if delta not in self.deltas:
+            if len(self.deltas) == self.SLOTS:
+                raise RuntimeError("too many distinct conditional bodies")
+            self.deltas.append(delta)
+            self.folded.append(0)
+        return self.counter[self.deltas.index(delta)]
+
+    def fold(self) -> None:
+        if not self.deltas:
+            return
+        # every stream's replays done (the engine's worker replays on its
+        # own)
+        torch.cuda.synchronize(self.counter.device)
+        for i, v in enumerate(self.counter[:len(self.deltas)].tolist()):
+            if v != self.folded[i]:
+                _add_counts(_scaled(self.deltas[i], v - self.folded[i]))
+                self.folded[i] = v
+
+
+def sync_counts() -> None:
+    """Fold the device counters of the captured conditional bodies into
+    the host counters (one read per graph that has them, after the
+    device finishes what was queued on every stream).  Call it before
+    reading or zeroing a launch counter after captured frames with
+    conditional bodies."""
+    with _LOCK:
+        for cc in _COND_COUNTS:
+            cc.fold()
+
+
+def _retire(entry) -> None:
+    """Fold a dropped graph's device counters and forget them."""
+    cc = entry.cond
+    if cc is not None:
+        cc.fold()
+        _COND_COUNTS.remove(cc)
+
+
+def _capturing(t: torch.Tensor) -> bool:
+    return t.device.type == "cuda" and torch.cuda.is_current_stream_capturing()
+
+
+def device_if(pred: torch.Tensor, body: Callable[[], None]) -> None:
+    """Run ``body`` where the 0-d tensor ``pred`` holds (``lax.cond``
+    with a no-op branch).  ``body`` returns nothing: it writes into
+    tensors allocated before the call.  On the CPU ``pred`` is read;
+    on the card, eagerly, too (counted in :data:`HOST_READS`); in a
+    warm-up ``body`` always runs; under a :class:`Compiled` capture it
+    is recorded into a CUDA-graph IF node that the device evaluates at
+    each replay."""
+    if _capturing(pred):
+        _capture_if(pred, body)
+    elif getattr(_TLS, "warming", False):
+        body()
+    elif host_read(pred.reshape(()).to(torch.bool)):
+        body()
+
+
+def device_switch(index: torch.Tensor, branches) -> None:
+    """Run ``branches[index]`` (``lax.switch``; ``index`` a 0-d integer
+    tensor in range): one read of ``index`` eagerly, one IF node per
+    branch on ``index == i`` under capture, every branch in a
+    warm-up."""
+    if _capturing(index):
+        for i, branch in enumerate(branches):
+            _capture_if(index == i, branch)
+    elif getattr(_TLS, "warming", False):
+        for branch in branches:
+            branch()
+    else:
+        branches[int(host_read(index.reshape(())))]()
+
+
+def _own_stream(device: torch.device) -> torch.cuda.ExternalStream:
+    """A CUDA stream no other stream object shares: ``torch.cuda.Stream``
+    hands out streams from a pool of 32 per device, so two of them can
+    be one stream, and a body's capture cannot begin on the stream that
+    captures its frame."""
+    from .cuda import _lib
+
+    ptr = ctypes.c_void_p()
+    with torch.cuda.device(device):
+        _lib.check(_lib.library().sb_stream_create(ctypes.byref(ptr)),
+                   "a capture stream")
+    return torch.cuda.ExternalStream(ptr.value, device=device)
+
+
+def _streams(device: torch.device):
+    """The device's capture stream (warm-ups and captures), body stream
+    and body pool."""
+    if device.index not in _STREAMS:
+        _STREAMS[device.index] = (_own_stream(device), _own_stream(device),
+                                  torch.cuda.MemPool())
+    return _STREAMS[device.index]
+
+
+def _capture_if(pred: torch.Tensor, body: Callable[[], None]) -> None:
+    """Record ``body`` into an IF node of the graph captured on the
+    current stream (``sb_cond_begin`` / ``sb_cond_end``): the body is
+    captured on the device's body stream, its temporaries drawn from the
+    body pool by this thread; the launches it counts on the host are
+    taken back and counted on the device instead."""
+    from .cuda import _lib
+
+    cond = getattr(_TLS, "cond", None)
+    if cond is None:
+        raise RuntimeError("device_if under a capture records its body "
+                           "only inside a Compiled frame's capture")
+    if getattr(_TLS, "in_body", False):
+        raise RuntimeError("device_if bodies do not nest")
+    device = pred.device
+    flag = (pred.reshape(()) != 0).to(torch.uint8)
+    stream = torch.cuda.current_stream(device)
+    _side, child, mempool = _streams(device)
+    pool = mempool.id
+    lib = _lib.library()
+    before = read_counts()
+    _lib.check(lib.sb_cond_begin(stream.cuda_stream, flag.data_ptr(),
+                                 child.cuda_stream), "device_if: IF node")
+    torch._C._cuda_beginAllocateCurrentThreadToPool(device.index, pool)
+    _TLS.in_body = True
+    try:
+        with torch.cuda.stream(child):
+            body()
+            delta = _count_delta(read_counts(), before)
+            if delta:
+                cond.slot(delta).add_(1)
+    finally:
+        _TLS.in_body = False
+        torch._C._cuda_endAllocateToPool(device.index, pool)
+        torch._C._cuda_releasePool(device.index, pool)
+        err = lib.sb_cond_end(child.cuda_stream)
+    _lib.check(err, "device_if: end of the body")
+    set_counts(before)
+
+
 def _is_record(obj) -> bool:
     return dataclasses.is_dataclass(obj) and not isinstance(obj, type)
 
@@ -185,28 +390,44 @@ def _rebuilt(obj, fn: Callable):
     return obj
 
 
-def _signature(obj, values: bool):
+def _signature(obj, values: bool, host=lambda t: False):
     """What a capture bakes in besides the tensors' contents: the tree's
     structure, each tensor's layout and, with ``values``, every other
-    leaf (floats by their bits, so -0.0 and NaN key as themselves);
-    without ``values`` floats and bools are left out (the shapes' key)."""
+    leaf (floats by their bits, so -0.0 and NaN key as themselves) and
+    the bytes of each ``host`` tensor; without ``values`` floats and
+    bools are left out (the shapes' key)."""
     if isinstance(obj, torch.Tensor):
-        return ("tensor", tuple(obj.shape), obj.dtype, obj.stride(),
-                obj.device)
+        sig = ("tensor", tuple(obj.shape), obj.dtype, obj.stride(),
+               obj.device)
+        if values and host(obj):
+            sig += (obj.contiguous().numpy().tobytes(),)
+        return sig
     if _is_record(obj):
         return (type(obj),) + tuple(
-            (f.name, _signature(getattr(obj, f.name), values))
+            (f.name, _signature(getattr(obj, f.name), values, host))
             for f in dataclasses.fields(obj))
     if isinstance(obj, (tuple, list)):
-        return (type(obj),) + tuple(_signature(x, values) for x in obj)
+        return (type(obj),) + tuple(_signature(x, values, host)
+                                    for x in obj)
     if isinstance(obj, dict):
-        return (dict,) + tuple((k, _signature(v, values))
+        return (dict,) + tuple((k, _signature(v, values, host))
                                for k, v in obj.items())
     if isinstance(obj, (bool, float)) and not values:
         return type(obj)
     if isinstance(obj, float):
         return (float, struct.pack("<d", obj))
     return (type(obj), obj)
+
+
+def _shared_pool(device: torch.device):
+    """The memory pool of a live graph on ``device`` (all of them share
+    one), or a new one where none lives: torch (2.11) refuses a capture
+    into a pool whose graphs all died, and into one that a failed
+    capture left (:data:`_POISONED`)."""
+    for g in _POOLS.get(device.index, ()):
+        if g.pool not in _POISONED:
+            return g.pool
+    return torch.cuda.graph_pool_handle()
 
 
 class CudaGraph:
@@ -218,11 +439,9 @@ class CudaGraph:
 
     def __init__(self, device: torch.device) -> None:
         self.device = device
-        if device.index not in _POOLS:
-            _POOLS[device.index] = torch.cuda.graph_pool_handle()
-        self.pool = _POOLS[device.index]
+        self.pool = _shared_pool(device)
         self.graph = torch.cuda.CUDAGraph()
-        self.side = torch.cuda.Stream(device)
+        self.side = _streams(device)[0]
 
     def warm_up(self, run: Callable) -> None:
         with torch.cuda.device(self.device):
@@ -240,6 +459,7 @@ class CudaGraph:
                 self._abandon()
                 raise
             self.graph.capture_end()
+            _POOLS.setdefault(self.device.index, weakref.WeakSet()).add(self)
             return out
 
     def _abandon(self) -> None:
@@ -257,8 +477,7 @@ class CudaGraph:
                                                  self.pool)
             except RuntimeError:   # this torch had stopped it already
                 pass
-            if _POOLS.get(self.device.index) == self.pool:
-                del _POOLS[self.device.index]
+            _POISONED.add(self.pool)
             _ABANDONED.append(self.graph)
 
     def replay(self) -> None:
@@ -272,6 +491,7 @@ class _Entry:
     out: object             # the function's output on the static inputs
     passed: dict            # id(static input) -> its index (pass-through)
     counts: dict            # launch counts one replay stands for
+    cond: object = None     # _CondCounts of its conditional bodies
 
 
 class Compiled:
@@ -301,12 +521,18 @@ class Compiled:
                 "replays": self.replays, "graphs": len(self._graphs)}
 
     def clear(self) -> None:
-        """Drop every graph (their memory goes back to the pool) and
-        forget the shapes warmed up: the next call of a key is a first
-        call again."""
+        """Drop every graph (their memory goes back to the pool; the
+        device counters of their bodies are folded first) and forget
+        the shapes warmed up: the next call of a key is a first call
+        again."""
         with _LOCK:
+            for entry in self._graphs.values():
+                _retire(entry)
             self._graphs.clear()
             self._warm.clear()
+
+    def _graph_tensor(self, t: torch.Tensor) -> bool:
+        return t.device.type == self.graph_cls.device_type
 
     def __call__(self, *args, **kwargs):
         bound = self._sig.bind(*args, **kwargs)
@@ -314,16 +540,23 @@ class Compiled:
         arguments = dict(bound.arguments)
         dynamic = {k: v for k, v in arguments.items()
                    if k not in self.static_argnames}
-        leaves = list(tensors(dynamic))
-        devices = {t.device for t in leaves}
-        if not any(d.type == self.graph_cls.device_type for d in devices):
+        leaves = [t for t in tensors(dynamic) if self._graph_tensor(t)]
+        if not leaves:
             return self.fn(**arguments)
-        if len(devices) != 1:
+        devices = {t.device for t in leaves}
+        others = {t.device for t in tensors(dynamic)
+                  if not self._graph_tensor(t) and t.device.type != "cpu"}
+        if len(devices) != 1 or others:
             raise ValueError(f"{self.__name__}: a captured frame takes its "
-                             f"tensors on one device, got {devices}")
+                             "tensors on one device (and host constants "
+                             f"on the CPU), got {devices | others}")
         device = leaves[0].device
         static = tuple((k, arguments[k]) for k in self.static_argnames)
-        key = (static, _signature(dynamic, True))
+
+        def host(t):
+            return not self._graph_tensor(t)
+
+        key = (static, _signature(dynamic, True, host))
         with _LOCK:
             entry = self._graphs.get(key)
             if entry is None:
@@ -333,25 +566,35 @@ class Compiled:
                 self._graphs[key] = entry
                 self.captures += 1
                 while len(self._graphs) > MAX_GRAPHS:
-                    self._graphs.popitem(last=False)
+                    _retire(self._graphs.popitem(last=False)[1])
             else:
                 self._graphs.move_to_end(key)
             return self._replay(entry, leaves, device)
 
     def _capture(self, arguments, dynamic, leaves, device, shapes) -> _Entry:
-        static_in = _rebuilt(dynamic, torch.empty_like)
-        inputs = list(tensors(static_in))
+        static_in = _rebuilt(dynamic, lambda t: (
+            torch.empty_like(t) if self._graph_tensor(t) else t))
+        inputs = [t for t in tensors(static_in) if self._graph_tensor(t)]
         for s, t in zip(inputs, leaves):
             s.copy_(t)
         versions = [s._version for s in inputs]
         graph = self.graph_cls(device)
         call = {**arguments, **static_in}
+        cond = _CondCounts(device) if device.type == "cuda" else None
         before = read_counts()
         try:
             if shapes not in self._warm:
-                graph.warm_up(lambda: self.fn(**call))
+                _TLS.warming = True
+                try:
+                    graph.warm_up(lambda: self.fn(**call))
+                finally:
+                    _TLS.warming = False
                 set_counts(before)
-            out = graph.capture(lambda: self.fn(**call))
+            _TLS.cond = cond
+            try:
+                out = graph.capture(lambda: self.fn(**call))
+            finally:
+                _TLS.cond = None
             counts = _count_delta(read_counts(), before)
         finally:
             set_counts(before)
@@ -360,7 +603,11 @@ class Compiled:
             raise RuntimeError(f"{self.__name__} writes into its inputs; a "
                                "captured frame must return new tensors")
         passed = {id(s): i for i, s in enumerate(inputs)}
-        return _Entry(graph, inputs, out, passed, counts)
+        if cond is not None and cond.deltas:
+            _COND_COUNTS.append(cond)
+        else:
+            cond = None
+        return _Entry(graph, inputs, out, passed, counts, cond)
 
     def _replay(self, entry: _Entry, leaves, device):
         cuda = device.type == "cuda"

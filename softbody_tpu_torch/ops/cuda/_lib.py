@@ -28,7 +28,7 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("fused_substep2.cu", "band_detect.cu", "collide_stencil.cu",
-           "fused_substep.cu", "recmirror.cu")
+           "fused_substep.cu", "recmirror.cu", "graph_cond.cu")
 HEADERS = ("lattice_device.cuh", "band_device.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -53,9 +53,15 @@ def _nvcc() -> str:
     return found
 
 
+def _sources(csrc: Path) -> tuple:
+    """:data:`SOURCES` in ``csrc``: another checkout's may predate one
+    (the package's own has them all)."""
+    return tuple(n for n in SOURCES if csrc == CSRC or (csrc / n).exists())
+
+
 def library_path(csrc: Path = CSRC) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES + HEADERS:
+    for name in _sources(csrc) + HEADERS:
         # another checkout's csrc/ may predate a header
         if (csrc / name).exists() or name in SOURCES:
             h.update((csrc / name).read_bytes())
@@ -76,14 +82,15 @@ def build(csrc: Path = CSRC) -> tuple:
     tag = f"{out.stem}.{os.getpid()}"
     t0 = time.perf_counter()
     objs, procs = [], []
-    for name in SOURCES:
+    sources = _sources(csrc)
+    for name in sources:
         obj = BUILD_DIR / f"{tag}.{Path(name).stem}.o"
         objs.append(obj)
         procs.append(subprocess.Popen(
             [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(csrc / name)],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     outputs = [proc.communicate() for proc in procs]
-    for name, proc, (stdout, stderr) in zip(SOURCES, procs, outputs):
+    for name, proc, (stdout, stderr) in zip(sources, procs, outputs):
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {name} ({proc.returncode}):"
                                f"\n{stdout}\n{stderr}")
@@ -129,6 +136,22 @@ def bind(path: Path) -> ctypes.CDLL:
     if hasattr(lib, "sb_fused_substep2_mode"):
         lib.sb_fused_substep2_mode.argtypes = [_P] * 10 + [_I] * 10 + [_P]
         lib.sb_fused_substep2_mode.restype = _I
+    # int sb_fused_substep2_modex(..., stream, extras_dev): the same with
+    #     the N_EXTRA far-field scalars read from device memory
+    if hasattr(lib, "sb_fused_substep2_modex"):
+        lib.sb_fused_substep2_modex.argtypes = ([_P] * 10 + [_I] * 10
+                                                + [_P, _P])
+        lib.sb_fused_substep2_modex.restype = _I
+    # int sb_cond_begin(stream, pred, child), sb_cond_end(child): an IF
+    #     node of the graph the stream captures (ops/compiled.py)
+    if hasattr(lib, "sb_cond_begin"):
+        lib.sb_cond_begin.argtypes = [_P, _P, _P]
+        lib.sb_cond_begin.restype = _I
+        lib.sb_cond_end.argtypes = [_P]
+        lib.sb_cond_end.restype = _I
+        # int sb_stream_create(void** out): a stream of the caller's own
+        lib.sb_stream_create.argtypes = [ctypes.POINTER(_P)]
+        lib.sb_stream_create.restype = _I
     # int sb_band_flags(px, py, dev, bdev, alive, out, offsets_host,
     #                   n_offsets, w, h, stream)
     lib.sb_band_flags.argtypes = [_P, _P, _P, _P, _P, _P, _P,

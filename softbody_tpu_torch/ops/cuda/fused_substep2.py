@@ -39,10 +39,11 @@ vy and the band flag).  The frames: :func:`fused_frame2` (no far field),
 :func:`fused_frame3_auto` (the triggered frame: trigger and detection in
 K1, the list, side planes and trigger vector carried across frames) and
 :func:`fused_frame4` (fixed cadence; ``detect_mode="kernel"`` takes each
-block's detection from K1).  JAX decides the rebuilds on the device
-(``lax.cond``); here the host reads each decision, once per substep in
-the triggered frames (:func:`fused_frame2_auto`, :func:`fused_frame3_auto`)
-and once per block in the fixed-cadence frame.
+block's detection from K1).  As JAX decides its rebuilds and buckets on
+the device (``lax.cond`` / ``lax.switch``), so do these frames
+(``compiled.device_if`` / ``device_switch``: IF nodes of the captured
+graph on the card), and each has a compiled counterpart (``*_jit``)
+that runs as one CUDA graph a frame there.
 """
 
 from __future__ import annotations
@@ -61,8 +62,10 @@ from ...config import (
     UserInput,
     consts_vector,
 )
+from .. import compiled
 from ..farfield import (
     ChunkPlanes,
+    FarList,
     chunk_any_alive,
     crop_active,
     crop_far_list,
@@ -77,7 +80,12 @@ from ..farfield import (
     rebuild_far_list_planes,
     rebuild_far_list_planes_active,
 )
-from ..farfield4 import NARROW_MAX, _check_layout, bucketed_far_delta_planes
+from ..farfield4 import (
+    NARROW_MAX,
+    _check_layout,
+    bucket_index,
+    bucketed_far_delta_planes,
+)
 from ..stencil import (
     EDGE_OFFSETS,
     LatticeState,
@@ -117,10 +125,6 @@ SIDE_BIG = 3.0e38
 T_MAXDD2, T_MAXDV2, T_VBX, T_VBY, T_SIDE_AGE = range(5)
 N_TRIG = 8
 _SUB_TX, _SUB_TY = 8, 32     # K1's tile (lattice_device.cuh), for stats
-
-# the host reads the far-armed frames make to decide rebuilds and pick
-# buckets (each one a synchronisation with the device)
-HOST_READS = 0
 
 _ARITH = ("strict", "rsqrt", "rollgroup", "rsqrt+rollgroup")
 # launches of the CUDA kernel (the plain version does not count), in all
@@ -290,20 +294,22 @@ def fused_substep2_plain(hot, immut, consts_vec, *, stencil: int,
                          quantized: bool, far=None, obs_in=None, refs=None,
                          detect: bool = False, rsqrt: bool = False,
                          rollgroup: bool = False, nospring: bool = False,
-                         noint: bool = False):
+                         noint: bool = False, extras=None):
     """Plain torch version of K1: the stencil path's substep on the packed
     planes (``ops/stencil.py``, with its ``rsqrt``/``rollgroup``
     variants and K1's ``inv_dt2`` clip), edge parameters from the consts
     vector; with ``refs`` the trig statistics (:func:`trig_stats_plain`),
-    with ``detect`` (and the consts' detect flag on) the side planes
-    (:func:`detect_side_plain`); ``nospring``/``noint`` the knobs.
-    Returns ``hot'`` plus, in order, ``obs'`` / ``stats`` / ``side`` for
-    each one asked for."""
+    with ``detect`` (and the detect flag on) the side planes
+    (:func:`detect_side_plain`); ``nospring``/``noint`` the knobs.  The
+    far-field scalars are ``extras`` where given (a tensor ``[8]``), else
+    the consts vector's tail.  Returns ``hot'`` plus, in order, ``obs'``
+    / ``stats`` / ``side`` for each one asked for."""
     sc = Scalars.of(consts_vec)
     # edge scalars as 0-d tensors on the state's device: float32
     # arithmetic, and true division on CUDA (see stencil.device_scalar)
     ec = consts_vec[N_CONSTS:N_CONSTS + N_EDGEC].to(hot.device)
-    extras = consts_vec[N_CONSTS + N_EDGEC:].tolist()
+    extras = (consts_vec[N_CONSTS + N_EDGEC:] if extras is None
+              else extras).tolist()
     edges = []
     for c in range(4):
         mb = 6 + 3 * c
@@ -367,7 +373,8 @@ def fused_substep2_call(hot, immut, consts_vec, *, stencil: int,
                         quantized: bool, far=None, obs_in=None, refs=None,
                         detect: bool = False, rsqrt: bool = False,
                         rollgroup: bool = False, nospring: bool = False,
-                        noint: bool = False):
+                        noint: bool = False, extras=None, hot_out=None,
+                        obs_out=None, side_out=None):
     """One substep (kernel K1), in the instance that ``rsqrt``/
     ``rollgroup`` and the modes pick.
 
@@ -376,8 +383,12 @@ def fused_substep2_call(hot, immut, consts_vec, *, stencil: int,
     [4,W,H]`` (px py vx vy of the far list's rebuild: the trig mode), all
     float32, contiguous, on one device; ``consts_vec`` a CPU float32
     ``[40]``, or ``[48]`` (the ``N_EXTRA`` scalars appended) under
-    ``refs`` or ``detect``.  ``detect``: the side planes, when the consts'
-    detect flag is on (else the side output is not written).  The trig
+    ``refs`` or ``detect``; or ``[40]`` and ``extras``, the ``N_EXTRA``
+    scalars as a float32 ``[8]`` tensor on hot's device, which the kernel
+    reads there (a captured frame computes them on the device).
+    ``detect``: the side planes, when the detect flag is on (else the
+    side output is not written).  ``hot_out``/``obs_out``/``side_out``:
+    tensors to write the outputs into (else new ones).  The trig
     mode runs the strict arithmetic only (JAX's triggered frame does);
     the knobs ``nospring``/``noint`` run without trig and detect.  On
     CUDA tensors the kernel runs on the current stream (no
@@ -399,11 +410,20 @@ def fused_substep2_call(hot, immut, consts_vec, *, stencil: int,
     trig = refs is not None
     if trig:
         _check_plane_stack("refs", refs, 4, shape, dev)
-    n_consts = N_CONSTS + N_EDGEC + (N_EXTRA if trig or detect else 0)
+    n_consts = N_CONSTS + N_EDGEC + (
+        N_EXTRA if (trig or detect) and extras is None else 0)
     if (consts_vec.device.type != "cpu" or consts_vec.dtype != torch.float32
             or tuple(consts_vec.shape) != (n_consts,)):
         raise ValueError(f"consts_vec must be a CPU float32 [{n_consts}] "
                          "tensor")
+    if extras is not None:
+        if not (trig or detect):
+            raise ValueError("extras are the trig and detect modes' "
+                             "scalars")
+        if (extras.device != dev or extras.dtype != torch.float32
+                or tuple(extras.shape) != (N_EXTRA,)):
+            raise ValueError(f"extras must be a float32 [{N_EXTRA}] tensor "
+                             f"on {dev}")
     if not 0 <= stencil <= MAX_STENCIL:
         raise ValueError(f"stencil {stencil} outside [0, {MAX_STENCIL}]")
     knobs = nospring or noint
@@ -412,35 +432,56 @@ def fused_substep2_call(hot, immut, consts_vec, *, stencil: int,
                          "detect")
     if trig and (rsqrt or rollgroup):
         raise ValueError("the trig mode runs the strict arithmetic only")
+    w, h = shape
+    outs = ((hot_out, N_HOT, True), (obs_out, N_OBS, obs_in is not None),
+            (side_out, N_SIDE, detect))
+    for name, (t, n, wanted) in zip(("hot_out", "obs_out", "side_out"),
+                                    outs):
+        if t is not None:
+            if not wanted:
+                raise ValueError(f"{name} given for an output not asked for")
+            want = (-(-w // FF_CHUNK), h) if name == "side_out" else shape
+            _check_plane_stack(name, t, n, want, dev)
     kw = dict(stencil=stencil, quantized=quantized, far=far, obs_in=obs_in,
               refs=refs, detect=detect, rsqrt=rsqrt, rollgroup=rollgroup,
               nospring=nospring, noint=noint)
     if dev.type == "cpu":
-        return fused_substep2_plain(hot, immut, consts_vec, **kw)
+        res = fused_substep2_plain(hot, immut, consts_vec, extras=extras,
+                                   **kw)
+        res = list(res) if isinstance(res, tuple) else [res]
+        into = ([hot_out] + [obs_out] * (obs_in is not None) + [None] * trig
+                + [side_out] * detect)
+        for i, (dst, src) in enumerate(zip(into, res)):
+            if dst is not None:
+                res[i] = dst.copy_(src)
+        return res[0] if len(res) == 1 else tuple(res)
     if dev.type != "cuda":
         raise ValueError(f"no K1 kernel for device {dev}")
     lib = _lib.library()
     cvec = consts_vec.contiguous()
-    w, h = shape
-    hot_out = torch.empty_like(hot)
-    obs_out = None if obs_in is None else torch.empty_like(obs_in)
+    if hot_out is None:
+        hot_out = torch.empty_like(hot)
+    if obs_out is None and obs_in is not None:
+        obs_out = torch.empty_like(obs_in)
     n_blocks = -(-h // _SUB_TY) * -(-w // _SUB_TX)
     stats = (torch.empty((n_blocks, N_STATS), dtype=torch.float32,
                          device=dev) if trig else None)
-    side = (torch.empty((N_SIDE, -(-w // FF_CHUNK), h), dtype=torch.float32,
-                        device=dev) if detect else None)
+    side = side_out
+    if detect and side is None:
+        side = torch.empty((N_SIDE, -(-w // FF_CHUNK), h),
+                           dtype=torch.float32, device=dev)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.sb_fused_substep2_mode(
+        err = lib.sb_fused_substep2_modex(
             hot.data_ptr(), immut.data_ptr(), ptr(far), ptr(obs_in),
             ptr(refs), hot_out.data_ptr(), ptr(obs_out), ptr(stats),
             ptr(side), cvec.data_ptr(), w, h, stencil, int(quantized),
             int(rsqrt), int(rollgroup), int(trig), int(detect),
-            int(nospring), int(noint), stream)
+            int(nospring), int(noint), stream, ptr(extras))
     _lib.check(err, "K1 fused_substep2")
     K1_LAUNCHES += 1
     K1_INSTANCE_LAUNCHES[k1_instance(rsqrt, rollgroup, trig, detect,
@@ -520,44 +561,67 @@ def fused_frame2_far(hot, obs, immut, edge_consts, fl,
     return hot, obs
 
 
-def _read(t: torch.Tensor) -> list:
-    """``t.tolist()``, counted in :data:`HOST_READS`."""
-    global HOST_READS
-    HOST_READS += 1
-    return t.tolist()
+def _f32(x) -> float:
+    return float(np.float32(x))
 
 
-def _counts(fl) -> Tuple[int, int]:
-    """``(n_pairs, overflow)`` of ``fl`` in one counted host read."""
-    n, o = _read(torch.stack([fl.n_pairs, fl.overflow]))
-    return int(n), int(o)
+def _device_vector(values, device) -> torch.Tensor:
+    """A float32 vector of host floats, filled on ``device`` (no
+    host-to-device copy: a captured frame may not make one)."""
+    return torch.stack([torch.full((), float(v), dtype=torch.float32,
+                                   device=device) for v in values])
 
 
-class _ListRecord:
-    """A triggered frame's far stats ``[rebuilds, max n_pairs, max
-    overflow]`` over the lists its substeps ran with (after each
-    substep's rebuild decision, as JAX's frames record them), from the
-    host reads the frame makes anyway: substep ``j``'s read carries the
-    counts of the list it starts with, which is substep ``j − 1``'s list;
-    at ``j = 0`` it is the frame's own only when that substep does not
-    rebuild; a list rebuilt by the last substep is read at the end
-    (:meth:`close`)."""
+def _working_list(fl: FarList) -> Tuple[FarList, torch.Tensor]:
+    """A copy of ``fl`` that a triggered frame rebuilds in place
+    (:func:`_assign_list`), and its reference planes stacked ``[4, W,
+    H]`` (px py vx vy: K1's ``refs``), of which the copy's ``*_ref`` are
+    views."""
+    refs = torch.stack([fl.px_ref, fl.py_ref, fl.vx_ref, fl.vy_ref])
+    return FarList(
+        ca=fl.ca.clone(), cb=fl.cb.clone(), valid=fl.valid.clone(),
+        n_pairs=fl.n_pairs.clone(), overflow=fl.overflow.clone(),
+        px_ref=refs[0], py_ref=refs[1], com_ref=fl.com_ref.clone(),
+        vx_ref=refs[2], vy_ref=refs[3], age=fl.age.clone()), refs
 
-    def __init__(self):
-        self.st = [0, 0, 0]
-        self.unread = False
 
-    def substep(self, j: int, need: bool, n_pairs: int, overflow: int):
-        if j > 0 or not need:
-            self.st[1] = max(self.st[1], n_pairs)
-            self.st[2] = max(self.st[2], overflow)
-        self.st[0] += int(need)
-        self.unread = need
+_LIST_FIELDS = ("ca", "cb", "valid", "n_pairs", "overflow", "px_ref",
+                "py_ref", "com_ref", "vx_ref", "vy_ref")
 
-    def close(self, fl) -> torch.Tensor:
-        if self.unread:
-            self.substep(1, False, *_counts(fl))
-        return torch.tensor(self.st, dtype=torch.int32)
+
+def _assign_list(dst: FarList, src: FarList) -> None:
+    """Write the rebuilt list ``src`` (age 0) into the working list
+    ``dst`` of the same capacity."""
+    if src.capacity != dst.capacity:
+        raise ValueError(f"a rebuild of capacity {src.capacity} into a "
+                         f"list of {dst.capacity}")
+    for name in _LIST_FIELDS:
+        getattr(dst, name).copy_(getattr(src, name))
+    dst.age.zero_()
+
+
+def _list_stats(st, need, fl):
+    """JAX's per-substep stats of a triggered frame: rebuilds, max
+    n_pairs and max overflow of the lists the substeps ran with."""
+    return torch.stack([st[0] + need.to(torch.int32),
+                        torch.maximum(st[1], fl.n_pairs),
+                        torch.maximum(st[2], fl.overflow)])
+
+
+def _far_switch(far, fl, ff, buckets, planes_of) -> None:
+    """``far`` ← the far delta planes of ``fl`` cropped to the smallest
+    rung of ``buckets`` (below ``max_pairs``) or ``max_pairs`` that holds
+    its pairs (``planes_of(cropped list)``), zeros for an empty list:
+    JAX's ``lax.switch`` (farfield4.bucket_index), one IF node a rung
+    under capture."""
+    ladder = tuple(b for b in buckets if b < ff.max_pairs) + (ff.max_pairs,)
+
+    def rung(k):
+        far.copy_(planes_of(crop_far_list(fl, k)))
+
+    compiled.device_switch(bucket_index(fl.n_pairs, ff, buckets),
+                           [far.zero_] + [lambda k=k: rung(k)
+                                          for k in ladder])
 
 
 def fused_frame2_auto(hot, obs, immut, edge_consts, fl,
@@ -567,37 +631,40 @@ def fused_frame2_auto(hot, obs, immut, edge_consts, fl,
     """The far-field-autonomous frame of the JAX package: before each
     substep the deviation trigger (``farfield.list_invalid``) decides a
     velocity-extruded rebuild (``rebuild_far_list_planes``, K2's band
-    pass); the far delta planes are computed while the list has pairs.
-    K1 strict, as in JAX.  The host reads the trigger and the list's
-    counts once per substep (one ``.tolist()``); a list rebuilt in a
-    substep is applied whole there and counted at the next read.
-    Returns ``(hot', obs', fl', stats)`` with ``stats`` a CPU int32
-    ``[3]``: rebuilds, max n_pairs, max overflow."""
+    pass; ``compiled.device_if``); K1 then takes the far delta planes of
+    the list, zeros while it has no pairs (``lax.cond`` in JAX).  K1
+    strict, as in JAX.  Every decision is made on the device: eagerly on
+    the card each is one counted host read, captured none.  Returns
+    ``(hot', obs', fl', stats)`` with ``stats`` an int32 ``[3]`` on the
+    device: rebuilds, max n_pairs, max overflow of the lists the
+    substeps ran with."""
     ff = ffspec
     cvec, k1kw = _frame_consts(consts, uin, spec, cfg, edge_consts, ())
     alive = immut[ALIVE] > 0.0
     n = cfg.subticks if n_sub is None else n_sub
-    rec = _ListRecord()
+    fl, _refs = _working_list(fl)
+    st = torch.zeros(3, dtype=torch.int32, device=hot.device)
+    far = hot.new_empty((5,) + tuple(hot.shape[1:]))
     for j in range(n):
-        need_d = list_invalid(hot[PX], hot[PY], hot[VX], hot[VY], alive, fl,
-                              cfg.dt, ff)
-        need, n_pairs, overflow = (int(v) for v in _read(torch.stack([
-            need_d.to(torch.int64), fl.n_pairs.to(torch.int64),
-            fl.overflow.to(torch.int64)])))
-        rec.substep(j, bool(need), n_pairs, overflow)
-        if need:
-            fl = rebuild_far_list_planes(
+        need = list_invalid(hot[PX], hot[PY], hot[VX], hot[VY], alive, fl,
+                            cfg.dt, ff)
+
+        def rebuild():
+            _assign_list(fl, rebuild_far_list_planes(
                 hot[PX], hot[PY], alive, s=spec.collision_stencil, ff=ff,
                 radius=cfg.particle_radius, vx=hot[VX], vy=hot[VY],
-                dt=cfg.dt)
-        far = (None if not need and n_pairs == 0 else
-               _far_planes(hot, alive, fl, spec, cfg, ff, consts))
-        out = fused_substep2_call(
-            hot, immut, cvec, far=far,
-            obs_in=obs if observe and j == n - 1 else None, **k1kw)
-        hot, obs = out if observe and j == n - 1 else (out, obs)
-        fl = dataclasses.replace(fl, age=fl.age + 1)
-    return hot, obs, fl, rec.close(fl)
+                dt=cfg.dt))
+
+        compiled.device_if(need, rebuild)
+        st = _list_stats(st, need, fl)
+        _far_switch(far, fl, ff, (), lambda flk: _far_planes(
+            hot, alive, flk, spec, cfg, ff, consts))
+        observing = observe and j == n - 1
+        out = fused_substep2_call(hot, immut, cvec, far=far,
+                                  obs_in=obs if observing else None, **k1kw)
+        hot, obs = out if observing else (out, obs)
+        fl.age.add_(1)
+    return hot, obs, fl, st
 
 
 def far3_carry_init(hot, immut, cfg: StaticConfig, spec, ffspec):
@@ -614,18 +681,19 @@ def far3_carry_init(hot, immut, cfg: StaticConfig, spec, ffspec):
         hot[PX], hot[PY], alive, hot[VX], hot[VY],
         s=spec.collision_stencil, ff=ffspec, radius=cfg.particle_radius,
         T_band=float((ffspec.horizon + 1) * cfg.dt), vbar=(vbx, vby))
-    trig = torch.zeros(N_TRIG, dtype=torch.float32, device=hot.device)
-    trig[T_MAXDD2] = 1.0e30
-    trig[T_VBX] = vbx
-    trig[T_VBY] = vby
-    trig[T_SIDE_AGE] = 1.0
+    # (stacked, not assigned element by element: assigning a host float
+    # copies it from the host, which a captured frame may not)
+    big, zero, one = _device_vector([1.0e30, 0.0, 1.0], hot.device)
+    trig = torch.stack([big, zero, vbx, vby, one]
+                       + [zero] * (N_TRIG - 5))
     return side, trig
 
 
-def _rebuild_from_side(hot, side, cany, *, ff, radius: float, T: float):
+def _rebuild_from_side(hot, side, cany, *, ff, radius: float, T):
     """A far list from K1's side planes (the detection of ``side``'s
-    state): the chunk planes (``raw_planes_from_side``) swept for ``T``,
-    then the candidate compaction, referenced to ``hot``."""
+    state): the chunk planes (``raw_planes_from_side``) swept for ``T``
+    (a host float or a 0-d device tensor), then the candidate
+    compaction, referenced to ``hot``."""
     w, h = hot.shape[1:]
     raw = raw_planes_from_side(side, w, h, (0, 0), ff)
     iminx, imaxx, iminy, imaxy = extrude_chunk_planes(
@@ -634,10 +702,6 @@ def _rebuild_from_side(hot, side, cany, *, ff, radius: float, T: float):
                      torch.zeros(2, dtype=torch.float32, device=hot.device))
     return rebuild_far_list_from_chunks(cp, hot[PX], hot[PY], hot[VX],
                                         hot[VY], ff=ff)
-
-
-def _f32(x) -> float:
-    return float(np.float32(x))
 
 
 def fused_frame3_auto(hot, obs, immut, edge_consts, fl, side, trig,
@@ -651,82 +715,79 @@ def fused_frame3_auto(hot, obs, immut, edge_consts, fl, side, trig,
     side planes and the trigger vector ride across frames
     (:func:`far3_carry_init` makes the first ``side``/``trig``).
 
-    Per substep, from the trigger vector: ``maxdev = √max dd² +
-    speed_safety·dt·√max dv²`` (float32 on the device); ``need = maxdev >
-    skin/2 | age ≥ horizon`` rebuilds from the carried side planes, swept
-    for ``(horizon + side_age + 1)·dt`` (they describe the state
-    ``side_age`` substeps back); ``det = need | maxdev > skin/4 | age ≥
-    horizon − 2`` runs K1's detect instance and takes its side planes.
-    The far apply crops the list to the smallest of ``buckets`` (below
-    ``max_pairs``) or ``max_pairs`` that holds it.  K1 strict, as in JAX.
-
-    The host reads ``need``, ``det``, the band's mean velocity, the side
-    age and the list's counts once per substep (one ``.tolist()``); a
-    list rebuilt in a substep is applied at its full capacity there and
-    counted at the next read.  Returns ``(hot', obs', fl', side', trig',
-    stats)``, ``stats`` a CPU int32 ``[3]``: rebuilds, max n_pairs, max
-    overflow."""
+    Per substep, from the trigger vector, on the device: ``maxdev = √max
+    dd² + speed_safety·dt·√max dv²`` (float32); ``need = maxdev > skin/2
+    | age ≥ horizon`` rebuilds from the carried side planes, swept for
+    ``(horizon + side_age + 1)·dt`` (they describe the state
+    ``side_age`` substeps back; ``compiled.device_if``); ``det = need |
+    maxdev > skin/4 | age ≥ horizon − 2`` runs K1's detect instance,
+    which also writes the side planes, else its trig instance (two
+    bodies on complementary predicates).  The far apply crops the list
+    to the smallest of ``buckets`` (below ``max_pairs``) or
+    ``max_pairs`` that holds its pairs, zeros for an empty list.  K1
+    strict, as in JAX; its far-field scalars (tau from the list's age,
+    the detect flag, the band's mean velocity) are computed on the
+    device and read there.  Returns ``(hot', obs', fl', side', trig',
+    stats)``, ``stats`` an int32 ``[3]`` on the device: rebuilds, max
+    n_pairs, max overflow."""
     ff = ffspec
-    cvec0, k1kw = _frame_consts(consts, uin, spec, cfg, edge_consts, ())
+    cvec, k1kw = _frame_consts(consts, uin, spec, cfg, edge_consts, ())
     dev = hot.device
     alive = immut[ALIVE] > 0.0
     n = cfg.subticks if n_sub is None else n_sub
     budget = np.float32(0.5 * ff.skin)
-    base_reach = _f32(2.0 * cfg.particle_radius + ff.skin)
+    half = float(np.float32(0.5) * budget)
     safdt = _f32(ff.speed_safety * cfg.dt)
-    t_band = _f32((ff.horizon + 1) * cfg.dt)
+    dt32 = _f32(cfg.dt)
+    tail = _device_vector([_f32((ff.horizon + 1) * cfg.dt),
+                           _f32(2.0 * cfg.particle_radius + ff.skin), safdt,
+                           0.0], dev)
     n_alive = torch.clamp(alive.to(torch.float32).sum(), min=1.0)
     cany = chunk_any_alive(alive, ff)
-    ladder = tuple(b for b in buckets if b < ff.max_pairs) + (ff.max_pairs,)
-    refs = torch.stack([fl.px_ref, fl.py_ref, fl.vx_ref, fl.vy_ref])
-    rec = _ListRecord()
+    fl, refs = _working_list(fl)
+    side = side.clone()
+    st = torch.zeros(3, dtype=torch.int32, device=dev)
+    far = hot.new_empty((5,) + tuple(hot.shape[1:]))
+    stats = hot.new_empty(N_STATS)
+    pad = torch.zeros(N_TRIG - 5, dtype=torch.float32, device=dev)
     for j in range(n):
         maxdev = sqrt32(trig[T_MAXDD2]) + safdt * sqrt32(trig[T_MAXDV2])
-        vals = _read(torch.stack([
-            (maxdev > float(budget)).to(torch.float64),
-            (maxdev > float(np.float32(0.5) * budget)).to(torch.float64),
-            trig[T_VBX].to(torch.float64), trig[T_VBY].to(torch.float64),
-            trig[T_SIDE_AGE].to(torch.float64),
-            fl.n_pairs.to(torch.float64), fl.overflow.to(torch.float64),
-        ]))
-        need = bool(vals[0]) or fl.age >= ff.horizon
-        det = need or bool(vals[1]) or fl.age >= ff.horizon - 2
-        vbx, vby, side_age = vals[2:5]
-        n_pairs, overflow = int(vals[5]), int(vals[6])
-        rec.substep(j, need, n_pairs, overflow)
-        if need:
-            T = _f32((np.float32(ff.horizon) + np.float32(side_age)
-                      + np.float32(1.0)) * np.float32(cfg.dt))
-            fl = _rebuild_from_side(hot, side, cany, ff=ff,
-                                    radius=cfg.particle_radius, T=T)
-            refs = torch.stack([fl.px_ref, fl.py_ref, fl.vx_ref, fl.vy_ref])
-            k = ff.max_pairs
-        else:
-            k = (0 if n_pairs == 0 else
-                 next(b for b in ladder if b >= min(n_pairs, ff.max_pairs)))
-        far = (None if k == 0 else _far_planes(
-            hot, alive, crop_far_list(fl, k), spec, cfg, ff, consts))
-        extras = torch.tensor([
-            _f32(np.float32(fl.age + 1) * np.float32(cfg.dt)),
-            float(det), vbx, vby, t_band, base_reach, safdt, 0.0],
-            dtype=torch.float32)
+        need = (maxdev > float(budget)) | (fl.age >= ff.horizon)
+        det = need | (maxdev > half) | (fl.age >= ff.horizon - 2)
+        side_age = trig[T_SIDE_AGE]
+
+        def rebuild():
+            T = ((side_age + float(ff.horizon)) + 1.0) * dt32
+            _assign_list(fl, _rebuild_from_side(
+                hot, side, cany, ff=ff, radius=cfg.particle_radius, T=T))
+
+        compiled.device_if(need, rebuild)
+        st = _list_stats(st, need, fl)
+        _far_switch(far, fl, ff, buckets, lambda flk: _far_planes(
+            hot, alive, flk, spec, cfg, ff, consts))
+        extras = torch.cat([
+            ((fl.age + 1).to(torch.float32) * dt32).reshape(1),
+            det.to(torch.float32).reshape(1), trig[T_VBX:T_VBY + 1], tail])
         observing = observe and j == n - 1
-        outs = list(fused_substep2_call(
-            hot, immut, torch.cat([cvec0, extras]), far=far,
-            obs_in=obs if observing else None, refs=refs, detect=det,
-            **k1kw))
-        hot = outs.pop(0)
+        hot_new = torch.empty_like(hot)
+        obs_new = torch.empty_like(obs) if observing else None
+
+        def k1(detect: bool):
+            outs = fused_substep2_call(
+                hot, immut, cvec, far=far, obs_in=obs if observing else None,
+                refs=refs, detect=detect, extras=extras, hot_out=hot_new,
+                obs_out=obs_new, side_out=side if detect else None, **k1kw)
+            stats.copy_(outs[2 if observing else 1])
+
+        compiled.device_if(det, lambda: k1(True))
+        compiled.device_if(~det, lambda: k1(False))
+        hot = hot_new
         if observing:
-            obs = outs.pop(0)
-        stats = outs.pop(0)
-        if det:
-            side = outs.pop(0)
-        trig = torch.zeros(N_TRIG, dtype=torch.float32, device=dev)
-        trig[:2] = stats[:2]
-        trig[2:4] = stats[2:4] / n_alive
-        trig[T_SIDE_AGE] = 1.0 if det else side_age + 1.0
-        fl = dataclasses.replace(fl, age=fl.age + 1)
-    return hot, obs, fl, side, trig, rec.close(fl)
+            obs = obs_new
+        trig = torch.cat([stats[:2], stats[2:4] / n_alive, torch.where(
+            det, 1.0, side_age + 1.0).reshape(1), pad])
+        fl.age.add_(1)
+    return hot, obs, fl, side, trig, st
 
 
 def rebuild_far_list_packed2(hot, immut, *, s: int, ff, radius: float):
@@ -755,10 +816,11 @@ def fused_frame4(hot, obs, immut, edge_consts, consts: PhysicsConstants,
     ``n // R`` blocks of [rebuild → R substeps] with ``R =
     min(ffspec.horizon, n)``, plus a remainder block that also rebuilds.
     Each substep applies the far pairs through the JAX v4 route
-    (``ops/farfield4.py::bucketed_far_delta_planes``: buckets ≤ 256
-    narrow, larger ones through the record table of kernel K7; under
-    ``krec`` every bucket through the table) then runs K1 in the instance
-    of ``kvar``; the frame's last substep is the observing one.
+    (``ops/farfield4.py::bucketed_far_delta_planes``: the rung chosen on
+    the device, zeros for an empty list; buckets ≤ 256 narrow, larger
+    ones through the record table of kernel K7; under ``krec`` every
+    bucket through the table) then runs K1 in the instance of ``kvar``;
+    the frame's last substep is the observing one.
 
     ``detect_mode="xla"``: each rebuild detects on its state (K2 for the
     band, or its plain loop under ``band_impl="plain"``: JAX's "xla").
@@ -766,16 +828,19 @@ def fused_frame4(hot, obs, immut, edge_consts, consts: PhysicsConstants,
     the next block rebuilds from its side planes (``raw_planes_from_side``,
     swept for ``(R + 1)·dt``: they describe the state one substep back);
     block 0's come from ``kernel_side_from_planes``; the last block never
-    detects.  The host reads each detecting substep's band mean velocity
-    (one ``.tolist()`` per block).  It refuses ``activation`` and the
-    ``krec``/``kmirror`` carry, as JAX does.
+    detects.  The band's mean velocity goes to K1 in device memory (the
+    ``extras`` of :func:`fused_substep2_call`).  It refuses ``activation``
+    and the ``krec``/``kmirror`` carry, as JAX does.
 
     ``activation``: the rebuild also schedules each pair's first possible
     contact (``farfield.pair_activation``) and substep ``s`` of a block
-    applies only the sorted list's first ``n_active[s]`` pairs.
-    ``far_mb``/``far_mb_out``: the record layout, 32 only.
+    applies only the sorted list's first ``n_active[s]`` pairs, its
+    bucket chosen from that count.  ``far_mb``/``far_mb_out``: the record
+    layout, 32 only.
 
-    Returns ``(hot', obs', stats)`` with ``stats`` a CPU int32 ``[4]``:
+    No host read: on the card each rung choice is one counted read
+    eagerly, none captured.  Returns ``(hot', obs', stats)`` with
+    ``stats`` an int32 ``[4]`` on the device (JAX's ``merge_st``):
     rebuilds, max n_pairs, max overflow, max active pairs (a block's
     active count at its last substep; ``n_pairs`` without
     ``activation``)."""
@@ -794,18 +859,21 @@ def fused_frame4(hot, obs, immut, edge_consts, consts: PhysicsConstants,
     cvec, k1kw = _frame_consts(consts, uin, spec, cfg, edge_consts, kvar)
     narrow_max = 0 if "krec" in kvar else NARROW_MAX
     alive = immut[ALIVE] > 0.0
+    dev = hot.device
     n = cfg.subticks if n_sub is None else n_sub
     R = min(ff.horizon, n)
     blocks = [R] * (n // R) + ([n % R] if n % R else [])
-    ecoeff = consts.ecoeff
     kw = dict(s=spec.collision_stencil, ff=ff, radius=cfg.particle_radius)
+    far_kw = dict(dt=cfg.dt, ecoeff=consts.ecoeff, friction=consts.friction,
+                  buckets=buckets, narrow_max=narrow_max, **kw)
     if kernel_detect:
         cany = chunk_any_alive(alive, ff)
         n_alive = torch.clamp(alive.to(torch.float32).sum(), min=1.0)
         t_band = float((R + 1) * cfg.dt)
-        extras0 = [0.0, 1.0, 0.0, 0.0, _f32(t_band),
-                   _f32(2.0 * cfg.particle_radius + ff.skin),
-                   _f32(ff.speed_safety * cfg.dt), 0.0]
+        head = _device_vector([0.0, 1.0], dev)
+        tail = _device_vector([_f32(t_band),
+                               _f32(2.0 * cfg.particle_radius + ff.skin),
+                               _f32(ff.speed_safety * cfg.dt), 0.0], dev)
 
         def vbar_of(h):
             return (torch.where(alive, h[VX], 0.0).sum() / n_alive,
@@ -814,43 +882,34 @@ def fused_frame4(hot, obs, immut, edge_consts, consts: PhysicsConstants,
         side = kernel_side_from_planes(
             hot[PX], hot[PY], alive, hot[VX], hot[VY], T_band=t_band,
             vbar=vbar_of(hot), band_impl=band_impl, **kw)
-    st = [0, 0, 0, 0]
+    st = torch.zeros(4, dtype=torch.int32, device=dev)
     for bi, size in enumerate(blocks):
         last_block = bi == len(blocks) - 1
+        n_act = None
         if kernel_detect:
             fl = _rebuild_from_side(hot, side, cany, ff=ff,
                                     radius=cfg.particle_radius, T=t_band)
-            n_pairs, overflow = _counts(fl)
-            active = [n_pairs] * size
         elif activation:
             fl, n_act = rebuild_far_list_planes_active(
                 hot[PX], hot[PY], alive, vx=hot[VX], vy=hot[VY], dt=cfg.dt,
                 R=R, band_impl=band_impl, **kw)
-            # the bucket choice needs the counts on the host: one read per
-            # rebuild, which also carries the stats and the schedule
-            n_pairs, overflow, *active = _read(torch.cat([
-                torch.stack([fl.n_pairs, fl.overflow]), n_act]))
         else:
             fl = rebuild_far_list_planes(hot[PX], hot[PY], alive, vx=hot[VX],
                                          vy=hot[VY], dt=cfg.dt,
                                          band_impl=band_impl, **kw)
-            n_pairs, overflow = _counts(fl)
-            active = [n_pairs] * size
-        st = [st[0] + 1, max(st[1], n_pairs), max(st[2], overflow),
-              max(st[3], active[size - 1])]
+        na = fl.n_pairs if n_act is None else n_act[size - 1]
+        st = torch.stack([st[0] + 1, torch.maximum(st[1], fl.n_pairs),
+                          torch.maximum(st[2], fl.overflow),
+                          torch.maximum(st[3], na)])
         for j in range(size):
-            fl_j = crop_active(fl, active[j]) if activation else fl
-            far = bucketed_far_delta_planes(
-                hot, immut[ALIVE], fl_j, active[j], dt=cfg.dt, ecoeff=ecoeff,
-                friction=consts.friction, buckets=buckets,
-                narrow_max=narrow_max, **kw)
+            fl_j = fl if n_act is None else crop_active(fl, n_act[j])
+            far = bucketed_far_delta_planes(hot, immut[ALIVE], fl_j, None,
+                                            **far_kw)
             if kernel_detect and not last_block and j == size - 1:
-                extras = list(extras0)
-                extras[X_VBX:X_VBY + 1] = _read(torch.stack(vbar_of(hot)))
+                extras = torch.cat([head, torch.stack(vbar_of(hot)), tail])
                 hot, side = fused_substep2_call(
-                    hot, immut, torch.cat([cvec, torch.tensor(
-                        extras, dtype=torch.float32)]),
-                    far=far, detect=True, **k1kw)
+                    hot, immut, cvec, far=far, detect=True, extras=extras,
+                    **k1kw)
                 continue
             observing = last_block and j == size - 1
             out = fused_substep2_call(
@@ -860,4 +919,28 @@ def fused_frame4(hot, obs, immut, edge_consts, consts: PhysicsConstants,
                 hot, obs = out
             else:
                 hot = out
-    return hot, obs, torch.tensor(st, dtype=torch.int32)
+    return hot, obs, st
+
+
+# the frames' compiled counterparts (JAX's jitted functions; ops/
+# compiled.py): CUDA graphs on the card, the functions on the CPU
+fused_frame2_jit = compiled.Compiled(
+    fused_frame2, static_argnames=("spec", "cfg", "n_sub", "observe",
+                                   "kvar"))
+fused_frame2_far_jit = compiled.Compiled(
+    fused_frame2_far, static_argnames=("spec", "cfg", "ffspec", "n_sub",
+                                       "observe", "kvar"))
+fused_frame2_auto_jit = compiled.Compiled(
+    fused_frame2_auto, static_argnames=("spec", "cfg", "ffspec", "n_sub",
+                                        "observe"))
+far3_carry_init_jit = compiled.Compiled(
+    far3_carry_init, static_argnames=("cfg", "spec", "ffspec"))
+fused_frame3_auto_jit = compiled.Compiled(
+    fused_frame3_auto, static_argnames=("spec", "cfg", "ffspec", "n_sub",
+                                        "observe", "buckets"))
+packed_far_motion2_jit = compiled.Compiled(packed_far_motion2)
+fused_frame4_jit = compiled.Compiled(
+    fused_frame4, static_argnames=("spec", "cfg", "ffspec", "n_sub",
+                                   "buckets", "activation", "far_mb",
+                                   "far_mb_out", "detect_mode", "band_impl",
+                                   "kvar"))

@@ -38,6 +38,7 @@ from ..config import resolve_device
 from .cuda.band_detect import band_flag_call, band_flags_plain
 from .stencil import (
     _mul32,
+    device_constant,
     device_scalar,
     f32_to_i32,
     index_sum,
@@ -68,9 +69,9 @@ def _shifted_stack(plane: torch.Tensor, offsets: Sequence[Tuple[int, int]],
     """``[n_off, W, H]``: ``out[o] = shifted(plane, *offsets[o], fill)``,
     as one gather from a padded copy."""
     w, h = plane.shape
-    offs = torch.as_tensor(np.asarray(offsets, np.int64).reshape(-1, 2),
-                           device=plane.device)
-    p = int(offs.abs().max()) if len(offs) else 0
+    host = np.asarray(offsets, np.int64).reshape(-1, 2)
+    offs = device_constant(host, plane.device)
+    p = int(np.abs(host).max()) if len(host) else 0
     padded = torch.full((w + 2 * p, h + 2 * p), fill, dtype=plane.dtype,
                         device=plane.device)
     padded[p : p + w, p : p + h] = plane
@@ -164,9 +165,16 @@ class FarList:
     com_ref: torch.Tensor   # [2] alive-mean position at rebuild
     vx_ref: torch.Tensor
     vy_ref: torch.Tensor
-    # substeps since the rebuild, on the host (the triggered frames
-    # decide their rebuilds there)
-    age: int = 0
+    # [] int32 substeps since the rebuild, on the list's device (a host
+    # int given here is put there): the triggered frames decide their
+    # rebuilds on the device
+    age: Optional[torch.Tensor] = None
+
+    def __post_init__(self):
+        if not isinstance(self.age, torch.Tensor):
+            self.age = torch.full((), 0 if self.age is None else self.age,
+                                  dtype=torch.int32,
+                                  device=self.n_pairs.device)
 
     @property
     def capacity(self) -> int:
@@ -284,12 +292,13 @@ def raw_chunk_planes(pxu, pyu, alive, *, s: int, ff: FarFieldSpec,
 
 def extrude_chunk_planes(raw: RawChunkPlanes, cany, *, ff: FarFieldSpec,
                          radius: float, T: float, extruded: bool):
-    """Sweep each chunk's AABB along its own velocity span for ``T`` and
+    """Sweep each chunk's AABB along its own velocity span for ``T`` (a
+    host float, or a 0-d float32 tensor on the planes' device) and
     inflate by ``r + skin/2`` → ``(iminx, imaxx, iminy, imaxy)``."""
     m0 = float(np.float32(radius + 0.5 * ff.skin))
     if not extruded:
         return (raw.minx - m0, raw.maxx + m0, raw.miny - m0, raw.maxy + m0)
-    tf = float(np.float32(T))
+    tf = T if isinstance(T, torch.Tensor) else float(np.float32(T))
     # empty chunks reduce to ±BIG; zero them so ±BIG·T stays finite
     vminx = torch.where(cany, raw.vminx, 0.0)
     vmaxx = torch.where(cany, raw.vmaxx, 0.0)
@@ -482,8 +491,8 @@ def rebuild_far_list_from_chunks(cp: ChunkPlanes, px_ref, py_ref, vx_ref,
     bits = ((words[:, :, None] >> torch.arange(32, device=dev)) & 1)
     bits = bits.reshape(mc, -1)[:, :n_off_a] > 0
     ba_rows = torch.cat([b_rows, bits], dim=1) & h_ok[:, None]
-    ba_offs = torch.as_tensor(
-        np.asarray(adj_offsets + ann_offsets, np.int64), device=dev)
+    ba_offs = device_constant(
+        np.asarray(adj_offsets + ann_offsets, np.int64), dev)
     ban_ca, ban_cb, _ban_valid, ba_n, ba_over = strip_extract(
         ba_rows, h_idx, ba_offs,
         band_stack.sum() + ann_count.sum())
@@ -715,7 +724,7 @@ def list_invalid(px, py, vx, vy, alive, fl: FarList, dt: float,
     ``fl.age·dt``) plus the margin ``speed_safety·|v − v_ref|·dt``
     exceeds skin/2, or the list has reached its extrusion horizon.  In
     float32 on the device, as the JAX package's."""
-    tau = float(np.float32(fl.age) * np.float32(dt))
+    tau = fl.age.to(torch.float32) * float(np.float32(dt))
     ddx = px - (fl.px_ref + fl.vx_ref * tau)
     ddy = py - (fl.py_ref + fl.vy_ref * tau)
     dev = sqrt32(ddx * ddx + ddy * ddy)
@@ -728,11 +737,15 @@ def list_invalid(px, py, vx, vy, alive, fl: FarList, dt: float,
         fl.age >= ff.horizon)
 
 
-def crop_active(fl: FarList, n_active: int) -> FarList:
-    """The sorted list cut to its first ``n_active`` entries (host int):
-    the pairs that can touch by the current substep."""
+def crop_active(fl: FarList, n_active) -> FarList:
+    """The sorted list cut to its first ``n_active`` entries (a host int
+    or a 0-d int32 tensor on the list's device, which becomes its
+    ``n_pairs``, as in the JAX package): the pairs that can touch by the
+    current substep."""
     keep = torch.arange(fl.capacity, device=fl.valid.device) < n_active
-    return dataclasses.replace(fl, valid=fl.valid & keep)
+    n = (n_active.to(torch.int32) if isinstance(n_active, torch.Tensor)
+         else torch.full_like(fl.n_pairs, n_active))
+    return dataclasses.replace(fl, valid=fl.valid & keep, n_pairs=n)
 
 
 def rebuild_far_list(pos, alive, *, s: int, ff: FarFieldSpec,

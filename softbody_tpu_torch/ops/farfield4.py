@@ -2,8 +2,9 @@
 (the mirror-record route, lane block ``mb = 32``).
 
 The candidate list is cropped to the smallest capacity bucket ≥
-``n_pairs`` (a light frame does not pay for the full capacity), then,
-as in the JAX package, per bucket:
+``n_pairs`` (a light frame does not pay for the full capacity; the rung is chosen on
+the device, as ``lax.switch`` chooses it: ``compiled.device_switch``),
+then, as in the JAX package, per bucket:
 
 - buckets ≤ 256 (:func:`far_delta_planes_narrow`): each pair side's
   window is gathered as 20 narrow rows (5 fields × 4 plane rows × 32
@@ -214,10 +215,39 @@ def far_delta_planes_narrow(planes5, fl: FarList, *, s: int,
     return out.reshape(NF, w, hm)[:, :, :h]
 
 
+def bucket_index(n_pairs: torch.Tensor, ff: FarFieldSpec,
+                 buckets: Tuple[int, ...]) -> torch.Tensor:
+    """The JAX package's branch of ``lax.switch`` (``farfield4.py:295-308``)
+    on the device: 0 for an empty list, else ``1 +`` the rung of the
+    smallest bucket ≥ ``n_pairs`` in the ladder (the list's capacity caps
+    it), a 0-d int64 tensor."""
+    ladder = tuple(b for b in buckets if b < ff.max_pairs) + (ff.max_pairs,)
+    n = n_pairs.to(torch.int64)
+    bidx = sum(((n > b).to(torch.int64) for b in ladder[:-1]),
+               torch.zeros_like(n))
+    return (n > 0).to(torch.int64) * (bidx + 1)
+
+
+def _apply_bucket(planes5_fn, fl: FarList, k: int, narrow_max: int,
+                  kw: dict) -> torch.Tensor:
+    """The list cropped to capacity ``k``, applied narrow (``k ≤
+    narrow_max``) or through the mirror table: delta planes ``[5, w,
+    h]`` (a view)."""
+    flk = crop_far_list(fl, k)
+    w, h = kw["w"], kw["h"]
+    if k <= narrow_max:
+        APPLY_ROUTES["narrow"] += 1
+        return far_delta_planes_narrow(planes5_fn(), flk, **kw)
+    APPLY_ROUTES["mirror"] += 1
+    dtab = far_terms_from_mirror(mirror_table(planes5_fn(), w=w, h=h), flk,
+                                 **kw)
+    return unmirror_table(dtab, w=w, h=h)
+
+
 def bucketed_far_delta_from_fn(
     planes5_fn: Callable[[], Sequence[torch.Tensor]],
     fl: FarList,
-    n_pairs: int,
+    n_pairs: Optional[int] = None,
     *,
     s: int,
     ff: FarFieldSpec,
@@ -233,15 +263,26 @@ def bucketed_far_delta_from_fn(
     table: Optional[torch.Tensor] = None,
     as_table: bool = False,
     narrow_max: int = NARROW_MAX,
+    out: Optional[torch.Tensor] = None,
 ) -> Optional[torch.Tensor]:
     """Core bucketed apply over a deferred plane source: crop the list to
-    the smallest capacity bucket ≥ ``n_pairs`` and apply it narrow (≤
-    ``narrow_max``, 256; 0 under ``krec``) or through the mirror table.  ``planes5_fn()`` returns the five
-    planes (px, py, vx, vy, alive), of ``[w, h]`` or smaller (zero-padded
-    to it); it is called only when there are pairs.  ``n_pairs`` is
-    ``fl.n_pairs`` read on the host: eager torch picks the bucket there,
-    as ``lax.switch`` did on the device.  Returns the delta planes
-    ``[5, w, h]`` (a view), or None when the list is empty."""
+    the smallest capacity bucket ≥ its pair count and apply it narrow (≤
+    ``narrow_max``, 256; 0 under ``krec``) or through the mirror table.
+    ``planes5_fn()`` returns the five planes (px, py, vx, vy, alive), of
+    ``[w, h]`` or smaller (zero-padded to it); it is called only by a
+    rung that applies.
+
+    ``n_pairs=None`` (the JAX semantics, ``lax.switch``): the rung is
+    chosen on the device from ``fl.n_pairs`` (:func:`bucket_index`,
+    ``compiled.device_switch``: read on the host eagerly, an IF node per
+    rung under capture), and every rung, the empty list's too (zeros),
+    writes the delta planes into ``out`` (``[5, w', h']``, ``w' ≤ w``,
+    ``h' ≤ h``: the planes' corner; allocated ``[5, w, h]`` if None),
+    which is returned.  ``n_pairs`` a host int (the count already read
+    there): that rung is applied and its delta planes returned (a view),
+    or None when the list is empty."""
+    from . import compiled
+
     _check_layout(mb, mb_out)
     if table is not None or as_table:
         raise ValueError("pre-built mirror tables (table=, as_table=; "
@@ -253,25 +294,33 @@ def bucketed_far_delta_from_fn(
                          f"({ff.chunk * ff.tile_chunks}) == 0")
     if w % ff.chunk != 0:
         raise ValueError(f"far apply needs w ({w}) % chunk == 0")
-    if n_pairs == 0:
-        return None
-    k = bucket_capacity(n_pairs, ff, buckets)
-    flk = crop_far_list(fl, k)
     kw = dict(s=s, ff=ff, radius=radius, dt=dt, ecoeff=ecoeff,
               friction=friction, w=w, h=h)
-    if k <= narrow_max:
-        APPLY_ROUTES["narrow"] += 1
-        return far_delta_planes_narrow(planes5_fn(), flk, **kw)
-    APPLY_ROUTES["mirror"] += 1
-    dtab = far_terms_from_mirror(mirror_table(planes5_fn(), w=w, h=h), flk,
-                                 **kw)
-    return unmirror_table(dtab, w=w, h=h)
+    if n_pairs is not None:
+        if n_pairs == 0:
+            return None
+        return _apply_bucket(planes5_fn, fl,
+                             bucket_capacity(n_pairs, ff, buckets),
+                             narrow_max, kw)
+    if out is None:
+        out = fl.n_pairs.new_empty((NF, w, h), dtype=torch.float32)
+    wo, ho = out.shape[1:]
+    ladder = tuple(b for b in buckets if b < ff.max_pairs) + (ff.max_pairs,)
+
+    def rung(k):
+        out.copy_(_apply_bucket(planes5_fn, fl, k, narrow_max,
+                                kw)[:, :wo, :ho])
+
+    compiled.device_switch(
+        bucket_index(fl.n_pairs, ff, buckets),
+        [out.zero_] + [lambda k=k: rung(k) for k in ladder])
+    return out
 
 
 def bucketed_far_delta_planes(hot: torch.Tensor, alive_f: torch.Tensor,
-                              fl: FarList, n_pairs: int, *, s: int,
-                              ff: FarFieldSpec, radius: float, dt: float,
-                              ecoeff: float, friction: float,
+                              fl: FarList, n_pairs: Optional[int] = None,
+                              *, s: int, ff: FarFieldSpec, radius: float,
+                              dt: float, ecoeff: float, friction: float,
                               buckets: Tuple[int, ...] = (1024, 4096),
                               plane_idx: Tuple[int, int, int, int] = (
                                   PX, PY, VX, VY),
@@ -282,9 +331,11 @@ def bucketed_far_delta_planes(hot: torch.Tensor, alive_f: torch.Tensor,
                               ) -> Optional[torch.Tensor]:
     """Far delta planes ``[5, W, H]`` (dvx dvy dax day dyn, contiguous)
     for the packed state ``hot`` (px py vx vy at ``plane_idx``) and the
-    float alive plane, or None when the list is empty.  The apply runs on
-    the rebuild's tile-padded grid (:func:`bucketed_far_delta_from_fn`
-    with ``w, h = wp, hp``) and is cropped back to ``[W, H]``."""
+    float alive plane.  The apply runs on the rebuild's tile-padded grid
+    (:func:`bucketed_far_delta_from_fn` with ``w, h = wp, hp``) and is
+    cropped back to ``[W, H]``.  ``n_pairs=None``: the rung chosen on the
+    device, zeros for an empty list (the JAX semantics); a host int: None
+    for an empty list."""
     w, h = alive_f.shape
     _cwx, _cwy, wp, hp = _chunk_dims(w, h, ff)
     ipx, ipy, ivx, ivy = plane_idx
@@ -292,9 +343,12 @@ def bucketed_far_delta_planes(hot: torch.Tensor, alive_f: torch.Tensor,
     def planes5_fn():
         return (hot[ipx], hot[ipy], hot[ivx], hot[ivy], alive_f)
 
-    d = bucketed_far_delta_from_fn(
-        planes5_fn, fl, n_pairs, s=s, ff=ff, radius=radius, dt=dt,
-        ecoeff=ecoeff, friction=friction, w=wp, h=hp, buckets=buckets,
-        mb=mb, mb_out=mb_out, table=table, as_table=as_table,
-        narrow_max=narrow_max)
+    kw = dict(s=s, ff=ff, radius=radius, dt=dt, ecoeff=ecoeff,
+              friction=friction, w=wp, h=hp, buckets=buckets, mb=mb,
+              mb_out=mb_out, table=table, as_table=as_table,
+              narrow_max=narrow_max)
+    if n_pairs is None:
+        return bucketed_far_delta_from_fn(
+            planes5_fn, fl, None, out=hot.new_empty((5, w, h)), **kw)
+    d = bucketed_far_delta_from_fn(planes5_fn, fl, n_pairs, **kw)
     return None if d is None else d[:, :w, :h].contiguous()

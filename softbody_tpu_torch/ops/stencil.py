@@ -178,6 +178,23 @@ def device_scalar(x: float, device) -> torch.Tensor:
     return torch.full((), x, dtype=torch.float32, device=device)
 
 
+# host constant arrays on their devices (device_constant)
+_CONSTANTS: dict = {}
+
+
+def device_constant(array: np.ndarray, device) -> torch.Tensor:
+    """The host constant ``array`` (an offset table) on ``device``,
+    copied at its first use and kept, keyed by its bytes: a captured
+    frame may not copy from the host, and its eager warm-up makes the
+    copy first."""
+    device = torch.device(device)
+    key = (array.dtype.str, array.shape, array.tobytes(), device)
+    t = _CONSTANTS.get(key)
+    if t is None:
+        t = _CONSTANTS[key] = torch.as_tensor(array, device=device)
+    return t
+
+
 def sqrt32(x: torch.Tensor) -> torch.Tensor:
     """Correctly rounded float32 square root (as XLA's and the kernels').
     torch's CPU ``sqrt`` is not: it misses the IEEE result for a few

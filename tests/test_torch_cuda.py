@@ -972,3 +972,168 @@ def test_compiled_frame_with_host_read_raises(dev):
     assert compiled.stats()["captures"] == 0
     got = gstep.frame_jit(st, consts, uin, cfg)
     assert _same_tensors(got, gstep.frame(st, consts, uin, cfg))
+
+
+# the fused frames' cases on the fold: (frame, options); FF_FOLD's
+# ladder with buckets (16,) is (16, 512): the narrow rung and the mirror
+# rung; the activation schedule starts from an empty list
+FUSED_CASES = {
+    "frame4 default": ("frame4", dict(kvar=fused_substep2.DEFAULT_KVAR)),
+    "frame4 strict": ("frame4", dict(buckets=(16,))),
+    "frame4 activation": ("frame4", dict(buckets=(16,), activation=True)),
+    "frame4 kernel detect": ("frame4", dict(detect_mode="kernel",
+                                            buckets=(16,))),
+    "frame2_auto": ("frame2_auto", {}),
+    "frame3_auto": ("frame3_auto", dict(buckets=(16,))),
+    "frame2": ("frame2", {}),
+    "frame2_far": ("frame2_far", {}),
+}
+
+
+def _fused_case(dev, case):
+    """The fold packed, and ``step(fn, carry) -> carry`` of the case's
+    frame through ``fn`` (the frame or its compiled counterpart); the
+    carry is the frame's state: ``(hot, obs)`` and the list, side planes
+    and trigger vector where the frame carries them, plus its stats."""
+    from softbody_tpu_torch.ops.farfield import (
+        empty_far_list,
+        rebuild_far_list_planes,
+    )
+    from softbody_tpu_torch.ops.stencil import LatticeSpec
+
+    P = fused_substep2
+    spec = LatticeSpec(96, 4)
+    cfg = tb.StaticConfig(subticks=8, particle_radius=4.0)
+    ff = FarFieldSpec(max_pairs=512, max_tile_pairs=64, skin=4.0, horizon=8)
+    consts, uin = tb.PhysicsConstants(), tb.UserInput()
+    hot, obs, immut, ec = P.pack_lattice2(_hairpin(dev))
+    kind, kw = FUSED_CASES[case]
+    fns = {"frame4": (P.fused_frame4, P.fused_frame4_jit),
+           "frame2_auto": (P.fused_frame2_auto, P.fused_frame2_auto_jit),
+           "frame3_auto": (P.fused_frame3_auto, P.fused_frame3_auto_jit),
+           "frame2": (P.fused_frame2, P.fused_frame2_jit),
+           "frame2_far": (P.fused_frame2_far, P.fused_frame2_far_jit)}[kind]
+    fl = (rebuild_far_list_planes(hot[0], hot[1], immut[0] > 0, s=2, ff=ff,
+                                  radius=4.0) if kind == "frame2_far"
+          else empty_far_list(96, 4, ff, device=dev))
+    carry = (hot, obs)
+    if kind == "frame2_auto":
+        carry = (hot, obs, fl)
+    if kind == "frame3_auto":
+        carry = (hot, obs, fl) + P.far3_carry_init(hot, immut, cfg, spec, ff)
+
+    def step(fn, c):
+        if kind == "frame4":
+            return fn(*c[:2], immut, ec, consts, uin, spec, cfg, ff, **kw)
+        if kind == "frame2":
+            return fn(*c[:2], immut, ec, consts, uin, spec, cfg, **kw)
+        if kind == "frame2_far":
+            return fn(*c[:2], immut, ec, fl, consts, uin, spec, cfg, ff)
+        if kind == "frame2_auto":
+            return fn(c[0], c[1], immut, ec, c[2], consts, uin, spec, cfg,
+                      ff)
+        return fn(c[0], c[1], immut, ec, c[2], c[3], c[4], consts, uin, spec,
+                  cfg, ff, **kw)
+
+    return fns, carry, step
+
+
+@pytest.mark.parametrize("case", list(FUSED_CASES))
+def test_captured_fused_frames_match_eager(dev, case):
+    """Each fused frame captured (``*_jit``: one CUDA graph, its bucket
+    and trigger decided by IF nodes) against the same frame run op by op
+    on the card: three calls each (warm-up + capture + replay, then two
+    replays), the carried state and the stats bit for bit, every launch
+    counter and far-apply route equal to eager's (the bodies' launches
+    folded in from the device by ``sync_counts``), and no host read in
+    a captured call; eager makes its reads."""
+    from softbody_tpu_torch.ops import compiled
+
+    (eager_fn, jit_fn), carry, step = _fused_case(dev, case)
+    jit_fn.clear()
+    captures = jit_fn.stats()["captures"]
+    c = e = carry
+    for call in range(3):
+        compiled.sync_counts()
+        before, reads = compiled.read_counts(), compiled.HOST_READS
+        c = step(jit_fn, c)
+        torch.cuda.synchronize()
+        compiled.sync_counts()
+        got = compiled._count_delta(compiled.read_counts(), before)
+        assert compiled.HOST_READS == reads, f"{case}, call {call}"
+        before = compiled.read_counts()
+        e = step(eager_fn, e)
+        want = compiled._count_delta(compiled.read_counts(), before)
+        assert _same_tensors(c, e), f"{case}, call {call}"
+        assert got == want, f"{case}, call {call}: {got} != {want}"
+    assert jit_fn.stats()["captures"] - captures == 1
+    if case.startswith("frame4"):
+        assert c[2].tolist()[1] > 0, "the fold must yield far pairs"
+
+
+def test_captured_fused_frame_alternates_two_states(dev):
+    """Two states through one captured ``fused_frame4``: one capture, each
+    trajectory equal to its eager one bit for bit."""
+    (eager_fn, jit_fn), carry, step = _fused_case(dev, "frame4 strict")
+    jit_fn.clear()
+    captures = jit_fn.stats()["captures"]
+    other = (carry[0].clone(), carry[1].clone())
+    other[0][2:4] *= -1.0
+    runs = {"a": [carry, carry], "b": [other, other]}
+    for _ in range(2):
+        for k in ("a", "b"):
+            c, e = runs[k]
+            runs[k] = [step(jit_fn, c)[:2], step(eager_fn, e)[:2]]
+            assert _same_tensors(*runs[k]), k
+    assert jit_fn.stats()["captures"] - captures == 1
+    assert not torch.equal(runs["a"][0][0], runs["b"][0][0])
+
+
+def test_device_if_records_a_conditional_body(dev):
+    """``device_if`` in a captured frame: the body runs on the replays
+    whose predicate holds, with its temporaries, and its launches are
+    counted on the device."""
+    from softbody_tpu_torch.ops import compiled
+
+    def fn(x, flag):
+        out = torch.zeros_like(x)
+
+        def body():
+            recmirror.K7_LAUNCHES += 1
+            out.copy_(x * 2.0 + 1.0)
+
+        compiled.device_if(flag, body)
+        return out
+
+    c = compiled.Compiled(fn)
+    x = torch.arange(8.0, device=dev)
+    compiled.sync_counts()
+    k7 = recmirror.K7_LAUNCHES
+    for on in (True, False, True, True):
+        got = c(x, torch.tensor(on, device=dev))
+        assert torch.equal(got, x * 2.0 + 1.0 if on else torch.zeros_like(x))
+    compiled.sync_counts()
+    assert recmirror.K7_LAUNCHES - k7 == 3
+    assert c.stats()["captures"] == 1
+
+
+def test_captured_carry_init_and_motion_match_eager(dev):
+    """``far3_carry_init_jit`` and ``packed_far_motion2_jit`` captured
+    against their functions on the card, twice each, bit for bit."""
+    from softbody_tpu_torch.ops.farfield import rebuild_far_list_planes
+    from softbody_tpu_torch.ops.stencil import LatticeSpec
+
+    P = fused_substep2
+    spec = LatticeSpec(96, 4)
+    cfg = tb.StaticConfig(subticks=8, particle_radius=4.0)
+    ff = FarFieldSpec(max_pairs=512, max_tile_pairs=64, skin=4.0, horizon=8)
+    hot, _obs, immut, _ec = P.pack_lattice2(_hairpin(dev))
+    fl = rebuild_far_list_planes(hot[0], hot[1], immut[0] > 0, s=2, ff=ff,
+                                 radius=4.0)
+    moved = hot.clone()
+    moved[0:2] += 1.5
+    for h in (hot, moved):
+        assert _same_tensors(P.far3_carry_init_jit(h, immut, cfg, spec, ff),
+                             P.far3_carry_init(h, immut, cfg, spec, ff))
+        assert _same_tensors(P.packed_far_motion2_jit(h, immut, fl),
+                             P.packed_far_motion2(h, immut, fl))

@@ -359,13 +359,14 @@ def lib(tmp_path_factory):
     lib.sb_fused_substep2.argtypes = [p] * 7 + [i] * 4 + [p]
     lib.sb_fused_substep2_variant.argtypes = [p] * 7 + [i] * 6 + [p]
     lib.sb_fused_substep2_mode.argtypes = [p] * 10 + [i] * 10 + [p]
+    lib.sb_fused_substep2_modex.argtypes = [p] * 10 + [i] * 10 + [p, p]
     lib.sb_fused_substep.argtypes = [p] * 5 + [i] * 4 + [p]
     lib.sb_collide_stencil.argtypes = [p] * 6 + [f] * 4 + [i] * 3 + [p]
     lib.sb_collide_stencil_strided.argtypes = ([p] * 7 + [f] * 4 + [i] * 3
                                                + [p])
     lib.sb_band_flags.argtypes = [p] * 7 + [i] * 3 + [p]
     for fn in (lib.sb_fused_substep2, lib.sb_fused_substep2_variant,
-               lib.sb_fused_substep2_mode,
+               lib.sb_fused_substep2_mode, lib.sb_fused_substep2_modex,
                lib.sb_fused_substep,
                lib.sb_collide_stencil, lib.sb_collide_stencil_strided,
                lib.sb_band_flags):
@@ -651,6 +652,51 @@ def test_k1_detect_source_flag_off(lib):
     assert bool((outs[0][3] == -7.0).all())
     assert not bool((outs[1][3] == -7.0).any())
     assert torch.equal(outs[0][0], outs[1][0])
+
+
+@pytest.mark.parametrize("modes", [("trig",), ("detect",),
+                                   ("trig", "detect")],
+                         ids=["trig", "detect", "trig+detect"])
+def test_k1_device_extras_match_consts(lib, modes):
+    """The far-field scalars read by the kernel from device memory
+    (``sb_fused_substep2_modex``, the captured frames' entry: the 40
+    constants alone, then the scalars' own pointer) against the same
+    scalars appended to the constants (``sb_fused_substep2_mode``) and
+    against the plain version given them as ``extras``: the state, the
+    trig statistics and the side planes bit for bit."""
+    w, h = SHAPES[0]
+    state, cfg, consts, g = _state(w, h, seed=53)
+    hot, _obs, immut, ec = fused_substep2.pack_lattice2(state)
+    base = torch.cat([tb.consts_vector(consts, tb.UserInput(), cfg, h), ec])
+    extras = _mode_extras(state, cfg, tau=0.05, det=1.0, t_band=0.06)
+    trig, detect = "trig" in modes, "detect" in modes
+    refs = ((hot[:4] + torch.randn((4, w, h), generator=g)).contiguous()
+            if trig else None)
+    far = torch.randn((5, w, h), generator=g) * 0.5
+    kw = dict(stencil=2, quantized=True, far=far, refs=refs, detect=detect)
+    want = _k1_mode_source(lib, hot, immut, torch.cat([base, extras]), **kw)
+    got_hot = torch.empty_like(hot)
+    nb = -(-h // 32) * -(-w // 8)
+    stats = torch.empty((nb, 4)) if trig else None
+    side = torch.full((9, -(-w // 4), h), float("nan")) if detect else None
+    assert lib.sb_fused_substep2_modex(
+        _ptr(hot), _ptr(immut), _ptr(far), None, _ptr(refs), _ptr(got_hot),
+        None, _ptr(stats), _ptr(side), _ptr(base), w, h, 2, 1, 0, 0,
+        int(trig), int(detect), 0, 0, None, _ptr(extras)) == 0
+    assert same_bits(got_hot, want[0])
+    if trig:
+        assert same_bits(torch.cat([stats[:, :2].amax(0),
+                                    stats[:, 2:].sum(0)]), want[2])
+    if detect:
+        assert same_bits(side, want[3])
+    plain = fused_substep2.fused_substep2_call(hot, immut, base,
+                                               extras=extras, **kw)
+    plain = [plain] if isinstance(plain, torch.Tensor) else list(plain)
+    assert same_bits(got_hot, plain.pop(0))
+    if trig:
+        assert same_bits(stats[:, :2].amax(0), plain.pop(0)[:2])
+    if detect:
+        assert same_bits(side, plain.pop(0))
 
 
 @pytest.mark.parametrize("shape", SHAPES, ids=SHAPE_IDS)
