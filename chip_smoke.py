@@ -15,8 +15,10 @@ to 0 just before it and read just after:
 - path A: the dense ``LatticeBackend`` with ``use_pallas`` on the 1M
   tearing cloth with default arguments and far field armed with
   ``FarFieldSpec()`` (``play --path lattice --farfield``; K3, K2);
-- path B: the per-edge fused frame ``fused_frame`` on the same scene,
-  bench.py's ``BENCH_PATH=fused_v1`` (K4);
+- path B: the per-edge fused frame on the same scene, bench.py's
+  ``BENCH_PATH=fused_v1`` (K4): ``fused_frame_jit`` (one captured graph
+  a frame) in turns with ``fused_frame``, bit for bit, and one far-armed
+  frame (``fused_frame_far_jit``);
 - the probe of ``scripts/probe_recmirror.py``: the record casts (K5, K6)
   and the mirror table (K7) at the probe's and the bench path's sizes
   (K7 also runs on the bench path, in each far apply with pairs);
@@ -30,9 +32,10 @@ to 0 just before it and read just after:
   on the general path;
 - the planified general-topology path (phase 12): BASELINE config 3, the
   100k self-colliding cloth, embedded into planes by ``PlanifiedBackend``
-  and stepped far-armed with ``use_pallas`` (K3 every substep, K2 every
-  rebuild, K7 in every far apply above 256 pairs); config 4 planified
-  behind ``Engine``; the small fold through both far-apply routes, card
+  and stepped far-armed with ``use_pallas`` through its captured frames
+  (K3 every substep, K2 every rebuild, K7 in every far apply above 256
+  pairs), then in turns with its eager twin, bit for bit; config 4
+  planified likewise, then behind ``Engine``; the small fold through both far-apply routes, card
   against CPU; ``FusedLatticeBackend(far_activation=True)`` on the bench
   scene (K1, K2, K7); the directed-CSR engine at config 3;
 - the fused backend's other far modes (phase 15): K1's trig, detect and
@@ -44,7 +47,7 @@ to 0 just before it and read just after:
   bounds, with their loss a frame (beside ``--parent``'s, in turns); the
   knobs on one far-off frame each; the fold card against CPU;
 - the compiled frames (phase 16): ``frame_jit`` at configs 1, 4 and 3,
-  a mouse drag (a capture a frame), two states through one graph, path A
+  a mouse drag (one capture), two states through one graph, path A
   through ``LatticeBackend``'s captured chunks (K3), the fold through
   ``lattice_frame_far_jit``, the compiled ``directed_frame`` at config 3,
   each held bit for bit against the same frames run op by op and timed
@@ -59,6 +62,15 @@ to 0 just before it and read just after:
   bit, launches equal, no host read in a frame, the first call's time
   and memory, the idle share; ``LatticeEngine(fused=True)`` alone and
   polled;
+- the constants and the user input as device buffers (phase 18): K1's,
+  K4's and K3's device-constants entries (the frames' route) bit for
+  bit against their by-value entries at 1M and the edge shapes, at drag
+  exponents 1.5, 2 and 3.3 and with the clip overflowing, their
+  registers and local bytes, their device ms in turns; a mouse drag at
+  1M through ``FusedLatticeBackend`` (one capture, the first frames bit
+  for bit against an eager twin) and through ``LatticeEngine(fused=True)``
+  fed ``Engine.mouse`` each frame, each against a twin left alone over
+  the same frames;
 - the CLI (phase 13), as a user first runs it, in this process:
   ``run`` of the 1M tearing cloth on the lattice path and of the 100k
   cloth planified and far-armed (K2, K7), ``render`` of the 1M cloth,
@@ -85,6 +97,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import dataclasses
 import gc
 import io
@@ -114,6 +127,7 @@ from softbody_tpu_torch.engine import (
     PlanifiedBackend,
     SimBackend,
 )
+from softbody_tpu_torch.config import N_CONSTS
 from softbody_tpu_torch.mapping import SceneRegistry
 from softbody_tpu_torch.models import (
     add_rectangle,
@@ -154,9 +168,13 @@ from softbody_tpu_torch.ops.cuda.collide_stencil import (
 from softbody_tpu_torch.ops.cuda.fused_substep import (
     fused_frame,
     fused_frame_far,
+    fused_frame_far_jit,
+    fused_frame_jit,
     fused_substep_call,
     fused_substep_plain,
     pack_lattice,
+    packed_far_motion,
+    packed_far_motion_jit,
     rebuild_far_list_packed,
 )
 from softbody_tpu_torch.ops.cuda.fused_substep2 import (
@@ -201,6 +219,7 @@ from softbody_tpu_torch.ops.forces import accumulate_forces, beam_forces
 from softbody_tpu_torch.ops.stencil import (
     LatticeSpec,
     half_offsets,
+    host_decisions,
     lattice_frame,
     lattice_frame_far,
     lattice_frame_far_jit,
@@ -387,6 +406,13 @@ KNOB_RUNS = (("nospring", 2, ("nospring",)), ("void", 0, ("nospring",)),
 # logged, not held)
 COMPILED_TURN_FRAMES = (2, 2, 1)
 DRAG_FRAMES = 4
+# phase 18: the drag at 1M (frames dragged, of which the first are held
+# bit for bit against an eager twin; a twin left alone runs the same
+# frames), and the drag exponents K1's and K4's device-constants entries
+# are held at (1.5 and 3.3 take powf, 2 its fast path)
+DRAG_1M_FRAMES = 30
+DRAG_1M_HELD = 6
+DEVC_DRAG_EXPS = (1.5, 2.0, 3.3)
 COMPILED_PATH_A_FRAMES = 2
 COMPILED_RUNTIME_FRAMES = {"general": 5, "path A": 1}
 # the compiled fused frames (phase 17): frames per turn (eager, captured,
@@ -1203,42 +1229,58 @@ def run_path_a(dev) -> dict:
                 rate=rate)
 
 
-def run_path_b(dev) -> dict:
+def run_path_b(dev, card: str) -> dict:
     """Path B at full width: bench.py's ``BENCH_PATH=fused_v1`` (the 1M
-    tearing cloth, default arguments, r = 2, 64 substeps, no far field)
-    through ``fused_frame``."""
+    tearing cloth, default arguments, r = 2, 64 substeps, no far field):
+    ``fused_frame_jit`` (one CUDA graph a frame, K4 reading the frame's
+    constants from device memory) against ``fused_frame`` in turns
+    (PATH_B_FRAMES frames in all after a first frame of each,
+    ``_in_turns``: every frame bit for bit, no host read); then at the final state one far-armed frame through
+    ``fused_frame_far_jit`` against ``fused_frame_far`` and the trigger's
+    inputs through ``packed_far_motion_jit``, bit for bit."""
     state, spec, cfg, consts = tearing_cloth_lattice(
         n_particles=N_PARTICLES, device=dev)
     mut, immut = pack_lattice(state)
     uin = tb.UserInput()
     eal = slice(10, 26, 5)
     m0 = int((mut[eal] > 0).sum())
-    box = [mut]
-
-    def step():
-        box[0] = fused_frame(box[0], immut, consts, uin, spec, cfg)
-
     fused_substep.K4_LAUNCHES = 0
-    ms = _frames(step, PATH_B_FRAMES)
+    turns = _in_turns("path B", {
+        "captured": lambda m: fused_frame_jit(m, immut, consts, uin, spec,
+                                              cfg),
+        "eager": lambda m: fused_frame(m, immut, consts, uin, spec, cfg)},
+        mut, PATH_B_FRAMES // 4, cfg.subticks, card)
     k4 = fused_substep.K4_LAUNCHES
-    mut = box[0]
+    mut = turns["state"]
     substeps = PATH_B_FRAMES * cfg.subticks
-    if k4 != substeps:
+    if k4 != substeps + 4 * cfg.subticks:
         raise AssertionError(f"path B: K4 launched {k4} times for "
-                             f"{substeps} substeps")
+                             f"{substeps} substeps and 2 first and 2 "
+                             "profiled frames")
     if not bool(torch.isfinite(mut).all()):
         raise AssertionError("path B: non-finite state")
     if tuple(mut.shape) != (26, spec.width, spec.height):
         raise AssertionError(f"path B: mut shape {tuple(mut.shape)}")
     m1 = int((mut[eal] > 0).sum())
-    rate = substeps / (sum(ms) / 1000.0)
+    ff = _far_spec(980.0 / (spec.width - 1))
+    fl = rebuild_far_list_packed(mut, immut, s=spec.collision_stencil, ff=ff,
+                                 radius=cfg.particle_radius)
+    reads0 = compiled.HOST_READS
+    far_c = fused_frame_far_jit(mut, immut, fl, consts, uin, spec, cfg, ff)
+    motion_c = packed_far_motion_jit(mut, immut, fl)
+    reads = compiled.HOST_READS - reads0
+    far_e = fused_frame_far(mut, immut, fl, consts, uin, spec, cfg, ff)
+    motion_e = packed_far_motion(mut, immut, fl)
+    if not (_same(far_c, far_e) and _same(motion_c, motion_e)) or reads:
+        raise AssertionError(f"path B far: captured differs from eager "
+                             f"(host reads {reads})")
+    rate = turns["rate"]["captured"]
     log(f"path B: {spec.width}x{spec.height} lattice, alive beams {m0} -> "
-        f"{m1}; {PATH_B_FRAMES} frames = {substeps} substeps, frame ms "
-        f"{[round(t, 1) for t in ms]} = {rate:.1f} substeps/s; K4 launches "
-        f"{k4}; pos y range [{mut[1].min().item():.3f}, "
-        f"{mut[1].max().item():.3f}]")
+        f"{m1}; far-armed frame at the final state ({fl.counts()[0]} far "
+        f"pairs) captured == eager bit for bit, its trigger inputs too, 0 "
+        f"host reads; K4 launches {k4} on {card}")
     return dict(mut=mut, immut=immut, cfg=cfg, consts=consts, spec=spec,
-                k4=k4, rate=rate)
+                k4=k4, rate=rate, turns=turns)
 
 
 def _zero_k1_k2_k7() -> None:
@@ -2176,11 +2218,18 @@ def run_planified_config3(dev, card) -> dict:
 
     step()
     warm = be.far_stats()
+    # the captured frames count their bodies' launches (K7, the far
+    # apply's routes) on the device: folded in before a counter is set or
+    # read
+    compiled.sync_counts()
     collide_stencil.K3_LAUNCHES = 0
     band_detect.K2_LAUNCHES = 0
     recmirror.K7_LAUNCHES = 0
     routes0 = dict(farfield4.APPLY_ROUTES)
+    reads0 = compiled.HOST_READS
     ms = _frames(step, PLANIFIED_FRAMES)
+    compiled.sync_counts()
+    reads = compiled.HOST_READS - reads0
     k3, k2 = collide_stencil.K3_LAUNCHES, band_detect.K2_LAUNCHES
     k7 = recmirror.K7_LAUNCHES
     routes = {k: v - routes0[k] for k, v in farfield4.APPLY_ROUTES.items()}
@@ -2189,8 +2238,9 @@ def run_planified_config3(dev, card) -> dict:
     substeps = PLANIFIED_FRAMES * cfg.subticks
     if not bool(torch.isfinite(torch.stack([ps.lat.pos, ps.lat.vel])).all()):
         raise AssertionError("planified config 3: non-finite state")
-    if stats["far_overflow"] != 0:
-        raise AssertionError(f"planified config 3: far stats {stats}")
+    if stats["far_overflow"] != 0 or reads:
+        raise AssertionError(f"planified config 3: far stats {stats}, "
+                             f"host reads {reads}")
     if k3 != substeps:
         raise AssertionError(f"planified config 3: K3 launched {k3} times "
                              f"for {substeps} substeps")
@@ -2211,13 +2261,34 @@ def run_planified_config3(dev, card) -> dict:
         f"{k3} = {cfg.subticks} x {PLANIFIED_FRAMES}, K2 {k2} = 8 x "
         f"{PLANIFIED_FRAMES}, K7 {k7} ({'on' if k7 else 'none of'} the "
         f"substeps with active pairs: {routes['mirror']} mirror-route "
-        f"applies, bucket > 256) on {card}")
-    profile_frame("planified config 3", step, sum(ms) / len(ms),
-                  cfg.subticks)
+        f"applies, bucket > 256); the backend steps the captured frames "
+        f"(planified_frame_far_jit), 0 host reads on {card}")
+    turns = _planified_turns("planified config 3", be, box[0], consts, uin,
+                             cfg, card)
     t, bounds = _planified_kernels(box[0], spec, cfg, consts, ff)
     directed_rate = run_directed_config3(flat, cfg0, consts, uin, card)
     return dict(k2=k2, k3=k3, k7=k7, rate=rate, t=t, bounds=bounds,
-                stats=stats, directed_rate=directed_rate)
+                stats=stats, directed_rate=directed_rate, turns=turns)
+
+
+def _planified_turns(label: str, be, ps, consts, uin, cfg, card) -> dict:
+    """``be`` (stepping the captured planified frames) against its eager
+    twin (the same embedding, the plain frames, decisions read on the
+    host) from ``ps``, in turns of one frame (``_in_turns``): every
+    frame's state and far stats accumulator bit for bit."""
+    be.far_stats()
+    twin = copy.copy(be)
+    twin._frame = planify.planified_frame
+    twin._frame_far = planify.planified_frame_far
+    bes = {"captured": be, "eager": twin}
+    out = _in_turns(label, {k: (lambda p, b=b: b.step(p, consts, uin))
+                            for k, b in bes.items()}, ps, 1, cfg.subticks,
+                    card, extra=lambda k: bes[k]._stats_acc)
+    stats = {k: b.far_stats() for k, b in bes.items()}
+    if stats["captured"] != stats["eager"]:
+        raise AssertionError(f"{label}: far stats {stats}")
+    out["stats"] = stats["captured"]
+    return out
 
 
 def _config4_backend(dev, collide: bool = True) -> tuple:
@@ -2265,8 +2336,10 @@ def check_planified_config4_cpu(dev) -> None:
             f", far stats cuda {st_g} / cpu {st_c}")
 
 
-def run_planified_engine(dev, card) -> None:
-    """Config 4 planified behind ``Engine`` on the card: frames on the
+def run_planified_engine(dev, card) -> dict:
+    """Config 4 planified: the backend's captured frames against their
+    eager twin in turns (``_planified_turns``); then behind ``Engine`` on
+    the card: frames on the
     worker thread with ``render_packet()`` polled every 5 ms, each packet
     bitwise
     equal to ``unplanify`` of an independent clone of its frame (kept at
@@ -2286,17 +2359,18 @@ def run_planified_engine(dev, card) -> None:
         box[0] = be.step(box[0], consts, tb.UserInput())
 
     ms = _frames(step, 2)
-    profile_frame("planified config 4", step, sum(ms) / len(ms),
-                  cfg.subticks)
-    log(f"planified config 4 backend alone: frame ms "
+    log(f"planified config 4 backend alone (captured frames): frame ms "
         f"{[round(x, 1) for x in ms]} = "
         f"{2 * cfg.subticks / (sum(ms) / 1000.0):.1f} substeps/s, far stats "
         f"{be.far_stats()}")
+    turns = _planified_turns("planified config 4", be, box[0], consts,
+                             tb.UserInput(), cfg, card)
     ps = be.pack_state(flat)
     opts = EngineOptions(subticks=cfg.subticks,
                          particle_radius=cfg.particle_radius,
                          collision_mode=cfg.collision_mode, use_pallas=True,
                          target_fps=None)
+    compiled.sync_counts()
     collide_stencil.K3_LAUNCHES = 0
     recmirror.K7_LAUNCHES = 0
     routes0 = dict(farfield4.APPLY_ROUTES)
@@ -2325,6 +2399,7 @@ def run_planified_engine(dev, card) -> None:
                                      f"{len(packets)} packets")
             time.sleep(0.005)
         frames = _pause(eng, far)
+        compiled.sync_counts()
         k3, k7 = collide_stencil.K3_LAUNCHES, recmirror.K7_LAUNCHES
         routes = {k: v - routes0[k] for k, v in farfield4.APPLY_ROUTES.items()}
         if k3 != cfg.subticks * frames:
@@ -2377,6 +2452,7 @@ def run_planified_engine(dev, card) -> None:
             f"{type(new._worker.backend).__name__}")
     finally:
         new.destroy()
+    return turns
 
 
 def _fold_strip(dev):
@@ -3911,6 +3987,70 @@ def _rates(ms: dict, substeps: int) -> dict:
     return {k: len(v) * substeps / (sum(v) / 1e3) for k, v in ms.items()}
 
 
+def _in_turns(label: str, steps: dict, state, n: int, substeps: int,
+              card: str, extra=None) -> dict:
+    """A captured frame (``steps["captured"]``, state -> state) against
+    its eager twin (``steps["eager"]``) from the same ``state``: one
+    untimed frame of each (the captured one's first call captures where
+    its key is new), then in turns: eager, captured, captured, eager,
+    ``n`` frames each, each kind continuing its own trajectory.  Every
+    captured frame equal to the eager frame of the same index bit for bit
+    (``extra()`` of each kind's step, when given, too: the stats it
+    accumulated), no host read in a captured turn
+    (``compiled.HOST_READS``), launches a substep and idle from one
+    profiled frame of each (continuing, and held equal after).  Returns
+    the rates, reads, profiles and the captured final state."""
+    box = {k: steps[k](state) for k in ("captured", "eager")}
+    if not _same(box["captured"], box["eager"]):
+        raise AssertionError(f"{label}: the first captured frame differs "
+                             "from the eager frame")
+    rec = {k: dict(frames=[], ms=[], reads=0) for k in box}
+    for kind in ("eager", "captured", "captured", "eager"):
+        r = rec[kind]
+        reads0 = compiled.HOST_READS
+
+        def step(kind=kind, r=r):
+            box[kind] = steps[kind](box[kind])
+            r["frames"].append((box[kind], extra(kind) if extra else None))
+
+        r["ms"] += _frames(step, n)
+        r["reads"] += compiled.HOST_READS - reads0
+    for i, (c, e) in enumerate(zip(rec["captured"]["frames"],
+                                   rec["eager"]["frames"])):
+        if not _same(c, e):
+            raise AssertionError(f"{label}: captured frame {i + 1} differs "
+                                 "from the eager frame")
+    if rec["captured"]["reads"]:
+        raise AssertionError(f"{label}: {rec['captured']['reads']} host "
+                             "reads in the captured frames")
+    rate = _rates({k: r["ms"] for k, r in rec.items()}, substeps)
+
+    def stepper(kind):
+        def step():
+            box[kind] = steps[kind](box[kind])
+        return step
+
+    prof = {k: profile_frame(f"{label}, {k}", stepper(k),
+                             sum(rec[k]["ms"]) / (2 * n), substeps)
+            for k in ("eager", "captured")}
+    if not _same(box["captured"], box["eager"]):
+        raise AssertionError(f"{label}: the profiled frames differ")
+    reads_e = rec["eager"]["reads"] / (2 * n * substeps)
+    log(f"{label}, captured against eager in turns ({2 * n} frames each): "
+        f"every frame equal bit for bit; eager {rate['eager']:.1f}, "
+        f"captured {rate['captured']:.1f} substeps/s "
+        f"({rate['captured'] / rate['eager']:.2f}x); launches a substep "
+        f"eager {prof['eager']['per_substep']:.1f}, captured "
+        f"{prof['captured']['per_substep']:.1f} (one profiled frame); idle "
+        f"eager {prof['eager']['idle']:.2f}, captured "
+        f"{prof['captured']['idle']:.2f}; host reads a substep eager "
+        f"{reads_e:.3f}, captured 0; frame ms " + "; ".join(
+            f"{k} {[round(x, 2) for x in r['ms']]}" for k, r in rec.items())
+        + f" on {card}")
+    return dict(rate=rate, prof=prof, reads_eager=reads_e,
+                state=box["captured"])
+
+
 def _profile_replay(label: str, step, frame_ms: float, substeps: int,
                     fns) -> dict:
     """``profile_frame`` of a frame that only replays: a frame that
@@ -3981,12 +4121,13 @@ def run_compiled_general(dev, card: str) -> dict:
 
 def run_compiled_drag(dev, card: str) -> dict:
     """A mouse drag on ``cloth(32, 32)``: DRAG_FRAMES frames, each with a
-    new mouse position and velocity, through ``frame_jit``: each a miss
-    and a capture (the user input is baked into the graph), the frames
-    equal to ``frame``'s; the same drag again replays from the cache."""
+    new mouse position and velocity, through ``frame_jit`` from a cleared
+    cache: one capture (the user input is lifted into the graph's inputs,
+    as ``jax.jit`` traces it) and DRAG_FRAMES replays, the frames equal to
+    ``frame``'s bit for bit; the same drag again replays with no miss."""
     consts = tb.PhysicsConstants()
     st, cfg = scenes.cloth(32, 32, device=dev)
-    st = gstep.frame_jit(st, consts, tb.UserInput(), cfg)
+    st = gstep.frame(st, consts, tb.UserInput(), cfg)
     uins = [tb.UserInput(mouse_active=True, mouse_pos=(300.0 + 25.0 * i,
                                                        600.0),
                          mouse_vel=(50.0, -12.5 * i))
@@ -4001,23 +4142,27 @@ def run_compiled_drag(dev, card: str) -> dict:
         torch.cuda.synchronize()
         return s, DRAG_FRAMES / (time.perf_counter() - t0)
 
+    gstep.frame_jit.clear()
     before = gstep.frame_jit.stats()
     got, fps = drag(gstep.frame_jit)
-    misses = gstep.frame_jit.stats()["misses"] - before["misses"]
+    after = gstep.frame_jit.stats()
+    misses = after["misses"] - before["misses"]
+    replays = after["replays"] - before["replays"]
     ref, fps_eager = drag(gstep.frame)
     again, fps_cached = drag(gstep.frame_jit)
     misses_again = gstep.frame_jit.stats()["misses"] - before["misses"]
     if not (_same(got, ref) and _same(again, ref)):
         raise AssertionError("compiled drag: the captured frames differ "
                              "from the eager frames")
-    if misses != DRAG_FRAMES or misses_again != misses:
-        raise AssertionError(f"compiled drag: {misses} misses, then "
-                             f"{misses_again}")
+    if misses != 1 or replays != DRAG_FRAMES or misses_again != 1:
+        raise AssertionError(f"compiled drag: {misses} misses and "
+                             f"{replays} replays, then {misses_again}")
     log(f"compiled drag, cloth(32, 32): {DRAG_FRAMES} frames each with a "
-        f"new mouse position and velocity, {misses} misses (a capture "
-        f"each) at {fps:.2f} frames/s; eager {fps_eager:.2f} frames/s; "
-        f"the same drag again, replayed, {fps_cached:.2f} frames/s; "
-        f"captured == eager bit for bit on {card}")
+        f"new mouse position and velocity, {misses} miss (one capture) and "
+        f"{replays} replays at {fps:.2f} frames/s, the first call's capture "
+        f"included; eager {fps_eager:.2f} frames/s; the same drag again, "
+        f"replayed, {fps_cached:.2f} frames/s; captured == eager bit for "
+        f"bit on {card}")
     return {"fps": fps, "fps_eager": fps_eager, "fps_cached": fps_cached,
             "misses": misses}
 
@@ -4503,6 +4648,384 @@ def run_fused_compiled(dev, card: str) -> dict:
     return out
 
 
+def _check_devc_case(label, w, h, dev, drag_exp, dt=None) -> dict:
+    """K1, K4 and K3 through the device-constants entries (the frames'
+    route: constants and user input in device memory, the pair skip the
+    host's decision, ``stencil.host_decisions``) against the by-value
+    entries on a stirred ``w × h`` lattice with the mouse grabbing and a
+    keyboard force, bit for bit (NaN where NaN): K1 strict and
+    rsqrt+rollgroup (observing, far stack), strict+trig+detect, K4
+    (varied edge parameters), K3 on the interleaved views; K1 strict
+    also against its plain version, K4 against its plain version (edge
+    planes bit-exact, particles within K4_ATOL).  ``dt``: a substep the
+    constants' clip overflows at (the skip off)."""
+    state, cfg, consts, g = _k14_state(w, h, dev, SEED + 21 + w + h)
+    consts = dataclasses.replace(consts, drag_exp=drag_exp)
+    uin = tb.UserInput(mouse_active=True, user_strength=1.5,
+                       mouse_pos=(490.0, 510.0), mouse_vel=(3.0, -1.0),
+                       applied_force=(0.5, -0.25))
+    base = tb.consts_vector(consts, uin, cfg, h)
+    if dt is not None:
+        base[1] = dt
+    dec = host_decisions(cfg.particle_radius, float(base[1]), consts.ecoeff,
+                         consts.friction, drag_exp)
+    hot, obs, immut, ec = pack_lattice2(state)
+    host = torch.cat([base, ec])
+    devv = host.to(dev)
+    far = torch.randn((5, w, h), generator=g, device=dev) * 0.5
+    bad = []
+
+    def hold(name, got, ref):
+        for a, b in (zip(got, ref) if isinstance(got, tuple)
+                     else ((got, ref),)):
+            if int(_differs(a, b).sum()):
+                bad.append(name)
+
+    for name, flags in (("K1 strict", (False, False)),
+                        ("K1 rsqrt+rollgroup", (True, True))):
+        kw = dict(stencil=2, quantized=True, far=far, obs_in=obs,
+                  rsqrt=flags[0], rollgroup=flags[1])
+        ref = fused_substep2_call(hot, immut, host, **kw)
+        got = fused_substep2_call(hot, immut, devv, skip=dec.k1_skip, **kw)
+        hold(name, got, ref)
+        if name == "K1 strict":
+            hold("K1 strict plain", got,
+                 fused_substep2_plain(hot, immut, host, **kw))
+    extras = _extras(hot, immut[0] > 0, cfg.particle_radius,
+                     0.75 * 980.0 / max(max(w, h) - 1, 1), cfg.dt,
+                     t_band=9.0 * cfg.dt, tau=0.05, det=1.0).to(dev)
+    refs = (hot[:4] + torch.randn((4, w, h), generator=g,
+                                  device=dev)).contiguous()
+    kw = dict(stencil=2, quantized=True, far=far, refs=refs, detect=True,
+              extras=extras)
+    hold("K1 strict+trig+detect", fused_substep2_call(
+        hot, immut, devv, skip=dec.k1_skip, **kw),
+        fused_substep2_call(hot, immut, host, **kw))
+    mut, immut4 = pack_lattice(state)
+    immut4[2:] *= 0.5 + torch.rand(immut4[2:].shape, generator=g, device=dev)
+    kw = dict(stencil=2, quantized=True, far=far)
+    got = fused_substep_call(mut, immut4, devv[:N_CONSTS],
+                             skip=dec.k4_skip, **kw)
+    hold("K4", got, fused_substep_call(mut, immut4, base, **kw))
+    plain = fused_substep_plain(mut, immut4, base, **kw)
+    if dt is None:
+        hold("K4 plain edges", got[6:], plain[6:])
+        _hold(f"K4 device constants {w}x{h}", got, plain)
+    views = (state.pos[..., 0], state.pos[..., 1], state.vel[..., 0],
+             state.vel[..., 1], state.alive)
+    kw = dict(radius=cfg.particle_radius, dt=float(base[1]),
+              ecoeff=consts.ecoeff, friction=consts.friction, stencil=2)
+    hold("K3", collide_stencil_call(*views, consts=devv, skip=dec.k3_skip,
+                                    **kw),
+         collide_stencil_call(*views, **kw))
+    torch.cuda.synchronize()
+    if bad:
+        raise AssertionError(f"device constants {label} {w}x{h} drag_exp "
+                             f"{drag_exp}: {bad} differ")
+    return dict(hot=hot, immut=immut, obs=obs, host=host, devv=devv,
+                far=far, mut=mut, immut4=immut4, base=base, dec=dec,
+                views=views, kw3=kw)
+
+
+def check_device_constants(dev, card: str) -> dict:
+    """K1's, K4's and K3's device-constants entries, the captured frames'
+    route (``_check_devc_case``), at K14_SHAPES (1M and the edge shapes)
+    for each of DEVC_DRAG_EXPS, and at 97×61 with dt = 1e-19 (the skip
+    off); their instances' registers and local bytes; at 1M their device
+    ms against the by-value entries', in turns."""
+    t0 = time.perf_counter()
+    cases = 0
+    for w, h in K14_SHAPES:
+        for e in DEVC_DRAG_EXPS:
+            last = _check_devc_case("", w, h, dev, e)
+            cases += 1
+            if (w, h) == (1000, 1000) and e == 2.0:
+                at_1m = last
+    off = _check_devc_case("clip overflow", 97, 61, dev, 2.0, dt=1e-19)
+    if off["dec"].k1_skip or off["dec"].k3_skip or off["dec"].k4_skip:
+        raise AssertionError(f"device constants: dt = 1e-19 left the skip "
+                             f"on {off['dec']}")
+    occ = {}
+    for k, kernel, mode in (("K1 strict", "fused_substep2", 0),
+                            ("K1 strict+detect", "fused_substep2", 2),
+                            ("K1 strict+trig", "fused_substep2", 1),
+                            ("K1 strict+trig+detect", "fused_substep2", 3),
+                            ("K4", "fused_substep", 0),
+                            ("K3", "collide_stencil", 0)):
+        occ[k] = {d: _lib.occupancy(kernel, (mode << 8) | 2, devc=d)
+                  for d in (False, True)}
+        log(f"  {k} s=2 registers / local bytes / blocks per SM: by value "
+            + "{registers} / {local_bytes} / {blocks_per_sm}".format(
+                **occ[k][False])
+            + ", device constants "
+            + "{registers} / {local_bytes} / {blocks_per_sm}".format(
+                **occ[k][True]))
+    a = at_1m
+    kw1 = dict(stencil=2, quantized=True, far=a["far"], rsqrt=True,
+               rollgroup=True)
+    fns = {
+        "K1": (lambda: fused_substep2_call(a["hot"], a["immut"], a["host"],
+                                           **kw1),
+               lambda: fused_substep2_call(a["hot"], a["immut"], a["devv"],
+                                           skip=a["dec"].k1_skip, **kw1)),
+        "K4": (lambda: fused_substep_call(a["mut"], a["immut4"], a["base"],
+                                          stencil=2, quantized=True),
+               lambda: fused_substep_call(a["mut"], a["immut4"],
+                                          a["devv"][:N_CONSTS],
+                                          skip=a["dec"].k4_skip, stencil=2,
+                                          quantized=True)),
+        "K3": (lambda: collide_stencil_call(*a["views"], **a["kw3"]),
+               lambda: collide_stencil_call(*a["views"], consts=a["devv"],
+                                            skip=a["dec"].k3_skip,
+                                            **a["kw3"])),
+    }
+    ms = {}
+    for k, (by_value, devc) in fns.items():
+        t = _turns(by_value, devc, 20)
+        ms[k] = {"by_value": sum(t["parent"]) / 2, "devc": sum(t["this"]) / 2}
+        log(f"device constants {k} at 1M: device ms by value "
+            f"{t['parent'][0]:.4f} / {t['parent'][1]:.4f}, device constants "
+            f"{t['this'][0]:.4f} / {t['this'][1]:.4f} (in turns) on {card}")
+    log(f"phase 18 device constants: K1 (strict, rsqrt+rollgroup, "
+        f"trig+detect), K4 and K3 through their device-constants entries "
+        f"bit-exact against the by-value entries at {list(K14_SHAPES)} x "
+        f"drag_exp {list(DEVC_DRAG_EXPS)} ({cases} cases) and with the clip "
+        f"overflowing (skip off); K1 strict bit-exact against its plain "
+        f"version, K4 edge planes too, in each; "
+        f"{time.perf_counter() - t0:.1f} s on {card}")
+    return dict(ms=ms, occ=occ)
+
+
+def _drag_input(i: int) -> tb.UserInput:
+    """Frame ``i`` of the 1M drag: the mouse grabbing at a new position,
+    moving."""
+    return tb.UserInput(mouse_active=True,
+                        mouse_pos=(420.0 + 6.0 * i, 640.0 - 4.0 * i),
+                        mouse_vel=(6.0, -4.0))
+
+
+def run_drag_1m(dev, card: str) -> dict:
+    """The drag at 1M through ``FusedLatticeBackend`` (the bench scene,
+    its default variants) from a cleared cache: DRAG_1M_FRAMES frames,
+    each with the mouse grabbing at a new position; the first
+    DRAG_1M_HELD frames (and their stats) held bit for bit against the
+    eager twin's, the rest timed; one capture in all; the graph's memory
+    (device memory reserved over the cleared caches by the first call).
+    Then a second captured backend left alone (no input: the same key,
+    no capture) over the same frames from the same state, timed over the
+    same frame range: the sheet's cost grows frame by frame (far pairs,
+    then overflow past frame ~12), so only the same frames compare."""
+    state, spec, cfg, consts, spacing = _scene(N_PARTICLES, dev)
+    ff = _far_spec(spacing)
+    for j in _fused_jits():
+        j.clear()
+    gc.collect()
+
+    def backend():
+        return FusedLatticeBackend(spec, cfg, farfield=ff, device=dev)
+
+    bes = {"captured": backend(), "eager": _eager_twin(backend()),
+           "alone": backend()}
+    box = {k: be.pack_state(state) for k, be in bes.items()}
+    del state
+    jit = fused_substep2.fused_frame4_jit
+    caps0 = jit.stats()["captures"]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    r0 = torch.cuda.memory_reserved()
+    reads0 = compiled.HOST_READS
+    graphs_gib = None
+    for i in range(DRAG_1M_HELD):
+        u = _drag_input(i)
+        box["captured"] = bes["captured"].step(box["captured"], consts, u)
+        if graphs_gib is None:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            graphs_gib = (torch.cuda.memory_reserved() - r0) / 2**30
+        box["eager"] = bes["eager"].step(box["eager"], consts, u)
+        if not (_same(box["captured"], box["eager"]) and _same(
+                bes["captured"]._stats_acc, bes["eager"]._stats_acc)):
+            raise AssertionError(f"1M drag: frame {i} differs from the "
+                                 "eager twin's")
+    eager_reads = compiled.HOST_READS - reads0
+    del bes["eager"], box["eager"]
+    alone = tb.UserInput()
+    for _ in range(DRAG_1M_HELD):
+        box["alone"] = bes["alone"].step(box["alone"], consts, alone)
+    # frames HELD..FRAMES in two halves, in turns: dragged, alone, alone,
+    # dragged (each kind's second turn takes its second half)
+    mid = (DRAG_1M_HELD + DRAG_1M_FRAMES) // 2
+    halves = {k: [(DRAG_1M_HELD, mid), (mid, DRAG_1M_FRAMES)] for k in bes}
+    secs = dict.fromkeys(bes, 0.0)
+    reads = dict.fromkeys(bes, 0)
+    for kind in ("captured", "alone", "alone", "captured"):
+        f0, f1 = halves[kind].pop(0)
+        reads0 = compiled.HOST_READS
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(f0, f1):
+            u = _drag_input(i) if kind == "captured" else alone
+            box[kind] = bes[kind].step(box[kind], consts, u)
+        torch.cuda.synchronize()
+        secs[kind] += time.perf_counter() - t0
+        reads[kind] += compiled.HOST_READS - reads0
+    fps = {k: (DRAG_1M_FRAMES - DRAG_1M_HELD) / t for k, t in secs.items()}
+    stats = {k: be.far_stats() for k, be in bes.items()}
+    captures = jit.stats()["captures"] - caps0
+    hot = box["captured"][0]
+    if (captures != 1 or any(reads.values())
+            or not bool(torch.isfinite(hot[:6]).all())):
+        raise AssertionError(f"1M drag: {captures} captures, host reads "
+                             f"{reads}, finite "
+                             f"{bool(torch.isfinite(hot[:6]).all())}")
+    log(f"1M drag through FusedLatticeBackend (bench default variants): "
+        f"{DRAG_1M_FRAMES} frames with the mouse grabbing at a new "
+        f"position each, 1 capture for the drag and a twin left alone "
+        f"({graphs_gib:.3f} GiB reserved by the first call); frames "
+        f"0-{DRAG_1M_HELD - 1} and their stats equal to the eager twin's "
+        f"bit for bit (eager host reads {eager_reads}); frames "
+        f"{DRAG_1M_HELD}-{DRAG_1M_FRAMES - 1} in two halves, in turns with "
+        f"the twin left alone over the same frames: dragged "
+        f"{fps['captured']:.3f}, alone {fps['alone']:.3f} frames/s "
+        f"({fps['captured'] / fps['alone']:.2f}x), 0 host reads; far "
+        f"stats dragged {stats['captured']}, alone {stats['alone']} on "
+        f"{card}")
+    return dict(fps=fps["captured"], fps_idle=fps["alone"],
+                graphs_gib=graphs_gib, captures=captures)
+
+
+def _engine_frames(eng, f0: int, n: int, far: dict, drag: bool) -> tuple:
+    """From frame ``f0`` of ``eng``, ``n`` frames, with
+    ``Engine.mouse(pos, True)`` at a new position each new frame where
+    ``drag`` (the worker turns it into each frame's user input): the
+    frames/s and the moves made."""
+    i, last = 0, f0
+    if drag:
+        eng.mouse(_drag_input(0).mouse_pos, True)
+    t0 = time.perf_counter()
+    while last < f0 + n:
+        st = eng.stats()
+        for k in ("far_pairs", "far_overflow"):
+            far[k] = max(far.get(k, 0), getattr(st, k))
+        if st.frame_index > last:
+            last = st.frame_index
+            if drag:
+                i += 1
+                eng.mouse(_drag_input(i).mouse_pos, True)
+        if eng.error is not None or time.perf_counter() > t0 + 180.0:
+            raise AssertionError(f"engine drag: frame {last} "
+                                 f"({eng.error!r})")
+        time.sleep(0.002)
+    fps = (last - f0) / (time.perf_counter() - t0)
+    if drag:
+        eng.mouse(_drag_input(i).mouse_pos, False)
+    return fps, i
+
+
+def _record_dragged(be) -> list:
+    """Wrap ``be.step`` (an engine's backend, on its worker thread) to
+    record the first DRAG_1M_HELD frames with the mouse active:
+    ``(state taken, user input, state returned)``, cloned."""
+    held, step = [], be.step
+
+    def recording(state, consts, uin):
+        keep = uin.mouse_active and len(held) < DRAG_1M_HELD
+        s_in = _clone(state) if keep else None
+        out = step(state, consts, uin)
+        if keep:
+            held.append((s_in, uin, _clone(out)))
+        return out
+
+    be.step = recording
+    return held
+
+
+def run_drag_engine(dev, card: str) -> dict:
+    """``LatticeEngine(fused=True)`` on the bench scene from a cleared
+    cache, twice from the same state: left alone, then dragged
+    (``Engine.mouse(pos, True)`` at a new position each new frame), each
+    timed from frame 2 over DRAG_1M_FRAMES frames (the same frames: the
+    sheet's cost grows frame by frame).  One capture over both engines'
+    lives, no host read in their frames, the graphs' memory.  The first
+    DRAG_1M_HELD dragged frames are recorded on the worker (the state
+    the frame took, the user input the worker made of the mouse, the
+    state it returned) and each held bit for bit against the eager
+    twin's frame on the same state and input."""
+    state, spec, cfg, consts, spacing = _scene(N_PARTICLES, dev)
+    opts = EngineOptions(subticks=cfg.subticks,
+                         particle_radius=cfg.particle_radius,
+                         bounds_size=cfg.bounds_size,
+                         collision_mode=cfg.collision_mode,
+                         force_mode=cfg.force_mode, target_fps=None)
+    for j in _fused_jits():
+        j.clear()
+    gc.collect()
+    jit = fused_substep2.fused_frame4_jit
+    caps0 = jit.stats()["captures"]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    r0 = torch.cuda.memory_reserved()
+    reads0 = compiled.HOST_READS
+    fps, far, moves, graphs_gib = {}, {}, 0, None
+    for kind in ("alone", "dragged"):
+        far[kind] = {}
+        with LatticeEngine(state, spec, consts, opts,
+                           farfield=_far_spec(spacing), fused=True,
+                           device=dev) as eng:
+            f = _wait_frames(eng, 2, far[kind]).frame_index
+            if graphs_gib is None:
+                graphs_gib = (torch.cuda.memory_reserved() - r0) / 2**30
+            if kind == "dragged":
+                held = _record_dragged(eng._worker.backend)
+            fps[kind], n = _engine_frames(eng, f, DRAG_1M_FRAMES, far[kind],
+                                          kind == "dragged")
+            moves += n
+            _pause(eng, far[kind])
+            if eng.error is not None:
+                raise AssertionError(f"engine drag: {eng.error!r}")
+    reads = compiled.HOST_READS - reads0
+    captures = jit.stats()["captures"] - caps0
+    torch.cuda.synchronize()
+    twin = _eager_twin(FusedLatticeBackend(spec, cfg,
+                                           farfield=_far_spec(spacing),
+                                           device=dev))
+    twin.pack_state(state)
+    del state
+    if len(held) != DRAG_1M_HELD:
+        raise AssertionError(f"engine drag: {len(held)} frames recorded")
+    for i, (s_in, uin, s_out) in enumerate(held):
+        if not _same(twin.step(s_in, consts, uin), s_out):
+            raise AssertionError(f"engine drag: dragged frame {i} differs "
+                                 "from the eager twin's")
+    if captures != 1 or reads:
+        raise AssertionError(f"engine drag: {captures} captures, {reads} "
+                             "host reads")
+    log(f"1M drag through LatticeEngine(fused=True), frames 2-"
+        f"{2 + DRAG_1M_FRAMES} of two engines from the same state: left "
+        f"alone {fps['alone']:.3f} frames/s, dragged with "
+        f"Engine.mouse(pos, True) at a new position each frame ({moves} "
+        f"moves) {fps['dragged']:.3f} frames/s "
+        f"({fps['dragged'] / fps['alone']:.2f}x), its first "
+        f"{DRAG_1M_HELD} dragged frames equal to the eager twin's bit for "
+        f"bit; 1 capture over both engines ({graphs_gib:.3f} GiB reserved "
+        f"by the first frames), 0 host reads in the frames; far stats over "
+        f"the reads {far} on {card}")
+    return dict(fps_idle=fps["alone"], fps_drag=fps["dragged"],
+                graphs_gib=graphs_gib, captures=captures)
+
+
+def run_drag_phase(dev, card: str) -> dict:
+    """Phase 18: the constants and the user input as device buffers: K1,
+    K4 and K3 through their device-constants entries, the 1M drag
+    through the backend and the engine."""
+    t0 = time.perf_counter()
+    out = {"devc": check_device_constants(dev, card),
+           "backend": run_drag_1m(dev, card),
+           "engine": run_drag_engine(dev, card)}
+    log(f"phase 18 drag: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def _occupancy() -> None:
     """K1's, K4's and K3's residency per SM at the stencil radii they are
     held at, and K2's (registers, spills and shared memory from the
@@ -4625,13 +5148,14 @@ def main() -> int:
     # phases 8-9: paths A and B at full size, then K3 and K4 timed at
     # their final states
     run_a = run_path_a(dev)
-    run_b = run_path_b(dev)
+    run_b = run_path_b(dev, card)
     t_ab, bounds_ab = time_paths_kernels(run_a, run_b, parent)
     t_ab["compare"] = {**t["compare"], **t_ab["compare"]}
     t.update(t_ab)
     bounds.update(bounds_ab)
     run_a_k3, rate_a = run_a["k3"], run_a["rate"]
     run_b_k4, rate_b = run_b["k4"], run_b["rate"]
+    run_b_turns = run_b["turns"]
     del run_a, run_b
 
     # phase 10: the general gather engine (configs 1, 4, 3)
@@ -4661,7 +5185,7 @@ def main() -> int:
 
     plan = run_planified_config3(dev, card)
     parts = {"config 3": lap()}
-    run_planified_engine(dev, card)
+    plan4 = run_planified_engine(dev, card)
     parts["config 4 engine"] = lap()
     check_planified_config4_cpu(dev)
     parts["config 4 vs cpu"] = lap()
@@ -4697,6 +5221,11 @@ def main() -> int:
     # detection, v3 (each captured in turns with its eager twin, launches
     # equal), the engine alone and polled
     fused_comp = run_fused_compiled(dev, card)
+
+    # phase 18: the constants and the user input as device buffers: K1,
+    # K4 and K3 through their device-constants entries against the
+    # by-value ones, the 1M drag through the fused backend and engine
+    drag = run_drag_phase(dev, card)
 
     pallas = "softbody_tpu/ops/pallas/"
     probe_src = "scripts/probe_recmirror.py"
@@ -4752,6 +5281,11 @@ def main() -> int:
             row["launches_cli"] = launches_cli[k]
         if k in launches_sharded:
             row["launches_sharded"] = launches_sharded[k]
+        if k in drag["devc"]["ms"]:
+            # the device-constants entry, the captured frames' route, at
+            # 1M (K1 rsqrt+rollgroup, K4, K3; phase 18)
+            row["ms_devc"] = drag["devc"]["ms"][k]["devc"]
+            row["ms_by_value_turns"] = drag["devc"]["ms"][k]["by_value"]
     log(f"path A rate: {rate_a:.1f} substeps/s, path B rate: "
         f"{rate_b:.1f} substeps/s on {card}")
     log(f"bench path, default variants (bench.py's): {run['rate']:.1f} "
@@ -4807,8 +5341,9 @@ def main() -> int:
         f"{comp['path A']['graphs_gib']:.2f} GiB), directed config 3 "
         f"{comp['directed']['eager']:.1f} -> "
         f"{comp['directed']['captured']:.1f}; drag {comp['drag']['fps']:.2f}"
-        f" frames/s ({comp['drag']['misses']} misses; eager "
-        f"{comp['drag']['fps_eager']:.2f}); runtime frames/s alone / polled"
+        f" frames/s ({comp['drag']['misses']} miss; eager "
+        f"{comp['drag']['fps_eager']:.2f}, replayed "
+        f"{comp['drag']['fps_cached']:.2f}); runtime frames/s alone / polled"
         + "".join(f", {k} {v['fps_alone']:.2f} / {v['fps_polled']:.2f}"
                   for k, v in comp["runtime"].items())
         + f" on {card}")
@@ -4823,6 +5358,24 @@ def main() -> int:
         + f"; engine frames/s alone / polled "
         f"{fused_comp['engine']['fps_alone']:.3f} / "
         f"{fused_comp['engine']['fps_polled']:.3f} on {card}")
+    log(f"phase 18: 1M drag through the fused backend "
+        f"{drag['backend']['fps']:.3f} frames/s (left alone "
+        f"{drag['backend']['fps_idle']:.3f}), 1 capture, "
+        f"{drag['backend']['graphs_gib']:.3f} GiB; through "
+        f"LatticeEngine(fused=True) {drag['engine']['fps_drag']:.3f} "
+        f"frames/s dragged, {drag['engine']['fps_idle']:.3f} alone, 1 "
+        f"capture; planified config 3 eager -> captured "
+        f"{plan['turns']['rate']['eager']:.1f} -> "
+        f"{plan['turns']['rate']['captured']:.1f} substeps/s, config 4 "
+        f"{plan4['rate']['eager']:.1f} -> {plan4['rate']['captured']:.1f}, "
+        f"path B {run_b_turns['rate']['eager']:.1f} -> "
+        f"{run_b_turns['rate']['captured']:.1f}; launches a substep eager / "
+        f"captured: config 3 {plan['turns']['prof']['eager']['per_substep']:.1f}"
+        f" / {plan['turns']['prof']['captured']['per_substep']:.1f}, config 4 "
+        f"{plan4['prof']['eager']['per_substep']:.1f} / "
+        f"{plan4['prof']['captured']['per_substep']:.1f}, path B "
+        f"{run_b_turns['prof']['eager']['per_substep']:.1f} / "
+        f"{run_b_turns['prof']['captured']['per_substep']:.1f} on {card}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

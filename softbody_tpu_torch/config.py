@@ -7,8 +7,11 @@ compile-time world constants (bounds, particle radius, substeps),
 
 Scalars are host floats holding float32 values: every value is rounded
 to float32 when it is set, and :func:`consts_vector` packs them into the
-float32 vector the fused substep kernel reads, so the plain torch
-versions and the CUDA kernels see the same float32 numbers.
+float32 vector the substep kernels read, so the plain torch versions and
+the CUDA kernels see the same float32 numbers.  A compiled frame
+(``ops/compiled.py``) receives the fields of :class:`PhysicsConstants`
+and :class:`UserInput` as 0-d float32 tensors on its device instead (as
+``jax.jit`` traces them): every use of them here works on either.
 """
 
 from __future__ import annotations
@@ -135,10 +138,13 @@ class PhysicsConstants:
                           np.float32)
 
     @property
-    def ecoeff(self) -> float:
-        """Normal-impulse coefficient ``(elasticity + 1) / 2`` in float32."""
-        return float((np.float32(self.elasticity) + np.float32(1.0))
-                     * np.float32(0.5))
+    def ecoeff(self):
+        """Normal-impulse coefficient ``(elasticity + 1) / 2`` in float32
+        (a 0-d tensor where ``elasticity`` is one)."""
+        e = self.elasticity
+        if isinstance(e, torch.Tensor):
+            return (e + 1.0) * 0.5
+        return float((np.float32(e) + np.float32(1.0)) * np.float32(0.5))
 
 
 # Input clamping ranges (low, high, step) from the reference's
@@ -209,22 +215,42 @@ class UserInput:
 
 
 def consts_vector(consts: PhysicsConstants, uin: UserInput,
-                  cfg: StaticConfig, world_h: int) -> torch.Tensor:
+                  cfg: StaticConfig, world_h: int,
+                  device=None) -> torch.Tensor:
     """The 20 float32 scalars of one substep, in the order of the JAX
     package's ``ops/pallas/fused_substep.py::_consts_vector``: radius,
     dt, bounds, gravity x/y, border elasticity/friction, ecoeff,
     friction, drag coeff/exp, user strength, mouse active, mouse pos
-    x/y, mouse vel x/y, applied force x/y, world height.  A CPU tensor:
-    the kernels take it by value at launch."""
+    x/y, mouse vel x/y, applied force x/y, world height.
+
+    On ``device`` (default: the CPU, or the device of fields that are
+    tensors).  Host fields go there in one copy from pinned memory (no
+    synchronisation); fields that are 0-d tensors (a compiled frame's
+    lifted inputs) are stacked there, the static configuration's host
+    floats filled beside them, so a captured frame makes no host copy."""
     vals = [
         cfg.particle_radius, cfg.dt, cfg.bounds_size,
         consts.gravity[0], consts.gravity[1],
         consts.border_elasticity, consts.border_friction,
         consts.ecoeff, consts.friction, consts.drag_coeff, consts.drag_exp,
-        uin.user_strength, 1.0 if uin.mouse_active else 0.0,
+        uin.user_strength, uin.mouse_active,
         uin.mouse_pos[0], uin.mouse_pos[1],
         uin.mouse_vel[0], uin.mouse_vel[1],
         uin.applied_force[0], uin.applied_force[1],
         world_h,
     ]
-    return torch.tensor(np.asarray(vals, np.float32))
+    lifted = [v for v in vals if isinstance(v, torch.Tensor)]
+    if device is None:
+        device = lifted[0].device if lifted else "cpu"
+    device = torch.device(device)
+    capturing = (device.type == "cuda"
+                 and torch.cuda.is_current_stream_capturing())
+    if not lifted and not capturing:
+        host = torch.tensor(np.asarray([float(v) for v in vals], np.float32))
+        if device.type == "cpu":
+            return host
+        return host.pin_memory().to(device, non_blocking=True)
+    return torch.stack([
+        v.to(device, torch.float32) if isinstance(v, torch.Tensor)
+        else torch.full((), float(v), dtype=torch.float32, device=device)
+        for v in vals])

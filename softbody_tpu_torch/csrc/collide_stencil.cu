@@ -37,7 +37,9 @@
 //
 // Exactness: terms are masked by multiplying with ovf (1.0 / 0.0) as the
 // TPU kernel does (a non-finite term gives NaN, not 0); 1/dt^2 is a
-// multiply by inv_dt2 computed on the host; the coincident nudge
+// multiply by inv_dt2 computed on the host (in the DEVC instances by
+// each thread, from dt, with the same float32 division); the coincident
+// nudge
 // sign(lin_i - lin_j) with lin = x*H + y is -sign(dx*H + dy), from the
 // index (exact in float32 below 2^24, and at 1M lin <= 999,999).  Built
 // with -fmad=false and without fast math, the deltas equal the plain
@@ -84,6 +86,11 @@ __host__ __device__ __forceinline__ size_t k3_smem_bytes(int s) {
   return (size_t)(K3_TX + 2 * s) * (K3_TY + 2 * s) * (4 * sizeof(float) + 1);
 }
 
+// DEVC's constants: the head of a consts vector (radius 0, dt 1, ecoeff
+// 7, friction 8), copied in from device memory before each launch
+constexpr int K3_NDEV = 9;
+__constant__ float k3_consts_dev[K3_NDEV];
+
 __device__ __forceinline__ void cp_async_f32x2(float* dst, const float* src,
                                                bool in) {
   // src-size 0 copies nothing and zero-fills the 8 bytes
@@ -99,13 +106,16 @@ __host__ __device__ __forceinline__ bool finite32(float v) {
 
 // PAIRS: py = px + 1 and vy = vx + 1 with element stride 2 (the
 // interleaved [W, H, 2] views), 8-byte aligned.  S > 0: the stencil
-// radius at compile time; S == 0 takes it from s.
-template <bool PAIRS, int S>
+// radius at compile time; S == 0 takes it from s.  DEVC: the scalars from
+// k3_consts_dev (a consts vector's head, copied from device memory by the
+// entry just before the launch, as K1's; 2r and 1/dt^2 formed as the
+// host forms them); else the parameters.
+template <bool PAIRS, int S, bool DEVC>
 __global__ void __launch_bounds__(K3_THREADS)
 collide_stencil_kernel(const Planes p, const uint8_t* __restrict__ alive_g,
-                       float* __restrict__ out, float two_r, float inv_dt2,
-                       float ecoeff, float friction, int consts_finite,
-                       int w, int h, int s_rt) {
+                       float* __restrict__ out, float two_r_p,
+                       float inv_dt2_p, float ecoeff_p, float friction_p,
+                       int consts_finite, int w, int h, int s_rt) {
   extern __shared__ float smem[];
   const int s = S > 0 ? S : s_rt;
   const int SX = K3_TX + 2 * s;
@@ -164,6 +174,11 @@ collide_stencil_kernel(const Planes p, const uint8_t* __restrict__ alive_g,
   const float2 c_pos = s_pos[lc];
   const float2 c_vel = s_vel[lc];
   const bool c_al = s_al[lc] != 0;
+  const float two_r = DEVC ? 2.0f * k3_consts_dev[0] : two_r_p;
+  const float inv_dt2 =
+      DEVC ? 1.0f / (k3_consts_dev[1] * k3_consts_dev[1]) : inv_dt2_p;
+  const float ecoeff = DEVC ? k3_consts_dev[7] : ecoeff_p;
+  const float friction = DEVC ? k3_consts_dev[8] : friction_p;
   const float skip_d2 = two_r * two_r * 1.00001f;
 
   float dvx = 0.0f, dvy = 0.0f, dax = 0.0f, day = 0.0f, dyn = 0.0f;
@@ -224,13 +239,13 @@ using K3Kernel = void (*)(const Planes, const uint8_t*, float*, float, float,
                          float, float, int, int, int, int);
 
 // The kernel for a layout and a stencil radius (unrolled for 1-3).
-template <bool PAIRS>
+template <bool PAIRS, bool DEVC>
 K3Kernel k3_kernel(int stencil) {
   switch (stencil) {
-    case 1: return collide_stencil_kernel<PAIRS, 1>;
-    case 2: return collide_stencil_kernel<PAIRS, 2>;
-    case 3: return collide_stencil_kernel<PAIRS, 3>;
-    default: return collide_stencil_kernel<PAIRS, 0>;
+    case 1: return collide_stencil_kernel<PAIRS, 1, DEVC>;
+    case 2: return collide_stencil_kernel<PAIRS, 2, DEVC>;
+    case 3: return collide_stencil_kernel<PAIRS, 3, DEVC>;
+    default: return collide_stencil_kernel<PAIRS, 0, DEVC>;
   }
 }
 
@@ -246,13 +261,30 @@ bool interleaved(const Planes& p) {
   return true;
 }
 
+// `cdev`: the consts vector in device memory (the scalars then read
+// there, `finite` the host's skip decision); null: the scalars given.
 int run_k3(const Planes& p, const bool* alive, float* out, float two_r,
            float inv_dt2, float ecoeff, float friction, int w, int h,
-           int stencil, void* stream) {
+           int stencil, void* stream, const float* cdev = nullptr,
+           int finite = 0) {
   if (stencil < 1 || stencil > 8) return (int)cudaErrorInvalidValue;
+  const bool devc = cdev != nullptr;
+  const bool pairs = interleaved(p);
   const K3Kernel kernel =
-      interleaved(p) ? k3_kernel<true>(stencil) : k3_kernel<false>(stencil);
-  const int finite = consts_allow_skip(two_r, inv_dt2, ecoeff, friction);
+      devc ? (pairs ? k3_kernel<true, true>(stencil)
+                    : k3_kernel<false, true>(stencil))
+           : (pairs ? k3_kernel<true, false>(stencil)
+                    : k3_kernel<false, false>(stencil));
+  if (devc) {
+    void* bank = nullptr;
+    cudaError_t err = cudaGetSymbolAddress(&bank, k3_consts_dev);
+    if (err == cudaSuccess)
+      err = cudaMemcpyAsync(bank, cdev, sizeof(k3_consts_dev),
+                            cudaMemcpyDeviceToDevice, (cudaStream_t)stream);
+    if (err != cudaSuccess) return (int)err;
+  } else {
+    finite = consts_allow_skip(two_r, inv_dt2, ecoeff, friction);
+  }
   dim3 block(K3_TY, K3_TX);
   dim3 grid((h + K3_TY - 1) / K3_TY, (w + K3_TX - 1) / K3_TX);
   kernel<<<grid, block, k3_smem_bytes(stencil), (cudaStream_t)stream>>>(
@@ -293,11 +325,37 @@ extern "C" int sb_collide_stencil_strided(
                 stencil, stream);
 }
 
-// Residency of the interleaved (path A) kernel at `stencil`, as
-// sb_fused_substep2_occupancy reports K1's.
+// As sb_collide_stencil_strided, with the scalars in device memory:
+// `consts_dev` is a consts vector (config.consts_vector order; radius,
+// dt, ecoeff and friction read at 0, 1, 7 and 8, its first 9 floats
+// copied into the kernel's constant bank on `stream` before the launch)
+// and `skip` whether they
+// allow the skip (consts_allow_skip, decided on the host from the same
+// values).  A captured graph replays with whatever the buffer holds.
+extern "C" int sb_collide_stencil_dev(
+    const float* px, const float* py, const float* vx, const float* vy,
+    const long long* strides_host, const bool* alive, float* out,
+    const float* consts_dev, int skip, int w, int h, int stencil,
+    void* stream) {
+  if (consts_dev == nullptr) return (int)cudaErrorInvalidValue;
+  Planes p = {{px, py, vx, vy}, {0, 0, 0, 0}, {0, 0, 0, 0}};
+  for (int k = 0; k < 4; ++k) {
+    p.sx[k] = strides_host[2 * k];
+    p.sy[k] = strides_host[2 * k + 1];
+  }
+  return run_k3(p, alive, out, 0.0f, 0.0f, 0.0f, 0.0f, w, h, stencil,
+                stream, consts_dev, skip != 0);
+}
+
+// Residency of the interleaved (path A) kernel at `stencil & 255`, as
+// sb_fused_substep2_occupancy reports K1's (bit 16: the instance with the
+// scalars from device memory).
 extern "C" int sb_collide_stencil_occupancy(int stencil, int* out) {
+  const bool devc = (stencil >> 16) & 1;
+  stencil &= 255;
   const size_t smem = k3_smem_bytes(stencil);
-  const K3Kernel kernel = k3_kernel<true>(stencil);
+  const K3Kernel kernel =
+      devc ? k3_kernel<true, true>(stencil) : k3_kernel<true, false>(stencil);
   cudaFuncAttributes a;
   int err = (int)cudaFuncGetAttributes(&a, kernel);
   if (err != 0) return err;

@@ -37,6 +37,14 @@
 // launch's constants allow it: pair_skip_allowed, checked by the entry).
 // The kernel reads `mut` and writes a separate `mut_out`.
 //
+// The constants (config.consts_vector) come from the launch's parameters,
+// or from device memory (DEVC, sb_fused_substep_dev: a captured frame's
+// constants and user input are device buffers): copied device to device
+// into the kernel's __constant__ bank on the launch's stream just before
+// the launch, and read there as the parameters are (K1's design,
+// fused_substep2.cu); the pair skip is then the host's decision, passed
+// with them.
+//
 // Exactness: sums in the plain version's (XLA) order, springs per class
 // as -own + reaction, collisions per half offset as
 // (acc + t(i, i+o)) - t(i-o, i).  A shared reaction is the value its
@@ -65,8 +73,11 @@ struct Consts {
   float v[N_CONSTS];
 };
 
+// DEVC's constants, copied in from device memory before each launch
+__constant__ float k4_consts_dev[N_CONSTS];
+
 // SKIP: pair_skip_allowed for the launch's constants (as K1)
-template <bool SKIP>
+template <bool SKIP, bool DEVC>
 __global__ void __launch_bounds__(SUB_THREADS, 4)
 fused_substep_kernel(const float* __restrict__ mut,
                      const float* __restrict__ immut,
@@ -82,7 +93,7 @@ fused_substep_kernel(const float* __restrict__ mut,
       smem, mut + PX * WH, mut + PY * WH, mut + VX * WH, mut + VY * WH,
       immut + ALIVE * WH, x0, y0, R, w, h);
   uint32_t* fp = (uint32_t*)(smem + sub_stage_floats(R));
-  const float* v = cs.v;
+  const float* v = DEVC ? k4_consts_dev : cs.v;
 
   const int r = threadIdx.y, l = threadIdx.x;
   const int x = x0 + r, y = y0 + l;
@@ -206,6 +217,28 @@ fused_substep_kernel(const float* __restrict__ mut,
   mut_out[AY * WH + g] = o.ay;
 }
 
+template <bool DEVC>
+int k4_launch(const float* mut, const float* immut, const float* far,
+              float* mut_out, const Consts& cs, bool skip, int w, int h,
+              int stencil, int quantized, void* stream, const float* cdev) {
+  if (DEVC) {
+    void* bank = nullptr;
+    cudaError_t err = cudaGetSymbolAddress(&bank, k4_consts_dev);
+    if (err == cudaSuccess)
+      err = cudaMemcpyAsync(bank, cdev, sizeof(k4_consts_dev),
+                            cudaMemcpyDeviceToDevice, (cudaStream_t)stream);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const size_t smem = substep_smem_bytes(stencil);
+  dim3 block(SUB_TY, SUB_TX);
+  dim3 grid((h + SUB_TY - 1) / SUB_TY, (w + SUB_TX - 1) / SUB_TX);
+  const auto kernel = skip ? fused_substep_kernel<true, DEVC>
+                           : fused_substep_kernel<false, DEVC>;
+  kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
+      mut, immut, far, mut_out, cs, w, h, stencil, quantized);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Pointers are device pointers except `consts_host` (20 floats, copied
@@ -216,25 +249,42 @@ extern "C" int sb_fused_substep(const float* mut, const float* immut,
                                 int stencil, int quantized, void* stream) {
   Consts cs;
   memcpy(cs.v, consts_host, sizeof(cs.v));
-  const size_t smem = substep_smem_bytes(stencil);
-  dim3 block(SUB_TY, SUB_TX);
-  dim3 grid((h + SUB_TY - 1) / SUB_TY, (w + SUB_TX - 1) / SUB_TX);
-  const auto kernel = pair_skip_allowed(cs.v) ? fused_substep_kernel<true>
-                                              : fused_substep_kernel<false>;
-  kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
-      mut, immut, far, mut_out, cs, w, h, stencil, quantized);
-  return (int)cudaGetLastError();
+  return k4_launch<false>(mut, immut, far, mut_out, cs,
+                          pair_skip_allowed(cs.v), w, h, stencil, quantized,
+                          stream, nullptr);
 }
 
-// The kernel's residency at stencil radius `stencil`, as
-// sb_fused_substep2_occupancy reports K1's.
+// As sb_fused_substep, with the constants in device memory: `consts_dev`
+// (20 floats, config.consts_vector; copied into the kernel's constant
+// bank on `stream` before the launch) and `skip`, whether they allow the
+// pair skip (pair_skip_allowed, decided on the host from the same
+// values).  A captured graph replays with whatever the buffer holds.
+extern "C" int sb_fused_substep_dev(const float* mut, const float* immut,
+                                    const float* far, float* mut_out,
+                                    const float* consts_dev, int skip,
+                                    int w, int h, int stencil,
+                                    int quantized, void* stream) {
+  if (consts_dev == nullptr) return (int)cudaErrorInvalidValue;
+  Consts cs;
+  memset(cs.v, 0, sizeof(cs.v));
+  return k4_launch<true>(mut, immut, far, mut_out, cs, skip != 0, w, h,
+                         stencil, quantized, stream, consts_dev);
+}
+
+// The kernel's residency at stencil radius `stencil & 255`, as
+// sb_fused_substep2_occupancy reports K1's (bit 16: the instance with the
+// constants from device memory).
 extern "C" int sb_fused_substep_occupancy(int stencil, int* out) {
+  const bool devc = (stencil >> 16) & 1;
+  stencil &= 255;
   const size_t smem = substep_smem_bytes(stencil);
+  const auto kernel = devc ? fused_substep_kernel<true, true>
+                           : fused_substep_kernel<true, false>;
   cudaFuncAttributes a;
-  int err = (int)cudaFuncGetAttributes(&a, fused_substep_kernel<true>);
+  int err = (int)cudaFuncGetAttributes(&a, kernel);
   if (err != 0) return err;
   err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &out[0], fused_substep_kernel<true>, SUB_THREADS, smem);
+      &out[0], kernel, SUB_THREADS, smem);
   out[1] = a.numRegs;
   out[2] = (int)a.localSizeBytes;
   out[3] = (int)smem;

@@ -30,6 +30,20 @@
 //   the springs and passes the edge and obs planes through, noint passes
 //   the six particle planes through.
 //
+// The constants (consts[0 .. 39]: config.consts_vector, then the edge
+// classes') come from the launch's parameters, or from device memory
+// (DEVC, sb_fused_substep2_dev: a captured frame's constants and user
+// input are device buffers, so a mouse drag replays one graph): the
+// entry copies them device to device into the kernel's __constant__
+// bank on the launch's stream just before the launch (a copy node in a
+// captured graph), and the kernel reads them there as it reads its
+// parameters, from the constant cache with no register held for them
+// (staged in shared memory instead, they were loaded into registers
+// early and raised the spills at K1's 48-register cap).  Launches with
+// device constants are therefore ordered on one stream at a time, as
+// the frames run them.  The pair skip is the host's decision, passed
+// with them.
+//
 // The far-field scalars consts[40 .. 47] (X_*) come from the launch's
 // constants, or from device memory where the launch passes `xdev`
 // (sb_fused_substep2_modex): a captured frame computes them on the
@@ -157,6 +171,9 @@ __host__ __device__ __forceinline__ int k1_halo(int s, int mode) {
   const int R = s > 1 ? s : 1;
   return (mode & M_DETECT) && R < BAND_R ? BAND_R : R;
 }
+
+// DEVC's constants, copied in from device memory before each launch
+__constant__ float k1_consts_dev[N_CONSTS + N_EDGEC];
 
 // Dynamic shared memory of K1: the staged tile and the force planes;
 // under M_DETECT the band planes (px, py; +inf where dead) of the staged
@@ -338,7 +355,9 @@ __device__ __forceinline__ void detect_groups(const SmemTile& t,
 // parameter, so the usual instance compiles as if the skip were
 // unconditional; under RSQRT always true).  RSQRT, ROLLGROUP: the
 // arithmetic variants (lattice_device.cuh).  MODE: the M_* bits above.
-template <bool SKIP, bool RSQRT, bool ROLLGROUP, int MODE>
+// DEVC: the constants from k1_consts_dev (copied from device memory),
+// else from `cs`.
+template <bool SKIP, bool RSQRT, bool ROLLGROUP, int MODE, bool DEVC>
 __global__ void __launch_bounds__(SUB_THREADS, k1_min_blocks(MODE))
 fused_substep2_kernel(const float* __restrict__ hot,
                       const float* __restrict__ immut,
@@ -373,7 +392,7 @@ fused_substep2_kernel(const float* __restrict__ hot,
   // trig: the refs of the tile's cells, then the warps' partials
   float* rf = extra + (DETECT ? 2 * sn + 2 * sx : 0);
   float* wpart = rf + 4 * SUB_THREADS;
-  const float* v = cs.v;
+  const float* v = DEVC ? k1_consts_dev : cs.v;
   // the far-field scalars (X_*), from device memory or the constants
   const float* xv = xdev != nullptr ? xdev : v + XB;
   const bool skip_springs = KNOBS && nospring;
@@ -625,60 +644,92 @@ using K1Kernel = void (*)(const float*, const float*, const float*,
                           int, int, int, const float*, float*, float*, int,
                           int, const float*);
 
-template <int MODE>
+template <int MODE, bool DEVC>
 K1Kernel k1_arith(bool skip, bool rsqrt, bool rollgroup) {
-  return rsqrt ? (rollgroup ? fused_substep2_kernel<true, true, true, MODE>
-                            : fused_substep2_kernel<true, true, false, MODE>)
+  return rsqrt
+             ? (rollgroup
+                    ? fused_substep2_kernel<true, true, true, MODE, DEVC>
+                    : fused_substep2_kernel<true, true, false, MODE, DEVC>)
          : rollgroup
-             ? (skip ? fused_substep2_kernel<true, false, true, MODE>
-                     : fused_substep2_kernel<false, false, true, MODE>)
-             : (skip ? fused_substep2_kernel<true, false, false, MODE>
-                     : fused_substep2_kernel<false, false, false, MODE>);
+             ? (skip ? fused_substep2_kernel<true, false, true, MODE, DEVC>
+                     : fused_substep2_kernel<false, false, true, MODE, DEVC>)
+             : (skip
+                    ? fused_substep2_kernel<true, false, false, MODE, DEVC>
+                    : fused_substep2_kernel<false, false, false, MODE,
+                                            DEVC>);
 }
 
 // K1's instances: the arithmetic variants in modes 0 (every fused path),
 // M_DETECT (the fixed-cadence frame's kernel detection) and M_KNOBS (the
 // attribution knobs); M_TRIG and M_TRIG | M_DETECT (the triggered frame,
-// which JAX runs strict) strict only.  nullptr for any other.
-K1Kernel k1_pick(int mode, bool skip, bool rsqrt, bool rollgroup) {
+// which JAX runs strict) strict only; each with the constants by value or
+// from device memory (DEVC).  nullptr for any other.
+template <bool DEVC>
+K1Kernel k1_pick_c(int mode, bool skip, bool rsqrt, bool rollgroup) {
   const bool strict = !rsqrt && !rollgroup;
   switch (mode) {
     case 0:
-      return k1_arith<0>(skip, rsqrt, rollgroup);
+      return k1_arith<0, DEVC>(skip, rsqrt, rollgroup);
     case M_DETECT:
-      return k1_arith<M_DETECT>(skip, rsqrt, rollgroup);
+      return k1_arith<M_DETECT, DEVC>(skip, rsqrt, rollgroup);
     case M_KNOBS:
-      return k1_arith<M_KNOBS>(skip, rsqrt, rollgroup);
+      return k1_arith<M_KNOBS, DEVC>(skip, rsqrt, rollgroup);
     case M_TRIG:
       if (!strict) return nullptr;
-      return skip ? fused_substep2_kernel<true, false, false, M_TRIG>
-                  : fused_substep2_kernel<false, false, false, M_TRIG>;
+      return skip ? fused_substep2_kernel<true, false, false, M_TRIG, DEVC>
+                  : fused_substep2_kernel<false, false, false, M_TRIG,
+                                          DEVC>;
     case M_TRIG | M_DETECT:
       if (!strict) return nullptr;
       return skip ? fused_substep2_kernel<true, false, false,
-                                          M_TRIG | M_DETECT>
+                                          M_TRIG | M_DETECT, DEVC>
                   : fused_substep2_kernel<false, false, false,
-                                          M_TRIG | M_DETECT>;
+                                          M_TRIG | M_DETECT, DEVC>;
   }
   return nullptr;
 }
 
+K1Kernel k1_pick(int mode, bool skip, bool rsqrt, bool rollgroup,
+                 bool devc = false) {
+  return devc ? k1_pick_c<true>(mode, skip, rsqrt, rollgroup)
+              : k1_pick_c<false>(mode, skip, rsqrt, rollgroup);
+}
+
+// `cdev`: the constants in device memory (40 floats; the far-field
+// scalars then from `xdev` under trig or detect), with `skip_dev` the
+// host's pair-skip decision; null: from `consts_host`, skip decided here.
 int k1_launch(const float* hot, const float* immut, const float* far,
               const float* obs_in, const float* refs, float* hot_out,
               float* obs_out, float* stats, float* side,
               const float* consts_host, int w, int h, int stencil,
               int quantized, int rsqrt, int rollgroup, int mode,
               int nospring, int noint, void* stream,
-              const float* xdev = nullptr) {
+              const float* xdev = nullptr, const float* cdev = nullptr,
+              int skip_dev = 0) {
   Consts cs;
   memset(cs.v, 0, sizeof(cs.v));
-  const int n = (mode & (M_TRIG | M_DETECT)) && xdev == nullptr
-                    ? N_CONSTS + N_EDGEC + N_EXTRA
-                    : N_CONSTS + N_EDGEC;
-  memcpy(cs.v, consts_host, n * sizeof(float));
-  const K1Kernel kernel =
-      k1_pick(mode, pair_skip_allowed(cs.v, true), rsqrt, rollgroup);
+  const bool devc = cdev != nullptr;
+  bool skip = skip_dev != 0;
+  if (devc) {
+    if ((mode & (M_TRIG | M_DETECT)) && xdev == nullptr)
+      return (int)cudaErrorInvalidValue;
+  } else {
+    const int n = (mode & (M_TRIG | M_DETECT)) && xdev == nullptr
+                      ? N_CONSTS + N_EDGEC + N_EXTRA
+                      : N_CONSTS + N_EDGEC;
+    memcpy(cs.v, consts_host, n * sizeof(float));
+    skip = pair_skip_allowed(cs.v, true);
+  }
+  const K1Kernel kernel = k1_pick(mode, skip, rsqrt, rollgroup, devc);
   if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  if (devc) {
+    void* bank = nullptr;
+    cudaError_t err = cudaGetSymbolAddress(&bank, k1_consts_dev);
+    if (err == cudaSuccess)
+      err = cudaMemcpyAsync(bank, cdev, sizeof(k1_consts_dev),
+                            cudaMemcpyDeviceToDevice, (cudaStream_t)stream);
+    if (err != cudaSuccess) return (int)err;
+  }
   const size_t smem = k1_smem_bytes(stencil, mode);
   dim3 block(SUB_TY, SUB_TX);
   dim3 grid((h + SUB_TY - 1) / SUB_TY, (w + SUB_TX - 1) / SUB_TX);
@@ -750,6 +801,32 @@ extern "C" int sb_fused_substep2_modex(
                    rollgroup, mode, nospring, noint, stream, xdev);
 }
 
+// The mode entry with every constant in device memory: `consts_dev` (40
+// floats, config.consts_vector then the edge classes'; copied into the
+// kernel's constant bank on `stream` before the launch), `extras_dev`
+// (the N_EXTRA far-field scalars; needed under trig or detect) and
+// `skip`, whether the constants allow the pair skip (pair_skip_allowed
+// with inv_dt2, decided on the host from the same values).  Nothing of
+// the constants is in the launch: a captured graph replays with whatever
+// the buffers hold.
+extern "C" int sb_fused_substep2_dev(
+    const float* hot, const float* immut, const float* far,
+    const float* obs_in, const float* refs, float* hot_out, float* obs_out,
+    float* stats, float* side, const float* consts_dev, int w, int h,
+    int stencil, int quantized, int rsqrt, int rollgroup, int trig,
+    int detect, int nospring, int noint, int skip, void* stream,
+    const float* extras_dev) {
+  const bool knobs = nospring || noint;
+  if (knobs && (trig || detect)) return (int)cudaErrorInvalidValue;
+  if (consts_dev == nullptr) return (int)cudaErrorInvalidValue;
+  const int mode = (trig ? M_TRIG : 0) | (detect ? M_DETECT : 0) |
+                   (knobs ? M_KNOBS : 0);
+  return k1_launch(hot, immut, far, obs_in, refs, hot_out, obs_out, stats,
+                   side, nullptr, w, h, stencil, quantized, rsqrt,
+                   rollgroup, mode, nospring, noint, stream, extras_dev,
+                   consts_dev, skip);
+}
+
 // The strict instance (the entry of earlier builds, kept for comparing
 // checkouts).
 extern "C" int sb_fused_substep2(const float* hot, const float* immut,
@@ -762,16 +839,18 @@ extern "C" int sb_fused_substep2(const float* hot, const float* immut,
                                    0, stream);
 }
 
-// The residency of K1's strict instance in mode `stencil >> 8` (0: the
-// plain substep; M_* bits) at stencil radius `stencil & 255`: out[0]
+// The residency of K1's strict instance in mode `(stencil >> 8) & 255`
+// (0: the plain substep; M_* bits) at stencil radius `stencil & 255`,
+// with the constants from device memory where bit 16 is set: out[0]
 // blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor), out[1]
 // registers per thread, out[2] local (spill) bytes per thread, out[3]
 // dynamic shared bytes per block, out[4] threads per block.
 extern "C" int sb_fused_substep2_occupancy(int stencil, int* out) {
-  const int mode = stencil >> 8;
+  const int mode = (stencil >> 8) & 255;
+  const bool devc = (stencil >> 16) & 1;
   stencil &= 255;
   const size_t smem = k1_smem_bytes(stencil, mode);
-  const K1Kernel kernel = k1_pick(mode, true, false, false);
+  const K1Kernel kernel = k1_pick(mode, true, false, false, devc);
   if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   cudaFuncAttributes a;
   int err = (int)cudaFuncGetAttributes(&a, kernel);

@@ -69,6 +69,7 @@ from ..ops.farfield import (
     max_relative_speed,
     rebuild_far_list,
 )
+from ..ops.planify import planified_frame_far_jit, planified_frame_jit
 from ..ops.step import frame_jit
 from ..ops.stencil import (
     LatticeState,
@@ -440,15 +441,10 @@ class LatticeBackend:
         return dataclasses.replace(state, edges=edges, **upd)
 
 
-def _stats_merge(a, b):
-    """Accumulate frame stats: the rebuild count sums, the rest take the
-    running max."""
-    return [a[0] + b[0]] + [max(x, y) for x, y in zip(a[1:], b[1:])]
-
-
 def _stats_merge_device(a, b):
-    """:func:`_stats_merge` of two int32 stats vectors on the device (no
-    host read; JAX's backend merges its device arrays the same way)."""
+    """Accumulate two frames' int32 stats vectors on the device (no host
+    read; JAX's backend merges its device arrays the same way): the
+    rebuild count sums, the rest take the running max."""
     return b if a is None else torch.cat([a[:1] + b[:1],
                                           torch.maximum(a[1:], b[1:])])
 
@@ -702,6 +698,8 @@ class PlanifiedBackend(SimBackend):
         super().__init__(cfg, max_particles, max_beams, device=device)
         self.collision_stencil = collision_stencil
         self.ff = farfield
+        self._frame = planified_frame_jit
+        self._frame_far = planified_frame_far_jit
         self._stats_acc = None
         self._spec = None
         self._aux = None
@@ -746,27 +744,26 @@ class PlanifiedBackend(SimBackend):
         return unplanify(ps, self._template, self._aux)
 
     def step(self, ps, consts: PhysicsConstants, uin: UserInput):
-        """One frame: ``planified_frame``, or with far field armed (and
-        collisions on) ``planified_frame_far``, whose stats accumulate
-        on the host (``far_stats``)."""
-        from ..ops.planify import planified_frame, planified_frame_far
-
+        """One frame through the compiled frames: ``planified_frame_jit``,
+        or with far field armed (and collisions on)
+        ``planified_frame_far_jit``, whose buckets are chosen on the device
+        and whose stats accumulate there (``far_stats`` reads them): no
+        host read.  ``self._frame`` / ``self._frame_far`` hold them (set
+        them to the plain functions for an eager twin)."""
         if self.ff is not None and self.cfg.collision_mode != "none":
-            ps, st = planified_frame_far(ps, consts, uin, self._spec,
-                                         self.cfg, self.ff)
-            st = st.tolist()
-            self._stats_acc = (st if self._stats_acc is None
-                               else _stats_merge(self._stats_acc, st))
+            ps, st = self._frame_far(ps, consts, uin, self._spec, self.cfg,
+                                     self.ff)
+            self._stats_acc = _stats_merge_device(self._stats_acc, st)
             return ps
-        return planified_frame(ps, consts, uin, self._spec, self.cfg)
+        return self._frame(ps, consts, uin, self._spec, self.cfg)
 
     def far_stats(self) -> dict:
         """Stats since the last read (the accumulator resets on read):
         rebuilds, max n_pairs, max overflow, max active pairs; {} when no
-        far frame ran."""
+        far frame ran.  The one host read of the frames' stats."""
         if self._stats_acc is None:
             return {}
-        vals, self._stats_acc = self._stats_acc, None
+        vals, self._stats_acc = self._stats_acc.tolist(), None
         return {"far_rebuilds": vals[0], "far_pairs": vals[1],
                 "far_overflow": vals[2], "far_active": vals[3]}
 

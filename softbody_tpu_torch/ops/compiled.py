@@ -7,20 +7,31 @@ runs a CUDA graph of the function, captured once per key and replayed
 after that; on CPU tensors it runs the function itself (the caller asked
 for the CPU, where the plain torch versions run: no graph exists there).
 
-**The key** holds everything a capture bakes into its launches:
+**The key** holds what ``jax.jit`` holds static, and no value that a
+frame computes with:
 
 - the function (one cache per :class:`Compiled`) and its static
   arguments (``static_argnames``: ``cfg``, ``spec``, ``ffspec``,
   ``n_sub``), by value;
-- every tensor argument's shape, dtype, strides and device (a far list's
-  capacity is its tensors' shape);
-- every CPU tensor of a frame on the card by value (its bytes): host
-  constants such as the edge constants, which the launches bake in;
-- every other argument by value, floats by their bits: the physics
-  constants and the user input.  The frame functions read these on the
-  host (``config.consts_vector`` through ``stencil.Scalars``,
-  ``stencil.device_scalar``, K3's scalar arguments), so a graph holds
-  them as numbers; another mouse position is another key.
+- the tree structure of the other arguments, and every tensor's shape,
+  dtype, strides and device (a far list's capacity is its tensors'
+  shape);
+- the arguments left at their defaults, by value (JAX traces only what
+  is passed);
+- the host decisions of the frame (``decide``: which kernel instance
+  the constants allow, ``stencil.frame_decisions``), computed from the
+  host values before they are lifted.
+
+**Lifted, as ``jax.jit`` traces them**: every float and bool leaf of the
+passed arguments (each field of ``PhysicsConstants`` and ``UserInput``)
+goes into one small float32 buffer on the frame's device, and the
+function receives a 0-d view of it in the leaf's place; a CPU tensor of
+a frame on the card (the edge constants) is received as a tensor on the
+device.  Both are copied in before each replay, with the state, from
+pinned host memory (no synchronisation).  So a mouse drag, a keyboard
+force or a slider replays one graph: only a constant that changes a host
+decision (one that makes the penetration clip non-finite) is another
+key.
 
 The cache is bounded (least recently used first out) and counts its
 misses, captures and replays.
@@ -131,7 +142,8 @@ _ABANDONED: list = []
 _STREAMS: Dict[int, tuple] = {}
 _COND_COUNTS: list = []
 # per thread: ``warming`` (a warm-up runs every body), ``cond`` (the
-# device counters of the capture in progress), ``in_body``
+# device counters of the capture in progress), ``in_body``, ``decided``
+# (the host decisions of the Compiled call in progress)
 _TLS = threading.local()
 
 # the host reads that decide a frame's branches on the card (each a
@@ -253,6 +265,14 @@ def _retire(entry) -> None:
         _COND_COUNTS.remove(cc)
 
 
+def decided():
+    """The host decisions of the :class:`Compiled` call running on this
+    thread (its ``decide`` of the host arguments, part of its key), or
+    None outside such a call: a frame then decides from its arguments'
+    host values itself."""
+    return getattr(_TLS, "decided", None)
+
+
 def _capturing(t: torch.Tensor) -> bool:
     return t.device.type == "cuda" and torch.cuda.is_current_stream_capturing()
 
@@ -371,48 +391,58 @@ def tensors(obj):
             yield from tensors(x)
 
 
-def _rebuilt(obj, fn: Callable):
-    """``obj`` with each tensor ``t`` replaced by ``fn(t)``."""
+def _is_scalar(obj) -> bool:
+    return isinstance(obj, (bool, float))
+
+
+def _lifted(obj, on_tensor: Callable, on_scalar: Callable):
+    """``obj`` with each tensor ``t`` replaced by ``on_tensor(t)`` and
+    each float or bool leaf ``x`` by ``on_scalar(x)``."""
     if isinstance(obj, torch.Tensor):
-        return fn(obj)
+        return on_tensor(obj)
+    if _is_scalar(obj):
+        return on_scalar(obj)
     if _is_record(obj):
         new = copy.copy(obj)
         for f in dataclasses.fields(obj):
-            object.__setattr__(new, f.name, _rebuilt(getattr(obj, f.name),
-                                                     fn))
+            object.__setattr__(new, f.name, _lifted(getattr(obj, f.name),
+                                                    on_tensor, on_scalar))
         return new
     if isinstance(obj, tuple) and hasattr(type(obj), "_fields"):
-        return type(obj)(*(_rebuilt(x, fn) for x in obj))
+        return type(obj)(*(_lifted(x, on_tensor, on_scalar) for x in obj))
     if isinstance(obj, (tuple, list)):
-        return type(obj)(_rebuilt(x, fn) for x in obj)
+        return type(obj)(_lifted(x, on_tensor, on_scalar) for x in obj)
     if isinstance(obj, dict):
-        return {k: _rebuilt(v, fn) for k, v in obj.items()}
+        return {k: _lifted(v, on_tensor, on_scalar) for k, v in obj.items()}
     return obj
 
 
-def _signature(obj, values: bool, host=lambda t: False):
+def _scalars(obj) -> list:
+    """The float and bool leaves of ``obj``, in :func:`_lifted`'s order,
+    as floats."""
+    out = []
+    _lifted(obj, lambda t: t, lambda x: out.append(float(x)))
+    return out
+
+
+def _signature(obj, values: bool):
     """What a capture bakes in besides the tensors' contents: the tree's
-    structure, each tensor's layout and, with ``values``, every other
-    leaf (floats by their bits, so -0.0 and NaN key as themselves) and
-    the bytes of each ``host`` tensor; without ``values`` floats and
-    bools are left out (the shapes' key)."""
+    structure, each tensor's layout and every other leaf by value, but
+    floats and bools (lifted) by their type only, unless ``values``
+    (floats by their bits, so -0.0 and NaN key as themselves)."""
     if isinstance(obj, torch.Tensor):
-        sig = ("tensor", tuple(obj.shape), obj.dtype, obj.stride(),
-               obj.device)
-        if values and host(obj):
-            sig += (obj.contiguous().numpy().tobytes(),)
-        return sig
+        return ("tensor", tuple(obj.shape), obj.dtype, obj.stride(),
+                obj.device)
     if _is_record(obj):
         return (type(obj),) + tuple(
-            (f.name, _signature(getattr(obj, f.name), values, host))
+            (f.name, _signature(getattr(obj, f.name), values))
             for f in dataclasses.fields(obj))
     if isinstance(obj, (tuple, list)):
-        return (type(obj),) + tuple(_signature(x, values, host)
-                                    for x in obj)
+        return (type(obj),) + tuple(_signature(x, values) for x in obj)
     if isinstance(obj, dict):
-        return (dict,) + tuple((k, _signature(v, values, host))
+        return (dict,) + tuple((k, _signature(v, values))
                                for k, v in obj.items())
-    if isinstance(obj, (bool, float)) and not values:
+    if _is_scalar(obj) and not values:
         return type(obj)
     if isinstance(obj, float):
         return (float, struct.pack("<d", obj))
@@ -488,25 +518,49 @@ class CudaGraph:
 class _Entry:
     graph: object
     inputs: list            # static input tensors, in argument order
+    scalars: object         # float32 [n] of the lifted leaves, or None
     out: object             # the function's output on the static inputs
     passed: dict            # id(static input) -> its index (pass-through)
     counts: dict            # launch counts one replay stands for
+    decided: object         # the host decisions the graph was captured under
     cond: object = None     # _CondCounts of its conditional bodies
+
+
+def _fill(inputs: list, srcs: list, scalars, values: list,
+          cuda: bool) -> None:
+    """Copy the call's tensors and lifted leaves into a graph's static
+    inputs.  A host tensor or value bound for the card goes through pinned
+    memory without blocking (a pageable copy would wait for the stream)."""
+    for s, t in zip(inputs, srcs):
+        if cuda and t.device.type == "cpu":
+            s.copy_(t.pin_memory(), non_blocking=True)
+        else:
+            s.copy_(t)
+    if scalars is not None:
+        host = torch.tensor(values, dtype=torch.float32)
+        if cuda:
+            scalars.copy_(host.pin_memory(), non_blocking=True)
+        else:
+            scalars.copy_(host)
 
 
 class Compiled:
     """``fn`` run as captured graphs on CUDA tensors (see the module's
     docstring).  ``static_argnames``: arguments keyed by value and passed
-    to ``fn`` as they are (hashable).  ``graph_cls``: the graph type
-    (:class:`CudaGraph`; its ``device_type`` names the tensors it
-    captures, a call on any other device runs ``fn``).  Keeps at most
-    ``MAX_GRAPHS`` graphs; counts ``misses``, ``captures``, ``replays``."""
+    to ``fn`` as they are (hashable).  ``decide``: the frame's host
+    decisions, a function of the bound arguments (host values) returning
+    a hashable, keyed and handed to ``fn`` through :func:`decided`.
+    ``graph_cls``: the graph type (:class:`CudaGraph`; its
+    ``device_type`` names the tensors it captures, a call on any other
+    device runs ``fn``).  Keeps at most ``MAX_GRAPHS`` graphs; counts
+    ``misses``, ``captures``, ``replays``."""
 
     def __init__(self, fn: Callable, static_argnames: Sequence[str] = (),
-                 *, graph_cls=CudaGraph) -> None:
+                 *, decide: Callable = None, graph_cls=CudaGraph) -> None:
         functools.update_wrapper(self, fn)
         self.fn = fn
         self.static_argnames = tuple(static_argnames)
+        self.decide = decide
         self.graph_cls = graph_cls
         self._sig = inspect.signature(fn)
         unknown = set(self.static_argnames) - set(self._sig.parameters)
@@ -536,6 +590,7 @@ class Compiled:
 
     def __call__(self, *args, **kwargs):
         bound = self._sig.bind(*args, **kwargs)
+        passed = set(bound.arguments)
         bound.apply_defaults()
         arguments = dict(bound.arguments)
         dynamic = {k: v for k, v in arguments.items()
@@ -552,36 +607,55 @@ class Compiled:
                              f"on the CPU), got {devices | others}")
         device = leaves[0].device
         static = tuple((k, arguments[k]) for k in self.static_argnames)
-
-        def host(t):
-            return not self._graph_tensor(t)
-
-        key = (static, _signature(dynamic, True, host))
+        # traced (lifted) as JAX traces them: the arguments passed; those
+        # left at their defaults are keyed by value
+        traced = {k: v for k, v in dynamic.items() if k in passed}
+        fixed = {k: v for k, v in dynamic.items() if k not in passed}
+        decided_now = (None if self.decide is None
+                       else self.decide(arguments))
+        shapes = (static, _signature(traced, False), _signature(fixed, True))
+        key = shapes + (decided_now,)
+        srcs = list(tensors(traced))
+        values = _scalars(traced)
         with _LOCK:
             entry = self._graphs.get(key)
             if entry is None:
                 self.misses += 1
-                entry = self._capture(arguments, dynamic, leaves, device,
-                                      (static, _signature(dynamic, False)))
+                entry = self._capture(arguments, traced, srcs, values,
+                                      device, shapes, decided_now)
                 self._graphs[key] = entry
                 self.captures += 1
                 while len(self._graphs) > MAX_GRAPHS:
                     _retire(self._graphs.popitem(last=False)[1])
             else:
                 self._graphs.move_to_end(key)
-            return self._replay(entry, leaves, device)
+            return self._replay(entry, srcs, values, device)
 
-    def _capture(self, arguments, dynamic, leaves, device, shapes) -> _Entry:
-        static_in = _rebuilt(dynamic, lambda t: (
-            torch.empty_like(t) if self._graph_tensor(t) else t))
-        inputs = [t for t in tensors(static_in) if self._graph_tensor(t)]
-        for s, t in zip(inputs, leaves):
-            s.copy_(t)
-        versions = [s._version for s in inputs]
+    def _capture(self, arguments, traced, srcs, values, device, shapes,
+                 decided_now) -> _Entry:
+        inputs = []     # in the order of tensors(traced), as srcs
+
+        def static_tensor(t):
+            # a host tensor of a frame on the card is lifted to the device
+            s = (torch.empty_like(t) if self._graph_tensor(t) else
+                 torch.empty(t.shape, dtype=t.dtype, device=device))
+            inputs.append(s)
+            return s
+
+        scalars = (torch.empty(len(values), dtype=torch.float32,
+                               device=device) if values else None)
+        slots = iter(range(len(values)))
+        static_in = _lifted(traced, static_tensor,
+                            lambda _x: scalars[next(slots)])
+        cuda = device.type == "cuda"
+        _fill(inputs, srcs, scalars, values, cuda)
+        watched = inputs + ([scalars] if scalars is not None else [])
+        versions = [s._version for s in watched]
         graph = self.graph_cls(device)
         call = {**arguments, **static_in}
-        cond = _CondCounts(device) if device.type == "cuda" else None
+        cond = _CondCounts(device) if cuda else None
         before = read_counts()
+        _TLS.decided = decided_now
         try:
             if shapes not in self._warm:
                 _TLS.warming = True
@@ -597,9 +671,10 @@ class Compiled:
                 _TLS.cond = None
             counts = _count_delta(read_counts(), before)
         finally:
+            _TLS.decided = None
             set_counts(before)
         self._warm.add(shapes)
-        if [s._version for s in inputs] != versions:
+        if [s._version for s in watched] != versions:
             raise RuntimeError(f"{self.__name__} writes into its inputs; a "
                                "captured frame must return new tensors")
         passed = {id(s): i for i, s in enumerate(inputs)}
@@ -607,21 +682,25 @@ class Compiled:
             _COND_COUNTS.append(cond)
         else:
             cond = None
-        return _Entry(graph, inputs, out, passed, counts, cond)
+        return _Entry(graph, inputs, scalars, out, passed, counts,
+                      decided_now, cond)
 
-    def _replay(self, entry: _Entry, leaves, device):
+    def _replay(self, entry: _Entry, srcs, values, device):
         cuda = device.type == "cuda"
         if cuda and device.index in _LAST:
             torch.cuda.current_stream(device).wait_event(_LAST[device.index])
-        for s, t in zip(entry.inputs, leaves):
-            s.copy_(t)
-        entry.graph.replay()
+        _fill(entry.inputs, srcs, entry.scalars, values, cuda)
+        _TLS.decided = entry.decided
+        try:
+            entry.graph.replay()
+        finally:
+            _TLS.decided = None
 
         def out(t):
             i = entry.passed.get(id(t))
-            return t.clone() if i is None else leaves[i]
+            return t.clone() if i is None else srcs[i]
 
-        result = _rebuilt(entry.out, out)
+        result = _lifted(entry.out, out, lambda x: x)
         if cuda:
             done = torch.cuda.Event()
             done.record(torch.cuda.current_stream(device))

@@ -142,6 +142,26 @@ def bind(path: Path) -> ctypes.CDLL:
         lib.sb_fused_substep2_modex.argtypes = ([_P] * 10 + [_I] * 10
                                                 + [_P, _P])
         lib.sb_fused_substep2_modex.restype = _I
+    # int sb_fused_substep2_dev(hot, immut, far, obs_in, refs, hot_out,
+    #     obs_out, stats, side, consts_dev, w, h, stencil, quantized,
+    #     rsqrt, rollgroup, trig, detect, nospring, noint, skip, stream,
+    #     extras_dev): every constant in device memory, the pair skip
+    #     decided by the caller (libraries built before it lack it; so
+    #     do the _dev entries of K3 and K4 below)
+    if hasattr(lib, "sb_fused_substep2_dev"):
+        lib.sb_fused_substep2_dev.argtypes = ([_P] * 10 + [_I] * 11
+                                              + [_P, _P])
+        lib.sb_fused_substep2_dev.restype = _I
+    # int sb_fused_substep_dev(mut, immut, far, mut_out, consts_dev, skip,
+    #                          w, h, stencil, quantized, stream)
+    if hasattr(lib, "sb_fused_substep_dev"):
+        lib.sb_fused_substep_dev.argtypes = [_P] * 5 + [_I] * 5 + [_P]
+        lib.sb_fused_substep_dev.restype = _I
+    # int sb_collide_stencil_dev(px, py, vx, vy, strides_host, alive, out,
+    #                            consts_dev, skip, w, h, stencil, stream)
+    if hasattr(lib, "sb_collide_stencil_dev"):
+        lib.sb_collide_stencil_dev.argtypes = [_P] * 8 + [_I] * 4 + [_P]
+        lib.sb_collide_stencil_dev.restype = _I
     # int sb_cond_begin(stream, pred, child), sb_cond_end(child): an IF
     #     node of the graph the stream captures (ops/compiled.py)
     if hasattr(lib, "sb_cond_begin"):
@@ -202,16 +222,18 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
 
 
-def occupancy(kernel: str, stencil: int) -> dict:
+def occupancy(kernel: str, stencil: int, devc: bool = False) -> dict:
     """Residency on the current device of K1 (``kernel="fused_substep2"``),
     K4 (``"fused_substep"``), K3 (``"collide_stencil"``, the interleaved
     layout of path A) or K2 (``"band_flags"``; one shape for every
     stencil) at stencil radius ``stencil``: resident blocks per SM
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), registers and
     local (spill) bytes per thread, dynamic shared bytes and threads per
-    block."""
+    block.  ``devc``: K1's, K3's or K4's instance that reads its
+    constants from device memory."""
     out = (_I * 5)()
     fn = getattr(library(), f"sb_{kernel}_occupancy")
-    check(fn(stencil, out), f"{kernel} occupancy")
+    check(fn(stencil | (1 << 16 if devc else 0), out),
+          f"{kernel} occupancy")
     return dict(blocks_per_sm=out[0], registers=out[1], local_bytes=out[2],
                 smem_bytes=out[3], threads=out[4])

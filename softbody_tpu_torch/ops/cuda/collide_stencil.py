@@ -37,8 +37,11 @@ def full_offsets(s: int) -> Tuple[Tuple[int, int], ...]:
                  for dy in range(-s, s + 1) if (dx, dy) != (0, 0))
 
 
-def _scalars(radius: float, dt: float):
-    """``(2r, 1/dt²)`` in float32, as K3 forms them."""
+def _scalars(radius, dt):
+    """``(2r, 1/dt²)`` in float32, as K3 forms them (0-d tensors where
+    ``radius`` and ``dt`` are)."""
+    if isinstance(radius, torch.Tensor):
+        return 2.0 * radius, torch.reciprocal(dt * dt)
     r, t = np.float32(radius), np.float32(dt)
     return float(np.float32(2.0) * r), float(np.float32(1.0) / (t * t))
 
@@ -97,15 +100,21 @@ def collide_stencil_plain(px, py, vx, vy, alive, *, radius: float, dt: float,
     return dvx, dvy, dax, day, dyn
 
 
-def collide_stencil_call(px, py, vx, vy, alive, *, radius: float, dt: float,
-                         ecoeff: float, friction: float, stencil: int):
+def collide_stencil_call(px, py, vx, vy, alive, *, radius, dt, ecoeff,
+                         friction, stencil: int, consts=None, skip=None):
     """Collision deltas ``(dvx, dvy, dax, day, dyn)`` of the full offset
     set of radius ``stencil`` (kernel K3).
 
     ``px py vx vy`` float32 ``[W, H]`` at any strides (the kernel reads
     them in place), ``alive`` bool ``[W, H]``, on one device; the scalars
-    are float32 values.  On CUDA tensors the kernel runs on the current
-    stream without synchronising; on CPU tensors the plain version runs."""
+    are float32 values (host floats or 0-d tensors).  ``consts``: the
+    frame's consts vector (``config.consts_vector`` order) on the planes'
+    device, which the kernel reads there in the scalars' place (radius
+    0, dt 1, ecoeff 7, friction 8: a captured frame's constants live in
+    device memory), with ``skip``, whether those constants allow K3's
+    skip (decided on the host: ``stencil.Decisions.k3_skip``).  On CUDA
+    tensors the kernel runs on the current stream without synchronising;
+    on CPU tensors the plain version runs."""
     global K3_LAUNCHES
     shape = tuple(px.shape)
     if len(shape) != 2:
@@ -127,19 +136,38 @@ def collide_stencil_call(px, py, vx, vy, alive, *, radius: float, dt: float,
         return collide_stencil_plain(px, py, vx, vy, alive, **kw)
     if device.type != "cuda":
         raise ValueError(f"no K3 kernel for device {device}")
+    if consts is not None:
+        if (consts.device != device or consts.dtype != torch.float32
+                or consts.dim() != 1 or consts.shape[0] < 9
+                or not consts.is_contiguous()):
+            raise ValueError(f"consts must be a contiguous float32 vector "
+                             f"of >= 9 on {device}")
+        if skip is None:
+            raise ValueError("device constants need the host's skip "
+                             "decision (skip=)")
+    elif any(isinstance(x, torch.Tensor) for x in kw.values()):
+        raise ValueError("tensor scalars need their consts vector "
+                         "(consts=)")
     lib = _lib.library()
     planes = (px, py, vx, vy)
     strides = np.ascontiguousarray([t.stride() for t in planes], np.int64)
     alive = alive.contiguous()  # a state's alive plane already is
     out = torch.empty((5,) + shape, dtype=torch.float32, device=device)
-    two_r, inv_dt2 = _scalars(radius, dt)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.sb_collide_stencil_strided(
-            *(t.data_ptr() for t in planes), strides.ctypes.data,
-            alive.data_ptr(), out.data_ptr(), two_r, inv_dt2,
-            float(np.float32(ecoeff)), float(np.float32(friction)),
-            shape[0], shape[1], stencil, stream)
+        ptrs = [t.data_ptr() for t in planes]
+        if consts is not None:
+            err = lib.sb_collide_stencil_dev(
+                *ptrs, strides.ctypes.data, alive.data_ptr(),
+                out.data_ptr(), consts.data_ptr(), int(skip), shape[0],
+                shape[1], stencil, stream)
+        else:
+            two_r, inv_dt2 = _scalars(radius, dt)
+            err = lib.sb_collide_stencil_strided(
+                *ptrs, strides.ctypes.data, alive.data_ptr(),
+                out.data_ptr(), two_r, inv_dt2,
+                float(np.float32(ecoeff)), float(np.float32(friction)),
+                shape[0], shape[1], stencil, stream)
     _lib.check(err, "K3 collide_stencil")
     K3_LAUNCHES += 1
     return tuple(out[i] for i in range(5))

@@ -17,6 +17,12 @@ Mosaic; a Hopper kernel needs no pad.
 ``fused_substep_call`` is the K4 wrapper: on a CUDA tensor it launches
 the hand-written kernel (``csrc/fused_substep.cu``), on a CPU tensor it
 runs the plain version ``fused_substep_plain``.
+
+``fused_frame_jit``, ``fused_frame_far_jit`` and ``packed_far_motion_jit``
+are the compiled counterparts of the JAX package's jitted functions
+(``ops/compiled.py``): one CUDA graph a frame on the card, K4 reading the
+frame's constants from device memory, so a drag replays it; the functions
+themselves on the CPU.
 """
 
 from __future__ import annotations
@@ -35,11 +41,15 @@ from ..farfield import (
     max_relative_speed,
     rebuild_far_list_planes,
 )
+from ..compiled import Compiled
 from ..stencil import (
     LatticeState,
     Scalars,
     check_reference_offsets,
+    decisions,
+    frame_decisions,
     substep_planes,
+    to_device,
 )
 from . import _lib
 from .fused_substep2 import MAX_STENCIL, _check_plane_stack
@@ -107,7 +117,8 @@ def fused_substep_plain(mut, immut, consts_vec, *, stencil: int,
     (``ops/stencil.py::substep_planes``, XLA sum order) on the packed
     planes, edge parameters from ``immut``, strain and stress written
     where the edge took part.  Returns ``mut'``."""
-    sc = Scalars.of(consts_vec)
+    # 0-d tensors on the state's device: true division on CUDA
+    sc = Scalars.of(to_device(consts_vec, mut.device))
     edges = []
     for c in range(4):
         mb, ib = 6 + 5 * c, 2 + 5 * c
@@ -130,14 +141,19 @@ def fused_substep_plain(mut, immut, consts_vec, *, stencil: int,
 
 
 def fused_substep_call(mut, immut, consts_vec, *, stencil: int,
-                       quantized: bool, far=None):
+                       quantized: bool, far=None, skip=None):
     """One substep over the packed stacks (kernel K4).
 
     ``mut [26,W,H]``, ``immut [22,W,H]`` and optional ``far [5,W,H]``
     delta planes, all float32, contiguous, on one device; ``consts_vec``
-    a CPU float32 ``[20]`` (``config.consts_vector``).  On CUDA tensors
-    the kernel runs on the current stream (no synchronisation); on CPU
-    tensors the plain version runs.  Returns ``mut'``."""
+    a CPU float32 ``[20]`` (``config.consts_vector``), copied into the
+    launch, or a float32 ``[20]`` on mut's device (the frames': their
+    constants and user input are device buffers), which the kernel reads
+    there (``sb_fused_substep_dev``), with ``skip``, whether those
+    constants allow the pair skip (decided on the host: ``stencil.
+    Decisions.k4_skip``).  On CUDA tensors the kernel runs on the current
+    stream (no synchronisation); on CPU tensors the plain version runs.
+    Returns ``mut'``."""
     global K4_LAUNCHES
     if mut.dim() != 3:
         raise ValueError(f"mut must be [26, W, H], got {tuple(mut.shape)}")
@@ -147,9 +163,16 @@ def fused_substep_call(mut, immut, consts_vec, *, stencil: int,
     _check_plane_stack("immut", immut, N_IMMUT, shape, dev)
     if far is not None:
         _check_plane_stack("far", far, 5, shape, dev)
-    if (consts_vec.device.type != "cpu" or consts_vec.dtype != torch.float32
-            or tuple(consts_vec.shape) != (N_CONSTS,)):
-        raise ValueError("consts_vec must be a CPU float32 [20] tensor")
+    devc = consts_vec.device.type != "cpu"
+    if (consts_vec.dtype != torch.float32
+            or tuple(consts_vec.shape) != (N_CONSTS,)
+            or (devc and (consts_vec.device != dev
+                          or not consts_vec.is_contiguous()))):
+        raise ValueError(f"consts_vec must be a float32 [{N_CONSTS}] on the "
+                         f"CPU or on {dev}")
+    if devc and skip is None:
+        raise ValueError("device constants need the host's skip decision "
+                         "(skip=)")
     if not 0 <= stencil <= MAX_STENCIL:
         raise ValueError(f"stencil {stencil} outside [0, {MAX_STENCIL}]")
     if dev.type == "cpu":
@@ -162,30 +185,39 @@ def fused_substep_call(mut, immut, consts_vec, *, stencil: int,
     out = torch.empty_like(mut)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.sb_fused_substep(
-            mut.data_ptr(), immut.data_ptr(),
-            None if far is None else far.data_ptr(), out.data_ptr(),
-            cvec.data_ptr(), shape[0], shape[1], stencil, int(quantized),
-            stream)
+        far_ptr = None if far is None else far.data_ptr()
+        if devc:
+            err = lib.sb_fused_substep_dev(
+                mut.data_ptr(), immut.data_ptr(), far_ptr, out.data_ptr(),
+                cvec.data_ptr(), int(skip), shape[0], shape[1], stencil,
+                int(quantized), stream)
+        else:
+            err = lib.sb_fused_substep(
+                mut.data_ptr(), immut.data_ptr(), far_ptr, out.data_ptr(),
+                cvec.data_ptr(), shape[0], shape[1], stencil,
+                int(quantized), stream)
     _lib.check(err, "K4 fused_substep")
     K4_LAUNCHES += 1
     return out
 
 
-def _frame_args(consts, uin, spec, cfg):
+def _frame_args(consts, uin, spec, cfg, device):
+    """The frame's consts vector on ``device`` and K4's keyword arguments
+    (the pair skip decided on the host: ``stencil.decisions``)."""
     check_reference_offsets(spec)
-    cvec = consts_vector(consts, uin, cfg, spec.height)
+    cvec = consts_vector(consts, uin, cfg, spec.height, device=device)
     stencil = 0 if cfg.collision_mode == "none" else spec.collision_stencil
-    return cvec, stencil, cfg.force_mode == "quantized"
+    return cvec, dict(stencil=stencil,
+                      quantized=cfg.force_mode == "quantized",
+                      skip=decisions(consts, cfg).k4_skip)
 
 
 def fused_frame(mut, immut, consts: PhysicsConstants, uin: UserInput, spec,
                 cfg: StaticConfig):
     """One frame (``cfg.subticks`` substeps) over the packed stacks."""
-    cvec, stencil, quantized = _frame_args(consts, uin, spec, cfg)
+    cvec, k4kw = _frame_args(consts, uin, spec, cfg, mut.device)
     for _ in range(cfg.subticks):
-        mut = fused_substep_call(mut, immut, cvec, stencil=stencil,
-                                 quantized=quantized)
+        mut = fused_substep_call(mut, immut, cvec, **k4kw)
     return mut
 
 
@@ -214,14 +246,25 @@ def fused_frame_far(mut, immut, fl, consts: PhysicsConstants,
     consumes them.  Linear indices use the unpadded height ``H`` (the
     JAX package passes its padded height; both keep (x, y) order, so the
     nudge signs agree)."""
-    cvec, stencil, quantized = _frame_args(consts, uin, spec, cfg)
+    cvec, k4kw = _frame_args(consts, uin, spec, cfg, mut.device)
+    sc = Scalars.of(cvec)
     alive = immut[ALIVE] > 0.0
     for _ in range(cfg.subticks):
         far = torch.stack(far_collision_terms(
             mut[PX], mut[PY], mut[VX], mut[VY], alive, fl,
             s=spec.collision_stencil, ff=ffspec,
-            radius=cfg.particle_radius, dt=cfg.dt, ecoeff=consts.ecoeff,
-            friction=consts.friction, world_h=spec.height))
-        mut = fused_substep_call(mut, immut, cvec, stencil=stencil,
-                                 quantized=quantized, far=far)
+            radius=cfg.particle_radius, dt=cfg.dt, ecoeff=sc.ecoeff,
+            friction=sc.friction, world_h=spec.height))
+        mut = fused_substep_call(mut, immut, cvec, far=far, **k4kw)
     return mut
+
+
+# the compiled counterparts of the JAX package's jitted path-B functions
+# (``softbody_tpu/ops/pallas/fused_substep.py:548-604``; ``ops/
+# compiled.py``): CUDA graphs on the card, the functions on the CPU
+fused_frame_jit = Compiled(fused_frame, static_argnames=("spec", "cfg"),
+                           decide=frame_decisions)
+fused_frame_far_jit = Compiled(
+    fused_frame_far, static_argnames=("spec", "cfg", "ffspec"),
+    decide=frame_decisions)
+packed_far_motion_jit = Compiled(packed_far_motion)

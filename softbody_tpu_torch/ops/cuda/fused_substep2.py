@@ -91,8 +91,11 @@ from ..stencil import (
     LatticeState,
     Scalars,
     check_reference_offsets,
+    decisions,
+    frame_decisions,
     sqrt32,
     substep_planes,
+    to_device,
 )
 from . import _lib
 from .band_detect import band_flags_plain
@@ -304,10 +307,11 @@ def fused_substep2_plain(hot, immut, consts_vec, *, stencil: int,
     far-field scalars are ``extras`` where given (a tensor ``[8]``), else
     the consts vector's tail.  Returns ``hot'`` plus, in order, ``obs'``
     / ``stats`` / ``side`` for each one asked for."""
-    sc = Scalars.of(consts_vec)
-    # edge scalars as 0-d tensors on the state's device: float32
+    # the scalars as 0-d tensors on the state's device: float32
     # arithmetic, and true division on CUDA (see stencil.device_scalar)
-    ec = consts_vec[N_CONSTS:N_CONSTS + N_EDGEC].to(hot.device)
+    consts_vec = to_device(consts_vec, hot.device)
+    sc = Scalars.of(consts_vec)
+    ec = consts_vec[N_CONSTS:N_CONSTS + N_EDGEC]
     extras = (consts_vec[N_CONSTS + N_EDGEC:] if extras is None
               else extras).tolist()
     edges = []
@@ -374,7 +378,7 @@ def fused_substep2_call(hot, immut, consts_vec, *, stencil: int,
                         detect: bool = False, rsqrt: bool = False,
                         rollgroup: bool = False, nospring: bool = False,
                         noint: bool = False, extras=None, hot_out=None,
-                        obs_out=None, side_out=None):
+                        obs_out=None, side_out=None, skip=None):
     """One substep (kernel K1), in the instance that ``rsqrt``/
     ``rollgroup`` and the modes pick.
 
@@ -385,7 +389,13 @@ def fused_substep2_call(hot, immut, consts_vec, *, stencil: int,
     ``[40]``, or ``[48]`` (the ``N_EXTRA`` scalars appended) under
     ``refs`` or ``detect``; or ``[40]`` and ``extras``, the ``N_EXTRA``
     scalars as a float32 ``[8]`` tensor on hot's device, which the kernel
-    reads there (a captured frame computes them on the device).
+    reads there (a captured frame computes them on the device).  Or
+    ``consts_vec`` a float32 ``[40]`` on hot's device (the frames': their
+    constants and user input are device buffers), which the kernel reads
+    there (``sb_fused_substep2_dev``), with ``skip``, whether those
+    constants allow the pair skip (decided on the host:
+    ``stencil.Decisions.k1_skip``), and ``extras`` under ``refs`` or
+    ``detect``.
     ``detect``: the side planes, when the detect flag is on (else the
     side output is not written).  ``hot_out``/``obs_out``/``side_out``:
     tensors to write the outputs into (else new ones).  The trig
@@ -410,9 +420,22 @@ def fused_substep2_call(hot, immut, consts_vec, *, stencil: int,
     trig = refs is not None
     if trig:
         _check_plane_stack("refs", refs, 4, shape, dev)
+    devc = consts_vec.device.type != "cpu"
     n_consts = N_CONSTS + N_EDGEC + (
         N_EXTRA if (trig or detect) and extras is None else 0)
-    if (consts_vec.device.type != "cpu" or consts_vec.dtype != torch.float32
+    if devc:
+        if (consts_vec.device != dev or consts_vec.dtype != torch.float32
+                or tuple(consts_vec.shape) != (N_CONSTS + N_EDGEC,)
+                or not consts_vec.is_contiguous()):
+            raise ValueError(f"consts_vec on the card must be a contiguous "
+                             f"float32 [{N_CONSTS + N_EDGEC}] on {dev}")
+        if skip is None:
+            raise ValueError("device constants need the host's skip "
+                             "decision (skip=)")
+        if (trig or detect) and extras is None:
+            raise ValueError("device constants take the trig and detect "
+                             "modes' scalars as extras")
+    elif (consts_vec.dtype != torch.float32
             or tuple(consts_vec.shape) != (n_consts,)):
         raise ValueError(f"consts_vec must be a CPU float32 [{n_consts}] "
                          "tensor")
@@ -476,12 +499,16 @@ def fused_substep2_call(hot, immut, consts_vec, *, stencil: int,
 
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.sb_fused_substep2_modex(
-            hot.data_ptr(), immut.data_ptr(), ptr(far), ptr(obs_in),
-            ptr(refs), hot_out.data_ptr(), ptr(obs_out), ptr(stats),
-            ptr(side), cvec.data_ptr(), w, h, stencil, int(quantized),
-            int(rsqrt), int(rollgroup), int(trig), int(detect),
-            int(nospring), int(noint), stream, ptr(extras))
+        args = (hot.data_ptr(), immut.data_ptr(), ptr(far), ptr(obs_in),
+                ptr(refs), hot_out.data_ptr(), ptr(obs_out), ptr(stats),
+                ptr(side), cvec.data_ptr(), w, h, stencil, int(quantized),
+                int(rsqrt), int(rollgroup), int(trig), int(detect),
+                int(nospring), int(noint))
+        if devc:
+            err = lib.sb_fused_substep2_dev(*args, int(skip), stream,
+                                            ptr(extras))
+        else:
+            err = lib.sb_fused_substep2_modex(*args, stream, ptr(extras))
     _lib.check(err, "K1 fused_substep2")
     K1_LAUNCHES += 1
     K1_INSTANCE_LAUNCHES[k1_instance(rsqrt, rollgroup, trig, detect,
@@ -498,21 +525,27 @@ def fused_substep2_call(hot, immut, consts_vec, *, stencil: int,
     return res[0] if len(res) == 1 else tuple(res)
 
 
-def _frame_consts(consts, uin, spec, cfg, edge_consts, kvar):
-    """The consts vector and K1's keyword arguments of a frame under the
-    variant flags ``kvar``."""
+def _frame_consts(consts, uin, spec, cfg, edge_consts, kvar, device):
+    """The consts vector on ``device`` (``config.consts_vector``, then the
+    edge constants) and K1's keyword arguments of a frame under the
+    variant flags ``kvar``, its pair skip among them (``stencil.
+    decisions``: a compiled frame's, made on the host before its inputs
+    were lifted)."""
     check_reference_offsets(spec)
     kvar = check_kvar(kvar)
-    if "dexp2" in kvar and float(consts.drag_exp) != 2.0:
+    dec = decisions(consts, cfg)
+    if "dexp2" in kvar and not dec.drag_exp2:
         raise ValueError(f"kernel variant 'dexp2' needs drag_exp == 2, got "
-                         f"{float(consts.drag_exp)}")
-    cvec = torch.cat([consts_vector(consts, uin, cfg, spec.height),
-                      edge_consts.to("cpu", torch.float32)])
+                         f"{consts.drag_exp}")
+    cvec = torch.cat([consts_vector(consts, uin, cfg, spec.height,
+                                    device=device),
+                      to_device(edge_consts.to(torch.float32), device)])
     stencil = 0 if cfg.collision_mode == "none" else spec.collision_stencil
     return cvec, dict(stencil=stencil,
                       quantized=cfg.force_mode == "quantized",
                       rsqrt="rsqrt" in kvar, rollgroup="rollgroup" in kvar,
-                      nospring="nospring" in kvar, noint="noint" in kvar)
+                      nospring="nospring" in kvar, noint="noint" in kvar,
+                      skip=dec.k1_skip)
 
 
 def fused_frame2(hot, obs, immut, edge_consts, consts: PhysicsConstants,
@@ -522,7 +555,8 @@ def fused_frame2(hot, obs, immut, edge_consts, consts: PhysicsConstants,
     """One frame without far field: ``n−1`` substeps + 1 observing
     substep, K1 in the instance of ``kvar``.  ``observe=False`` runs ``n``
     substeps and passes ``obs`` through.  Returns ``(hot', obs')``."""
-    cvec, k1kw = _frame_consts(consts, uin, spec, cfg, edge_consts, kvar)
+    cvec, k1kw = _frame_consts(consts, uin, spec, cfg, edge_consts, kvar,
+                               hot.device)
     n = cfg.subticks if n_sub is None else n_sub
     for _ in range(n - 1 if observe else n):
         hot = fused_substep2_call(hot, immut, cvec, **k1kw)
@@ -549,7 +583,8 @@ def fused_frame2_far(hot, obs, immut, edge_consts, fl,
     ``fl``: each substep computes the far delta planes from the current
     state (:func:`_far_planes`) and K1 adds them.  Returns ``(hot',
     obs')``."""
-    cvec, k1kw = _frame_consts(consts, uin, spec, cfg, edge_consts, kvar)
+    cvec, k1kw = _frame_consts(consts, uin, spec, cfg, edge_consts, kvar,
+                               hot.device)
     alive = immut[ALIVE] > 0.0
     n = cfg.subticks if n_sub is None else n_sub
     for j in range(n):
@@ -639,7 +674,8 @@ def fused_frame2_auto(hot, obs, immut, edge_consts, fl,
     device: rebuilds, max n_pairs, max overflow of the lists the
     substeps ran with."""
     ff = ffspec
-    cvec, k1kw = _frame_consts(consts, uin, spec, cfg, edge_consts, ())
+    cvec, k1kw = _frame_consts(consts, uin, spec, cfg, edge_consts, (),
+                               hot.device)
     alive = immut[ALIVE] > 0.0
     n = cfg.subticks if n_sub is None else n_sub
     fl, _refs = _working_list(fl)
@@ -731,7 +767,8 @@ def fused_frame3_auto(hot, obs, immut, edge_consts, fl, side, trig,
     stats)``, ``stats`` an int32 ``[3]`` on the device: rebuilds, max
     n_pairs, max overflow."""
     ff = ffspec
-    cvec, k1kw = _frame_consts(consts, uin, spec, cfg, edge_consts, ())
+    cvec, k1kw = _frame_consts(consts, uin, spec, cfg, edge_consts, (),
+                               hot.device)
     dev = hot.device
     alive = immut[ALIVE] > 0.0
     n = cfg.subticks if n_sub is None else n_sub
@@ -856,7 +893,8 @@ def fused_frame4(hot, obs, immut, edge_consts, consts: PhysicsConstants,
     if kernel_detect and ("krec" in kvar or "kmirror" in kvar):
         raise ValueError("kvar 'kmirror'/'krec' is incompatible with "
                          "detect_mode='kernel'")
-    cvec, k1kw = _frame_consts(consts, uin, spec, cfg, edge_consts, kvar)
+    cvec, k1kw = _frame_consts(consts, uin, spec, cfg, edge_consts, kvar,
+                               hot.device)
     narrow_max = 0 if "krec" in kvar else NARROW_MAX
     alive = immut[ALIVE] > 0.0
     dev = hot.device
@@ -926,21 +964,23 @@ def fused_frame4(hot, obs, immut, edge_consts, consts: PhysicsConstants,
 # compiled.py): CUDA graphs on the card, the functions on the CPU
 fused_frame2_jit = compiled.Compiled(
     fused_frame2, static_argnames=("spec", "cfg", "n_sub", "observe",
-                                   "kvar"))
+                                   "kvar"), decide=frame_decisions)
 fused_frame2_far_jit = compiled.Compiled(
     fused_frame2_far, static_argnames=("spec", "cfg", "ffspec", "n_sub",
-                                       "observe", "kvar"))
+                                       "observe", "kvar"),
+    decide=frame_decisions)
 fused_frame2_auto_jit = compiled.Compiled(
     fused_frame2_auto, static_argnames=("spec", "cfg", "ffspec", "n_sub",
-                                        "observe"))
+                                        "observe"), decide=frame_decisions)
 far3_carry_init_jit = compiled.Compiled(
     far3_carry_init, static_argnames=("cfg", "spec", "ffspec"))
 fused_frame3_auto_jit = compiled.Compiled(
     fused_frame3_auto, static_argnames=("spec", "cfg", "ffspec", "n_sub",
-                                        "observe", "buckets"))
+                                        "observe", "buckets"),
+    decide=frame_decisions)
 packed_far_motion2_jit = compiled.Compiled(packed_far_motion2)
 fused_frame4_jit = compiled.Compiled(
     fused_frame4, static_argnames=("spec", "cfg", "ffspec", "n_sub",
                                    "buckets", "activation", "far_mb",
                                    "far_mb_out", "detect_mode", "band_impl",
-                                   "kvar"))
+                                   "kvar"), decide=frame_decisions)

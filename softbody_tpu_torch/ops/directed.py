@@ -40,7 +40,7 @@ from .collisions import collision_terms
 from .compiled import Compiled
 from .forces import beam_terms
 from .integrate import integrate_particles
-from .stencil import f32_to_i32
+from .stencil import Scalars, f32_to_i32, frame_scalars
 
 
 @dataclasses.dataclass
@@ -201,15 +201,16 @@ def directed_beam_pass(ds: DirectedState, cfg: StaticConfig):
 
 
 def directed_substep(ds: DirectedState, consts: PhysicsConstants,
-                     uin: UserInput, cfg: StaticConfig) -> DirectedState:
+                     uin: UserInput, cfg: StaticConfig,
+                     scalars: Optional[Scalars] = None) -> DirectedState:
     """One substep: the directed beam pass + the flat path's collisions
-    and integration."""
+    and integration (``scalars`` as ``step.substep`` takes them)."""
     beam_force, upd = directed_beam_pass(ds, cfg)
     coll_dv, coll_da, coll_dy = collision_terms(ds.pos, ds.vel, ds.alive,
                                                 consts, cfg)
     pos, vel, acc = integrate_particles(
         ds.pos, ds.vel, ds.acc, ds.alive, ds.pinned, coll_dv, coll_da,
-        coll_dy, beam_force, consts, uin, cfg)
+        coll_dy, beam_force, consts, uin, cfg, scalars=scalars)
     return dataclasses.replace(ds, pos=pos, vel=vel, acc=acc, **upd)
 
 
@@ -218,8 +219,9 @@ def _directed_frame(ds: DirectedState, consts: PhysicsConstants,
                     n_sub: Optional[int] = None) -> DirectedState:
     """One frame: ``cfg.subticks`` substeps (or ``n_sub``)."""
     n = cfg.subticks if n_sub is None else n_sub
+    sc = frame_scalars(consts, uin, cfg, 0, ds.pos.device)
     for _ in range(n):
-        ds = directed_substep(ds, consts, uin, cfg)
+        ds = directed_substep(ds, consts, uin, cfg, scalars=sc)
     return ds
 
 

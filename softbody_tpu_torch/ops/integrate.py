@@ -13,16 +13,22 @@ from __future__ import annotations
 
 import torch
 
-from ..config import PhysicsConstants, StaticConfig, UserInput, consts_vector
-from .stencil import Scalars, _integrate_components
+from typing import Optional
+
+from ..config import PhysicsConstants, StaticConfig, UserInput
+from .stencil import Scalars, _integrate_components, frame_scalars
 
 
 def integrate_particles(pos, vel, acc, alive, pinned, coll_dv, coll_da,
                         coll_dy, beam_force, consts: PhysicsConstants,
-                        uin: UserInput, cfg: StaticConfig):
+                        uin: UserInput, cfg: StaticConfig,
+                        scalars: Optional[Scalars] = None):
     """Returns the updated ``(pos, vel, acc)`` ``[N, 2]``; dead and pinned
-    particles pass through unchanged."""
-    sc = Scalars.of(consts_vector(consts, uin, cfg, 0))
+    particles pass through unchanged.  ``scalars``: the consts vector's
+    :class:`~.stencil.Scalars` on the state's device where the caller has
+    them (a frame forms them once), else formed here."""
+    sc = (frame_scalars(consts, uin, cfg, 0, pos.device) if scalars is None
+          else scalars)
     px, py, vx, vy, ax, ay = _integrate_components(
         pos[:, 0], pos[:, 1], vel[:, 0], vel[:, 1], acc[:, 0], acc[:, 1],
         alive, pinned, coll_dv[:, 0], coll_dv[:, 1], coll_da[:, 0],

@@ -47,7 +47,16 @@ from .farfield import (
 )
 from .farfield4 import bucketed_far_delta_from_fn
 from .forces import beam_terms, endpoint_sums
-from .stencil import EdgeClass, LatticeSpec, LatticeState, lattice_substep
+from .compiled import Compiled
+from .stencil import (
+    EdgeClass,
+    LatticeSpec,
+    LatticeState,
+    Scalars,
+    frame_decisions,
+    frame_scalars,
+    lattice_substep,
+)
 
 
 @dataclasses.dataclass
@@ -376,14 +385,16 @@ def _exception_pass(lat: LatticeState, x: ExceptionBeams,
 def planified_substep(ps: PlanifiedState, consts: PhysicsConstants,
                       uin: UserInput, spec: LatticeSpec, cfg: StaticConfig,
                       update_observability: bool = True, far=None,
-                      ffspec=None, far_delta=None) -> PlanifiedState:
+                      ffspec=None, far_delta=None,
+                      scalars: Optional[Scalars] = None) -> PlanifiedState:
     """One substep: the exception pass merged into the dense substep's
-    spring accumulator (``lattice_substep(extra_force=)``)."""
+    spring accumulator (``lattice_substep(extra_force=)``; ``scalars`` as
+    it takes them)."""
     extra, x2 = _exception_pass(ps.lat, ps.x, cfg)
     lat2 = lattice_substep(
         ps.lat, consts, uin, spec, cfg,
         update_observability=update_observability, far=far, ffspec=ffspec,
-        extra_force=extra, far_delta=far_delta)
+        extra_force=extra, far_delta=far_delta, scalars=scalars)
     return PlanifiedState(lat=lat2, x=x2)
 
 
@@ -393,10 +404,11 @@ def planified_frame(ps: PlanifiedState, consts: PhysicsConstants,
     """One frame: ``n − 1`` substeps, then one that writes the edges'
     strain / stress (``n = cfg.subticks`` unless ``n_sub``)."""
     n = cfg.subticks if n_sub is None else n_sub
+    sc = frame_scalars(consts, uin, cfg, spec.height, ps.lat.pos.device)
     for _ in range(n - 1):
         ps = planified_substep(ps, consts, uin, spec, cfg,
-                               update_observability=False)
-    return planified_substep(ps, consts, uin, spec, cfg)
+                               update_observability=False, scalars=sc)
+    return planified_substep(ps, consts, uin, spec, cfg, scalars=sc)
 
 
 def planified_frame_far(ps: PlanifiedState, consts: PhysicsConstants,
@@ -408,37 +420,42 @@ def planified_frame_far(ps: PlanifiedState, consts: PhysicsConstants,
     and a remainder block, each starting with a rebuild whose list is
     sorted by activation substep
     (``farfield.rebuild_far_list_planes_active``: K2 on the card).  Each
-    substep applies the sorted list's active prefix through the v4
-    bucketed apply on the embedded plane itself (``w, h`` of ``spec``:
-    its lane dim is a multiple of ``chunk · tile_chunks``; buckets ≤ 256
-    narrow, larger ones through the record table, K7), then runs
+    substep applies the sorted list's active prefix (``crop_active`` with
+    the block's device count ``n_active[j]``) through the v4 bucketed
+    apply on the embedded plane itself (``w, h`` of ``spec``: its lane
+    dim is a multiple of ``chunk · tile_chunks``; buckets ≤ 256 narrow,
+    larger ones through the record table, K7), then runs
     :func:`planified_substep`; the frame's last substep observes.
 
-    The bucket choice needs host ints: ``n_pairs``, ``overflow`` and the
-    block's ``n_active[R]`` come to the host in one read per rebuild.
-    Returns ``(ps', stats)``, ``stats`` a CPU int32 ``[4]``: rebuilds, max
-    n_pairs, max overflow, max active pairs."""
+    Every decision is made on the device, as JAX makes it: the bucket is
+    ``farfield4.bucketed_far_delta_from_fn(n_pairs=None)``'s switch (one
+    counted host read a substep eagerly on the card, an IF node per rung
+    captured), zero delta planes for an empty prefix (which add nothing:
+    the collision sums they join start from +0.0 and are never −0.0).
+    Returns ``(ps', stats)``, ``stats`` an int32 ``[4]`` on the device:
+    rebuilds, max n_pairs, max overflow, max active pairs."""
     ff = ffspec
     n = cfg.subticks if n_sub is None else n_sub
     R = min(ff.horizon, n)
     blocks = [R] * (n // R) + ([n % R] if n % R else [])
     kw = dict(s=spec.collision_stencil, ff=ff, radius=cfg.particle_radius)
+    dev = ps.lat.pos.device
+    sc = frame_scalars(consts, uin, cfg, spec.height, dev)
     # the apply runs on the width padded to whole tiles, as the rebuild's
     # chunk grid is: the list's empty slots name that grid's last chunk,
     # past the plane's own width when it is not a multiple of the tile
     # (JAX's gather clamps such rows, and the masked slots add nothing;
     # torch's indexing raises)
     wp = _chunk_dims(spec.width, spec.height, ff)[2]
-    st = [0, 0, 0, 0]
+    st = torch.zeros(4, dtype=torch.int32, device=dev)
     for bi, size in enumerate(blocks):
         lat = ps.lat
         fl, n_act = rebuild_far_list_planes_active(
             lat.pos[..., 0], lat.pos[..., 1], lat.alive, vx=lat.vel[..., 0],
             vy=lat.vel[..., 1], dt=cfg.dt, R=R, **kw)
-        n_pairs, overflow, *active = torch.cat([
-            torch.stack([fl.n_pairs, fl.overflow]), n_act]).tolist()
-        st = [st[0] + 1, max(st[1], n_pairs), max(st[2], overflow),
-              max(st[3], active[size - 1])]
+        st = torch.stack([st[0] + 1, torch.maximum(st[1], fl.n_pairs),
+                          torch.maximum(st[2], fl.overflow),
+                          torch.maximum(st[3], n_act[size - 1])])
         for j in range(size):
             lat = ps.lat
 
@@ -448,16 +465,28 @@ def planified_frame_far(ps: PlanifiedState, consts: PhysicsConstants,
                     lat.vel[..., 1], lat.alive.to(torch.float32)])
 
             delta = bucketed_far_delta_from_fn(
-                planes5, crop_active(fl, active[j]), active[j], dt=cfg.dt,
-                ecoeff=consts.ecoeff, friction=consts.friction,
-                w=wp, h=spec.height, buckets=buckets, **kw)
-            if delta is not None:
-                delta = delta[:, :spec.width]
+                planes5, crop_active(fl, n_act[j]), None, dt=cfg.dt,
+                ecoeff=sc.ecoeff, friction=sc.friction, w=wp,
+                h=spec.height, buckets=buckets,
+                out=lat.pos.new_empty((5, spec.width, spec.height)), **kw)
             observing = bi == len(blocks) - 1 and j == size - 1
             ps = planified_substep(ps, consts, uin, spec, cfg,
                                    update_observability=observing,
-                                   far_delta=delta, ffspec=ff)
-    return ps, torch.tensor(st, dtype=torch.int32)
+                                   far_delta=delta, ffspec=ff, scalars=sc)
+    return ps, st
+
+
+# the compiled counterparts of the JAX package's jitted frames
+# (``softbody_tpu/ops/planify.py:457-479``, donating ``ps``; ``ops/
+# compiled.py``): one CUDA graph a frame on the card, the bucket of each
+# far apply an IF node; the functions on the CPU
+planified_frame_jit = Compiled(
+    planified_frame, static_argnames=("spec", "cfg", "n_sub"),
+    decide=frame_decisions)
+planified_frame_far_jit = Compiled(
+    planified_frame_far,
+    static_argnames=("spec", "cfg", "ffspec", "n_sub", "buckets"),
+    decide=frame_decisions)
 
 
 def unplanify(ps: PlanifiedState, template: SimState,

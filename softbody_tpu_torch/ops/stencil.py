@@ -48,6 +48,7 @@ from ..config import (
     UserInput,
     consts_vector,
 )
+from . import compiled
 from .compiled import Compiled
 
 
@@ -128,32 +129,37 @@ def half_offsets(s: int) -> Tuple[Tuple[int, int], ...]:
 
 
 class Scalars(NamedTuple):
-    """The consts vector (``config.consts_vector``) as host floats."""
+    """The consts vector (``config.consts_vector``) as 0-d float32 views
+    of it, on its device: no host read, so a captured frame reads the
+    values of each replay.  ``vec`` is the vector itself (the kernels
+    read it in device memory)."""
 
-    radius: float
-    dt: float
-    bounds: float
-    gx: float
-    gy: float
-    border_elasticity: float
-    border_friction: float
-    ecoeff: float
-    friction: float
-    drag_coeff: float
-    drag_exp: float
-    user_strength: float
-    mouse_active: float
-    mouse_px: float
-    mouse_py: float
-    mouse_vx: float
-    mouse_vy: float
-    force_x: float
-    force_y: float
-    world_h: float
+    radius: torch.Tensor
+    dt: torch.Tensor
+    bounds: torch.Tensor
+    gx: torch.Tensor
+    gy: torch.Tensor
+    border_elasticity: torch.Tensor
+    border_friction: torch.Tensor
+    ecoeff: torch.Tensor
+    friction: torch.Tensor
+    drag_coeff: torch.Tensor
+    drag_exp: torch.Tensor
+    user_strength: torch.Tensor
+    mouse_active: torch.Tensor
+    mouse_px: torch.Tensor
+    mouse_py: torch.Tensor
+    mouse_vx: torch.Tensor
+    mouse_vy: torch.Tensor
+    force_x: torch.Tensor
+    force_y: torch.Tensor
+    world_h: torch.Tensor
+    vec: Optional[torch.Tensor] = None
 
     @classmethod
     def of(cls, cvec: torch.Tensor) -> "Scalars":
-        return cls(*cvec[: len(cls._fields)].tolist())
+        n = len(cls._fields) - 1
+        return cls(*cvec[:n].unbind(0), vec=cvec)
 
 
 def _mul32(a: float, b: float) -> float:
@@ -161,12 +167,117 @@ def _mul32(a: float, b: float) -> float:
     return float(np.float32(a) * np.float32(b))
 
 
-def _add32(a: float, b: float) -> float:
-    return float(np.float32(a) + np.float32(b))
+def tpow(x: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
+    """``torch.pow(x, e)`` for a 0-d tensor exponent with the fast paths
+    ``torch.pow(tensor, scalar)`` takes for a host one (1, 2, 3, 0.5 and
+    0: ``x``, ``x·x``, ``x·x·x``, ``sqrt``, 1), which ``pow(tensor,
+    tensor)`` does not take: the bits of a host exponent, and K1/K4's
+    ``tpow`` (``csrc/lattice_device.cuh``)."""
+    out = torch.pow(x, e)
+    for val, fast in ((0.0, lambda: torch.ones_like(x)),
+                      (0.5, lambda: torch.sqrt(x)),
+                      (3.0, lambda: x * x * x), (2.0, lambda: x * x),
+                      (1.0, lambda: x)):
+        out = torch.where(e == val, fast(), out)
+    return out
 
 
-def _sub32(a: float, b: float) -> float:
-    return float(np.float32(a) - np.float32(b))
+class Decisions(NamedTuple):
+    """The host decisions of a frame: what its constants allow, which
+    picks a kernel instance (or refuses a variant) and so is part of a
+    compiled frame's key (``compiled.Compiled(decide=)``).  ``k1_skip``,
+    ``k4_skip``: K1's and K4's pair skip (``pair_skip_allowed`` in
+    ``csrc/lattice_device.cuh``: K1 multiplies its clip by ``1/dt²``, K4
+    divides); ``k3_skip``: K3's (``consts_allow_skip``,
+    ``csrc/collide_stencil.cu``); ``drag_exp2``: the drag exponent is 2
+    (the ``dexp2`` variant's condition)."""
+
+    k1_skip: bool
+    k4_skip: bool
+    k3_skip: bool
+    drag_exp2: bool
+
+
+_F32_MAX = np.float32(3.402823466e38)
+
+
+def _finite(*xs) -> bool:
+    return all(abs(x) <= _F32_MAX for x in xs)
+
+
+def _pair_skip_allowed(two_r, dt2, ecoeff, friction, inv_dt2: bool) -> bool:
+    """``pair_skip_allowed`` of ``csrc/lattice_device.cuh``, in float32."""
+    scale = np.float32(1.0) / dt2 if inv_dt2 else dt2
+    sq = two_r * two_r * np.float32(1.00001)
+    gap = (two_r - np.sqrt(_F32_MAX)) * np.float32(0.5)
+    clip_far = gap * scale if inv_dt2 else gap / scale
+    return (_finite(ecoeff, friction, two_r, scale, sq, clip_far)
+            and sq >= np.float32(1.17549435e-38))
+
+
+def host_decisions(radius: float, dt: float, ecoeff: float, friction: float,
+                   drag_exp: float) -> Decisions:
+    """:class:`Decisions` of host float32 values, as the kernels' host
+    entries decide them."""
+    with np.errstate(all="ignore"):
+        r, t = np.float32(radius), np.float32(dt)
+        e, f = np.float32(ecoeff), np.float32(friction)
+        two_r = np.float32(2.0) * r
+        dt2 = t * t
+        inv_dt2 = np.float32(1.0) / dt2
+        sq = two_r * two_r * np.float32(1.00001)
+        clip_far = ((two_r - np.sqrt(_F32_MAX)) * np.float32(0.5)
+                    * inv_dt2)
+        k3 = (_finite(e, f, two_r, inv_dt2, sq, clip_far)
+              and sq >= np.float32(1.17549435e-38))
+        return Decisions(_pair_skip_allowed(two_r, dt2, e, f, True),
+                         _pair_skip_allowed(two_r, dt2, e, f, False),
+                         bool(k3), float(drag_exp) == 2.0)
+
+
+def frame_decisions(arguments: dict) -> Decisions:
+    """A compiled frame's ``decide`` (``compiled.Compiled``): the
+    :class:`Decisions` of its host ``consts`` and static ``cfg``."""
+    consts, cfg = arguments["consts"], arguments["cfg"]
+    return host_decisions(cfg.particle_radius, cfg.dt, consts.ecoeff,
+                          consts.friction, consts.drag_exp)
+
+
+def decisions(consts: PhysicsConstants, cfg: StaticConfig) -> Decisions:
+    """The frame's :class:`Decisions`: those its compiled frame made from
+    the host values (``compiled.decided``), else of ``consts``, whose
+    fields are then host floats."""
+    d = compiled.decided()
+    if d is not None:
+        return d
+    return host_decisions(cfg.particle_radius, cfg.dt, consts.ecoeff,
+                          consts.friction, consts.drag_exp)
+
+
+def frame_scalars(consts: PhysicsConstants, uin: UserInput,
+                  cfg: StaticConfig, world_h: int, device) -> Scalars:
+    """:class:`Scalars` of the consts vector on ``device``
+    (``config.consts_vector``: one copy of host fields from pinned
+    memory, or the lifted fields of a compiled frame stacked there)."""
+    return Scalars.of(consts_vector(consts, uin, cfg, world_h,
+                                    device=device))
+
+
+def to_device(t: torch.Tensor, device) -> torch.Tensor:
+    """``t`` on ``device``.  A host tensor bound for the card goes through
+    pinned memory without blocking (a pageable copy waits for the stream
+    to drain); a compiled frame receives its host tensors on the device
+    already (``compiled.py``), and a capture may not copy from the
+    host."""
+    device = torch.device(device)
+    if t.device == device:
+        return t
+    if device.type == "cuda" and t.device.type == "cpu":
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("a captured frame copies no host tensor; "
+                               "pass it as an argument (it is lifted)")
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
 
 
 def device_scalar(x: float, device) -> torch.Tensor:
@@ -382,22 +493,18 @@ def _stencil_collisions(px, py, vx, vy, alive, *, s: int, radius: float,
     after the loop each group is subtracted, in the order each Δy first
     appears in :func:`half_offsets` (1 … s, then −s … −1).
 
+    The scalars are 0-d float32 tensors on the planes' device
+    (``Scalars``): a tensor divisor divides exactly on every device.
     ``inv_dt2``: the penetration clip multiplies by ``1/(dt·dt)`` (float32)
     as the fused kernel K1 does (``fused_substep2.py:394``, ``:757``); by
     default it divides by ``dt·dt``, as the JAX stencil path
     (``ops/stencil.py:488``) and K4 do.  The two agree only where ``dt²``
     is a power of two."""
     w, h = px.shape
-    two_r = _mul32(2.0, radius)
-    two_r2 = _mul32(two_r, two_r)
-    dt2_host = _mul32(dt, dt)
-    if inv_dt2:
-        # a host float32 product needs no device scalar: torch multiplies
-        # by it in float32 on every device
-        with np.errstate(divide="ignore", over="ignore"):
-            idt2 = float(np.float32(1.0) / np.float32(dt2_host))
-    else:
-        dt2 = device_scalar(dt2_host, px.device)
+    two_r = 2.0 * radius
+    two_r2 = two_r * two_r
+    dt2 = dt * dt
+    idt2 = torch.reciprocal(dt2)
     z = torch.zeros_like(px)
     dvx, dvy, dax, day, dyn = z, z, z, z, z
     groups: dict = {}     # rollgroup: Δy -> summed reactions
@@ -482,23 +589,23 @@ def _integrate_components(px, py, vx, vy, ax, ay, alive, pinned,
         inv_speed = torch.reciprocal(torch.where(moving, sqrt32(s2), 1.0))
     a_x = a_x - torch.where(
         moving,
-        sc.drag_coeff * torch.pow(v_x.abs(), sc.drag_exp) * v_x * inv_speed,
+        sc.drag_coeff * tpow(v_x.abs(), sc.drag_exp) * v_x * inv_speed,
         0.0,
     )
     a_y = a_y - torch.where(
         moving,
-        sc.drag_coeff * torch.pow(v_y.abs(), sc.drag_exp) * v_y * inv_speed,
+        sc.drag_coeff * tpow(v_y.abs(), sc.drag_exp) * v_y * inv_speed,
         0.0,
     )
 
-    a_x = a_x + _mul32(sc.force_x, sc.user_strength)
-    a_y = a_y + _mul32(sc.force_y, sc.user_strength)
+    a_x = a_x + sc.force_x * sc.user_strength
+    a_y = a_y + sc.force_y * sc.user_strength
 
     mdx = sc.mouse_px - p_x
     mdy = sc.mouse_py - p_y
-    grab_r = _mul32(r, 10.0)
+    grab_r = r * 10.0
     if rsqrt:
-        near = mdx * mdx + mdy * mdy < _mul32(grab_r, grab_r)
+        near = mdx * mdx + mdy * mdy < grab_r * grab_r
     else:
         near = sqrt32(mdx * mdx + mdy * mdy) < grab_r
     grabbed = near & (sc.mouse_active > 0.0)
@@ -515,14 +622,14 @@ def _integrate_components(px, py, vx, vy, ax, ay, alive, pinned,
     p_x = p_x + v_x * sc.dt
     p_y = p_y + v_y * sc.dt
 
-    lo, hi = r, _sub32(sc.bounds, r)
+    lo, hi = r, sc.bounds - r
     cx_ = torch.clamp(p_x, lo, hi)
     cy_ = torch.clamp(p_y, lo, hi)
     hit_x = p_x != cx_
     hit_y = p_y != cy_
     be = sc.border_elasticity
     bf = sc.border_friction
-    one_be = _add32(1.0, be)
+    one_be = 1.0 + be
 
     fric_y = torch.sign(v_y) * bf * v_x.abs() * one_be
     na_y = torch.where(hit_x, 0.0 - torch.clamp(fric_y, max=0.0), 0.0)
@@ -547,13 +654,16 @@ def substep_planes(px, py, vx, vy, ax, ay, alive, pinned, edges, sc: Scalars,
                    full_stencil: bool = False,
                    offsets: Sequence[Tuple[int, int]] = EDGE_OFFSETS,
                    extra_force=None, rsqrt: bool = False,
-                   rollgroup: bool = False, inv_dt2: bool = False):
+                   rollgroup: bool = False, inv_dt2: bool = False,
+                   k3_skip: Optional[bool] = None):
     """One substep on component planes: springs (``spring_pass`` over
     ``offsets``, ``extra_force`` first), collisions, each of the
     ``far_deltas`` (``[5, W, H]`` stacks of dvx dvy dax day dyn, or
     None) in turn, integration.  ``full_stencil``: the collisions go
     through the K3 wrapper (``ops/cuda/collide_stencil.py``, full offset
-    set) instead of the half-offset sum.  ``rsqrt``/``rollgroup``: the
+    set) instead of the half-offset sum; K3 reads the constants from
+    ``sc.vec`` on the card, with its skip decided on the host
+    (``k3_skip``, :class:`Decisions`).  ``rsqrt``/``rollgroup``: the
     fused kernel K1's arithmetic variants (half-offset collisions only);
     ``inv_dt2``: K1's penetration clip (``_stencil_collisions``).
     Returns the six new particle planes and the spring updates."""
@@ -572,7 +682,8 @@ def substep_planes(px, py, vx, vy, ax, ay, alive, pinned, edges, sc: Scalars,
         from .cuda.collide_stencil import collide_stencil_call
 
         dvx, dvy, dax, day, dyn = collide_stencil_call(
-            px, py, vx, vy, alive, stencil=stencil, **kw)
+            px, py, vx, vy, alive, stencil=stencil, consts=sc.vec,
+            skip=k3_skip, **kw)
     else:
         dvx, dvy, dax, day, dyn = _stencil_collisions(
             px, py, vx, vy, alive, s=stencil, rsqrt=rsqrt,
@@ -603,6 +714,7 @@ def lattice_substep(
     ffspec=None,
     extra_force=None,
     lin_x_offset=0,
+    scalars: Optional[Scalars] = None,
 ) -> LatticeState:
     """One substep of the dense path (semantics of compute.wgsl:90-203).
 
@@ -620,8 +732,14 @@ def lattice_substep(
     and ignored.  The coincident tiebreak ``sign(lin_i − lin_j)`` is the
     per-offset constant ``−sign(dx·H + dy)``, the same on any slab, so the
     JAX package's argument is vestigial there too
-    (``softbody_tpu/parallel/lattice_spatial.py:66-71``)."""
-    sc = Scalars.of(consts_vector(consts, uin, cfg, spec.height))
+    (``softbody_tpu/parallel/lattice_spatial.py:66-71``).
+    ``scalars``: the consts vector's :class:`Scalars` on the state's
+    device where the caller has them (a frame forms them once; the port's
+    addition), else formed here (:func:`frame_scalars`)."""
+    sc = (frame_scalars(consts, uin, cfg, spec.height, state.pos.device)
+          if scalars is None else scalars)
+    # K3's skip, decided on the host (only K3 needs it)
+    k3_skip = decisions(consts, cfg).k3_skip if cfg.use_pallas else None
     collide = cfg.collision_mode != "none"
     px, py = state.pos[..., 0], state.pos[..., 1]
     vx, vy = state.vel[..., 0], state.vel[..., 1]
@@ -632,8 +750,7 @@ def lattice_substep(
         far_terms = far_collision_terms(
             px, py, vx, vy, state.alive, far, s=spec.collision_stencil,
             ff=ffspec, radius=cfg.particle_radius, dt=cfg.dt,
-            ecoeff=consts.ecoeff, friction=consts.friction,
-            world_h=spec.height)
+            ecoeff=sc.ecoeff, friction=sc.friction, world_h=spec.height)
     (pxn, pyn, vxn, vyn, axn, ayn), ups = substep_planes(
         px, py, vx, vy, state.acc[..., 0], state.acc[..., 1],
         state.alive, state.pinned, state.edges, sc,
@@ -643,6 +760,7 @@ def lattice_substep(
         full_stencil=cfg.use_pallas,
         offsets=spec.edge_offsets,
         extra_force=extra_force,
+        k3_skip=k3_skip,
     )
     new_edges = []
     for e, u in zip(state.edges, ups):
@@ -675,8 +793,9 @@ def lattice_frame(
 ) -> LatticeState:
     """``n_sub`` (default ``cfg.subticks``) observing substeps."""
     n = cfg.subticks if n_sub is None else n_sub
+    sc = frame_scalars(consts, uin, cfg, spec.height, state.pos.device)
     for _ in range(n):
-        state = lattice_substep(state, consts, uin, spec, cfg)
+        state = lattice_substep(state, consts, uin, spec, cfg, scalars=sc)
     return state
 
 
@@ -695,17 +814,21 @@ def lattice_frame_far(
     ``LatticeBackend``'s rebuild trigger, which may run a frame as
     several shorter chunks through ``n_sub``)."""
     n = cfg.subticks if n_sub is None else n_sub
+    sc = frame_scalars(consts, uin, cfg, spec.height, state.pos.device)
     for _ in range(n):
         state = lattice_substep(state, consts, uin, spec, cfg, far=far,
-                                ffspec=ffspec)
+                                ffspec=ffspec, scalars=sc)
     return state
 
 
 lattice_frame_jit = Compiled(lattice_frame,
-                             static_argnames=("spec", "cfg", "n_sub"))
+                             static_argnames=("spec", "cfg", "n_sub"),
+                             decide=frame_decisions)
 
 lattice_frame_far_jit = Compiled(
-    lattice_frame_far, static_argnames=("spec", "cfg", "ffspec", "n_sub"))
+    lattice_frame_far, static_argnames=("spec", "cfg", "ffspec", "n_sub"),
+    decide=frame_decisions)
 
 lattice_substep_jit = Compiled(lattice_substep,
-                               static_argnames=("spec", "cfg", "ffspec"))
+                               static_argnames=("spec", "cfg", "ffspec"),
+                               decide=frame_decisions)

@@ -17,6 +17,7 @@ per key and replayed; on CPU tensors they run ``substep`` and ``frame``.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 from ..config import PhysicsConstants, StaticConfig, UserInput
 from ..state import SimState
@@ -24,11 +25,14 @@ from .collisions import collision_terms
 from .compiled import Compiled
 from .forces import accumulate_forces, beam_forces
 from .integrate import integrate_particles
+from .stencil import Scalars, frame_scalars
 
 
 def substep(state: SimState, consts: PhysicsConstants, uin: UserInput,
-            cfg: StaticConfig) -> SimState:
-    """One physics substep (a new state; the input is not modified)."""
+            cfg: StaticConfig, scalars: Optional[Scalars] = None) -> SimState:
+    """One physics substep (a new state; the input is not modified).
+    ``scalars``: the consts vector's :class:`~.stencil.Scalars`, where the
+    caller formed them (a frame does, once)."""
     force_vec, beam_upd, _breaks = beam_forces(state, cfg)
     beam_force = accumulate_forces(state, force_vec, cfg)
     coll_dv, coll_da, coll_dy = collision_terms(
@@ -36,15 +40,16 @@ def substep(state: SimState, consts: PhysicsConstants, uin: UserInput,
     pos, vel, acc = integrate_particles(
         state.pos, state.vel, state.acc, state.particle_alive,
         state.particle_pinned, coll_dv, coll_da, coll_dy, beam_force,
-        consts, uin, cfg)
+        consts, uin, cfg, scalars=scalars)
     return dataclasses.replace(state, pos=pos, vel=vel, acc=acc, **beam_upd)
 
 
 def frame(state: SimState, consts: PhysicsConstants, uin: UserInput,
           cfg: StaticConfig) -> SimState:
     """One frame: ``cfg.subticks`` substeps."""
+    sc = frame_scalars(consts, uin, cfg, 0, state.pos.device)
     for _ in range(cfg.subticks):
-        state = substep(state, consts, uin, cfg)
+        state = substep(state, consts, uin, cfg, scalars=sc)
     return state
 
 

@@ -303,7 +303,10 @@ def fused_spatial2_frame_fn(
            consts: PhysicsConstants, uin: UserInput
            ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
         check_ring(hot_sh, w_loc, hx, n_dev)
-        cvec, kw = _frame_consts(consts, uin, spec, cfg, edge_consts, ())
+        # the constants by value (a CPU vector): the shards may lie on
+        # several devices, and these frames run eagerly
+        cvec, kw = _frame_consts(consts, uin, spec, cfg, edge_consts, (),
+                                 "cpu")
         hs = list(hot_sh)
         if ff is None:
             return near_frame(hs, obs_sh, immut_sh, cvec, kw)

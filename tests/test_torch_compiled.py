@@ -13,8 +13,9 @@ CPU.
 - The cache's logic, driven through a stand-in graph (``RecordingGraph``:
   its capture runs the function once and keeps it, its replay runs it
   again on the static inputs and writes the results into the captured
-  outputs, as a CUDA graph's replay overwrites them): keying on the user
-  input's values, two states alternating through one graph, the first
+  outputs, as a CUDA graph's replay overwrites them): the user input
+  lifted (a drag replays one graph; tests/test_torch_drag.py drags
+  every compiled family), two states alternating through one graph, the first
   call advancing the state once, the launch counters counting replays,
   a function that writes into its inputs refused, the bound, and the
   dense backend's chunks keyed by length and list capacity."""
@@ -294,8 +295,11 @@ def _same(a, b):
 
 def test_mouse_drag_misses_and_matches_eager():
     """A drag: four frames, each with another mouse position and
-    velocity, every one a miss and a new capture, each frame equal to
-    the eager frame; then the last input again replays."""
+    velocity, one miss and one capture (the user input is lifted into
+    the graph's inputs, as ``jax.jit`` traces it), each frame equal to
+    the eager frame; the last input again replays.  -0.0 and 0.0 are one
+    key too (their bits reach the graph as data), and each frame still
+    equals the eager frame bit for bit."""
     f, cfg = _cloth()
     frame = _recording(tstep.frame, ("cfg",))
     consts = tb.PhysicsConstants()
@@ -307,14 +311,16 @@ def test_mouse_drag_misses_and_matches_eager():
         st = frame(st, consts, uin, cfg)
         ref = tstep.frame(ref, consts, uin, cfg)
         assert _same(st, ref), f"drag frame {i}"
-    assert frame.stats() == {"misses": 4, "captures": 4, "replays": 4,
-                             "graphs": 4}
+    assert frame.stats() == {"misses": 1, "captures": 1, "replays": 4,
+                             "graphs": 1}
     frame(st, consts, uin, cfg)
-    assert frame.stats()["misses"] == 4 and frame.stats()["replays"] == 5
-    # -0.0 and 0.0 are different bits, so different keys
-    frame(st, consts, tb.UserInput(mouse_vel=(-0.0, 0.0)), cfg)
-    frame(st, consts, tb.UserInput(mouse_vel=(0.0, 0.0)), cfg)
-    assert frame.stats()["misses"] == 6
+    assert frame.stats()["misses"] == 1 and frame.stats()["replays"] == 5
+    for zero in (-0.0, 0.0):
+        uin = tb.UserInput(mouse_active=True, mouse_vel=(zero, 0.0),
+                           mouse_pos=tuple(st.pos[5].tolist()))
+        assert _same(frame(st, consts, uin, cfg),
+                     tstep.frame(st, consts, uin, cfg)), zero
+    assert frame.stats()["misses"] == 1 and frame.stats()["replays"] == 7
 
 
 def test_two_states_alternate_through_one_graph():
@@ -393,12 +399,15 @@ def test_frame_writing_its_input_is_refused():
 
 
 def test_cache_is_bounded(monkeypatch):
+    """Keys that differ in a static argument (the substeps of ``cfg``):
+    at most ``MAX_GRAPHS`` graphs kept, the least recently used dropped
+    (the last call's key was dropped, so it misses again)."""
     monkeypatch.setattr(compiled, "MAX_GRAPHS", 2)
     f, cfg = _cloth(subticks=2)
     frame = _recording(tstep.frame, ("cfg",))
-    consts, st = tb.PhysicsConstants(), sim_to_port(f)
-    for s in (1.0, 2.0, 3.0, 1.0):
-        frame(st, consts, tb.UserInput(user_strength=s), cfg)
+    consts, uin, st = tb.PhysicsConstants(), tb.UserInput(), sim_to_port(f)
+    for n in (2, 4, 6, 2):
+        frame(st, consts, uin, dataclasses.replace(cfg, subticks=n))
     assert frame.stats() == {"misses": 4, "captures": 4, "replays": 4,
                              "graphs": 2}
 

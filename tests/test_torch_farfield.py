@@ -2,7 +2,11 @@
 
 Rebuild: the decoded candidate pair set (chunk coordinates), ``n_pairs``
 and ``overflow`` must be equal.  Apply: the five delta planes agree to
-atol 1e-5 (the f32 scatter-add order differs)."""
+atol 1e-5 (the f32 scatter-add order differs).  Each scene's rebuilds
+(JAX's and the port's) and JAX's apply on them are computed once for the
+module and shared by the cases that read them."""
+
+import functools
 
 import numpy as np
 import pytest
@@ -61,7 +65,10 @@ def _decoded(ca, cb, valid, cwy):
                   for a, b in zip(ca[valid], cb[valid]))
 
 
+@functools.lru_cache(maxsize=None)
 def _both(scene, velocity):
+    """The scene's planes, far-field spec kwargs, radius and both
+    packages' rebuilds on them (once per module: no case writes them)."""
     make, ffkw, radius = SCENES[scene]
     px, py, vx, vy, alive = make()
     vkw_j = dict(vx=jnp.asarray(vx), vy=jnp.asarray(vy), dt=DT) \
@@ -106,13 +113,22 @@ def _port_list(jfl, like: FarList) -> FarList:
         vx_ref=like.vx_ref, vy_ref=like.vy_ref)
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_terms(scene):
+    """JAX's ``far_collision_terms`` on its own list of the scene (with
+    velocities), and the keyword arguments (once per module)."""
+    (px, py, vx, vy, alive), ffkw, radius, jfl, _tfl = _both(scene, True)
+    kw = dict(s=2, radius=radius, dt=DT, ecoeff=0.75, friction=0.1)
+    ref = j_terms(*(jnp.asarray(a) for a in (px, py, vx, vy, alive)), jfl,
+                  ff=JFarFieldSpec(**ffkw), world_h=px.shape[1], **kw)
+    return ref, kw
+
+
 @pytest.mark.parametrize("scene", ["fold", "hairpin"])
 def test_far_collision_terms_match_jax(scene):
     (px, py, vx, vy, alive), ffkw, radius, jfl, tfl = _both(scene, True)
     w, h = px.shape
-    kw = dict(s=2, radius=radius, dt=DT, ecoeff=0.75, friction=0.1)
-    ref = j_terms(*(jnp.asarray(a) for a in (px, py, vx, vy, alive)), jfl,
-                  ff=JFarFieldSpec(**ffkw), world_h=h, **kw)
+    ref, kw = _jax_terms(scene)
     got = far_collision_terms(
         *(torch.from_numpy(a) for a in (px, py, vx, vy, alive)),
         _port_list(jfl, tfl), ff=FarFieldSpec(**ffkw), world_h=h, **kw)
@@ -129,10 +145,7 @@ def test_bucketed_apply_matches_jax(scene):
     hairpin's 512) on its own list against JAX ``far_collision_terms`` on
     the JAX list."""
     (px, py, vx, vy, alive), ffkw, radius, jfl, tfl = _both(scene, True)
-    w, h = px.shape
-    kw = dict(s=2, radius=radius, dt=DT, ecoeff=0.75, friction=0.1)
-    ref = j_terms(*(jnp.asarray(a) for a in (px, py, vx, vy, alive)), jfl,
-                  ff=JFarFieldSpec(**ffkw), world_h=h, **kw)
+    ref, kw = _jax_terms(scene)
     hot = torch.from_numpy(np.stack([px, py, vx, vy]))
     got = bucketed_far_delta_planes(
         hot, torch.from_numpy(alive.astype(np.float32)), tfl,

@@ -20,8 +20,8 @@ device tensor, the stats accumulated on the device.
   tolerances (pos 5e-3, vel 5e-2: the far apply's sums in another f32
   order; JAX's triggered frame cannot be compiled without fusion here in
   the time of a test).
-- No host read: every fused frame, in each of its modes, and the
-  backend's step run with ``Tensor.item`` / ``tolist`` / ``__bool__`` /
+- No host read: every fused frame, in each of its modes, the backend's
+  step and the planified far frame (its buckets on the device) run with ``Tensor.item`` / ``tolist`` / ``__bool__`` /
   ``__int__`` / ``__float__`` / ``__index__``, the tensor constructors
   that copy to a device and the assignment of a host number into a
   tensor patched to raise, except inside
@@ -58,7 +58,10 @@ from softbody_tpu.ops import farfield as JF
 from softbody_tpu.ops.pallas import fused_substep2 as J
 from softbody_tpu.ops.stencil import LatticeSpec as JLatticeSpec
 import softbody_tpu_torch as tb
-from softbody_tpu_torch.convert import lattice_state_to_numpy
+from softbody_tpu_torch.convert import (
+    lattice_state_to_numpy,
+    planified_state_from_numpy,
+)
 from softbody_tpu_torch.engine import FusedLatticeBackend
 from softbody_tpu_torch.ops import compiled
 from softbody_tpu_torch.ops import farfield as F
@@ -67,6 +70,7 @@ from softbody_tpu_torch.ops.farfield4 import (
     bucket_index,
     bucketed_far_delta_planes,
 )
+from softbody_tpu_torch.ops.planify import planified_frame_far
 from softbody_tpu_torch.ops.stencil import LatticeSpec
 
 from test_farfield import SPACING, hairpin
@@ -212,7 +216,8 @@ def test_backend_v3_far_stats_match_jax_over_three_frames():
 # the eager branch reads, a constant table's one copy (made by the
 # warm-up), the kernels' plain versions
 _ALLOWED = {"host_read", "device_constant", "fused_substep2_plain",
-            "band_flags_plain", "mirror_records_plain"}
+            "band_flags_plain", "mirror_records_plain",
+            "collide_stencil_plain"}
 _READS = ("item", "tolist", "__bool__", "__int__", "__float__",
           "__index__")
 
@@ -285,6 +290,7 @@ GUARD_CASES = {
     "frame3_auto": ("frame3_auto", dict(buckets=(16,))),
     "backend v4": ("backend", {}),
     "backend v3": ("backend", dict(far_mode="v3")),
+    "planified far": ("planified", {}),
 }
 
 
@@ -300,6 +306,14 @@ def _case(kind, kw):
     if kind == "frame2_auto":
         return lambda: P.fused_frame2_auto(hot, obs, immut, ec, fl, consts,
                                            uin, SPEC, CFG, FF)
+    if kind == "planified":
+        from test_torch_planify_far import FOLD_CFG, FOLD_FF, _fold, _port_spec
+
+        fields, spec, _aux = _fold()
+        ps = planified_state_from_numpy(**fields, device="cpu")
+        return lambda: planified_frame_far(
+            ps, consts, uin, _port_spec(spec), tb.StaticConfig(**FOLD_CFG),
+            F.FarFieldSpec(**FOLD_FF))
     if kind == "frame3_auto":
         side, trig = P.far3_carry_init(hot, immut, CFG, SPEC, FF)
         return lambda: P.fused_frame3_auto(hot, obs, immut, ec, fl, side,

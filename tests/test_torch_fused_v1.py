@@ -244,3 +244,67 @@ def test_k4_wrapper_validates_inputs():
     # the wrapper on CPU tensors is the plain version, bit for bit
     assert torch.equal(tfs.fused_substep_call(mut, immut, cvec, **kw),
                        tfs.fused_substep_plain(mut, immut, cvec, **kw))
+
+
+def test_fused_frames_jit_match_jax():
+    """The compiled path-B frames, which run their functions on CPU
+    tensors, against JAX's jitted frames: ``fused_frame_jit`` on the
+    scene of ``test_fused_frame_breakage_and_user_input`` (the mouse
+    grabbing, a keyboard force; its tolerances), ``fused_frame_far_jit``
+    and ``packed_far_motion_jit`` on the folded strip (those of
+    ``test_fused_frame_far_matches_jax``)."""
+    w, h = 16, 8
+    arrays = _varied(scene(w, h, spacing=20.0, seed=3, strain_limit=0.03),
+                     seed=5)
+    spec = JLatticeSpec(w, h, collision_stencil=1)
+    cfg = StaticConfig(subticks=4, particle_radius=8.0)
+    consts, uin = PhysicsConstants.default(), UserInput.none()
+    uin.mouse_active = jnp.asarray(True)
+    uin.mouse_pos = jnp.asarray([200.0, 900.0], jnp.float32)
+    uin.mouse_vel = jnp.asarray([30.0, 0.0], jnp.float32)
+    uin.applied_force = jnp.asarray([0.2, 0.1], jnp.float32)
+    js = to_jax(arrays)
+    mut, immut = jfs.pack_lattice(js, tile_w=8)
+    mut = jfs.fused_frame(mut, immut, consts, uin, spec, cfg, tile_w=8,
+                          interpret=True)
+    ref = lattice_state_to_numpy(jfs.unpack_lattice(mut, immut, js))
+    ts = to_port(js)
+    tmut, timm = tfs.pack_lattice(ts)
+    tmut = tfs.fused_frame_jit(tmut, timm, consts_to_port(consts),
+                               uin_to_port(uin), LatticeSpec(w, h, 1),
+                               _port_cfg(cfg))
+    got = lattice_state_to_numpy(tfs.unpack_lattice(tmut, timm, ts))
+    np.testing.assert_allclose(got["pos"], ref["pos"], rtol=1e-5, atol=5e-3)
+    _assert_edges(got, ref)
+
+    ls = hairpin(spring=5.0)
+    w, h = ls.shape
+    arrays = _varied(ls, seed=9)
+    spec = JLatticeSpec(w, h, collision_stencil=2)
+    cfg = StaticConfig(subticks=2, collision_mode="allpairs",
+                       particle_radius=RADIUS, force_mode="quantized")
+    consts, uin = PhysicsConstants.default(), UserInput.none()
+    ff = dataclasses.replace(FF, skin=8.0)
+    js = to_jax(arrays)
+    mut, immut = jfs.pack_lattice(js, tile_w=8)
+    fl = jfs.rebuild_far_list_packed(mut, immut, s=2, ff=ff, radius=RADIUS)
+    mut = jfs.fused_frame_far(mut, immut, fl, consts, uin, spec, cfg, ff,
+                              tile_w=8, interpret=True)
+    ref = lattice_state_to_numpy(jfs.unpack_lattice(mut, immut, js))
+    tff = FarFieldSpec(max_pairs=ff.max_pairs,
+                       max_tile_pairs=ff.max_tile_pairs, skin=ff.skin)
+    ts = to_port(js)
+    tmut, timm = tfs.pack_lattice(ts)
+    tfl = tfs.rebuild_far_list_packed(tmut, timm, s=2, ff=tff, radius=RADIUS)
+    tmut = tfs.fused_frame_far_jit(tmut, timm, tfl, consts_to_port(consts),
+                                   uin_to_port(uin), LatticeSpec(w, h),
+                                   _port_cfg(cfg), tff)
+    got = lattice_state_to_numpy(tfs.unpack_lattice(tmut, timm, ts))
+    np.testing.assert_allclose(got["pos"], ref["pos"], rtol=0, atol=1e-4)
+    np.testing.assert_allclose(got["vel"], ref["vel"], rtol=0, atol=1e-3)
+    for eg, er in zip(got["edges"], ref["edges"]):
+        np.testing.assert_array_equal(eg["alive"], er["alive"])
+    jd, jv = jfs.packed_far_motion(mut, immut, fl)
+    td, tv = tfs.packed_far_motion_jit(tmut, timm, tfl)
+    np.testing.assert_allclose([float(td), float(tv)],
+                               [float(jd), float(jv)], rtol=1e-5, atol=1e-5)

@@ -6,7 +6,8 @@ The kernels themselves run only on the card (``tests/test_torch_cuda.py``,
 compiler against a small emulation of the CUDA they use: one
 ``std::thread`` per CUDA thread of a block (reused from block to block);
 ``std::barrier`` for ``__syncthreads`` and, with a shared flag, for
-``__syncthreads_and``; per warp of 32 threads a barrier behind which
+``__syncthreads_and``; ``__constant__`` arrays as globals, filled by
+``cudaMemcpyAsync`` at once; per warp of 32 threads a barrier behind which
 each lane reads the others' posted values, for ``__all_sync``,
 ``__ballot_sync``, ``__shfl_xor_sync`` and ``__reduce_{max,min}_sync``;
 the 4- and 8-byte ``cp.async`` copies land
@@ -47,6 +48,7 @@ from softbody_tpu_torch.ops.cuda import band_detect, collide_stencil
 from softbody_tpu_torch.ops.cuda import fused_substep, fused_substep2
 from softbody_tpu_torch.ops.cuda._lib import CSRC, HEADERS
 from softbody_tpu_torch.ops.farfield import FarFieldSpec
+from softbody_tpu_torch.ops.stencil import host_decisions
 from torch_threads import two_torch_threads  # noqa: F401
 
 import kernel_cases
@@ -208,7 +210,20 @@ inline void emu_wait_all() {
 }
 typedef void* cudaStream_t;
 typedef int cudaError_t;
+constexpr cudaError_t cudaSuccess = 0;
 constexpr cudaError_t cudaErrorInvalidValue = 1;
+// __constant__ arrays are globals here; a copy into one lands at once
+enum cudaMemcpyKind { cudaMemcpyDeviceToDevice = 3 };
+template <class T>
+cudaError_t cudaGetSymbolAddress(void** p, T& symbol) {
+  *p = (void*)&symbol;
+  return 0;
+}
+inline cudaError_t cudaMemcpyAsync(void* dst, const void* src, size_t n,
+                                   cudaMemcpyKind, cudaStream_t) {
+  std::memcpy(dst, src, n);
+  return 0;
+}
 struct cudaFuncAttributes { int numRegs; size_t localSizeBytes; };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
 // the launch allocates the shared memory it is given (emu_launch)
@@ -365,10 +380,14 @@ def lib(tmp_path_factory):
     lib.sb_collide_stencil_strided.argtypes = ([p] * 7 + [f] * 4 + [i] * 3
                                                + [p])
     lib.sb_band_flags.argtypes = [p] * 7 + [i] * 3 + [p]
+    lib.sb_fused_substep2_dev.argtypes = [p] * 10 + [i] * 11 + [p, p]
+    lib.sb_fused_substep_dev.argtypes = [p] * 5 + [i] * 5 + [p]
+    lib.sb_collide_stencil_dev.argtypes = [p] * 8 + [i] * 4 + [p]
     for fn in (lib.sb_fused_substep2, lib.sb_fused_substep2_variant,
                lib.sb_fused_substep2_mode, lib.sb_fused_substep2_modex,
-               lib.sb_fused_substep,
-               lib.sb_collide_stencil, lib.sb_collide_stencil_strided,
+               lib.sb_fused_substep2_dev, lib.sb_fused_substep,
+               lib.sb_fused_substep_dev, lib.sb_collide_stencil,
+               lib.sb_collide_stencil_strided, lib.sb_collide_stencil_dev,
                lib.sb_band_flags):
         fn.restype = i
     return _TwoCores(lib)
@@ -750,6 +769,102 @@ def test_k1_k4_sources_constants_that_overflow_clip(lib, stencil):
                                 _ptr(cvec4), w, h, stencil, 1, None) == 0
     assert bool(torch.isnan(ref[:6]).any())
     assert same_bits(got, ref), "K4"
+
+
+# (kernel, dt, drag_exp): the device-constants entries against the
+# by-value ones; dt = 1e-19 overflows clip, so the host's decision must
+# turn the pair skip off as the by-value entries' own check does
+DEVC_CASES = [("K1", 1.0 / 64, 1.5), ("K1", 1e-19, 3.3), ("K1 modes", 1.0 / 64,
+                                                          2.0),
+              ("K4", 1.0 / 64, 3.3), ("K4", 1e-19, 2.0), ("K3", 1.0 / 64, 2.0),
+              ("K3", 1e-19, 2.0)]
+
+
+@pytest.mark.parametrize("kernel,dt,drag_exp", DEVC_CASES,
+                         ids=[f"{k}-dt{dt:g}-e{e:g}".replace(" ", "-")
+                              for k, dt, e in DEVC_CASES])
+def test_device_constants_entries_match_by_value(lib, kernel, dt, drag_exp):
+    """K1's, K4's and K3's entries that read their constants from device
+    memory (``*_dev``, the captured frames': the pair skip passed in, as
+    ``stencil.host_decisions`` decides it) against the entries that take
+    them by value (which decide it themselves), bit for bit (NaN where
+    NaN), with the mouse grabbing and a keyboard force: K1 strict and
+    rsqrt+rollgroup, and in its trig+detect and knobs modes; K4; K3 on
+    the interleaved views."""
+    w, h = SHAPES[0]
+    state, cfg, consts, g = _state(w, h, seed=61)
+    consts = dataclasses.replace(consts, drag_exp=drag_exp)
+    uin = tb.UserInput(mouse_active=True, user_strength=1.5,
+                       mouse_pos=tuple(state.pos[w // 2, h // 2].tolist()),
+                       mouse_vel=(3.0, -1.0), applied_force=(0.5, 0.25))
+    base = tb.consts_vector(consts, uin, cfg, h)
+    base[1] = dt
+    dec = host_decisions(cfg.particle_radius, dt, consts.ecoeff,
+                         consts.friction, drag_exp)
+    assert (dt < 1e-10) != dec.k1_skip
+    far = torch.randn((5, w, h), generator=g) * 0.5
+    if kernel == "K3":
+        views = (state.pos[..., 0], state.pos[..., 1], state.vel[..., 0],
+                 state.vel[..., 1])
+        strides = np.ascontiguousarray([t.stride() for t in views],
+                                       np.int64)
+        two_r, inv_dt2 = collide_stencil._scalars(cfg.particle_radius, dt)
+        want, got = (torch.empty((5, w, h)) for _ in range(2))
+        assert lib.sb_collide_stencil_strided(
+            *(_ptr(t) for t in views), strides.ctypes.data,
+            _ptr(state.alive), _ptr(want), two_r, inv_dt2,
+            float(np.float32(consts.ecoeff)),
+            float(np.float32(consts.friction)), w, h, 2, None) == 0
+        assert lib.sb_collide_stencil_dev(
+            *(_ptr(t) for t in views), strides.ctypes.data,
+            _ptr(state.alive), _ptr(got), _ptr(base), int(dec.k3_skip), w,
+            h, 2, None) == 0
+        assert same_bits(got, want)
+        return
+    if kernel == "K4":
+        mut, immut = fused_substep.pack_lattice(state)
+        want, got = torch.empty_like(mut), torch.empty_like(mut)
+        assert lib.sb_fused_substep(_ptr(mut), _ptr(immut), _ptr(far),
+                                    _ptr(want), _ptr(base), w, h, 2, 1,
+                                    None) == 0
+        assert lib.sb_fused_substep_dev(_ptr(mut), _ptr(immut), _ptr(far),
+                                        _ptr(got), _ptr(base),
+                                        int(dec.k4_skip), w, h, 2, 1,
+                                        None) == 0
+        assert same_bits(got, want)
+        return
+    hot, obs, immut, ec = fused_substep2.pack_lattice2(state)
+    cvec = torch.cat([base, ec])
+    if kernel == "K1":
+        runs = [dict(rsqrt=0, rollgroup=0), dict(rsqrt=1, rollgroup=1)]
+    else:
+        runs = [dict(trig=1, detect=1), dict(nospring=1, noint=1)]
+    extras = _mode_extras(state, cfg, tau=0.05, det=1.0, t_band=0.06)
+    refs = (hot[:4] + torch.randn((4, w, h), generator=g)).contiguous()
+    nb = -(-h // 32) * -(-w // 8)
+    for run in runs:
+        flags = [run.get(k, 0) for k in ("rsqrt", "rollgroup", "trig",
+                                         "detect", "nospring", "noint")]
+        trig, detect = flags[2], flags[3]
+        outs = []
+        for entry in ("modex", "dev"):
+            o = dict(hot=torch.empty_like(hot), obs=torch.empty_like(obs),
+                     stats=torch.empty((nb, 4)),
+                     side=torch.full((9, -(-w // 4), h), float("nan")))
+            args = (_ptr(hot), _ptr(immut), _ptr(far), _ptr(obs),
+                    _ptr(refs if trig else None), _ptr(o["hot"]),
+                    _ptr(o["obs"]), _ptr(o["stats"] if trig else None),
+                    _ptr(o["side"] if detect else None), _ptr(cvec), w, h,
+                    2, 1, *flags)
+            x = _ptr(extras if trig or detect else None)
+            if entry == "modex":
+                assert lib.sb_fused_substep2_modex(*args, None, x) == 0
+            else:
+                assert lib.sb_fused_substep2_dev(*args, int(dec.k1_skip),
+                                                 None, x) == 0
+            outs.append(o)
+        for k in ("hot", "obs") + ("stats",) * trig + ("side",) * detect:
+            assert same_bits(outs[1][k], outs[0][k]), f"{run} {k}"
 
 
 def _k3_both_entries(lib, state, stencil, radius, dt, ecoeff, friction):

@@ -17,6 +17,7 @@ import functools
 
 import numpy as np
 import pytest
+import torch
 
 import jax
 import jax.numpy as jnp
@@ -162,3 +163,28 @@ def test_planified_frame_far_matches_jax(route, max_pairs):
         consts_to_port(CONSTS), uin_to_port(UIN), tspec, tcfg)
     miss = np.abs(near.lat.pos.numpy() - ref["lat"]["pos"]).max()
     assert miss > 1.0, f"the stencil-only frame matched (max diff {miss})"
+
+
+def test_planified_frames_jit_match_jax():
+    """The compiled frames, which run their functions on CPU tensors:
+    ``planified_frame_far_jit`` against the same JAX frame as above (its
+    stats equal, the state within the same tolerances), on the mirror
+    route; ``planified_frame_jit`` equal to ``planified_frame`` bit for
+    bit."""
+    fields, spec, _aux = _fold()
+    ref, ref_st = _fold_reference()
+    tspec, tcfg = _port_spec(spec), tb.StaticConfig(**FOLD_CFG)
+    ff = FarFieldSpec(**dict(FOLD_FF, max_pairs=512))
+    args = (consts_to_port(CONSTS), uin_to_port(UIN), tspec, tcfg)
+    ps, st = tplanify.planified_frame_far_jit(
+        planified_state_from_numpy(**fields, device="cpu"), *args, ff)
+    assert st.dtype == torch.int32 and st.tolist() == ref_st
+    got = planified_state_to_numpy(ps)
+    np.testing.assert_allclose(got["lat"]["pos"], ref["lat"]["pos"], rtol=0,
+                               atol=5e-3)
+    np.testing.assert_allclose(got["lat"]["vel"], ref["lat"]["vel"], rtol=0,
+                               atol=5e-2)
+    near = [f(planified_state_from_numpy(**fields, device="cpu"), *args)
+            for f in (tplanify.planified_frame_jit, tplanify.planified_frame)]
+    for a, b in zip(near[0].lat.pos, near[1].lat.pos):
+        assert torch.equal(a, b)
