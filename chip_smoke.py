@@ -20,8 +20,9 @@ to 0 just before it and read just after:
   a frame) in turns with ``fused_frame``, bit for bit, and one far-armed
   frame (``fused_frame_far_jit``);
 - the probe of ``scripts/probe_recmirror.py``: the record casts (K5, K6)
-  and the mirror table (K7) at the probe's and the bench path's sizes
-  (K7 also runs on the bench path, in each far apply with pairs);
+  and the mirror table (K7) at the probe's and the bench path's sizes,
+  K7 also at JAX's ``far_mb`` = 128 lane block (K7 also runs on the bench
+  path, in each far apply with pairs);
 - the general gather engine (``ops/step.frame``, no kernel of its own) at
   BASELINE configs 1, 4 and 3: the 32×32 cloth, 64 blobs and the 100k
   self-colliding cloth;
@@ -71,6 +72,13 @@ to 0 just before it and read just after:
   for bit against an eager twin) and through ``LatticeEngine(fused=True)``
   fed ``Engine.mouse`` each frame, each against a twin left alone over
   the same frames;
+- the parallel layer (phase 14), every shard on this card: path A and
+  path B in 4 slabs, the bench scene far-armed in 2 slabs (K1, K2), the
+  general engine's config 3 over sp = 4, config 1 × 2 over dp × sp =
+  2 × 4, ``multi_blob(64)`` × 4 over dp = 4, each step a captured CUDA
+  graph held bit for bit and launch for launch against its eager twin in
+  turns (one capture, no host read); the bench scene's frame 10 with
+  ``far_mb=128`` (K7 at 128 lanes); the JAX dryrun's paths;
 - the CLI (phase 13), as a user first runs it, in this process:
   ``run`` of the 1M tearing cloth on the lattice path and of the 100k
   cloth planified and far-armed (K2, K7), ``render`` of the 1M cloth,
@@ -363,7 +371,8 @@ CLI_EDITOR_SIDE = 32
 # in 2 slabs (frames 1-2 warm, 3-10 timed; W = 1000 gives 500-column
 # slabs, a multiple of the far field's chunk 4) with a rebuild every 8
 # substeps, and one frame from the single-device frame 9 held against its
-# own frame 10; each profiled over a short step of 8 substeps.  That frame
+# own frame 10; each step captured, then in turns with its eager twin
+# (SHARD_TURN_FRAMES).  That frame
 # may differ from fused_frame4's only where a particle sums far
 # contributions of several pairs in another order (the sharded apply's
 # list order, each slab's own swept envelope), a float32 rounding that a
@@ -379,6 +388,16 @@ SHARD_PARITY_FRAME = 9
 SHARD_PROFILE_SUBSTEPS = 8
 SHARD_GENERAL_N = 100_000
 SHARD_BENCH_ATOL = {"pos": 1e-2, "vel": 0.64, "edges alive differ": 0}
+# each sharded step (captured: one CUDA graph a frame, every shard on this
+# card) in turns with its eager twin (eager, captured, captured, eager),
+# frames per turn: the eager twins of path A and the general engine's
+# take seconds a frame (and launch 10^5 kernels or more: those profile a
+# twin of SHARD_PROFILE_SUBSTEPS substeps a frame)
+SHARD_TURN_FRAMES = {"path A": 1, "path B": 4, "bench": 2, "config 3": 1,
+                     "config 1": 1, "multi_blob": 1}
+# the probe's K7 at JAX's far_mb lane block, and the far apply's lane
+# block of the bench scene's frame 10 in phase 14
+PROBE_MB = 128
 
 # the far modes phase (15): K1's mode instances held against their plain
 # versions at these shapes (the trig sums within TRIG_SUM_RTOL of the sum
@@ -834,8 +853,23 @@ def run_probe(dev) -> dict:
     log(f"probe: K5, K6 bit-exact at rows {PROBE_CAST_ROWS}, K7 bit-exact "
         f"at {[m[:2] for m in PROBE_MIRRORS]}; launches {launches}")
 
-    x, y, _ = casts[-1]
+    # K7 at JAX's far_mb lane block on the 1M apply grid: the same bytes
+    # in records of 128 lanes
     planes, w_out, h_out, table = mirrors[-1]
+    k7 = recmirror.K7_LAUNCHES
+    wide = recmirror.mirror_records_call(planes, w_out=w_out, h_out=h_out,
+                                         mb=PROBE_MB)
+    torch.cuda.synchronize()
+    if recmirror.K7_LAUNCHES != k7 + 1:
+        raise AssertionError(f"probe: K7 at mb={PROBE_MB} launched "
+                             f"{recmirror.K7_LAUNCHES - k7} times")
+    hold("K7", f"{tuple(planes[0].shape)} -> [{w_out}, {h_out}] at mb="
+         f"{PROBE_MB}", wide, recmirror.mirror_records_plain(
+             planes, w_out=w_out, h_out=h_out, mb=PROBE_MB))
+    log(f"probe: K7 at mb={PROBE_MB} bit-exact at {tuple(planes[0].shape)}"
+        f" -> table {tuple(wide.shape)}")
+
+    x, y, _ = casts[-1]
     t = {
         "K5": _device_ms(lambda: recmirror.cast_rows_call(x), 200),
         "K5 plain": _timed_ms(lambda: recmirror.cast_rows_plain(x), 200),
@@ -847,10 +881,14 @@ def run_probe(dev) -> dict:
             planes, w_out=w_out, h_out=h_out), 200),
         "K7 probe library": _device_ms(_record_relayout(planes, w_out,
                                                          h_out), 200),
+        f"K7 probe mb{PROBE_MB}": _device_ms(
+            lambda: recmirror.mirror_records_call(
+                planes, w_out=w_out, h_out=h_out, mb=PROBE_MB), 200),
     }
     n_cast = x.numel() * 4
     bounds = {"K5": _bound(2 * n_cast, 0), "K6": _bound(2 * n_cast, 0),
-              "K7 probe": _mirror_bound(planes, table)}
+              "K7 probe": _mirror_bound(planes, table),
+              f"K7 probe mb{PROBE_MB}": _mirror_bound(planes, wide)}
     log(f"probe at 1M ({x.shape[0]} rows; planes {tuple(planes[0].shape)} -> "
         f"table {tuple(table.shape)}): "
         + ", ".join(f"{k} {v:.4f} ms" for k, v in t.items())
@@ -2914,6 +2952,47 @@ def _log_sharded(label: str, rate: float, rate_one: float, idle: float,
         f"{SHARD_PROFILE_SUBSTEPS} substeps){extra} on {card}")
 
 
+def _sharded_in_turns(label: str, fn, state, call, substeps: int, n: int,
+                      card: str, short=None) -> dict:
+    """A parallel step ``fn`` (every shard on this card: a captured CUDA
+    graph) in turns with its eager twin ``fn.eager`` from ``state``
+    (``_in_turns``; ``call(run, state) → state`` steps a frame through
+    ``run``; ``short``: ``(step, substeps)``, a twin of fewer substeps a
+    frame to profile): every frame bit for bit, no host read captured,
+    launches of the two kinds equal, one capture in all (the key met
+    before the turns or in their first frame)."""
+    def steps(f):
+        return {"captured": lambda st: call(f, st),
+                "eager": lambda st: call(f.eager, st)}
+
+    turns = _in_turns(f"phase 14 {label}", steps(fn), state, n, substeps,
+                      card, short=None if short is None
+                      else (steps(short[0]), short[1]))
+    counts = turns["counts"]
+    if counts["captured"] != counts["eager"]:
+        raise AssertionError(f"phase 14 {label}: launches captured "
+                             f"{counts['captured']}, eager "
+                             f"{counts['eager']}")
+    stats = fn.stats()
+    if stats["captures"] != 1 or stats["graphs"] != 1:
+        raise AssertionError(f"phase 14 {label}: graph stats {stats}")
+    return dict(turns, stats=stats)
+
+
+def _log_sharded_turns(label: str, turns: dict, rate_one: float, card: str,
+                       extra: str = "") -> None:
+    r, p = turns["rate"], turns["prof"]
+    log(f"phase 14 {label}: captured {r['captured']:.1f}, eager "
+        f"{r['eager']:.1f} substeps/s in turns ({r['captured'] / r['eager']:.2f}"
+        f"x), unsharded {rate_one:.1f} in this run; launches a substep "
+        f"captured {p['captured']['per_substep']:.1f}, eager "
+        f"{p['eager']['per_substep']:.1f}; device idle share captured "
+        f"{p['captured']['idle']:.2f} (within the profiled span "
+        f"{p['captured']['idle_span']:.2f}), eager {p['eager']['idle']:.2f};"
+        f" graph stats {turns['stats']}, 0 host reads captured{extra} on "
+        f"{card}")
+
+
 def _tensors_differ(pairs) -> list:
     """``[(name, max |a − b|)]`` of the pairs not bit-equal (NaN equal to
     NaN)."""
@@ -2940,8 +3019,9 @@ def _lattice_pairs(a, b):
 def run_sharded_path_a(dev, card: str) -> dict:
     """Path A in 4 slabs: ``lattice_spatial`` over a 1×4 mesh on the
     default 1M cloth with ``use_pallas`` (K3 on each slab every substep),
-    frames 1-3, bit for bit against the single-device ``lattice_frame``
-    over the same frames."""
+    captured: frames 1-3 (the first captures), bit for bit against the
+    single-device ``lattice_frame`` over the same frames; then in turns
+    with its eager twin."""
     state, spec, cfg, consts = tearing_cloth_lattice(
         n_particles=N_PARTICLES, device=dev)
     cfg = dataclasses.replace(cfg, use_pallas=True)
@@ -2960,7 +3040,7 @@ def run_sharded_path_a(dev, card: str) -> dict:
         box[0] = fn(box[0], consts, uin)
 
     collide_stencil.K3_LAUNCHES = 0
-    ms = _frames(step, SHARD_FRAMES_A)
+    _frames(step, SHARD_FRAMES_A)
     k3 = collide_stencil.K3_LAUNCHES
     substeps = SHARD_FRAMES_A * cfg.subticks
     if k3 != 4 * substeps:
@@ -2971,24 +3051,28 @@ def run_sharded_path_a(dev, card: str) -> dict:
     if diff:
         raise AssertionError(f"path A in slabs differs from lattice_frame: "
                              f"{diff}")
-    fn_s = lattice_spatial_frame_fn(spec, _short(cfg), mesh)
-    idle, per = _idle_and_launches(lambda: fn_s(box[0], consts, uin),
-                                   SHARD_PROFILE_SUBSTEPS)
-    rate = substeps / (sum(ms) / 1e3)
+    turns = _sharded_in_turns(
+        "path A in 4 slabs", fn, box[0], lambda run, st: run(st, consts, uin),
+        cfg.subticks, SHARD_TURN_FRAMES["path A"], card,
+        short=(lattice_spatial_frame_fn(spec, _short(cfg), mesh),
+               SHARD_PROFILE_SUBSTEPS))
     rate_one = substeps / (sum(ms_one) / 1e3)
-    _log_sharded(f"path A in 4 slabs ({spec.width}x{spec.height}, frames "
-                 f"1-{SHARD_FRAMES_A}, K3 {k3} launches = 4 per substep, "
-                 "equal to lattice_frame bit for bit)", rate, rate_one,
-                 idle, per, card)
-    return dict(k3=k3, rate=rate, rate_one=rate_one)
+    _log_sharded_turns(f"path A in 4 slabs ({spec.width}x{spec.height}, "
+                       f"frames 1-{SHARD_FRAMES_A} captured, K3 {k3} "
+                       "launches = 4 per substep, equal to lattice_frame "
+                       "bit for bit)", turns, rate_one, card)
+    return dict(k3=k3, rate=turns["rate"]["captured"],
+                rate_eager=turns["rate"]["eager"], rate_one=rate_one,
+                turns=turns)
 
 
 def run_sharded_path_b(dev, card: str) -> dict:
     """Path B in 4 slabs: ``fused_spatial`` over 1×4 on the default scene
     (K4 on each slab every substep, a ghost ring of the stencil's reach),
-    frames 1-8, bit for bit against the single-device ``fused_frame``;
-    then K4's device time per substep on the 4 slabs against the whole
-    lattice's."""
+    captured: frames 1-8 (the first captures), bit for bit against the
+    single-device ``fused_frame``; K4's device time per substep on the 4
+    slabs against the whole lattice's; then in turns with its eager
+    twin."""
     state, spec, cfg, consts = tearing_cloth_lattice(
         n_particles=N_PARTICLES, device=dev)
     uin = tb.UserInput()
@@ -3010,7 +3094,7 @@ def run_sharded_path_b(dev, card: str) -> dict:
         box[0] = fn(box[0], im, consts, uin)
 
     fused_substep.K4_LAUNCHES = 0
-    ms = _frames(step, SHARD_FRAMES_B)
+    _frames(step, SHARD_FRAMES_B)
     k4 = fused_substep.K4_LAUNCHES
     substeps = SHARD_FRAMES_B * cfg.subticks
     if k4 != 4 * substeps:
@@ -3028,20 +3112,20 @@ def run_sharded_path_b(dev, card: str) -> dict:
                                                    **kw), 50)
     k4_slabs = _device_ms(lambda: [fused_substep_call(a, b, cvec, **kw)
                                    for a, b in zip(box[0], im)], 50)
-    fn_s = fused_spatial_frame_fn(spec, _short(cfg), mesh)
-    idle, per = _idle_and_launches(lambda: fn_s(box[0], im, consts, uin),
-                                   SHARD_PROFILE_SUBSTEPS)
-    rate = substeps / (sum(ms) / 1e3)
+    turns = _sharded_in_turns("path B in 4 slabs", fn, box[0],
+                              lambda run, st: run(st, im, consts, uin),
+                              cfg.subticks, SHARD_TURN_FRAMES["path B"], card)
     rate_one = substeps / (sum(ms_one) / 1e3)
-    _log_sharded(f"path B in 4 slabs ({spec.width}x{spec.height}, slabs of "
-                 f"{w_loc} + 2x{ring} ghost columns, frames "
-                 f"1-{SHARD_FRAMES_B}, K4 {k4} launches = 4 per substep, "
-                 "equal to fused_frame bit for bit)", rate, rate_one, idle,
-                 per, card, extra=f"; K4 device ms per substep: 4 slabs "
-                 f"{k4_slabs:.4f}, whole lattice {k4_one:.4f} (ratio "
-                 f"{k4_slabs / k4_one:.3f})")
-    return dict(k4=k4, rate=rate, rate_one=rate_one, k4_slabs=k4_slabs,
-                k4_one=k4_one)
+    _log_sharded_turns(
+        f"path B in 4 slabs ({spec.width}x{spec.height}, slabs of {w_loc} + "
+        f"2x{ring} ghost columns, frames 1-{SHARD_FRAMES_B} captured, K4 "
+        f"{k4} launches = 4 per substep, equal to fused_frame bit for bit)",
+        turns, rate_one, card, extra=f"; K4 device ms per substep: 4 slabs "
+        f"{k4_slabs:.4f}, whole lattice {k4_one:.4f} (ratio "
+        f"{k4_slabs / k4_one:.3f})")
+    return dict(k4=k4, rate=turns["rate"]["captured"],
+                rate_eager=turns["rate"]["eager"], rate_one=rate_one,
+                k4_slabs=k4_slabs, k4_one=k4_one, turns=turns)
 
 
 def _bench_sharded_frame(hot, obs, spec, cfg, consts, ff, n: int,
@@ -3057,17 +3141,20 @@ def _bench_sharded_frame(hot, obs, spec, cfg, consts, ff, n: int,
     fn = fused_spatial2_frame_fn(spec, cfg, mesh, ffspec=ff,
                                  rebuild_every=SHARD_REBUILD)
     far_stats()
-    h, o = fn(h, o, im, ec, consts, tb.UserInput())
+    # one frame op by op: the captured step is held to it in turns
+    h, o = fn.eager(h, o, im, ec, consts, tb.UserInput())
     return interiors(h, w_loc, hot.device), far_stats()
 
 
 def run_sharded_bench(dev, card: str, bench_rate: float) -> dict:
     """The bench scene far-armed in 2 slabs (``fused_spatial2``, the bench
     far spec, a rebuild every 8 substeps: K1 on each slab every substep,
-    K2 on each slab every rebuild): frames 1-2 warm, frames 3-10 timed and
-    counted; a finite state, far_overflow 0 and far pairs.  Then one frame
-    from the single-device ``fused_frame4``'s frame 9 in 1 and in 2 slabs
-    against its own frame 10."""
+    K2 on each slab every rebuild), captured: frames 1-2 warm (the first
+    captures), frames 3-10 counted; a finite state, far_overflow 0 and
+    far pairs; then in turns with its eager twin.  Then one frame from
+    the single-device ``fused_frame4``'s frame 9 in 1 and in 2 slabs
+    against its own frame 10, and that frame through the far apply's
+    128-lane records (``far_mb=128``: K7 at 128 lanes) against 32."""
     state, spec, cfg, consts, spacing = _scene(N_PARTICLES, dev)
     ff = _far_spec(spacing)
     uin = tb.UserInput()
@@ -3103,11 +3190,10 @@ def run_sharded_bench(dev, card: str, bench_rate: float) -> dict:
                              f"and {rebuilds} rebuilds on 2 slabs")
     if stats["max_overflow"] != 0 or stats["max_pairs"] == 0:
         raise AssertionError(f"bench in slabs: far record {stats}")
-    fn_s = fused_spatial2_frame_fn(spec, _short(cfg), mesh, ffspec=ff,
-                                   rebuild_every=SHARD_REBUILD)
-    idle, per = _idle_and_launches(
-        lambda: fn_s(box[0][0], box[0][1], im, ec, consts, uin),
-        SHARD_PROFILE_SUBSTEPS)
+    turns = _sharded_in_turns(
+        "bench scene far-armed in 2 slabs", fn, box[0],
+        lambda run, st: run(st[0], st[1], im, ec, consts, uin),
+        cfg.subticks, SHARD_TURN_FRAMES["bench"], card)
     far_stats()
     rate = substeps / (sum(ms) / 1e3)
 
@@ -3145,19 +3231,67 @@ def run_sharded_bench(dev, card: str, bench_rate: float) -> dict:
                              f"(max |err| {ctl}): they cannot tell a "
                              "dropped far apply")
     same_1_2 = not _tensors_differ([("hot", got[1][0], got[2][0])])
+    mb = check_far_mb_frame10(hot9, obs9, state, spec, cfg, consts, ff,
+                              card)
     rate_one = SHARD_PARITY_FRAME * cfg.subticks / (sum(ms_one) / 1e3)
-    _log_sharded(
-        f"bench scene far-armed in 2 slabs (frames 3-{warm + timed}, K1 "
-        f"{k1} launches = 2 per substep, K2 {k2} = 2 per rebuild, far "
-        f"record {stats})", rate, rate_one, idle, per, card,
+    _log_sharded_turns(
+        f"bench scene far-armed in 2 slabs (frames 3-{warm + timed} "
+        f"captured, {rate:.1f} substeps/s; K1 {k1} launches = 2 per "
+        f"substep, K2 {k2} = 2 per rebuild, far record {stats})", turns,
+        rate_one, card,
         extra=f"; the bench path (phase 6) {bench_rate:.1f} substeps/s; "
         f"frame {SHARD_PARITY_FRAME + 1} from fused_frame4's frame "
         f"{SHARD_PARITY_FRAME} against its own: 1 slab {errs[1]}, 2 slabs "
         f"{errs[2]} (limits {SHARD_BENCH_ATOL}), the control with the far "
         f"field off {ctl}; 1 and 2 slabs "
         f"{'bit-identical' if same_1_2 else 'not bit-identical'}")
-    return dict(k1=k1, k2=k2, rate=rate, rate_one=rate_one, errs=errs,
-                ctl=ctl, same_1_2=same_1_2, stats=stats)
+    return dict(k1=k1, k2=k2, rate=turns["rate"]["captured"],
+                rate_eager=turns["rate"]["eager"], rate_one=rate_one,
+                errs=errs, ctl=ctl, same_1_2=same_1_2, stats=stats,
+                turns=turns, mb=mb)
+
+
+def check_far_mb_frame10(hot9, obs9, state, spec, cfg, consts, ff,
+                         card: str) -> dict:
+    """Frame 10 of the bench scene from the single-device frame 9 through
+    ``FusedLatticeBackend(far_mb=PROBE_MB)`` (JAX's default variants, its
+    drop rule taking krec out) and ``far_mb=32``, op by op: finite,
+    ``far_overflow`` 0, far pairs, K7 at 128 lanes launched once per
+    mirror-route apply, the two frames equal bit for bit (the wider
+    records only add +0.0 terms to each sum)."""
+    uin = tb.UserInput()
+    ls9 = unpack_lattice2(hot9, obs9, state)
+    out, k7, routes, far = {}, {}, {}, {}
+    for mb in (PROBE_MB, 32):
+        be = _eager_twin(FusedLatticeBackend(spec, cfg, farfield=ff,
+                                             far_buckets=FAR_BUCKETS,
+                                             far_mb=mb, device=hot9.device))
+        packed = be.pack_state(ls9)
+        r0, n0 = dict(farfield4.APPLY_ROUTES), recmirror.K7_LAUNCHES
+        out[mb] = be.step(packed, consts, uin)
+        torch.cuda.synchronize()
+        k7[mb] = recmirror.K7_LAUNCHES - n0
+        routes[mb] = {k: v - r0[k] for k, v in farfield4.APPLY_ROUTES.items()}
+        far[mb] = be.far_stats()
+        if mb == PROBE_MB and "krec" in be.kvar:
+            raise AssertionError(f"far_mb={mb}: kvar {be.kvar} keeps krec")
+    hot = out[PROBE_MB][0]
+    f = far[PROBE_MB]
+    if (not bool(torch.isfinite(hot[:6]).all()) or f["far_overflow"]
+            or not f["far_pairs"] or k7[PROBE_MB] != routes[PROBE_MB]["mirror"]
+            or not k7[PROBE_MB]):
+        raise AssertionError(f"far_mb={PROBE_MB} frame 10: far stats {f}, "
+                             f"K7 {k7}, routes {routes}")
+    same = _same(out[PROBE_MB], out[32])
+    if not same:
+        raise AssertionError(f"far_mb={PROBE_MB} frame 10 differs from "
+                             "far_mb=32's")
+    log(f"phase 14 far_mb={PROBE_MB}: bench frame 10 from frame 9 through "
+        f"FusedLatticeBackend(far_mb={PROBE_MB}) op by op: finite, far "
+        f"stats {f}, K7 {k7[PROBE_MB]} launches at {PROBE_MB} lanes (one per "
+        f"mirror-route apply: {routes[PROBE_MB]}), equal to far_mb=32 bit "
+        f"for bit on {card}")
+    return dict(k7=k7[PROBE_MB], stats=f)
 
 
 def _bench_errs(g, ref) -> dict:
@@ -3200,12 +3334,19 @@ def _stirred_world(st, seed: int):
 
 
 def run_sharded_general(dev, card: str) -> dict:
-    """The general engine sharded: config 3 (the 100k self-colliding
-    cloth, grid) over sp = 4, one frame against the single-device frame;
-    config 1 ``cloth(32, 32)`` × 2 worlds over a 2×4 dp×sp mesh; and
-    ``batched_frame_fn`` on ``multi_blob(64)`` × 4 worlds over dp = 4,
-    each world bit for bit its own single-device frame."""
+    """The general engine sharded, each step captured: config 3 (the 100k
+    self-colliding cloth, grid) over sp = 4, one frame against the
+    single-device frame; config 1 ``cloth(32, 32)`` × 2 worlds over a 2×4
+    dp×sp mesh; and ``batched_frame_fn`` on ``multi_blob(64)`` × 4 worlds
+    over dp = 4, each world bit for bit its own single-device frame; each
+    then in turns with its eager twin."""
     consts, uin = tb.PhysicsConstants(), tb.UserInput()
+    t = [time.perf_counter()]
+
+    def lap():
+        t.append(time.perf_counter())
+        return round(t[-1] - t[-2], 1)
+
     st, cfg = scenes.self_colliding_cloth(SHARD_GENERAL_N, device=dev)
     st = pad_state_for_mesh(st, 4)
     one = [st]
@@ -3221,53 +3362,95 @@ def run_sharded_general(dev, card: str) -> dict:
     def step():
         box[0] = fn(box[0], consts, uin)
 
-    ms = _frames(step, 1)
+    _frames(step, 1)
     errs3 = _general_errs(unshard_state(box[0]), one[0])
     _hold_general("config 3 over sp = 4", errs3)
-    fn_s = spatial_frame_fn(_short(cfg), mesh)
-    idle, per = _idle_and_launches(lambda: fn_s(box[0], consts, uin),
-                                   SHARD_PROFILE_SUBSTEPS)
-    rate = cfg.subticks / (sum(ms) / 1e3)
+    turns3 = _sharded_in_turns(
+        "general config 3 over sp = 4", fn, box[0],
+        lambda run, s_: run(s_, consts, uin), cfg.subticks,
+        SHARD_TURN_FRAMES["config 3"], card,
+        short=(spatial_frame_fn(_short(cfg), mesh), SHARD_PROFILE_SUBSTEPS))
     rate_one = cfg.subticks / (sum(ms_one) / 1e3)
+    _log_sharded_turns(f"general engine config 3 over sp = 4 (frame 1 "
+                       f"captured, max |err| {errs3} against the "
+                       "single-device frame)", turns3, rate_one, card)
+    parts = {"config 3": lap()}
 
     # config 1 x 2 worlds over dp x sp = 2 x 4
     w1, cfg1 = scenes.cloth(32, 32, device=dev)
     worlds = [pad_state_for_mesh(w, 4) for w in (w1, _stirred_world(w1, 1))]
     mesh8 = _shard_mesh(dev, 8, dp=2)
-    out = unstack_states(unshard_state(spatial_frame_fn(
-        cfg1, mesh8, dp_axis="dp")(shard_state(stack_states(worlds), mesh8,
-                                               dp_axis="dp"), consts, uin)))
-    errs1 = [_general_errs(g, gstep.frame(w, consts, uin, cfg1))
-             for g, w in zip(out, worlds)]
+    fn1 = spatial_frame_fn(cfg1, mesh8, dp_axis="dp")
+    sh1 = fn1(shard_state(stack_states(worlds), mesh8, dp_axis="dp"),
+              consts, uin)
+    out = unstack_states(unshard_state(sh1))
+    ms1, errs1 = [], []
+    for g, w in zip(out, worlds):
+        ref_box = [w]
+
+        def step_w(ref_box=ref_box):
+            ref_box[0] = gstep.frame(ref_box[0], consts, uin, cfg1)
+
+        ms1 += _frames(step_w, 1)
+        errs1.append(_general_errs(g, ref_box[0]))
     for e in errs1:
         _hold_general("config 1 x 2 worlds over 2x4", e)
+    turns1 = _sharded_in_turns(
+        "general config 1 x 2 worlds over dp x sp = 2x4", fn1, sh1,
+        lambda run, s_: run(s_, consts, uin), cfg1.subticks,
+        SHARD_TURN_FRAMES["config 1"], card,
+        short=(spatial_frame_fn(_short(cfg1), mesh8, dp_axis="dp"),
+               SHARD_PROFILE_SUBSTEPS))
+    rate_one1 = cfg1.subticks / (sum(ms1) / len(ms1) / 1e3)
+    _log_sharded_turns(f"general config 1 x 2 worlds over dp x sp = 2x4 "
+                       f"(frame 1 captured, max |err| {errs1}; rates over "
+                       "both worlds, unsharded one world)", turns1,
+                       rate_one1, card)
+    parts["config 1"] = lap()
 
     # multi_blob(64) x 4 worlds over dp = 4
     w4, cfg4 = scenes.multi_blob(64, device=dev)
-    worlds4 = [_stirred_world(w4, s) for s in range(4)]
+    worlds4 = [_stirred_world(w4, s_) for s_ in range(4)]
     mesh4 = _shard_mesh(dev, 4, dp=4)
-    t0 = time.perf_counter()
-    outs = unstack_states(batched_frame_fn(cfg4, mesh4)(
-        device_put_batched(stack_states(worlds4), mesh4), consts, uin))
-    torch.cuda.synchronize()
-    batch_s = time.perf_counter() - t0
+    fn4 = batched_frame_fn(cfg4, mesh4)
+    b4 = fn4(device_put_batched(stack_states(worlds4), mesh4), consts, uin)
+    outs = unstack_states(b4)
+    ms4 = []
     for i, (g, w) in enumerate(zip(outs, worlds4)):
-        r = gstep.frame(w, consts, uin, cfg4)
+        ref_box = [w]
+
+        def step_w(ref_box=ref_box):
+            ref_box[0] = gstep.frame(ref_box[0], consts, uin, cfg4)
+
+        ms4 += _frames(step_w, 1)
+        r = ref_box[0]
         diff = _tensors_differ([(k, getattr(g, k), getattr(r, k)) for k in
                                 ("pos", "vel", "acc", "beam_alive",
                                  "beam_target_length")])
         if diff:
             raise AssertionError(f"multi_blob(64) world {i} of the batch "
                                  f"differs from its own frame: {diff}")
-    _log_sharded(
-        f"general engine config 3 over sp = 4 (one frame, max |err| "
-        f"{errs3} against the single-device frame)", rate, rate_one, idle,
-        per, card, extra=f"; config 1 x 2 worlds over dp x sp = 2x4: max "
-        f"|err| {errs1}; multi_blob(64) x 4 worlds over dp = 4: each world "
-        f"equal to its own frame bit for bit, "
-        f"{4 * cfg4.subticks / batch_s:.1f} substeps/s over the batch "
-        "(host clock)")
-    return dict(rate=rate, rate_one=rate_one)
+    fn4_s = batched_frame_fn(_short(cfg4), mesh4)
+    turns4 = _sharded_in_turns(
+        "multi_blob(64) x 4 worlds over dp = 4", fn4, b4,
+        lambda run, s_: run(s_, consts, uin), 4 * cfg4.subticks,
+        SHARD_TURN_FRAMES["multi_blob"], card,
+        short=(fn4_s, 4 * SHARD_PROFILE_SUBSTEPS))
+    # frame 1, the turns' untimed frame and two captured turns: a replay
+    # a device's batch each
+    if fn4.stats()["replays"] != 4 * (2 + 2 * SHARD_TURN_FRAMES[
+            "multi_blob"]):
+        raise AssertionError(f"multi_blob batch: graph stats "
+                             f"{fn4.stats()} (one graph, a replay a "
+                             "device's batch)")
+    rate_one4 = cfg4.subticks / (sum(ms4) / len(ms4) / 1e3)
+    _log_sharded_turns("multi_blob(64) x 4 worlds over dp = 4 (frame 1 "
+                       "captured, each world equal to its own frame bit for "
+                       "bit; substeps over the 4 worlds, unsharded one "
+                       "world)", turns4, rate_one4, card)
+    parts["multi_blob"] = lap()
+    log(f"phase 14 general parts (s): {parts}")
+    return {"config 3": turns3, "config 1": turns1, "multi_blob": turns4}
 
 
 def run_sharded_dryrun(dev, card: str) -> dict:
@@ -3289,6 +3472,7 @@ def run_sharded_dryrun(dev, card: str) -> dict:
     mesh = _shard_mesh(dev, n, dp=dp)
     fn = spatial_frame_fn(cfg, mesh, dp_axis="dp")
     sh = shard_state(stack_states(worlds), mesh, dp_axis="dp")
+    fn(sh, consts, uin)     # the capture; the frame timed replays
     ms = _frames(lambda: fn(sh, consts, uin), 1)
     out = unstack_states(unshard_state(fn(sh, consts, uin)))
     ms_one = _frames(lambda: gstep.frame(worlds[0], consts, uin, cfg), 1)
@@ -3388,13 +3572,19 @@ def run_sharded(dev, card: str, bench_rate: float) -> dict:
     parts["path B"] = lap()
     bench = run_sharded_bench(dev, card, bench_rate)
     parts["bench"] = lap()
-    run_sharded_general(dev, card)
+    general = run_sharded_general(dev, card)
     parts["general"] = lap()
     run_sharded_dryrun(dev, card)
     parts["dryrun"] = lap()
     log(f"phase 14 parallel: {t[-1] - t[0]:.1f} s ({parts})")
-    return {"K1": bench["k1"], "K2": bench["k2"], "K3": a["k3"],
-            "K4": b["k4"]}
+    turns = {"path A in 4 slabs": a["turns"], "path B in 4 slabs":
+             b["turns"], "bench scene in 2 slabs": bench["turns"],
+             "config 3 over sp = 4": general["config 3"],
+             "config 1 x 2 over 2x4": general["config 1"],
+             "multi_blob(64) x 4 over dp = 4": general["multi_blob"]}
+    return {"launches": {"K1": bench["k1"], "K2": bench["k2"],
+                         "K3": a["k3"], "K4": b["k4"]},
+            "turns": turns, "mb": bench["mb"]}
 
 
 # ---------------------------------------------------------------------------
@@ -3988,7 +4178,7 @@ def _rates(ms: dict, substeps: int) -> dict:
 
 
 def _in_turns(label: str, steps: dict, state, n: int, substeps: int,
-              card: str, extra=None) -> dict:
+              card: str, extra=None, short=None) -> dict:
     """A captured frame (``steps["captured"]``, state -> state) against
     its eager twin (``steps["eager"]``) from the same ``state``: one
     untimed frame of each (the captured one's first call captures where
@@ -3998,9 +4188,23 @@ def _in_turns(label: str, steps: dict, state, n: int, substeps: int,
     (``extra()`` of each kind's step, when given, too: the stats it
     accumulated), no host read in a captured turn
     (``compiled.HOST_READS``), launches a substep and idle from one
-    profiled frame of each (continuing, and held equal after).  Returns
-    the rates, reads, profiles and the captured final state."""
-    box = {k: steps[k](state) for k in ("captured", "eager")}
+    profiled frame of each (continuing, and held equal after); ``short``:
+    ``(steps, substeps)``, twins of fewer substeps a frame profiled on
+    the states reached instead (where a whole eager frame launches some
+    10^5 kernels).  Returns the rates, reads, profiles, the launches the
+    host counted for each kind (``counts``; a captured frame's
+    conditional bodies count on the device, ``compiled.sync_counts``)
+    and the captured final state."""
+    counts = {"captured": {}, "eager": {}}
+
+    def run(kind, st):
+        before = compiled.read_counts()
+        out = steps[kind](st)
+        _add_delta(counts[kind], compiled._count_delta(
+            compiled.read_counts(), before))
+        return out
+
+    box = {k: run(k, state) for k in ("captured", "eager")}
     if not _same(box["captured"], box["eager"]):
         raise AssertionError(f"{label}: the first captured frame differs "
                              "from the eager frame")
@@ -4010,7 +4214,7 @@ def _in_turns(label: str, steps: dict, state, n: int, substeps: int,
         reads0 = compiled.HOST_READS
 
         def step(kind=kind, r=r):
-            box[kind] = steps[kind](box[kind])
+            box[kind] = run(kind, box[kind])
             r["frames"].append((box[kind], extra(kind) if extra else None))
 
         r["ms"] += _frames(step, n)
@@ -4025,16 +4229,26 @@ def _in_turns(label: str, steps: dict, state, n: int, substeps: int,
                              "reads in the captured frames")
     rate = _rates({k: r["ms"] for k, r in rec.items()}, substeps)
 
-    def stepper(kind):
-        def step():
-            box[kind] = steps[kind](box[kind])
-        return step
+    if short is None:
+        def stepper(kind):
+            def step():
+                box[kind] = run(kind, box[kind])
+            return step
 
-    prof = {k: profile_frame(f"{label}, {k}", stepper(k),
-                             sum(rec[k]["ms"]) / (2 * n), substeps)
-            for k in ("eager", "captured")}
-    if not _same(box["captured"], box["eager"]):
-        raise AssertionError(f"{label}: the profiled frames differ")
+        prof = {k: profile_frame(f"{label}, {k}", stepper(k),
+                                 sum(rec[k]["ms"]) / (2 * n), substeps)
+                for k in ("eager", "captured")}
+        if not _same(box["captured"], box["eager"]):
+            raise AssertionError(f"{label}: the profiled frames differ")
+    else:
+        twins, sub = short
+        prof = {}
+        for k in ("captured", "eager"):
+            def one(k=k):
+                twins[k](box[k])
+            one()      # a captured twin captures here
+            prof[k] = profile_frame(f"{label}, {k}, {sub} substeps", one,
+                                    _frames(one, 1)[0], sub)
     reads_e = rec["eager"]["reads"] / (2 * n * substeps)
     log(f"{label}, captured against eager in turns ({2 * n} frames each): "
         f"every frame equal bit for bit; eager {rate['eager']:.1f}, "
@@ -4048,7 +4262,7 @@ def _in_turns(label: str, steps: dict, state, n: int, substeps: int,
             f"{k} {[round(x, 2) for x in r['ms']]}" for k, r in rec.items())
         + f" on {card}")
     return dict(rate=rate, prof=prof, reads_eager=reads_e,
-                state=box["captured"])
+                state=box["captured"], counts=counts)
 
 
 def _profile_replay(label: str, step, frame_ms: float, substeps: int,
@@ -5203,7 +5417,8 @@ def main() -> int:
 
     # phase 14: the parallel layer at full width, every shard on this card
     # (K3, K4, K1 and K2 counted from 0 in sub-phases 1-3)
-    launches_sharded = run_sharded(dev, card, run["rate"])
+    sharded = run_sharded(dev, card, run["rate"])
+    launches_sharded = sharded["launches"]
 
     # phase 15: the fused backend's other far modes: K1's trig, detect
     # and knobs instances against their plain versions, the fold card vs
@@ -5281,6 +5496,13 @@ def main() -> int:
             row["launches_cli"] = launches_cli[k]
         if k in launches_sharded:
             row["launches_sharded"] = launches_sharded[k]
+        if k == "K7":
+            # K7 at JAX's far_mb lane block: the probe's 1M grid, and the
+            # bench scene's frame 10 through FusedLatticeBackend(far_mb=)
+            row[f"ms_mb{PROBE_MB}"] = t[f"K7 probe mb{PROBE_MB}"]
+            row[f"bound_ms_mb{PROBE_MB}"] = bounds[
+                f"K7 probe mb{PROBE_MB}"][0]
+            row[f"launches_far_mb{PROBE_MB}"] = sharded["mb"]["k7"]
         if k in drag["devc"]["ms"]:
             # the device-constants entry, the captured frames' route, at
             # 1M (K1 rsqrt+rollgroup, K4, K3; phase 18)
@@ -5358,6 +5580,18 @@ def main() -> int:
         + f"; engine frames/s alone / polled "
         f"{fused_comp['engine']['fps_alone']:.3f} / "
         f"{fused_comp['engine']['fps_polled']:.3f} on {card}")
+    log("phase 14, the sharded steps captured against eager in turns "
+        "(substeps/s eager -> captured; launches a substep eager / "
+        "captured; idle eager -> captured): " + "; ".join(
+            f"{k} {v['rate']['eager']:.1f} -> {v['rate']['captured']:.1f} "
+            f"({v['prof']['eager']['per_substep']:.1f} / "
+            f"{v['prof']['captured']['per_substep']:.1f}; "
+            f"{v['prof']['eager']['idle']:.2f} -> "
+            f"{v['prof']['captured']['idle']:.2f})"
+            for k, v in sharded["turns"].items())
+        + f"; K7 at {PROBE_MB} lanes {t[f'K7 probe mb{PROBE_MB}']:.4f} ms, "
+        f"at 32 {t['K7 probe']:.4f} (bound {bounds['K7 probe'][0]:.4f}) on "
+        f"{card}")
     log(f"phase 18: 1M drag through the fused backend "
         f"{drag['backend']['fps']:.3f} frames/s (left alone "
         f"{drag['backend']['fps_idle']:.3f}), 1 capture, "

@@ -12,12 +12,13 @@
 // bytes in the same order, so on this card each is a copy.
 //
 // K7 maps five planes [W, H] (px py vx vy alive) to the far apply's
-// record table [(H'/32)*(W'/4), 640]: record row b*(W'/4) + cx, lane
-// f*128 + ix*32 + l holds plane f at (4cx + ix, 32b + l), and 0 where
-// that cell lies outside [W, H] (the planes zero-padded to [W', H'],
-// W' % 4 == 0, H' % 32 == 0).  Reading the planes where they live and
-// writing the padded table in one pass replaces the stack, the pad and
-// the permute-copy of the plain version.
+// record table [(H'/mb)*(W'/4), 20*mb] of lane block mb (a multiple of
+// 32; 32 by default, JAX's far_mb otherwise): record row b*(W'/4) + cx,
+// lane f*4*mb + ix*mb + l holds plane f at (4cx + ix, mb*b + l), and 0
+// where that cell lies outside [W, H] (the planes zero-padded to
+// [W', H'], W' % 4 == 0, H' % mb == 0).  Reading the planes where they
+// live and writing the padded table in one pass replaces the stack, the
+// pad and the permute-copy of the plain version.
 //
 // What bounds them on the card: device-memory bytes, each input read
 // once and each output written once; there is no arithmetic.  At the 1M
@@ -25,11 +26,13 @@
 // What the designs do about it: K5/K6 are float4 copies (16 bytes per
 // thread per access, the widest load), four per thread with all loads
 // issued before the stores, so each thread keeps 64 bytes in flight.
-// K7 runs one block of 160 threads per record row, four output floats
-// per thread: warp f reads 32 consecutive floats of each of plane f's
-// rows 4cx..4cx+3 (float4 loads where the row is 16-byte aligned, as at
-// H = 1000; scalar loads otherwise) and writes the field's 512
-// contiguous bytes of the record row as float4 stores.  The plane is
+// K7 runs one block of 160 threads per 32-lane part of a record row
+// (mb/32 blocks a row), four output floats per thread: warp f reads 32
+// consecutive floats of each of plane f's rows 4cx..4cx+3 (float4 loads
+// where the row is 16-byte aligned, as at H = 1000; scalar loads
+// otherwise) and writes them as four runs of 128 contiguous bytes of the
+// record row, float4 stores (at mb = 32 the field's 512 bytes in one
+// run).  The bytes are the same at any mb, so is the bound.  The plane is
 // picked by a switch on the warp-uniform f (indexing an array of
 // pointers by f would put it in local memory, a stack round trip per
 // thread).
@@ -41,10 +44,10 @@ namespace {
 
 constexpr int COPY_THREADS = 256;
 constexpr int COPY_UNROLL = 4;   // float4 per thread
-constexpr int MB = 32;           // lanes per record block
+constexpr int LANES = 32;        // lanes per block's part of a record
 constexpr int RX = 4;            // plane rows per record
 constexpr int NF = 5;            // px py vx vy alive
-constexpr int REC = NF * RX * MB;
+constexpr int PART = NF * RX * LANES;   // floats a block writes
 
 __device__ __forceinline__ void copy_f4(const float4* __restrict__ in,
                                         float4* __restrict__ out,
@@ -94,21 +97,25 @@ __device__ __forceinline__ const float* plane_of(const Planes& p, int f) {
   }
 }
 
-// grid (rows), block REC/4: block `row` writes record row `row`; thread t
-// the four lanes 4t..4t+3 (field f, plane row ix, lanes 4q..4q+3 of the
-// record's 32), stored as one float4.
-__global__ void __launch_bounds__(REC / 4)
+// grid (rows * mb/32), block PART/4: block `row * (mb/32) + p` writes
+// part p of record row `row`, lanes 32p..32p+31 of each field's four
+// plane rows; thread t the four lanes 32p + 4q..4q+3 of field f, plane
+// row ix, stored as one float4.
+__global__ void __launch_bounds__(PART / 4)
 mirror_records_kernel(const Planes planes, float* __restrict__ out, int w,
-                      int h, int cw) {
-  const int row = blockIdx.x;
+                      int h, int cw, int mb) {
+  const int parts = mb / LANES;
+  const int row = blockIdx.x / parts;
+  const int p = blockIdx.x - row * parts;
   const int t = threadIdx.x;
-  const int f = t / (RX * MB / 4);
-  const int ix = (t / (MB / 4)) % RX;
-  const int q = t % (MB / 4);
+  const int f = t / (RX * LANES / 4);
+  const int ix = (t / (LANES / 4)) % RX;
+  const int q = t % (LANES / 4);
   const int b = row / cw;
   const int cx = row - b * cw;
   const int x = RX * cx + ix;
-  const int y = MB * b + 4 * q;
+  const int lane = LANES * p + 4 * q;
+  const int y = mb * b + lane;
   float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   if (x < w) {
     const float* src = plane_of(planes, f) + (long long)x * h;
@@ -121,7 +128,9 @@ mirror_records_kernel(const Planes planes, float* __restrict__ out, int w,
       if (y + 3 < h) v.w = src[y + 3];
     }
   }
-  reinterpret_cast<float4*>(out + (long long)row * REC)[t] = v;
+  float* dst = out + (long long)row * (NF * RX * mb) + (f * RX + ix) * mb +
+               lane;
+  *reinterpret_cast<float4*>(dst) = v;
 }
 
 int copy_launch(bool cast, const float* in, float* out, long long n,
@@ -162,21 +171,22 @@ extern "C" int sb_uncast_rows(const float* y, float* x, long long rows,
 }
 
 // K7: five [w, h] planes (device pointers) -> out
-// [(h_out/32)*(w_out/4), 640].
+// [(h_out/mb)*(w_out/4), 20*mb], lane block mb a positive multiple of 32.
 extern "C" int sb_mirror_records(const float* px, const float* py,
                                  const float* vx, const float* vy,
                                  const float* alive, float* out, int w,
-                                 int h, int w_out, int h_out, void* stream) {
+                                 int h, int w_out, int h_out, int mb,
+                                 void* stream) {
   if (w < 0 || h < 0 || w_out < w || h_out < h || w_out % RX != 0 ||
-      h_out % MB != 0)
+      mb <= 0 || mb % LANES != 0 || h_out % mb != 0)
     return (int)cudaErrorInvalidValue;
   const int cw = w_out / RX;
-  const long long rows = (long long)(h_out / MB) * cw;
-  if (rows == 0) return (int)cudaSuccess;
-  if (rows > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const long long blocks = (long long)(h_out / mb) * cw * (mb / LANES);
+  if (blocks == 0) return (int)cudaSuccess;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const Planes planes = {px, py, vx, vy, alive};
   if ((uintptr_t)out % 16 != 0) return (int)cudaErrorMisalignedAddress;
-  mirror_records_kernel<<<(unsigned)rows, REC / 4, 0,
-                          (cudaStream_t)stream>>>(planes, out, w, h, cw);
+  mirror_records_kernel<<<(unsigned)blocks, PART / 4, 0,
+                          (cudaStream_t)stream>>>(planes, out, w, h, cw, mb);
   return (int)cudaGetLastError();
 }

@@ -471,8 +471,10 @@ class FusedLatticeBackend(LatticeBackend):
     ``far_activation``: each rebuild schedules its pairs' first possible
     contact and each substep applies only those that can touch by then
     (``fused_frame4(activation=True)``).
-    ``far_mb``/``far_mb_out``: the far apply's record layout; 32 (and
-    None) only, anything else raises.
+    ``far_mb``/``far_mb_out``: the far apply's record lane blocks (the
+    mirror route's gather and scatter sides; multiples of 32, anything
+    else raises).  Every lane block gives the same bits; a layout other
+    than 32 / None drops ``kmirror``/``krec`` (JAX's rule, below).
 
     The frames are the compiled ones (``fused_frame4_jit``,
     ``fused_frame3_auto_jit``, ``far3_carry_init_jit``,
@@ -488,8 +490,10 @@ class FusedLatticeBackend(LatticeBackend):
     the strict path; the attribution knobs ``nospring`` and ``noint``
     (not physics) are taken.  ``self.kvar`` keeps JAX's drop rules
     (``softbody_tpu/engine/backends.py:417-443``): v3 drops the layout
-    flags and ``kmirror``/``krec``, kernel detection drops
-    ``kmirror``/``krec``, and a ladder with a bucket ≤ 256 drops
+    flags and ``kmirror``/``krec``, kernel detection and a record layout
+    other than ``far_mb=32, far_mb_out=None`` drop ``kmirror``/``krec``
+    (so buckets ≤ 256 take the narrow route again), and a ladder with a
+    bucket ≤ 256 drops
     ``krec``, whose route would change the far apply's sum order there
     (the terminal ``max_pairs`` bucket is not looked at, as in JAX).
     ``step`` drops ``dexp2`` whenever the drag exponent is not 2.
@@ -512,7 +516,8 @@ class FusedLatticeBackend(LatticeBackend):
         _check_layout(far_mb, far_mb_out)
         if far_mode == "v3":
             kvar = tuple(v for v in kvar if v not in ("lanecut", "ealpack"))
-        if far_mode == "v3" or far_detect == "kernel":
+        if (far_mode == "v3" or far_detect == "kernel" or far_mb != 32
+                or far_mb_out is not None):
             kvar = tuple(v for v in kvar if v not in ("kmirror", "krec"))
         if far_buckets is not None and any(b <= 256 for b in far_buckets):
             kvar = tuple(v for v in kvar if v != "krec")

@@ -14,8 +14,8 @@ frame computes with:
   arguments (``static_argnames``: ``cfg``, ``spec``, ``ffspec``,
   ``n_sub``), by value;
 - the tree structure of the other arguments, and every tensor's shape,
-  dtype, strides and device (a far list's capacity is its tensors'
-  shape);
+  dtype, strides (but those of dimensions of size 1, which lay out
+  nothing) and device (a far list's capacity is its tensors' shape);
 - the arguments left at their defaults, by value (JAX traces only what
   is passed);
 - the host decisions of the frame (``decide``: which kernel instance
@@ -431,8 +431,10 @@ def _signature(obj, values: bool):
     floats and bools (lifted) by their type only, unless ``values``
     (floats by their bits, so -0.0 and NaN key as themselves)."""
     if isinstance(obj, torch.Tensor):
-        return ("tensor", tuple(obj.shape), obj.dtype, obj.stride(),
-                obj.device)
+        # a dimension of size 1 has no layout: its stride is not keyed
+        stride = tuple(st if n != 1 else 0
+                       for st, n in zip(obj.stride(), obj.shape))
+        return ("tensor", tuple(obj.shape), obj.dtype, stride, obj.device)
     if _is_record(obj):
         return (type(obj),) + tuple(
             (f.name, _signature(getattr(obj, f.name), values))

@@ -199,9 +199,9 @@ def bind(path: Path) -> ctypes.CDLL:
         fn.argtypes = [_P, _P, _L, _P]
         fn.restype = _I
     # int sb_mirror_records(px, py, vx, vy, alive, out, w, h, w_out, h_out,
-    #                       stream)
+    #                       mb, stream)
     lib.sb_mirror_records.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                      _P]
+                                      _I, _P]
     lib.sb_mirror_records.restype = _I
     # int sb_<kernel>_occupancy(stencil, out[5]) of K1, K4, K3 and K2
     # (libraries built before they existed lack them)

@@ -872,8 +872,11 @@ def fused_frame4(hot, obs, immut, edge_consts, consts: PhysicsConstants,
     ``activation``: the rebuild also schedules each pair's first possible
     contact (``farfield.pair_activation``) and substep ``s`` of a block
     applies only the sorted list's first ``n_active[s]`` pairs, its
-    bucket chosen from that count.  ``far_mb``/``far_mb_out``: the record
-    layout, 32 only.
+    bucket chosen from that count.  ``far_mb``/``far_mb_out``: the mirror
+    route's record lane blocks (gather, scatter; multiples of 32, JAX's
+    measurement knobs); ``kmirror``/``krec`` take the 32-lane records
+    only, as in JAX (``FusedLatticeBackend`` drops them for another
+    layout).
 
     No host read: on the card each rung choice is one counted read
     eagerly, none captured.  Returns ``(hot', obs', stats)`` with
@@ -893,6 +896,12 @@ def fused_frame4(hot, obs, immut, edge_consts, consts: PhysicsConstants,
     if kernel_detect and ("krec" in kvar or "kmirror" in kvar):
         raise ValueError("kvar 'kmirror'/'krec' is incompatible with "
                          "detect_mode='kernel'")
+    if ("krec" in kvar or "kmirror" in kvar) and far_mb != 32:
+        raise ValueError("kvar 'kmirror'/'krec' uses mb=32 records; "
+                         f"far_mb={far_mb} unsupported")
+    if "krec" in kvar and far_mb_out not in (None, 32):
+        raise ValueError("kvar 'krec' emits mb=32 delta records; "
+                         f"far_mb_out={far_mb_out} unsupported")
     cvec, k1kw = _frame_consts(consts, uin, spec, cfg, edge_consts, kvar,
                                hot.device)
     narrow_max = 0 if "krec" in kvar else NARROW_MAX
@@ -903,7 +912,8 @@ def fused_frame4(hot, obs, immut, edge_consts, consts: PhysicsConstants,
     blocks = [R] * (n // R) + ([n % R] if n % R else [])
     kw = dict(s=spec.collision_stencil, ff=ff, radius=cfg.particle_radius)
     far_kw = dict(dt=cfg.dt, ecoeff=consts.ecoeff, friction=consts.friction,
-                  buckets=buckets, narrow_max=narrow_max, **kw)
+                  buckets=buckets, narrow_max=narrow_max, mb=far_mb,
+                  mb_out=far_mb_out, **kw)
     if kernel_detect:
         cany = chunk_any_alive(alive, ff)
         n_alive = torch.clamp(alive.to(torch.float32).sum(), min=1.0)

@@ -1,11 +1,13 @@
-"""The (4,32)-record kernels K5, K6 and K7: the port of the three Pallas
+"""The record kernels K5, K6 and K7: the port of the three Pallas
 kernels of ``scripts/probe_recmirror.py``.
 
 - K5 ``cast_rows_call``: ``[rows, 128] → [4·rows, 32]`` (``cast_kernel``);
 - K6 ``uncast_rows_call``: the inverse (``inv_kernel``);
 - K7 ``mirror_records_call``: five ``[W, H]`` planes (px py vx vy alive)
   → the far apply's record table (``mirror_kernel``, the semantics of
-  ``softbody_tpu/ops/farfield4.py::mirror_table``).
+  ``softbody_tpu/ops/farfield4.py::mirror_table``) of lane block ``mb``,
+  any multiple of 32 (the probe's kernel writes mb = 32; JAX's
+  ``far_mb`` picks others).
 
 Each wrapper launches its hand-written kernel (``csrc/recmirror.cu``) on
 CUDA tensors and runs its plain version on CPU tensors.  K5 and K6 are
@@ -20,10 +22,9 @@ import torch
 
 from . import _lib
 
-MB = 32           # lanes per record block
+MB = 32           # lanes per record block (the default lane block)
 RX = 4            # plane rows per record
 NF = 5            # px py vx vy alive
-REC = NF * RX * MB
 
 # launches of the CUDA kernels (the plain versions do not count)
 K5_LAUNCHES = 0
@@ -100,27 +101,28 @@ def uncast_rows_call(y: torch.Tensor) -> torch.Tensor:
 
 
 def mirror_records_plain(planes: Sequence[torch.Tensor], *, w_out: int,
-                         h_out: int) -> torch.Tensor:
-    """Five ``[W, H]`` planes → ``[(h_out/32)·(w_out/4), 640]``: stack,
+                         h_out: int, mb: int = MB) -> torch.Tensor:
+    """Five ``[W, H]`` planes → ``[(h_out/mb)·(w_out/4), 20·mb]``: stack,
     zero-pad to ``[5, w_out, h_out]``, ``(f, cx, ix, b, l) → (b, cx, f,
     ix, l)`` (``softbody_tpu/ops/farfield4.py:76-84``)."""
     stack = torch.stack(tuple(planes))
     _, w, h = stack.shape
     padded = stack.new_zeros((NF, w_out, h_out))
     padded[:, :w, :h] = stack
-    nb, cw = h_out // MB, w_out // RX
-    t = padded.reshape(NF, cw, RX, nb, MB).permute(3, 1, 0, 2, 4)
-    return t.reshape(nb * cw, REC)
+    nb, cw = h_out // mb, w_out // RX
+    t = padded.reshape(NF, cw, RX, nb, mb).permute(3, 1, 0, 2, 4)
+    return t.reshape(nb * cw, NF * RX * mb)
 
 
 def mirror_records_call(planes: Sequence[torch.Tensor], *, w_out: int,
-                        h_out: int) -> torch.Tensor:
+                        h_out: int, mb: int = MB) -> torch.Tensor:
     """K7: the record table of five float32 contiguous ``[W, H]`` planes
     (px, py, vx, vy, alive as 0/1) zero-padded to ``[w_out, h_out]``
-    (``w_out % 4 == 0``, ``h_out % 32 == 0``).  Record row
-    ``b·(w_out/4) + cx``, lane ``f·128 + ix·32 + l`` holds plane ``f`` at
-    ``(4cx + ix, 32b + l)``.  On CUDA tensors the kernel runs on the
-    current stream without synchronising."""
+    (``w_out % 4 == 0``, ``h_out % mb == 0``), lane block ``mb`` a
+    positive multiple of 32.  Record row ``b·(w_out/4) + cx``, lane
+    ``f·4mb + ix·mb + l`` holds plane ``f`` at ``(4cx + ix, mb·b + l)``.
+    On CUDA tensors the kernel runs on the current stream without
+    synchronising."""
     global K7_LAUNCHES
     planes = tuple(planes)
     if len(planes) != NF:
@@ -133,23 +135,26 @@ def mirror_records_call(planes: Sequence[torch.Tensor], *, w_out: int,
         _check_float(f"plane {i}", p, (w, h))
     if len({p.device for p in planes}) != 1:
         raise ValueError("planes on several devices")
-    if (w_out < w or h_out < h or w_out % RX or h_out % MB
+    if mb <= 0 or mb % MB:
+        raise ValueError(f"the record lane block must be a positive "
+                         f"multiple of {MB}, got {mb}")
+    if (w_out < w or h_out < h or w_out % RX or h_out % mb
             or max(w_out, h_out) >= 2 ** 31):
         raise ValueError(f"cannot pad [{w}, {h}] to [{w_out}, {h_out}] "
-                         f"(w_out % {RX} == 0, h_out % {MB} == 0)")
+                         f"(w_out % {RX} == 0, h_out % {mb} == 0)")
     device = planes[0].device
     if device.type == "cpu":
-        return mirror_records_plain(planes, w_out=w_out, h_out=h_out)
+        return mirror_records_plain(planes, w_out=w_out, h_out=h_out, mb=mb)
     if device.type != "cuda":
         raise ValueError(f"no K7 kernel for device {device}")
-    out = torch.empty(((h_out // MB) * (w_out // RX), REC),
+    out = torch.empty(((h_out // mb) * (w_out // RX), NF * RX * mb),
                       dtype=torch.float32, device=device)
     if out.numel() == 0:
         return out
     lib = _lib.library()
     with torch.cuda.device(device):
         err = lib.sb_mirror_records(*(p.data_ptr() for p in planes),
-                                    out.data_ptr(), w, h, w_out, h_out,
+                                    out.data_ptr(), w, h, w_out, h_out, mb,
                                     _stream(device))
     _lib.check(err, "K7 mirror_records")
     K7_LAUNCHES += 1

@@ -1,5 +1,6 @@
 """Far-field v4 pair apply: the port of ``softbody_tpu/ops/farfield4.py``
-(the mirror-record route, lane block ``mb = 32``).
+(the mirror-record route, of any lane block ``mb`` that is a multiple
+of 32; 32 by default).
 
 The candidate list is cropped to the smallest capacity bucket ≥
 ``n_pairs`` (a light frame does not pay for the full capacity; the rung is chosen on
@@ -11,30 +12,33 @@ then, as in the JAX package, per bucket:
   lanes) of a ``[5·W·Hm/32, 32]`` view of the planes, and the deltas are
   scatter-added back the same way, in list order on every device
   (``stencil.index_sum``);
-- larger buckets: the planes are relaid once into the (4, 32) record
+- larger buckets: the planes are relaid once into the (4, mb) record
   table (:func:`mirror_table`, kernel K7 on the card), one record row is
   gathered per pair side (:func:`far_terms_from_mirror`), the delta
-  records are scatter-added into a table of the same layout and laid
-  back into planes (:func:`unmirror_table`).
+  records are scatter-added into a table of lane block ``mb_out``
+  (default ``mb``) and laid back into planes (:func:`unmirror_table`).
 
 Layout: record row ``b·(W/4) + cx`` holds plane rows ``4cx..4cx+3``,
-lanes ``[32b, 32b+32)``, as ``[5 fields × 4 rows × 32 lanes]`` = 640
-floats.  A 4 × 4 chunk's window always lies in one record (``4·cy mod
-32 ∈ {0, 4, …, 28}``); the offset is selected by a sum of eight masked
-slices started from +0.0, as in the JAX package, so a ``-0.0`` reads
-back as ``+0.0`` on both sides.
+lanes ``[mb·b, mb·b + mb)``, as ``[5 fields × 4 rows × mb lanes]`` (640
+floats at mb = 32).  A 4 × 4 chunk's window always lies in one record;
+its offset is selected by sums of masked slices started from +0.0, as in
+the JAX package: above 32 lanes first the 32-lane part (``mb/32``
+slices), then the chunk's place in it (eight), and the delta rows are
+placed back the same two ways round.  So a ``-0.0`` reads back as
+``+0.0`` on both sides, and a wider block adds only ``+0.0`` terms to
+each sum: every lane block gives the same bits.
 
 The apply runs on the rebuild's tile-padded grid ``(wp, hp)``
 (``farfield._chunk_dims``; 1008 × 1008 at 1M), where the chunk id
 ``cx·(hp/4) + cy`` decodes as the rebuild encoded it; the pad is alive 0
 and the deltas are cropped back to ``[W, H]``.  Linear indices (the
 coincident nudge's order) use ``world_h = Hm``, the padded height
-rounded up to 32, as the JAX package passes.
+rounded up to the gather's lane block, as the JAX package passes.
 
 Under the JAX kernel variant ``krec`` every bucket takes the record
 table (``softbody_tpu/ops/farfield4.py:277``: ``k <= 256 and not
-as_table``): ``narrow_max=0``.  The lane block ``mb``/``mb_out`` = 128
-and the pre-built ``table=`` / ``as_table=`` records are not ported: the
+as_table``): ``narrow_max=0``.  The pre-built ``table=`` / ``as_table=``
+records (K1's record side output and input in JAX) are not ported: the
 functions raise on them.
 """
 
@@ -45,7 +49,7 @@ from typing import Callable, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from .cuda.recmirror import MB, NF, REC, RX, mirror_records_call
+from .cuda.recmirror import MB, NF, RX, mirror_records_call
 from .farfield import (
     FarFieldSpec,
     FarList,
@@ -63,14 +67,18 @@ NARROW_MAX = 256
 APPLY_ROUTES = {"narrow": 0, "mirror": 0}
 
 
-def _mh(h: int) -> int:
-    return -(-h // MB) * MB
+def _mh(h: int, mb: int = MB) -> int:
+    return -(-h // mb) * mb
 
 
 def _check_layout(mb: int, mb_out: Optional[int] = None) -> None:
-    if mb != MB or mb_out not in (None, MB):
-        raise ValueError(f"only the mb={MB} record layout is ported "
-                         f"(mb={mb}, mb_out={mb_out})")
+    """A record lane block (and the scatter side's, when given) is a
+    positive multiple of 32 (``softbody_tpu/ops/farfield4.py:130``,
+    ``:179``)."""
+    for name, v in (("mb", mb), ("mb_out", mb_out)):
+        if v is not None and (int(v) != v or v <= 0 or v % MB):
+            raise ValueError(f"record lane block {name}={v}: a positive "
+                             f"multiple of {MB}")
 
 
 def bucket_capacity(n_pairs: int, ff: FarFieldSpec,
@@ -94,16 +102,16 @@ def _padded_stack(planes, w: int, h: int) -> torch.Tensor:
 def mirror_table(planes, *, mb: int = MB, w: Optional[int] = None,
                  h: Optional[int] = None) -> torch.Tensor:
     """``[5, W, H]`` (px, py, vx, vy, alive), or a sequence of five
-    ``[W, H]`` planes, → the ``[(Hm/32)·(w/4), 640]`` record table of the
-    planes zero-padded to ``[w, Hm]`` (``w``/``h`` default to ``W``/``H``;
-    ``Hm`` is ``h`` rounded up to 32).  Kernel K7 on CUDA tensors, its
-    plain version on CPU tensors."""
+    ``[W, H]`` planes, → the ``[(Hm/mb)·(w/4), 20·mb]`` record table of
+    the planes zero-padded to ``[w, Hm]`` (``w``/``h`` default to
+    ``W``/``H``; ``Hm`` is ``h`` rounded up to ``mb``).  Kernel K7 on
+    CUDA tensors, its plain version on CPU tensors."""
     _check_layout(mb)
     planes = tuple(planes)
     w0, h0 = planes[0].shape
     w = w0 if w is None else w
     h = h0 if h is None else h
-    return mirror_records_call(planes, w_out=w, h_out=_mh(h))
+    return mirror_records_call(planes, w_out=w, h_out=_mh(h, mb), mb=mb)
 
 
 def unmirror_table(table: torch.Tensor, *, w: int, h: int,
@@ -111,44 +119,62 @@ def unmirror_table(table: torch.Tensor, *, w: int, h: int,
     """Inverse of :func:`mirror_table` (delta tables → delta planes
     ``[5, w, h]``, a view)."""
     _check_layout(mb)
-    hm = _mh(h)
-    t = table.reshape(hm // MB, w // RX, NF, RX, MB).permute(2, 1, 3, 0, 4)
+    hm = _mh(h, mb)
+    t = table.reshape(hm // mb, w // RX, NF, RX, mb).permute(2, 1, 3, 0, 4)
     return t.reshape(NF, w, hm)[:, :, :h]
 
 
 def _decode(fl: FarList, c: int, h: int):
-    """Both sides' chunk coordinates ``[2k]`` and their window's lane
-    block and offset in it."""
+    """Both sides' chunk coordinates ``[2k]`` and the lane of their
+    window's first column."""
     ids = torch.cat([fl.ca, fl.cb])
     cwy = h // c
     cx = ids // cwy
     cy = ids % cwy
-    lane0 = cy * c
-    return cx, cy, lane0 // MB, lane0 % MB
+    return cx, cy, cy * c
 
 
 def _select_windows(seg: torch.Tensor, off: torch.Tensor,
                     c: int) -> torch.Tensor:
-    """``seg [n, 5, c, 32]`` → window fields ``[n, 5·c²]``: the sum of the
-    eight masked ``c``-lane slices, started from +0.0."""
-    n = seg.shape[0]
+    """``seg [n, 5, c, mb]`` → window fields ``[n, 5·c²]``: above 32
+    lanes the sum of the ``mb/32`` masked 32-lane parts (the part holding
+    the window), then the sum of the eight masked ``c``-lane slices, each
+    started from +0.0 (``softbody_tpu/ops/farfield4.py:153-175``)."""
+    n, mb = seg.shape[0], seg.shape[-1]
+    o32 = off % MB
+    if mb > MB:
+        part = seg.new_zeros((n, NF, c, MB))
+        for o in range(0, mb, MB):
+            hit = ((off - o32) == o)[:, None, None, None]
+            part = part + torch.where(hit, seg[..., o:o + MB], 0.0)
+        seg = part
     win = seg.new_zeros((n, NF, c, c))
     for o in range(0, MB, c):
-        hit = (off == o)[:, None, None, None]
+        hit = (o32 == o)[:, None, None, None]
         win = win + torch.where(hit, seg[..., o:o + c], 0.0)
     return win.reshape(n, NF * c * c)
 
 
-def _place_windows(contrib: torch.Tensor, off: torch.Tensor,
-                   c: int) -> torch.Tensor:
-    """``contrib [n, 5, c²]`` → ``[n, 5, c, 32]`` lane segments, each
-    window at its offset (the inverse of :func:`_select_windows`)."""
+def _place_windows(contrib: torch.Tensor, off: torch.Tensor, c: int,
+                   mb: int = MB) -> torch.Tensor:
+    """``contrib [n, 5, c²]`` → ``[n, 5, c, mb]`` lane segments, each
+    window at its offset ``off`` (the inverse of :func:`_select_windows`:
+    the eight places in a 32-lane part, then above 32 lanes the
+    ``mb/32`` places of the part; ``softbody_tpu/ops/farfield4.py:
+    177-206``)."""
     n = contrib.shape[0]
     cb4 = contrib.reshape(n, NF, c, c)
+    o32 = off % MB
     seg = contrib.new_zeros((n, NF, c, MB))
     for o in range(0, MB, c):
-        hit = (off == o)[:, None, None, None]
+        hit = (o32 == o)[:, None, None, None]
         seg = seg + torch.where(hit, F.pad(cb4, (o, MB - c - o)), 0.0)
+    if mb > MB:
+        rows = contrib.new_zeros((n, NF, c, mb))
+        for o in range(0, mb, MB):
+            hit = ((off - o32) == o)[:, None, None, None]
+            rows = rows + torch.where(hit, F.pad(seg, (o, mb - MB - o)), 0.0)
+        seg = rows
     return seg
 
 
@@ -164,25 +190,31 @@ def far_terms_from_mirror(table: torch.Tensor, fl: FarList, *, s: int,
                           ecoeff: float, friction: float, w: int, h: int,
                           mb: int = MB, mb_out: Optional[int] = None,
                           ) -> torch.Tensor:
-    """Pair apply against a (4, 32)-record mirror: returns the
-    ``[(Hm/32)·(w/4), 640]`` delta table (dvx dvy dax day dyn in the
-    record layout).  One gathered row per pair side, the windows selected
-    per offset, the exact pair math (``farfield.far_pair_contributions``),
-    the inverse placement and one row scatter-add, in list order on every
-    device (``stencil.index_sum``; the empty slots' rows left out)."""
+    """Pair apply against a (4, mb)-record mirror: returns the
+    ``[(Hm'/mb')·(w/4), 20·mb']`` delta table (dvx dvy dax day dyn in the
+    record layout of lane block ``mb' = mb_out``, default ``mb``; ``Hm'``
+    is ``h`` rounded up to it).  One gathered row per pair side, the
+    windows selected per offset, the exact pair math
+    (``farfield.far_pair_contributions``), the inverse placement and one
+    row scatter-add, in list order on every device
+    (``stencil.index_sum``; the empty slots' rows left out)."""
     _check_layout(mb, mb_out)
     c = _check_chunk(ff)
-    hm = _mh(h)
+    mo = mb if mb_out is None else mb_out
+    hm = _mh(h, mb)
     cw = w // RX
-    cx, cy, blk, off = _decode(fl, c, h)
-    row_ids = blk * cw + cx
+    cx, cy, lane0 = _decode(fl, c, h)
+    row_ids = (lane0 // mb) * cw + cx
     n2k = row_ids.shape[0]
-    g = _select_windows(table[row_ids].reshape(n2k, NF, RX, MB), off, c)
+    g = _select_windows(table[row_ids].reshape(n2k, NF, RX, mb),
+                        lane0 % mb, c)
     contrib = far_pair_contributions(
         g, fl, cx, cy, s=s, ff=ff, radius=radius, dt=dt, ecoeff=ecoeff,
         friction=friction, world_h=hm)
-    drows = _place_windows(contrib, off, c).reshape(n2k, REC)
-    return index_sum(row_ids, drows, (hm // MB) * cw,
+    drows = _place_windows(contrib, lane0 % mo, c, mo)
+    return index_sum((lane0 // mo) * cw + cx,
+                     drows.reshape(n2k, NF * RX * mo),
+                     (_mh(h, mo) // mo) * cw,
                      keep=torch.cat([fl.valid, fl.valid]))
 
 
@@ -199,7 +231,8 @@ def far_delta_planes_narrow(planes5, fl: FarList, *, s: int,
     hm = _mh(h)
     nb = hm // MB
     view = _padded_stack(planes5, w, hm).reshape(NF * w * nb, MB)
-    cx, cy, blk, off = _decode(fl, c, h)
+    cx, cy, lane0 = _decode(fl, c, h)
+    blk, off = lane0 // MB, lane0 % MB
     n2k = cx.shape[0]
     fidx = torch.arange(NF, device=cx.device)[None, :, None]
     ridx = cx[:, None, None] * c + torch.arange(c, device=cx.device)[None,
@@ -229,19 +262,21 @@ def bucket_index(n_pairs: torch.Tensor, ff: FarFieldSpec,
 
 
 def _apply_bucket(planes5_fn, fl: FarList, k: int, narrow_max: int,
-                  kw: dict) -> torch.Tensor:
+                  kw: dict, mb: int = MB,
+                  mb_out: Optional[int] = None) -> torch.Tensor:
     """The list cropped to capacity ``k``, applied narrow (``k ≤
-    narrow_max``) or through the mirror table: delta planes ``[5, w,
-    h]`` (a view)."""
+    narrow_max``; 32-lane rows whatever ``mb``, as in JAX) or through the
+    mirror table of lane block ``mb`` (delta records of ``mb_out``):
+    delta planes ``[5, w, h]`` (a view)."""
     flk = crop_far_list(fl, k)
     w, h = kw["w"], kw["h"]
     if k <= narrow_max:
         APPLY_ROUTES["narrow"] += 1
         return far_delta_planes_narrow(planes5_fn(), flk, **kw)
     APPLY_ROUTES["mirror"] += 1
-    dtab = far_terms_from_mirror(mirror_table(planes5_fn(), w=w, h=h), flk,
-                                 **kw)
-    return unmirror_table(dtab, w=w, h=h)
+    dtab = far_terms_from_mirror(mirror_table(planes5_fn(), mb=mb, w=w, h=h),
+                                 flk, mb=mb, mb_out=mb_out, **kw)
+    return unmirror_table(dtab, w=w, h=h, mb=mb if mb_out is None else mb_out)
 
 
 def bucketed_far_delta_from_fn(
@@ -270,7 +305,8 @@ def bucketed_far_delta_from_fn(
     ``narrow_max``, 256; 0 under ``krec``) or through the mirror table.
     ``planes5_fn()`` returns the five planes (px, py, vx, vy, alive), of
     ``[w, h]`` or smaller (zero-padded to it); it is called only by a
-    rung that applies.
+    rung that applies.  ``mb``/``mb_out``: the mirror route's record lane
+    blocks (gather, scatter), multiples of 32.
 
     ``n_pairs=None`` (the JAX semantics, ``lax.switch``): the rung is
     chosen on the device from ``fl.n_pairs`` (:func:`bucket_index`,
@@ -301,15 +337,15 @@ def bucketed_far_delta_from_fn(
             return None
         return _apply_bucket(planes5_fn, fl,
                              bucket_capacity(n_pairs, ff, buckets),
-                             narrow_max, kw)
+                             narrow_max, kw, mb, mb_out)
     if out is None:
         out = fl.n_pairs.new_empty((NF, w, h), dtype=torch.float32)
     wo, ho = out.shape[1:]
     ladder = tuple(b for b in buckets if b < ff.max_pairs) + (ff.max_pairs,)
 
     def rung(k):
-        out.copy_(_apply_bucket(planes5_fn, fl, k, narrow_max,
-                                kw)[:, :wo, :ho])
+        out.copy_(_apply_bucket(planes5_fn, fl, k, narrow_max, kw, mb,
+                                mb_out)[:, :wo, :ho])
 
     compiled.device_switch(
         bucket_index(fl.n_pairs, ff, buckets),

@@ -13,6 +13,12 @@ to its own single-device frame.
 
 A batch on the mesh is a list of batched states, one per ``dp`` device,
 each holding that device's share of the worlds in order.
+
+The step is compiled (``parallel/captured.py``), the counterpart of the
+JAX step's ``jax.jit``: a device's worlds are one CUDA graph on that
+device (no collective joins the devices, so this holds on a mesh over
+several cards too), replayed with no host read; the input batches stay
+valid and unchanged.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ import torch
 from ..config import PhysicsConstants, StaticConfig, UserInput
 from ..ops.step import frame
 from ..state import SimState
+from .captured import ShardedStep
 from .mesh import Mesh
 
 
@@ -67,19 +74,24 @@ def device_put_batched(states: SimState, mesh: Mesh, axis: str = "dp"
             for i, d in enumerate(devs)]
 
 
-def batched_frame_fn(cfg: StaticConfig, mesh: Mesh, axis: str = "dp"):
+def batched_frame_fn(cfg: StaticConfig, mesh: Mesh,
+                     axis: str = "dp") -> ShardedStep:
     """A frame step over the per-device batches of
     :func:`device_put_batched`: ``step(batches, consts, uin) →
-    batches``, each device's worlds stepped by ``frame`` in turn.  The
+    batches``, each device's worlds stepped by ``frame`` in turn, as one
+    captured CUDA graph per device on the card (``step.stats()``).  The
     constants and input are shared by every world."""
     n_dev = mesh.shape[axis]
 
-    def step(batches: Sequence[SimState], consts: PhysicsConstants,
+    def frame_part(part: SimState, consts: PhysicsConstants,
+                   uin: UserInput) -> SimState:
+        return stack_states([frame(w, consts, uin, cfg)
+                             for w in unstack_states(part)])
+
+    def step(run, batches: Sequence[SimState], consts: PhysicsConstants,
              uin: UserInput) -> List[SimState]:
         if len(batches) != n_dev:
             raise ValueError(f"{len(batches)} batches for {n_dev} devices")
-        return [stack_states([frame(w, consts, uin, cfg)
-                              for w in unstack_states(part)])
-                for part in batches]
+        return [run(part, consts, uin) for part in batches]
 
-    return step
+    return ShardedStep(frame_part, step)

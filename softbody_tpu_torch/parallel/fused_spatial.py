@@ -25,9 +25,20 @@ shard ``j``'s on its device; ``pack_lattice_sharded`` returns them
 stacked on the state's device and :func:`shard_stacks` places them.
 
 The JAX package's ``tile_w`` (its slab width must be a multiple) is
-Mosaic layout: accepted and ignored, as ``LatticeEngine`` does.  The
-frame writes its input ``mut`` stacks' ghost columns in place (the JAX
-function donates them).
+Mosaic layout, and ``interpret`` a Pallas flag (the device decides which
+version of K4 runs): both accepted and ignored, as ``LatticeEngine``
+does.  The frame never writes its input stacks: the exchange writes the
+ghosts of the frame's own copy of each ``mut`` slab (one copy of each a
+frame), so with either ``donate`` the input stays valid and unchanged,
+the port's ``frame_jit`` contract.
+
+``fused_spatial_frame_fn`` returns a compiled step
+(``parallel/captured.py``), the counterpart of the JAX function's
+``jax.jit``: with every slab on one CUDA device the frame is one CUDA
+graph per key (K4's pair skip among it), K4 reading the constants and
+the user input from device memory (``sb_fused_substep_dev``), replayed
+with no host read; on a mesh over several CUDA devices it runs eagerly,
+op by op.
 """
 
 from __future__ import annotations
@@ -36,14 +47,16 @@ from typing import List, Sequence, Tuple
 
 import torch
 
-from ..config import PhysicsConstants, StaticConfig, UserInput, consts_vector
+from ..config import PhysicsConstants, StaticConfig, UserInput
 from ..ops.cuda.fused_substep import (
+    _frame_args,
     fused_substep_call,
     pack_lattice,
     unpack_lattice,
 )
 from ..ops.stencil import LatticeSpec, LatticeState, check_reference_offsets
-from .mesh import Mesh, ppermute
+from .captured import ShardedStep, lattice_decide
+from .mesh import Mesh, per_device, ppermute
 
 # the ghost ring of the pack functions by default: the JAX package's
 # PAD_W margin, wide enough for stencils up to 8 and for the far field's
@@ -123,7 +136,8 @@ def shard_stacks(mut_sh, immut_sh, mesh: Mesh, *, sp_axis: str = "sp"
 def exchange(stacks: List[torch.Tensor], hx: int, w_loc: int,
              perms) -> None:
     """Write each shard's neighbours' ``hx`` edge columns into its ghost
-    columns, in place (zeros at the world's edges)."""
+    columns, in place (zeros at the world's edges): the frame's own
+    stacks, never its inputs."""
     fwd, bwd = perms
     ring = (stacks[0].shape[1] - w_loc) // 2
     lo, hi = ring, ring + w_loc
@@ -161,29 +175,42 @@ def fused_spatial_frame_fn(
     *,
     sp_axis: str = "sp",
     tile_w: int = 128,
-):
+    donate: bool = True,
+    interpret: bool = False,
+) -> ShardedStep:
     """A frame step over the stacks of :func:`shard_stacks`:
-    ``fn(mut_sh, immut_sh, consts, uin) → mut_sh``."""
+    ``fn(mut_sh, immut_sh, consts, uin) → mut_sh``.  Every slab on one
+    CUDA device: a captured CUDA graph (``fn.stats()``); slabs on several
+    CUDA devices: eagerly, op by op (``parallel/captured.py``).
+    ``donate``, ``interpret`` and ``tile_w`` are the JAX function's,
+    accepted and ignored: the input stacks stay valid and unchanged."""
     check_reference_offsets(spec)
     n_dev = mesh.shape[sp_axis]
     w_loc = check_slabs(spec.width, n_dev)
     hx = max(1, spec.collision_stencil)
     if w_loc < 2 * hx:
         raise ValueError("slab too narrow for the ghost ring")
-    quantized = cfg.force_mode == "quantized"
-    stencil = 0 if cfg.collision_mode == "none" else spec.collision_stencil
     perms = neighbour_perms(n_dev)
 
-    def fn(mut_sh: Sequence[torch.Tensor], immut_sh: Sequence[torch.Tensor],
-           consts: PhysicsConstants, uin: UserInput) -> List[torch.Tensor]:
-        check_ring(mut_sh, w_loc, hx, n_dev)
-        cvec = consts_vector(consts, uin, cfg, spec.height)
-        ms = list(mut_sh)
+    def frame(mut_sh: List[torch.Tensor], immut_sh: List[torch.Tensor],
+              consts: PhysicsConstants, uin: UserInput) -> List[torch.Tensor]:
+        # the consts vector on each slab's device and K4's arguments (its
+        # pair skip decided on the host)
+        args = per_device(mut_sh, lambda d: _frame_args(consts, uin, spec,
+                                                        cfg, d))
+        ms = [m.clone() for m in mut_sh]
         for _ in range(cfg.subticks):
             exchange(ms, hx, w_loc, perms)
-            ms = [fused_substep_call(m, im, cvec, stencil=stencil,
-                                     quantized=quantized)
+            ms = [fused_substep_call(m, im, args[m.device][0],
+                                     **args[m.device][1])
                   for m, im in zip(ms, immut_sh)]
         return ms
 
-    return fn
+    def step(run, mut_sh: Sequence[torch.Tensor],
+             immut_sh: Sequence[torch.Tensor], consts: PhysicsConstants,
+             uin: UserInput) -> List[torch.Tensor]:
+        check_ring(mut_sh, w_loc, hx, n_dev)
+        return run(list(mut_sh), list(immut_sh), consts, uin)
+
+    return ShardedStep(frame, step, devices=mesh.axis_devices(sp_axis),
+                       decide=lattice_decide(cfg))

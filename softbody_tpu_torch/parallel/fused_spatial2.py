@@ -31,14 +31,28 @@ for bit.
 This is the windowed far apply, not the single-device frame's v4 mirror
 route, so kernel K7 is not on this path.  Chunks never straddle a slab
 boundary: the slab width and the ring are whole chunks (checked).  The
-last rebuild's ``n_pairs`` and ``overflow`` are kept in
-:data:`FAR_RECORD` (device tensors: no host read in the frame).
+frame returns its rebuilds' record (the last one's ``n_pairs`` and
+``overflow``, the largest of each; device tensors, copied out of a
+graph), and the step keeps it in :data:`FAR_RECORD`: no host read in the
+frame, and :func:`far_stats` reads it outside.
+
+The step is compiled (``parallel/captured.py``), the counterpart of the
+JAX function's ``jax.jit``: with every slab on one CUDA device the frame
+is one CUDA graph per key (K1's pair skip among it), K1 reading the
+constants and the user input from device memory
+(``sb_fused_substep2_dev``), the rebuilds on their fixed schedule (no
+conditional node), replayed with no host read; on a mesh over several
+CUDA devices it runs eagerly, op by op.
 
 The JAX package's ``tile_w`` and its ``PAD_W`` margins are Mosaic
-layout: ``tile_w`` is accepted and ignored, and the ring is part of the
-stack.  The frame writes its input ``hot`` stacks' ghost columns in
-place (the JAX function donates them).  Far-field chunk ids differ from
-the JAX function's, whose grid is padded by ``PAD_W``/``PAD_H``.
+layout, and ``interpret`` a Pallas flag (the device decides which
+version of K1 and K2 runs): ``tile_w`` and ``interpret`` are accepted
+and ignored, and the ring is part of the stack.  The frame never writes
+its input stacks: the exchange writes the ghosts of the frame's own copy
+of each ``hot`` slab (one copy of each a frame), so with either
+``donate`` the input stays valid and unchanged, the port's ``frame_jit``
+contract.  Far-field chunk ids differ from the JAX function's, whose
+grid is padded by ``PAD_W``/``PAD_H``.
 """
 
 from __future__ import annotations
@@ -72,6 +86,7 @@ from ..ops.farfield import (
     rebuild_far_list_from_chunks,
 )
 from ..ops.stencil import LatticeSpec, LatticeState
+from .captured import ShardedStep, lattice_decide
 from .fused_spatial import (
     GHOST,
     check_ring,
@@ -81,7 +96,7 @@ from .fused_spatial import (
     neighbour_perms,
     slab_windows,
 )
-from .mesh import Mesh, all_gather, psum
+from .mesh import Mesh, all_gather, per_device, psum
 
 # the far-armed frames' rebuilds since the last reset: their count, and
 # the last one's n_pairs and overflow and the largest of each (0-d device
@@ -106,12 +121,24 @@ def far_stats(reset: bool = True) -> dict:
     return {"rebuilds": rec["rebuilds"], **dict(zip(keys, vals))}
 
 
-def _record(fl) -> None:
+def _frame_record(rec, fl) -> torch.Tensor:
+    """The frame's rebuild record after the rebuild of list ``fl``: an
+    int32 ``[4]``, the last ``n_pairs`` and ``overflow``, the largest of
+    each (``rec``: the record so far, or None)."""
+    n, o = fl.n_pairs.to(torch.int32), fl.overflow.to(torch.int32)
+    if rec is None:
+        return torch.stack([n, o, n, o])
+    return torch.stack([n, o, torch.maximum(rec[2], n),
+                        torch.maximum(rec[3], o)])
+
+
+def _record(rec: torch.Tensor, rebuilds: int) -> None:
+    """Keep a frame's record (:func:`_frame_record`) of ``rebuilds``
+    rebuilds in :data:`FAR_RECORD` (on the device, no read)."""
     first = FAR_RECORD["rebuilds"] == 0
-    FAR_RECORD["rebuilds"] += 1
-    FAR_RECORD["n_pairs"] = fl.n_pairs
-    FAR_RECORD["overflow"] = fl.overflow
-    for k, v in (("max_pairs", fl.n_pairs), ("max_overflow", fl.overflow)):
+    FAR_RECORD["rebuilds"] += rebuilds
+    FAR_RECORD["n_pairs"], FAR_RECORD["overflow"] = rec[0], rec[1]
+    for k, v in (("max_pairs", rec[2]), ("max_overflow", rec[3])):
         FAR_RECORD[k] = v if first else torch.maximum(FAR_RECORD[k], v)
 
 
@@ -168,15 +195,21 @@ def fused_spatial2_frame_fn(
     *,
     sp_axis: str = "sp",
     tile_w: int = 128,
+    donate: bool = True,
+    interpret: bool = False,
     ffspec: Optional[FarFieldSpec] = None,
     rebuild_every: int = 8,
-):
+) -> ShardedStep:
     """A frame step over the stacks of :func:`shard_stacks2`:
     ``fn(hot_sh, obs_sh, immut_sh, edge_consts, consts, uin) → (hot_sh,
     obs_sh)``.  With ``ffspec`` the frame also resolves far-field
     contacts across the whole world (see the module docstring);
     ``cfg.subticks`` must be a multiple of ``rebuild_every`` and
-    ``ffspec.horizon ≥ rebuild_every``."""
+    ``ffspec.horizon ≥ rebuild_every``.  Every slab on one CUDA device: a
+    captured CUDA graph (``fn.stats()``); slabs on several CUDA devices:
+    eagerly, op by op (``parallel/captured.py``).  ``donate``,
+    ``interpret`` and ``tile_w`` are the JAX function's, accepted and
+    ignored: the input stacks stay valid and unchanged."""
     n_dev = mesh.shape[sp_axis]
     w_loc = check_slabs(spec.width, n_dev)
     hx = max(1, spec.collision_stencil)
@@ -197,13 +230,15 @@ def fused_spatial2_frame_fn(
     if ff is not None:
         cwx_g, cwy_g, _wp, _hp = _chunk_dims(spec.width, spec.height, ff)
 
-    def near_frame(hs, obs_sh, imms, cvec, kw):
+    def near_frame(hs, obs_sh, imms, args):
         for i in range(cfg.subticks):
             exchange(hs, hx, w_loc, perms)
             if i < cfg.subticks - 1:
-                hs = [fused_substep2_call(h, im, cvec, **kw)
+                hs = [fused_substep2_call(h, im, args[h.device][0],
+                                          **args[h.device][1])
                       for h, im in zip(hs, imms)]
-        out = [fused_substep2_call(h, im, cvec, obs_in=o, **kw)
+        out = [fused_substep2_call(h, im, args[h.device][0], obs_in=o,
+                                   **args[h.device][1])
                for h, im, o in zip(hs, imms, obs_sh)]
         return [o[0] for o in out], [o[1] for o in out]
 
@@ -237,7 +272,6 @@ def fused_spatial2_frame_fn(
             lists.append(dataclasses.replace(
                 by_dev[h.device], px_ref=h[PX], py_ref=h[PY],
                 vx_ref=h[VX], vy_ref=h[VY], com_ref=cp.com))
-        _record(lists[0])
         return lists
 
     def far_planes(hs, alive, fls, ring, consts):
@@ -276,7 +310,7 @@ def fused_spatial2_frame_fn(
             out.append(planes[:, :w_ext, :spec.height].contiguous())
         return out
 
-    def far_frame(hs, obs_sh, imms, cvec, kw, consts):
+    def far_frame(hs, obs_sh, imms, args, consts):
         ring = (hs[0].shape[1] - w_loc) // 2
         if ring < 2 * c:
             raise ValueError(f"far band reach {2 * c} exceeds margin {ring}")
@@ -286,30 +320,47 @@ def fused_spatial2_frame_fn(
             raise ValueError("slab too narrow for the ghost ring")
         alive = [im[ALIVE] > 0.0 for im in imms]
         n = cfg.subticks
+        rec = None
         for i in range(n):
             exchange(hs, ring, w_loc, perms)
             if i % rebuild_every == 0:
                 fls = rebuild(hs, alive, ring)
+                rec = _frame_record(rec, fls[0])
             far = far_planes(hs, alive, fls, ring, consts)
             if i < n - 1:
-                hs = [fused_substep2_call(h, im, cvec, far=f, **kw)
+                hs = [fused_substep2_call(h, im, args[h.device][0], far=f,
+                                          **args[h.device][1])
                       for h, im, f in zip(hs, imms, far)]
-        out = [fused_substep2_call(h, im, cvec, far=f, obs_in=o, **kw)
+        out = [fused_substep2_call(h, im, args[h.device][0], far=f,
+                                   obs_in=o, **args[h.device][1])
                for h, im, f, o in zip(hs, imms, far, obs_sh)]
-        return [o[0] for o in out], [o[1] for o in out]
+        return [o[0] for o in out], [o[1] for o in out], rec
 
-    def fn(hot_sh: Sequence[torch.Tensor], obs_sh: Sequence[torch.Tensor],
-           immut_sh: Sequence[torch.Tensor], edge_consts: torch.Tensor,
-           consts: PhysicsConstants, uin: UserInput
-           ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
-        check_ring(hot_sh, w_loc, hx, n_dev)
-        # the constants by value (a CPU vector): the shards may lie on
-        # several devices, and these frames run eagerly
-        cvec, kw = _frame_consts(consts, uin, spec, cfg, edge_consts, (),
-                                 "cpu")
-        hs = list(hot_sh)
+    def frame(hot_sh: List[torch.Tensor], obs_sh: List[torch.Tensor],
+              immut_sh: List[torch.Tensor], edge_consts: torch.Tensor,
+              consts: PhysicsConstants, uin: UserInput):
+        # the consts vector on each slab's device and K1's arguments (its
+        # pair skip decided on the host)
+        args = per_device(hot_sh, lambda d: _frame_consts(
+            consts, uin, spec, cfg, edge_consts, (), d))
+        hs = [h.clone() for h in hot_sh]
         if ff is None:
-            return near_frame(hs, obs_sh, immut_sh, cvec, kw)
-        return far_frame(hs, obs_sh, immut_sh, cvec, kw, consts)
+            return near_frame(hs, obs_sh, immut_sh, args)
+        return far_frame(hs, obs_sh, immut_sh, args, consts)
 
-    return fn
+    def step(run, hot_sh: Sequence[torch.Tensor],
+             obs_sh: Sequence[torch.Tensor],
+             immut_sh: Sequence[torch.Tensor], edge_consts: torch.Tensor,
+             consts: PhysicsConstants, uin: UserInput
+             ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+        check_ring(hot_sh, w_loc, hx, n_dev)
+        out = run(list(hot_sh), list(obs_sh), list(immut_sh), edge_consts,
+                  consts, uin)
+        if ff is None:
+            return out
+        hs, obs, rec = out
+        _record(rec, cfg.subticks // rebuild_every)
+        return hs, obs
+
+    return ShardedStep(frame, step, devices=mesh.axis_devices(sp_axis),
+                       decide=lattice_decide(cfg))

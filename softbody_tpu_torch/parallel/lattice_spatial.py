@@ -20,8 +20,13 @@ as on one device, so a sharded frame equals the single-device
 ``lattice_frame`` bit for bit.  A sharded lattice is a list of slabs,
 shard ``j``'s on its device.
 
-``lattice_spatial_frame_fn`` takes the JAX function's ``donate`` and
-ignores it: the input slabs are left as they were.
+``lattice_spatial_frame_fn`` returns a compiled step
+(``parallel/captured.py``), the counterpart of the JAX function's
+``jax.jit``: with every slab on one CUDA device the frame is one CUDA
+graph per key (the host decisions ``stencil.frame_decisions`` among it:
+K3's pair skip), replayed with no host read; on a mesh over several CUDA
+devices it runs eagerly, op by op.  It takes the JAX function's
+``donate`` and ignores it: the input slabs stay valid and unchanged.
 """
 
 from __future__ import annotations
@@ -32,8 +37,15 @@ from typing import Callable, List
 import torch
 
 from ..config import StaticConfig
-from ..ops.stencil import EdgeClass, LatticeSpec, LatticeState, lattice_substep
-from .mesh import Mesh, ppermute
+from ..ops.stencil import (
+    EdgeClass,
+    LatticeSpec,
+    LatticeState,
+    frame_scalars,
+    lattice_substep,
+)
+from .captured import ShardedStep, lattice_decide
+from .mesh import Mesh, per_device, ppermute
 
 _PARTICLE = ("pos", "vel", "acc", "alive", "pinned")
 _EDGE = tuple(f.name for f in dataclasses.fields(EdgeClass))
@@ -101,10 +113,13 @@ def lattice_spatial_frame_fn(
     *,
     sp_axis: str = "sp",
     donate: bool = True,
-):
+) -> ShardedStep:
     """A frame step over the slabs of :func:`shard_lattice`:
     ``step(slabs, consts, uin) → slabs``.  ``spec`` describes the whole
-    lattice; W must divide evenly by the axis size."""
+    lattice; W must divide evenly by the axis size.  Every slab on one
+    CUDA device: a captured CUDA graph (``step.stats()``); slabs on
+    several CUDA devices: eagerly, op by op (``parallel/captured.py``).
+    ``donate`` is accepted and ignored (the input stays valid)."""
     n_dev = mesh.shape[sp_axis]
     if spec.width % n_dev:
         raise ValueError(f"W={spec.width} not divisible by {n_dev} devices")
@@ -116,7 +131,7 @@ def lattice_spatial_frame_fn(
     fwd = [(i, i + 1) for i in range(n_dev - 1)]
     bwd = [(i + 1, i) for i in range(n_dev - 1)]
 
-    def substep(slabs, consts, uin):
+    def substep(slabs, consts, uin, scalars):
         # my rightmost hx columns -> the right neighbour's left ghosts, my
         # leftmost -> the left neighbour's right ghosts; zeros at the edges
         from_left = _ppermute_lattice(
@@ -128,15 +143,24 @@ def lattice_spatial_frame_fn(
             ext = _lattice_map(lambda a, b, c: torch.cat([a, b, c]),
                                from_left[j], s, from_right[j])
             ext = lattice_substep(ext, consts, uin, ext_spec, cfg,
-                                  lin_x_offset=j * w_loc - hx)
+                                  lin_x_offset=j * w_loc - hx,
+                                  scalars=scalars[s.device])
             out.append(_columns(ext, hx, w_loc))
         return out
 
-    def step(slabs: List[LatticeState], consts, uin) -> List[LatticeState]:
-        if len(slabs) != n_dev:
-            raise ValueError(f"{len(slabs)} slabs for {n_dev} shards")
+    def frame(slabs, consts, uin):
+        # the consts vector once a frame on each slab's device
+        scalars = per_device(slabs, lambda d: frame_scalars(
+            consts, uin, cfg, spec.height, d))
         for _ in range(cfg.subticks):
-            slabs = substep(slabs, consts, uin)
+            slabs = substep(slabs, consts, uin, scalars)
         return slabs
 
-    return step
+    def step(run, slabs: List[LatticeState], consts, uin
+             ) -> List[LatticeState]:
+        if len(slabs) != n_dev:
+            raise ValueError(f"{len(slabs)} slabs for {n_dev} shards")
+        return run(list(slabs), consts, uin)
+
+    return ShardedStep(frame, step, devices=mesh.axis_devices(sp_axis),
+                       decide=lattice_decide(cfg))

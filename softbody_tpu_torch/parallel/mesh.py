@@ -140,6 +140,17 @@ def _per_device(xs: Sequence[torch.Tensor], fn) -> List[torch.Tensor]:
     return out
 
 
+def per_device(shards: Sequence, make) -> Dict[torch.device, object]:
+    """``make(device)`` once per distinct ``.device`` of ``shards``
+    (tensors or states), by device: what a frame makes once for all the
+    shards on one device (its constants)."""
+    out: Dict[torch.device, object] = {}
+    for x in shards:
+        if x.device not in out:
+            out[x.device] = make(x.device)
+    return out
+
+
 def all_gather(xs: Sequence[torch.Tensor], dim: int = 0
                ) -> List[torch.Tensor]:
     """``jax.lax.all_gather(tiled=True)``: the shards' tensors

@@ -30,8 +30,13 @@ worlds split over ``dp``, each world over ``sp``); the worlds of a row
 are stepped one after another, as ``jax.vmap`` steps them side by side.
 The CSR incidence is a single-device gather and is dropped.
 
-``spatial_frame_fn`` takes the JAX function's ``donate`` and ignores it:
-each substep makes new tensors and leaves its input as it was.
+``spatial_frame_fn`` returns a compiled step (``parallel/captured.py``),
+the counterpart of the JAX function's ``jax.jit``: with every shard on
+one CUDA device the frame is one CUDA graph, replayed with no host
+read; on a mesh over several CUDA devices it runs eagerly, op by op.
+It takes the JAX function's ``donate`` and ignores it: the frame makes
+new tensors and leaves its input valid and unchanged, as the port's
+``frame_jit`` does.
 """
 
 from __future__ import annotations
@@ -47,6 +52,7 @@ from ..ops.integrate import integrate_particles
 from ..ops.stencil import device_scalar, f32_to_i32, index_sum, sqrt32
 from ..state import PARTICLE_FIELDS, SimState
 from .batched import stack_states, state_fields, unstack_states
+from .captured import ShardedStep
 from .mesh import Mesh, all_gather, pad_to_multiple, psum
 
 # dead padding (JAX's fill values): beam lengths and strain bounds 1
@@ -237,32 +243,44 @@ def spatial_frame_fn(
     sp_axis: str = "sp",
     dp_axis: Optional[str] = None,
     donate: bool = True,
-):
+) -> ShardedStep:
     """A frame step over a :class:`ShardedState` laid out by
     :func:`shard_state` with the same axes: ``step(sharded, consts, uin)
     → ShardedState``.  Beam endpoint indices are global, so a beam may
-    join particles of different shards."""
+    join particles of different shards.  Every shard on one CUDA device:
+    the frame runs as a captured CUDA graph (one per key, ``step.
+    stats()``); shards on several CUDA devices: eagerly, op by op
+    (``parallel/captured.py``).  ``donate`` is accepted and ignored (the
+    input stays valid)."""
     n_sp = mesh.shape[sp_axis]
+    devices = (list(mesh.devices.flat) if dp_axis
+               else mesh.axis_devices(sp_axis))
 
     def frame_world(slabs, consts, uin):
         for _ in range(cfg.subticks):
             slabs = _substep(slabs, consts, uin, cfg)
         return slabs
 
-    def step(sharded: ShardedState, consts, uin) -> ShardedState:
-        if sharded.batched != (dp_axis is not None):
-            raise ValueError("the state was sharded with other axes")
+    def frame(shards, consts, uin):
+        """The rows' slabs one frame on: each world of a row in turn."""
         rows = []
-        for row in sharded.shards:
-            if len(row) != n_sp:
-                raise ValueError(f"{len(row)} slabs for {n_sp} sp shards")
-            if not sharded.batched:
-                rows.append(frame_world(row, consts, uin))
+        for row in shards:
+            if dp_axis is None:
+                rows.append(frame_world(list(row), consts, uin))
                 continue
             worlds = [frame_world(list(slabs), consts, uin) for slabs in
                       zip(*[unstack_states(s) for s in row])]
             rows.append([stack_states([w[j] for w in worlds])
                          for j in range(n_sp)])
-        return ShardedState(shards=rows, batched=sharded.batched)
+        return rows
 
-    return step
+    def step(run, sharded: ShardedState, consts, uin) -> ShardedState:
+        if sharded.batched != (dp_axis is not None):
+            raise ValueError("the state was sharded with other axes")
+        for row in sharded.shards:
+            if len(row) != n_sp:
+                raise ValueError(f"{len(row)} slabs for {n_sp} sp shards")
+        return ShardedState(shards=run(sharded.shards, consts, uin),
+                            batched=sharded.batched)
+
+    return ShardedStep(frame, step, devices=devices)

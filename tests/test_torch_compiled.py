@@ -66,6 +66,7 @@ from softbody_tpu_torch.ops.stencil import (
 from test_farfield import RADIUS, hairpin
 from test_torch_directed import _blobs
 from test_torch_general import _cfgs
+from torch_capture import RecordingGraph
 from torch_parity import (
     consts_to_port,
     jittered,
@@ -246,35 +247,6 @@ def test_cpu_calls_run_the_function():
 
 # ---------------------------------------------------------------------------
 # the cache's logic, through a stand-in graph
-
-
-class RecordingGraph:
-    """Stand-in for ``compiled.CudaGraph`` on CPU tensors: the warm-up
-    runs the function; capture runs it and keeps it; replay runs it again
-    on the static inputs and copies the results into the captured
-    outputs, with the launch counters left as they were (a CUDA graph's
-    replay runs no Python)."""
-
-    device_type = "cpu"
-
-    def __init__(self, device):
-        self.device = device
-
-    def warm_up(self, run):
-        run()
-
-    def capture(self, run):
-        self.run = run
-        self.out = run()
-        return self.out
-
-    def replay(self):
-        counts = compiled.read_counts()
-        fresh = self.run()
-        compiled.set_counts(counts)
-        for dst, src in zip(compiled.tensors(self.out),
-                            compiled.tensors(fresh)):
-            dst.copy_(src)
 
 
 def _recording(fn, static):

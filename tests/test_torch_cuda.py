@@ -478,6 +478,25 @@ def test_k7_matches_plain(dev, w, h, w_out, h_out):
     assert torch.equal(got, ref)
 
 
+@pytest.mark.parametrize("mb", [64, 128])
+@pytest.mark.parametrize("w,h,w_out", [(96, 40, 96), (1000, 1000, 1008)])
+def test_k7_lane_block_matches_plain(dev, w, h, w_out, mb):
+    """K7 at a lane block wider than 32 (JAX's ``far_mb``): the table
+    bit-exact, H padded to the block."""
+    g = torch.Generator(device=dev).manual_seed(w + mb)
+    planes = [torch.randn((w, h), generator=g, device=dev) for _ in range(5)]
+    h_out = -(-h // mb) * mb
+    before = recmirror.K7_LAUNCHES
+    got = recmirror.mirror_records_call(planes, w_out=w_out, h_out=h_out,
+                                        mb=mb)
+    torch.cuda.synchronize()
+    assert recmirror.K7_LAUNCHES == before + 1
+    assert tuple(got.shape) == (h_out // mb * (w_out // 4), 20 * mb)
+    ref = recmirror.mirror_records_plain(planes, w_out=w_out, h_out=h_out,
+                                         mb=mb)
+    assert torch.equal(got, ref)
+
+
 def test_fused_engine_on_the_card(dev):
     """``LatticeEngine(fused=True)`` with far field on a 40 × 40 tearing
     cloth: frames step on the worker thread through K1 and K2; once the
@@ -764,6 +783,103 @@ def test_sharded_lattice_with_k3_matches_unsharded(dev):
     for eg, er in zip(got.edges, ref.edges):
         for f in dataclasses.fields(eg):
             assert torch.equal(getattr(eg, f.name), getattr(er, f.name))
+
+
+def _sharded_case(case, dev):
+    """A sharded step on a 2-shard mesh of this card, its first frame's
+    arguments and the next frame's from a frame's output."""
+    from softbody_tpu_torch.models import scenes
+    from softbody_tpu_torch.models.lattice_dense import folded_strip_lattice
+    from softbody_tpu_torch.ops.stencil import LatticeSpec
+    from softbody_tpu_torch.parallel import (
+        batched_frame_fn,
+        device_put_batched,
+        make_mesh,
+        pad_state_for_mesh,
+        shard_state,
+        spatial_frame_fn,
+        stack_states,
+    )
+    from softbody_tpu_torch.parallel import fused_spatial as pfs
+    from softbody_tpu_torch.parallel import fused_spatial2 as pfs2
+    from softbody_tpu_torch.parallel.lattice_spatial import (
+        lattice_spatial_frame_fn,
+        shard_lattice,
+    )
+
+    consts, uin = tb.PhysicsConstants(), tb.UserInput()
+    mesh = _slab_mesh(dev, 2)
+    nxt = (lambda a, o: (o,) + a[1:])
+    if case in ("spatial", "batched"):
+        st, cfg = scenes.cloth(8, 8, device=dev)
+        cfg = dataclasses.replace(cfg, subticks=8)
+        if case == "spatial":
+            return (spatial_frame_fn(cfg, mesh),
+                    (shard_state(pad_state_for_mesh(st, 2), mesh), consts,
+                     uin), nxt)
+        dmesh = make_mesh(2, dp=2, devices=[dev] * 2)
+        return (batched_frame_fn(cfg, dmesh),
+                (device_put_batched(stack_states([st] * 4), dmesh), consts,
+                 uin), nxt)
+    state, spec, cfg, consts, _spacing, _g = _stirred_cloth(dev)
+    cfg = dataclasses.replace(cfg, subticks=8)
+    if case == "lattice K3":
+        cfg = dataclasses.replace(cfg, use_pallas=True)
+        return (lattice_spatial_frame_fn(spec, cfg, mesh),
+                (shard_lattice(state, mesh), consts, uin), nxt)
+    if case == "K4":
+        m, im, _w = pfs.pack_lattice_sharded(state, 2,
+                                             ghost=pfs.ghost_width(spec))
+        m, im = pfs.shard_stacks(m, im, mesh)
+        return (pfs.fused_spatial_frame_fn(spec, cfg, mesh),
+                (m, im, consts, uin), nxt)
+    ff = FarFieldSpec(skin=8.0, horizon=4, max_pairs=128, max_tile_pairs=32)
+    spec = LatticeSpec(16, 8, collision_stencil=2)
+    cfg = tb.StaticConfig(subticks=4, particle_radius=5.0)
+    ls = folded_strip_lattice(16, 8, device=dev)
+    h, o, im, ec, _w = pfs2.pack_lattice2_sharded(
+        ls, 2, ghost=pfs.ghost_width(spec, ff))
+    h, o, im = pfs2.shard_stacks2(h, o, im, mesh)
+    return (pfs2.fused_spatial2_frame_fn(spec, cfg, mesh, ffspec=ff,
+                                         rebuild_every=2),
+            (h, o, im, ec, consts, uin),
+            lambda a, out: tuple(out) + a[2:])
+
+
+@pytest.mark.parametrize("case", ["spatial", "batched", "lattice K3", "K4",
+                                  "K1 far"])
+def test_captured_sharded_steps_match_eager(dev, case):
+    """Each sharded step with every shard on this card: one capture, then
+    replays, over three frames, each equal bit for bit to its eager twin
+    with equal launches, no host read in a captured frame, the input
+    left as it was."""
+    from softbody_tpu_torch.ops import compiled
+
+    step, args, nxt = _sharded_case(case, dev)
+    assert step.captured
+    before = [t.clone() for t in compiled.tensors(args)]
+    cap = eag = args
+    for _ in range(3):
+        counts = compiled.read_counts()
+        reads = compiled.HOST_READS
+        out_c = step(*cap)
+        torch.cuda.synchronize()
+        assert compiled.HOST_READS == reads
+        launched = compiled._count_delta(compiled.read_counts(), counts)
+        counts = compiled.read_counts()
+        out_e = step.eager(*eag)
+        torch.cuda.synchronize()
+        assert compiled._count_delta(compiled.read_counts(), counts) == \
+            launched
+        assert all(same_bits(x, y) if x.dtype == torch.float32
+                   else torch.equal(x, y) for x, y in zip(
+                       compiled.tensors(out_c), compiled.tensors(out_e)))
+        cap, eag = nxt(cap, out_c), nxt(eag, out_e)
+    calls = 2 if case == "batched" else 1
+    assert step.stats() == {"misses": 1, "captures": 1,
+                            "replays": 3 * calls, "graphs": 1}
+    assert all(torch.equal(x, y)
+               for x, y in zip(before, compiled.tensors(args)))
 
 
 def test_psum_int32_card_matches_cpu(dev):

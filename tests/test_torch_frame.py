@@ -170,8 +170,8 @@ def _assert_close(got, ref):
 @pytest.mark.parametrize("bad", [
     dict(far_band="kernal"),
     dict(far_band="kernel"),          # the CPU's band pass is "plain"
-    dict(far_mb=128),                 # only the 32-lane record layout
-    dict(far_mb_out=128),
+    dict(far_mb=48),                  # lane blocks are multiples of 32
+    dict(far_mb_out=16),
     dict(far_mode="v5"),
     dict(far_detect="kernal"),
 ])

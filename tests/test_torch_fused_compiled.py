@@ -40,9 +40,7 @@ The rung coverage: the fold's 25 pairs under buckets ``(16,)`` and
 counts cross rungs within a block; the flat strip takes the empty
 branch every substep."""
 
-import contextlib
 import dataclasses
-import sys
 
 import numpy as np
 import pytest
@@ -75,6 +73,7 @@ from softbody_tpu_torch.ops.stencil import LatticeSpec
 
 from test_farfield import SPACING, hairpin
 from test_torch_frame import HAIRPIN_CFG, HAIRPIN_FF
+from torch_capture import no_host_reads
 from torch_parity import consts_to_port, to_port
 from torch_threads import two_torch_threads  # noqa: F401
 
@@ -212,71 +211,7 @@ def test_backend_v3_far_stats_match_jax_over_three_frames():
 # ---------------------------------------------------------------------------
 # no host read in a frame
 
-# where a read or a host copy stands for what the card does without one:
-# the eager branch reads, a constant table's one copy (made by the
-# warm-up), the kernels' plain versions
-_ALLOWED = {"host_read", "device_constant", "fused_substep2_plain",
-            "band_flags_plain", "mirror_records_plain",
-            "collide_stencil_plain"}
-_READS = ("item", "tolist", "__bool__", "__int__", "__float__",
-          "__index__")
-
-
-def _allowed() -> bool:
-    f = sys._getframe(2)
-    while f is not None:
-        if f.f_code.co_name in _ALLOWED:
-            return True
-        f = f.f_back
-    return False
-
-
-@contextlib.contextmanager
-def no_host_reads():
-    """Every read of a tensor's value on the host, every tensor made on a
-    device from host data and every host number assigned into a tensor
-    raises outside :data:`_ALLOWED`."""
-    saved = {n: getattr(torch.Tensor, n) for n in _READS + ("__setitem__",)}
-    makers = {n: getattr(torch, n) for n in ("tensor", "as_tensor")}
-
-    def read(name):
-        orig = saved[name]
-
-        def guarded(self, *args, **kwargs):
-            if not _allowed():
-                raise AssertionError(f"host read in a frame: Tensor.{name}")
-            return orig(self, *args, **kwargs)
-        return guarded
-
-    def make(name):
-        orig = makers[name]
-
-        def guarded(*args, **kwargs):
-            if kwargs.get("device") is not None and not _allowed():
-                raise AssertionError(f"host copy in a frame: torch.{name}")
-            return orig(*args, **kwargs)
-        return guarded
-
-    def setitem(self, index, value):
-        # a host number assigned into a device tensor is copied from the
-        # host
-        if not isinstance(value, torch.Tensor) and not _allowed():
-            raise AssertionError("host copy in a frame: a number assigned "
-                                 "into a tensor")
-        return saved["__setitem__"](self, index, value)
-
-    try:
-        for n in _READS:
-            setattr(torch.Tensor, n, read(n))
-        torch.Tensor.__setitem__ = setitem
-        for n in makers:
-            setattr(torch, n, make(n))
-        yield
-    finally:
-        for n, fn in saved.items():
-            setattr(torch.Tensor, n, fn)
-        for n, fn in makers.items():
-            setattr(torch, n, fn)
+# the host-read guard: tests/torch_capture.py
 
 
 # (frame, options): each of fused_frame4's modes, the triggered frames

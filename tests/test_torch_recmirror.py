@@ -196,30 +196,35 @@ def test_bucketed_far_delta_planes_match_jax(scene, buckets, route):
 
 
 def test_mirror_route_raises_on_unported_layouts():
-    """mb = 128 (far_mb), mb_out = 128 and pre-built tables (kmirror,
-    krec) are not ported; the apply also refuses a height that breaks the
-    chunk-id decode."""
+    """Lane blocks that are not multiples of 32 (mb = 48, mb_out = 16)
+    and pre-built tables (kmirror, krec; a 128-lane one too) are refused;
+    the apply also refuses a height that breaks the chunk-id decode."""
     planes = torch.zeros((5, 8, 32))
     ff = FarFieldSpec(max_pairs=512, max_tile_pairs=32)
     _planes, _jfl, fl, _padded = _scene_lists("hairpin")
     kw = dict(KW, ff=ff, radius=4.0, w=96, h=16)
     with pytest.raises(ValueError):
-        t4.mirror_table(planes, mb=128)
+        t4.mirror_table(planes, mb=48)
     with pytest.raises(ValueError):
-        t4.unmirror_table(torch.zeros((2, 640)), w=8, h=32, mb=64)
+        t4.unmirror_table(torch.zeros((2, 640)), w=8, h=32, mb=16)
     with pytest.raises(ValueError):
-        t4.far_terms_from_mirror(torch.zeros((3 * 24, 640)), fl, mb=128,
+        t4.far_terms_from_mirror(torch.zeros((3 * 24, 640)), fl, mb=48,
                                  **kw)
+    with pytest.raises(ValueError):
+        recmirror.mirror_records_call(list(planes), w_out=8, h_out=48,
+                                      mb=48)
     fn = functools.partial(t4.bucketed_far_delta_from_fn, lambda: planes,
                            fl, 25, **kw)
-    for bad in (dict(mb=128), dict(mb_out=128),
-                dict(table=torch.zeros((24, 640))), dict(as_table=True)):
+    for bad in (dict(mb=48), dict(mb_out=16),
+                dict(table=torch.zeros((24, 640))), dict(as_table=True),
+                dict(mb=128, table=torch.zeros((6, 2560)))):
         with pytest.raises(ValueError):
             fn(**bad)
     with pytest.raises(ValueError):
         t4.bucketed_far_delta_from_fn(lambda: planes, fl, 25,
                                       **dict(kw, h=1000))
     assert fn() is not None
+    assert fn(mb=128, mb_out=64) is not None
 
 
 @pytest.mark.parametrize("buckets,route", [
