@@ -1,0 +1,9 @@
+"""Device ms a frame spends in the far apply, inside its captured graph:
+from each of its ``far_apply`` marks to the next mark, summed, mean over
+one traced episode's frames (``simbench/spans.py``)."""
+
+from simbench import spans
+
+
+def read(ctx):
+    return spans.frame_ms(ctx, "far_apply")

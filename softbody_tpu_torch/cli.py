@@ -23,6 +23,7 @@ through the engines' backends, which use the same.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -117,7 +118,7 @@ def _build_lattice_scene(args, dev):
 
 def cmd_run(args) -> int:
     from .ops.step import frame_jit
-    from .utils.profiling import Profiler, device_trace
+    from .utils.profiling import Profiler, device_trace, drain, tracing
 
     dev = resolve_device(args.device)
     _warm_readback(dev)
@@ -174,27 +175,33 @@ def cmd_run(args) -> int:
           f"collision={cfg.collision_mode} subticks={cfg.subticks}",
           file=sys.stderr)
     prof = Profiler(cfg.subticks, n)
-    # warm-up frame (the JAX CLI's compile; here the graph's capture)
-    state = step(state)
-    _sync(dev)
-    prof.start()
-    report_every = max(1, args.frames // 10)
-    with device_trace(getattr(args, "trace", None)):
-        for f in range(args.frames):
-            state = step(state)
-            if (f + 1) % report_every == 0:
-                _sync(dev)
-                prof.stop()
-                prof.frames = f + 1
-                print(
-                    f"frame {f+1}/{args.frames}  "
-                    f"{prof.substeps_per_sec:,.0f} substeps/s  "
-                    f"{prof.particle_substeps_per_sec:,.3g} particle-substeps/s",
-                    file=sys.stderr,
-                )
-                prof.start()
+    trace_dir = getattr(args, "trace", None)
+    # --trace: the program's spans and device marks on (the tracer is part
+    # of a captured frame's key, so the warm-up captures the traced graph)
+    with tracing() if trace_dir else contextlib.nullcontext():
+        # warm-up frame (the JAX CLI's compile; here the graph's capture)
+        state = step(state)
         _sync(dev)
-    prof.stop()
+        prof.start()
+        report_every = max(1, args.frames // 10)
+        with device_trace(trace_dir):
+            for f in range(args.frames):
+                state = step(state)
+                if (f + 1) % report_every == 0:
+                    _sync(dev)
+                    prof.stop()
+                    prof.frames = f + 1
+                    print(
+                        f"frame {f+1}/{args.frames}  "
+                        f"{prof.substeps_per_sec:,.0f} substeps/s  "
+                        f"{prof.particle_substeps_per_sec:,.3g} "
+                        "particle-substeps/s",
+                        file=sys.stderr,
+                    )
+                    prof.start()
+            _sync(dev)
+        prof.stop()
+    drain()
     p = state.pos.reshape(-1, 2)
     print(json.dumps({
         "scene": args.scene,
@@ -341,7 +348,8 @@ def main(argv: Optional[list] = None) -> int:
     p = sub.add_parser("run", help="step a scene and report throughput")
     _common_scene_args(p)
     p.add_argument("--trace", default=None, metavar="LOGDIR",
-                   help="capture a torch.profiler Chrome trace (Perfetto)")
+                   help="capture a torch.profiler Chrome trace (Perfetto) "
+                   "with the program's spans beside the kernels")
     p.add_argument("--farfield", action="store_true",
                    help="arm far-field self-collision (planified path)")
     p.set_defaults(fn=cmd_run)

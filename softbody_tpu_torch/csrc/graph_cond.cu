@@ -21,10 +21,22 @@
 // hands out streams from a shared pool of 32, so the body stream could
 // be the very stream a frame is being captured on, which then cannot
 // begin a second capture.
+//
+// sb_stamp(slot, stream): one thread writes the card's %globaltimer (ns)
+// into the int64 at `slot` when the stream gets there; under capture the
+// launch is a graph node.  The tracer's device marks
+// (utils/profiling.py, device_mark) time a captured frame's layers with
+// it.
 
 #include <cuda_runtime.h>
 
 namespace {
+
+__global__ void sb_stamp_kernel(unsigned long long* slot) {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  *slot = t;
+}
 
 __global__ void set_condition(cudaGraphConditionalHandle handle,
                               const unsigned char* pred) {
@@ -99,4 +111,10 @@ extern "C" int sb_stream_create(void** out) {
       cudaStreamCreateWithFlags(&s, cudaStreamNonBlocking);
   *out = (void*)s;
   return (int)err;
+}
+
+extern "C" int sb_stamp(void* slot, void* stream) {
+  sb_stamp_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(
+      (unsigned long long*)slot);
+  return (int)cudaGetLastError();
 }

@@ -85,6 +85,7 @@ from ..snapshot import (
     save_snapshot,
 )
 from ..state import SimState
+from ..utils.profiling import span
 
 FAR_BANDS = {"cuda": "kernel", "cpu": "plain"}
 
@@ -584,7 +585,13 @@ class FusedLatticeBackend(LatticeBackend):
         list, side planes and trigger vector carried from the last frame
         (``far3_carry_init`` and an empty list after ``pack_state``), the
         trigger decided on the device.  No host read: the stats
-        accumulate on the device (``far_stats`` reads them)."""
+        accumulate on the device (``far_stats`` reads them).  Spans
+        (with tracing on): ``backend.step``, ``backend.stats`` (the merge
+        of the frame's stats, eager torch ops outside its graph)."""
+        with span("backend.step"):
+            return self._step(state, consts, uin)
+
+    def _step(self, state, consts: PhysicsConstants, uin: UserInput):
         hot, obs = state
         kvar = self._checked_kvar(consts)
         if self.ff is None or self.cfg.collision_mode == "none":
@@ -611,7 +618,8 @@ class FusedLatticeBackend(LatticeBackend):
                 activation=self.far_activation, far_mb=self.far_mb,
                 far_mb_out=self.far_mb_out, detect_mode=self.far_detect,
                 band_impl=self._band_impl, kvar=kvar, **kw)
-        self._stats_acc = _stats_merge_device(self._stats_acc, st)
+        with span("backend.stats"):
+            self._stats_acc = _stats_merge_device(self._stats_acc, st)
         return hot, obs
 
     def _checked_kvar(self, consts: PhysicsConstants) -> Tuple[str, ...]:
@@ -625,10 +633,11 @@ class FusedLatticeBackend(LatticeBackend):
         """Stats since the last read (the accumulator resets on read):
         total rebuilds, max n_pairs, max overflow, and under v4 max active
         pairs.  The one host read of the fused frames' stats (they
-        accumulate on the device)."""
+        accumulate on the device; span ``backend.far_stats``)."""
         if self._stats_acc is None:
             return super().far_stats()
-        vals, self._stats_acc = self._stats_acc.tolist(), None
+        with span("backend.far_stats"):
+            vals, self._stats_acc = self._stats_acc.tolist(), None
         out = {"far_rebuilds": vals[0], "far_pairs": vals[1],
                "far_overflow": vals[2]}
         if len(vals) > 3:
@@ -754,21 +763,27 @@ class PlanifiedBackend(SimBackend):
         ``planified_frame_far_jit``, whose buckets are chosen on the device
         and whose stats accumulate there (``far_stats`` reads them): no
         host read.  ``self._frame`` / ``self._frame_far`` hold them (set
-        them to the plain functions for an eager twin)."""
-        if self.ff is not None and self.cfg.collision_mode != "none":
-            ps, st = self._frame_far(ps, consts, uin, self._spec, self.cfg,
-                                     self.ff)
-            self._stats_acc = _stats_merge_device(self._stats_acc, st)
-            return ps
-        return self._frame(ps, consts, uin, self._spec, self.cfg)
+        them to the plain functions for an eager twin).  Spans as
+        :meth:`FusedLatticeBackend.step`'s."""
+        with span("backend.step"):
+            if self.ff is not None and self.cfg.collision_mode != "none":
+                ps, st = self._frame_far(ps, consts, uin, self._spec,
+                                         self.cfg, self.ff)
+                with span("backend.stats"):
+                    self._stats_acc = _stats_merge_device(self._stats_acc,
+                                                          st)
+                return ps
+            return self._frame(ps, consts, uin, self._spec, self.cfg)
 
     def far_stats(self) -> dict:
         """Stats since the last read (the accumulator resets on read):
         rebuilds, max n_pairs, max overflow, max active pairs; {} when no
-        far frame ran.  The one host read of the frames' stats."""
+        far frame ran.  The one host read of the frames' stats (span
+        ``backend.far_stats``)."""
         if self._stats_acc is None:
             return {}
-        vals, self._stats_acc = self._stats_acc.tolist(), None
+        with span("backend.far_stats"):
+            vals, self._stats_acc = self._stats_acc.tolist(), None
         return {"far_rebuilds": vals[0], "far_pairs": vals[1],
                 "far_overflow": vals[2], "far_active": vals[3]}
 

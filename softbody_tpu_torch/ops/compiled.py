@@ -20,7 +20,12 @@ frame computes with:
   is passed);
 - the host decisions of the frame (``decide``: which kernel instance
   the constants allow, ``stencil.frame_decisions``), computed from the
-  host values before they are lifted.
+  host values before they are lifted;
+- whether the tracer is on (``utils/profiling.py``): a graph captured
+  with tracing on holds a stamp node for each of the frame's device
+  marks, written into a buffer kept beside the graph and cloned into the
+  tracer's log after each replay; one captured with tracing off holds
+  none.
 
 **Lifted, as ``jax.jit`` traces them**: every float and bool leaf of the
 passed arguments (each field of ``PhysicsConstants`` and ``UserInput``)
@@ -84,6 +89,13 @@ raises.  A host synchronisation inside the function (``.item()``,
 ``.tolist()`` of a device tensor, ``nonzero``, a blocking copy) fails
 the capture.
 
+**Spans** (with tracing on): ``compiled.call``, and in it
+``compiled.key`` (binding, key, decisions, lifted leaves),
+``compiled.lock`` (the lock, and the wait for the last call's event
+queued on the stream), ``compiled.capture`` (a miss only),
+``compiled.fill`` (the copies in, pinned), ``compiled.replay`` and
+``compiled.out`` (the clones, the event, the counters).
+
 **Threads and memory**: graphs are captured with
 ``capture_error_mode="thread_local"``, so the engine's worker captures
 while another thread copies render packets on a side stream.  Every
@@ -97,6 +109,7 @@ outputs out before another graph replays.
 from __future__ import annotations
 
 import collections
+import contextlib
 import copy
 import ctypes
 import dataclasses
@@ -109,6 +122,9 @@ import weakref
 from typing import Callable, Dict, Sequence
 
 import torch
+
+from ..utils import profiling
+from ..utils.profiling import span
 
 # the kernel wrappers' launch counters and the far apply's routes:
 # (module, name), an int or a dict of ints (K1's per instance)
@@ -526,6 +542,7 @@ class _Entry:
     counts: dict            # launch counts one replay stands for
     decided: object         # the host decisions the graph was captured under
     cond: object = None     # _CondCounts of its conditional bodies
+    marks: object = None    # profiling.Marks of a graph captured traced
 
 
 def _fill(inputs: list, srcs: list, scalars, values: list,
@@ -591,15 +608,48 @@ class Compiled:
         return t.device.type == self.graph_cls.device_type
 
     def __call__(self, *args, **kwargs):
-        bound = self._sig.bind(*args, **kwargs)
-        passed = set(bound.arguments)
-        bound.apply_defaults()
-        arguments = dict(bound.arguments)
-        dynamic = {k: v for k, v in arguments.items()
-                   if k not in self.static_argnames}
-        leaves = [t for t in tensors(dynamic) if self._graph_tensor(t)]
+        with span("compiled.call"):
+            return self._call(args, kwargs)
+
+    def _call(self, args, kwargs):
+        with span("compiled.key"):
+            bound = self._sig.bind(*args, **kwargs)
+            passed = set(bound.arguments)
+            bound.apply_defaults()
+            arguments = dict(bound.arguments)
+            dynamic = {k: v for k, v in arguments.items()
+                       if k not in self.static_argnames}
+            leaves = [t for t in tensors(dynamic) if self._graph_tensor(t)]
+            if leaves:
+                device, key, shapes, traced, srcs, values, decided_now = (
+                    self._key(arguments, dynamic, passed, leaves))
         if not leaves:
             return self.fn(**arguments)
+        cuda = device.type == "cuda"
+        with contextlib.ExitStack() as held:
+            with span("compiled.lock"):
+                held.enter_context(_LOCK)
+                if cuda and device.index in _LAST:
+                    torch.cuda.current_stream(device).wait_event(
+                        _LAST[device.index])
+            entry = self._graphs.get(key)
+            if entry is None:
+                with span("compiled.capture"):
+                    self.misses += 1
+                    entry = self._capture(arguments, traced, srcs, values,
+                                          device, shapes, decided_now)
+                    self._graphs[key] = entry
+                    self.captures += 1
+                    while len(self._graphs) > MAX_GRAPHS:
+                        _retire(self._graphs.popitem(last=False)[1])
+            else:
+                self._graphs.move_to_end(key)
+            return self._replay(entry, srcs, values, device)
+
+    def _key(self, arguments, dynamic, passed, leaves):
+        """The call's device, key (with whether tracing is on: a traced
+        graph holds the stamp nodes), shapes, traced arguments, their
+        tensors and lifted leaves, and host decisions."""
         devices = {t.device for t in leaves}
         others = {t.device for t in tensors(dynamic)
                   if not self._graph_tensor(t) and t.device.type != "cpu"}
@@ -616,22 +666,9 @@ class Compiled:
         decided_now = (None if self.decide is None
                        else self.decide(arguments))
         shapes = (static, _signature(traced, False), _signature(fixed, True))
-        key = shapes + (decided_now,)
-        srcs = list(tensors(traced))
-        values = _scalars(traced)
-        with _LOCK:
-            entry = self._graphs.get(key)
-            if entry is None:
-                self.misses += 1
-                entry = self._capture(arguments, traced, srcs, values,
-                                      device, shapes, decided_now)
-                self._graphs[key] = entry
-                self.captures += 1
-                while len(self._graphs) > MAX_GRAPHS:
-                    _retire(self._graphs.popitem(last=False)[1])
-            else:
-                self._graphs.move_to_end(key)
-            return self._replay(entry, srcs, values, device)
+        key = shapes + (decided_now, profiling.enabled())
+        return (device, key, shapes, traced, list(tensors(traced)),
+                _scalars(traced), decided_now)
 
     def _capture(self, arguments, traced, srcs, values, device, shapes,
                  decided_now) -> _Entry:
@@ -656,19 +693,24 @@ class Compiled:
         graph = self.graph_cls(device)
         call = {**arguments, **static_in}
         cond = _CondCounts(device) if cuda else None
+        marks = profiling.Marks(device) if profiling.enabled() else None
         before = read_counts()
         _TLS.decided = decided_now
         try:
             if shapes not in self._warm:
                 _TLS.warming = True
                 try:
-                    graph.warm_up(lambda: self.fn(**call))
+                    with profiling.recording(marks):
+                        graph.warm_up(lambda: self.fn(**call))
                 finally:
                     _TLS.warming = False
                 set_counts(before)
+                if marks is not None:
+                    marks.reset()
             _TLS.cond = cond
             try:
-                out = graph.capture(lambda: self.fn(**call))
+                with profiling.recording(marks):
+                    out = graph.capture(lambda: self.fn(**call))
             finally:
                 _TLS.cond = None
             counts = _count_delta(read_counts(), before)
@@ -684,29 +726,35 @@ class Compiled:
             _COND_COUNTS.append(cond)
         else:
             cond = None
+        if marks is not None:
+            marks.frozen = True
         return _Entry(graph, inputs, scalars, out, passed, counts,
-                      decided_now, cond)
+                      decided_now, cond, marks)
 
     def _replay(self, entry: _Entry, srcs, values, device):
         cuda = device.type == "cuda"
-        if cuda and device.index in _LAST:
-            torch.cuda.current_stream(device).wait_event(_LAST[device.index])
-        _fill(entry.inputs, srcs, entry.scalars, values, cuda)
-        _TLS.decided = entry.decided
-        try:
-            entry.graph.replay()
-        finally:
-            _TLS.decided = None
+        with span("compiled.fill"):
+            _fill(entry.inputs, srcs, entry.scalars, values, cuda)
+        with span("compiled.replay"):
+            _TLS.decided = entry.decided
+            try:
+                with profiling.recording(entry.marks):
+                    entry.graph.replay()
+            finally:
+                _TLS.decided = None
 
         def out(t):
             i = entry.passed.get(id(t))
             return t.clone() if i is None else srcs[i]
 
-        result = _lifted(entry.out, out, lambda x: x)
-        if cuda:
-            done = torch.cuda.Event()
-            done.record(torch.cuda.current_stream(device))
-            _LAST[device.index] = done
-        _add_counts(entry.counts)
+        with span("compiled.out"):
+            result = _lifted(entry.out, out, lambda x: x)
+            if cuda:
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(device))
+                _LAST[device.index] = done
+            if entry.marks is not None:
+                entry.marks.log()
+            _add_counts(entry.counts)
         self.replays += 1
         return result

@@ -172,6 +172,11 @@ def bind(path: Path) -> ctypes.CDLL:
         # int sb_stream_create(void** out): a stream of the caller's own
         lib.sb_stream_create.argtypes = [ctypes.POINTER(_P)]
         lib.sb_stream_create.restype = _I
+    # int sb_stamp(slot, stream): %globaltimer into an int64 slot (the
+    #     tracer's device marks, utils/profiling.py)
+    if hasattr(lib, "sb_stamp"):
+        lib.sb_stamp.argtypes = [_P, _P]
+        lib.sb_stamp.restype = _I
     # int sb_band_flags(px, py, dev, bdev, alive, out, offsets_host,
     #                   n_offsets, w, h, stream)
     lib.sb_band_flags.argtypes = [_P, _P, _P, _P, _P, _P, _P,

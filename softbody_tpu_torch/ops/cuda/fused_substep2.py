@@ -62,6 +62,7 @@ from ...config import (
     UserInput,
     consts_vector,
 )
+from ...utils.profiling import device_mark
 from .. import compiled
 from ..farfield import (
     ChunkPlanes,
@@ -879,7 +880,10 @@ def fused_frame4(hot, obs, immut, edge_consts, consts: PhysicsConstants,
     layout).
 
     No host read: on the card each rung choice is one counted read
-    eagerly, none captured.  Returns ``(hot', obs', stats)`` with
+    eagerly, none captured.  Device marks (``utils/profiling.py``, with
+    tracing on): ``rebuild`` before each block's rebuild, ``far_apply``
+    before each far apply, ``substep`` before each K1, ``end`` after the
+    last.  Returns ``(hot', obs', stats)`` with
     ``stats`` an int32 ``[4]`` on the device (JAX's ``merge_st``):
     rebuilds, max n_pairs, max overflow, max active pairs (a block's
     active count at its last substep; ``n_pairs`` without
@@ -934,6 +938,7 @@ def fused_frame4(hot, obs, immut, edge_consts, consts: PhysicsConstants,
     for bi, size in enumerate(blocks):
         last_block = bi == len(blocks) - 1
         n_act = None
+        device_mark("rebuild", hot)
         if kernel_detect:
             fl = _rebuild_from_side(hot, side, cany, ff=ff,
                                     radius=cfg.particle_radius, T=t_band)
@@ -950,9 +955,11 @@ def fused_frame4(hot, obs, immut, edge_consts, consts: PhysicsConstants,
                           torch.maximum(st[2], fl.overflow),
                           torch.maximum(st[3], na)])
         for j in range(size):
+            device_mark("far_apply", hot)
             fl_j = fl if n_act is None else crop_active(fl, n_act[j])
             far = bucketed_far_delta_planes(hot, immut[ALIVE], fl_j, None,
                                             **far_kw)
+            device_mark("substep", hot)
             if kernel_detect and not last_block and j == size - 1:
                 extras = torch.cat([head, torch.stack(vbar_of(hot)), tail])
                 hot, side = fused_substep2_call(
@@ -967,6 +974,7 @@ def fused_frame4(hot, obs, immut, edge_consts, consts: PhysicsConstants,
                 hot, obs = out
             else:
                 hot = out
+    device_mark("end", hot)
     return hot, obs, st
 
 

@@ -40,6 +40,7 @@ import torch
 
 from ..config import PhysicsConstants, StaticConfig, UserInput
 from ..state import SimState
+from ..utils.profiling import device_mark
 from .farfield import (
     _chunk_dims,
     crop_active,
@@ -432,7 +433,8 @@ def planified_frame_far(ps: PlanifiedState, consts: PhysicsConstants,
     counted host read a substep eagerly on the card, an IF node per rung
     captured), zero delta planes for an empty prefix (which add nothing:
     the collision sums they join start from +0.0 and are never −0.0).
-    Returns ``(ps', stats)``, ``stats`` an int32 ``[4]`` on the device:
+    Device marks as ``fused_frame4``'s (``rebuild``, ``far_apply``,
+    ``substep``: :func:`planified_substep`, ``end``).  Returns ``(ps', stats)``, ``stats`` an int32 ``[4]`` on the device:
     rebuilds, max n_pairs, max overflow, max active pairs."""
     ff = ffspec
     n = cfg.subticks if n_sub is None else n_sub
@@ -450,6 +452,7 @@ def planified_frame_far(ps: PlanifiedState, consts: PhysicsConstants,
     st = torch.zeros(4, dtype=torch.int32, device=dev)
     for bi, size in enumerate(blocks):
         lat = ps.lat
+        device_mark("rebuild", lat.pos)
         fl, n_act = rebuild_far_list_planes_active(
             lat.pos[..., 0], lat.pos[..., 1], lat.alive, vx=lat.vel[..., 0],
             vy=lat.vel[..., 1], dt=cfg.dt, R=R, **kw)
@@ -458,6 +461,7 @@ def planified_frame_far(ps: PlanifiedState, consts: PhysicsConstants,
                           torch.maximum(st[3], n_act[size - 1])])
         for j in range(size):
             lat = ps.lat
+            device_mark("far_apply", lat.pos)
 
             def planes5(lat=lat):
                 return torch.stack([
@@ -470,9 +474,11 @@ def planified_frame_far(ps: PlanifiedState, consts: PhysicsConstants,
                 h=spec.height, buckets=buckets,
                 out=lat.pos.new_empty((5, spec.width, spec.height)), **kw)
             observing = bi == len(blocks) - 1 and j == size - 1
+            device_mark("substep", lat.pos)
             ps = planified_substep(ps, consts, uin, spec, cfg,
                                    update_observability=observing,
                                    far_delta=delta, ffspec=ff, scalars=sc)
+    device_mark("end", ps.lat.pos)
     return ps, st
 
 

@@ -2,4 +2,4 @@
 observability helpers."""
 
 from .png import write_png  # noqa: F401
-from .profiling import FrameClock, Profiler  # noqa: F401
+from .profiling import Profiler  # noqa: F401

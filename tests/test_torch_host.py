@@ -71,11 +71,6 @@ def test_png_bytes_equal(tmp_path):
 
 
 def test_profiling_counters_match_jax():
-    clocks = [jprofiling.FrameClock(), tprofiling.FrameClock()]
-    for t in (0.0, 0.2, 0.5, 0.9, 1.3, 1.35):
-        for c in clocks:
-            c.tick(t)
-    assert clocks[0].fps == clocks[1].fps == 4.0
     profs = [jprofiling.Profiler(64, 1000), tprofiling.Profiler(64, 1000)]
     for p in profs:
         p.elapsed = 2.0
