@@ -9,7 +9,7 @@ to 0 just before it and read just after:
 
 - the bench path: the 1M-particle tearing cloth with far-field
   self-collision through ``FusedLatticeBackend`` with its default kernel
-  variants, bench.py's (K1 in its rsqrt+rollgroup instance, K2, K7),
+  variants, bench.py's (K1 in its rsqrt+rollgroup instance, K2, K8),
   timed in turns with the same backend strict (``kernel_variants=()``,
   K1 strict); K1's four instances held against their plain versions;
 - path A: the dense ``LatticeBackend`` with ``use_pallas`` on the 1M
@@ -21,28 +21,29 @@ to 0 just before it and read just after:
   frame (``fused_frame_far_jit``);
 - the probe of ``scripts/probe_recmirror.py``: the record casts (K5, K6)
   and the mirror table (K7) at the probe's and the bench path's sizes,
-  K7 also at JAX's ``far_mb`` = 128 lane block (K7 also runs on the bench
-  path, in each far apply with pairs);
+  K7 also at JAX's ``far_mb`` = 128 lane block (the bench path's far
+  applies take K8, its pair step, which is held bit for bit against its
+  plain versions and timed at the bench path's final state);
 - the general gather engine (``ops/step.frame``, no kernel of its own) at
   BASELINE configs 1, 4 and 3: the 32×32 cloth, 64 blobs and the 100k
   self-colliding cloth;
 - the runtime, as a user drives it: ``LatticeEngine(fused=True)`` on the
   bench scene stepping on its worker thread while this thread polls
-  render packets (K1, K2, K7), its L1 snapshot round trip, fault
+  render packets (K1, K2, K8), its L1 snapshot round trip, fault
   injection and re-creation; ``LatticeEngine`` on path A (K3); ``Engine``
   on the general path;
 - the planified general-topology path (phase 12): BASELINE config 3, the
   100k self-colliding cloth, embedded into planes by ``PlanifiedBackend``
   and stepped far-armed with ``use_pallas`` through its captured frames
-  (K3 every substep, K2 every rebuild, K7 in every far apply above 256
+  (K3 every substep, K2 every rebuild, K8 in every far apply with active
   pairs), then in turns with its eager twin, bit for bit; config 4
   planified likewise, then behind ``Engine``; the small fold through both far-apply routes, card
   against CPU; ``FusedLatticeBackend(far_activation=True)`` on the bench
-  scene (K1, K2, K7); the directed-CSR engine at config 3;
+  scene (K1, K2, K8); the directed-CSR engine at config 3;
 - the fused backend's other far modes (phase 15): K1's trig, detect and
   knobs instances held against their plain versions; the bench scene
   through ``FusedLatticeBackend(far_detect="kernel")`` (K1 with its
-  detect instance, K2, K7) in turns with xla detection, and in the
+  detect instance, K2, K8) in turns with xla detection, and in the
   triggered mode ``far_mode="v3"`` (K1's trig instances); the detect
   and trig instances timed at those runs' final states against their
   bounds, with their loss a frame (beside ``--parent``'s, in turns); the
@@ -81,7 +82,7 @@ to 0 just before it and read just after:
   ``far_mb=128`` (K7 at 128 lanes); the JAX dryrun's paths;
 - the CLI (phase 13), as a user first runs it, in this process:
   ``run`` of the 1M tearing cloth on the lattice path and of the 100k
-  cloth planified and far-armed (K2, K7), ``render`` of the 1M cloth,
+  cloth planified and far-armed (K2, K8), ``render`` of the 1M cloth,
   ``play`` headless of the 1M cloth far-armed (K2) and of the default
   scene, ``snapshot create``/``info`` of the 1M scene, the editor; the
   renderer and the far apply's fixed order held card against CPU.
@@ -161,6 +162,7 @@ from softbody_tpu_torch.ops.cuda import (
     _lib,
     band_detect,
     collide_stencil,
+    far_apply,
     fused_substep,
     fused_substep2,
     recmirror,
@@ -916,6 +918,13 @@ def _mirror_bound(planes, table):
     return _bound(5 * planes[0].numel() * 4 + table.numel() * 4, 0)
 
 
+def _k8_bound(n_pairs: int, n: int):
+    """K8: each valid pair's two windows of 5 × 16 fields read once, its
+    two side rows of 80 written and read back, the five delta planes of
+    ``n`` cells written; ~45 operations for each of its 256 cell pairs."""
+    return _bound((3 * 2 * n_pairs * 80 + 5 * n) * 4, n_pairs * 256 * 45)
+
+
 def _substep_ops(n: int, s: int) -> float:
     """K1/K4: the work the inputs need, each spring and each unordered
     pair once.  Per particle: 4 classes × (one spring evaluation of 16
@@ -1088,7 +1097,8 @@ def _small_fold(dev) -> dict:
     # the far apply's two routes, strict: a ladder of buckets <= 256
     # (narrow) and the default ladder on a 512-pair list (the mirror
     # table, K7); and the backend's default variants on a 64-pair list
-    # (krec: the mirror table for every bucket)
+    # (krec: the mirror table for every bucket); on the card each takes
+    # K8 (the default record layout)
     for label, route, max_pairs, buckets, kw in (
             ("narrow route", "narrow", 64, (16,), {"kernel_variants": ()}),
             ("mirror route", "mirror", 512, None, {"kernel_variants": ()}),
@@ -1105,9 +1115,10 @@ def _small_fold(dev) -> dict:
             hot = fused.step(hot, consts, uin)
         compiled.sync_counts()
         ran = {k: v - before[k] for k, v in farfield4.APPLY_ROUTES.items()}
-        if ran[route] != 2 * cfg.subticks or sum(ran.values()) != ran[route]:
+        want = "kernel" if farfield4.kernel_route(dev) else route
+        if ran[want] != 2 * cfg.subticks or sum(ran.values()) != ran[want]:
             raise AssertionError(f"small fold, fused backend: far applies "
-                                 f"by route {ran}, want all {route}")
+                                 f"by route {ran}, want all {want}")
         out[f"fused backend, {label}"] = (fused.far_stats(), hot[0][0:4])
     cfg = dataclasses.replace(cfg, use_pallas=True)
     dense = LatticeBackend(spec, cfg, farfield=ff, device=dev)
@@ -1321,6 +1332,22 @@ def run_path_b(dev, card: str) -> dict:
                 k4=k4, rate=rate, turns=turns)
 
 
+def _k8_launches() -> int:
+    """K8's launches as pairs (K8a and K8b launch together, once an
+    apply); raises where they part."""
+    if far_apply.K8A_LAUNCHES != far_apply.K8B_LAUNCHES:
+        raise AssertionError(f"K8a launched {far_apply.K8A_LAUNCHES} times, "
+                             f"K8b {far_apply.K8B_LAUNCHES}")
+    return far_apply.K8A_LAUNCHES
+
+
+def _far_launches() -> int:
+    """The far apply's kernel launches: K7 (the record table, under an
+    explicit lane block) and K8 (the card's default layout), one an
+    applying rung either way."""
+    return recmirror.K7_LAUNCHES + _k8_launches()
+
+
 def _zero_k1_k2_k7() -> None:
     # the launches that captured frames counted on the device (their
     # conditional bodies: K7 under a mirror rung, K1's detect and trig
@@ -1332,6 +1359,8 @@ def _zero_k1_k2_k7() -> None:
         fused_substep2.K1_INSTANCE_LAUNCHES[k] = 0
     band_detect.K2_LAUNCHES = 0
     recmirror.K7_LAUNCHES = 0
+    far_apply.K8A_LAUNCHES = 0
+    far_apply.K8B_LAUNCHES = 0
 
 
 def run_main_path(state, spec, cfg, consts, spacing) -> dict:
@@ -1351,23 +1380,22 @@ def run_main_path(state, spec, cfg, consts, spacing) -> dict:
         packed = be.pack_state(state)
         n0, m0 = be.counts(packed)
         t0 = time.perf_counter()
-        compiled.sync_counts()
-        recmirror.K7_LAUNCHES = 0
+        _zero_k1_k2_k7()
         packed = be.step(packed, consts, uin)
         torch.cuda.synchronize()
         compiled.sync_counts()
         first = be.far_stats()
         log(f"main path ({path}, kvar {be.kvar}): first frame "
-            f"{time.perf_counter() - t0:.2f} s, far stats {first}, K7 "
-            f"launches {recmirror.K7_LAUNCHES}")
-        if first["far_pairs"] == 0 and recmirror.K7_LAUNCHES:
-            raise AssertionError("main path: K7 launched before far pairs "
-                                 "exist")
+            f"{time.perf_counter() - t0:.2f} s, far stats {first}, K8a "
+            f"launches {far_apply.K8A_LAUNCHES}")
+        if first["far_pairs"] == 0 and _far_launches():
+            raise AssertionError("main path: K7 or K8 launched before far "
+                                 "pairs exist")
         for _ in range(WARM_FRAMES - 1):
             packed = be.step(packed, consts, uin)
         be.far_stats()  # reset the window
         runs[path] = dict(be=be, packed=packed, n0=n0, m0=m0, ms=0.0,
-                          wall=0.0, k1=0, k2=0, k7=0, stats=None,
+                          wall=0.0, k1=0, k2=0, k7=0, k8=0, stats=None,
                           k1_instances=dict.fromkeys(
                               fused_substep2.K1_INSTANCE_LAUNCHES, 0),
                           routes=dict.fromkeys(farfield4.APPLY_ROUTES, 0))
@@ -1391,6 +1419,7 @@ def run_main_path(state, spec, cfg, consts, spacing) -> dict:
         r["k1"] += fused_substep2.K1_LAUNCHES
         r["k2"] += band_detect.K2_LAUNCHES
         r["k7"] += recmirror.K7_LAUNCHES
+        r["k8"] += _k8_launches()
         for k, v in fused_substep2.K1_INSTANCE_LAUNCHES.items():
             r["k1_instances"][k] += v
         for k, v in farfield4.APPLY_ROUTES.items():
@@ -1399,7 +1428,7 @@ def run_main_path(state, spec, cfg, consts, spacing) -> dict:
     for path, r in runs.items():
         be, hot = r["be"], r["packed"][0]
         stats = r["stats"] = be.far_stats()
-        k1, k2, k7, routes = r["k1"], r["k2"], r["k7"], r["routes"]
+        k1, k2, k8, routes = r["k1"], r["k2"], r["k8"], r["routes"]
         instance = "rsqrt+rollgroup" if path == "default" else "strict"
         if not bool(torch.isfinite(hot[:6]).all()):
             raise AssertionError(f"main path ({path}): non-finite particle "
@@ -1417,12 +1446,13 @@ def run_main_path(state, spec, cfg, consts, spacing) -> dict:
             raise AssertionError(f"main path ({path}): K2 launched {k2} "
                                  f"times for {stats['far_rebuilds']} "
                                  "rebuilds")
-        # the default ladder's smallest bucket is 1024 > 256: every
-        # substep with pairs applies them through the mirror table, one
-        # K7 launch (krec, the default, changes nothing here)
-        if k7 == 0 or k7 != routes["mirror"] or routes["narrow"]:
-            raise AssertionError(f"main path ({path}): K7 launched {k7} "
-                                 f"times; far applies by route {routes}")
+        # the card's default record layout: every substep with pairs
+        # applies them through K8 (K8a and K8b once each), never K7
+        if (k8 == 0 or k8 != routes["kernel"] or routes["narrow"]
+                or routes["mirror"] or r["k7"]):
+            raise AssertionError(f"main path ({path}): K8 launched {k8} "
+                                 f"times, K7 {r['k7']}; far applies by "
+                                 f"route {routes}")
         n1, m1 = be.counts(r["packed"])
         r["rate"] = substeps / (r["ms"] / 1000.0)
         r["frame_ms"] = r["ms"] / TIMED_FRAMES
@@ -1432,7 +1462,7 @@ def run_main_path(state, spec, cfg, consts, spacing) -> dict:
             f"frames = {substeps} substeps in {r['ms']:.1f} ms (CUDA "
             f"events, in turns; host {r['wall']:.3f} s) = "
             f"{r['rate']:.1f} substeps/s; far stats {stats}; K1 launches "
-            f"{k1} ({instance}), K2 launches {k2}, K7 launches {k7} ({k7} "
+            f"{k1} ({instance}), K2 launches {k2}, K8 launches {k8} ({k8} "
             f"of {substeps} substeps with far pairs); pos range "
             f"[{pos.min().item():.2f}, {pos.max().item():.2f}]")
     run = runs["default"]
@@ -1504,10 +1534,11 @@ def check_default_frame10(state, spec, cfg, consts, spacing) -> dict:
 
 def time_at_final_state(run, spec, cfg, consts, parent=None) -> dict:
     """At the main path's final state (CUDA events, ms per call): one
-    rebuild; one far apply through the mirror route, its parts, and the
-    windowed gather it replaced; and K1, K2 and K7 against their plain
-    versions (K7 also against its library call) on the inputs the main
-    path gives them, K2's flags held bit-exact there.  K1 also at stencil
+    rebuild; one far apply (K8 on the card's default layout), the
+    record-table route's parts, and the windowed gather; and K1, K2, K7
+    and K8 against their plain versions (K7 also against its library
+    call) on the inputs the main path gives them, K2's flags and K8's
+    planes held bit-exact there.  K1 also at stencil
     0 (streaming and springs without the collision arithmetic), and with
     ``parent`` (another checkout's kernel library) beside the parent's K1
     (stencils 2 and 0) and K2 in turns, into ``t["compare"]``."""
@@ -1553,18 +1584,49 @@ def time_at_final_state(run, spec, cfg, consts, parent=None) -> dict:
         # (3 applies, ~300 launches: the device's launch queue holds ~1000)
         t["apply device"] = _device_ms(apply, 3)
         t["apply windowed device"] = _device_ms(apply_windowed, 3)
-        # where the apply's device time goes (its scatter sums in list
-        # order: a sort and an in-order sum per table row)
-        profile_frame("far apply, mirror route", apply, t["apply"], 1)
+        # where the apply's device time goes (K8: its order, K8a, K8b)
+        profile_frame("far apply, K8", apply, t["apply"], 1)
+        # the record-table route's pair step (an explicit lane block's)
         dtab = far_terms_from_mirror(table, crop_far_list(fl, k), w=wp,
                                      h=hp, **pair_kw)
-        t["apply: pairs"] = _timed_ms(lambda: far_terms_from_mirror(
+        t["table route: pairs"] = _timed_ms(lambda: far_terms_from_mirror(
             table, crop_far_list(fl, k), w=wp, h=hp, **pair_kw), 20)
-        t["apply: unmirror"] = _timed_ms(lambda: unmirror_table(
+        t["table route: unmirror"] = _timed_ms(lambda: unmirror_table(
             dtab, w=wp, h=hp)[:, :alive.shape[0], :alive.shape[1]]
             .contiguous(), 20)
-        log(f"far apply at the final state: bucket {k}, mirror route vs "
-            f"the windowed gather max |err| {err:.3g}")
+        log(f"far apply at the final state: bucket {k}, K8 vs the "
+            f"windowed gather max |err| {err:.3g}")
+        # K8 alone: its order built once (a block's first apply builds
+        # it), K8a and K8b; its plain versions on the same tensors
+        flk = crop_far_list(fl, k)
+        dest = far_apply.dest_order(fl.ca, fl.cb, fl.valid,
+                                    (wp // 4) * (hp // 4))
+        out8 = torch.empty((5,) + tuple(alive.shape), device=hot.device)
+        akw = dict(s=s, ff=ff, radius=cfg.particle_radius, dt=cfg.dt,
+                   ecoeff=consts.ecoeff, friction=consts.friction, h=hp,
+                   world_h=-(-hp // 32) * 32)
+
+        def k8():
+            rows = far_apply.far_pairs_call(planes, flk, **akw)
+            return far_apply.far_accumulate_call(rows, dest, flk.valid,
+                                                 out8, h=hp)
+
+        def k8_plain():
+            rows = far_apply.far_pairs_plain(planes, flk, **akw)
+            return far_apply.far_accumulate_plain(
+                rows, dest, flk.valid, torch.empty_like(out8), h=hp)
+
+        got8, ref8 = k8().clone(), k8_plain()
+        if not _same(got8, ref8):
+            raise AssertionError("K8 at the final state differs from its "
+                                 "plain versions")
+        t["K8 err"] = (got8 - ref8).abs().max().item()
+        t["K8"] = _device_ms(k8, 50)
+        # ~20 launches a build (the sort's passes): 10 builds stay under
+        # the device's launch queue
+        t["K8 order"] = _device_ms(lambda: far_apply.dest_order(
+            fl.ca, fl.cb, fl.valid, (wp // 4) * (hp // 4)), 10)
+        t["K8 plain"] = _timed_ms(k8_plain, 5)
     t["K7"] = _device_ms(lambda: mirror_table(planes, w=wp, h=hp), 200)
     hm = -(-hp // 32) * 32
     t["K7 plain"] = _timed_ms(lambda: recmirror.mirror_records_plain(
@@ -1646,6 +1708,7 @@ def time_at_final_state(run, spec, cfg, consts, parent=None) -> dict:
               "K2": _bound(n * (4 * 4 + 1) + n,
                            7 * _band_pairs_evaluated(*planes, offsets)),
               "K7": _mirror_bound(planes5, table),
+              "K8": _k8_bound(n_pairs, n),
               "K2 chunk 8": _bound(n * (4 * 4 + 1) + n, 7 * pairs8)}
     _log_bound("K2 chunk 8", n * (4 * 4 + 1) + n, 7 * pairs8)
     log(f"K2 at chunk 8 ({len(offsets8)} offsets, {pairs8} pairs "
@@ -1924,18 +1987,19 @@ def run_runtime_fused(dev, card: str) -> dict:
         frames = _pause(eng, far)
         compiled.sync_counts()
         k1, k2 = fused_substep2.K1_LAUNCHES, band_detect.K2_LAUNCHES
-        k7 = recmirror.K7_LAUNCHES
+        k8 = _k8_launches()
         _check_packets(packets, kept, win["seen"], "runtime")
         if k1 != cfg.subticks * frames or k2 != 8 * frames:
             raise AssertionError(f"runtime: {frames} frames launched K1 {k1}"
                                  f", K2 {k2} times")
         if (far.get("held_overflow", 1) or (far["far_pairs"] > 0)
-                != (k7 > 0)):
-            raise AssertionError(f"runtime: far stats {far}, K7 {k7}")
+                != (k8 > 0) or recmirror.K7_LAUNCHES):
+            raise AssertionError(f"runtime: far stats {far}, K8 {k8}, K7 "
+                                 f"{recmirror.K7_LAUNCHES}")
         lat_ms = sorted(lat)
         out.update(fps_alone=fps_alone, fps_polled=fps_polled,
                    lat_median=lat_ms[len(lat_ms) // 2], lat_max=lat_ms[-1],
-                   frames=frames, k1=k1, k2=k2, k7=k7, far=dict(far))
+                   frames=frames, k1=k1, k2=k2, k8=k8, far=dict(far))
         log(f"runtime, fused engine 1M: {frames} frames on the worker "
             f"thread, {fps_alone:.3f} frames/s alone ({spent['alone'][0]} "
             f"frames), {fps_polled:.3f} frames/s with render_packet() "
@@ -1944,7 +2008,7 @@ def run_runtime_fused(dev, card: str) -> dict:
             f"{out['lat_max']:.1f} ms; frame indices monotonic; "
             f"{len(packets)} packets bitwise equal to their frame's "
             f"positions); K1 {k1} = {cfg.subticks} x {frames}, K2 {k2} = 8 "
-            f"x {frames}, K7 {k7}; far stats over the reads {far} on {card}")
+            f"x {frames}, K8 {k8}; far stats over the reads {far} on {card}")
 
         # the L1 round trip, paused
         ta = time.perf_counter()
@@ -2263,13 +2327,15 @@ def run_planified_config3(dev, card) -> dict:
     collide_stencil.K3_LAUNCHES = 0
     band_detect.K2_LAUNCHES = 0
     recmirror.K7_LAUNCHES = 0
+    far_apply.K8A_LAUNCHES = 0
+    far_apply.K8B_LAUNCHES = 0
     routes0 = dict(farfield4.APPLY_ROUTES)
     reads0 = compiled.HOST_READS
     ms = _frames(step, PLANIFIED_FRAMES)
     compiled.sync_counts()
     reads = compiled.HOST_READS - reads0
     k3, k2 = collide_stencil.K3_LAUNCHES, band_detect.K2_LAUNCHES
-    k7 = recmirror.K7_LAUNCHES
+    k7, k8 = recmirror.K7_LAUNCHES, _k8_launches()
     routes = {k: v - routes0[k] for k, v in farfield4.APPLY_ROUTES.items()}
     stats = be.far_stats()
     ps = box[0]
@@ -2285,11 +2351,11 @@ def run_planified_config3(dev, card) -> dict:
     if k2 != 8 * PLANIFIED_FRAMES or k2 != stats["far_rebuilds"]:
         raise AssertionError(f"planified config 3: K2 launched {k2} times, "
                              f"far stats {stats}")
-    # the apply ladder is (1024, 4096, 16384): every substep with active
-    # pairs takes a bucket above 256, the mirror route, one K7 launch
-    if k7 != routes["mirror"] or routes["narrow"]:
-        raise AssertionError(f"planified config 3: K7 launched {k7} times; "
-                             f"far applies by route {routes}")
+    # the card's default record layout: every substep with active pairs
+    # applies them through K8 (K8a and K8b once each), never K7
+    if k8 != routes["kernel"] or routes["narrow"] or routes["mirror"] or k7:
+        raise AssertionError(f"planified config 3: K8 launched {k8} times, "
+                             f"K7 {k7}; far applies by route {routes}")
     n1, m1 = be.counts(ps)
     rate = substeps / (sum(ms) / 1000.0)
     log(f"planified config 3: {PLANIFIED_FRAMES} frames = {substeps} "
@@ -2297,15 +2363,15 @@ def run_planified_config3(dev, card) -> dict:
         f"substeps/s ({rate * n1:.4g} particle-substeps/s); alive beams "
         f"{m0} -> {m1}; far stats warm frame {warm}, timed {stats}; K3 "
         f"{k3} = {cfg.subticks} x {PLANIFIED_FRAMES}, K2 {k2} = 8 x "
-        f"{PLANIFIED_FRAMES}, K7 {k7} ({'on' if k7 else 'none of'} the "
-        f"substeps with active pairs: {routes['mirror']} mirror-route "
-        f"applies, bucket > 256); the backend steps the captured frames "
+        f"{PLANIFIED_FRAMES}, K8 {k8} ({'on' if k8 else 'none of'} the "
+        f"substeps with active pairs: {routes['kernel']} K8 applies); the "
+        f"backend steps the captured frames "
         f"(planified_frame_far_jit), 0 host reads on {card}")
     turns = _planified_turns("planified config 3", be, box[0], consts, uin,
                              cfg, card)
     t, bounds = _planified_kernels(box[0], spec, cfg, consts, ff)
     directed_rate = run_directed_config3(flat, cfg0, consts, uin, card)
-    return dict(k2=k2, k3=k3, k7=k7, rate=rate, t=t, bounds=bounds,
+    return dict(k2=k2, k3=k3, k7=k7, k8=k8, rate=rate, t=t, bounds=bounds,
                 stats=stats, directed_rate=directed_rate, turns=turns)
 
 
@@ -2381,7 +2447,7 @@ def run_planified_engine(dev, card) -> dict:
     worker thread with ``render_packet()`` polled every 5 ms, each packet
     bitwise
     equal to ``unplanify`` of an independent clone of its frame (kept at
-    extract), K3 64 per frame, K7 once per mirror-route apply; then the v1 snapshot round trip, three
+    extract), K3 64 per frame, K8 once per apply with pairs; then the v1 snapshot round trip, three
     ``corrupt_buffers`` with stepping going on, and ``recreate()`` (which,
     as in the JAX package, comes back on the default ``SimBackend``)."""
     consts = tb.PhysicsConstants()
@@ -2411,6 +2477,7 @@ def run_planified_engine(dev, card) -> dict:
     compiled.sync_counts()
     collide_stencil.K3_LAUNCHES = 0
     recmirror.K7_LAUNCHES = 0
+    far_apply.K8A_LAUNCHES = far_apply.K8B_LAUNCHES = 0
     routes0 = dict(farfield4.APPLY_ROUTES)
     eng = Engine(ps, consts, opts, backend=be)
     try:
@@ -2438,16 +2505,18 @@ def run_planified_engine(dev, card) -> dict:
             time.sleep(0.005)
         frames = _pause(eng, far)
         compiled.sync_counts()
-        k3, k7 = collide_stencil.K3_LAUNCHES, recmirror.K7_LAUNCHES
+        k3, k8 = collide_stencil.K3_LAUNCHES, _k8_launches()
         routes = {k: v - routes0[k] for k, v in farfield4.APPLY_ROUTES.items()}
         if k3 != cfg.subticks * frames:
             raise AssertionError(f"planified engine: {frames} frames "
                                  f"launched K3 {k3} times")
-        # the ladder is (1024, 4096): every substep with active pairs
-        # takes a bucket above 256, the mirror route, one K7 launch
-        if not k7 or k7 != routes["mirror"] or routes["narrow"]:
-            raise AssertionError(f"planified engine: K7 launched {k7} "
-                                 f"times, far applies by route {routes}")
+        # the card's default record layout: every substep with active
+        # pairs applies them through K8, never K7
+        if (not k8 or k8 != routes["kernel"] or routes["narrow"]
+                or routes["mirror"] or recmirror.K7_LAUNCHES):
+            raise AssertionError(f"planified engine: K8 launched {k8} "
+                                 f"times, K7 {recmirror.K7_LAUNCHES}, far "
+                                 f"applies by route {routes}")
         torch.cuda.synchronize()
         names = ("pos", "particle_alive", "beam_a", "beam_b", "beam_alive",
                  "beam_strain", "beam_stress")
@@ -2466,8 +2535,8 @@ def run_planified_engine(dev, card) -> dict:
             f"on the worker thread, {fps:.2f} frames/s with render_packet() "
             f"polled every 5 ms; {len(packets)} packets bitwise equal to "
             f"unplanify of their frame; K3 {k3} = {cfg.subticks} x {frames},"
-            f" K7 {k7} (one per mirror-route apply: {routes['mirror']} of "
-            f"{cfg.subticks * frames} substeps); far stats over the reads "
+            f" K8 {k8} (one per apply with active pairs: {routes['kernel']}"
+            f" of {cfg.subticks * frames} substeps); far stats over the reads "
             f"{far} on {card}")
         buf = eng.save_snapshot()
         if buf[:4] == b"SBL1" or not eng.load_snapshot(buf):
@@ -2532,11 +2601,11 @@ def _fold_strip(dev):
 
 
 def check_planified_fold(dev) -> None:
-    """The fold through ``planified_frame_far`` on the card against the
-    CPU, once through the narrow route (a 256-pair list) and once through
-    the mirror route (512 pairs: bucket 512 > 256, K7 once per substep
-    on the card): far stats equal and non-empty, positions and
-    velocities within check_small_fold's tolerances."""
+    """The fold through ``planified_frame_far`` on the card (K8 once per
+    substep) against the CPU, once through the CPU's narrow route (a
+    256-pair list) and once through its mirror route (512 pairs: bucket
+    512 > 256): far stats equal and non-empty, positions and velocities
+    within check_small_fold's tolerances."""
     cfg = tb.StaticConfig(subticks=4, particle_radius=4.0)
     consts, uin = tb.PhysicsConstants(), tb.UserInput()
     for route, max_pairs in (("narrow", 256), ("mirror", 512)):
@@ -2546,19 +2615,21 @@ def check_planified_fold(dev) -> None:
         for d in ("cpu", dev):
             ps, spec = _fold_strip(d)
             before = dict(farfield4.APPLY_ROUTES)
-            k7 = recmirror.K7_LAUNCHES
+            k7, k8 = recmirror.K7_LAUNCHES, _k8_launches()
             ps, st = planify.planified_frame_far(ps, consts, uin, spec, cfg,
                                                  ff)
-            k7 = recmirror.K7_LAUNCHES - k7
+            k7, k8 = recmirror.K7_LAUNCHES - k7, _k8_launches() - k8
             ran = {k: v - before[k] for k, v in farfield4.APPLY_ROUTES.items()}
-            if ran[route] != cfg.subticks or sum(ran.values()) != ran[route]:
+            want = "kernel" if farfield4.kernel_route(d) else route
+            if ran[want] != cfg.subticks or sum(ran.values()) != ran[want]:
                 raise AssertionError(f"planified fold on {d}: applies by "
-                                     f"route {ran}, want all {route}")
-            # K7 once per mirror-route apply on the card; the CPU runs its
-            # plain version
-            if k7 != (ran["mirror"] if d == dev else 0):
-                raise AssertionError(f"planified fold on {d}: K7 launched "
-                                     f"{k7} times, applies by route {ran}")
+                                     f"route {ran}, want all {want}")
+            # K8 once per apply on the card, K7 never; the CPU runs the
+            # plain route
+            if (k8, k7) != (ran["kernel"], 0):
+                raise AssertionError(f"planified fold on {d}: K8 launched "
+                                     f"{k8} times, K7 {k7}, applies by "
+                                     f"route {ran}")
             out[str(d)] = (st.tolist(), ps.lat.pos.cpu(), ps.lat.vel.cpu())
         (st_g, pos_g, vel_g), (st_c, pos_c, vel_c) = out[str(dev)], out["cpu"]
         dpos = (pos_g - pos_c).abs().max().item()
@@ -2568,16 +2639,16 @@ def check_planified_fold(dev) -> None:
             raise AssertionError(f"planified fold, {route} route: stats cuda "
                                  f"{st_g} cpu {st_c}, |dpos| {dpos}, |dvel| "
                                  f"{dvel}")
-        log(f"planified fold {spec.width}x{spec.height}, {route} route: cuda "
-            f"== cpu plain (stats {st_g}; max |dpos| {dpos:.3g}, |dvel| "
-            f"{dvel:.3g}); K7 {k7} on the card")
+        log(f"planified fold {spec.width}x{spec.height}, K8 against the "
+            f"CPU's {route} route: cuda == cpu plain (stats {st_g}; max "
+            f"|dpos| {dpos:.3g}, |dvel| {dvel:.3g}); K8 {k8} on the card")
 
 
 def run_fused_activation(dev, bench_rate: float, card: str) -> dict:
     """``FusedLatticeBackend`` on the bench scene with the activation
     schedule off, then on, over the same frames: ACTIVATION_WARM frames,
     then frames 8-10 with the launch counts from 0 (K1 64 per frame, K2
-    once per rebuild, K7 once per mirror-route apply; far pairs present,
+    once per rebuild, K8 once per apply with pairs; far pairs present,
     ``far_active ≤ far_pairs``, ``far_overflow`` 0), then one profiled
     frame."""
     state, spec, cfg, consts, spacing = _scene(N_PARTICLES, dev)
@@ -2601,7 +2672,7 @@ def run_fused_activation(dev, bench_rate: float, card: str) -> dict:
         ms = _frames(step, ACTIVATION_FRAMES)
         compiled.sync_counts()
         k1, k2 = fused_substep2.K1_LAUNCHES, band_detect.K2_LAUNCHES
-        k7 = recmirror.K7_LAUNCHES
+        k7, k8 = recmirror.K7_LAUNCHES, _k8_launches()
         routes = {k: v - routes0[k] for k, v in farfield4.APPLY_ROUTES.items()}
         stats = be.far_stats()
         label = f"fused backend, far_activation={act}"
@@ -2609,17 +2680,18 @@ def run_fused_activation(dev, bench_rate: float, card: str) -> dict:
             raise AssertionError(f"{label}: non-finite state")
         if (stats["far_overflow"] or stats["far_active"] > stats["far_pairs"]
                 or not stats["far_active"] or k1 != substeps
-                or k2 != stats["far_rebuilds"] or not k7
-                or k7 != routes["mirror"] or routes["narrow"]):
+                or k2 != stats["far_rebuilds"] or not k8 or k7
+                or k8 != routes["kernel"] or routes["narrow"]
+                or routes["mirror"]):
             raise AssertionError(f"{label}: far stats {stats}, K1 {k1}, K2 "
-                                 f"{k2}, K7 {k7}, routes {routes}")
+                                 f"{k2}, K8 {k8}, K7 {k7}, routes {routes}")
         rates[act] = substeps / (sum(ms) / 1000.0)
         profile_frame(label, step, sum(ms) / len(ms), cfg.subticks)
         log(f"{label}, bench scene frames {ACTIVATION_WARM + 1}-"
             f"{ACTIVATION_WARM + ACTIVATION_FRAMES}: frame ms "
             f"{[round(x, 1) for x in ms]} = {rates[act]:.1f} substeps/s; far "
             f"stats {stats} (the profiled frame after them: "
-            f"{be.far_stats()}); K1 {k1}, K2 {k2}, K7 {k7} on {card}")
+            f"{be.far_stats()}); K1 {k1}, K2 {k2}, K8 {k8} on {card}")
         del be, box
     log(f"fused backend on the bench scene, frames {ACTIVATION_WARM + 1}-"
         f"{ACTIVATION_WARM + ACTIVATION_FRAMES}: {rates[True]:.1f} substeps/s "
@@ -2652,7 +2724,8 @@ def _launches() -> dict:
     compiled.sync_counts()
     return {"K1": fused_substep2.K1_LAUNCHES, "K2": band_detect.K2_LAUNCHES,
             "K3": collide_stencil.K3_LAUNCHES,
-            "K4": fused_substep.K4_LAUNCHES, "K7": recmirror.K7_LAUNCHES}
+            "K4": fused_substep.K4_LAUNCHES, "K7": recmirror.K7_LAUNCHES,
+            "K8": _k8_launches()}
 
 
 def _zero_launches() -> None:
@@ -2662,6 +2735,7 @@ def _zero_launches() -> None:
     collide_stencil.K3_LAUNCHES = 0
     fused_substep.K4_LAUNCHES = 0
     recmirror.K7_LAUNCHES = 0
+    far_apply.K8A_LAUNCHES = far_apply.K8B_LAUNCHES = 0
 
 
 def _engine_threads() -> list:
@@ -2722,7 +2796,9 @@ def check_far_order(dev) -> None:
     """Repair 0 on the card: the stirred 40 x 40 cloth's frame with the
     activation schedule off and on, twice on the card without torch's
     deterministic algorithms: the runs are bit-identical and equal the
-    CPU's frame bit for bit (the far apply sums in list order)."""
+    CPU's frame bit for bit (the far apply sums in list order; the CPU's
+    frame takes K8's plain versions here, the card's route, which the
+    CPU otherwise leaves for its record-table routes)."""
     if torch.are_deterministic_algorithms_enabled():
         raise AssertionError("deterministic algorithms are on")
     # tests/test_torch_cuda.py::test_stirred_cloth_activation_matches_cpu
@@ -2741,16 +2817,22 @@ def check_far_order(dev) -> None:
                       skin=0.75 * spacing, horizon=8)
     routes0 = dict(farfield4.APPLY_ROUTES)
     out = {}
-    for d, runs in (("cpu", 1), (dev, 2)):
-        st = lattice_state_from_numpy(**lattice_state_to_numpy(state),
-                                      device=d)
-        for act in (False, True):
-            for run in range(runs):
-                hot, obs, immut, ec = pack_lattice2(st)
-                hot, obs, stats = fused_substep2.fused_frame4(
-                    hot, obs, immut, ec, consts, tb.UserInput(), spec, cfg,
-                    ff, activation=act)
-                out[str(d), act, run] = (hot[0:6].cpu(), stats.tolist())
+    card_route = farfield4.kernel_route
+    farfield4.kernel_route = (lambda device, mb=32, mb_out=None:
+                              card_route("cuda", mb, mb_out))
+    try:
+        for d, runs in (("cpu", 1), (dev, 2)):
+            st = lattice_state_from_numpy(**lattice_state_to_numpy(state),
+                                          device=d)
+            for act in (False, True):
+                for run in range(runs):
+                    hot, obs, immut, ec = pack_lattice2(st)
+                    hot, obs, stats = fused_substep2.fused_frame4(
+                        hot, obs, immut, ec, consts, tb.UserInput(), spec,
+                        cfg, ff, activation=act)
+                    out[str(d), act, run] = (hot[0:6].cpu(), stats.tolist())
+    finally:
+        farfield4.kernel_route = card_route
     routes = {k: v - routes0[k] for k, v in farfield4.APPLY_ROUTES.items()}
     for act in (False, True):
         cpu = out["cpu", act, 0]
@@ -2785,7 +2867,7 @@ def run_cli(dev, card: str) -> dict:
         parts[name] = round(time.perf_counter() - t0, 1)
         t0 = time.perf_counter()
 
-    launches_cli = {"K2": 0, "K7": 0}
+    launches_cli = {"K2": 0, "K7": 0, "K8": 0}
 
     def add(k):
         for key in launches_cli:
@@ -2817,7 +2899,7 @@ def run_cli(dev, card: str) -> dict:
     log(f"cli run --scene self_colliding_cloth --n {CLI_PLANIFIED_N} --path "
         f"planified --farfield ({CLI_FRAMES} frames): beams_alive "
         f"{out['beams_alive']}, {out['substeps_per_sec']} substeps/s, "
-        f"finite; {secs:.1f} s; K2 {k['K2']}, K7 {k['K7']} launches "
+        f"finite; {secs:.1f} s; K2 {k['K2']}, K8 {k['K8']} launches "
         f"({k}) on {card}")
     lap("run planified")
 
@@ -3255,14 +3337,16 @@ def check_far_mb_frame10(hot9, obs9, state, spec, cfg, consts, ff,
                          card: str) -> dict:
     """Frame 10 of the bench scene from the single-device frame 9 through
     ``FusedLatticeBackend(far_mb=PROBE_MB)`` (JAX's default variants, its
-    drop rule taking krec out) and ``far_mb=32``, op by op: finite,
+    drop rule taking krec out) and ``far_mb=64``, op by op: finite,
     ``far_overflow`` 0, far pairs, K7 at 128 lanes launched once per
     mirror-route apply, the two frames equal bit for bit (the wider
-    records only add +0.0 terms to each sum)."""
+    records only add +0.0 terms to each sum; ``far_mb=32``, the card's
+    default layout, takes K8, which adds each side's terms in another
+    order)."""
     uin = tb.UserInput()
     ls9 = unpack_lattice2(hot9, obs9, state)
     out, k7, routes, far = {}, {}, {}, {}
-    for mb in (PROBE_MB, 32):
+    for mb in (PROBE_MB, 64):
         be = _eager_twin(FusedLatticeBackend(spec, cfg, farfield=ff,
                                              far_buckets=FAR_BUCKETS,
                                              far_mb=mb, device=hot9.device))
@@ -3282,14 +3366,14 @@ def check_far_mb_frame10(hot9, obs9, state, spec, cfg, consts, ff,
             or not k7[PROBE_MB]):
         raise AssertionError(f"far_mb={PROBE_MB} frame 10: far stats {f}, "
                              f"K7 {k7}, routes {routes}")
-    same = _same(out[PROBE_MB], out[32])
+    same = _same(out[PROBE_MB], out[64])
     if not same:
         raise AssertionError(f"far_mb={PROBE_MB} frame 10 differs from "
-                             "far_mb=32's")
+                             "far_mb=64's")
     log(f"phase 14 far_mb={PROBE_MB}: bench frame 10 from frame 9 through "
         f"FusedLatticeBackend(far_mb={PROBE_MB}) op by op: finite, far "
         f"stats {f}, K7 {k7[PROBE_MB]} launches at {PROBE_MB} lanes (one per "
-        f"mirror-route apply: {routes[PROBE_MB]}), equal to far_mb=32 bit "
+        f"mirror-route apply: {routes[PROBE_MB]}), equal to far_mb=64 bit "
         f"for bit on {card}")
     return dict(k7=k7[PROBE_MB], stats=f)
 
@@ -3732,15 +3816,16 @@ def _time_instance(label, fn, plain, bound) -> dict:
 def _gate_detect_run(mode: str, r: dict, k1: dict, want: dict) -> None:
     """A finite state, no overflow, K1 by instance as ``want``, K2 once a
     frame (kernel detection: block 0's side planes) or once a rebuild
-    (xla), K7 in the far applies."""
+    (xla), K8 in the far applies (K7 never)."""
     hot = r["box"][0][0]
     want_k2 = TIMED_FRAMES if mode == "kernel" else r["stats"]["far_rebuilds"]
     if (not bool(torch.isfinite(hot[:6]).all())
             or r["stats"]["far_overflow"] or k1 != want
-            or r["k2"] != want_k2 or not r["k7"]):
+            or r["k2"] != want_k2 or not r["k8"] or r["k7"]):
         raise AssertionError(f"kernel detect, {mode}: far stats "
                              f"{r['stats']}, K1 {k1} (want {want}), K2 "
-                             f"{r['k2']} (want {want_k2}), K7 {r['k7']}")
+                             f"{r['k2']} (want {want_k2}), K8 {r['k8']}, "
+                             f"K7 {r['k7']}")
 
 
 def run_kernel_detect(state, spec, cfg, consts, spacing, card,
@@ -3748,7 +3833,7 @@ def run_kernel_detect(state, spec, cfg, consts, spacing, card,
     """The bench scene through ``FusedLatticeBackend(far_detect=
     "kernel")`` (the default variants: K1 rsqrt+rollgroup, and its detect
     instance at each block's last substep but the frame's last; K2 once a
-    frame for block 0's side planes; K7 per mirror-route apply) and with
+    frame for block 0's side planes; K8 per apply with pairs) and with
     xla detection, frames 3-10 in turns (xla, kernel, kernel, xla), the
     launch counts from 0 before each turn; then frame 10 of both from the
     xla path's frame 9; then the detect instance timed at the final
@@ -3769,7 +3854,7 @@ def run_kernel_detect(state, spec, cfg, consts, spacing, card,
         runs[mode] = dict(be=be, box=box, ms=0.0, reads=0,
                           k1=dict.fromkeys(
                               fused_substep2.K1_INSTANCE_LAUNCHES, 0),
-                          k2=0, k7=0)
+                          k2=0, k7=0, k8=0)
     for mode in ("xla", "kernel", "kernel", "xla"):
         r = runs[mode]
         _zero_k1_k2_k7()
@@ -3785,6 +3870,7 @@ def run_kernel_detect(state, spec, cfg, consts, spacing, card,
             r["k1"][k] += v
         r["k2"] += band_detect.K2_LAUNCHES
         r["k7"] += recmirror.K7_LAUNCHES
+        r["k8"] += _k8_launches()
     substeps = TIMED_FRAMES * cfg.subticks
     blocks = cfg.subticks // ff.horizon
     for mode, r in runs.items():
@@ -3801,7 +3887,7 @@ def run_kernel_detect(state, spec, cfg, consts, spacing, card,
         r["idle"], r["launches_per_substep"] = idle, per
         log(f"phase 15 bench scene, {mode} detection: frames 3-10 "
             f"{r['rate']:.1f} substeps/s; far stats {r['stats']}; K1 {k1}, "
-            f"K2 {r['k2']}, K7 {r['k7']}; {r['reads'] / substeps:.3f} host "
+            f"K2 {r['k2']}, K8 {r['k8']}; {r['reads'] / substeps:.3f} host "
             f"reads and {per:.1f} launches per substep, device idle share "
             f"{idle:.2f} (one profiled frame) on {card}")
     if runs["kernel"]["stats"]["far_rebuilds"] != \
@@ -3889,7 +3975,8 @@ def run_kernel_detect(state, spec, cfg, consts, spacing, card,
                              True, 1, 1), 50)
     return dict(rate=runs["kernel"]["rate"], rate_xla=runs["xla"]["rate"],
                 k1=runs["kernel"]["k1"], k2=runs["kernel"]["k2"],
-                k7=runs["kernel"]["k7"], timing=timing, frame10=out,
+                k7=runs["kernel"]["k7"], k8=runs["kernel"]["k8"],
+                timing=timing, frame10=out,
                 reads=runs["kernel"]["reads"] / substeps,
                 per_substep=runs["kernel"]["launches_per_substep"],
                 idle=runs["kernel"]["idle"])
@@ -3930,9 +4017,9 @@ def run_v3(state, spec, cfg, consts, spacing, card, parent=None) -> dict:
     if (not bool(torch.isfinite(hot[:6]).all())
             or sum(k1.values()) != substeps
             or set(k1) - {"strict+trig", "strict+trig+detect"}
-            or band_detect.K2_LAUNCHES or recmirror.K7_LAUNCHES):
+            or band_detect.K2_LAUNCHES or _far_launches()):
         raise AssertionError(f"v3: K1 {k1}, K2 {band_detect.K2_LAUNCHES}, "
-                             f"K7 {recmirror.K7_LAUNCHES}")
+                             f"K7 or K8 {_far_launches()}")
     rate = substeps / (sum(ms) / 1000.0)
     idle, per = _idle_and_launches(step, cfg.subticks)
     log(f"phase 15 bench scene, far_mode v3 ({ff}): frames 1-2 {first}; "
@@ -4798,7 +4885,7 @@ def run_fused_captured_engine(dev, card: str) -> dict:
         frames = _pause(eng, far)
         compiled.sync_counts()
         k1, k2 = fused_substep2.K1_LAUNCHES, band_detect.K2_LAUNCHES
-        k7 = recmirror.K7_LAUNCHES
+        k7, k8 = recmirror.K7_LAUNCHES, _k8_launches()
         _check_packets(win["packets"], kept, win["seen"],
                        "fused captured engine")
         if eng.error is not None:
@@ -4806,10 +4893,10 @@ def run_fused_captured_engine(dev, card: str) -> dict:
     reads = compiled.HOST_READS - reads0
     if (k1 != cfg.subticks * frames or k2 != 8 * frames or reads
             or far.get("held_overflow", 1)
-            or (far["far_pairs"] > 0) != (k7 > 0)):
+            or (far["far_pairs"] > 0) != (k8 > 0) or k7):
         raise AssertionError(f"fused captured engine: {frames} frames, K1 "
-                             f"{k1}, K2 {k2}, K7 {k7}, host reads {reads}, "
-                             f"far stats {far}")
+                             f"{k1}, K2 {k2}, K8 {k8}, K7 {k7}, host reads "
+                             f"{reads}, far stats {far}")
     lat = sorted(win["lat"])
     out = dict(fps_alone=win["fps_alone"], fps_polled=win["fps_polled"],
                lat_median=lat[len(lat) // 2], lat_max=lat[-1])
@@ -4818,7 +4905,7 @@ def run_fused_captured_engine(dev, card: str) -> dict:
         f"polled flat-out ({len(lat)} packets, latency median "
         f"{out['lat_median']:.1f} ms, max {out['lat_max']:.1f} ms; "
         f"{len(win['packets'])} packets bitwise equal to their frame's "
-        f"positions); K1 {k1}, K2 {k2}, K7 {k7}, host reads in the frames "
+        f"positions); K1 {k1}, K2 {k2}, K8 {k8}, host reads in the frames "
         f"{reads}; far stats over the reads {far} on {card}")
     return out
 
@@ -5355,6 +5442,7 @@ def main() -> int:
     # phase 7: times at the bench path's final state, kernels against
     # their plain versions
     t, bounds = time_at_final_state(run, spec, cfg, consts, parent)
+    errs["K8"] = t.pop("K8 err")
     del run["be"], run["packed"]
     t.update(probe["t"])
     bounds.update(probe["bounds"])
@@ -5458,6 +5546,8 @@ def main() -> int:
         ("K6", "uncast_rows", "recmirror", probe_src + ":68",
          probe["launches"]["K6"]),
         ("K7", "mirror_records", "recmirror", probe_src + ":92", run["k7"]),
+        ("K8", "far_pairs+far_accumulate", "far_apply", "none (XLA's fusion "
+         "of softbody_tpu/ops/farfield4.py's pair step)", run["k8"]),
     )
     kernels = [
         {"name": f"{k} {name}", "route": "cuda",
@@ -5482,17 +5572,17 @@ def main() -> int:
     kernels[0]["launches_v3"] = sum(far_modes["v3"]["k1"].values())
     for row in kernels:
         k = row["name"].split()[0]
-        if k in ("K2", "K7"):
+        if k in ("K2", "K7", "K8"):
             row["launches_kernel_detect"] = kd[k.lower()]
-        if k in ("K2", "K3", "K7"):
+        if k in ("K2", "K3", "K7", "K8"):
             row["launches_planified"] = plan[k.lower()]
         if k == "K3":
             row["launches_compiled"] = comp["path A"]["k3"]
-        if k in ("K1", "K2", "K7"):
+        if k in ("K1", "K2", "K7", "K8"):
             row["launches_fused_captured"] = fused_comp["launches"].get(
                 {"K1": "K1_INSTANCE_LAUNCHES", "K2": "K2_LAUNCHES",
-                 "K7": "K7_LAUNCHES"}[k], 0)
-        if k in ("K2", "K7"):
+                 "K7": "K7_LAUNCHES", "K8": "K8A_LAUNCHES"}[k], 0)
+        if k in ("K2", "K7", "K8"):
             row["launches_cli"] = launches_cli[k]
         if k in launches_sharded:
             row["launches_sharded"] = launches_sharded[k]

@@ -59,7 +59,7 @@ function that writes into its inputs is refused (a replay would write
 into the static inputs, not the caller's tensors).
 
 **Launch counters**: the kernel wrappers count their launches on the
-host (``K1_LAUNCHES`` ... ``K7_LAUNCHES``), and a replay runs no Python.
+host (``K1_LAUNCHES`` ... ``K8B_LAUNCHES``), and a replay runs no Python.
 A capture records what the wrappers counted while it was captured and
 every replay adds that again; what the warm-up and the capture counted
 is taken back (the warm-up's result is discarded, the capture launches
@@ -137,6 +137,8 @@ LAUNCH_COUNTERS = (
     (".cuda.recmirror", "K5_LAUNCHES"),
     (".cuda.recmirror", "K6_LAUNCHES"),
     (".cuda.recmirror", "K7_LAUNCHES"),
+    (".cuda.far_apply", "K8A_LAUNCHES"),
+    (".cuda.far_apply", "K8B_LAUNCHES"),
     (".farfield4", "APPLY_ROUTES"),
 )
 

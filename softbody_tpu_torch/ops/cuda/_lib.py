@@ -28,7 +28,8 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("fused_substep2.cu", "band_detect.cu", "collide_stencil.cu",
-           "fused_substep.cu", "recmirror.cu", "graph_cond.cu")
+           "fused_substep.cu", "recmirror.cu", "graph_cond.cu",
+           "far_apply.cu")
 HEADERS = ("lattice_device.cuh", "band_device.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -208,6 +209,19 @@ def bind(path: Path) -> ctypes.CDLL:
     lib.sb_mirror_records.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                       _I, _P]
     lib.sb_mirror_records.restype = _I
+    # int sb_far_pairs(px, py, vx, vy, alive, sx, sy, w, h, ca, cb, valid,
+    #     k, cwy, world_h, s, two_r, dt2, ecoeff, friction, ecoeff_dev,
+    #     friction_dev, scratch, stream) and sb_far_accumulate(scratch,
+    #     keys, offsets, valid, k, capacity, cwy, out, wo, ho, stream): K8
+    #     (libraries built before it existed lack them)
+    if hasattr(lib, "sb_far_pairs"):
+        lib.sb_far_pairs.argtypes = ([_P] * 5 + [_L, _L, _I, _I] + [_P] * 3
+                                     + [_I, _I, _L, _I] + [_F] * 4
+                                     + [_P] * 4)
+        lib.sb_far_pairs.restype = _I
+        lib.sb_far_accumulate.argtypes = [_P] * 4 + [_I] * 3 + [_P, _I, _I,
+                                                                _P]
+        lib.sb_far_accumulate.restype = _I
     # int sb_<kernel>_occupancy(stencil, out[5]) of K1, K4, K3 and K2
     # (libraries built before they existed lack them)
     for name in ("sb_fused_substep2_occupancy", "sb_fused_substep_occupancy",

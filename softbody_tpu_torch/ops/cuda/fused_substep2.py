@@ -83,6 +83,7 @@ from ..farfield import (
 )
 from ..farfield4 import (
     NARROW_MAX,
+    BlockOrder,
     _check_layout,
     bucket_index,
     bucketed_far_delta_planes,
@@ -855,10 +856,12 @@ def fused_frame4(hot, obs, immut, edge_consts, consts: PhysicsConstants,
     min(ffspec.horizon, n)``, plus a remainder block that also rebuilds.
     Each substep applies the far pairs through the JAX v4 route
     (``ops/farfield4.py::bucketed_far_delta_planes``: the rung chosen on
-    the device, zeros for an empty list; buckets ≤ 256 narrow, larger
-    ones through the record table of kernel K7; under ``krec`` every
-    bucket through the table) then runs K1 in the instance of ``kvar``;
-    the frame's last substep is the observing one.
+    the device, zeros for an empty list; on the card's default layout K8
+    with the block's destination order, built in its first apply's rung;
+    otherwise buckets ≤ 256 narrow, larger ones through the record table
+    of kernel K7, under ``krec`` every bucket through the table) then
+    runs K1 in the instance of ``kvar``; the frame's last substep is the
+    observing one.
 
     ``detect_mode="xla"``: each rebuild detects on its state (K2 for the
     band, or its plain loop under ``band_impl="plain"``: JAX's "xla").
@@ -954,11 +957,12 @@ def fused_frame4(hot, obs, immut, edge_consts, consts: PhysicsConstants,
         st = torch.stack([st[0] + 1, torch.maximum(st[1], fl.n_pairs),
                           torch.maximum(st[2], fl.overflow),
                           torch.maximum(st[3], na)])
+        order = BlockOrder(fl, same_list=n_act is None)
         for j in range(size):
             device_mark("far_apply", hot)
             fl_j = fl if n_act is None else crop_active(fl, n_act[j])
             far = bucketed_far_delta_planes(hot, immut[ALIVE], fl_j, None,
-                                            **far_kw)
+                                            order=order, **far_kw)
             device_mark("substep", hot)
             if kernel_detect and not last_block and j == size - 1:
                 extras = torch.cat([head, torch.stack(vbar_of(hot)), tail])

@@ -11,8 +11,11 @@ kernels of ``scripts/probe_recmirror.py``.
 
 Each wrapper launches its hand-written kernel (``csrc/recmirror.cu``) on
 CUDA tensors and runs its plain version on CPU tensors.  K5 and K6 are
-copies of the same bytes on a row-major card; K7 is the far apply's
-relayout on the bench path (``ops/farfield4.py``)."""
+copies of the same bytes on a row-major card.  K7 is the far apply's
+relayout (``ops/farfield4.py``) where the record table runs on the card:
+under an explicit lane block (``far_mb`` / ``far_mb_out``).  The card's
+default layout takes K8 (``far_apply.py``), which reads the planes
+directly; the CPU keeps the table's plain route."""
 
 from __future__ import annotations
 

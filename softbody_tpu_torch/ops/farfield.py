@@ -864,6 +864,21 @@ def far_pair_contributions(g, fl: FarList, cx_ids, cy_ids, *, s: int,
     """Exact reference pair math on windows ``g [2k, 5·c²]`` (k A-side
     then k B-side chunks) → ``[2k, 5, c²]`` (dvx dvy dax day dyn): A-side
     rows carry each term, B-side rows its exact negation."""
+    terms = far_pair_terms(g, fl, cx_ids, cy_ids, s=s, ff=ff, radius=radius,
+                           dt=dt, ecoeff=ecoeff, friction=friction,
+                           world_h=world_h)
+    return torch.cat([
+        torch.stack([t.sum(dim=2) for t in terms], dim=1),
+        torch.stack([-t.sum(dim=1) for t in terms], dim=1),
+    ], dim=0)
+
+
+def far_pair_terms(g, fl: FarList, cx_ids, cy_ids, *, s: int,
+                   ff: FarFieldSpec, radius: float, dt: float,
+                   ecoeff: float, friction: float, world_h: int):
+    """The cell-pair terms of :func:`far_pair_contributions` before they
+    are summed: five ``[k, c², c²]`` tensors (dvx dvy dax day dyn), A
+    cell by B cell, zero where a pair does not touch."""
     c = ff.chunk
     cc = c * c
     k = fl.capacity
@@ -908,12 +923,7 @@ def far_pair_contributions(g, fl: FarList, cx_ids, cy_ids, *, s: int,
     clip = (two_r - dist) * 0.5 / device_scalar(_mul32(dt, dt), g.device)
     pdax = torch.where(overlap, -nx * clip, 0.0)
     pday = torch.where(overlap, -ny * clip, 0.0)
-
-    terms = (pdvx, pdvy, pdax, pday, co)
-    return torch.cat([
-        torch.stack([t.sum(dim=2) for t in terms], dim=1),
-        torch.stack([-t.sum(dim=1) for t in terms], dim=1),
-    ], dim=0)
+    return pdvx, pdvy, pdax, pday, co
 
 
 def far_scatter_contributions(contrib, cx_ids, cy_ids, *, c: int, wp: int,

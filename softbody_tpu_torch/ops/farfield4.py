@@ -1,22 +1,34 @@
 """Far-field v4 pair apply: the port of ``softbody_tpu/ops/farfield4.py``
 (the mirror-record route, of any lane block ``mb`` that is a multiple
-of 32; 32 by default).
+of 32; 32 by default), and on the card its pair step as kernel K8.
 
 The candidate list is cropped to the smallest capacity bucket ≥
 ``n_pairs`` (a light frame does not pay for the full capacity; the rung is chosen on
 the device, as ``lax.switch`` chooses it: ``compiled.device_switch``),
-then, as in the JAX package, per bucket:
+then each rung takes one of three routes, by what the call shows:
 
-- buckets ≤ 256 (:func:`far_delta_planes_narrow`): each pair side's
-  window is gathered as 20 narrow rows (5 fields × 4 plane rows × 32
-  lanes) of a ``[5·W·Hm/32, 32]`` view of the planes, and the deltas are
-  scatter-added back the same way, in list order on every device
-  (``stencil.index_sum``);
-- larger buckets: the planes are relaid once into the (4, mb) record
-  table (:func:`mirror_table`, kernel K7 on the card), one record row is
-  gathered per pair side (:func:`far_terms_from_mirror`), the delta
-  records are scatter-added into a table of lane block ``mb_out``
-  (default ``mb``) and laid back into planes (:func:`unmirror_table`).
+- CUDA tensors with the default record layout (``mb`` 32, ``mb_out``
+  None or 32): K8 (:func:`far_delta_planes_kernel`, ``ops/cuda/
+  far_apply.py``) on every rung.  K8a computes each valid slot's pair
+  terms from windows read straight from the planes and sums them per
+  side cell; K8b sums each destination chunk's side rows in the list
+  order (:class:`BlockOrder`, built once per rebuild) from +0.0 into the
+  delta planes.  ``narrow_max`` and ``krec`` pick nothing here: the two
+  routes below gave the same bits.
+- CUDA tensors with an explicit lane block (JAX's ``far_mb`` /
+  ``far_mb_out`` measurement knobs), and CPU tensors (the reference the
+  tests hold against JAX), keep the JAX package's two routes:
+
+  - buckets ≤ ``narrow_max`` (256; :func:`far_delta_planes_narrow`): each
+    pair side's window is gathered as 20 narrow rows (5 fields × 4 plane
+    rows × 32 lanes) of a ``[5·W·Hm/32, 32]`` view of the planes, and the
+    deltas are scatter-added back the same way, in list order on every
+    device (``stencil.index_sum``);
+  - larger buckets: the planes are relaid once into the (4, mb) record
+    table (:func:`mirror_table`, kernel K7 on the card), one record row
+    is gathered per pair side (:func:`far_terms_from_mirror`), the delta
+    records are scatter-added into a table of lane block ``mb_out``
+    (default ``mb``) and laid back into planes (:func:`unmirror_table`).
 
 Layout: record row ``b·(W/4) + cx`` holds plane rows ``4cx..4cx+3``,
 lanes ``[mb·b, mb·b + mb)``, as ``[5 fields × 4 rows × mb lanes]`` (640
@@ -49,6 +61,7 @@ from typing import Callable, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from .cuda import far_apply
 from .cuda.recmirror import MB, NF, RX, mirror_records_call
 from .farfield import (
     FarFieldSpec,
@@ -63,8 +76,8 @@ PX, PY, VX, VY = range(4)
 # buckets at or below this take the narrow-row route
 NARROW_MAX = 256
 # bucketed applies run, by route (each mirror apply launches K7 once on
-# CUDA tensors)
-APPLY_ROUTES = {"narrow": 0, "mirror": 0}
+# CUDA tensors; each kernel apply K8a and K8b once each)
+APPLY_ROUTES = {"narrow": 0, "mirror": 0, "kernel": 0}
 
 
 def _mh(h: int, mb: int = MB) -> int:
@@ -261,22 +274,105 @@ def bucket_index(n_pairs: torch.Tensor, ff: FarFieldSpec,
     return (n > 0).to(torch.int64) * (bidx + 1)
 
 
+def kernel_route(device, mb: int = MB, mb_out: Optional[int] = None) -> bool:
+    """Whether an apply on ``device`` with the lane blocks ``mb`` /
+    ``mb_out`` takes K8: CUDA tensors with the default record layout."""
+    return (torch.device(device).type == "cuda" and mb == MB
+            and mb_out in (None, MB))
+
+
+class BlockOrder:
+    """K8's destination order (``far_apply.dest_order``) for the applies
+    of one rebuild's list ``fl``, built once, at the first apply that
+    takes the kernel route (after that apply's ``far_apply`` mark), and
+    kept on the device for the block's later applies.  Off the kernel
+    route nothing is built.
+
+    ``same_list``: every apply of the block is given ``fl`` itself (no
+    active prefix), so the order is built inside the rungs of the first
+    apply's switch, and a block whose list is empty builds nothing;
+    otherwise (an active prefix, which can be empty at first while the
+    list is not) it is built before the first apply's switch."""
+
+    def __init__(self, fl: FarList, same_list: bool = False) -> None:
+        self.fl = fl
+        self.same_list = same_list
+        self.order: Optional[far_apply.DestOrder] = None
+
+    def take(self, w: int, h: int):
+        """At an apply on the grid ``[w, h]``: ``(order, build)``, where
+        ``build`` (or None) fills ``order`` from the full list and must
+        run in each applying rung before K8."""
+        chunks = (w // RX) * (h // RX)
+        if self.order is not None:
+            if self.order.offsets.shape[0] != chunks + 1:
+                raise ValueError("one block's applies on two grids")
+            return self.order, None
+        fl = self.fl
+        self.order = far_apply.empty_order(fl.capacity, chunks,
+                                           fl.ca.device)
+
+        def build():
+            far_apply.dest_order(fl.ca, fl.cb, fl.valid, chunks,
+                                 into=self.order)
+
+        if self.same_list:
+            return self.order, build
+        build()
+        return self.order, None
+
+
+def far_delta_planes_kernel(planes5, fl: FarList,
+                            order: far_apply.DestOrder, *, s: int,
+                            ff: FarFieldSpec, radius: float, dt: float,
+                            ecoeff, friction, w: int, h: int,
+                            out: Optional[torch.Tensor] = None,
+                            ) -> torch.Tensor:
+    """K8 on the list ``fl`` cropped to a rung: K8a's side rows from the
+    five planes (``[w, h]`` or smaller, read as dead past their extent),
+    then K8b's delta planes in ``order`` (the full list's) into ``out``
+    (``[5, w', h']``, the grid's corner; ``[5, w, h]`` if None), which
+    is returned."""
+    rows = far_apply.far_pairs_call(
+        planes5, fl, s=s, ff=ff, radius=radius, dt=dt, ecoeff=ecoeff,
+        friction=friction, h=h, world_h=_mh(h))
+    if out is None:
+        out = rows.new_empty((NF, w, h))
+    return far_apply.far_accumulate_call(rows, order, fl.valid, out, h=h)
+
+
 def _apply_bucket(planes5_fn, fl: FarList, k: int, narrow_max: int,
-                  kw: dict, mb: int = MB,
-                  mb_out: Optional[int] = None) -> torch.Tensor:
-    """The list cropped to capacity ``k``, applied narrow (``k ≤
+                  kw: dict, mb: int = MB, mb_out: Optional[int] = None,
+                  order=None, out: Optional[torch.Tensor] = None,
+                  ) -> torch.Tensor:
+    """The list cropped to capacity ``k``, applied through K8 (``order``
+    given: ``(DestOrder, build or None)``), else narrow (``k ≤
     narrow_max``; 32-lane rows whatever ``mb``, as in JAX) or through the
     mirror table of lane block ``mb`` (delta records of ``mb_out``):
-    delta planes ``[5, w, h]`` (a view)."""
+    delta planes ``[5, w, h]`` (a view), or written into ``out`` (``[5,
+    w', h']``, the corner) and returned."""
     flk = crop_far_list(fl, k)
     w, h = kw["w"], kw["h"]
+    if order is not None:
+        dest, build = order
+        if build is not None:
+            build()
+        APPLY_ROUTES["kernel"] += 1
+        return far_delta_planes_kernel(planes5_fn(), flk, dest, out=out,
+                                       **kw)
     if k <= narrow_max:
         APPLY_ROUTES["narrow"] += 1
-        return far_delta_planes_narrow(planes5_fn(), flk, **kw)
-    APPLY_ROUTES["mirror"] += 1
-    dtab = far_terms_from_mirror(mirror_table(planes5_fn(), mb=mb, w=w, h=h),
-                                 flk, mb=mb, mb_out=mb_out, **kw)
-    return unmirror_table(dtab, w=w, h=h, mb=mb if mb_out is None else mb_out)
+        d = far_delta_planes_narrow(planes5_fn(), flk, **kw)
+    else:
+        APPLY_ROUTES["mirror"] += 1
+        dtab = far_terms_from_mirror(mirror_table(planes5_fn(), mb=mb, w=w,
+                                                  h=h),
+                                     flk, mb=mb, mb_out=mb_out, **kw)
+        d = unmirror_table(dtab, w=w, h=h,
+                           mb=mb if mb_out is None else mb_out)
+    if out is None:
+        return d
+    return out.copy_(d[:, :out.shape[1], :out.shape[2]])
 
 
 def bucketed_far_delta_from_fn(
@@ -299,14 +395,18 @@ def bucketed_far_delta_from_fn(
     as_table: bool = False,
     narrow_max: int = NARROW_MAX,
     out: Optional[torch.Tensor] = None,
+    order: Optional[BlockOrder] = None,
 ) -> Optional[torch.Tensor]:
     """Core bucketed apply over a deferred plane source: crop the list to
-    the smallest capacity bucket ≥ its pair count and apply it narrow (≤
-    ``narrow_max``, 256; 0 under ``krec``) or through the mirror table.
-    ``planes5_fn()`` returns the five planes (px, py, vx, vy, alive), of
-    ``[w, h]`` or smaller (zero-padded to it); it is called only by a
-    rung that applies.  ``mb``/``mb_out``: the mirror route's record lane
-    blocks (gather, scatter), multiples of 32.
+    the smallest capacity bucket ≥ its pair count and apply it through
+    K8 (CUDA tensors, the default lane blocks: :func:`kernel_route`), or
+    narrow (≤ ``narrow_max``, 256; 0 under ``krec``) or through the
+    mirror table.  ``planes5_fn()`` returns the five planes (px, py, vx,
+    vy, alive), of ``[w, h]`` or smaller (zero-padded to it); it is
+    called only by a rung that applies.  ``mb``/``mb_out``: the mirror
+    route's record lane blocks (gather, scatter), multiples of 32.
+    ``order``: K8's destination order of the block's full list
+    (:class:`BlockOrder`); None builds one from ``fl`` for this call.
 
     ``n_pairs=None`` (the JAX semantics, ``lax.switch``): the rung is
     chosen on the device from ``fl.n_pairs`` (:func:`bucket_index`,
@@ -315,8 +415,8 @@ def bucketed_far_delta_from_fn(
     writes the delta planes into ``out`` (``[5, w', h']``, ``w' ≤ w``,
     ``h' ≤ h``: the planes' corner; allocated ``[5, w, h]`` if None),
     which is returned.  ``n_pairs`` a host int (the count already read
-    there): that rung is applied and its delta planes returned (a view),
-    or None when the list is empty."""
+    there): that rung is applied and its delta planes returned (a view,
+    or ``out`` written when given), or None when the list is empty."""
     from . import compiled
 
     _check_layout(mb, mb_out)
@@ -332,24 +432,23 @@ def bucketed_far_delta_from_fn(
         raise ValueError(f"far apply needs w ({w}) % chunk == 0")
     kw = dict(s=s, ff=ff, radius=radius, dt=dt, ecoeff=ecoeff,
               friction=friction, w=w, h=h)
+    if n_pairs is not None and n_pairs == 0:
+        return None
+    dest = None
+    if kernel_route(fl.ca.device, mb, mb_out):
+        dest = (order or BlockOrder(fl, same_list=True)).take(w, h)
     if n_pairs is not None:
-        if n_pairs == 0:
-            return None
         return _apply_bucket(planes5_fn, fl,
                              bucket_capacity(n_pairs, ff, buckets),
-                             narrow_max, kw, mb, mb_out)
+                             narrow_max, kw, mb, mb_out, dest, out)
     if out is None:
         out = fl.n_pairs.new_empty((NF, w, h), dtype=torch.float32)
-    wo, ho = out.shape[1:]
     ladder = tuple(b for b in buckets if b < ff.max_pairs) + (ff.max_pairs,)
-
-    def rung(k):
-        out.copy_(_apply_bucket(planes5_fn, fl, k, narrow_max, kw, mb,
-                                mb_out)[:, :wo, :ho])
-
     compiled.device_switch(
         bucket_index(fl.n_pairs, ff, buckets),
-        [out.zero_] + [lambda k=k: rung(k) for k in ladder])
+        [out.zero_] + [lambda k=k: _apply_bucket(
+            planes5_fn, fl, k, narrow_max, kw, mb, mb_out, dest, out)
+            for k in ladder])
     return out
 
 
@@ -364,6 +463,7 @@ def bucketed_far_delta_planes(hot: torch.Tensor, alive_f: torch.Tensor,
                               table: Optional[torch.Tensor] = None,
                               as_table: bool = False,
                               narrow_max: int = NARROW_MAX,
+                              order: Optional[BlockOrder] = None,
                               ) -> Optional[torch.Tensor]:
     """Far delta planes ``[5, W, H]`` (dvx dvy dax day dyn, contiguous)
     for the packed state ``hot`` (px py vx vy at ``plane_idx``) and the
@@ -379,12 +479,8 @@ def bucketed_far_delta_planes(hot: torch.Tensor, alive_f: torch.Tensor,
     def planes5_fn():
         return (hot[ipx], hot[ipy], hot[ivx], hot[ivy], alive_f)
 
-    kw = dict(s=s, ff=ff, radius=radius, dt=dt, ecoeff=ecoeff,
-              friction=friction, w=wp, h=hp, buckets=buckets, mb=mb,
-              mb_out=mb_out, table=table, as_table=as_table,
-              narrow_max=narrow_max)
-    if n_pairs is None:
-        return bucketed_far_delta_from_fn(
-            planes5_fn, fl, None, out=hot.new_empty((5, w, h)), **kw)
-    d = bucketed_far_delta_from_fn(planes5_fn, fl, n_pairs, **kw)
-    return None if d is None else d[:, :w, :h].contiguous()
+    return bucketed_far_delta_from_fn(
+        planes5_fn, fl, n_pairs, s=s, ff=ff, radius=radius, dt=dt,
+        ecoeff=ecoeff, friction=friction, w=wp, h=hp, buckets=buckets,
+        mb=mb, mb_out=mb_out, table=table, as_table=as_table,
+        narrow_max=narrow_max, out=hot.new_empty((5, w, h)), order=order)

@@ -46,7 +46,7 @@ from .farfield import (
     crop_active,
     rebuild_far_list_planes_active,
 )
-from .farfield4 import bucketed_far_delta_from_fn
+from .farfield4 import BlockOrder, bucketed_far_delta_from_fn
 from .forces import beam_terms, endpoint_sums
 from .compiled import Compiled
 from .stencil import (
@@ -424,9 +424,10 @@ def planified_frame_far(ps: PlanifiedState, consts: PhysicsConstants,
     substep applies the sorted list's active prefix (``crop_active`` with
     the block's device count ``n_active[j]``) through the v4 bucketed
     apply on the embedded plane itself (``w, h`` of ``spec``: its lane
-    dim is a multiple of ``chunk · tile_chunks``; buckets ≤ 256 narrow,
-    larger ones through the record table, K7), then runs
-    :func:`planified_substep`; the frame's last substep observes.
+    dim is a multiple of ``chunk · tile_chunks``; on the card K8 with the
+    block's destination order, built at its first apply; on the CPU
+    buckets ≤ 256 narrow, larger ones through the record table), then
+    runs :func:`planified_substep`; the frame's last substep observes.
 
     Every decision is made on the device, as JAX makes it: the bucket is
     ``farfield4.bucketed_far_delta_from_fn(n_pairs=None)``'s switch (one
@@ -459,6 +460,7 @@ def planified_frame_far(ps: PlanifiedState, consts: PhysicsConstants,
         st = torch.stack([st[0] + 1, torch.maximum(st[1], fl.n_pairs),
                           torch.maximum(st[2], fl.overflow),
                           torch.maximum(st[3], n_act[size - 1])])
+        order = BlockOrder(fl)
         for j in range(size):
             lat = ps.lat
             device_mark("far_apply", lat.pos)
@@ -471,7 +473,7 @@ def planified_frame_far(ps: PlanifiedState, consts: PhysicsConstants,
             delta = bucketed_far_delta_from_fn(
                 planes5, crop_active(fl, n_act[j]), None, dt=cfg.dt,
                 ecoeff=sc.ecoeff, friction=sc.friction, w=wp,
-                h=spec.height, buckets=buckets,
+                h=spec.height, buckets=buckets, order=order,
                 out=lat.pos.new_empty((5, spec.width, spec.height)), **kw)
             observing = bi == len(blocks) - 1 and j == size - 1
             device_mark("substep", lat.pos)

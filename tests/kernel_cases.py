@@ -126,3 +126,101 @@ def halo_nonfinite(state, seed: int):
     vel[12, min(h - 1, 40), 0] = float("-inf")
     return dataclasses.replace(state, pos=cpu.pos.to(dev), vel=vel.to(dev),
                                alive=cpu.alive.to(dev))
+
+
+def far_collapse(w: int, h: int, k: int, n_valid: int, seed: int,
+                 spacing: float = 10.0, device="cpu"):
+    """An overlap-rich far-apply case: a ``w × h`` sheet (``w % 4 == 0``,
+    ``h`` a multiple of 16) collapsed into a pile a few spacings wide, so
+    most listed cell pairs touch; 10% of the particles dead, a few
+    coincident with a partner (the nudge), and a list of ``k`` slots, the
+    first ``n_valid`` valid, that names self pairs, neighbouring chunks
+    (pairs within the stencil, masked) and one chunk many times, its
+    empty slots the grid's last chunk as the rebuild leaves them.
+    Returns ``(planes, ca, cb, valid)``: the five ``[w, h]`` planes px py
+    vx vy alive (0/1) and the list."""
+    g = np.random.default_rng(seed)
+    px = (500.0 + g.normal(0, 2.0 * spacing, (w, h))).astype(np.float32)
+    py = (500.0 + g.normal(0, 2.0 * spacing, (w, h))).astype(np.float32)
+    vx = g.normal(0, 3.0, (w, h)).astype(np.float32)
+    vy = g.normal(0, 3.0, (w, h)).astype(np.float32)
+    alive = (g.random((w, h)) > 0.1).astype(np.float32)
+    for _ in range(8):
+        a, b = g.integers(0, w, 2), g.integers(0, h, 2)
+        px[a[1], b[1]], py[a[1], b[1]] = px[a[0], b[0]], py[a[0], b[0]]
+    cwy = h // 4
+    chunks = (w // 4) * cwy
+    ca = g.integers(0, chunks, k)
+    cb = g.integers(0, chunks, k)
+    cb[: k // 8] = ca[: k // 8]                      # self pairs
+    cb[k // 8: k // 4] = np.minimum(ca[k // 8: k // 4] + 1, chunks - 1)
+    ca[k // 4: k // 3] = ca[0]                       # one chunk, many times
+    ca, cb = np.minimum(ca, cb), np.maximum(ca, cb)
+    valid = np.arange(k) < n_valid
+    ca[~valid] = chunks - 1
+    cb[~valid] = chunks - 1
+    planes = tuple(torch.from_numpy(p).to(device)
+                   for p in (px, py, vx, vy, alive))
+    return (planes, torch.from_numpy(ca).to(device),
+            torch.from_numpy(cb).to(device),
+            torch.from_numpy(valid).to(device))
+
+
+def far_list(ca, cb, valid):
+    """A ``FarList`` of the slots ``(ca, cb, valid)`` (its references
+    unused by the apply)."""
+    from softbody_tpu_torch.ops.farfield import FarList
+
+    dev = ca.device
+    ref = torch.zeros((1, 1), device=dev)
+    return FarList(ca=ca, cb=cb, valid=valid,
+                   n_pairs=valid.sum().to(torch.int32),
+                   overflow=torch.zeros((), dtype=torch.int32, device=dev),
+                   px_ref=ref, py_ref=ref, com_ref=torch.zeros(2, device=dev),
+                   vx_ref=ref, vy_ref=ref)
+
+
+def far_fold(w: int, h: int, k: int, seed: int, spacing: float = 10.0,
+             radius: float = 2.4, device="cpu"):
+    """A collapsing sheet for the far apply: a ``w × h`` sheet at
+    ``spacing`` (``w % 8 == 0``, ``h`` a multiple of 16) folded along x,
+    column ``i`` of the right half over column ``w − 1 − i`` of the left,
+    each upper particle ``2·radius`` minus up to 0.002 above its partner
+    (a shallow contact, as a fold makes first; ``radius`` under a
+    quarter of ``spacing``, so the row above stays clear), the halves
+    approaching;
+    5% of the particles dead, a few exactly on their partner (the
+    nudge).  The list pairs each left chunk with the chunk above it,
+    ``k`` slots, the first ``(w/8)·(h/4)`` valid.  Returns ``(planes,
+    ca, cb, valid)`` as :func:`far_collapse`."""
+    g = np.random.default_rng(seed)
+    i = np.arange(w)
+    right = i >= w // 2
+    xi = np.where(right, w - 1 - i, i)[:, None]
+    x = np.broadcast_to(100.0 + xi * spacing, (w, h))
+    y = 100.0 + np.arange(h)[None, :] * spacing
+    lift = 2.0 * radius - g.uniform(0.0, 0.002, (w, h))
+    y = np.where(right[:, None], y + lift, y)
+    px = (x + g.uniform(-1e-3, 1e-3, (w, h))).astype(np.float32)
+    py = y.astype(np.float32)
+    sign = np.where(right, -1.0, 1.0)[:, None]
+    vx = g.normal(0, 0.5, (w, h)).astype(np.float32)
+    vy = (sign * 1.5 + g.normal(0, 0.1, (w, h))).astype(np.float32)
+    alive = (g.random((w, h)) > 0.05).astype(np.float32)
+    for _ in range(16):
+        a, b = g.integers(0, w // 2), g.integers(0, h)
+        px[w - 1 - a, b], py[w - 1 - a, b] = px[a, b], py[a, b]
+    cwy = h // 4
+    left = np.arange((w // 8) * cwy)
+    cx, cy = left // cwy, left % cwy
+    top = (w // 4 - 1 - cx) * cwy + cy
+    n = left.shape[0]
+    ca = np.full(k, (w // 4) * cwy - 1)
+    cb = ca.copy()
+    ca[:n], cb[:n] = left, top
+    valid = np.arange(k) < n
+    planes = tuple(torch.from_numpy(p).to(device)
+                   for p in (px, py, vx, vy, alive))
+    return (planes, torch.from_numpy(ca).to(device),
+            torch.from_numpy(cb).to(device),
+            torch.from_numpy(valid).to(device))

@@ -13,9 +13,11 @@ import torch
 
 import softbody_tpu_torch as tb
 from softbody_tpu_torch.models import make_lattice, tearing_cloth_lattice
+from softbody_tpu_torch.ops import farfield, farfield4
 from softbody_tpu_torch.ops.cuda import (
     band_detect,
     collide_stencil,
+    far_apply,
     fused_substep,
     fused_substep2,
     recmirror,
@@ -580,14 +582,17 @@ def _hairpin(dev):
     return dataclasses.replace(ls, pos=pos.to(dev), vel=vel.to(dev))
 
 
-def test_fused_frame4_activation_matches_plain(dev):
+@pytest.mark.parametrize("far_mb", [32, 64])
+def test_fused_frame4_activation_matches_plain(dev, far_mb):
     """``fused_frame4(activation=True)`` on the hairpin through K1, K2
-    and K7 (a 512-pair list: bucket 512, the mirror route) against the
-    same two frames on the CPU (the plain versions): the same stats, the
-    state within the far apply's tolerances (tests/test_torch_frame.py;
-    a stirred cloth is too chaotic for any tolerance over a frame: a
-    1e-6 change of its velocities moves positions by 0.1 in 8
-    substeps)."""
+    and the far apply (a 512-pair list, bucket 512) against the same two
+    frames on the CPU (the plain versions): the same stats, the state
+    within the far apply's tolerances (tests/test_torch_frame.py; a
+    stirred cloth is too chaotic for any tolerance over a frame: a 1e-6
+    change of its velocities moves positions by 0.1 in 8 substeps).  The
+    default record layout takes K8 on the card (K8a and K8b once a
+    substep, K7 never); an explicit lane block (``far_mb=64``) keeps the
+    record table, K7 once a substep."""
     from softbody_tpu_torch.ops.stencil import LatticeSpec
 
     spec = LatticeSpec(96, 4)
@@ -596,27 +601,36 @@ def test_fused_frame4_activation_matches_plain(dev):
     out = {}
     for d in ("cpu", dev):
         hot, obs, immut, ec = fused_substep2.pack_lattice2(_hairpin(d))
-        before = recmirror.K7_LAUNCHES
+        before = (recmirror.K7_LAUNCHES, far_apply.K8A_LAUNCHES,
+                  far_apply.K8B_LAUNCHES)
         for _ in range(2):
             hot, obs, st = fused_substep2.fused_frame4(
                 hot, obs, immut, ec, tb.PhysicsConstants(), tb.UserInput(),
-                spec, cfg, ff, activation=True)
-        out[str(d)] = (hot.cpu(), st.tolist(), recmirror.K7_LAUNCHES - before)
-    (ref, st_c, k7_c), (got, st_g, k7_g) = out["cpu"], out[str(dev)]
+                spec, cfg, ff, activation=True, far_mb=far_mb)
+        after = (recmirror.K7_LAUNCHES, far_apply.K8A_LAUNCHES,
+                 far_apply.K8B_LAUNCHES)
+        out[str(d)] = (hot.cpu(), st.tolist(),
+                       tuple(a - b for a, b in zip(after, before)))
+    (ref, st_c, n_c), (got, st_g, n_g) = out["cpu"], out[str(dev)]
     assert st_g == st_c and st_c[1] > 0 and st_c[3] <= st_c[1]
-    assert k7_c == 0 and k7_g == 2 * cfg.subticks
+    every = 2 * cfg.subticks
+    assert n_c == (0, 0, 0)
+    assert n_g == ((0, every, every) if far_mb == 32 else (every, 0, 0))
     torch.testing.assert_close(got[0:2], ref[0:2], rtol=0, atol=5e-3)
     torch.testing.assert_close(got[2:4], ref[2:4], rtol=0, atol=5e-2)
 
 
-def test_stirred_cloth_activation_matches_cpu(dev):
+def test_stirred_cloth_activation_matches_cpu(dev, monkeypatch):
     """The stirred 40 × 40 cloth (one state, copied to both devices): the
     activation schedule of its first rebuild is bit-exact card vs CPU
     (K2 on the card); then one frame of ``fused_frame4`` with the
     schedule off and on, twice on the card, without torch's deterministic
-    algorithms: the far apply's scatters sum in list order on every
-    device (``stencil.index_sum``), so the two card runs are bit-identical
-    and equal the CPU's frame bit for bit, far stats included.
+    algorithms: the far apply (K8 on the card) sums each destination in
+    list order, so the two card runs are bit-identical and equal the
+    CPU's frame bit for bit, far stats included.  The CPU's frame takes
+    K8's plain versions here (the route forced for this test: the CPU
+    keeps the record-table routes, which add each side's 16 terms in
+    torch's order).
 
     This scene magnifies one rounding difference to tens of units in a
     frame (on the CPU the schedule alone, which changes only the order
@@ -627,7 +641,12 @@ def test_stirred_cloth_activation_matches_cpu(dev):
     )
     from softbody_tpu_torch.ops.farfield import rebuild_far_list_planes_active
 
+
     assert not torch.are_deterministic_algorithms_enabled()
+    card_route = farfield4.kernel_route
+    monkeypatch.setattr(farfield4, "kernel_route",
+                        lambda device, mb=32, mb_out=None: card_route(
+                            "cuda", mb, mb_out))
     state, spec, cfg, consts, spacing, _g = _stirred_cloth("cpu", seed=6)
     fields = lattice_state_to_numpy(state)
     ff = FarFieldSpec(max_pairs=1024, max_tile_pairs=64,
@@ -690,6 +709,171 @@ def test_index_sum_card_matches_cpu(dev, width):
     assert torch.equal(got.cpu(), ref)
     with pytest.raises(ValueError, match="rows of >= 2 values"):
         index_sum(idx.to(dev), src[:, 0].to(dev), 97)
+
+
+def _list_on(fl, device):
+    """The far list ``fl`` with every tensor on ``device``."""
+    return dataclasses.replace(fl, **{
+        f.name: getattr(fl, f.name).to(device)
+        for f in dataclasses.fields(fl)
+        if isinstance(getattr(fl, f.name), torch.Tensor)})
+
+
+_K8_CASES = {}
+
+
+def _k8_case(dev, case):
+    """``(hot [4, W, H], alive_f, fl, apply keywords)`` on the card:
+
+    - ``tear12``: the 1M tearing sheet (the benchmark's ``cloth1m-tear``
+      scene) after 12 frames of ``FusedLatticeBackend``, its list rebuilt
+      there (thousands of pairs, the 4096 bucket);
+    - ``fold100k``: the 100k cloth's 632 × 160 plane folded onto itself
+      (``kernel_cases.far_fold``): 3160 listed pairs of 16384 slots, ~90k
+      cells in shallow contact;
+    - ``at_rest``: the 100k cloth at rest, 6408 listed neighbouring
+      chunk pairs that do not touch (the fold's at-rest list);
+    - ``no_valid``: the fold with every slot empty;
+    - ``pile``: the 100k plane collapsed into a pile a few spacings wide
+      (``kernel_cases.far_collapse``), 6408 valid slots, deep overlaps:
+      deltas up to ~1e4, where two sum orders part by more than 1e-5."""
+    if case in _K8_CASES:
+        return _K8_CASES[case]
+    from softbody_tpu_torch.engine import FusedLatticeBackend
+    from softbody_tpu_torch.ops.farfield import rebuild_far_list_planes
+
+    kw = dict(s=2, ecoeff=0.75, friction=0.1, dt=1.0 / 64)
+    if case == "tear12":
+        state, spec, cfg, consts = tearing_cloth_lattice(
+            n_particles=1_000_000, spring=200.0, damp=10.0,
+            strain_limit=0.22, yield_strain=0.18, collision_stencil=2,
+            fall_speed=2.5, slits=7, device=dev)
+        spacing = 980.0 / (state.shape[0] - 1)
+        ff = FarFieldSpec(max_pairs=16384, max_tile_pairs=256,
+                          skin=0.75 * spacing, horizon=8)
+        be = FusedLatticeBackend(spec, cfg, farfield=ff, device=dev)
+        st = be.pack_state(state)
+        for _ in range(12):
+            st = be.step(st, consts, tb.UserInput())
+        hot, _obs, immut, _ec = fused_substep2.pack_lattice2(
+            be.unpack_state(st))
+        hot, alive_f = hot[:4].contiguous(), immut[0].contiguous()
+        fl = rebuild_far_list_planes(hot[0], hot[1], alive_f > 0, s=2, ff=ff,
+                                     radius=cfg.particle_radius, vx=hot[2],
+                                     vy=hot[3], dt=cfg.dt)
+        kw = dict(kw, radius=cfg.particle_radius, dt=cfg.dt,
+                  ecoeff=consts.ecoeff, friction=consts.friction)
+    else:
+        w, h, k, n = 632, 160, 16384, 6408
+        radius = 2.4
+        planes, ca, cb, valid = kernel_cases.far_fold(w, h, k, seed=7)
+        if case == "pile":
+            radius = 4.5
+            planes, ca, cb, valid = kernel_cases.far_collapse(w, h, k, n,
+                                                              seed=7)
+        if case == "at_rest":
+            ls = make_lattice(w, h, 10.0, device="cpu")
+            planes = (ls.pos[..., 0].contiguous(), ls.pos[..., 1].contiguous(),
+                      torch.zeros((w, h)), torch.zeros((w, h)),
+                      torch.ones((w, h)))
+            cwy = h // 4
+            ca = torch.arange(k) % ((w // 4) * cwy - cwy - 2)
+            cb = ca + cwy + torch.arange(k) % 3
+            ca[n:] = cb[n:] = (w // 4) * cwy - 1
+            valid = torch.arange(k) < n
+        if case == "no_valid":
+            valid = torch.zeros_like(valid)
+        fl = kernel_cases.far_list(ca, cb, valid)
+        ff = FarFieldSpec(max_pairs=k, max_tile_pairs=256, skin=3.0,
+                          horizon=8)
+        hot = torch.stack(planes[:4]).to(dev)
+        alive_f = planes[4].to(dev)
+        fl = _list_on(fl, dev)
+        kw = dict(kw, radius=radius)
+    _K8_CASES[case] = hot, alive_f, fl, dict(kw, ff=ff)
+    return _K8_CASES[case]
+
+
+@pytest.mark.parametrize("case", ["tear12", "fold100k", "at_rest",
+                                  "no_valid"])
+def test_k8_matches_plain_route(dev, case):
+    """K8 (the card's default layout) against the plain route on the CPU
+    (narrow or mirror: the same inputs copied there) within 1e-5, and
+    against K8's plain versions on the CPU bit for bit; zeros where the
+    plain route gives zeros (the at-rest list, no valid slot).  On the
+    card: bit-identical run to run, the host-count route equal to the
+    device switch, one K8a and one K8b launch an apply and no K7."""
+    from softbody_tpu_torch.ops.farfield import _chunk_dims
+
+    hot, alive_f, fl, kw = _k8_case(dev, case)
+    n = max(fl.counts()[0], 1)
+    routes = dict(farfield4.APPLY_ROUTES)
+    counts = (recmirror.K7_LAUNCHES, far_apply.K8A_LAUNCHES,
+              far_apply.K8B_LAUNCHES)
+    got = farfield4.bucketed_far_delta_planes(hot, alive_f, fl, n, **kw)
+    again = farfield4.bucketed_far_delta_planes(hot, alive_f, fl, n, **kw)
+    switch = farfield4.bucketed_far_delta_planes(hot, alive_f, fl, None,
+                                                 **kw)
+    torch.cuda.synchronize()
+    assert farfield4.APPLY_ROUTES["kernel"] - routes["kernel"] == (
+        2 + (int(fl.n_pairs) > 0))
+    assert (recmirror.K7_LAUNCHES - counts[0], far_apply.K8A_LAUNCHES
+            - counts[1], far_apply.K8B_LAUNCHES - counts[2]) == (
+        0, 2 + (int(fl.n_pairs) > 0), 2 + (int(fl.n_pairs) > 0))
+    assert torch.equal(got, again) and torch.equal(got, switch)
+    cpu = (hot.cpu(), alive_f.cpu(), _list_on(fl, "cpu"))
+    ref = farfield4.bucketed_far_delta_planes(*cpu, n, **kw)
+    torch.testing.assert_close(got.cpu(), ref, rtol=0, atol=1e-5)
+    w, h = alive_f.shape
+    _cwx, _cwy, wp, hp = _chunk_dims(w, h, kw["ff"])
+    k = farfield4.bucket_capacity(n, kw["ff"], (1024, 4096))
+    flk = farfield.crop_far_list(cpu[2], k)
+    order = far_apply.dest_order(cpu[2].ca, cpu[2].cb, cpu[2].valid,
+                                 (wp // 4) * (hp // 4))
+    plain = farfield4.far_delta_planes_kernel(
+        (cpu[0][0], cpu[0][1], cpu[0][2], cpu[0][3], cpu[1]), flk, order,
+        w=wp, h=hp, **kw)[:, :w, :h]
+    assert same_bits(got.cpu(), plain)
+    touching = float(ref.abs().max())
+    if case in ("at_rest", "no_valid"):
+        assert touching == 0.0 and float(got.abs().max()) == 0.0
+    else:
+        assert touching > 0.0
+
+
+def test_k8_kernels_match_plain_on_a_pile(dev):
+    """K8a's rows of the valid slots and K8b's planes on the deep pile
+    (self pairs, neighbouring chunks, coincident and dead particles)
+    against their plain versions on the CPU bit for bit; the empty
+    slots' rows unwritten; the host-count apply equal to the two."""
+
+    hot, alive_f, fl, kw = _k8_case(dev, "pile")
+    w, h = alive_f.shape
+    planes = (hot[0], hot[1], hot[2], hot[3], alive_f)
+    cpu_planes = tuple(p.cpu() for p in planes)
+    k = fl.capacity
+    akw = dict(s=kw["s"], ff=kw["ff"], radius=kw["radius"], dt=kw["dt"],
+               ecoeff=kw["ecoeff"], friction=kw["friction"], h=h,
+               world_h=-(-h // 32) * 32)
+    rows = far_apply.far_pairs_call(planes, fl, **akw)
+    ref_rows = far_apply.far_pairs_plain(cpu_planes, _list_on(fl, "cpu"),
+                                         **akw)
+    sides = torch.cat([fl.valid, fl.valid]).cpu()
+    assert same_bits(rows.cpu()[sides], ref_rows[sides])
+    assert float(ref_rows[sides].abs().max()) > 1e3
+    order = far_apply.dest_order(fl.ca, fl.cb, fl.valid, (w // 4) * (h // 4))
+    cpu_order = far_apply.dest_order(*(t.cpu() for t in (
+        fl.ca, fl.cb, fl.valid)), (w // 4) * (h // 4))
+    assert torch.equal(order.sides.cpu(), cpu_order.sides)
+    assert torch.equal(order.offsets.cpu(), cpu_order.offsets)
+    out = far_apply.far_accumulate_call(rows, order, fl.valid,
+                                        torch.empty((5, w, h), device=dev),
+                                        h=h)
+    ref = far_apply.far_accumulate_plain(
+        ref_rows, cpu_order, fl.valid.cpu(), torch.empty((5, w, h)), h=h)
+    assert same_bits(out.cpu(), ref)
+    got = farfield4.bucketed_far_delta_planes(hot, alive_f, fl, k, **kw)
+    assert same_bits(got.cpu(), ref)
 
 
 def test_render_frame_card_matches_cpu(dev):

@@ -1,4 +1,4 @@
-"""The CUDA sources of K1, K2, K3 and K4 run on the CPU, in emulation,
+"""The CUDA sources of K1, K2, K3, K4 and K8 run on the CPU, in emulation,
 against their plain versions.
 
 The kernels themselves run only on the card (``tests/test_torch_cuda.py``,
@@ -25,8 +25,10 @@ the spring reactions shared through shared memory, every barrier reached
 by every thread — and the skip of pairs that cannot touch (K3, and K1/K4
 under constants that forbid it), K1's detect pass on its edge cases and
 non-finite halos (``kernel_cases.py``), K2's compile-time box (chunk ≤ 4)
-and the box set at launch (chunks 8 and 16), at shapes and stencils the
-CPU can afford.  Skipped where there is no ``g++``."""
+and the box set at launch (chunks 8 and 16), K8's pair terms and
+ordered sums on an overlap-rich pile (``kernel_cases.far_collapse``), at
+shapes and stencils the CPU can afford.  Skipped where there is no
+``g++``."""
 
 import ctypes
 import dataclasses
@@ -44,7 +46,7 @@ import numpy as np
 import softbody_tpu_torch as tb
 from softbody_tpu_torch.config import N_CONSTS
 from softbody_tpu_torch.models import make_lattice
-from softbody_tpu_torch.ops.cuda import band_detect, collide_stencil
+from softbody_tpu_torch.ops.cuda import band_detect, collide_stencil, far_apply
 from softbody_tpu_torch.ops.cuda import fused_substep, fused_substep2
 from softbody_tpu_torch.ops.cuda._lib import CSRC, HEADERS
 from softbody_tpu_torch.ops.farfield import FarFieldSpec
@@ -55,7 +57,7 @@ import kernel_cases
 from kernel_cases import same_bits
 
 EMULATED = ("fused_substep2.cu", "fused_substep.cu", "collide_stencil.cu",
-            "band_detect.cu")
+            "band_detect.cu", "far_apply.cu")
 
 RUNTIME_H = r"""
 #pragma once
@@ -383,7 +385,11 @@ def lib(tmp_path_factory):
     lib.sb_fused_substep2_dev.argtypes = [p] * 10 + [i] * 11 + [p, p]
     lib.sb_fused_substep_dev.argtypes = [p] * 5 + [i] * 5 + [p]
     lib.sb_collide_stencil_dev.argtypes = [p] * 8 + [i] * 4 + [p]
-    for fn in (lib.sb_fused_substep2, lib.sb_fused_substep2_variant,
+    q = ctypes.c_longlong
+    lib.sb_far_pairs.argtypes = ([p] * 5 + [q, q, i, i] + [p] * 3
+                                 + [i, i, q, i] + [f] * 4 + [p] * 4)
+    lib.sb_far_accumulate.argtypes = [p] * 4 + [i] * 3 + [p, i, i, p]
+    for fn in (lib.sb_far_pairs, lib.sb_far_accumulate, lib.sb_fused_substep2, lib.sb_fused_substep2_variant,
                lib.sb_fused_substep2_mode, lib.sb_fused_substep2_modex,
                lib.sb_fused_substep2_dev, lib.sb_fused_substep,
                lib.sb_fused_substep_dev, lib.sb_collide_stencil,
@@ -1017,3 +1023,78 @@ def test_k2_source_odd_reaches_and_offsets(lib, shape):
                     [(0, 0), (7, -7), (3, 5), (3, 5), (1, 0)], []):
         ref = band_detect.band_flags_plain(*planes, offsets)
         assert torch.equal(_k2_source(lib, planes, offsets), ref), offsets
+
+
+def _k8a_source(lib, planes, fl, *, h, s, radius, dt, ecoeff, friction,
+                on_device):
+    """K8a's source on ``fl`` (its scratch starts as NaN: unwritten rows
+    show); ``on_device``: ecoeff and friction read through pointers."""
+    k = fl.capacity
+    pw, ph = planes[0].shape
+    scratch = torch.full((2 * k, far_apply.ROW), float("nan"))
+    sc = torch.tensor([ecoeff, friction], dtype=torch.float32)
+    ptrs = ((sc[0:1].data_ptr(), sc[1:2].data_ptr()) if on_device
+            else (None, None))
+    two_r = float(np.float32(2.0) * np.float32(radius))
+    dt2 = float(np.float32(dt) * np.float32(dt))
+    sx, sy = planes[0].stride()
+    assert lib.sb_far_pairs(
+        *(_ptr(t) for t in planes), sx, sy, pw, ph, _ptr(fl.ca),
+        _ptr(fl.cb), _ptr(fl.valid), k, h // 4, -(-h // 32) * 32, s, two_r,
+        dt2, 0.0 if on_device else ecoeff, 0.0 if on_device else friction,
+        *ptrs, _ptr(scratch), None) == 0
+    return scratch
+
+
+@pytest.mark.parametrize("layout", ["planes", "interleaved"])
+@pytest.mark.parametrize("stencil", [1, 2, 3])
+def test_k8a_source_matches_plain(lib, stencil, layout):
+    """K8a's rows of the valid slots bit for bit against its plain
+    version on the collapsed pile (self pairs, neighbouring chunks,
+    coincident particles, dead ones), the planes short of the padded grid
+    (cells past them read dead); the empty slots' rows left unwritten;
+    the scalars by value and through device memory alike."""
+    w, h = 48, 32
+    planes, ca, cb, valid = kernel_cases.far_collapse(w, h, 64, 50,
+                                                      seed=stencil)
+    planes = tuple(p[: w - 4, : h - 5] for p in planes)
+    if layout == "interleaved":
+        inter = torch.stack(planes, dim=-1)
+        planes = tuple(inter[..., i] for i in range(5))
+    else:
+        planes = tuple(p.contiguous() for p in planes)
+    fl = kernel_cases.far_list(ca, cb, valid)
+    kw = dict(s=stencil, radius=4.5, dt=1.0 / 64, ecoeff=0.75, friction=0.3)
+    ref = far_apply.far_pairs_plain(planes, fl, ff=FarFieldSpec(), h=h,
+                                    world_h=-(-h // 32) * 32, **kw)
+    rows = torch.cat([valid, valid])
+    assert float(ref[rows].abs().max()) > 0
+    for on_device in (False, True):
+        got = _k8a_source(lib, planes, fl, h=h, on_device=on_device, **kw)
+        assert same_bits(got[rows], ref[rows]), on_device
+        assert torch.isnan(got[~rows]).all()
+
+
+def test_k8b_source_matches_plain(lib):
+    """K8b's planes bit for bit against its plain version (the ordered
+    sums), on rows of ten orders of magnitude, a list with one chunk
+    named many times, empty slots and an active prefix, cropped to two
+    rungs; the output a corner of the grid; every cell written."""
+    w, h = 48, 32
+    _planes, ca, cb, valid = kernel_cases.far_collapse(w, h, 128, 100,
+                                                       seed=5)
+    order = far_apply.dest_order(ca, cb, valid, (w // 4) * (h // 4))
+    g = np.random.default_rng(5)
+    for k, n_act in ((64, 64), (128, 100), (128, 31), (64, 0)):
+        vk = (valid & (torch.arange(128) < n_act))[:k]
+        rows = torch.from_numpy((g.normal(0, 1, (2 * k, 80)) * np.exp(
+            g.normal(0, 5, (2 * k, 80)))).astype(np.float32))
+        ref = far_apply.far_accumulate_plain(rows, order, vk,
+                                             torch.empty((5, w - 4, h - 3)),
+                                             h=h)
+        got = torch.full((5, w - 4, h - 3), float("nan"))
+        assert lib.sb_far_accumulate(
+            _ptr(rows), _ptr(order.sides), _ptr(order.offsets), _ptr(vk), k,
+            order.capacity, h // 4, _ptr(got), w - 4, h - 3, None) == 0
+        assert same_bits(got, ref), (k, n_act)
+        assert (float(ref.abs().max()) > 0) == (n_act > 0)

@@ -251,7 +251,7 @@ def test_default_backend_matches_jax_default():
     for _ in range(3):
         state = be.step(state, tb.PhysicsConstants(), tb.UserInput())
     ran = {k: v - before[k] for k, v in t4.APPLY_ROUTES.items()}
-    assert ran == {"narrow": 0, "mirror": 3 * cfg.subticks}
+    assert ran == {"narrow": 0, "mirror": 3 * cfg.subticks, "kernel": 0}
     assert be.far_stats() == ref_stats and ref_stats["far_pairs"] > 0
     got = lattice_state_to_numpy(be.unpack_state(state))
     assert np.isfinite(got["pos"]).all()

@@ -267,4 +267,4 @@ def test_fused_backend_step_uses_the_mirror_route():
     be.step(state, consts_to_port(consts), uin_to_port(UserInput.none()))
     ran = {k: v - before[k] for k, v in t4.APPLY_ROUTES.items()}
     assert be.far_stats()["far_pairs"] > 0
-    assert ran == {"narrow": 0, "mirror": cfg.subticks}
+    assert ran == {"narrow": 0, "mirror": cfg.subticks, "kernel": 0}
